@@ -1,0 +1,448 @@
+"""Smoke run of lp_gnn_tpu_torch on one NVIDIA GPU: build, check, serve.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each fatal on failure (non-zero exit, no result line):
+
+1. card and build: needs ``torch.cuda.is_available()``; prints the card's
+   name and power limit (nvidia-smi); builds every CUDA kernel of the
+   package from ``lp_gnn_tpu_torch/ops/csrc`` (one nvcc each, all at once).
+2. kernels: on a graph of the repo's bench shape (bench.py:58-60,91-111:
+   E=1,000,000 edges, M=65,536 constraints, N=131,072 variables, 10% of
+   edges on hot rows, from ``--seed`` with numpy) runs the CSR SpMM in both
+   directions at D=8 and D=1024, fp32 and bf16, and the row gather at the
+   probes' shapes and the SpMM's, each against its plain PyTorch version on
+   the card; times kernel, plain version and a library call the package
+   never makes; computes each kernel's bound.
+3. reference: GCN_FC(8,8,hids=1024,depth=3) logits on the card against the
+   same weights on the CPU, on a small graph, in fp32 and bf16.
+4. serve: writes 6 processed LPs of the bench shape (reference blob
+   format, with ``.meta``), saves a seeded
+   GCN_FC(8,8,hids=1024,depth=3,dtype='bfloat16') as ``mdl.pth`` and runs
+   the entry point ``python -m lp_gnn_tpu_torch.pred_basis`` (in this
+   process, through runpy, so the launch counts are readable): every
+   ``.bas`` must be a valid basis and the SpMM kernel must have been
+   launched 4 times per forward.
+5. breakdown: one bench-shape LP's inference time split into graph
+   tensors, forward, copy to the host and decode.
+
+Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import os.path as osp
+import runpy
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
+from lp_gnn_tpu_torch.data.graph import GraphTensors
+from lp_gnn_tpu_torch.infer.decode import inference_gnn
+from lp_gnn_tpu_torch.infer.predict import model_inference
+from lp_gnn_tpu_torch.io.bas import read_bas_highs
+from lp_gnn_tpu_torch.models.gcn import build_model
+from lp_gnn_tpu_torch.ops import _build
+from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from lp_gnn_tpu_torch.ops.spmm import spmm_csr, spmm_csr_plain
+from lp_gnn_tpu_torch.utils.serialize import json_load, msgpack_dump
+
+# bench shape (bench.py:58-60)
+E, M, N = 1_000_000, 65_536, 131_072
+HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
+FP32_FLOP_S = 67e12         # H100 SXM fp32 rate outside the tensor cores
+ARCH = "GCN_FC(8,8,hids=1024,depth=3)"
+SPMM_PER_FORWARD = 4        # (conv1 + 1 hidden conv) x 2 directions
+N_LPS = 6                   # LPs served
+FORWARDS_PER_LP = 5         # predict pass 1 + timing warm-up 1 + timed 3
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if res.returncode != 0 or not res.stdout.strip():
+        raise SmokeFailure(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip()
+
+
+def bench_graph(seed: int, m: int = 0, n: int = 0, e: int = 0) -> BipartiteGraph:
+    """The bench.py:91-111 graph (bench shape unless m, n, e are given):
+    near-uniform rows with 10% of the edges on the first m/16 rows."""
+    m, n, e = m or M, n or N, e or E
+    rng = np.random.RandomState(seed)
+    row = rng.randint(0, m, e).astype(np.int32)
+    hot = rng.rand(e) < 0.1
+    row[hot] = rng.randint(0, max(m // 16, 1), hot.sum()).astype(np.int32)
+    col = rng.randint(0, n, e).astype(np.int32)
+    val = rng.rand(e).astype(np.float32) - 0.5
+    c_feas = rng.rand(m, 8).astype(np.float32) - 0.5
+    v_feas = rng.rand(n, 8).astype(np.float32) - 0.5
+    for fe in (c_feas, v_feas):
+        fe[:, -3] = rng.randint(-1, 2, fe.shape[0])
+        fe[:, -1] = rng.randint(-1, 2, fe.shape[0])
+    order = np.lexsort((col, row))
+    return BipartiteGraph(row=row[order], col=col[order], val=val[order],
+                          c_feas=c_feas, v_feas=v_feas,
+                          y_s=rng.randint(0, 3, m).astype(np.int32),
+                          y_t=rng.randint(0, 3, n).astype(np.int32))
+
+
+def time_ms(fn, iters: int, warm: int = 2) -> float:
+    """Device time of one call: CUDA events around ``iters`` back-to-back
+    calls after ``warm`` untimed ones."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_flops / FP32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def within(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
+    """max |out - ref| and whether |out - ref| <= atol + rtol |ref| holds."""
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+# ------------------------------------------------------------------ kernels
+SPMM_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+
+
+def check_spmm(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
+    """SpMM vs its plain version on the card, both directions, D=8 and
+    D=1024, fp32 and bf16. fp32: rtol 1e-4, atol 1e-5 (summation order).
+    bf16: one bf16 ulp (rtol 2^-7) of the plain result, which sums in fp32
+    and casts, plus atol 1e-5 for fp32 order differences on sums near 0."""
+    dirs = {"v2c": (gt.rowptr, gt.col, gt.val_r, gt.nvars),
+            "c2v": (gt.colptr, gt.row, gt.val_c, gt.ncons)}
+    rows = []
+    for dname, (ptr, idx, val, n_src) in dirs.items():
+        n_dst, n_e = ptr.shape[0] - 1, idx.shape[0]
+        s_used = int(torch.unique(idx).numel())
+        for d in (8, 1024):
+            x32 = torch.randn(n_src, d, generator=gen, device=gt.device)
+            for dt in (torch.float32, torch.bfloat16):
+                x = x32.to(dt)
+                out = spmm_csr(ptr, idx, val, x)
+                ref = spmm_csr_plain(ptr, idx, val, x)
+                torch.cuda.synchronize()
+                rtol, atol = SPMM_TOL[dt]
+                err, ok = within(out, ref, rtol, atol)
+                case = f"{dname} D={d} {str(dt).split('.')[-1]}"
+                if not ok:
+                    raise SmokeFailure(f"spmm_csr {case}: max |err| {err} "
+                                       f"beyond rtol={rtol}, atol={atol}")
+                b = x.element_size()
+                n_bytes = (n_dst + 1) * 4 + n_e * 8 + s_used * d * b + n_dst * d * b
+                bound_ms, bound_by = bound(n_bytes, 2.0 * n_e * d)
+                noreuse = (n_dst + 1) * 4 + n_e * 8 + n_e * d * b + n_dst * d * b
+                # the library yardstick (cuSPARSE), which the package never calls
+                a = torch.sparse_csr_tensor(ptr, idx, val.to(dt),
+                                            size=(n_dst, n_src),
+                                            check_invariants=False)
+                lib_ms = time_ms(lambda: torch.sparse.mm(a, x), 10)
+                rows.append({
+                    "name": "spmm_csr", "route": "cuda",
+                    "source": "lp_gnn_tpu_torch/ops/csrc/spmm.cu",
+                    "replaces": "lp_gnn_tpu/ops/spmm.py:77",
+                    "launches": None, "max_abs_err": err,
+                    "ms": time_ms(lambda: spmm_csr(ptr, idx, val, x), 20),
+                    "plain_ms": time_ms(lambda: spmm_csr_plain(ptr, idx, val, x), 5),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms,
+                    "case": case, "on_path": dt == torch.bfloat16,
+                    "num_dst": n_dst, "num_src": n_src, "nnz": n_e, "D": d,
+                    "tol": {"rtol": rtol, "atol": atol},
+                    "bound_noreuse_ms": noreuse / HBM_BYTES_S * 1e3,
+                    "library": "torch.sparse.mm on a sparse CSR tensor",
+                })
+                del out, ref
+    return rows
+
+
+def check_gather(gt: GraphTensors, gen: torch.Generator,
+                 rng: np.random.RandomState) -> list[dict]:
+    """Gather vs its plain version (exact: a copy), at the probes' shapes
+    (scripts/probe_vmem_gather*.py: S=8192 and S=131,072, E=2^20, D=256
+    bf16) and at the SpMM's (the v2c index stream, E=1M, D=1024 bf16)."""
+    dev = gt.device
+    cases = []
+    for s in (8192, 131_072):
+        idx = torch.from_numpy(rng.randint(0, s, 1 << 20).astype(np.int32)).to(dev)
+        cases.append((f"probe S={s} K=2^20 D=256 bf16", s, 256, idx))
+    cases.append(("spmm v2c S=131072 K=1M D=1024 bf16", gt.nvars, 1024, gt.col))
+    rows = []
+    for case, s, d, idx in cases:
+        table = torch.randn(s, d, generator=gen, device=dev).to(torch.bfloat16)
+        out = gather_rows(table, idx)
+        ref = gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        if not torch.equal(out, ref):
+            raise SmokeFailure(f"gather_rows {case}: differs from the plain "
+                               f"version (max |err| {err})")
+        k, b = idx.shape[0], table.element_size()
+        s_used = int(torch.unique(idx).numel())
+        bound_ms, bound_by = bound(k * 4 + s_used * d * b + k * d * b, 0.0)
+        rows.append({
+            "name": "gather_rows", "route": "cuda",
+            "source": "lp_gnn_tpu_torch/ops/csrc/gather.cu",
+            "replaces": "scripts/probe_vmem_gather.py:51",
+            "launches": None, "max_abs_err": err,
+            "ms": time_ms(lambda: gather_rows(table, idx), 20),
+            "plain_ms": time_ms(lambda: gather_rows_plain(table, idx), 20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx), 20),
+            "case": case, "on_path": False,
+            "also_replaces": ["scripts/probe_vmem_gather.py:72",
+                              "scripts/probe_vmem_gather2.py:54",
+                              "scripts/probe_vmem_gather2.py:60"],
+            "num_src": s, "K": k, "D": d, "tol": "exact",
+            "bound_noreuse_ms": (k * 4 + 2 * k * d * b) / HBM_BYTES_S * 1e3,
+            "library": "torch.index_select",
+        })
+    return rows
+
+
+def gather_floor(kernels: list[dict]) -> dict:
+    """The SpMM beside the cost of its own row gather (the v2c index stream,
+    D=1024 bf16): the floor is the faster of the gather kernel and
+    ``torch.index_select`` on the same rows."""
+    spmm = next(k for k in kernels if k["name"] == "spmm_csr"
+                and k["case"] == "v2c D=1024 bfloat16")
+    gat = next(k for k in kernels if k["name"] == "gather_rows"
+               and k["case"].startswith("spmm v2c"))
+    by = ("gather_rows" if gat["ms"] <= gat["library_ms"]
+          else "torch.index_select")
+    return {"spmm_ms": spmm["ms"], "gather_rows_ms": gat["ms"],
+            "index_select_ms": gat["library_ms"],
+            "floor_ms": min(gat["ms"], gat["library_ms"]), "floor_by": by}
+
+
+# ---------------------------------------------------------------- reference
+def check_reference(seed: int) -> dict:
+    """GCN_FC at full width on the card against the same weights on the CPU
+    (plain SpMM), on a small graph. fp32: max |err| <= 1e-3 on the
+    +-10-scaled logits (1024-wide sums taken in another order). bf16 keeps 8
+    bits, and a node whose logits nearly cancel before their scaling to norm
+    10 turns that into a swing of up to ~1 on any device, so the card's bf16
+    is held to the CPU's own: its mean |err| against the CPU's fp32 logits is
+    at most twice the CPU bf16 logits' mean |err| against them."""
+    g = bench_graph(seed + 1000, m=300, n=500, e=4000)
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(f"{ARCH[:-1]},dtype='{dtype}')",
+                            generator=torch.Generator().manual_seed(seed)).eval()
+        for dev in ("cpu", "cuda"):
+            got = np.concatenate(model_inference(model.to(dev), g))
+            if not (np.isfinite(got).all() and got.shape == (800, 3)):
+                raise SmokeFailure(f"reference {dtype} on {dev}: bad logits")
+            logits[dtype, dev] = got
+    ref = logits["float32", "cpu"]
+    err32 = float(np.abs(logits["float32", "cuda"] - ref).max())
+    if err32 > 1e-3:
+        raise SmokeFailure(f"reference fp32: card vs CPU logits differ by "
+                           f"{err32} > 1e-3")
+    card16 = np.abs(logits["bfloat16", "cuda"] - ref)
+    cpu16 = np.abs(logits["bfloat16", "cpu"] - ref)
+    if card16.mean() > 2 * cpu16.mean():
+        raise SmokeFailure(f"reference bf16: card mean |err| {card16.mean()} "
+                           f"> 2 x the CPU's {cpu16.mean()}")
+    return {"float32": {"max_abs_err": err32, "atol": 1e-3},
+            "bfloat16": {"card_mean_abs_err": float(card16.mean()),
+                         "cpu_mean_abs_err": float(cpu16.mean()),
+                         "card_max_abs_err": float(card16.max()),
+                         "cpu_max_abs_err": float(cpu16.max())}}
+
+
+# -------------------------------------------------------------------- serve
+def write_dataset(root: str, seed: int) -> None:
+    """N_LPS processed LPs of the bench shape in the reference blob format
+    ([row, col, data, c_feas, v_feas, y_s, y_t, nnodes] + .meta)."""
+    proc = osp.join(root, "processed")
+    con_nms = [f"c{i}" for i in range(M)]
+    var_nms = [f"x{j}" for j in range(N)]
+    for i in range(N_LPS):
+        g = bench_graph(seed + i)
+        path = osp.join(proc, f"lp_{i}.pk")
+        msgpack_dump([g.row, g.col, g.val.astype(np.float64), g.c_feas,
+                      g.v_feas, g.y_s.astype(np.int64), g.y_t.astype(np.int64),
+                      M + N], path)
+        msgpack_dump(dict(num_cons=M, num_vars=N, raw_path="", processed_path=path,
+                          con_nms=con_nms, var_nms=var_nms), path + ".meta")
+
+
+def serve(seed: int) -> dict:
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), seed)
+        t_write = time.perf_counter() - t0
+        model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
+                            generator=torch.Generator().manual_seed(seed))
+        ckpt = osp.join(tmp, "mdl.pth")
+        torch.save(model.state_dict(), ckpt)
+        argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
+                "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", "smoke",
+                "--arch", ARCH, "--fp16", "1", "--load_from", ckpt,
+                "--split", "trainval", "--warm_gate", "off", "--seed", str(seed)]
+        # the main path: counts to 0 just before, read just after
+        spmm_csr.launches = 0
+        gather_rows.launches = 0
+        saved_argv = sys.argv
+        sys.argv = ["lp_gnn_tpu_torch.pred_basis", *argv]
+        t0 = time.perf_counter()
+        try:
+            runpy.run_module("lp_gnn_tpu_torch.pred_basis", run_name="__main__",
+                             alter_sys=True)
+        finally:
+            sys.argv = saved_argv
+        t_serve = time.perf_counter() - t0
+        launches = {"spmm_csr": spmm_csr.launches,
+                    "gather_rows": gather_rows.launches}
+
+        log_dir = osp.join(tmp, "runs", "smoke")
+        out_dir = osp.join(log_dir, "pred-basis")
+        bas = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas"))
+        sort = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas.sort"))
+        if len(bas) != N_LPS or len(sort) != N_LPS:
+            raise SmokeFailure(f"expected {N_LPS} .bas and .sort files, got "
+                               f"{len(bas)} and {len(sort)}")
+        for f in bas:
+            con, var = read_bas_highs(osp.join(out_dir, f))
+            n_basic = int((con == 1).sum() + (var == 1).sum())
+            if (len(con), len(var)) != (M, N) or n_basic != M:
+                raise SmokeFailure(f"{f}: {n_basic} basic of {M} rows")
+            if int((var == 1).sum()) != int(((con == 0) | (con == 2)).sum()):
+                raise SmokeFailure(f"{f}: #basic structurals != #nonbasic rows")
+        forwards = FORWARDS_PER_LP * N_LPS
+        if launches["spmm_csr"] != SPMM_PER_FORWARD * forwards:
+            raise SmokeFailure(f"spmm_csr launched {launches['spmm_csr']} times "
+                               f"in {forwards} forwards, expected "
+                               f"{SPMM_PER_FORWARD * forwards}")
+        inf = json_load(osp.join(log_dir, "inf_time.json"))
+        times = inf["inf_time"]
+        if len(times) != N_LPS or not all(
+                np.isfinite(t) and t > 0 for t in times.values()):
+            raise SmokeFailure(f"inf_time.json: bad per-LP times {times}")
+        return {"lps": N_LPS, "bas_valid": len(bas), "forwards": forwards,
+                "launches": launches, "inf_time_s": times,
+                "inf_time_device": inf["device"],
+                "write_dataset_s": t_write, "pred_basis_s": t_serve}
+
+
+def breakdown(seed: int) -> dict:
+    """Where one LP's ``inf_time`` goes, at the bench shape in bf16: graph
+    tensors built and copied to the card, the forward (ends in a
+    synchronize), logits back to the host, the top-m decode, on the host
+    clock; and the forward's span on the card by CUDA events. Medians of 3
+    after one warm-up."""
+    g = bench_graph(seed)
+    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
+                        generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda").eval()
+    stages = {"graph_tensors_s": [], "forward_s": [], "to_host_s": [],
+              "decode_s": []}
+    device_ms = []   # the forward's span on the card, by CUDA events
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    for rep in range(4):
+        t0 = time.perf_counter()
+        gt = GraphTensors.from_graph(g, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev0.record()
+        with torch.inference_mode():
+            lc, lv = model(gt)
+        ev1.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        logits = np.concatenate([lc.cpu().numpy(), lv.cpu().numpy()])
+        t3 = time.perf_counter()
+        inference_gnn(logits, g.ncons)
+        t4 = time.perf_counter()
+        if rep:
+            for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                stages[k].append(v)
+            device_ms.append(ev0.elapsed_time(ev1))
+    return {**{k: sorted(v)[1] for k, v in stages.items()},
+            "forward_device_ms": sorted(device_ms)[1]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    try:
+        smi = nvidia_smi()
+        t0 = time.perf_counter()
+        logs = _build.build_all(["spmm", "gather"])
+        ptxas = {k: [ln.strip() for ln in v.splitlines()
+                     if "registers" in ln or "spill" in ln] for k, v in logs.items()}
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "nvidia_smi": smi, "ptxas": ptxas,
+              "torch": torch.__version__, "cuda": torch.version.cuda})
+
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        rng = np.random.RandomState(args.seed)
+        gt = GraphTensors.from_graph(bench_graph(args.seed), "cuda")
+        kernels = check_spmm(gt, gen) + check_gather(gt, gen, rng)
+        emit({"phase": "kernels", "cases": len(kernels), "ok": True,
+              "gather_floor": gather_floor(kernels)})
+        del gt
+        torch.cuda.empty_cache()
+
+        emit({"phase": "reference", **check_reference(args.seed)})
+
+        served = serve(args.seed)
+        emit({"phase": "serve", **served})
+        emit({"phase": "breakdown", **breakdown(args.seed)})
+    except SmokeFailure as ex:
+        print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
+        return 1
+    for k in kernels:
+        k["launches"] = served["launches"][k["name"]]
+        k["card"] = smi
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

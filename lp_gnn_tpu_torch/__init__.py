@@ -1,0 +1,28 @@
+"""lp-gnn-tpu on PyTorch and CUDA: basis prediction on an NVIDIA H100.
+
+A second implementation of ``lp_gnn_tpu`` (the JAX package, which stays the
+reference). It keeps the JAX package's layout and module names, so every
+module here has a counterpart of the same path there, and it imports neither
+JAX nor anything of ``lp_gnn_tpu``: what it needs from JAX-free modules
+there (the msgpack blob codec, ``.bas`` files, the decode) it keeps as its
+own copy.
+
+What runs here so far is the serving path, ``pred_basis``: a processed LP
+blob -> graph tensors (CSR and CSC edge orderings) -> GCN_FC forward over a
+hand-written CUDA SpMM -> top-m decode -> HiGHS ``.bas`` + ``.sort``, with
+the per-LP pure-inference time. ROADMAP.md lists what is still to come.
+
+Subpackages
+-----------
+- ``utils``   msgpack+numpy blob codec (plain Python), json, path helpers
+- ``data``    processed-blob dataset, graph tensors on a device
+- ``ops``     CSR SpMM and row gather: CUDA kernels, their plain versions
+- ``models``  GCN_FC as an ``nn.Module``; weights carried from JAX / torch
+- ``infer``   top-m decode, prediction and timing passes
+- ``io``      HiGHS ``.bas`` files
+
+Entry points run on ``cuda`` and raise when no GPU is found, unless the
+caller asks for the CPU (``device="cpu"``, CLI ``--device cpu``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,115 @@
+"""Configuration of the predict stage (counterpart of ``lp_gnn_tpu/config.py``).
+
+The fields and CLI flags the predict stage reads, with the JAX package's
+defaults and the same derived paths (``finalize``, config.py:186-200)::
+
+    {data_prefix}/{dataset}/{solver_prefix}inp_tgt[-mM]/processed/*.pk
+    {log_prefix}/{exp_nm}/...
+
+plus ``--device`` (``cuda`` by default; ``cpu`` only when asked).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+
+from .utils.misc import increment_path, init_seeds, mkdir_p
+
+LP_METHOD_MAP = {"dual": 1, "primal": 4}
+
+
+@dataclasses.dataclass
+class Config:
+    # experiment
+    exp_nm: str = "tmp"
+    dataset: str = "None"
+    data_prefix: str = "lp-dataset"
+    log_prefix: str = "runs"
+    solver_prefix: str = "highs-"
+    exist_ok: int = 1
+    seed: int = 0
+    split: str = "val"                     # val | trainval
+    # model
+    arch: str = "GCN_FC(8,8,hids=128)"
+    edge_num_thresh: float = 4e6 * 3       # full-graph vs sampled switch
+    load_from: str = "None"
+    fp16: int = 0                          # reference --fp16: bf16 compute
+    # solver / decode
+    lp_method: int | str = 1               # 1=dual, 4=primal
+    inference_manager: str = "InferenceManager(0,)"
+    warm_gate: str = "auto"                # only "off" is ported (the
+                                           # "auto" calibration needs the
+                                           # solver)
+    # parallelism
+    mesh_shape: str = ""                   # edge=K is not ported
+    # device
+    device: str = "cuda"                   # cuda | cpu
+    # derived (filled by finalize)
+    dataset_prefix: str = ""
+    dataset_processed_prefix: str = ""
+    log_dir: str = ""
+
+    def get_method_sfx(self) -> str:
+        m = self.normalized_lp_method()
+        return "" if m == 1 else f"-m{m}"
+
+    def normalized_lp_method(self) -> int:
+        m = self.lp_method
+        if isinstance(m, str):
+            m = LP_METHOD_MAP.get(m, m)
+        return int(m)
+
+    def arch_with_dtype(self) -> str:
+        """Arch string honoring --fp16 (bf16 compute, fp32 knowledge mask)."""
+        if self.fp16 and "dtype" not in self.arch:
+            base = self.arch.strip()[:-1]   # drop the closing ')'
+            sep = "" if base.endswith("(") else ","
+            return base + sep + "dtype='bfloat16')"
+        return self.arch
+
+    def finalize(self, make_log_dir: bool = True) -> "Config":
+        self.lp_method = self.normalized_lp_method()
+        if self.lp_method not in (1, 4):
+            raise ValueError(f"lp_method {self.lp_method}: 1 (dual) or 4 (primal)")
+        if not self.solver_prefix.endswith("-"):
+            self.solver_prefix += "-"
+        if self.solver_prefix != "highs-":
+            raise ValueError(f"solver_prefix {self.solver_prefix!r}: only 'highs-'")
+        self.dataset_prefix = os.path.join(self.data_prefix, self.dataset)
+        self.dataset_processed_prefix = os.path.join(
+            self.dataset_prefix,
+            f"{self.solver_prefix}inp_tgt{self.get_method_sfx()}")
+        log_dir = os.path.join(self.log_prefix, self.exp_nm)
+        if make_log_dir:
+            log_dir = increment_path(log_dir, exist_ok=bool(self.exist_ok))
+            mkdir_p(log_dir)
+        self.log_dir = log_dir
+        init_seeds(self.seed)
+        return self
+
+
+_DERIVED = ("dataset_prefix", "dataset_processed_prefix", "log_dir")
+
+
+def parse_args(argv=None, make_log_dir: bool = True, **defaults) -> Config:
+    """CLI entry mirroring ``lp_gnn_tpu.config.parse_args``: one ``--flag``
+    per field. Flags of the JAX CLI that this stage does not read are
+    reported and ignored, as there."""
+    cfg = Config(**defaults)
+    parser = argparse.ArgumentParser(conflict_handler="resolve")
+    for f in dataclasses.fields(cfg):
+        if f.name in _DERIVED:
+            continue
+        v = getattr(cfg, f.name)
+        tp = type(v) if v is not None and not isinstance(v, bool) else str
+        if f.name == "lp_method":
+            tp = str   # accepts 1/4 and 'dual'/'primal'
+        parser.add_argument(f"--{f.name}", type=tp, default=v)
+    known, unknown = parser.parse_known_args(argv)
+    if unknown:
+        logging.warning("unknown args: %s", unknown)
+    for k, v in vars(known).items():
+        setattr(cfg, k, v)
+    return cfg.finalize(make_log_dir=make_log_dir)

@@ -1,0 +1,89 @@
+"""A bipartite LP graph as tensors on a device.
+
+Counterpart of the host half of ``lp_gnn_tpu/data/batching.py:214
+pad_graph``: the same two edge orderings (``:231-234``), row-sorted for
+aggregating variables into constraints and col-sorted for the transpose,
+here as CSR and CSC with int32 pointers. What the JAX package adds for the
+TPU (bucket padding to static shapes, the MXU block layout, ``strip_coo``)
+has no use under PyTorch's eager execution and is left out, so there are no
+padded rows: every tensor covers the real nodes and edges only.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .dataset import BipartiteGraph
+
+
+@dataclasses.dataclass
+class GraphTensors:
+    # vars -> cons (dst = constraint rows): CSR of the row-sorted ordering
+    rowptr: torch.Tensor   # (m+1,) int32
+    col: torch.Tensor      # (E,) int32 source variable per edge
+    val_r: torch.Tensor    # (E,) float32
+    # cons -> vars (dst = variable columns): CSC of the col-sorted ordering
+    colptr: torch.Tensor   # (n+1,) int32
+    row: torch.Tensor      # (E,) int32 source constraint per edge
+    val_c: torch.Tensor    # (E,) float32
+    c_feas: torch.Tensor   # (m, 8) float32
+    v_feas: torch.Tensor   # (n, 8) float32
+
+    @property
+    def ncons(self) -> int:
+        return self.c_feas.shape[0]
+
+    @property
+    def nvars(self) -> int:
+        return self.v_feas.shape[0]
+
+    @property
+    def nnz(self) -> int:
+        return self.col.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.c_feas.device
+
+    @classmethod
+    def from_graph(cls, g: BipartiteGraph,
+                   device: torch.device | str) -> "GraphTensors":
+        m, n, e = g.ncons, g.nvars, g.nnz
+        if e >= 2 ** 31:
+            raise ValueError(f"{g.fn}: {e} edges overflow int32 pointers")
+        row = np.asarray(g.row, np.int64)
+        col = np.asarray(g.col, np.int64)
+        if e and (row.min() < 0 or row.max() >= m or
+                  col.min() < 0 or col.max() >= n):
+            raise ValueError(f"{g.fn}: edge index outside the node range")
+        # LPDataset.get hands out row-major graphs: check that in O(E) and
+        # keep the order as it is; then a stable sort by col alone gives the
+        # col-major order that lexsort((row, col)) would (ties in both keep
+        # their input order)
+        dr = np.diff(row)
+        if np.all((dr > 0) | ((dr == 0) & (np.diff(col) >= 0))):
+            order_r = slice(None)
+            order_c = np.argsort(col, kind="stable")
+        else:
+            order_r = np.lexsort((col, row))
+            order_c = np.lexsort((row, col))
+
+        def ptr(dst, num):
+            p = np.zeros(num + 1, np.int32)
+            np.cumsum(np.bincount(dst, minlength=num), out=p[1:])
+            return p
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        val = np.asarray(g.val, np.float32)
+        return cls(
+            rowptr=dev(ptr(row, m)), col=dev(col[order_r].astype(np.int32)),
+            val_r=dev(val[order_r]),
+            colptr=dev(ptr(col, n)), row=dev(row[order_c].astype(np.int32)),
+            val_c=dev(val[order_c]),
+            c_feas=dev(np.asarray(g.c_feas, np.float32)),
+            v_feas=dev(np.asarray(g.v_feas, np.float32)),
+        )

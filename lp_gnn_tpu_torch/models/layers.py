@@ -1,0 +1,91 @@
+"""Model building blocks: linear, two-direction graph conv, knowledge mask.
+
+Counterpart of ``lp_gnn_tpu/models/layers.py`` (reference arch.py:51-141),
+as ``nn.Module``s named after the reference's state_dict keys
+(``left2right.lin_rel.weight`` ...), so a reference ``mdl.pth`` loads as it
+is. Parameters stay fp32; compute runs in the dtype of the inputs, and the
+knowledge mask always in fp32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.spmm import spmm_cons_to_vars, spmm_vars_to_cons
+
+
+class Linear(nn.Module):
+    """``y = x W^T + b`` with torch.nn.Linear's init, U(-1/sqrt(fan_in),
+    +1/sqrt(fan_in)) for weight and bias, drawn from an explicit
+    ``generator`` (layers.py:18-34). Weights are cast to x's dtype."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(d_in)
+        self.weight = nn.Parameter(
+            torch.empty(d_out, d_in).uniform_(-bound, bound, generator=generator))
+        self.bias = nn.Parameter(
+            torch.empty(d_out).uniform_(-bound, bound, generator=generator)) \
+            if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class GraphConv(nn.Module):
+    """One direction of PyG GraphConv(aggr=add):
+    ``out_dst = lin_rel(sum_src A x_src) + lin_root(x_dst)``."""
+
+    def __init__(self, src_dim: int, dst_dim: int, out_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.lin_rel = Linear(src_dim, out_dim, bias=True, generator=generator)
+        self.lin_root = Linear(dst_dim, out_dim, bias=False,
+                               generator=generator)
+
+    def forward(self, agg: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
+        return self.lin_rel(agg) + self.lin_root(x_dst)
+
+
+class BidirGraphConv(nn.Module):
+    """GraphConvTwoDirection (layers.py:38-89, reference arch.py:51-81):
+    ``left2right`` updates variables from constraints, ``right2left`` the
+    reverse; both aggregate with the CSR SpMM."""
+
+    def __init__(self, left_dim: int, right_dim: int, out_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.left2right = GraphConv(left_dim, right_dim, out_dim, generator)
+        self.right2left = GraphConv(right_dim, left_dim, out_dim, generator)
+
+    def forward(self, g, left: torch.Tensor, right: torch.Tensor):
+        right_new = self.left2right(spmm_cons_to_vars(g, left), right)
+        left_new = self.right2left(spmm_vars_to_cons(g, right), left)
+        return left_new, right_new
+
+
+def add_knowledge(left_logit, right_logit, left_feas, right_feas,
+                  bound: float = 10.0):
+    """Suppress infeasible statuses given +-inf bounds (layers.py:93,
+    reference arch.py:129-141), always in fp32: L2-normalize each logit row
+    (eps 1e-12) and scale by 10, then subtract ``bound`` from the LL logit
+    where the lower bound is infinite (tag != 0 at feature column -3) and
+    from the UL logit where the upper bound is infinite (column -1)."""
+    def norm10(x):
+        x = x.float()
+        n = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+        return x / torch.clamp(n, min=1e-12) * 10.0
+
+    def mask(logit, feas):
+        delta = torch.zeros_like(logit)
+        delta[:, 0] = torch.where(feas[:, -3].abs() > 0, -bound, 0.0)
+        delta[:, 2] = torch.where(feas[:, -1].abs() > 0, -bound, 0.0)
+        return logit + delta
+
+    return (mask(norm10(left_logit), left_feas),
+            mask(norm10(right_logit), right_feas))

@@ -1,0 +1,98 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each ``ops/csrc/<name>.cu`` has a plain C interface and builds on its own
+into ``lp_gnn_tpu_torch/_build/lib<name>-<hash>.so``, where the hash covers
+the source and the compiler flags, so an edited source builds anew and an
+unchanged one is reused. The build happens at the first call of a kernel
+(or up front, all sources at once, through :func:`build_all`); nothing is
+built when a module is imported. A failed build raises: there is no
+fallback to a kernel's plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.is_file():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels of lp_gnn_tpu_torch need the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    (process, temp output, final path, log path) or None."""
+    out = lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    log = out.with_suffix(".log")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+    with open(log, "w") as f:
+        f.write(" ".join(cmd) + "\n")
+        f.flush()
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+    return proc, tmp, out, log
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out, log = job
+    rc = proc.wait()
+    if rc != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {rc}):\n"
+                           f"{log.read_text()}")
+    os.replace(tmp, out)
+
+
+def build_all(names) -> dict[str, str]:
+    """Build every named kernel library at once, one nvcc each, all started
+    together. Returns name -> compiler log (register / spill report)."""
+    jobs = {n: _start(n) for n in names}
+    for n, job in jobs.items():
+        if job is not None:
+            _finish(n, job)
+    logs = {}
+    for n in names:
+        log = lib_path(n).with_suffix(".log")
+        logs[n] = log.read_text() if log.exists() else ""
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``ops/csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,70 @@
+"""Row gather ``out[k] = table[idx[k]]``.
+
+Counterpart of the four TPU VMEM-gather probes,
+``scripts/probe_vmem_gather.py`` (``vmem_gather_kernel`` :51,
+``vmem_gather_loop_kernel`` :72) and ``scripts/probe_vmem_gather2.py``
+(``k_take_along`` :54, ``k_vector_index`` :60), which all compute this one
+function. It is not on the serving path: ``chip_smoke.py`` times it beside
+the SpMM as the measured cost of the row gather the SpMM is made of.
+
+On a CUDA tensor :func:`gather_rows` launches ``csrc/gather.cu`` or raises;
+on a CPU tensor it runs :func:`gather_rows_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table[idx.long()]
+
+
+def _lib():
+    fn = _build.load("gather").lp_gather_rows
+    if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table (S, D) fp32 or bf16, idx (K,) int32 in [0, S) -> (K, D)."""
+    if table.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("gather_rows is forward-only")
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError("table must be (S, D) and idx (K,)")
+    if table.dtype not in _ELEM_BYTES:
+        raise TypeError(f"table dtype {table.dtype} not supported: fp32 or bf16")
+    if idx.dtype != torch.int32:
+        raise TypeError("idx must be int32")
+    if table.device != idx.device:
+        raise ValueError("table and idx on different devices")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("table and idx must be contiguous")
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, idx)
+    if table.device.type != "cuda":
+        raise ValueError(f"gather_rows runs on cuda or cpu, not {table.device}")
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    if out.numel() == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = fn(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
+                idx.shape[0], table.shape[1], _ELEM_BYTES[table.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0   # kernel launches since the last reset

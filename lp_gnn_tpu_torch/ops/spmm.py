@@ -1,0 +1,136 @@
+"""Sparse bipartite aggregation: the CSR SpMM and its two directions.
+
+Counterpart of ``lp_gnn_tpu/ops/spmm.py`` (``segment_spmm`` :34,
+``blocked_spmm`` :77, ``spmm_cons_to_vars`` :203, ``spmm_vars_to_cons``
+:216, ``bidir_spmm`` :226). One kernel serves both directions:
+``out[d] = sum over e in [ptr[d], ptr[d+1]) of val[e] * x[idx[e]]``, run
+over the CSR (vars -> cons) or the CSC (cons -> vars) of
+:class:`~lp_gnn_tpu_torch.data.graph.GraphTensors`.
+
+On a CUDA tensor :func:`spmm_csr` launches the hand-written kernel
+(``csrc/spmm.cu``) or raises; on a CPU tensor it runs the plain version,
+:func:`spmm_csr_plain`. It is forward-only: the backward (the same kernel
+over the transpose ordering) comes with training.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_PIECES = 256   # 16-byte pieces a row: 32 lanes x 8 (csrc/spmm.cu)
+
+
+def spmm_csr_plain(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: a sorted segment sum by ``index_add_`` with
+    fp32 accumulation, cast to ``x``'s dtype."""
+    num_dst = ptr.shape[0] - 1
+    dst = torch.repeat_interleave(
+        torch.arange(num_dst, device=x.device),
+        (ptr[1:] - ptr[:-1]).long(), output_size=idx.shape[0])
+    msg = x.index_select(0, idx.long()).float() * val[:, None]
+    out = torch.zeros(num_dst, x.shape[1], dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, dst, msg).to(x.dtype)
+
+
+def _lib():
+    fn = _build.load("spmm").lp_spmm_csr
+    if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(ptr, idx, val, x):
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D (S, D), got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x dtype {x.dtype} not supported: fp32 or bf16")
+    if ptr.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise TypeError("ptr and idx must be int32")
+    if val.dtype != torch.float32:
+        raise TypeError("val must be float32")
+    if ptr.dim() != 1 or idx.dim() != 1 or val.shape != idx.shape:
+        raise ValueError("ptr (num_dst+1,), idx and val (E,) must be 1-D "
+                         "with idx and val of one length")
+    if ptr.shape[0] < 1:
+        raise ValueError("ptr must hold num_dst+1 >= 1 entries")
+    devs = {t.device for t in (ptr, idx, val, x)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {devs}")
+    if not all(t.is_contiguous() for t in (ptr, idx, val, x)):
+        raise ValueError("ptr, idx, val and x must be contiguous")
+
+
+def _check_kernel_width(x):
+    """The kernel reads and writes rows in 16-byte pieces, one pass a row."""
+    vec = 16 // x.element_size()
+    d = x.shape[1]
+    if d % vec or d > _MAX_PIECES * vec:
+        raise ValueError(
+            f"spmm_csr kernel takes {x.dtype} widths D that are multiples of "
+            f"{vec} up to {_MAX_PIECES * vec}, got D={d}")
+    if x.data_ptr() % 16:
+        raise ValueError("spmm_csr kernel needs x 16-byte aligned "
+                         "(a contiguous tensor at a storage offset may not be)")
+
+
+def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """``out[d] = sum_{e in [ptr[d], ptr[d+1])} val[e] * x[idx[e]]``.
+
+    ptr (num_dst+1,) int32, idx (E,) int32 with values in [0, S), val (E,)
+    fp32, x (S, D) fp32 or bf16. Returns (num_dst, D) in x's dtype, summed
+    in fp32. Indices are not checked on the device: ``GraphTensors``
+    checks them on the host when it builds the graph. On the card D must
+    be a multiple of 4 (fp32) or 8 (bf16), at most 1024 (fp32) or 2048
+    (bf16), and x 16-byte aligned; the wrapper raises otherwise.
+    """
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "spmm_csr is forward-only: its backward (the kernel over the "
+            "transpose ordering) comes with the training slice (ROADMAP.md, "
+            "queue item 1: training). Run under torch.no_grad().")
+    _check(ptr, idx, val, x)
+    if x.device.type == "cpu":
+        return spmm_csr_plain(ptr, idx, val, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmm_csr runs on cuda or cpu, not {x.device}")
+    num_dst, d = ptr.shape[0] - 1, x.shape[1]
+    out = torch.empty((num_dst, d), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _check_kernel_width(x)
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(ptr.data_ptr(), idx.data_ptr(), val.data_ptr(), x.data_ptr(),
+                out.data_ptr(), num_dst, d, _DTYPE_CODE[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {rc}")
+    spmm_csr.launches += 1
+    return out
+
+
+spmm_csr.launches = 0   # kernel launches since the last reset
+
+
+def spmm_cons_to_vars(g, x_cons: torch.Tensor) -> torch.Tensor:
+    """``out[j] = sum_i A_ij * x_cons[i]`` -- (n, D), over the CSC."""
+    return spmm_csr(g.colptr, g.row, g.val_c, x_cons)
+
+
+def spmm_vars_to_cons(g, x_vars: torch.Tensor) -> torch.Tensor:
+    """``out[i] = sum_j A_ij * x_vars[j]`` -- (m, D), over the CSR."""
+    return spmm_csr(g.rowptr, g.col, g.val_r, x_vars)
+
+
+def bidir_spmm(g, x_cons: torch.Tensor, x_vars: torch.Tensor):
+    """Both directions of the two-tower aggregation in one call."""
+    return spmm_vars_to_cons(g, x_vars), spmm_cons_to_vars(g, x_cons)

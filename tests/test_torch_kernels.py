@@ -1,0 +1,128 @@
+"""The port's kernel wrappers (lp_gnn_tpu_torch/ops): argument checks and
+plain versions on the CPU, and, on a machine with an NVIDIA GPU, each CUDA
+kernel against its plain version (``cuda`` marker; skipped without a card).
+
+This file imports neither JAX nor the JAX package, so it runs where they
+are not installed, such as the machine with the card::
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
+"""
+import numpy as np
+import pytest
+import torch
+
+from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
+from lp_gnn_tpu_torch.data.graph import GraphTensors
+from lp_gnn_tpu_torch.ops import spmm as tspmm
+from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+
+torch.set_num_threads(2)
+
+
+def port_graph(rng, m=23, n=37, e=150, empty_row=True, empty_col=True):
+    """A random bipartite LP graph in the processed-blob value ranges, with
+    constraint 0 and variable 0 left without edges when asked."""
+    row = rng.randint(1 if empty_row else 0, m, e).astype(np.int32)
+    col = rng.randint(1 if empty_col else 0, n, e).astype(np.int32)
+    val = (rng.rand(e) * 2 - 1).astype(np.float32)
+    c_feas = (rng.rand(m, 8) - 0.5).astype(np.float32)
+    v_feas = (rng.rand(n, 8) - 0.5).astype(np.float32)
+    for fe in (c_feas, v_feas):   # bound tags in {-1, 0, 1}
+        fe[:, -3] = rng.randint(-1, 2, fe.shape[0])
+        fe[:, -1] = rng.randint(-1, 2, fe.shape[0])
+    order = np.lexsort((col, row))
+    return BipartiteGraph(row=row[order], col=col[order], val=val[order],
+                          c_feas=c_feas, v_feas=v_feas,
+                          y_s=rng.randint(0, 3, m).astype(np.int32),
+                          y_t=rng.randint(0, 3, n).astype(np.int32))
+
+
+def test_graph_tensors_reject_bad_indices():
+    g = port_graph(np.random.RandomState(4))
+    g.col = g.col.copy()
+    g.col[-1] = g.nvars
+    with pytest.raises(ValueError, match="outside the node range"):
+        GraphTensors.from_graph(g, "cpu")
+
+
+def test_spmm_wrapper_checks():
+    g = port_graph(np.random.RandomState(5))
+    gt = GraphTensors.from_graph(g, "cpu")
+    x = torch.randn(g.nvars, 8)
+    before = tspmm.spmm_csr.launches
+    tspmm.spmm_vars_to_cons(gt, x)
+    assert tspmm.spmm_csr.launches == before   # plain version: no launch
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tspmm.spmm_vars_to_cons(gt, x.double())
+    with pytest.raises(TypeError, match="int32"):
+        tspmm.spmm_csr(gt.rowptr.long(), gt.col, gt.val_r, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r,
+                       torch.randn(8, g.nvars).t())
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tspmm.spmm_vars_to_cons(gt, x.requires_grad_())
+    with torch.no_grad():   # no gradient asked for: runs
+        tspmm.spmm_vars_to_cons(gt, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_plain(dtype):
+    rng = np.random.RandomState(6)
+    table = torch.from_numpy(rng.randn(50, 16).astype(np.float32)).to(dtype)
+    idx = torch.from_numpy(rng.randint(0, 50, 200).astype(np.int32))
+    before = gather_rows.launches
+    out = gather_rows(table, idx)
+    assert gather_rows.launches == before
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  table.float().numpy()[idx.numpy()])
+    with pytest.raises(TypeError, match="int32"):
+        gather_rows(table, idx.long())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24, 64, 1024])
+def test_kernels_match_plain_on_card(cuda_device, dtype, d):
+    """Each kernel against its plain version on the card, at the path's
+    widths (8, 1024) and at two others (24 leaves lanes of a group idle)
+    (fp32 rtol 1e-4 atol 1e-5: summation order; bf16 one bf16 ulp of the
+    fp32-summed plain result)."""
+    g = port_graph(np.random.RandomState(d), m=300, n=500, e=4000)
+    gt = GraphTensors.from_graph(g, cuda_device)
+    x = torch.randn(g.nvars, d, device=cuda_device).to(dtype)
+    before = tspmm.spmm_csr.launches
+    out = tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
+    ref = tspmm.spmm_csr_plain(gt.rowptr, gt.col, gt.val_r, x)
+    torch.cuda.synchronize()
+    assert tspmm.spmm_csr.launches == before + 1
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+    got = gather_rows(x, gt.col)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_plain(x, gt.col))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 6), (torch.bfloat16, 12),
+                                     (torch.float32, 1028),
+                                     (torch.bfloat16, 2056)])
+def test_spmm_kernel_rejects_widths_it_does_not_take(cuda_device, dtype, d):
+    g = port_graph(np.random.RandomState(7), m=30, n=50, e=200)
+    gt = GraphTensors.from_graph(g, cuda_device)
+    x = torch.zeros(g.nvars, d, device=cuda_device, dtype=dtype)
+    before = tspmm.spmm_csr.launches
+    with pytest.raises(ValueError, match="widths"):
+        tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
+    # a contiguous view at a storage offset that breaks 16-byte alignment
+    x = torch.zeros(g.nvars * 8 + 1, device=cuda_device,
+                    dtype=dtype)[1:].view(g.nvars, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
+    assert tspmm.spmm_csr.launches == before
