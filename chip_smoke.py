@@ -25,6 +25,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launched 4 times per forward.
 5. breakdown: one bench-shape LP's inference time split into graph
    tensors, forward, copy to the host and decode.
+6. dist_serve: the edge-partitioned path. Writes 3 bench-shape LPs and runs
+   the entry point with ``--mesh_shape edge=4 --edge_num_thresh 0`` (all 4
+   shards on the one card): every ``.bas`` must be a valid basis, and each
+   forward must launch the halo all-to-all, the row gather and the SpMM
+   exactly as often as the design says. Prints the partition (K, ms, ns,
+   Bh, edges per shard), ``part_time`` and ``inf_time`` per LP, and one
+   LP's breakdown: host stages, the dist and single-card forwards' spans
+   on the card, and the dist forward's device time by kernel.
+7. dist_reference: one bench-shape LP's edge-partitioned logits against the
+   single-card logits on the card, same weights, fp32 and bf16.
+
+The kernels phase also holds the halo all-to-all (K1) exactly against its
+plain version at the bench graph's halo (K=4, Bh=30,056; K=8 at its own Bh)
+and times the SpMM and the gather at the dist path's shapes.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -44,7 +58,7 @@ import time
 import numpy as np
 import torch
 
-from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
+from lp_gnn_tpu_torch.data.dataset import BipartiteGraph, LPDataset
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.infer.decode import inference_gnn
 from lp_gnn_tpu_torch.infer.predict import model_inference
@@ -53,6 +67,10 @@ from lp_gnn_tpu_torch.models.gcn import build_model
 from lp_gnn_tpu_torch.ops import _build
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from lp_gnn_tpu_torch.ops.spmm import spmm_csr, spmm_csr_plain
+from lp_gnn_tpu_torch.parallel import edge_partition
+from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
+                                            halo_all_to_all_plain)
+from lp_gnn_tpu_torch.parallel.mesh import make_mesh
 from lp_gnn_tpu_torch.utils.serialize import json_load, msgpack_dump
 
 # bench shape (bench.py:58-60)
@@ -63,6 +81,14 @@ ARCH = "GCN_FC(8,8,hids=1024,depth=3)"
 SPMM_PER_FORWARD = 4        # (conv1 + 1 hidden conv) x 2 directions
 N_LPS = 6                   # LPs served
 FORWARDS_PER_LP = 5         # predict pass 1 + timing warm-up 1 + timed 3
+K_EDGE = 4                  # shards of the edge-partitioned path
+N_DIST_LPS = 3              # LPs served edge-partitioned
+# launches a dist forward makes: 2 convs x (gather + reduce exchange);
+# 2 convs x K send-row gathers; 2 convs x K x 5 SpMMs (local v2c, local
+# c2v, halo v2c, halo c2v, owner-side reduce)
+DIST_PER_FORWARD = {"halo_all_to_all": 2 * 2, "gather_rows": 2 * K_EDGE,
+                    "spmm_csr": 2 * K_EDGE * 5}
+KERNELS = (spmm_csr, gather_rows, halo_all_to_all)
 
 
 class SmokeFailure(Exception):
@@ -137,6 +163,44 @@ def within(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
 SPMM_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2 ** -7, 1e-5)}
 
 
+def spmm_case(case: str, ptr, idx, val, x, on_path) -> dict:
+    """One SpMM case against its plain version, timed beside it and beside
+    the library yardstick (cuSPARSE through ``torch.sparse.mm``), which the
+    package never calls."""
+    n_dst, n_e, d = ptr.shape[0] - 1, idx.shape[0], x.shape[1]
+    out = spmm_csr(ptr, idx, val, x)
+    ref = spmm_csr_plain(ptr, idx, val, x)
+    torch.cuda.synchronize()
+    rtol, atol = SPMM_TOL[x.dtype]
+    err, ok = within(out, ref, rtol, atol)
+    if not ok:
+        raise SmokeFailure(f"spmm_csr {case}: max |err| {err} "
+                           f"beyond rtol={rtol}, atol={atol}")
+    del out, ref
+    b = x.element_size()
+    s_used = int(torch.unique(idx).numel())
+    n_bytes = (n_dst + 1) * 4 + n_e * 8 + s_used * d * b + n_dst * d * b
+    bound_ms, bound_by = bound(n_bytes, 2.0 * n_e * d)
+    noreuse = (n_dst + 1) * 4 + n_e * 8 + n_e * d * b + n_dst * d * b
+    a = torch.sparse_csr_tensor(ptr, idx, val.to(x.dtype),
+                                size=(n_dst, x.shape[0]), check_invariants=False)
+    return {
+        "name": "spmm_csr", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/spmm.cu",
+        "replaces": "lp_gnn_tpu/ops/spmm.py:77",
+        "launches": None, "max_abs_err": err,
+        "ms": time_ms(lambda: spmm_csr(ptr, idx, val, x), 20),
+        "plain_ms": time_ms(lambda: spmm_csr_plain(ptr, idx, val, x), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(lambda: torch.sparse.mm(a, x), 10),
+        "case": case, "on_path": on_path,
+        "num_dst": n_dst, "num_src": x.shape[0], "nnz": n_e, "D": d,
+        "tol": {"rtol": rtol, "atol": atol},
+        "bound_noreuse_ms": noreuse / HBM_BYTES_S * 1e3,
+        "library": "torch.sparse.mm on a sparse CSR tensor",
+    }
+
+
 def check_spmm(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
     """SpMM vs its plain version on the card, both directions, D=8 and
     D=1024, fp32 and bf16. fp32: rtol 1e-4, atol 1e-5 (summation order).
@@ -146,52 +210,50 @@ def check_spmm(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
             "c2v": (gt.colptr, gt.row, gt.val_c, gt.ncons)}
     rows = []
     for dname, (ptr, idx, val, n_src) in dirs.items():
-        n_dst, n_e = ptr.shape[0] - 1, idx.shape[0]
-        s_used = int(torch.unique(idx).numel())
         for d in (8, 1024):
             x32 = torch.randn(n_src, d, generator=gen, device=gt.device)
             for dt in (torch.float32, torch.bfloat16):
-                x = x32.to(dt)
-                out = spmm_csr(ptr, idx, val, x)
-                ref = spmm_csr_plain(ptr, idx, val, x)
-                torch.cuda.synchronize()
-                rtol, atol = SPMM_TOL[dt]
-                err, ok = within(out, ref, rtol, atol)
-                case = f"{dname} D={d} {str(dt).split('.')[-1]}"
-                if not ok:
-                    raise SmokeFailure(f"spmm_csr {case}: max |err| {err} "
-                                       f"beyond rtol={rtol}, atol={atol}")
-                b = x.element_size()
-                n_bytes = (n_dst + 1) * 4 + n_e * 8 + s_used * d * b + n_dst * d * b
-                bound_ms, bound_by = bound(n_bytes, 2.0 * n_e * d)
-                noreuse = (n_dst + 1) * 4 + n_e * 8 + n_e * d * b + n_dst * d * b
-                # the library yardstick (cuSPARSE), which the package never calls
-                a = torch.sparse_csr_tensor(ptr, idx, val.to(dt),
-                                            size=(n_dst, n_src),
-                                            check_invariants=False)
-                lib_ms = time_ms(lambda: torch.sparse.mm(a, x), 10)
-                rows.append({
-                    "name": "spmm_csr", "route": "cuda",
-                    "source": "lp_gnn_tpu_torch/ops/csrc/spmm.cu",
-                    "replaces": "lp_gnn_tpu/ops/spmm.py:77",
-                    "launches": None, "max_abs_err": err,
-                    "ms": time_ms(lambda: spmm_csr(ptr, idx, val, x), 20),
-                    "plain_ms": time_ms(lambda: spmm_csr_plain(ptr, idx, val, x), 5),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms,
-                    "case": case, "on_path": dt == torch.bfloat16,
-                    "num_dst": n_dst, "num_src": n_src, "nnz": n_e, "D": d,
-                    "tol": {"rtol": rtol, "atol": atol},
-                    "bound_noreuse_ms": noreuse / HBM_BYTES_S * 1e3,
-                    "library": "torch.sparse.mm on a sparse CSR tensor",
-                })
-                del out, ref
+                rows.append(spmm_case(
+                    f"{dname} D={d} {str(dt).split('.')[-1]}", ptr, idx, val,
+                    x32.to(dt), "serve" if dt == torch.bfloat16 else False))
     return rows
+
+
+def gather_case(case: str, table, idx, on_path) -> dict:
+    """One gather case against its plain version (exact: a copy)."""
+    out = gather_rows(table, idx)
+    ref = gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    if not torch.equal(out, ref):
+        raise SmokeFailure(f"gather_rows {case}: differs from the plain "
+                           f"version (max |err| {err})")
+    del out, ref
+    k, d, b = idx.shape[0], table.shape[1], table.element_size()
+    s_used = int(torch.unique(idx).numel())
+    bound_ms, bound_by = bound(k * 4 + s_used * d * b + k * d * b, 0.0)
+    return {
+        "name": "gather_rows", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/gather.cu",
+        "replaces": "scripts/probe_vmem_gather.py:51",
+        "launches": None, "max_abs_err": err,
+        "ms": time_ms(lambda: gather_rows(table, idx), 20),
+        "plain_ms": time_ms(lambda: gather_rows_plain(table, idx), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(lambda: torch.index_select(table, 0, idx), 20),
+        "case": case, "on_path": on_path,
+        "also_replaces": ["scripts/probe_vmem_gather.py:72",
+                          "scripts/probe_vmem_gather2.py:54",
+                          "scripts/probe_vmem_gather2.py:60"],
+        "num_src": table.shape[0], "K": k, "D": d, "tol": "exact",
+        "bound_noreuse_ms": (k * 4 + 2 * k * d * b) / HBM_BYTES_S * 1e3,
+        "library": "torch.index_select",
+    }
 
 
 def check_gather(gt: GraphTensors, gen: torch.Generator,
                  rng: np.random.RandomState) -> list[dict]:
-    """Gather vs its plain version (exact: a copy), at the probes' shapes
+    """Gather vs its plain version at the probes' shapes
     (scripts/probe_vmem_gather*.py: S=8192 and S=131,072, E=2^20, D=256
     bf16) and at the SpMM's (the v2c index stream, E=1M, D=1024 bf16)."""
     dev = gt.device
@@ -200,36 +262,82 @@ def check_gather(gt: GraphTensors, gen: torch.Generator,
         idx = torch.from_numpy(rng.randint(0, s, 1 << 20).astype(np.int32)).to(dev)
         cases.append((f"probe S={s} K=2^20 D=256 bf16", s, 256, idx))
     cases.append(("spmm v2c S=131072 K=1M D=1024 bf16", gt.nvars, 1024, gt.col))
+    return [gather_case(case, torch.randn(s, d, generator=gen, device=dev)
+                        .to(torch.bfloat16), idx, False)
+            for case, s, d, idx in cases]
+
+
+def halo_case(case: str, k: int, bh: int, d: int, dtype, gen) -> dict:
+    """K1 against its plain version on the card, exactly (a copy), on K
+    buffers held stacked in one (K, K*Bh, D) tensor; the library yardstick
+    swaps the stacked blocks' two shard axes with one ``contiguous()``."""
+    stacked = torch.randn(k, k * bh, d, generator=gen, device="cuda").to(dtype)
+    bufs = list(stacked.unbind(0))
+    out = halo_all_to_all(bufs)
+    ref = halo_all_to_all_plain(bufs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+        raise SmokeFailure(f"halo_all_to_all {case}: differs from the plain "
+                           "version")
+    lib = stacked.view(k, k, bh, d).transpose(0, 1).contiguous()
+    if not torch.equal(torch.stack(out).view(k, k, bh, d), lib):
+        raise SmokeFailure(f"halo_all_to_all {case}: differs from the "
+                           "stacked transpose")
+    del out, ref, lib
+    n_bytes = 2.0 * k * k * bh * d * stacked.element_size()
+    bound_ms, bound_by = bound(n_bytes, 0.0)
+    row = {
+        "name": "halo_all_to_all", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
+        "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
+        "launches": None, "max_abs_err": 0.0,
+        "ms": time_ms(lambda: halo_all_to_all(bufs), 20),
+        "plain_ms": time_ms(lambda: halo_all_to_all_plain(bufs), 10),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(lambda: stacked.view(k, k, bh, d)
+                              .transpose(0, 1).contiguous(), 20),
+        "case": case, "on_path": "dist_serve" if (
+            k == K_EDGE and dtype == torch.bfloat16) else False,
+        "K": k, "Bh": bh, "D": d, "tol": "exact", "bytes": n_bytes,
+        "also_replaces": ["lp_gnn_tpu/parallel/pallas_halo.py:69"],
+        "library": "stacked.view(K,K,Bh,D).transpose(0,1).contiguous()",
+    }
+    del stacked, bufs
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_dist_kernels(g: BipartiteGraph, gen: torch.Generator) -> list[dict]:
+    """The three kernels at the edge-partitioned path's shapes on the bench
+    graph: K1 at K=4 (the path's Bh) and K=8 (its own Bh), D=8 and D=1024;
+    shard 0's five SpMMs (the largest shard: the hot rows land there) and
+    its send-row gather, at D=8 and D=1024 bf16."""
     rows = []
-    for case, s, d, idx in cases:
-        table = torch.randn(s, d, generator=gen, device=dev).to(torch.bfloat16)
-        out = gather_rows(table, idx)
-        ref = gather_rows_plain(table, idx)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        if not torch.equal(out, ref):
-            raise SmokeFailure(f"gather_rows {case}: differs from the plain "
-                               f"version (max |err| {err})")
-        k, b = idx.shape[0], table.element_size()
-        s_used = int(torch.unique(idx).numel())
-        bound_ms, bound_by = bound(k * 4 + s_used * d * b + k * d * b, 0.0)
-        rows.append({
-            "name": "gather_rows", "route": "cuda",
-            "source": "lp_gnn_tpu_torch/ops/csrc/gather.cu",
-            "replaces": "scripts/probe_vmem_gather.py:51",
-            "launches": None, "max_abs_err": err,
-            "ms": time_ms(lambda: gather_rows(table, idx), 20),
-            "plain_ms": time_ms(lambda: gather_rows_plain(table, idx), 20),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(lambda: torch.index_select(table, 0, idx), 20),
-            "case": case, "on_path": False,
-            "also_replaces": ["scripts/probe_vmem_gather.py:72",
-                              "scripts/probe_vmem_gather2.py:54",
-                              "scripts/probe_vmem_gather2.py:60"],
-            "num_src": s, "K": k, "D": d, "tol": "exact",
-            "bound_noreuse_ms": (k * 4 + 2 * k * d * b) / HBM_BYTES_S * 1e3,
-            "library": "torch.index_select",
-        })
+    bh8 = edge_partition.compute_halo_width(g, 8)
+    dg = edge_partition.partition_graph(g, K_EDGE)
+    for d in (8, 1024):
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(halo_case(f"K={K_EDGE} Bh={dg.bh} D={d} "
+                                  f"{str(dt).split('.')[-1]}",
+                                  K_EDGE, dg.bh, d, dt, gen))
+        rows.append(halo_case(f"K=8 Bh={bh8} D={d} bfloat16", 8, bh8, d,
+                              torch.bfloat16, gen))
+    dt_ = edge_partition.DistGraphTensors.from_partition(
+        dg, make_mesh(K_EDGE, "cuda"))
+    csrs = {"local v2c": (dt_.local_v2c[0], dg.ns),
+            "local c2v": (dt_.local_c2v[0], dg.ms),
+            "halo v2c": (dt_.halo_v2c[0], dg.nh),
+            "halo c2v": (dt_.halo_c2v[0], dg.ms),
+            "owner reduce": (dt_.halo_red[0], dg.nh)}
+    for d in (8, 1024):
+        for name, (m, n_src) in csrs.items():
+            x = torch.randn(n_src, d, generator=gen, device="cuda")
+            rows.append(spmm_case(f"dist shard 0 {name} D={d} bfloat16", *m,
+                                  x.to(torch.bfloat16), "dist_serve"))
+        table = torch.randn(dg.ns, d, generator=gen, device="cuda")
+        rows.append(gather_case(
+            f"dist shard 0 halo_send S={dg.ns} K={dg.nh} D={d} bfloat16",
+            table.to(torch.bfloat16), dt_.halo_send[0], "dist_serve"))
     return rows
 
 
@@ -285,13 +393,13 @@ def check_reference(seed: int) -> dict:
 
 
 # -------------------------------------------------------------------- serve
-def write_dataset(root: str, seed: int) -> None:
-    """N_LPS processed LPs of the bench shape in the reference blob format
+def write_dataset(root: str, seed: int, n_lps: int) -> None:
+    """n_lps processed LPs of the bench shape in the reference blob format
     ([row, col, data, c_feas, v_feas, y_s, y_t, nnodes] + .meta)."""
     proc = osp.join(root, "processed")
     con_nms = [f"c{i}" for i in range(M)]
     var_nms = [f"x{j}" for j in range(N)]
-    for i in range(N_LPS):
+    for i in range(n_lps):
         g = bench_graph(seed + i)
         path = osp.join(proc, f"lp_{i}.pk")
         msgpack_dump([g.row, g.col, g.val.astype(np.float64), g.c_feas,
@@ -301,63 +409,214 @@ def write_dataset(root: str, seed: int) -> None:
                           con_nms=con_nms, var_nms=var_nms), path + ".meta")
 
 
+def run_pred_basis(tmp: str, seed: int, n_lps: int, per_forward: dict,
+                   extra: list[str]) -> dict:
+    """Write ``n_lps`` bench-shape LPs and a seeded bf16 GCN_FC, run the
+    entry point ``python -m lp_gnn_tpu_torch.pred_basis`` in this process
+    (runpy) with the kernels' launch counts set to 0 just before and read
+    just after, and check its output: valid bases, ``per_forward`` launches
+    of each kernel in every forward, finite per-LP times."""
+    data_prefix = osp.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), seed, n_lps)
+    t_write = time.perf_counter() - t0
+    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
+                        generator=torch.Generator().manual_seed(seed))
+    ckpt = osp.join(tmp, "mdl.pth")
+    torch.save(model.state_dict(), ckpt)
+    argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
+            "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", "smoke",
+            "--arch", ARCH, "--fp16", "1", "--load_from", ckpt,
+            "--split", "trainval", "--warm_gate", "off", "--seed", str(seed),
+            *extra]
+    for kern in KERNELS:
+        kern.launches = 0
+    saved_argv = sys.argv
+    sys.argv = ["lp_gnn_tpu_torch.pred_basis", *argv]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("lp_gnn_tpu_torch.pred_basis", run_name="__main__",
+                         alter_sys=True)
+    finally:
+        sys.argv = saved_argv
+    t_serve = time.perf_counter() - t0
+    launches = {kern.__name__: kern.launches for kern in KERNELS}
+
+    log_dir = osp.join(tmp, "runs", "smoke")
+    out_dir = osp.join(log_dir, "pred-basis")
+    bas = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas"))
+    sort = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas.sort"))
+    if len(bas) != n_lps or len(sort) != n_lps:
+        raise SmokeFailure(f"expected {n_lps} .bas and .sort files, got "
+                           f"{len(bas)} and {len(sort)}")
+    for f in bas:
+        con, var = read_bas_highs(osp.join(out_dir, f))
+        n_basic = int((con == 1).sum() + (var == 1).sum())
+        if (len(con), len(var)) != (M, N) or n_basic != M:
+            raise SmokeFailure(f"{f}: {n_basic} basic of {M} rows")
+        if int((var == 1).sum()) != int(((con == 0) | (con == 2)).sum()):
+            raise SmokeFailure(f"{f}: #basic structurals != #nonbasic rows")
+    forwards = FORWARDS_PER_LP * n_lps
+    for name, n in launches.items():
+        want = per_forward.get(name, 0) * forwards
+        if n != want:
+            raise SmokeFailure(f"{name} launched {n} times in {forwards} "
+                               f"forwards, expected {want}")
+    inf = json_load(osp.join(log_dir, "inf_time.json"))
+    times = inf["inf_time"]
+    if len(times) != n_lps or not all(
+            np.isfinite(t) and t > 0 for t in times.values()):
+        raise SmokeFailure(f"inf_time.json: bad per-LP times {times}")
+    return {"lps": n_lps, "bas_valid": len(bas), "forwards": forwards,
+            "launches": launches, "inf_time_s": times,
+            "part_time_s": inf.get("part_time", {}),
+            "inf_time_device": inf["device"],
+            "write_dataset_s": t_write, "pred_basis_s": t_serve,
+            "data_prefix": data_prefix}
+
+
 def serve(seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_") as tmp:
-        data_prefix = osp.join(tmp, "data")
+        res = run_pred_basis(tmp, seed, N_LPS, {"spmm_csr": SPMM_PER_FORWARD}, [])
+    del res["data_prefix"], res["part_time_s"]
+    return res
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device time of the 12 costliest kernels one call of ``fn`` launches,
+    summed by name (ms), from ``torch.profiler``; empty where the profiler
+    sees no device activity."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key[:90]] = out.get(e.key[:90], 0.0) + t / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:12])
+
+
+def dist_breakdown(model, g: BipartiteGraph) -> dict:
+    """Where one LP's edge-partitioned ``inf_time`` goes (K=4, bf16): the
+    host partition (a per-graph constant, outside ``inf_time``), its tensors
+    built and copied to the card, the forward (ends in a synchronize),
+    logits back to the host and the top-m decode, on the host clock; the
+    dist and the single-card forwards' spans on the card by CUDA events;
+    and the dist forward's device time by kernel (``torch.profiler``).
+    Medians of 3 after one warm-up."""
+    mesh = make_mesh(K_EDGE, "cuda")
+    stages = {"partition_s": [], "partition_to_device_s": [], "forward_s": [],
+              "to_host_s": [], "decode_s": [], "dist_forward_device_ms": [],
+              "single_forward_device_ms": []}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    gt = GraphTensors.from_graph(g, "cuda")
+    for rep in range(4):
         t0 = time.perf_counter()
-        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), seed)
-        t_write = time.perf_counter() - t0
+        dg = edge_partition.partition_graph(g, K_EDGE)
+        t1 = time.perf_counter()
+        dt = edge_partition.DistGraphTensors.from_partition(dg, mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            ev[0].record()
+            lc, lv = edge_partition.dist_gcn_fc_apply(model, dt)
+            ev[1].record()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            logits = np.concatenate([lc[:g.ncons].cpu().numpy(),
+                                     lv[:g.nvars].cpu().numpy()])
+            t4 = time.perf_counter()
+            inference_gnn(logits, g.ncons)
+            t5 = time.perf_counter()
+            ev[2].record()
+            model(gt)
+            ev[3].record()
+        torch.cuda.synchronize()
+        if rep:
+            for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4,
+                                     ev[0].elapsed_time(ev[1]),
+                                     ev[2].elapsed_time(ev[3]))):
+                stages[k].append(v)
+    with torch.inference_mode():
+        by_kernel = device_ms_by_kernel(
+            lambda: edge_partition.dist_gcn_fc_apply(model, dt))
+    return {**{k: sorted(v)[1] for k, v in stages.items()},
+            "dist_forward_by_kernel_ms": by_kernel}
+
+
+def dist_serve(seed: int) -> dict:
+    """The edge-partitioned path through the entry point (K=4 on the one
+    card), then its partitions read back from the CLI's cache and the
+    breakdown of one LP's dist ``inf_time``."""
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dist_") as tmp:
+        res = run_pred_basis(
+            tmp, seed, N_DIST_LPS, DIST_PER_FORWARD,
+            ["--mesh_shape", f"edge={K_EDGE}", "--edge_num_thresh", "0"])
+        proc = osp.join(res.pop("data_prefix"), "smoke", "highs-inp_tgt")
+        if len(res["part_time_s"]) != N_DIST_LPS:
+            raise SmokeFailure(f"inf_time.json: part_time {res['part_time_s']}")
+        cache = osp.join(proc, "partitions")
+        ds = LPDataset(proc)
+        parts = {}
+        for i in range(len(ds)):
+            g = ds[i]
+            dg = edge_partition.cached_partition_graph(g, K_EDGE, cache, g.fn)
+            parts[g.fn] = {"K": dg.n_shards, "ms": dg.ms, "ns": dg.ns,
+                           "Bh": dg.bh, "nh": dg.nh,
+                           "edges_per_shard": dg.nnz_s.tolist()}
+        n_cached = len(os.listdir(cache))
+        if n_cached != N_DIST_LPS:
+            raise SmokeFailure(f"{n_cached} cached partitions, expected "
+                               f"{N_DIST_LPS}")
         model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
                             generator=torch.Generator().manual_seed(seed))
-        ckpt = osp.join(tmp, "mdl.pth")
-        torch.save(model.state_dict(), ckpt)
-        argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
-                "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", "smoke",
-                "--arch", ARCH, "--fp16", "1", "--load_from", ckpt,
-                "--split", "trainval", "--warm_gate", "off", "--seed", str(seed)]
-        # the main path: counts to 0 just before, read just after
-        spmm_csr.launches = 0
-        gather_rows.launches = 0
-        saved_argv = sys.argv
-        sys.argv = ["lp_gnn_tpu_torch.pred_basis", *argv]
-        t0 = time.perf_counter()
-        try:
-            runpy.run_module("lp_gnn_tpu_torch.pred_basis", run_name="__main__",
-                             alter_sys=True)
-        finally:
-            sys.argv = saved_argv
-        t_serve = time.perf_counter() - t0
-        launches = {"spmm_csr": spmm_csr.launches,
-                    "gather_rows": gather_rows.launches}
+        model = model.to("cuda").eval()
+        res["breakdown"] = {"lp": g.fn, **dist_breakdown(model, g)}
+    return {**res, "partitions": parts}
 
-        log_dir = osp.join(tmp, "runs", "smoke")
-        out_dir = osp.join(log_dir, "pred-basis")
-        bas = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas"))
-        sort = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas.sort"))
-        if len(bas) != N_LPS or len(sort) != N_LPS:
-            raise SmokeFailure(f"expected {N_LPS} .bas and .sort files, got "
-                               f"{len(bas)} and {len(sort)}")
-        for f in bas:
-            con, var = read_bas_highs(osp.join(out_dir, f))
-            n_basic = int((con == 1).sum() + (var == 1).sum())
-            if (len(con), len(var)) != (M, N) or n_basic != M:
-                raise SmokeFailure(f"{f}: {n_basic} basic of {M} rows")
-            if int((var == 1).sum()) != int(((con == 0) | (con == 2)).sum()):
-                raise SmokeFailure(f"{f}: #basic structurals != #nonbasic rows")
-        forwards = FORWARDS_PER_LP * N_LPS
-        if launches["spmm_csr"] != SPMM_PER_FORWARD * forwards:
-            raise SmokeFailure(f"spmm_csr launched {launches['spmm_csr']} times "
-                               f"in {forwards} forwards, expected "
-                               f"{SPMM_PER_FORWARD * forwards}")
-        inf = json_load(osp.join(log_dir, "inf_time.json"))
-        times = inf["inf_time"]
-        if len(times) != N_LPS or not all(
-                np.isfinite(t) and t > 0 for t in times.values()):
-            raise SmokeFailure(f"inf_time.json: bad per-LP times {times}")
-        return {"lps": N_LPS, "bas_valid": len(bas), "forwards": forwards,
-                "launches": launches, "inf_time_s": times,
-                "inf_time_device": inf["device"],
-                "write_dataset_s": t_write, "pred_basis_s": t_serve}
+
+def dist_reference(seed: int) -> dict:
+    """One bench-shape LP's edge-partitioned logits (K=4 on the card)
+    against its single-card logits on the card, same weights. fp32: max
+    |err| <= 1e-3, as the reference phase holds the card to the CPU. bf16:
+    the dist path adds its local and halo parts in bf16 (one rounding more
+    than the single-card sum), so it is held to the single card's own bf16
+    spread: its mean |err| against the single-card fp32 logits is at most
+    twice the single-card bf16's."""
+    g = bench_graph(seed + 2000)
+    mesh = make_mesh(K_EDGE, "cuda")
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(f"{ARCH[:-1]},dtype='{dtype}')",
+                            generator=torch.Generator().manual_seed(seed))
+        model = model.to("cuda").eval()
+        for path, kw in (("single", {}),
+                         ("dist", {"edge_num_thresh": 0, "mesh": mesh})):
+            got = np.concatenate(model_inference(model, g, **kw))
+            if not (np.isfinite(got).all() and got.shape == (M + N, 3)):
+                raise SmokeFailure(f"dist_reference {dtype} {path}: bad logits")
+            logits[dtype, path] = got
+    ref = logits["float32", "single"]
+    err32 = np.abs(logits["float32", "dist"] - ref)
+    if err32.max() > 1e-3:
+        raise SmokeFailure(f"dist_reference fp32: dist vs single-card logits "
+                           f"differ by {err32.max()} > 1e-3")
+    dist16 = np.abs(logits["bfloat16", "dist"] - ref)
+    single16 = np.abs(logits["bfloat16", "single"] - ref)
+    if dist16.mean() > 2 * single16.mean():
+        raise SmokeFailure(f"dist_reference bf16: dist mean |err| "
+                           f"{dist16.mean()} > 2 x the single card's "
+                           f"{single16.mean()}")
+    return {"K": K_EDGE, "nodes": M + N,
+            "float32": {"max_abs_err": float(err32.max()),
+                        "mean_abs_err": float(err32.mean()), "atol": 1e-3},
+            "bfloat16": {"dist_mean_abs_err": float(dist16.mean()),
+                         "single_mean_abs_err": float(single16.mean()),
+                         "dist_max_abs_err": float(dist16.max()),
+                         "single_max_abs_err": float(single16.max())}}
 
 
 def breakdown(seed: int) -> dict:
@@ -409,7 +668,7 @@ def main(argv=None) -> int:
     try:
         smi = nvidia_smi()
         t0 = time.perf_counter()
-        logs = _build.build_all(["spmm", "gather"])
+        logs = _build.build_all(["spmm", "gather", "halo_a2a"])
         ptxas = {k: [ln.strip() for ln in v.splitlines()
                      if "registers" in ln or "spill" in ln] for k, v in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -418,11 +677,13 @@ def main(argv=None) -> int:
 
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         rng = np.random.RandomState(args.seed)
-        gt = GraphTensors.from_graph(bench_graph(args.seed), "cuda")
+        g = bench_graph(args.seed)
+        gt = GraphTensors.from_graph(g, "cuda")
         kernels = check_spmm(gt, gen) + check_gather(gt, gen, rng)
+        del gt
+        kernels += check_dist_kernels(g, gen)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
               "gather_floor": gather_floor(kernels)})
-        del gt
         torch.cuda.empty_cache()
 
         emit({"phase": "reference", **check_reference(args.seed)})
@@ -430,11 +691,18 @@ def main(argv=None) -> int:
         served = serve(args.seed)
         emit({"phase": "serve", **served})
         emit({"phase": "breakdown", **breakdown(args.seed)})
+        dist = dist_serve(args.seed)
+        emit({"phase": "dist_serve", **dist})
+        emit({"phase": "dist_reference", **dist_reference(args.seed)})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
+    # launches: on the edge-partitioned path, the one path that runs all
+    # three kernels; each path's count beside it
     for k in kernels:
-        k["launches"] = served["launches"][k["name"]]
+        k["launches"] = dist["launches"][k["name"]]
+        k["launches_by_path"] = {"serve": served["launches"][k["name"]],
+                                 "dist_serve": dist["launches"][k["name"]]}
         k["card"] = smi
     emit({"kernels": kernels})
     print(smi, flush=True)

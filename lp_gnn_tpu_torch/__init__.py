@@ -10,13 +10,17 @@ own copy.
 What runs here so far is the serving path, ``pred_basis``: a processed LP
 blob -> graph tensors (CSR and CSC edge orderings) -> GCN_FC forward over a
 hand-written CUDA SpMM -> top-m decode -> HiGHS ``.bas`` + ``.sort``, with
-the per-LP pure-inference time. ROADMAP.md lists what is still to come.
+the per-LP pure-inference time; and, under ``--mesh_shape edge=K``, the
+same forward edge-partitioned into K shards with the boundary halo
+exchange (a hand-written CUDA all-to-all), all shards on one device.
+ROADMAP.md lists what is still to come.
 
 Subpackages
 -----------
 - ``utils``   msgpack+numpy blob codec (plain Python), json, path helpers
 - ``data``    processed-blob dataset, graph tensors on a device
 - ``ops``     CSR SpMM and row gather: CUDA kernels, their plain versions
+- ``parallel`` edge mesh, graph partition, halo all-to-all kernel, dist GCN_FC
 - ``models``  GCN_FC as an ``nn.Module``; weights carried from JAX / torch
 - ``infer``   top-m decode, prediction and timing passes
 - ``io``      HiGHS ``.bas`` files

@@ -6,7 +6,9 @@ defaults and the same derived paths (``finalize``, config.py:186-200)::
     {data_prefix}/{dataset}/{solver_prefix}inp_tgt[-mM]/processed/*.pk
     {log_prefix}/{exp_nm}/...
 
-plus ``--device`` (``cuda`` by default; ``cpu`` only when asked).
+plus ``--device`` (``cuda`` by default; ``cpu`` only when asked). Edge
+partitions are cached in ``.../inp_tgt[-mM]/partitions/`` beside
+``processed/`` (``--part_cache``).
 """
 from __future__ import annotations
 
@@ -43,7 +45,10 @@ class Config:
                                            # "auto" calibration needs the
                                            # solver)
     # parallelism
-    mesh_shape: str = ""                   # edge=K is not ported
+    mesh_shape: str = ""                   # edge=K: edge-partitioned forward
+                                           # of graphs above edge_num_thresh,
+                                           # K shards on the one device
+    part_cache: int = 1                    # partition cache on disk
     # device
     device: str = "cuda"                   # cuda | cpu
     # derived (filled by finalize)

@@ -1,10 +1,14 @@
 """Prediction and timing passes (counterpart of ``lp_gnn_tpu/infer/predict.py``).
 
-``model_inference`` (:116) runs the full-graph forward of one LP on the
-model's device. The JAX package's two other branches, sampled shards for
-graphs above ``edge_num_thresh`` (:142-162) and edge-partitioned inference
-under ``--mesh_shape edge=K`` (:133-137), are not ported yet: they raise and
-name the ROADMAP item.
+``model_inference`` (:116) runs one LP's full-graph forward on the model's
+device, or, under ``--mesh_shape edge=K`` for graphs above
+``edge_num_thresh``, its edge-partitioned forward (:133-137) over K shards
+with the halo exchange. The JAX package builds no mesh when K exceeds its
+device count (``mesh_from_cfg`` :35-48); the port places all K shards on
+the model's one device instead (``parallel/mesh.py``), so the path runs on
+one GPU. Graphs above ``edge_num_thresh`` without a mesh take the sampled
+branch (:142-162), which is not ported: it raises and names the ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -20,33 +24,70 @@ from torch import nn
 from ..data.dataset import BipartiteGraph, LPDataset
 from ..data.graph import GraphTensors
 from ..io.bas import write_bas_highs
+from ..parallel import edge_partition
+from ..parallel.mesh import EdgeMesh, make_mesh, parse_mesh_shape
 from ..utils.serialize import df_dump, df_load, json_dump
 from .decode import inference_gnn
 
 
-def check_mesh(cfg) -> None:
-    """``--mesh_shape edge=K`` (K > 1) selects edge-partitioned inference,
-    which is not ported."""
-    spec = cfg.mesh_shape or ""
-    for part in spec.split(","):
-        k, _, v = part.partition("=")
-        if k.strip() == "edge" and int(v) > 1:
-            raise NotImplementedError(
-                "--mesh_shape edge=K (edge-partitioned inference) is not "
-                "ported to lp_gnn_tpu_torch yet (ROADMAP.md, queue item 7: "
-                "edge partition)")
+def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
+    """The edge mesh ``--mesh_shape edge=K`` asks for (K > 1), with every
+    shard on ``device``, or None (predict.py:35)."""
+    edge = parse_mesh_shape(cfg.mesh_shape).get("edge", 1)
+    return make_mesh(edge, device) if edge > 1 else None
+
+
+def _uses_dist_path(g: BipartiteGraph, edge_num_thresh,
+                    mesh: EdgeMesh | None) -> bool:
+    """predict.py:65; an arch without a distributed forward raises in
+    ``dist_apply``."""
+    return mesh is not None and g.nnz > edge_num_thresh
+
+
+def part_cache_dir(cfg) -> str | None:
+    """The partition cache beside the dataset's processed/ blobs, or None
+    when ``--part_cache 0`` (predict.py:71)."""
+    if cfg.part_cache and cfg.dataset_processed_prefix:
+        return osp.join(cfg.dataset_processed_prefix, "partitions")
+    return None
+
+
+def _dist_partition(g: BipartiteGraph, mesh: EdgeMesh,
+                    dist_cache: dict | None = None,
+                    cache_dir: str | None = None):
+    """The host partition of one graph, once per dataset pass
+    (predict.py:80): ``dist_cache`` holds the most recent graph and its
+    partition (the drivers visit graphs one after another)."""
+    if dist_cache and dist_cache["g"] is g:
+        return dist_cache["dg"]
+    dg = edge_partition.cached_partition_graph(
+        g, mesh.n_shards, cache_dir=cache_dir, fn=g.fn)
+    if dist_cache is not None:
+        dist_cache.update(g=g, dg=dg)
+    return dg
 
 
 def model_inference(model: nn.Module, g: BipartiteGraph,
-                    edge_num_thresh: float = np.inf):
+                    edge_num_thresh: float = np.inf,
+                    mesh: EdgeMesh | None = None,
+                    dist_cache: dict | None = None,
+                    part_dir: str | None = None):
     """Exact logits for every node of one graph (reference val.py:12-41):
-    one full-graph forward on the model's device. Returns
+    one full-graph forward on the model's device, edge-partitioned over
+    ``mesh`` for graphs above ``edge_num_thresh`` (``dist_cache``, one dict
+    per dataset pass, holds the host partition). Returns
     (logit_cons (m, 3), logit_vars (n, 3)) numpy fp32."""
+    if _uses_dist_path(g, edge_num_thresh, mesh):
+        dg = _dist_partition(g, mesh, dist_cache, cache_dir=part_dir)
+        with torch.inference_mode():
+            lc, lv = edge_partition.dist_apply(model, dg, mesh)
+        return lc[:g.ncons].cpu().numpy(), lv[:g.nvars].cpu().numpy()
     if g.nnz > edge_num_thresh:
         raise NotImplementedError(
             f"{g.fn}: {g.nnz} edges > edge_num_thresh={edge_num_thresh:g} "
             "takes the sampled-shard inference, which is not ported to "
-            "lp_gnn_tpu_torch yet (ROADMAP.md, queue item 5: sampling)")
+            "lp_gnn_tpu_torch yet (ROADMAP.md, queue item 5: sampling); "
+            "--mesh_shape edge=K runs it edge-partitioned instead")
     device = next(model.parameters()).device
     gt = GraphTensors.from_graph(g, device)
     with torch.inference_mode():
@@ -59,11 +100,14 @@ def predict_and_write_bases(model: nn.Module, ds: LPDataset, cfg,
                             decode_kwargs: dict | None = None) -> None:
     """Decode every graph and write HiGHS .bas + .sort files
     (reference scripts/pred_basis.py:70-111)."""
-    check_mesh(cfg)
     os.makedirs(out_dir, exist_ok=True)
+    mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
+    dist_cache: dict = {}
+    part_dir = part_cache_dir(cfg)
     for i in range(len(ds)):
         g = ds[i]
-        lc, lv = model_inference(model, g, cfg.edge_num_thresh)
+        lc, lv = model_inference(model, g, cfg.edge_num_thresh, mesh=mesh,
+                                 dist_cache=dist_cache, part_dir=part_dir)
         logits = np.concatenate([lc, lv]).astype(np.float32)
         m = g.ncons
         pred = decode_fn(logits, m, nnzs=_nnzs_for_decode(g, decode_fn),
@@ -102,38 +146,55 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
     """Pure-inference timing pass -> per-LP ``inf_time`` in seconds
     (reference pred_basis.py:158-176).
 
-    ``inf_time`` covers the forward (graph tensors built on the device
-    included, as the JAX package's includes ``pad_graph``) plus the top-m
-    decode: the median of 3 timed passes after one warm-up, each ending with
-    ``torch.cuda.synchronize()`` on the card. Written to
-    ``{log_dir}/inf_time.json`` and, where pandas is importable, into the
-    ``inf_time`` column of ``dump_info`` (``time.h5``)."""
-    check_mesh(cfg)
+    ``inf_time`` covers the forward (graph tensors, or the partition's
+    tensors, built on the device included, as the JAX package's includes
+    ``pad_graph``) plus the top-m decode: the median of 3 timed passes after
+    one warm-up, each ending with ``torch.cuda.synchronize()`` on the card.
+    The host partition of an edge-partitioned graph is a per-graph constant,
+    timed once into ``part_time`` and kept out of ``inf_time`` (predict.py
+    :290-295). Both go to ``{log_dir}/inf_time.json`` and, where pandas is
+    importable, into the ``inf_time`` / ``part_time`` columns of
+    ``dump_info`` (``time.h5``)."""
     device = next(model.parameters()).device
+    mesh = mesh_from_cfg(cfg, device)
+    dist_cache: dict = {}
+    part_dir = part_cache_dir(cfg)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    times = {}
+    times, part_times = {}, {}
     for i in range(len(ds)):
         g = ds[i]
-        model_inference(model, g, cfg.edge_num_thresh)   # warm-up
+        if _uses_dist_path(g, cfg.edge_num_thresh, mesh):
+            t0 = time.perf_counter()
+            _dist_partition(g, mesh, dist_cache, cache_dir=part_dir)
+            part_times[g.fn] = time.perf_counter() - t0
+
+        def infer():
+            return model_inference(model, g, cfg.edge_num_thresh, mesh=mesh,
+                                   dist_cache=dist_cache, part_dir=part_dir)
+
+        infer()   # warm-up
         sync()
         reps = []
         for _ in range(3):
             t0 = time.perf_counter()
-            lc, lv = model_inference(model, g, cfg.edge_num_thresh)
+            lc, lv = infer()
             inference_gnn(np.concatenate([lc, lv]), g.ncons)
             sync()
             reps.append(time.perf_counter() - t0)
         times[g.fn] = sorted(reps)[1]
         logging.info("inf_time %s %.6f s", g.fn, times[g.fn])
-    json_dump({"device": str(device), "inf_time": times},
+    json_dump({"device": str(device), "inf_time": times,
+               "part_time": part_times},
               osp.join(cfg.log_dir, "inf_time.json"))
     if dump_info and osp.exists(dump_info):
         df = df_load(dump_info)
         for fn, t in times.items():
             df.loc[df.fn == fn, "inf_time"] = t
+        for fn, t in part_times.items():
+            df.loc[df.fn == fn, "part_time"] = t
         df_dump(df, dump_info)
     return times

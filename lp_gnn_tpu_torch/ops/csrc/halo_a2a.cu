@@ -1,0 +1,97 @@
+// Halo all-to-all for Hopper (sm_90a), plain C interface (loaded with ctypes).
+//
+//   out[q][p*Bh : (p+1)*Bh, :] = in[p][q*Bh : (q+1)*Bh, :]    for p, q < K
+//
+// Replaces lp_gnn_tpu/parallel/pallas_halo.py:39 _a2a_kernel (called by :69
+// pallas_all_to_all), the halo exchange of the edge-partitioned forward
+// (lp_gnn_tpu/parallel/edge_partition.py:572 _halo_a2a), which equals
+// lax.all_to_all(x, ax, 0, 0, tiled=True): shard p's block q lands in shard
+// q's block p. The TPU kernel posts one local DMA for its own block and K-1
+// remote DMAs over ICI. Here the K shards' buffers are K device pointers
+// in a table passed by value, so one launch moves all K*K blocks, the
+// diagonal ones included (as the TPU kernel's local DMA copies its own
+// block). The table takes any K addresses the device can reach, so the same
+// kernel can take peer addresses once shards sit on several cards.
+//
+// Types: each block is Bh rows of F elements, contiguous, so a block is one
+// contiguous run of Bh*F*b bytes in its source and in its destination. The
+// kernel copies bytes (fp32 or bf16 alike) and does no arithmetic. Every
+// pointer must be 16-byte aligned and the block size a multiple of 16 bytes;
+// the caller checks both, and the launcher refuses anything else.
+//
+// Bound: bytes only. Each input byte read once and each output byte written
+// once, 2*K*K*Bh*F*b, over 3.35 TB/s. At the bench graph's halo (K=4,
+// Bh=30,056) that is 1.97 GB and about 0.59 ms at F=1024 bf16.
+//
+// Design against that bound: 16-byte loads and stores, neighbouring threads
+// on neighbouring 16-byte pieces, 4 independent loads in flight a thread
+// before its stores. The grid is (row pieces, source block p, destination
+// shard q): blockIdx.y and blockIdx.z pick one block pair, blockIdx.x
+// strides over its pieces. No shared memory, no synchronisation.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+constexpr int kMaxShards = 64;
+constexpr long long kMaxBlocks = 132LL * 32;  // 32 blocks of 256 an SM, 2 waves
+
+struct Table {
+  const uint4* src[kMaxShards];  // src[p]: shard p's (K*Bh, F) buffer
+  uint4* dst[kMaxShards];        // dst[q]: shard q's (K*Bh, F) buffer
+};
+
+__global__ void __launch_bounds__(kThreads)
+halo_a2a_kernel(const __grid_constant__ Table t, long long n16) {
+  const int p = blockIdx.y;
+  const int q = blockIdx.z;
+  const uint4* __restrict__ s = t.src[p] + static_cast<long long>(q) * n16;
+  uint4* __restrict__ d = t.dst[q] + static_cast<long long>(p) * n16;
+  const long long tile = static_cast<long long>(kThreads) * kUnroll;
+  const long long stride = static_cast<long long>(gridDim.x) * tile;
+  for (long long base = static_cast<long long>(blockIdx.x) * tile + threadIdx.x; base < n16;
+       base += stride) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + static_cast<long long>(u) * kThreads;
+      if (i < n16) v[u] = __ldg(s + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + static_cast<long long>(u) * kThreads;
+      if (i < n16) d[i] = v[u];
+    }
+  }
+}
+
+}  // namespace
+
+// src, dst: K device pointers each (1 <= K <= 64), 16-byte aligned; each
+// buffer holds K blocks of block_bytes (a positive multiple of 16). Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernel does not take; the caller
+// raises on anything but 0.
+extern "C" int lp_halo_a2a(const void* const* src, void* const* dst, int K,
+                           long long block_bytes, void* stream) {
+  if (K < 1 || K > kMaxShards || block_bytes <= 0 || block_bytes % 16 != 0)
+    return cudaErrorInvalidValue;
+  Table t = {};
+  for (int i = 0; i < K; ++i) {
+    if ((reinterpret_cast<uintptr_t>(src[i]) | reinterpret_cast<uintptr_t>(dst[i])) % 16 != 0)
+      return cudaErrorInvalidValue;
+    t.src[i] = static_cast<const uint4*>(src[i]);
+    t.dst[i] = static_cast<uint4*>(dst[i]);
+  }
+  const long long n16 = block_bytes / 16;
+  const long long tile = static_cast<long long>(kThreads) * kUnroll;
+  long long gx = (n16 + tile - 1) / tile;
+  const long long cap = kMaxBlocks / (static_cast<long long>(K) * K);
+  if (gx > cap) gx = cap > 0 ? cap : 1;
+  const dim3 grid(static_cast<unsigned>(gx), K, K);
+  halo_a2a_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(t, n16);
+  return cudaGetLastError();
+}

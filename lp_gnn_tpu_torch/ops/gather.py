@@ -4,8 +4,9 @@ Counterpart of the four TPU VMEM-gather probes,
 ``scripts/probe_vmem_gather.py`` (``vmem_gather_kernel`` :51,
 ``vmem_gather_loop_kernel`` :72) and ``scripts/probe_vmem_gather2.py``
 (``k_take_along`` :54, ``k_vector_index`` :60), which all compute this one
-function. It is not on the serving path: ``chip_smoke.py`` times it beside
-the SpMM as the measured cost of the row gather the SpMM is made of.
+function. The edge-partitioned forward gathers each shard's send rows with
+it (``parallel/edge_partition.py halo_gather``); ``chip_smoke.py`` also
+times it beside the SpMM as the cost of the row gather the SpMM is made of.
 
 On a CUDA tensor :func:`gather_rows` launches ``csrc/gather.cu`` or raises;
 on a CPU tensor it runs :func:`gather_rows_plain`.

@@ -1,0 +1,115 @@
+"""The halo all-to-all (K1): each shard's boundary block to its peer.
+
+Counterpart of ``lp_gnn_tpu/parallel/edge_partition.py:572 _halo_a2a`` and
+of the TPU kernel it selects, ``lp_gnn_tpu/parallel/pallas_halo.py:69
+pallas_all_to_all`` (``_a2a_kernel`` :39): K per-shard halo buffers of
+(K*Bh, F) rows in, K out, with ``out[q][p*Bh:(p+1)*Bh] =
+in[p][q*Bh:(q+1)*Bh]``, the tiled ``lax.all_to_all`` over the ``edge`` axis.
+
+On CUDA tensors :func:`halo_all_to_all` launches ``ops/csrc/halo_a2a.cu``
+(one launch for all K*K blocks) or raises; on CPU tensors it runs
+:func:`halo_all_to_all_plain`. There is no switch between transports: on
+the card this kernel is the only one.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from ..ops import _build
+
+MAX_SHARDS = 64   # the kernel's pointer table (csrc/halo_a2a.cu)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def halo_all_to_all_plain(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Plain PyTorch version: K*K block copies."""
+    k = len(bufs)
+    bh = bufs[0].shape[0] // k
+    outs = [torch.empty_like(b) for b in bufs]
+    for q in range(k):
+        for p in range(k):
+            outs[q][p * bh:(p + 1) * bh] = bufs[p][q * bh:(q + 1) * bh]
+    return outs
+
+
+def _lib():
+    fn = _build.load("halo_a2a").lp_halo_a2a
+    if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(bufs: Sequence[torch.Tensor]) -> None:
+    if not bufs:
+        raise ValueError("halo_all_to_all needs one buffer per shard")
+    devs = {b.device for b in bufs}
+    if len(devs) != 1:
+        raise NotImplementedError(
+            f"halo buffers on distinct devices {sorted(map(str, devs))}: the "
+            "exchange between cards (NVLink peer copies, NCCL) is not ported "
+            "yet (ROADMAP.md, queue item 7: edge partition)")
+    b0 = bufs[0]
+    if b0.dim() != 2:
+        raise ValueError("halo buffers must be 2-D (K*Bh, F), got "
+                         f"{tuple(b0.shape)}")
+    if any(b.shape != b0.shape for b in bufs):
+        raise ValueError("halo buffers of one exchange must share one shape, got "
+                         f"{sorted({tuple(b.shape) for b in bufs})}")
+    if b0.shape[0] % len(bufs):
+        raise ValueError(f"{b0.shape[0]} rows do not split into {len(bufs)} "
+                         "equal blocks")
+    if any(b.dtype != b0.dtype for b in bufs) or b0.dtype not in _DTYPES:
+        raise TypeError("halo buffers must all be fp32 or all bf16, got "
+                        f"{sorted({str(b.dtype) for b in bufs})}")
+    if not all(b.is_contiguous() for b in bufs):
+        raise ValueError("halo buffers must be contiguous")
+    if any(b.requires_grad for b in bufs) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "halo_all_to_all is forward-only: its backward (the same exchange) "
+            "comes with the training slice (ROADMAP.md, queue item 1: "
+            "training). Run under torch.no_grad().")
+
+
+def halo_all_to_all(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """K buffers (K*Bh, F) of one device, fp32 or bf16 -> K new buffers with
+    ``out[q][p*Bh:(p+1)*Bh] = bufs[p][q*Bh:(q+1)*Bh]``.
+
+    On the card K is at most 64, every buffer 16-byte aligned and a block
+    (Bh*F elements) a multiple of 16 bytes; the wrapper raises otherwise."""
+    _check(bufs)
+    dev = bufs[0].device
+    if dev.type == "cpu":
+        return halo_all_to_all_plain(bufs)
+    if dev.type != "cuda":
+        raise ValueError(f"halo_all_to_all runs on cuda or cpu, not {dev}")
+    k = len(bufs)
+    if k > MAX_SHARDS:
+        raise ValueError(f"halo_all_to_all kernel takes at most {MAX_SHARDS} "
+                         f"shards, got {k}")
+    outs = [torch.empty_like(b) for b in bufs]
+    block_bytes = bufs[0].numel() // k * bufs[0].element_size()
+    if block_bytes == 0:
+        return outs
+    if block_bytes % 16 or any(t.data_ptr() % 16 for t in (*bufs, *outs)):
+        raise ValueError(
+            "halo_all_to_all kernel needs 16-byte aligned buffers and blocks "
+            f"of a multiple of 16 bytes, got {block_bytes}-byte blocks")
+    src = (ctypes.c_void_p * k)(*(b.data_ptr() for b in bufs))
+    dst = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
+    fn = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(src, dst, k, block_bytes, stream)
+    if rc != 0:
+        raise RuntimeError(f"halo_all_to_all kernel launch failed: CUDA error {rc}")
+    halo_all_to_all.launches += 1
+    return outs
+
+
+halo_all_to_all.launches = 0   # kernel launches since the last reset

@@ -1,6 +1,7 @@
-"""The port's kernel wrappers (lp_gnn_tpu_torch/ops): argument checks and
-plain versions on the CPU, and, on a machine with an NVIDIA GPU, each CUDA
-kernel against its plain version (``cuda`` marker; skipped without a card).
+"""The port's kernel wrappers (lp_gnn_tpu_torch/ops, parallel/halo.py) and
+edge mesh: argument checks and plain versions on the CPU, and, on a machine
+with an NVIDIA GPU, each CUDA kernel against its plain version (``cuda``
+marker; skipped without a card).
 
 This file imports neither JAX nor the JAX package, so it runs where they
 are not installed, such as the machine with the card::
@@ -15,6 +16,9 @@ from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.ops import spmm as tspmm
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
+                                            halo_all_to_all_plain)
+from lp_gnn_tpu_torch.parallel.mesh import EdgeMesh, make_mesh
 
 torch.set_num_threads(2)
 
@@ -79,6 +83,57 @@ def test_gather_rows_plain(dtype):
         gather_rows(table, idx.long())
 
 
+def stacked_halo(k, bh, d, dtype, device="cpu", seed=0):
+    """K halo buffers (K*bh, d) as views of one (K, K*bh, d) tensor."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(k, k * bh, d, generator=gen).to(dtype).to(device)
+    return x, list(x.unbind(0))
+
+
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_halo_all_to_all_plain(k):
+    """Shard p's block q lands in shard q's block p: the stacked buffers
+    with their first two block axes swapped."""
+    x, bufs = stacked_halo(k, 5, 6, torch.float32)
+    before = halo_all_to_all.launches
+    out = halo_all_to_all(bufs)
+    assert halo_all_to_all.launches == before   # plain version: no launch
+    want = x.view(k, k, 5, 6).transpose(0, 1).reshape(k, k * 5, 6)
+    assert torch.equal(torch.stack(out), want)
+    assert torch.equal(torch.stack(halo_all_to_all_plain(bufs)), want)
+
+
+def test_halo_all_to_all_checks():
+    _, bufs = stacked_halo(2, 4, 8, torch.float32)
+    with pytest.raises(ValueError, match="one buffer per shard"):
+        halo_all_to_all([])
+    with pytest.raises(ValueError, match="share one shape"):
+        halo_all_to_all([bufs[0], bufs[1][:6]])
+    with pytest.raises(ValueError, match="equal blocks"):
+        halo_all_to_all([b[:7] for b in bufs])
+    with pytest.raises(ValueError, match="2-D"):
+        halo_all_to_all([b.reshape(-1) for b in bufs])
+    with pytest.raises(TypeError, match="fp32 or all bf16"):
+        halo_all_to_all([b.double() for b in bufs])
+    with pytest.raises(TypeError, match="fp32 or all bf16"):
+        halo_all_to_all([bufs[0], bufs[1].bfloat16()])
+    with pytest.raises(ValueError, match="contiguous"):
+        halo_all_to_all([torch.randn(8, 8).t() for _ in range(2)])
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        halo_all_to_all([b.clone().requires_grad_() for b in bufs])
+    with pytest.raises(NotImplementedError, match="queue item 7"):
+        halo_all_to_all([bufs[0], torch.empty(8, 8, device="meta")])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        halo_all_to_all([torch.empty(8, 8, device="meta")] * 2)
+
+
+def test_edge_mesh_one_device_only():
+    mesh = make_mesh(4, "cpu")
+    assert mesh.n_shards == 4 and mesh.device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="queue item 7"):
+        EdgeMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -126,3 +181,29 @@ def test_spmm_kernel_rejects_widths_it_does_not_take(cuda_device, dtype, d):
     with pytest.raises(ValueError, match="aligned"):
         tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
     assert tspmm.spmm_csr.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 1024])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_halo_all_to_all_matches_plain_on_card(cuda_device, k, d, dtype):
+    """K1 against its plain version on the card, exactly (a copy)."""
+    _, bufs = stacked_halo(k, 104 + k, d, dtype, cuda_device, seed=k * d)
+    before = halo_all_to_all.launches
+    out = halo_all_to_all(bufs)
+    ref = halo_all_to_all_plain(bufs)
+    torch.cuda.synchronize()
+    assert halo_all_to_all.launches == before + 1
+    for a, b in zip(out, ref, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_halo_all_to_all_kernel_rejects_misaligned(cuda_device):
+    # 3 fp32 a row and 1 row a block: 12-byte blocks
+    _, bufs = stacked_halo(2, 1, 3, torch.float32, cuda_device)
+    before = halo_all_to_all.launches
+    with pytest.raises(ValueError, match="aligned"):
+        halo_all_to_all(bufs)
+    assert halo_all_to_all.launches == before

@@ -23,10 +23,12 @@ from lp_gnn_tpu_torch import pred_basis
 from lp_gnn_tpu_torch.config import Config
 from lp_gnn_tpu_torch.data.dataset import LPDataset
 from lp_gnn_tpu_torch.infer import decode as tdecode
-from lp_gnn_tpu_torch.infer.predict import predict_and_write_bases
+from lp_gnn_tpu_torch.infer.predict import (model_inference,
+                                             predict_and_write_bases)
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
 from lp_gnn_tpu_torch.models.convert import state_dict_from_jax_params
 from lp_gnn_tpu_torch.models.gcn import build_model
+from lp_gnn_tpu_torch.utils.serialize import df_load, have_pandas
 from tests.test_torch_spmm import random_graph
 
 torch.set_num_threads(2)
@@ -155,10 +157,71 @@ def test_pred_basis_cli_on_cpu(data_prefix, params, tmp_path):
     assert all(t > 0 for t in inf["inf_time"].values())
 
 
+def _decision_margins(logits, m):
+    """Per node, how far its label is from flipping under the top-m decode:
+    the log-P(basic) gap to the other side of the m-th place, and the gap
+    between its LL and UL logits."""
+    lp = logits - np.logaddexp.reduce(logits, axis=1, keepdims=True)
+    b = lp[:, 1]
+    ranked = np.sort(b)[::-1]
+    gap_basis = np.where(b >= ranked[m - 1], b - ranked[m], ranked[m - 1] - b)
+    return gap_basis, np.abs(logits[:, 0] - logits[:, 2])
+
+
+def test_pred_basis_cli_edge_partitioned(data_prefix, params, tmp_path):
+    """``--mesh_shape edge=2 --edge_num_thresh 0`` runs every LP through the
+    edge-partitioned forward on the CPU: valid .bas files equal to the run
+    without the mesh, a label differing only where that node's decision is
+    within the fp32 dist tolerance (5e-4 a logit, tests/test_parallel.py:43)
+    of flipping; ``part_time`` beside ``inf_time``; the partitions cached as
+    the port's own files."""
+    model = build_model(ARCH)
+    model.load_state_dict(state_dict_from_jax_params(params))
+    ckpt = str(tmp_path / "mdl.pth")
+    torch.save(model.state_dict(), ckpt)
+    common = ("--load_from", ckpt, "--split", "trainval", "--warm_gate", "off",
+              "--device", "cpu")
+    single = pred_basis.main(_cli(data_prefix, str(tmp_path / "single"),
+                                  *common))
+    dist = pred_basis.main(_cli(data_prefix, str(tmp_path / "dist"), *common,
+                                "--mesh_shape", "edge=2",
+                                "--edge_num_thresh", "0"))
+    bas = _files(dist, ".bas")
+    assert bas == _files(single, ".bas") and len(bas) == N_LPS
+    ds = LPDataset(osp.join(data_prefix, "tiny", "highs-inp_tgt"))
+    tol = 5e-4
+    for i, f in enumerate(bas):
+        con, var = read_bas_highs(osp.join(dist, f))
+        assert int((con == 1).sum() + (var == 1).sum()) == len(con)
+        assert int((var == 1).sum()) == int(((con == 0) | (con == 2)).sum())
+        want = np.concatenate(read_bas_highs(osp.join(single, f)))
+        diff = np.flatnonzero(np.concatenate([con, var]) != want)
+        if len(diff):
+            g = ds[int(f[len("lp_"):-len(".bas")])]
+            logits = np.concatenate(model_inference(model.eval(), g))
+            gap_basis, gap_lu = _decision_margins(logits, g.ncons)
+            assert ((gap_basis[diff] <= 4 * tol) | (gap_lu[diff] <= 2 * tol)).all()
+    log_dir = osp.dirname(dist.rstrip("/"))
+    with open(osp.join(log_dir, "inf_time.json")) as f:
+        inf = json.load(f)
+    names = [f"lp_{i}" for i in range(N_LPS)]
+    assert sorted(inf["inf_time"]) == names and sorted(inf["part_time"]) == names
+    assert all(t > 0 for t in (*inf["inf_time"].values(),
+                               *inf["part_time"].values()))
+    if have_pandas():
+        df = df_load(osp.join(log_dir, "time.h5")).set_index("fn")
+        assert (df.loc[names, "part_time"] > 0).all()
+    parts = os.listdir(osp.join(data_prefix, "tiny", "highs-inp_tgt",
+                                "partitions"))
+    assert len(parts) == N_LPS and all(p.endswith(".tpart.npz") for p in parts)
+
+
+# explicit ids keep each remaining case's test name
 @pytest.mark.parametrize("extra,match", [
-    (["--warm_gate", "auto"], "--warm_gate off"),
-    (["--warm_gate", "off", "--mesh_shape", "edge=2"], "edge partition"),
-    (["--warm_gate", "off", "--edge_num_thresh", "100"], "sampling"),
+    pytest.param(["--warm_gate", "auto"], "--warm_gate off",
+                 id="extra0---warm_gate off"),
+    pytest.param(["--warm_gate", "off", "--edge_num_thresh", "100"],
+                 "sampling", id="extra2-sampling"),
 ])
 def test_unported_routes_raise(data_prefix, tmp_path, extra, match):
     """Routes this slice does not port raise and name the ROADMAP item;
