@@ -10,10 +10,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. kernels: on a graph of the repo's bench shape (bench.py:58-60,91-111:
    E=1,000,000 edges, M=65,536 constraints, N=131,072 variables, 10% of
    edges on hot rows, from ``--seed`` with numpy) runs the CSR SpMM in both
-   directions at D=8 and D=1024, fp32 and bf16, and the row gather at the
-   probes' shapes and the SpMM's, each against its plain PyTorch version on
-   the card; times kernel, plain version and a library call the package
-   never makes; computes each kernel's bound.
+   directions at D=8 and D=1024, fp32 and bf16, then at D=1024 bf16 a dense
+   row of 65,536 edges and a graph whose x fits L2 whole, and the row gather
+   at the probes' shapes and the SpMM's, each against its plain PyTorch
+   version on the card, the SpMM also bit-identical over two calls; times
+   kernel (CUDA events, ``ms``; its own device time from ``torch.profiler``,
+   ``device_ms``), plain version and a library call the package never
+   makes; computes each kernel's bound.
 3. reference: GCN_FC(8,8,hids=1024,depth=3) logits on the card against the
    same weights on the CPU, on a small graph, in fp32 and bf16.
 4. serve: writes 6 processed LPs of the bench shape (reference blob
@@ -146,6 +149,52 @@ def time_ms(fn, iters: int, warm: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def kernel_iters(d: int) -> int:
+    """Calls a kernel case is timed over: at D=8 back-to-back calls are
+    bound by the host and vary from call to call, so 200; else 20."""
+    return 200 if d == 8 else 20
+
+
+def profile_kernels(fn, calls: int, want: dict[str, int],
+                    tries: int = 3) -> tuple[dict, bool]:
+    """Device time (ms) and launch count of each CUDA kernel over ``calls``
+    calls of ``fn``, from ``torch.profiler``, by name. The profiler can lose
+    events, so it runs again (up to ``tries`` times) until every kernel
+    named in ``want`` (a part of its name -> launches) was seen that often;
+    also returns whether it was."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen: dict[str, list] = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                tn = seen.setdefault(e.key, [0.0, 0])
+                tn[0] += (getattr(e, "self_device_time_total", 0) or 0) / 1e3
+                tn[1] += e.count
+        complete = all(sum(n for k, (_, n) in seen.items() if name in k) == want_n
+                       for name, want_n in want.items())
+        if complete:
+            break
+    return seen, complete
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 5) -> float | None:
+    """The kernel's own CUDA time a launch over ``iters`` calls of ``fn``
+    (None where the profiler did not see every launch). Beside the
+    event-timed ``ms`` it shows what the kernel itself takes where
+    back-to-back calls are bound by the host."""
+    fn()
+    torch.cuda.synchronize()
+    seen, complete = profile_kernels(fn, iters, {kernel: iters})
+    if not complete:
+        return None
+    return sum(t for k, (t, _) in seen.items() if kernel in k) / iters
+
+
 def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = n_flops / FP32_FLOP_S * 1e3
@@ -169,6 +218,7 @@ def spmm_case(case: str, ptr, idx, val, x, on_path) -> dict:
     package never calls."""
     n_dst, n_e, d = ptr.shape[0] - 1, idx.shape[0], x.shape[1]
     out = spmm_csr(ptr, idx, val, x)
+    again = spmm_csr(ptr, idx, val, x)
     ref = spmm_csr_plain(ptr, idx, val, x)
     torch.cuda.synchronize()
     rtol, atol = SPMM_TOL[x.dtype]
@@ -176,7 +226,11 @@ def spmm_case(case: str, ptr, idx, val, x, on_path) -> dict:
     if not ok:
         raise SmokeFailure(f"spmm_csr {case}: max |err| {err} "
                            f"beyond rtol={rtol}, atol={atol}")
-    del out, ref
+    bits = torch.int32 if x.dtype == torch.float32 else torch.int16
+    if not torch.equal(out.view(bits), again.view(bits)):
+        raise SmokeFailure(f"spmm_csr {case}: two calls differ (the kernel "
+                           "must be deterministic)")
+    del out, again, ref
     b = x.element_size()
     s_used = int(torch.unique(idx).numel())
     n_bytes = (n_dst + 1) * 4 + n_e * 8 + s_used * d * b + n_dst * d * b
@@ -189,10 +243,12 @@ def spmm_case(case: str, ptr, idx, val, x, on_path) -> dict:
         "source": "lp_gnn_tpu_torch/ops/csrc/spmm.cu",
         "replaces": "lp_gnn_tpu/ops/spmm.py:77",
         "launches": None, "max_abs_err": err,
-        "ms": time_ms(lambda: spmm_csr(ptr, idx, val, x), 20),
+        "ms": time_ms(lambda: spmm_csr(ptr, idx, val, x), kernel_iters(d)),
+        "device_ms": kernel_device_ms(lambda: spmm_csr(ptr, idx, val, x),
+                                      "spmm_csr_kernel"),
         "plain_ms": time_ms(lambda: spmm_csr_plain(ptr, idx, val, x), 5),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(lambda: torch.sparse.mm(a, x), 10),
+        "library_ms": time_ms(lambda: torch.sparse.mm(a, x), kernel_iters(d) // 2),
         "case": case, "on_path": on_path,
         "num_dst": n_dst, "num_src": x.shape[0], "nnz": n_e, "D": d,
         "tol": {"rtol": rtol, "atol": atol},
@@ -219,6 +275,42 @@ def check_spmm(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
     return rows
 
 
+def csr_of(counts: np.ndarray, n_src: int, rng: np.random.RandomState,
+           positive: bool):
+    """ptr, idx, val on the card for rows of ``counts`` edges from uniform
+    sources; val in [0.5, 1) if ``positive``, else in [-0.5, 0.5)."""
+    ptr = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    idx = rng.randint(0, n_src, int(ptr[-1])).astype(np.int32)
+    val = rng.rand(int(ptr[-1])).astype(np.float32)
+    val = val * 0.5 + 0.5 if positive else val - 0.5
+    return (torch.from_numpy(a).cuda() for a in (ptr.astype(np.int32), idx, val))
+
+
+def check_spmm_shapes(gen: torch.Generator,
+                      rng: np.random.RandomState) -> list[dict]:
+    """The SpMM at D=1024 bf16 off the bench graph, under SPMM_TOL: one
+    dense row of 65,536 edges among 1,023 rows of 0-8 edges, from the v2c
+    source count (x 268 MB, read in slabs), with positive terms (val in
+    [0.5, 1), x in [0, 1)) so that its fp32 sums in two orders differ by far
+    less than a bf16 ulp, as they would not where 65,536 terms cancel to
+    near 0; and a graph of the bench degree whose x fits L2 whole (S=8192,
+    16.8 MB; M=65,536 rows, E=1M)."""
+    counts = rng.randint(0, 9, 1024)
+    counts[512] = 65_536
+    ptr, idx, val = csr_of(counts, N, rng, True)
+    x = torch.rand(N, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    rows = [spmm_case("dense row 65536 edges S=131072 D=1024 bfloat16",
+                      ptr, idx, val, x, False)]
+    del x
+    counts = np.bincount(rng.randint(0, M, E), minlength=M)
+    ptr, idx, val = csr_of(counts, 8192, rng, False)
+    x = torch.randn(8192, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    rows.append(spmm_case("x in L2 S=8192 M=65536 E=1M D=1024 bfloat16",
+                          ptr, idx, val, x, False))
+    return rows
+
+
 def gather_case(case: str, table, idx, on_path) -> dict:
     """One gather case against its plain version (exact: a copy)."""
     out = gather_rows(table, idx)
@@ -237,10 +329,13 @@ def gather_case(case: str, table, idx, on_path) -> dict:
         "source": "lp_gnn_tpu_torch/ops/csrc/gather.cu",
         "replaces": "scripts/probe_vmem_gather.py:51",
         "launches": None, "max_abs_err": err,
-        "ms": time_ms(lambda: gather_rows(table, idx), 20),
+        "ms": time_ms(lambda: gather_rows(table, idx), kernel_iters(d)),
+        "device_ms": kernel_device_ms(lambda: gather_rows(table, idx),
+                                      "gather_rows_kernel"),
         "plain_ms": time_ms(lambda: gather_rows_plain(table, idx), 20),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(lambda: torch.index_select(table, 0, idx), 20),
+        "library_ms": time_ms(lambda: torch.index_select(table, 0, idx),
+                              kernel_iters(d)),
         "case": case, "on_path": on_path,
         "also_replaces": ["scripts/probe_vmem_gather.py:72",
                           "scripts/probe_vmem_gather2.py:54",
@@ -291,11 +386,13 @@ def halo_case(case: str, k: int, bh: int, d: int, dtype, gen) -> dict:
         "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
         "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
         "launches": None, "max_abs_err": 0.0,
-        "ms": time_ms(lambda: halo_all_to_all(bufs), 20),
+        "ms": time_ms(lambda: halo_all_to_all(bufs), kernel_iters(d)),
+        "device_ms": kernel_device_ms(lambda: halo_all_to_all(bufs),
+                                      "halo_a2a_kernel"),
         "plain_ms": time_ms(lambda: halo_all_to_all_plain(bufs), 10),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(lambda: stacked.view(k, k, bh, d)
-                              .transpose(0, 1).contiguous(), 20),
+                              .transpose(0, 1).contiguous(), kernel_iters(d)),
         "case": case, "on_path": "dist_serve" if (
             k == K_EDGE and dtype == torch.bfloat16) else False,
         "K": k, "Bh": bh, "D": d, "tol": "exact", "bytes": n_bytes,
@@ -482,21 +579,19 @@ def serve(seed: int) -> dict:
     return res
 
 
-def device_ms_by_kernel(fn) -> dict:
+def device_ms_by_kernel(fn) -> tuple[dict, bool]:
     """Device time of the 12 costliest kernels one call of ``fn`` launches,
-    summed by name (ms), from ``torch.profiler``; empty where the profiler
-    sees no device activity."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
+    summed by name (ms), from ``torch.profiler``, and whether the profile
+    saw every launch of the port's kernels that a dist forward makes."""
+    seen, complete = profile_kernels(fn, 1, {
+        "spmm_csr_kernel": DIST_PER_FORWARD["spmm_csr"],
+        "gather_rows_kernel": DIST_PER_FORWARD["gather_rows"],
+        "halo_a2a_kernel": DIST_PER_FORWARD["halo_all_to_all"]})
     out = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0) or 0
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.key[:90]] = out.get(e.key[:90], 0.0) + t / 1e3
-    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:12])
+    for k, (t, _) in seen.items():
+        if t > 0:
+            out[k[:90]] = out.get(k[:90], 0.0) + t
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:12]), complete
 
 
 def dist_breakdown(model, g: BipartiteGraph) -> dict:
@@ -541,10 +636,11 @@ def dist_breakdown(model, g: BipartiteGraph) -> dict:
                                      ev[2].elapsed_time(ev[3]))):
                 stages[k].append(v)
     with torch.inference_mode():
-        by_kernel = device_ms_by_kernel(
+        by_kernel, complete = device_ms_by_kernel(
             lambda: edge_partition.dist_gcn_fc_apply(model, dt))
     return {**{k: sorted(v)[1] for k, v in stages.items()},
-            "dist_forward_by_kernel_ms": by_kernel}
+            "dist_forward_by_kernel_ms": by_kernel,
+            "dist_forward_profile_complete": complete}
 
 
 def dist_serve(seed: int) -> dict:
@@ -679,7 +775,8 @@ def main(argv=None) -> int:
         rng = np.random.RandomState(args.seed)
         g = bench_graph(args.seed)
         gt = GraphTensors.from_graph(g, "cuda")
-        kernels = check_spmm(gt, gen) + check_gather(gt, gen, rng)
+        kernels = (check_spmm(gt, gen) + check_spmm_shapes(gen, rng)
+                   + check_gather(gt, gen, rng))
         del gt
         kernels += check_dist_kernels(g, gen)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,

@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -96,3 +98,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def launch_on(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)``, a kernel's C launcher, on ``dev``'s current
+    stream. ``dev`` is made current for the call only when it is not
+    already, and the stream is read as a raw handle: entering
+    ``torch.cuda.device`` and building a ``torch.cuda.Stream`` cost
+    microseconds each, which add up on the narrow launches that are bound
+    by the host."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import launch_on
 
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -57,11 +58,9 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                       device=table.device)
     if out.numel() == 0:
         return out
-    fn = _lib()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = fn(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
-                idx.shape[0], table.shape[1], _ELEM_BYTES[table.dtype], stream)
+    rc = launch_on(table.device, _lib(), idx.data_ptr(), table.data_ptr(),
+                   out.data_ptr(), idx.shape[0], table.shape[1],
+                   _ELEM_BYTES[table.dtype])
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
     gather_rows.launches += 1

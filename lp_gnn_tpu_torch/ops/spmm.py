@@ -19,9 +19,10 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import launch_on
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_PIECES = 256   # 16-byte pieces a row: 32 lanes x 8 (csrc/spmm.cu)
+_MAX_PIECES = 256   # 16-byte pieces a row (csrc/spmm.cu kMaxPieces)
 
 
 def spmm_csr_plain(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
@@ -41,10 +42,30 @@ def spmm_csr_plain(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 def _lib():
     fn = _build.load("spmm").lp_spmm_csr
     if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
+            [ctypes.c_longlong] + [ctypes.c_int] * 2 + \
+            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+# The kernel's workspace for rows it splits across CTAs, one per device and
+# stream (launches that share one must be ordered): zeroed when allocated,
+# grown when the kernel asks for more, and handed back zeroed where it
+# counts by every launch.
+_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _launch(dev, fn, *args) -> int:
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ws = _WORKSPACE.get(key)
+    ws_ptr, ws_bytes = (0, 0) if ws is None else (ws.data_ptr(), ws.numel())
+    rc = launch_on(dev, fn, *args, ws_ptr, ws_bytes)
+    if rc < 0:   # the workspace holds fewer than -rc KiB: grow it, launch again
+        ws = _WORKSPACE[key] = torch.zeros(-rc * 1024, dtype=torch.uint8,
+                                           device=dev)
+        rc = launch_on(dev, fn, *args, ws.data_ptr(), ws.numel())
+    return rc
 
 
 def _check(ptr, idx, val, x):
@@ -61,15 +82,19 @@ def _check(ptr, idx, val, x):
                          "with idx and val of one length")
     if ptr.shape[0] < 1:
         raise ValueError("ptr must hold num_dst+1 >= 1 entries")
-    devs = {t.device for t in (ptr, idx, val, x)}
-    if len(devs) != 1:
+    dev = x.device
+    if not ptr.device == idx.device == val.device == dev:
+        devs = {t.device for t in (ptr, idx, val, x)}
         raise ValueError(f"tensors on different devices: {devs}")
-    if not all(t.is_contiguous() for t in (ptr, idx, val, x)):
+    if not (ptr.is_contiguous() and idx.is_contiguous()
+            and val.is_contiguous() and x.is_contiguous()):
         raise ValueError("ptr, idx, val and x must be contiguous")
+    return dev
 
 
 def _check_kernel_width(x):
-    """The kernel reads and writes rows in 16-byte pieces, one pass a row."""
+    """The kernel reads and writes rows in 16-byte pieces, at most 256 a
+    row (csrc/spmm.cu)."""
     vec = 16 // x.element_size()
     d = x.shape[1]
     if d % vec or d > _MAX_PIECES * vec:
@@ -97,21 +122,19 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
             "spmm_csr is forward-only: its backward (the kernel over the "
             "transpose ordering) comes with the training slice (ROADMAP.md, "
             "queue item 1: training). Run under torch.no_grad().")
-    _check(ptr, idx, val, x)
-    if x.device.type == "cpu":
+    dev = _check(ptr, idx, val, x)
+    if dev.type == "cpu":
         return spmm_csr_plain(ptr, idx, val, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmm_csr runs on cuda or cpu, not {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"spmm_csr runs on cuda or cpu, not {dev}")
     num_dst, d = ptr.shape[0] - 1, x.shape[1]
-    out = torch.empty((num_dst, d), dtype=x.dtype, device=x.device)
+    out = torch.empty((num_dst, d), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
     _check_kernel_width(x)
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(ptr.data_ptr(), idx.data_ptr(), val.data_ptr(), x.data_ptr(),
-                out.data_ptr(), num_dst, d, _DTYPE_CODE[x.dtype], stream)
+    rc = _launch(dev, _lib(), ptr.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), num_dst, x.shape[0],
+                 idx.shape[0], d, _DTYPE_CODE[x.dtype])
     if rc != 0:
         raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {rc}")
     spmm_csr.launches += 1

@@ -19,6 +19,7 @@ from typing import Sequence
 import torch
 
 from ..ops import _build
+from ..ops._build import launch_on
 
 MAX_SHARDS = 64   # the kernel's pointer table (csrc/halo_a2a.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -48,28 +49,28 @@ def _lib():
 def _check(bufs: Sequence[torch.Tensor]) -> None:
     if not bufs:
         raise ValueError("halo_all_to_all needs one buffer per shard")
-    devs = {b.device for b in bufs}
-    if len(devs) != 1:
+    b0 = bufs[0]
+    dev, shape, dtype = b0.device, b0.shape, b0.dtype
+    if any(b.device != dev for b in bufs):
+        devs = {b.device for b in bufs}
         raise NotImplementedError(
             f"halo buffers on distinct devices {sorted(map(str, devs))}: the "
             "exchange between cards (NVLink peer copies, NCCL) is not ported "
             "yet (ROADMAP.md, queue item 7: edge partition)")
-    b0 = bufs[0]
-    if b0.dim() != 2:
-        raise ValueError("halo buffers must be 2-D (K*Bh, F), got "
-                         f"{tuple(b0.shape)}")
-    if any(b.shape != b0.shape for b in bufs):
+    if len(shape) != 2:
+        raise ValueError(f"halo buffers must be 2-D (K*Bh, F), got {tuple(shape)}")
+    if any(b.shape != shape for b in bufs):
         raise ValueError("halo buffers of one exchange must share one shape, got "
                          f"{sorted({tuple(b.shape) for b in bufs})}")
-    if b0.shape[0] % len(bufs):
-        raise ValueError(f"{b0.shape[0]} rows do not split into {len(bufs)} "
+    if shape[0] % len(bufs):
+        raise ValueError(f"{shape[0]} rows do not split into {len(bufs)} "
                          "equal blocks")
-    if any(b.dtype != b0.dtype for b in bufs) or b0.dtype not in _DTYPES:
+    if dtype not in _DTYPES or any(b.dtype != dtype for b in bufs):
         raise TypeError("halo buffers must all be fp32 or all bf16, got "
                         f"{sorted({str(b.dtype) for b in bufs})}")
     if not all(b.is_contiguous() for b in bufs):
         raise ValueError("halo buffers must be contiguous")
-    if any(b.requires_grad for b in bufs) and torch.is_grad_enabled():
+    if torch.is_grad_enabled() and any(b.requires_grad for b in bufs):
         raise NotImplementedError(
             "halo_all_to_all is forward-only: its backward (the same exchange) "
             "comes with the training slice (ROADMAP.md, queue item 1: "
@@ -80,10 +81,13 @@ def halo_all_to_all(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """K buffers (K*Bh, F) of one device, fp32 or bf16 -> K new buffers with
     ``out[q][p*Bh:(p+1)*Bh] = bufs[p][q*Bh:(q+1)*Bh]``.
 
-    On the card K is at most 64, every buffer 16-byte aligned and a block
-    (Bh*F elements) a multiple of 16 bytes; the wrapper raises otherwise."""
+    On the card the K outputs are views of one (K, K*Bh, F) tensor, made by
+    one allocation; K is at most 64, every buffer 16-byte aligned and a
+    block (Bh*F elements) a multiple of 16 bytes; the wrapper raises
+    otherwise."""
     _check(bufs)
-    dev = bufs[0].device
+    b0 = bufs[0]
+    dev = b0.device
     if dev.type == "cpu":
         return halo_all_to_all_plain(bufs)
     if dev.type != "cuda":
@@ -92,20 +96,23 @@ def halo_all_to_all(bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     if k > MAX_SHARDS:
         raise ValueError(f"halo_all_to_all kernel takes at most {MAX_SHARDS} "
                          f"shards, got {k}")
-    outs = [torch.empty_like(b) for b in bufs]
-    block_bytes = bufs[0].numel() // k * bufs[0].element_size()
+    rows, f = b0.shape
+    out = torch.empty((k, rows, f), dtype=b0.dtype, device=dev)
+    outs = list(out.unbind(0))
+    buf_bytes = rows * f * b0.element_size()
+    block_bytes = buf_bytes // k
     if block_bytes == 0:
         return outs
-    if block_bytes % 16 or any(t.data_ptr() % 16 for t in (*bufs, *outs)):
+    src = [b.data_ptr() for b in bufs]
+    base = out.data_ptr()
+    if block_bytes % 16 or base % 16 or any(a % 16 for a in src):
         raise ValueError(
             "halo_all_to_all kernel needs 16-byte aligned buffers and blocks "
             f"of a multiple of 16 bytes, got {block_bytes}-byte blocks")
-    src = (ctypes.c_void_p * k)(*(b.data_ptr() for b in bufs))
-    dst = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(src, dst, k, block_bytes, stream)
+    table = ctypes.c_void_p * k
+    rc = launch_on(dev, _lib(), table(*src),
+                   table(*range(base, base + k * buf_bytes, buf_bytes)), k,
+                   block_bytes)
     if rc != 0:
         raise RuntimeError(f"halo_all_to_all kernel launch failed: CUDA error {rc}")
     halo_all_to_all.launches += 1

@@ -183,6 +183,87 @@ def test_spmm_kernel_rejects_widths_it_does_not_take(cuda_device, dtype, d):
     assert tspmm.spmm_csr.launches == before
 
 
+def csr_from_counts(rng, counts, n_src, positive):
+    """ptr, idx, val (int32, int32, fp32 numpy) of rows with ``counts``
+    edges from ``n_src`` sources; ``positive`` keeps every val in [0.5, 1)."""
+    ptr = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    idx = rng.randint(0, n_src, int(ptr[-1])).astype(np.int32)
+    val = rng.rand(int(ptr[-1])).astype(np.float32)
+    val = val * 0.5 + 0.5 if positive else val * 2 - 1
+    return ptr.astype(np.int32), idx, val
+
+
+def spmm_case_counts(name, rng):
+    """Row lengths and (S, D, dtype) of the SpMM's edge cases: a dense row
+    over hundreds of CTAs' shares, rows longer than the kernel's long-row
+    threshold (split across CTAs, or summed by one), runs of empty rows,
+    widths that leave a partial slab or idle lanes, one source row, and
+    more source rows than three quarters of the L2 holds at D."""
+    if name == "dense_row":
+        counts = rng.randint(0, 9, 64)
+        counts[17] = 65_536
+        return counts, 4096, 1024, torch.bfloat16
+    if name == "long_rows":            # each split over several CTAs
+        counts = rng.randint(0, 20, 2000)
+        counts[::50] = rng.randint(300, 3000, 40)
+        return counts, 5000, 1024, torch.bfloat16
+    if name == "long_rows_mixed":      # most within one CTA's share
+        counts = rng.randint(0, 20, 100_000)
+        counts[::1000] = rng.randint(300, 1000, 100)
+        return counts, 5000, 64, torch.bfloat16
+    if name.startswith("empty_rows"):
+        counts = rng.randint(0, 6, 3000) * (rng.rand(3000) < 0.3)
+        counts[:700] = 0
+        counts[-500:] = 0
+        d, dt = (8, torch.bfloat16) if name == "empty_rows_d8" else (
+            1024, torch.float32)
+        return counts, 500, d, dt
+    if name == "partial_slab_d1016":   # 127 pieces: slabs of 32, the last 31
+        return rng.randint(0, 12, 3000), 20_000, 1016, torch.bfloat16
+    if name == "partial_slab_d24":     # 3 pieces: one lane of 4 idle
+        return rng.randint(0, 12, 3000), 700, 24, torch.bfloat16
+    if name == "tiny_src":
+        return rng.randint(0, 12, 500), 1, 64, torch.float32
+    if name == "large_src":            # 200,000 x 512 B: slabs of 8 pieces
+        return rng.randint(0, 4, 50_000), 200_000, 256, torch.bfloat16
+    raise KeyError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dense_row", "long_rows", "long_rows_mixed",
+                                  "empty_rows_d8",
+                                  "empty_rows_d1024", "partial_slab_d1016",
+                                  "partial_slab_d24", "tiny_src", "large_src"])
+def test_spmm_edge_cases_on_card(cuda_device, name):
+    """The SpMM's schedule at its edges against the plain version, and
+    bit-identical over two calls (fp32 rtol 1e-4 atol 1e-5; bf16 one bf16
+    ulp). Rows of hundreds to 65,536 edges take positive terms, so their
+    fp32 sums in two orders differ by far less than the tolerance, as they
+    would not where terms cancel to near 0."""
+    rng = np.random.RandomState(len(name))
+    counts, n_src, d, dtype = spmm_case_counts(name, rng)
+    long_sums = counts.max() > 256
+    ptr, idx, val = (torch.from_numpy(a).to(cuda_device)
+                     for a in csr_from_counts(rng, counts, n_src, long_sums))
+    gen = torch.Generator(device=cuda_device).manual_seed(len(name))
+    x = (torch.rand(n_src, d, generator=gen, device=cuda_device) if long_sums
+         else torch.randn(n_src, d, generator=gen, device=cuda_device))
+    x = x.to(dtype)
+    before = tspmm.spmm_csr.launches
+    out = tspmm.spmm_csr(ptr, idx, val, x)
+    again = tspmm.spmm_csr(ptr, idx, val, x)
+    ref = tspmm.spmm_csr_plain(ptr, idx, val, x)
+    torch.cuda.synchronize()
+    assert tspmm.spmm_csr.launches == before + 2
+    assert out.shape == (len(counts), d) and out.dtype == dtype
+    assert not out[torch.from_numpy(counts == 0).to(cuda_device)].any()
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(out.view(bits), again.view(bits))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [8, 1024])
@@ -197,6 +278,9 @@ def test_halo_all_to_all_matches_plain_on_card(cuda_device, k, d, dtype):
     assert halo_all_to_all.launches == before + 1
     for a, b in zip(out, ref, strict=True):
         assert torch.equal(a, b)
+    # the K outputs are views of one stacked allocation
+    assert all(o.data_ptr() == out[0].data_ptr() + q * o.nbytes
+               for q, o in enumerate(out))
 
 
 @pytest.mark.cuda
