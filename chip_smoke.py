@@ -40,8 +40,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    single-card logits on the card, same weights, fp32 and bf16.
 
 The kernels phase also holds the halo all-to-all (K1) exactly against its
-plain version at the bench graph's halo (K=4, Bh=30,056; K=8 at its own Bh)
-and times the SpMM and the gather at the dist path's shapes.
+plain version at the bench graph's halo (K=4, Bh=30,056, stacked and list
+forms; K=8 at its own Bh), holds the composed halo gather exactly against
+its plain version and against the route it replaced (K send-row gathers
+and K1), and times the SpMM and the gather at the dist path's shapes.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -86,10 +88,11 @@ N_LPS = 6                   # LPs served
 FORWARDS_PER_LP = 5         # predict pass 1 + timing warm-up 1 + timed 3
 K_EDGE = 4                  # shards of the edge-partitioned path
 N_DIST_LPS = 3              # LPs served edge-partitioned
-# launches a dist forward makes: 2 convs x (gather + reduce exchange);
-# 2 convs x K send-row gathers; 2 convs x K x 5 SpMMs (local v2c, local
-# c2v, halo v2c, halo c2v, owner-side reduce)
-DIST_PER_FORWARD = {"halo_all_to_all": 2 * 2, "gather_rows": 2 * K_EDGE,
+# launches a dist forward makes, per conv (2 a forward): one gather over
+# the composed halo index (the gather direction, its all-to-all folded into
+# the index); one stacked all-to-all (the reduce direction); K x 5 SpMMs
+# (local v2c, local c2v, halo v2c, halo c2v, owner-side reduce)
+DIST_PER_FORWARD = {"halo_all_to_all": 2, "gather_rows": 2,
                     "spmm_csr": 2 * K_EDGE * 5}
 KERNELS = (spmm_csr, gather_rows, halo_all_to_all)
 
@@ -158,20 +161,26 @@ def kernel_iters(d: int) -> int:
 def profile_kernels(fn, calls: int, want: dict[str, int],
                     tries: int = 3) -> tuple[dict, bool]:
     """Device time (ms) and launch count of each CUDA kernel over ``calls``
-    calls of ``fn``, from ``torch.profiler``, by name. The profiler can lose
-    events, so it runs again (up to ``tries`` times) until every kernel
-    named in ``want`` (a part of its name -> launches) was seen that often;
-    also returns whether it was."""
+    calls of ``fn``, from ``torch.profiler``, by name. The profiler can drop
+    the kernels launched as it starts, so it records a second round of
+    ``calls`` after an unrecorded warm-up round, and runs again (up to
+    ``tries`` times) until every kernel named in ``want`` (a part of its
+    name -> launches) was seen that often; also returns whether it was."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(tries):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
+        rounds = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=rounds) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         seen: dict[str, list] = {}
         for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # the round's own span on the card is no kernel
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")):
                 tn = seen.setdefault(e.key, [0.0, 0])
                 tn[0] += (getattr(e, "self_device_time_total", 0) or 0) / 1e3
                 tn[1] += e.count
@@ -311,9 +320,10 @@ def check_spmm_shapes(gen: torch.Generator,
     return rows
 
 
-def gather_case(case: str, table, idx, on_path) -> dict:
-    """One gather case against its plain version (exact: a copy)."""
-    out = gather_rows(table, idx)
+def gather_case(case: str, table, idx, on_path, schedule=None) -> dict:
+    """One gather case against its plain version (exact: a copy);
+    ``schedule`` as ``gather_rows`` takes it."""
+    out = gather_rows(table, idx, schedule=schedule)
     ref = gather_rows_plain(table, idx)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
@@ -329,9 +339,11 @@ def gather_case(case: str, table, idx, on_path) -> dict:
         "source": "lp_gnn_tpu_torch/ops/csrc/gather.cu",
         "replaces": "scripts/probe_vmem_gather.py:51",
         "launches": None, "max_abs_err": err,
-        "ms": time_ms(lambda: gather_rows(table, idx), kernel_iters(d)),
-        "device_ms": kernel_device_ms(lambda: gather_rows(table, idx),
-                                      "gather_rows_kernel"),
+        "ms": time_ms(lambda: gather_rows(table, idx, schedule=schedule),
+                      kernel_iters(d)),
+        "device_ms": kernel_device_ms(
+            lambda: gather_rows(table, idx, schedule=schedule),
+            "gather_rows_kernel"),
         "plain_ms": time_ms(lambda: gather_rows_plain(table, idx), 20),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(lambda: torch.index_select(table, 0, idx),
@@ -340,7 +352,9 @@ def gather_case(case: str, table, idx, on_path) -> dict:
         "also_replaces": ["scripts/probe_vmem_gather.py:72",
                           "scripts/probe_vmem_gather2.py:54",
                           "scripts/probe_vmem_gather2.py:60"],
-        "num_src": table.shape[0], "K": k, "D": d, "tol": "exact",
+        "num_src": table.shape[0], "K": k, "D": d,
+        "schedule_ranges": 0 if schedule is None else schedule.shape[0],
+        "tol": "exact",
         "bound_noreuse_ms": (k * 4 + 2 * k * d * b) / HBM_BYTES_S * 1e3,
         "library": "torch.index_select",
     }
@@ -362,63 +376,114 @@ def check_gather(gt: GraphTensors, gen: torch.Generator,
             for case, s, d, idx in cases]
 
 
-def halo_case(case: str, k: int, bh: int, d: int, dtype, gen) -> dict:
+def halo_case(case: str, k: int, bh: int, d: int, dtype, gen,
+              stacked: bool) -> dict:
     """K1 against its plain version on the card, exactly (a copy), on K
-    buffers held stacked in one (K, K*Bh, D) tensor; the library yardstick
-    swaps the stacked blocks' two shard axes with one ``contiguous()``."""
-    stacked = torch.randn(k, k * bh, d, generator=gen, device="cuda").to(dtype)
-    bufs = list(stacked.unbind(0))
-    out = halo_all_to_all(bufs)
-    ref = halo_all_to_all_plain(bufs)
+    buffers held stacked in one (K, K*Bh, D) tensor, passed as that tensor
+    (the stacked form, which the path runs) or as its K views (the list
+    form); the two forms must agree. The library yardstick swaps the
+    stacked blocks' two shard axes with one ``contiguous()``."""
+    stacked_in = torch.randn(k, k * bh, d, generator=gen, device="cuda").to(dtype)
+    arg = stacked_in if stacked else list(stacked_in.unbind(0))
+    out = halo_all_to_all(arg)
+    other = halo_all_to_all(list(stacked_in.unbind(0)) if stacked else stacked_in)
+    ref = halo_all_to_all_plain(stacked_in)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+    out = out if stacked else torch.stack(out)
+    other = torch.stack(other) if stacked else other
+    if not (torch.equal(out, ref) and torch.equal(other, ref)):
         raise SmokeFailure(f"halo_all_to_all {case}: differs from the plain "
-                           "version")
-    lib = stacked.view(k, k, bh, d).transpose(0, 1).contiguous()
-    if not torch.equal(torch.stack(out).view(k, k, bh, d), lib):
+                           "version or between its two forms")
+    lib = stacked_in.view(k, k, bh, d).transpose(0, 1).contiguous()
+    if not torch.equal(out.view(k, k, bh, d), lib):
         raise SmokeFailure(f"halo_all_to_all {case}: differs from the "
                            "stacked transpose")
-    del out, ref, lib
-    n_bytes = 2.0 * k * k * bh * d * stacked.element_size()
+    del out, other, ref, lib
+    n_bytes = 2.0 * k * k * bh * d * stacked_in.element_size()
     bound_ms, bound_by = bound(n_bytes, 0.0)
     row = {
         "name": "halo_all_to_all", "route": "cuda",
         "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
         "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
         "launches": None, "max_abs_err": 0.0,
-        "ms": time_ms(lambda: halo_all_to_all(bufs), kernel_iters(d)),
-        "device_ms": kernel_device_ms(lambda: halo_all_to_all(bufs),
+        "ms": time_ms(lambda: halo_all_to_all(arg), kernel_iters(d)),
+        "device_ms": kernel_device_ms(lambda: halo_all_to_all(arg),
                                       "halo_a2a_kernel"),
-        "plain_ms": time_ms(lambda: halo_all_to_all_plain(bufs), 10),
+        "plain_ms": time_ms(lambda: halo_all_to_all_plain(arg), 10),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(lambda: stacked.view(k, k, bh, d)
+        "library_ms": time_ms(lambda: stacked_in.view(k, k, bh, d)
                               .transpose(0, 1).contiguous(), kernel_iters(d)),
-        "case": case, "on_path": "dist_serve" if (
-            k == K_EDGE and dtype == torch.bfloat16) else False,
+        "case": case, "form": "stacked" if stacked else "list",
+        "on_path": "dist_serve" if (stacked and k == K_EDGE
+                                    and dtype == torch.bfloat16) else False,
         "K": k, "Bh": bh, "D": d, "tol": "exact", "bytes": n_bytes,
         "also_replaces": ["lp_gnn_tpu/parallel/pallas_halo.py:69"],
         "library": "stacked.view(K,K,Bh,D).transpose(0,1).contiguous()",
     }
-    del stacked, bufs
+    del stacked_in, arg
     torch.cuda.empty_cache()
+    return row
+
+
+def composed_gather_case(dg, dt_, d: int, gen) -> dict:
+    """The gather direction of the dist path as the path runs it: one
+    gather over the composed halo index into the K stacked halo buffers
+    (S = K*ns table rows, K*K*Bh output rows), in the order the path picks
+    (the halo schedule where the table is larger than L2, else rows in
+    order), exact against its plain version. Beside it, on the same inputs:
+    the launch in each of the two orders; the route it replaced, K send-row
+    gathers and one all-to-all (K1), which must give the same buffers; and
+    ``torch.index_select`` on the composed index (the row's library
+    yardstick)."""
+    k = dg.n_shards
+    right = torch.randn(k * dg.ns, d, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    idx = dt_.halo_src.view(-1)
+    sched = edge_partition.pick_halo_schedule(right, dt_.halo_sched)
+    row = gather_case(f"dist composed halo gather S={k * dg.ns} "
+                      f"K={idx.shape[0]} D={d} bfloat16", right, idx,
+                      "dist_serve", sched)
+    sends = [torch.from_numpy(s.reshape(-1)).cuda() for s in dg.halo_send]
+    shards = right.split(dg.ns)
+
+    def gather_then_k1():
+        return halo_all_to_all([gather_rows(x, s) for x, s in zip(shards, sends)])
+
+    got = edge_partition.halo_gather(right, dt_.halo_src, dt_.halo_sched)
+    if not torch.equal(got, torch.stack(gather_then_k1())):
+        raise SmokeFailure("composed halo gather differs from the send-row "
+                           "gathers followed by the all-to-all")
+    del got
+    for order, sc in (("row_order", None), ("scheduled", dt_.halo_sched)):
+        row[f"{order}_ms"] = time_ms(lambda: gather_rows(right, idx, schedule=sc),
+                                     kernel_iters(d))
+        row[f"{order}_device_ms"] = kernel_device_ms(
+            lambda: gather_rows(right, idx, schedule=sc), "gather_rows_kernel")
+    row["gather_then_k1_ms"] = time_ms(gather_then_k1, kernel_iters(d))
+    row["replaced_route"] = (f"{k} gather_rows of the send rows + one "
+                             "halo_all_to_all (list form)")
     return row
 
 
 def check_dist_kernels(g: BipartiteGraph, gen: torch.Generator) -> list[dict]:
     """The three kernels at the edge-partitioned path's shapes on the bench
-    graph: K1 at K=4 (the path's Bh) and K=8 (its own Bh), D=8 and D=1024;
-    shard 0's five SpMMs (the largest shard: the hot rows land there) and
-    its send-row gather, at D=8 and D=1024 bf16."""
+    graph: K1 at K=4 (the path's Bh) in its stacked form (bf16, as the path
+    runs it) and its list form, and at K=8 (its own Bh), D=8 and D=1024;
+    the composed halo gather; shard 0's five SpMMs (the largest shard: the
+    hot rows land there) and its send-row gather, at D=8 and D=1024
+    bf16."""
     rows = []
     bh8 = edge_partition.compute_halo_width(g, 8)
     dg = edge_partition.partition_graph(g, K_EDGE)
     for d in (8, 1024):
+        rows.append(halo_case(f"stacked K={K_EDGE} Bh={dg.bh} D={d} bfloat16",
+                              K_EDGE, dg.bh, d, torch.bfloat16, gen, True))
         for dt in (torch.float32, torch.bfloat16):
             rows.append(halo_case(f"K={K_EDGE} Bh={dg.bh} D={d} "
                                   f"{str(dt).split('.')[-1]}",
-                                  K_EDGE, dg.bh, d, dt, gen))
+                                  K_EDGE, dg.bh, d, dt, gen, False))
         rows.append(halo_case(f"K=8 Bh={bh8} D={d} bfloat16", 8, bh8, d,
-                              torch.bfloat16, gen))
+                              torch.bfloat16, gen, False))
     dt_ = edge_partition.DistGraphTensors.from_partition(
         dg, make_mesh(K_EDGE, "cuda"))
     csrs = {"local v2c": (dt_.local_v2c[0], dg.ns),
@@ -426,15 +491,17 @@ def check_dist_kernels(g: BipartiteGraph, gen: torch.Generator) -> list[dict]:
             "halo v2c": (dt_.halo_v2c[0], dg.nh),
             "halo c2v": (dt_.halo_c2v[0], dg.ms),
             "owner reduce": (dt_.halo_red[0], dg.nh)}
+    send0 = torch.from_numpy(dg.halo_send[0].reshape(-1)).cuda()
     for d in (8, 1024):
         for name, (m, n_src) in csrs.items():
             x = torch.randn(n_src, d, generator=gen, device="cuda")
             rows.append(spmm_case(f"dist shard 0 {name} D={d} bfloat16", *m,
                                   x.to(torch.bfloat16), "dist_serve"))
+        rows.append(composed_gather_case(dg, dt_, d, gen))
         table = torch.randn(dg.ns, d, generator=gen, device="cuda")
         rows.append(gather_case(
             f"dist shard 0 halo_send S={dg.ns} K={dg.nh} D={d} bfloat16",
-            table.to(torch.bfloat16), dt_.halo_send[0], "dist_serve"))
+            table.to(torch.bfloat16), send0, False))
     return rows
 
 

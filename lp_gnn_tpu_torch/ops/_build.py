@@ -2,10 +2,11 @@
 
 Each ``ops/csrc/<name>.cu`` has a plain C interface and builds on its own
 into ``lp_gnn_tpu_torch/_build/lib<name>-<hash>.so``, where the hash covers
-the source and the compiler flags, so an edited source builds anew and an
-unchanged one is reused. The build happens at the first call of a kernel
-(or up front, all sources at once, through :func:`build_all`); nothing is
-built when a module is imported. A failed build raises: there is no
+the source, the ``csrc/`` headers it includes and the compiler flags, so an
+edited source or header builds anew and an unchanged one is reused. The
+build happens at the first call of a kernel (or up front, all sources at
+once, through :func:`build_all`); nothing is built when a module is
+imported. A failed build raises: there is no
 fallback to a kernel's plain version.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,10 +44,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, the headers of
+    ``csrc/`` that the source includes and the compiler flags."""
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    for inc in re.findall(rb'^\s*#\s*include\s*"([^"]+)"', src, re.M):
+        h.update((SRC_DIR / inc.decode()).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -98,6 +103,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def check_out(out: torch.Tensor, shape: tuple, like: torch.Tensor,
+              name: str) -> None:
+    """Refuse an ``out=`` tensor a kernel cannot write: another shape, dtype
+    or device than ``like`` gives, not contiguous, or (on the card) not
+    16-byte aligned."""
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"{name} out= must have shape {tuple(shape)}, got "
+                         f"{tuple(out.shape)}")
+    if out.dtype != like.dtype:
+        raise TypeError(f"{name} out= must be {like.dtype}, got {out.dtype}")
+    if out.device != like.device:
+        raise ValueError(f"{name} out= on {out.device}, inputs on {like.device}")
+    if not out.is_contiguous():
+        raise ValueError(f"{name} out= must be contiguous")
+    if out.device.type == "cuda" and out.data_ptr() % 16:
+        raise ValueError(f"{name} out= must be 16-byte aligned on the card "
+                         "(a view at a storage offset may not be)")
 
 
 def launch_on(dev: torch.device, fn, *args) -> int:

@@ -10,8 +10,10 @@
 // remote DMAs over ICI. Here the K shards' buffers are K device pointers
 // in a table passed by value, so one launch moves all K*K blocks, the
 // diagonal ones included (as the TPU kernel's local DMA copies its own
-// block). The table takes any K addresses the device can reach, so the same
-// kernel can take peer addresses once shards sit on several cards.
+// block). Two entries fill the table: the stacked form, from the bases of
+// two (K, K*Bh, F) tensors (the reduce direction of the edge-partitioned
+// forward, all shards on one card), and the list form, from K addresses
+// each, which can be peer addresses once shards sit on several cards.
 //
 // Types: each block is Bh rows of F elements, contiguous, so a block is one
 // contiguous run of Bh*F*b bytes in its source and in its destination. The
@@ -68,30 +70,60 @@ halo_a2a_kernel(const __grid_constant__ Table t, long long n16) {
   }
 }
 
-}  // namespace
-
-// src, dst: K device pointers each (1 <= K <= 64), 16-byte aligned; each
-// buffer holds K blocks of block_bytes (a positive multiple of 16). Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for arguments the kernel does not take; the caller
-// raises on anything but 0.
-extern "C" int lp_halo_a2a(const void* const* src, void* const* dst, int K,
-                           long long block_bytes, void* stream) {
-  if (K < 1 || K > kMaxShards || block_bytes <= 0 || block_bytes % 16 != 0)
-    return cudaErrorInvalidValue;
-  Table t = {};
-  for (int i = 0; i < K; ++i) {
-    if ((reinterpret_cast<uintptr_t>(src[i]) | reinterpret_cast<uintptr_t>(dst[i])) % 16 != 0)
-      return cudaErrorInvalidValue;
-    t.src[i] = static_cast<const uint4*>(src[i]);
-    t.dst[i] = static_cast<uint4*>(dst[i]);
-  }
+// One launch over all K*K blocks of the shards in `t`.
+int launch(const Table& t, int K, long long block_bytes, cudaStream_t stream) {
   const long long n16 = block_bytes / 16;
   const long long tile = static_cast<long long>(kThreads) * kUnroll;
   long long gx = (n16 + tile - 1) / tile;
   const long long cap = kMaxBlocks / (static_cast<long long>(K) * K);
   if (gx > cap) gx = cap > 0 ? cap : 1;
   const dim3 grid(static_cast<unsigned>(gx), K, K);
-  halo_a2a_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(t, n16);
+  halo_a2a_kernel<<<grid, kThreads, 0, stream>>>(t, n16);
   return cudaGetLastError();
+}
+
+bool takes(int K, long long block_bytes) {
+  return K >= 1 && K <= kMaxShards && block_bytes > 0 && block_bytes % 16 == 0;
+}
+
+bool aligned(const void* a, const void* b) {
+  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 == 0;
+}
+
+}  // namespace
+
+// Both entries return cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernel does not take; the caller
+// raises on anything but 0. Every address must be 16-byte aligned and a
+// block a positive multiple of 16 bytes, 1 <= K <= 64.
+
+// The list form: src, dst are K device pointers each, shard p's (K*Bh, F)
+// buffer at src[p], shard q's at dst[q]; each buffer holds K blocks of
+// block_bytes. Takes any K addresses the device can reach.
+extern "C" int lp_halo_a2a(const void* const* src, void* const* dst, int K,
+                           long long block_bytes, void* stream) {
+  if (!takes(K, block_bytes)) return cudaErrorInvalidValue;
+  Table t = {};
+  for (int i = 0; i < K; ++i) {
+    if (!aligned(src[i], dst[i])) return cudaErrorInvalidValue;
+    t.src[i] = static_cast<const uint4*>(src[i]);
+    t.dst[i] = static_cast<uint4*>(dst[i]);
+  }
+  return launch(t, K, block_bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The stacked form: the K buffers of each side lie buf_bytes apart from
+// src_base and dst_base (one (K, K*Bh, F) tensor each), so the pointer table
+// is built here and the caller passes no array.
+extern "C" int lp_halo_a2a_stacked(const void* src_base, void* dst_base, int K,
+                                   long long buf_bytes, long long block_bytes, void* stream) {
+  if (!takes(K, block_bytes) || buf_bytes < K * block_bytes || buf_bytes % 16 != 0 ||
+      !aligned(src_base, dst_base))
+    return cudaErrorInvalidValue;
+  Table t = {};
+  for (int i = 0; i < K; ++i) {
+    t.src[i] = reinterpret_cast<const uint4*>(static_cast<const char*>(src_base) + i * buf_bytes);
+    t.dst[i] = reinterpret_cast<uint4*>(static_cast<char*>(dst_base) + i * buf_bytes);
+  }
+  return launch(t, K, block_bytes, static_cast<cudaStream_t>(stream));
 }

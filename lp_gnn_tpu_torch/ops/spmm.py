@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import launch_on
+from ._build import check_out, launch_on
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_PIECES = 256   # 16-byte pieces a row (csrc/spmm.cu kMaxPieces)
@@ -107,15 +107,17 @@ def _check_kernel_width(x):
 
 
 def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``out[d] = sum_{e in [ptr[d], ptr[d+1])} val[e] * x[idx[e]]``.
 
     ptr (num_dst+1,) int32, idx (E,) int32 with values in [0, S), val (E,)
     fp32, x (S, D) fp32 or bf16. Returns (num_dst, D) in x's dtype, summed
-    in fp32. Indices are not checked on the device: ``GraphTensors``
-    checks them on the host when it builds the graph. On the card D must
-    be a multiple of 4 (fp32) or 8 (bf16), at most 1024 (fp32) or 2048
-    (bf16), and x 16-byte aligned; the wrapper raises otherwise.
+    in fp32: ``out`` if given (a contiguous (num_dst, D) tensor of x's
+    dtype and device, 16-byte aligned on the card), else a new tensor.
+    Indices are not checked on the device: ``GraphTensors`` checks them on
+    the host when it builds the graph. On the card D must be a multiple of
+    4 (fp32) or 8 (bf16), at most 1024 (fp32) or 2048 (bf16), and x 16-byte
+    aligned; the wrapper raises otherwise.
     """
     if x.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
@@ -123,12 +125,16 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
             "transpose ordering) comes with the training slice (ROADMAP.md, "
             "queue item 1: training). Run under torch.no_grad().")
     dev = _check(ptr, idx, val, x)
+    num_dst, d = ptr.shape[0] - 1, x.shape[1]
+    if out is not None:
+        check_out(out, (num_dst, d), x, "spmm_csr")
     if dev.type == "cpu":
-        return spmm_csr_plain(ptr, idx, val, x)
+        ref = spmm_csr_plain(ptr, idx, val, x)
+        return ref if out is None else out.copy_(ref)
     if dev.type != "cuda":
         raise ValueError(f"spmm_csr runs on cuda or cpu, not {dev}")
-    num_dst, d = ptr.shape[0] - 1, x.shape[1]
-    out = torch.empty((num_dst, d), dtype=x.dtype, device=dev)
+    if out is None:
+        out = torch.empty((num_dst, d), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
     _check_kernel_width(x)

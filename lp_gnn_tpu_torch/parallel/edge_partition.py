@@ -6,15 +6,16 @@ variables into K blocks of ``ns`` (``_shard_sizes`` :161); shard d owns its
 row block, every edge of those rows and its variable block. Per
 two-direction conv (``_dist_aggs`` :655, halo branch :673-708):
 
-- ``halo_gather``: each shard gathers the rows of its variable block that
-  other shards' edges reference (``halo_send``) and one halo all-to-all (K1)
-  hands each shard its compact halo buffer of K*Bh slots;
+- ``halo_gather``: each shard receives the rows of other shards' variable
+  blocks that its edges reference (``halo_send``), in its compact halo
+  buffer of K*Bh slots. On one card this is one row gather over a composed
+  index, the all-to-all folded into it;
 - the constraint side sums its own-block edges (local v2c) and its boundary
   edges against the halo buffer (halo v2c);
 - the variable side sums its own-block edges (local c2v), and each shard's
   boundary partials (halo c2v, one per halo slot) go back to their owners
-  through a second all-to-all and a sorted segment sum over ``halo_ids``
-  (``halo_reduce``).
+  through the halo all-to-all (K1) and a sorted segment sum over
+  ``halo_ids`` (``halo_reduce``).
 
 The JAX package lays each shard's edges out for the TPU's matrix unit
 (``blkl_*``, ``blkh_*``, padded to one edge count). The port keeps four CSRs
@@ -266,17 +267,55 @@ def cached_partition_graph(g: BipartiteGraph, n_shards: int,
 
 
 # ------------------------------------------------------------ device tensors
+def compose_halo_src(halo_send: np.ndarray, ns: int) -> np.ndarray:
+    """(K, K*bh) int32 with ``[q, p*bh + r] = p*ns + halo_send[p, q, r]``:
+    the stacked variable row that lands in slot ``p*bh + r`` of shard q's
+    halo buffer, the all-to-all of ``halo_gather`` folded into its index.
+    Each (q, p) block ascends in shard p's rows (its padding slots, last,
+    point at p's row 0)."""
+    k = halo_send.shape[0]
+    src = np.arange(k)[:, None, None] * ns + halo_send
+    return np.ascontiguousarray(src.transpose(1, 0, 2).reshape(k, -1),
+                                np.int32)
+
+
+def halo_schedule(halo_src: np.ndarray, window: int = 16) -> np.ndarray:
+    """The order in which the halo gather walks its composed index: (n, 2)
+    int32 ranges (first, rows) of the flat index. Every (receiver, sender)
+    block is cut where its rows cross a multiple of ``window`` sender rows
+    (and into pieces of at most ``window`` entries), and the pieces are
+    listed window by window. The receivers of one window then copy the same
+    sender rows side by side, so each is read from device memory once."""
+    k, nh = halo_src.shape
+    flat = halo_src.reshape(-1)
+    n = flat.shape[0]
+    win = flat // window
+    pos = np.arange(n)
+    new = np.ones(n, bool)
+    new[1:] = (win[1:] != win[:-1]) | (pos[1:] % (nh // k) == 0)
+    starts = np.flatnonzero(new)
+    lens = np.diff(np.append(starts, n))
+    pieces = -(-lens // window)
+    first = np.repeat(starts, pieces) + window * (
+        np.arange(pieces.sum()) - np.repeat(np.cumsum(pieces) - pieces, pieces))
+    rows = np.minimum(window, np.repeat(starts + lens, pieces) - first)
+    order = np.lexsort((first, win[first]))
+    return np.stack([first[order], rows[order]], 1).astype(np.int32)
+
+
 @dataclasses.dataclass
 class DistGraphTensors:
     """A partition on its mesh's device: node features stacked shard after
     shard (row ``d*ms + i`` is shard d's row i, which is global row
-    ``d*ms + i``), per-shard CSRs, send lists and owner-side reduce CSRs."""
+    ``d*ms + i``), per-shard CSRs, the composed halo index and the
+    owner-side reduce CSRs."""
     n_shards: int
     ms: int
     ns: int
     c_feas: torch.Tensor           # (K*ms, 8) float32
     v_feas: torch.Tensor           # (K*ns, 8) float32
-    halo_send: list[torch.Tensor]  # per shard (K*bh,) int32
+    halo_src: torch.Tensor         # (K, K*bh) int32, compose_halo_src
+    halo_sched: torch.Tensor       # (n, 2) int32, halo_schedule(halo_src)
     # per shard, the owner-side sorted segment sum of halo_reduce (:636)
     # over its real slots: ns dst rows, ptr from halo_ids, idx = halo_perm,
     # val = 1. The padding slots are left out: their partials are zeros
@@ -311,33 +350,59 @@ class DistGraphTensors:
                                   minlength=dg.ns), out=ptr[1:])
             return CSR(t(ptr), t(perm), t(np.ones(len(perm), np.float32)))
 
+        src = compose_halo_src(dg.halo_send, dg.ns)
         return cls(
             n_shards=dg.n_shards, ms=dg.ms, ns=dg.ns,
             c_feas=t(dg.c_feas.reshape(-1, dg.c_feas.shape[-1])),
             v_feas=t(dg.v_feas.reshape(-1, dg.v_feas.shape[-1])),
-            halo_send=[t(s.reshape(-1)) for s in dg.halo_send],
+            halo_src=t(src), halo_sched=t(halo_schedule(src)),
             halo_red=[red(d) for d in range(dg.n_shards)],
             **{k: [CSR(*map(t, m)) for m in getattr(dg, k)]
                for k in CSR_KINDS})
 
 
 # --------------------------------------------------------------- halo pair
-def halo_gather(xs: list[torch.Tensor],
-                halo_send: list[torch.Tensor]) -> list[torch.Tensor]:
+def halo_gather(right: torch.Tensor, halo_src: torch.Tensor,
+                halo_sched: torch.Tensor) -> torch.Tensor:
     """Collect the remote variable rows each shard's edges reference
-    (edge_partition.py:585, forward): shard d sends ``xs[d][halo_send[d]]``
-    (row gather) and one all-to-all (K1) returns shard d's halo buffer
-    (K*bh, F), whose slot ``e*bh + k`` holds the k-th row of d's boundary
-    set in shard e."""
-    return halo_all_to_all([gather_rows(x, s) for x, s in zip(xs, halo_send)])
+    (edge_partition.py:585, forward). ``right`` (K*ns, F) is stacked by
+    shard; returns the K halo buffers stacked, (K, K*bh, F), where slot
+    ``p*bh + r`` of shard q's buffer holds the r-th row of q's boundary set
+    in shard p.
+
+    The JAX package gathers each shard's send rows ``x_p[halo_send[p]]`` and
+    exchanges them with an all-to-all (K1). With every shard on one card
+    that exchange is a fixed permutation of rows, so it is folded into the
+    index (``halo_src``) and one gather writes the receivers' buffers
+    directly, bit for bit the same rows. Where ``right`` is larger than
+    the card's L2, ``halo_sched`` (:func:`halo_schedule`) orders the work
+    so that a sender row several receivers need is read from device memory
+    once; a table L2 holds whole is read once in any order, and there the
+    schedule's short ranges would only leave lanes idle. Shards on distinct
+    cards would bring back the gather-then-K1 route, with peer addresses in
+    K1's table (ROADMAP.md, queue item 7)."""
+    k = halo_src.shape[0]
+    return gather_rows(right, halo_src.view(-1),
+                       schedule=pick_halo_schedule(right, halo_sched)).view(
+        k, halo_src.shape[1], right.shape[1])
 
 
-def halo_reduce(parts: list[torch.Tensor],
-                halo_red: list[CSR]) -> list[torch.Tensor]:
+def pick_halo_schedule(right: torch.Tensor,
+                       halo_sched: torch.Tensor) -> torch.Tensor | None:
+    """``halo_sched`` where ``right`` lies on the card and is larger than
+    its L2, else None (rows in order)."""
+    if right.is_cuda and right.nbytes > torch.cuda.get_device_properties(
+            right.device).L2_cache_size:
+        return halo_sched
+    return None
+
+
+def halo_reduce(parts: torch.Tensor, halo_red: list[CSR]) -> list[torch.Tensor]:
     """Route each shard's halo-slot partial sums back to their owners and
     fold them into the owners' (ns, F) blocks (edge_partition.py:624,
-    forward): one all-to-all (K1), then a sorted segment sum over
-    ``halo_ids`` as a CSR SpMM with ``idx = halo_perm`` and ``val = 1``
+    forward): ``parts`` (K, K*bh, F) stacked by shard, one all-to-all (K1)
+    of the stacked form, then a sorted segment sum over ``halo_ids`` as a
+    CSR SpMM with ``idx = halo_perm`` and ``val = 1``
     (``DistGraphTensors.halo_red``), which skips the padding slots: the
     forward's partials there are zeros, since no edge targets them."""
     back = halo_all_to_all(parts)
@@ -352,8 +417,10 @@ def _dist_aggs(dg: DistGraphTensors, left: torch.Tensor, right: torch.Tensor):
     in the compute dtype, as there (:703-707)."""
     k, ms, ns = dg.n_shards, dg.ms, dg.ns
     ls, rs = left.split(ms), right.split(ns)
-    h = halo_gather(list(rs), dg.halo_send)
-    part = [spmm_csr(*dg.halo_c2v[d], ls[d]) for d in range(k)]
+    h = halo_gather(right, dg.halo_src, dg.halo_sched)
+    part = left.new_empty((k, dg.halo_src.shape[1], left.shape[1]))
+    for d in range(k):
+        spmm_csr(*dg.halo_c2v[d], ls[d], out=part[d])
     red = halo_reduce(part, dg.halo_red)
     agg_c = left.new_empty((k * ms, right.shape[1]))
     agg_v = right.new_empty((k * ns, left.shape[1]))

@@ -25,7 +25,8 @@ from lp_gnn_tpu_torch.infer import predict as tpredict
 from lp_gnn_tpu_torch.models.convert import state_dict_from_jax_params
 from lp_gnn_tpu_torch.models.gcn import build_model
 from lp_gnn_tpu_torch.parallel import edge_partition as tEP
-from lp_gnn_tpu_torch.parallel.halo import halo_all_to_all_plain
+from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
+                                            halo_all_to_all_plain)
 from lp_gnn_tpu_torch.parallel.mesh import make_mesh
 from tests.test_torch_gcn_fc import BF16_VS_JAX_BF16, jax_logits
 from tests.test_torch_spmm import random_graph
@@ -127,12 +128,72 @@ def test_halo_gather_reduce_match_jax(k):
 
     want_h = np.asarray(shard_map_edge(jgather, k, 4)(x, *idx))
     want_r = np.asarray(shard_map_edge(jreduce, k, 4)(part, *idx))
-    got_h = tEP.halo_gather(list(torch.from_numpy(x)), dt.halo_send)
-    got_r = tEP.halo_reduce(list(torch.from_numpy(part)), dt.halo_red)
-    np.testing.assert_allclose(torch.stack(got_h).numpy(), want_h, rtol=0,
-                               atol=1e-6)
+    got_h = tEP.halo_gather(torch.from_numpy(x).reshape(k * dg.ns, 8),
+                            dt.halo_src, dt.halo_sched)
+    got_r = tEP.halo_reduce(torch.from_numpy(part), dt.halo_red)
+    np.testing.assert_array_equal(got_h.numpy(), want_h)
     np.testing.assert_allclose(torch.stack(got_r).numpy(), want_r, rtol=0,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("bh", [1, 5, 8])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+def test_halo_src_folds_the_all_to_all(k, bh):
+    """One gather over compose_halo_src, in the order of its schedule,
+    equals the JAX route's send-row gathers followed by the all-to-all,
+    exactly, for any K and Bh."""
+    rng = np.random.RandomState(k * 10 + bh)
+    ns = 3 * bh + 2
+    halo_send = rng.randint(0, ns, (k, k, bh)).astype(np.int32)
+    x = torch.from_numpy(rng.randn(k, ns, 6).astype(np.float32))
+    want = halo_all_to_all_plain(
+        [x[p][torch.from_numpy(halo_send[p].reshape(-1)).long()]
+         for p in range(k)])
+    src = tEP.compose_halo_src(halo_send, ns)
+    assert src.shape == (k, k * bh) and src.dtype == np.int32
+    sched = torch.from_numpy(tEP.halo_schedule(src, window=4))
+    got = tEP.halo_gather(x.reshape(k * ns, 6), torch.from_numpy(src), sched)
+    assert torch.equal(got, torch.stack(want))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_halo_schedule_covers_each_slot_once(k):
+    """The halo schedule of a real partition: ranges that cover every slot
+    of the composed index once, each within one (receiver, sender) block
+    and one window of sender rows, at most a window long, listed window by
+    window."""
+    g, _ = graphs(30 + k)
+    dg = tEP.partition_graph(g, k)
+    src = tEP.compose_halo_src(dg.halo_send, dg.ns)
+    window = 16
+    sched = tEP.halo_schedule(src, window)
+    assert sched.dtype == np.int32 and sched.shape[1] == 2
+    first, rows = sched[:, 0], sched[:, 1]
+    assert (rows >= 1).all() and (rows <= window).all()
+    cover = np.zeros(src.size, int)
+    np.add.at(cover, np.repeat(first, rows) + np.concatenate(
+        [np.arange(r) for r in rows]), 1)
+    assert (cover == 1).all()
+    flat = src.reshape(-1)
+    last = first + rows - 1
+    assert (first // dg.bh == last // dg.bh).all()
+    assert (flat[first] // window == flat[last] // window).all()
+    assert (np.diff(flat[first] // window) >= 0).all()
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_stacked_all_to_all_matches_list_and_jax(k):
+    """halo_all_to_all on one stacked (K, K*Bh, F) tensor equals its list
+    form and lax.all_to_all(x, ax, 0, 0, tiled=True), exactly."""
+    x = np.random.RandomState(k + 20).randn(k, k * 3, 5).astype(np.float32)
+    want = shard_map_edge(
+        lambda a: jax.lax.all_to_all(a[0], "edge", 0, 0, tiled=True)[None],
+        k, 1)(x)
+    got = halo_all_to_all(torch.from_numpy(x))
+    assert got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    listed = halo_all_to_all(list(torch.from_numpy(x)))
+    assert torch.equal(got, torch.stack(listed))
 
 
 _JAX_DIST: dict = {}

@@ -14,8 +14,13 @@ import torch
 
 from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
 from lp_gnn_tpu_torch.data.graph import GraphTensors
+from lp_gnn_tpu_torch.ops import _build
 from lp_gnn_tpu_torch.ops import spmm as tspmm
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from lp_gnn_tpu_torch.parallel.edge_partition import (compose_halo_src,
+                                                      halo_gather,
+                                                      halo_schedule,
+                                                      pick_halo_schedule)
 from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
                                             halo_all_to_all_plain)
 from lp_gnn_tpu_torch.parallel.mesh import EdgeMesh, make_mesh
@@ -83,6 +88,78 @@ def test_gather_rows_plain(dtype):
         gather_rows(table, idx.long())
 
 
+def shuffled_ranges(rng, k, max_rows=300):
+    """(n, 2) int32 ranges (first, rows) that cover k rows once, shuffled:
+    some longer than any chunk a warp takes at once."""
+    cuts = np.unique(np.concatenate([[0, k], rng.randint(0, k, k // 40 + 1)]))
+    cuts = np.unique(np.concatenate([cuts, np.arange(0, k, max_rows)]))
+    r = np.stack([cuts[:-1], np.diff(cuts)], 1).astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(r[rng.permutation(len(r))]))
+
+
+def test_gather_rows_out_and_schedule():
+    """out= writes into a given (K, D) tensor, here a view at a row offset
+    of a larger one; a schedule changes the order of the work only."""
+    rng = np.random.RandomState(8)
+    table = torch.from_numpy(rng.randn(40, 8).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 40, 60).astype(np.int32))
+    buf = torch.zeros(64, 8)
+    got = gather_rows(table, idx, out=buf[2:62],
+                      schedule=shuffled_ranges(rng, 60))
+    assert got.data_ptr() == buf[2:62].data_ptr()
+    assert torch.equal(buf[2:62], table[idx.long()])
+    assert not buf[:2].any() and not buf[62:].any()
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "contiguous", "device",
+                                 "schedule"])
+def test_gather_rows_refuses_out(bad):
+    table = torch.randn(10, 8)
+    idx = torch.arange(6, dtype=torch.int32)
+    out, schedule = torch.empty(6, 8), None
+    if bad == "shape":
+        out = torch.empty(6, 4)
+    elif bad == "dtype":
+        out = torch.empty(6, 8, dtype=torch.bfloat16)
+    elif bad == "contiguous":
+        out = torch.empty(8, 6).t()
+    elif bad == "device":
+        out = torch.empty(6, 8, device="meta")
+    else:
+        schedule = torch.tensor([0, 6], dtype=torch.int32)   # not (n, 2)
+    err = TypeError if bad == "dtype" else ValueError
+    with pytest.raises(err, match=bad if bad == "schedule" else "out="):
+        gather_rows(table, idx, out=out, schedule=schedule)
+
+
+def test_spmm_csr_out():
+    g = port_graph(np.random.RandomState(9))
+    gt = GraphTensors.from_graph(g, "cpu")
+    x = torch.randn(g.nvars, 8)
+    buf = torch.zeros(2, g.ncons, 8)
+    got = tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x, out=buf[1])
+    assert got.data_ptr() == buf[1].data_ptr() and not buf[0].any()
+    assert torch.equal(buf[1], tspmm.spmm_csr_plain(gt.rowptr, gt.col,
+                                                    gt.val_r, x))
+    for out, err in ((torch.empty(g.ncons, 4), ValueError),
+                     (torch.empty(g.ncons, 8, dtype=torch.bfloat16), TypeError),
+                     (torch.empty(8, g.ncons).t(), ValueError)):
+        with pytest.raises(err, match="out="):
+            tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x, out=out)
+
+
+def test_lib_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited csrc/ header that a source includes names a new library,
+    so a stale build is never reused."""
+    (tmp_path / "k.cu").write_text('#include "row.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "row.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    (tmp_path / "row.cuh").write_text("// two\n")
+    assert _build.lib_path("k") != first
+
+
 def stacked_halo(k, bh, d, dtype, device="cpu", seed=0):
     """K halo buffers (K*bh, d) as views of one (K, K*bh, d) tensor."""
     gen = torch.Generator().manual_seed(seed)
@@ -125,6 +202,26 @@ def test_halo_all_to_all_checks():
         halo_all_to_all([bufs[0], torch.empty(8, 8, device="meta")])
     with pytest.raises(ValueError, match="cuda or cpu"):
         halo_all_to_all([torch.empty(8, 8, device="meta")] * 2)
+
+
+def test_halo_all_to_all_stacked_checks():
+    x, _ = stacked_halo(2, 4, 8, torch.float32)
+    with pytest.raises(ValueError, match="one \\(K, K\\*Bh, F\\) tensor"):
+        halo_all_to_all(x[0])
+    with pytest.raises(ValueError, match="equal blocks"):
+        halo_all_to_all(x[:, :7])
+    with pytest.raises(TypeError, match="fp32 or all bf16"):
+        halo_all_to_all(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        halo_all_to_all(x.transpose(1, 2))
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        halo_all_to_all(x.clone().requires_grad_())
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        halo_all_to_all(torch.empty(2, 8, 8, device="meta"))
+    before = halo_all_to_all.launches
+    assert torch.equal(halo_all_to_all(x), torch.stack(halo_all_to_all_plain(
+        list(x.unbind(0)))))
+    assert halo_all_to_all.launches == before   # plain version: no launch
 
 
 def test_edge_mesh_one_device_only():
@@ -290,4 +387,141 @@ def test_halo_all_to_all_kernel_rejects_misaligned(cuda_device):
     before = halo_all_to_all.launches
     with pytest.raises(ValueError, match="aligned"):
         halo_all_to_all(bufs)
+    assert halo_all_to_all.launches == before
+
+
+def check_gather_on_card(table, idx, **kw):
+    """gather_rows on the card against its plain version, exactly (a copy),
+    with exactly one launch."""
+    before = gather_rows.launches
+    got = gather_rows(table, idx, **kw)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(table, idx))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 8),      # one 16-byte piece a row, one lane a row
+    (torch.bfloat16, 1016),   # 127 pieces: a warp a row, one lane short
+    (torch.bfloat16, 136),    # 17 pieces: a warp a row, 15 lanes idle
+    (torch.bfloat16, 520),    # 65 pieces: 4 pieces a lane, one slab
+    (torch.bfloat16, 3),      # 6-byte rows: 2-byte pieces
+    (torch.bfloat16, 6),      # 12-byte rows: 4-byte pieces
+    (torch.float32, 5),       # 20-byte rows: 4-byte pieces
+    (torch.float32, 8),       # two pieces a row
+    (torch.float32, 1024),    # 256 pieces: two slabs a row
+])
+def test_gather_widths_on_card(cuda_device, dtype, d):
+    """The redesigned gather at every group and slab shape, over contiguous
+    tables and over one at an offset that allows only 2- or 4-byte
+    pieces, in plain row order and over a shuffled schedule of ranges."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    table = torch.randn(3001, d, generator=gen, device=cuda_device).to(dtype)
+    idx = torch.randint(0, 3001, (4096,), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    check_gather_on_card(table, idx)
+    check_gather_on_card(table, idx, schedule=shuffled_ranges(
+        np.random.RandomState(d), 4096).to(cuda_device))
+    flat = torch.randn(3001 * d + 1, generator=gen, device=cuda_device)
+    check_gather_on_card(flat.to(dtype)[1:].view(3001, d), idx)
+
+
+@pytest.mark.cuda
+def test_gather_out_at_an_offset_on_card(cuda_device):
+    """out= into rows 4.. of a larger tensor (still 16-byte aligned), the
+    rows around it untouched; a misaligned out= raises with no launch."""
+    table = torch.randn(500, 1024, device=cuda_device).bfloat16()
+    idx = torch.randint(0, 500, (700,), device=cuda_device, dtype=torch.int32)
+    buf = torch.zeros(710, 1024, device=cuda_device, dtype=torch.bfloat16)
+    got = check_gather_on_card(table, idx, out=buf[4:704])
+    assert got.data_ptr() == buf[4:704].data_ptr()
+    assert not buf[:4].any() and not buf[704:].any()
+    bad = torch.zeros(700 * 1024 + 1, device=cuda_device,
+                      dtype=torch.bfloat16)[1:].view(700, 1024)
+    before = gather_rows.launches
+    with pytest.raises(ValueError, match="aligned"):
+        gather_rows(table, idx, out=bad)
+    assert gather_rows.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["repeated", "larger_than_l2", "k1"])
+def test_gather_edge_cases_on_card(cuda_device, case):
+    """One index repeated 10^5 times; a table of 82 MB (beyond the 50 MB
+    L2); a single row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case))
+    if case == "repeated":
+        table = torch.randn(64, 1024, generator=gen, device=cuda_device).bfloat16()
+        idx = torch.full((100_000,), 17, device=cuda_device, dtype=torch.int32)
+    elif case == "larger_than_l2":
+        table = torch.randn(40_000, 1024, generator=gen,
+                            device=cuda_device).bfloat16()
+        idx = torch.randint(0, 40_000, (60_000,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+    else:
+        table = torch.randn(9, 1024, generator=gen, device=cuda_device).bfloat16()
+        idx = torch.tensor([5], device=cuda_device, dtype=torch.int32)
+    check_gather_on_card(table, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 1024])
+def test_composed_halo_gather_on_card(cuda_device, d):
+    """halo_gather at K=4 (one launch over the composed index) equals the
+    JAX route, four send-row gathers and the all-to-all, exactly: at D=8
+    in row order (the table fits L2), at D=1024 in the order of its
+    schedule (a 64 MiB table)."""
+    rng = np.random.RandomState(d)
+    k, ns, bh = 4, 8192, 600
+    halo_send = np.sort(rng.randint(0, ns, (k, k, bh)), axis=2).astype(np.int32)
+    halo_send[:, :, 500:] = 0   # padding slots, last
+    x = torch.randn(k * ns, d, device=cuda_device).bfloat16()
+    src = compose_halo_src(halo_send, ns)
+    sched = torch.from_numpy(halo_schedule(src)).to(cuda_device)
+    src = torch.from_numpy(src).to(cuda_device)
+    assert (pick_halo_schedule(x, sched) is sched) == (d == 1024)
+    before = gather_rows.launches
+    got = halo_gather(x, src, sched)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert got.shape == (k, k * bh, d)
+    send = [gather_rows_plain(x[p * ns:(p + 1) * ns],
+                              torch.from_numpy(halo_send[p].reshape(-1))
+                              .to(cuda_device)) for p in range(k)]
+    assert torch.equal(got, torch.stack(halo_all_to_all_plain(send)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 1024])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_halo_all_to_all_stacked_on_card(cuda_device, k, d):
+    """The stacked form, one launch, equals the list form and the plain
+    version exactly."""
+    x, bufs = stacked_halo(k, 104 + k, d, torch.bfloat16, cuda_device,
+                           seed=k + d)
+    before = halo_all_to_all.launches
+    got = halo_all_to_all(x)
+    listed = halo_all_to_all(bufs)
+    torch.cuda.synchronize()
+    assert halo_all_to_all.launches == before + 2
+    assert got.shape == x.shape
+    assert torch.equal(got, torch.stack(listed))
+    assert torch.equal(got, halo_all_to_all_plain(x))
+
+
+@pytest.mark.cuda
+def test_halo_all_to_all_stacked_rejects_misaligned(cuda_device):
+    """A stacked tensor at a storage offset that breaks 16-byte alignment,
+    and 12-byte blocks, raise before any launch."""
+    k, bh, d = 4, 8, 8
+    x = torch.zeros(k * k * bh * d + 1, device=cuda_device,
+                    dtype=torch.bfloat16)[1:].view(k, k * bh, d)
+    before = halo_all_to_all.launches
+    with pytest.raises(ValueError, match="aligned"):
+        halo_all_to_all(x)
+    x, _ = stacked_halo(2, 1, 3, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        halo_all_to_all(x)
     assert halo_all_to_all.launches == before
