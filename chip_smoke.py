@@ -1,4 +1,5 @@
-"""Smoke run of lp_gnn_tpu_torch on one NVIDIA GPU: build, check, serve.
+"""Smoke run of lp_gnn_tpu_torch on one NVIDIA GPU: build, check, serve,
+train.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -16,7 +17,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    version on the card, the SpMM also bit-identical over two calls; times
    kernel (CUDA events, ``ms``; its own device time from ``torch.profiler``,
    ``device_ms``), plain version and a library call the package never
-   makes; computes each kernel's bound.
+   makes; computes each kernel's bound. The SpMM's backward (through
+   ``SpmmCSR``: the kernel over the transpose ordering) at D=1024 bf16 in
+   both directions, against the gradient through the plain version, one
+   launch a backward, bit-identical over two calls.
 3. reference: GCN_FC(8,8,hids=1024,depth=3) logits on the card against the
    same weights on the CPU, on a small graph, in fp32 and bf16.
 4. serve: writes 6 processed LPs of the bench shape (reference blob
@@ -38,6 +42,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    on the card, and the dist forward's device time by kernel.
 7. dist_reference: one bench-shape LP's edge-partitioned logits against the
    single-card logits on the card, same weights, fp32 and bf16.
+8. train: writes 4 bench-shape LPs (2 train, 2 val) and runs the entry
+   point ``python -m lp_gnn_tpu_torch.train`` (through runpy) with
+   GCN_FC(8,8,hids=1024,depth=3), bf16, balanced CE, 5 epochs and a val
+   pass: finite losses, the SpMM launched exactly 2 x 2 + 4 x 10 + 4 x 2 =
+   52 times, checkpoints written, and the trained ``mdl.pth`` serving
+   valid bases through ``pred_basis``; prints each epoch's wall time and
+   every step's loss.
+9. train_breakdown: one bench-shape training step: wall time, span on the
+   card, device time by kernel, the card's idle share, peak memory.
+10. train_reference: 3 steps on the card against the CPU in fp32 and in
+   fp64 (small graph), parameter by parameter; one step's gradients
+   through the kernel against the plain version (bench shape, fp32); remat
+   against no remat (bench shape, bf16).
 
 The kernels phase also holds the halo all-to-all (K1) exactly against its
 plain version at the bench graph's halo (K=4, Bh=30,056, stacked and list
@@ -70,12 +87,17 @@ from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
 from lp_gnn_tpu_torch.models.gcn import build_model
 from lp_gnn_tpu_torch.ops import _build
+from lp_gnn_tpu_torch.ops import spmm as spmm_mod
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-from lp_gnn_tpu_torch.ops.spmm import spmm_csr, spmm_csr_plain
+from lp_gnn_tpu_torch.ops.spmm import (attach_input_agg, spmm_cons_to_vars,
+                                       spmm_csr, spmm_csr_plain,
+                                       spmm_vars_to_cons)
 from lp_gnn_tpu_torch.parallel import edge_partition
 from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
                                             halo_all_to_all_plain)
 from lp_gnn_tpu_torch.parallel.mesh import make_mesh
+from lp_gnn_tpu_torch.train import trainer
+from lp_gnn_tpu_torch.train.losses import LOSS_REGISTRY
 from lp_gnn_tpu_torch.utils.serialize import json_load, msgpack_dump
 
 # bench shape (bench.py:58-60)
@@ -95,6 +117,12 @@ N_DIST_LPS = 3              # LPs served edge-partitioned
 DIST_PER_FORWARD = {"halo_all_to_all": 2, "gather_rows": 2,
                     "spmm_csr": 2 * K_EDGE * 5}
 KERNELS = (spmm_csr, gather_rows, halo_all_to_all)
+N_TRAIN_LPS = 4             # LPs written for training: 2 train, 2 val
+TRAIN_EPOCHS = 5            # one val pass, after the last epoch
+# spmm_csr launches of the train phase: 2 a train graph once (the input
+# aggregation cache), 4 a step (the hidden conv's 2 forward, 2 backward;
+# conv1 reads the cache and its inputs take no gradient), 4 a val forward
+SPMM_PER_STEP = 4
 
 
 class SmokeFailure(Exception):
@@ -318,6 +346,98 @@ def check_spmm_shapes(gen: torch.Generator,
     rows.append(spmm_case("x in L2 S=8192 M=65536 E=1M D=1024 bfloat16",
                           ptr, idx, val, x, False))
     return rows
+
+
+def spmm_backward_case(gt: GraphTensors, direction: str,
+                       gen: torch.Generator) -> dict:
+    """The SpMM's backward at D=1024 bf16 on the bench graph:
+    ``torch.autograd.grad`` through ``SpmmCSR`` (the kernel over the
+    transpose ordering, one launch a backward), bit-identical over two
+    calls, under SPMM_TOL against the same through ``spmm_csr_plain`` on
+    fp32 copies of x and the gradient, rounded to bf16 once, and against
+    the wrapper's plain version of the launch (``spmm_csr_plain`` over the
+    transpose, which the backward runs on a CPU tensor; ``plain_ms``).
+    Autograd through the plain version in bf16 scatters bf16 messages with
+    a bf16 ``index_add_``, summing in bf16: its error against the fp32
+    reference is reported beside the kernel's, not held. The library
+    yardstick is ``torch.sparse.mm`` on the transpose CSR."""
+    if direction == "v2c":
+        fwd, n_src, n_dst = spmm_vars_to_cons, gt.nvars, gt.ncons
+        own = (gt.rowptr, gt.col, gt.val_r)
+        tr = (gt.colptr, gt.row, gt.val_c)
+    else:
+        fwd, n_src, n_dst = spmm_cons_to_vars, gt.ncons, gt.nvars
+        own = (gt.colptr, gt.row, gt.val_c)
+        tr = (gt.rowptr, gt.col, gt.val_r)
+    d, dt = 1024, torch.bfloat16
+    x = torch.randn(n_src, d, generator=gen, device="cuda").to(dt)
+    w = torch.randn(n_dst, d, generator=gen, device="cuda").to(dt)
+    x.requires_grad_()
+    out = fwd(gt, x)
+
+    def grad():
+        return torch.autograd.grad(out, x, w, retain_graph=True)[0]
+
+    def grad_plain(xp, wp):
+        return torch.autograd.grad(spmm_csr_plain(*own, xp), xp, wp)[0]
+
+    before = spmm_csr.launches
+    got = grad()
+    launches = spmm_csr.launches - before
+    again = grad()
+    ref = grad_plain(x.detach().float().requires_grad_(), w.float()).to(dt)
+    plain = spmm_csr_plain(*tr, w)
+    autograd16 = grad_plain(x.detach().clone().requires_grad_(), w)
+    torch.cuda.synchronize()
+    if launches != 1:
+        raise SmokeFailure(f"spmm backward {direction}: {launches} launches "
+                           "a backward, expected 1")
+    rtol, atol = SPMM_TOL[dt]
+    err, ok = within(got, ref, rtol, atol)
+    err_plain, ok_plain = within(got, plain, rtol, atol)
+    if not (ok and ok_plain):
+        raise SmokeFailure(f"spmm backward {direction}: max |err| {err} "
+                           f"against the fp32 gradient, {err_plain} against "
+                           f"the plain launch, beyond rtol={rtol}, atol={atol}")
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise SmokeFailure(f"spmm backward {direction}: two calls differ")
+    err16 = float((autograd16.float() - ref.float()).abs().max())
+    del got, again, ref, plain, autograd16
+    t_ptr, t_idx, t_val = tr
+    n_e = t_idx.shape[0]
+    s_used = int(torch.unique(t_idx).numel())
+    n_bytes = (n_src + 1) * 4 + n_e * 8 + s_used * d * 2 + n_src * d * 2
+    bound_ms, bound_by = bound(n_bytes, 2.0 * n_e * d)
+    a_t = torch.sparse_csr_tensor(t_ptr, t_idx, t_val.to(dt),
+                                  size=(n_src, n_dst), check_invariants=False)
+    row = {
+        "name": "spmm_csr", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/spmm.cu",
+        "replaces": "lp_gnn_tpu/ops/spmm.py:172",
+        "launches": None, "max_abs_err": err,
+        "ms": time_ms(grad, kernel_iters(d)),
+        "device_ms": kernel_device_ms(grad, "spmm_csr_kernel"),
+        "plain_ms": time_ms(lambda: spmm_csr_plain(*tr, w), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(lambda: torch.sparse.mm(a_t, w),
+                              kernel_iters(d) // 2),
+        "case": f"backward of {direction} D=1024 bfloat16", "on_path": "train",
+        "launches_per_backward": launches, "max_abs_err_vs_plain": err_plain,
+        "plain_autograd_bf16_max_abs_err": err16,
+        "reference": "autograd through spmm_csr_plain in fp32, rounded to "
+                     "bf16 once",
+        "num_dst": n_src, "num_src": n_dst, "nnz": n_e, "D": d,
+        "tol": {"rtol": rtol, "atol": atol},
+        "also_replaces": ["lp_gnn_tpu/ops/spmm.py:61"],
+        "library": "torch.sparse.mm on the transpose as a sparse CSR tensor",
+    }
+    del out, x, w, a_t
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_spmm_backward(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
+    return [spmm_backward_case(gt, dname, gen) for dname in ("v2c", "c2v")]
 
 
 def gather_case(case: str, table, idx, on_path, schedule=None) -> dict:
@@ -573,41 +693,22 @@ def write_dataset(root: str, seed: int, n_lps: int) -> None:
                           con_nms=con_nms, var_nms=var_nms), path + ".meta")
 
 
-def run_pred_basis(tmp: str, seed: int, n_lps: int, per_forward: dict,
-                   extra: list[str]) -> dict:
-    """Write ``n_lps`` bench-shape LPs and a seeded bf16 GCN_FC, run the
-    entry point ``python -m lp_gnn_tpu_torch.pred_basis`` in this process
-    (runpy) with the kernels' launch counts set to 0 just before and read
-    just after, and check its output: valid bases, ``per_forward`` launches
-    of each kernel in every forward, finite per-LP times."""
-    data_prefix = osp.join(tmp, "data")
-    t0 = time.perf_counter()
-    write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), seed, n_lps)
-    t_write = time.perf_counter() - t0
-    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
-                        generator=torch.Generator().manual_seed(seed))
-    ckpt = osp.join(tmp, "mdl.pth")
-    torch.save(model.state_dict(), ckpt)
-    argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
-            "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", "smoke",
-            "--arch", ARCH, "--fp16", "1", "--load_from", ckpt,
-            "--split", "trainval", "--warm_gate", "off", "--seed", str(seed),
-            *extra]
-    for kern in KERNELS:
-        kern.launches = 0
+def run_module(module: str, argv: list[str]) -> float:
+    """Run ``python -m module argv`` in this process (runpy), so the
+    kernels' launch counts are readable after it; returns its wall time."""
     saved_argv = sys.argv
-    sys.argv = ["lp_gnn_tpu_torch.pred_basis", *argv]
+    sys.argv = [module, *argv]
     t0 = time.perf_counter()
     try:
-        runpy.run_module("lp_gnn_tpu_torch.pred_basis", run_name="__main__",
-                         alter_sys=True)
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
     finally:
         sys.argv = saved_argv
-    t_serve = time.perf_counter() - t0
-    launches = {kern.__name__: kern.launches for kern in KERNELS}
+    return time.perf_counter() - t0
 
-    log_dir = osp.join(tmp, "runs", "smoke")
-    out_dir = osp.join(log_dir, "pred-basis")
+
+def check_bases(out_dir: str, n_lps: int) -> int:
+    """Every ``.bas`` in ``out_dir`` (and its ``.sort``) is a valid basis of
+    a bench-shape LP: M basic, #basic structurals = #nonbasic rows."""
     bas = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas"))
     sort = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas.sort"))
     if len(bas) != n_lps or len(sort) != n_lps:
@@ -620,6 +721,28 @@ def run_pred_basis(tmp: str, seed: int, n_lps: int, per_forward: dict,
             raise SmokeFailure(f"{f}: {n_basic} basic of {M} rows")
         if int((var == 1).sum()) != int(((con == 0) | (con == 2)).sum()):
             raise SmokeFailure(f"{f}: #basic structurals != #nonbasic rows")
+    return len(bas)
+
+
+def serve_and_check(data_prefix: str, log_prefix: str, ckpt: str,
+                    seed: int, n_lps: int, split: str, per_forward: dict,
+                    extra: list[str]) -> dict:
+    """Run the entry point ``python -m lp_gnn_tpu_torch.pred_basis`` on
+    the dataset ``smoke`` under ``data_prefix`` with the weights ``ckpt``,
+    the kernels' launch counts set to 0 just before and read just after,
+    and check its output: ``n_lps`` valid bases, ``per_forward`` launches
+    of each kernel in every forward, finite per-LP times."""
+    argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
+            "--log_prefix", log_prefix, "--exp_nm", "smoke",
+            "--arch", ARCH, "--fp16", "1", "--load_from", ckpt,
+            "--split", split, "--warm_gate", "off", "--seed", str(seed),
+            *extra]
+    for kern in KERNELS:
+        kern.launches = 0
+    t_serve = run_module("lp_gnn_tpu_torch.pred_basis", argv)
+    launches = {kern.__name__: kern.launches for kern in KERNELS}
+    log_dir = osp.join(log_prefix, "smoke")
+    n_bas = check_bases(osp.join(log_dir, "pred-basis"), n_lps)
     forwards = FORWARDS_PER_LP * n_lps
     for name, n in launches.items():
         want = per_forward.get(name, 0) * forwards
@@ -631,12 +754,27 @@ def run_pred_basis(tmp: str, seed: int, n_lps: int, per_forward: dict,
     if len(times) != n_lps or not all(
             np.isfinite(t) and t > 0 for t in times.values()):
         raise SmokeFailure(f"inf_time.json: bad per-LP times {times}")
-    return {"lps": n_lps, "bas_valid": len(bas), "forwards": forwards,
+    return {"lps": n_lps, "bas_valid": n_bas, "forwards": forwards,
             "launches": launches, "inf_time_s": times,
             "part_time_s": inf.get("part_time", {}),
-            "inf_time_device": inf["device"],
-            "write_dataset_s": t_write, "pred_basis_s": t_serve,
-            "data_prefix": data_prefix}
+            "inf_time_device": inf["device"], "pred_basis_s": t_serve}
+
+
+def run_pred_basis(tmp: str, seed: int, n_lps: int, per_forward: dict,
+                   extra: list[str]) -> dict:
+    """Write ``n_lps`` bench-shape LPs and a seeded bf16 GCN_FC and serve
+    every LP through the entry point (``serve_and_check``)."""
+    data_prefix = osp.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), seed, n_lps)
+    t_write = time.perf_counter() - t0
+    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
+                        generator=torch.Generator().manual_seed(seed))
+    ckpt = osp.join(tmp, "mdl.pth")
+    torch.save(model.state_dict(), ckpt)
+    res = serve_and_check(data_prefix, osp.join(tmp, "runs"), ckpt, seed,
+                          n_lps, "trainval", per_forward, extra)
+    return {**res, "write_dataset_s": t_write, "data_prefix": data_prefix}
 
 
 def serve(seed: int) -> dict:
@@ -820,6 +958,386 @@ def breakdown(seed: int) -> dict:
             "forward_device_ms": sorted(device_ms)[1]}
 
 
+# -------------------------------------------------------------------- train
+def train(seed: int) -> dict:
+    """The training entry point ``python -m lp_gnn_tpu_torch.train`` (in
+    this process, through runpy) at full width and depth in bf16 on
+    N_TRAIN_LPS bench-shape LPs (the 70/30 split: 2 train, 2 val),
+    TRAIN_EPOCHS epochs and a val pass after the last, the launch counts set
+    to 0 just before and read just after. Checks: every step's loss and
+    every logged ``train/loss`` finite; ``spmm_csr`` launched exactly 2 a
+    train graph + SPMM_PER_STEP a step + 4 a val forward, the other
+    kernels not at all; ``mdl.pth``, ``train_state.pth``, ``args.json``
+    written; the trained ``mdl.pth`` serves valid bases for the val LPs
+    through ``python -m lp_gnn_tpu_torch.pred_basis``. Reports each epoch's
+    wall time (to the start of its checkpoint write; epoch 0 from the
+    entry point's start) and every step's loss, read through wrappers of
+    ``trainer.train_step`` and ``trainer.save_checkpoint`` that add no
+    work on the card."""
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    n_train, n_val = map(len, split_idxs_train_val(N_TRAIN_LPS))
+    steps = n_train * TRAIN_EPOCHS
+    want = 2 * n_train + SPMM_PER_STEP * steps + SPMM_PER_FORWARD * n_val
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_train_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"),
+                      seed + 100, N_TRAIN_LPS)
+        t_write = time.perf_counter() - t0
+        argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
+                "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", "train",
+                "--arch", ARCH, "--fp16", "1", "--loss", "balanced",
+                "--epochs", str(TRAIN_EPOCHS), "--eval_every",
+                str(TRAIN_EPOCHS), "--seed", str(seed)]
+        step_losses, epoch_ends = [], []
+        real_step, real_save = trainer.train_step, trainer.save_checkpoint
+
+        def step_seen(*a, **kw):
+            loss, acc = real_step(*a, **kw)
+            step_losses.append(loss)
+            return loss, acc
+
+        def save_seen(*a, **kw):
+            epoch_ends.append(time.perf_counter())
+            return real_save(*a, **kw)
+
+        trainer.train_step, trainer.save_checkpoint = step_seen, save_seen
+        for kern in KERNELS:
+            kern.launches = 0
+        t_start = time.perf_counter()
+        try:
+            t_train = run_module("lp_gnn_tpu_torch.train", argv)
+        finally:
+            trainer.train_step, trainer.save_checkpoint = real_step, real_save
+        launches = {kern.__name__: kern.launches for kern in KERNELS}
+        if launches != {"spmm_csr": want, "gather_rows": 0,
+                        "halo_all_to_all": 0}:
+            raise SmokeFailure(f"train launches {launches}, expected "
+                               f"spmm_csr {want} (2 x {n_train} + "
+                               f"{SPMM_PER_STEP} x {steps} + "
+                               f"{SPMM_PER_FORWARD} x {n_val}) and no other")
+        losses = [float(v) for v in step_losses]
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise SmokeFailure(f"train step losses {losses}")
+        log_dir = osp.join(tmp, "runs", "train")
+        for f in ("mdl.pth", "train_state.pth", "args.json", "metrics.jsonl"):
+            if not osp.exists(osp.join(log_dir, f)):
+                raise SmokeFailure(f"train wrote no {f}")
+        logged = {}
+        with open(osp.join(log_dir, "metrics.jsonl")) as f:
+            for line in f:
+                r = json.loads(line)
+                logged.setdefault(r["tag"], []).append([r["step"], r["value"]])
+        if not logged.get("train/loss") or not np.isfinite(
+                [v for _, v in logged["train/loss"]]).all():
+            raise SmokeFailure(f"metrics.jsonl train/loss {logged}")
+        served = serve_and_check(data_prefix, osp.join(tmp, "serve"),
+                                 osp.join(log_dir, "mdl.pth"), seed, n_val,
+                                 "val", {"spmm_csr": SPMM_PER_FORWARD}, [])
+    ends = [t_start] + epoch_ends
+    return {"lps": N_TRAIN_LPS, "train_lps": n_train, "val_lps": n_val,
+            "epochs": TRAIN_EPOCHS, "steps": steps, "launches": launches,
+            "spmm_expected": want, "step_losses": losses,
+            "epoch_wall_s": [b - a for a, b in zip(ends, ends[1:])],
+            "train_s": t_train, "write_dataset_s": t_write,
+            "metrics": logged,
+            "serve_trained": {k: served[k] for k in (
+                "lps", "bas_valid", "launches", "inf_time_s")}}
+
+
+def categorize(seen: dict) -> dict:
+    """Device ms of one profiled call by kind of kernel: the SpMM, cuBLAS
+    GEMMs, the optimizer (Adam's foreach kernels), the rest (losses,
+    casts, activations, reductions)."""
+    out = {"spmm_csr": 0.0, "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
+    for k, (t, _) in seen.items():
+        low = k.lower()
+        if "spmm_csr_kernel" in low:
+            out["spmm_csr"] += t
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            out["gemm"] += t
+        elif "multi_tensor_apply" in low:
+            out["optimizer"] += t
+        else:
+            out["other"] += t
+    return out
+
+
+def train_breakdown(seed: int) -> dict:
+    """One training step on one bench-shape LP, bf16, balanced CE, Adam,
+    the input aggregation cache: 2 warm-up steps, then medians of 10 of the
+    step's wall time on the host clock (ends when the loss reaches the
+    host) and its span on the card (CUDA events around the step's
+    launches), the SpMM launches a step, the peak of allocated device
+    memory; then one step's device time by kernel (``torch.profiler``,
+    after an unrecorded warm-up round) and the card's idle share of the
+    step (1 - kernel time / span, and / wall)."""
+    g = bench_graph(seed + 3000)
+    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
+                        generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda")
+    gt = attach_input_agg(GraphTensors.from_graph(g, "cuda", labels=True),
+                          torch.bfloat16)
+    optimizer = trainer.make_optimizer(model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    loss_fn = LOSS_REGISTRY["balanced"]
+
+    def step():
+        return trainer.train_step(model, optimizer, gt, loss_fn, gen)[0]
+
+    for _ in range(2):
+        float(step())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    walls, spans, launches = [], [], []
+    for _ in range(10):
+        before = spmm_csr.launches
+        t0 = time.perf_counter()
+        ev0.record()
+        loss = step()
+        ev1.record()
+        float(loss)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(ev0.elapsed_time(ev1))
+        launches.append(spmm_csr.launches - before)
+    peak = torch.cuda.max_memory_allocated()
+    if set(launches) != {SPMM_PER_STEP}:
+        raise SmokeFailure(f"train step spmm launches {launches}, expected "
+                           f"{SPMM_PER_STEP} each")
+    seen, complete = profile_kernels(step, 1,
+                                     {"spmm_csr_kernel": SPMM_PER_STEP})
+    kinds = categorize(seen)
+    busy = sum(kinds.values())
+    top = {k[:90]: t for k, (t, _) in sorted(seen.items(),
+                                             key=lambda kv: -kv[1][0])[:15]}
+    counts = {k[:90]: n for k, (_, n) in seen.items() if k[:90] in top}
+    wall, span = sorted(walls)[5], sorted(spans)[5]
+    return {"lp_nodes": M + N, "nnz": E, "step_wall_ms": wall,
+            "step_wall_ms_all": walls, "step_device_span_ms": span,
+            "step_device_span_ms_all": spans, "spmm_launches_per_step":
+            SPMM_PER_STEP, "device_ms_by_kind": kinds,
+            "device_ms_busy": busy, "idle_share_of_span": 1 - busy / span,
+            "idle_share_of_wall": 1 - busy / wall,
+            "device_ms_top_kernels": top, "top_kernel_launches": counts,
+            "profile_complete": complete,
+            "max_memory_allocated_bytes": peak}
+
+
+def state_of(model) -> dict:
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+
+
+def max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def spmm_sum_in_x_dtype(ptr, idx, val, x):
+    """The plain SpMM summed in x's dtype (``spmm_csr_plain`` sums in fp32):
+    the fp64 reference's aggregation."""
+    num_dst = ptr.shape[0] - 1
+    dst = torch.repeat_interleave(torch.arange(num_dst, device=x.device),
+                                  (ptr[1:] - ptr[:-1]).long())
+    out = torch.zeros(num_dst, x.shape[1], dtype=x.dtype, device=x.device)
+    return out.index_add_(0, dst, x.index_select(0, idx.long())
+                          * val[:, None].to(x.dtype))
+
+
+def small_train_run(arch: str, sd: dict, g: BipartiteGraph, dev: str,
+                    fp64: bool, steps: int = 3):
+    """``steps`` Adam steps of ``arch`` from ``sd`` on ``g`` on ``dev``:
+    (losses, the first step's gradients, the params after the last), the
+    tensors copied to the host as fp64. ``fp64``: the model and its convs
+    in fp64 (the SpMM summed in fp64; the knowledge mask and the loss stay
+    fp32, as in every run)."""
+    loss_fn = LOSS_REGISTRY["balanced"]
+    model = build_model(arch)
+    model.load_state_dict(sd)
+    real = spmm_mod.spmm_csr
+    if fp64:
+        model.double()
+        model.cdtype = torch.float64
+        spmm_mod.spmm_csr = spmm_sum_in_x_dtype
+    try:
+        model.to(dev)
+        gt = attach_input_agg(GraphTensors.from_graph(g, dev, labels=True),
+                              model.cdtype)
+        opt = trainer.make_optimizer(model.parameters())
+        losses = [float(trainer.train_step(model, opt, gt, loss_fn)[0])]
+        # the step leaves its gradient in .grad until the next one
+        grad1 = {k: p.grad.detach().double().cpu().clone()
+                 for k, p in model.named_parameters()}
+        losses += [float(trainer.train_step(model, opt, gt, loss_fn)[0])
+                   for _ in range(steps - 1)]
+    finally:
+        spmm_mod.spmm_csr = real
+    return losses, grad1, {k: v.detach().double().cpu()
+                           for k, v in model.state_dict().items()}
+
+
+def held_to(run, ref, sd: dict) -> dict:
+    """``run`` against ``ref`` (both from ``small_train_run``, from ``sd``):
+    the largest relative loss difference; each parameter's first-step
+    gradient and its update over the steps, relative to ``ref``'s norm;
+    the whole model's update; and a parameter's largest entry difference
+    with the count of entries over 1e-4."""
+    (l_a, g_a, p_a), (l_b, g_b, p_b) = run, ref
+    sd = {k: v.double() for k, v in sd.items()}
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+    upd = {k: (p_a[k] - sd[k], p_b[k] - sd[k]) for k in p_b}
+    return {"loss_max_rel": max(abs(a - b) / abs(b) for a, b in zip(l_a, l_b)),
+            "grad1_rel": {k: rel(g_a[k], g_b[k]) for k in g_b},
+            "update_rel": {k: rel(*upd[k]) for k in upd},
+            "update_rel_all": rel(torch.cat([a.flatten() for a, _ in upd.values()]),
+                                  torch.cat([b.flatten() for _, b in upd.values()])),
+            "param_max_abs_n_over_1e-4": {
+                k: [float((p_a[k] - p_b[k]).abs().max()),
+                    int(((p_a[k] - p_b[k]).abs() > 1e-4).sum())] for k in p_b}}
+
+
+# limits (loss, first-step gradient, update) of the card's 3 small steps
+# against the CPU's fp64 run and its fp32 run; measured on an H100 at seed 0:
+# (6.5e-7, 2.1e-6, 7.6e-4) and (1.4e-5, 5.6e-4, 1.3e-2)
+RTOL_SMALL_RUN = {"card_vs_cpu_fp64": (1e-5, 1e-4, 5e-3),
+                  "card_vs_cpu_fp32": (1e-4, 1e-2, 2e-2)}
+
+
+def train_reference(seed: int) -> dict:
+    """Training on the card held to its references.
+    1. card vs CPU: GCN_FC at full width, fp32, dropout 0, 3 Adam steps on
+       a small graph from one state_dict, on the card, on the CPU in fp32
+       and on the CPU in fp64 (the convs and the SpMM's sums in fp64). The
+       card is held to each CPU run, parameter by parameter
+       (``RTOL_SMALL_RUN``): the losses; each parameter's first-step
+       gradient, relative to the reference's norm; each parameter's update
+       over the 3 steps, and the whole model's, relative to the
+       reference's. The fp32 limits are wider: the two fp32 runs differ
+       from fp64 by round-off, which a ReLU input near 0 can turn into a
+       sign, and Adam turns a gradient entry near 0 into a step of +-lr.
+       The CPU fp32 run's distance to fp64 is reported beside them.
+    2. kernel vs plain: at the bench shape in fp32, one forward, then its
+       backward twice: through the kernel, and with ``spmm_csr_plain`` in
+       the kernel's place (the same activations, so the same ReLU masks);
+       each parameter's gradient within 1e-5 of the plain one's norm
+       (relative). The loss of a forward through the plain version within
+       rtol 1e-5 of the kernel's.
+    3. remat: at the bench shape in bf16 with dropout 0.1 (its mask drawn
+       outside the recomputed conv), 2 steps with ``remat=True`` against
+       ``remat=False`` from one state_dict and generator seed: the first
+       loss equal, the second within rtol 1e-3, params within 1e-5; SpMM
+       launches a step 6 against 4; peak device memory of each."""
+    loss_fn = LOSS_REGISTRY["balanced"]
+    out = {}
+    # 1. card vs CPU, fp32 and fp64
+    g = bench_graph(seed + 4000, m=300, n=500, e=4000)
+    arch32 = f"{ARCH[:-1]},dp=0.0)"
+    sd = build_model(arch32, generator=torch.Generator().manual_seed(seed)
+                     ).state_dict()
+    card = small_train_run(arch32, sd, g, "cuda", fp64=False)
+    cpu32 = small_train_run(arch32, sd, g, "cpu", fp64=False)
+    cpu64 = small_train_run(arch32, sd, g, "cpu", fp64=True)
+    held = {"card_vs_cpu_fp64": held_to(card, cpu64, sd),
+            "card_vs_cpu_fp32": held_to(card, cpu32, sd)}
+    for name, h in held.items():
+        worst = (h["loss_max_rel"], max(h["grad1_rel"].values()),
+                 max(max(h["update_rel"].values()), h["update_rel_all"]))
+        if any(w > lim for w, lim in zip(worst, RTOL_SMALL_RUN[name])):
+            raise SmokeFailure(f"train_reference {name}: loss, grad1, update "
+                               f"rel {worst} (limits {RTOL_SMALL_RUN[name]})"
+                               f": {h}")
+        h["max_rel_loss_grad1_update"] = worst
+        h["limits"] = RTOL_SMALL_RUN[name]
+    held["cpu_fp32_vs_cpu_fp64"] = held_to(cpu32, cpu64, sd)
+    out["card_vs_cpu"] = {"losses_card": card[0], "losses_cpu_fp32": cpu32[0],
+                          "losses_cpu_fp64": cpu64[0], **held,
+                          "float32_matmul_precision":
+                          torch.get_float32_matmul_precision()}
+    # 2. kernel vs plain: one forward, its backward through each
+    g = bench_graph(seed + 5000)
+    model = build_model(arch32, generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda")
+    gt = GraphTensors.from_graph(g, "cuda", labels=True)
+
+    def step_loss():
+        lc, lv = model(gt)
+        ms, mt = trainer.seed_masks(gt)
+        return loss_fn(lc, lv, gt.y_s, gt.y_t, ms, mt)
+
+    def grads(loss):
+        return dict(zip((k for k, _ in model.named_parameters()),
+                        torch.autograd.grad(loss, list(model.parameters()),
+                                            retain_graph=True)))
+
+    before = spmm_csr.launches
+    loss = step_loss()
+    g_k = grads(loss)
+    n_kernel = spmm_csr.launches - before
+    real = spmm_mod.spmm_csr
+    spmm_mod.spmm_csr = lambda ptr, idx, val, x: spmm_csr_plain(ptr, idx,
+                                                                val, x)
+    try:
+        g_p = grads(loss)
+        with torch.no_grad():
+            l_p = float(step_loss())
+    finally:
+        spmm_mod.spmm_csr = real
+    l_k = float(loss.detach())
+    rel = {k: float((g_k[k] - g_p[k]).norm() / g_p[k].norm().clamp(min=1e-30))
+           for k in g_k}
+    worst = max(rel.values())
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    if worst > 1e-5 or loss_rel > 1e-5 or n_kernel != 6:
+        raise SmokeFailure(f"train_reference kernel vs plain: grad rel "
+                           f"{worst}, loss rel {loss_rel}, {n_kernel} "
+                           "launches (limits 1e-5, 1e-5, 6)")
+    out["kernel_vs_plain"] = {"loss_kernel": l_k, "loss_plain": l_p,
+                              "loss_rel": loss_rel, "grad_max_rel": worst,
+                              "grad_rel_by_param": rel,
+                              "spmm_launches": n_kernel,
+                              "rtol_grad": 1e-5, "rtol_loss": 1e-5}
+    del model, gt, loss, g_k, g_p
+    torch.cuda.empty_cache()
+    # 3. remat against no remat, bf16, dropout on
+    arch16 = f"{ARCH[:-1]},dtype='bfloat16')"
+    sd = build_model(arch16, generator=torch.Generator().manual_seed(seed)
+                     ).state_dict()
+    g = bench_graph(seed + 6000)
+    gt = attach_input_agg(GraphTensors.from_graph(g, "cuda", labels=True),
+                          torch.bfloat16)
+    runs = {}
+    for remat in (False, True):
+        model = build_model(arch16[:-1] + f",remat={remat})")
+        model.load_state_dict(sd)
+        model.to("cuda")
+        opt = trainer.make_optimizer(model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = spmm_csr.launches
+        losses = [float(trainer.train_step(model, opt, gt, loss_fn, gen)[0])
+                  for _ in range(2)]
+        runs[remat] = {"losses": losses,
+                       "spmm_per_step": (spmm_csr.launches - before) / 2,
+                       "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated(),
+                       "state": state_of(model)}
+        del model, opt
+    p_err = max_diff(runs[True].pop("state"), runs[False].pop("state"))
+    l0, l1 = runs[False]["losses"], runs[True]["losses"]
+    if (l1[0] != l0[0] or abs(l1[1] - l0[1]) > 1e-3 * abs(l0[1])
+            or p_err > 1e-5 or runs[True]["spmm_per_step"] != 6
+            or runs[False]["spmm_per_step"] != SPMM_PER_STEP):
+        raise SmokeFailure(f"train_reference remat: {runs}, params max "
+                           f"|diff| {p_err}")
+    out["remat"] = {"no_remat": runs[False], "remat": runs[True],
+                    "param_max_abs": p_err, "bit_identical": p_err == 0.0,
+                    "atol_param": 1e-5}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -842,8 +1360,8 @@ def main(argv=None) -> int:
         rng = np.random.RandomState(args.seed)
         g = bench_graph(args.seed)
         gt = GraphTensors.from_graph(g, "cuda")
-        kernels = (check_spmm(gt, gen) + check_spmm_shapes(gen, rng)
-                   + check_gather(gt, gen, rng))
+        kernels = (check_spmm(gt, gen) + check_spmm_backward(gt, gen)
+                   + check_spmm_shapes(gen, rng) + check_gather(gt, gen, rng))
         del gt
         kernels += check_dist_kernels(g, gen)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
@@ -858,6 +1376,12 @@ def main(argv=None) -> int:
         dist = dist_serve(args.seed)
         emit({"phase": "dist_serve", **dist})
         emit({"phase": "dist_reference", **dist_reference(args.seed)})
+        torch.cuda.empty_cache()
+        trained = train(args.seed)
+        emit({"phase": "train", **trained})
+        emit({"phase": "train_breakdown", **train_breakdown(args.seed)})
+        torch.cuda.empty_cache()
+        emit({"phase": "train_reference", **train_reference(args.seed)})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -866,7 +1390,8 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches"] = dist["launches"][k["name"]]
         k["launches_by_path"] = {"serve": served["launches"][k["name"]],
-                                 "dist_serve": dist["launches"][k["name"]]}
+                                 "dist_serve": dist["launches"][k["name"]],
+                                 "train": trained["launches"][k["name"]]}
         k["card"] = smi
     emit({"kernels": kernels})
     print(smi, flush=True)

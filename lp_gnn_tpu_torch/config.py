@@ -1,6 +1,7 @@
-"""Configuration of the predict stage (counterpart of ``lp_gnn_tpu/config.py``).
+"""Configuration of the predict and train stages (counterpart of
+``lp_gnn_tpu/config.py``).
 
-The fields and CLI flags the predict stage reads, with the JAX package's
+The fields and CLI flags those stages read, with the JAX package's
 defaults and the same derived paths (``finalize``, config.py:186-200)::
 
     {data_prefix}/{dataset}/{solver_prefix}inp_tgt[-mM]/processed/*.pk
@@ -38,6 +39,18 @@ class Config:
     edge_num_thresh: float = 4e6 * 3       # full-graph vs sampled switch
     load_from: str = "None"
     fp16: int = 0                          # reference --fp16: bf16 compute
+    # training (config.py:72-143)
+    loss: str = "balanced"                 # unbalanced | balanced | focal
+                                           # | critical
+    opt: str = "adam"                      # adam | anything else: sgd
+    lr: float = 1e-3
+    epochs: int = 30
+    graph_batch: int = 1                   # graphs a step (1 only, so far)
+    steps_per_call: int = 1                # 1 only, so far
+    step_acc: int = 0                      # 1: decode accuracy every step;
+                                           # 0: only on logged steps
+    eval_every: int = 0                    # epochs between val passes
+    trace: int = 0                         # 0 only, so far
     # solver / decode
     lp_method: int | str = 1               # 1=dual, 4=primal
     inference_manager: str = "InferenceManager(0,)"
@@ -73,6 +86,9 @@ class Config:
             sep = "" if base.endswith("(") else ","
             return base + sep + "dtype='bfloat16')"
         return self.arch
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
     def finalize(self, make_log_dir: bool = True) -> "Config":
         self.lp_method = self.normalized_lp_method()

@@ -7,6 +7,10 @@ here as CSR and CSC with int32 pointers. What the JAX package adds for the
 TPU (bucket padding to static shapes, the MXU block layout, ``strip_coo``)
 has no use under PyTorch's eager execution and is left out, so there are no
 padded rows: every tensor covers the real nodes and edges only.
+
+Two optional parts: the labels (``from_graph(..., labels=True)``, for
+training) and the input conv's cached aggregations
+(``ops/spmm.py attach_input_agg``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ class GraphTensors:
     val_c: torch.Tensor    # (E,) float32
     c_feas: torch.Tensor   # (m, 8) float32
     v_feas: torch.Tensor   # (n, 8) float32
+    y_s: torch.Tensor | None = None      # (m,) int64 labels
+    y_t: torch.Tensor | None = None      # (n,) int64 labels
+    in_agg_c: torch.Tensor | None = None   # (m, q) A v_feas, compute dtype
+    in_agg_v: torch.Tensor | None = None   # (n, p) A^T c_feas, compute dtype
 
     @property
     def ncons(self) -> int:
@@ -48,8 +56,8 @@ class GraphTensors:
         return self.c_feas.device
 
     @classmethod
-    def from_graph(cls, g: BipartiteGraph,
-                   device: torch.device | str) -> "GraphTensors":
+    def from_graph(cls, g: BipartiteGraph, device: torch.device | str,
+                   labels: bool = False) -> "GraphTensors":
         m, n, e = g.ncons, g.nvars, g.nnz
         if e >= 2 ** 31:
             raise ValueError(f"{g.fn}: {e} edges overflow int32 pointers")
@@ -86,4 +94,6 @@ class GraphTensors:
             val_c=dev(val[order_c]),
             c_feas=dev(np.asarray(g.c_feas, np.float32)),
             v_feas=dev(np.asarray(g.v_feas, np.float32)),
+            y_s=dev(np.asarray(g.y_s, np.int64)) if labels else None,
+            y_t=dev(np.asarray(g.y_t, np.int64)) if labels else None,
         )

@@ -1,19 +1,24 @@
 """Basis decoding: logits -> valid simplex basis statuses.
 
-Counterpart of the host decode in ``lp_gnn_tpu/infer/decode.py`` (:25-84,
-:116-186; reference val.py:106-197), label for label. The decode picks the
-top-m nodes by P(basic) as the basis (m = #constraints) and gives everyone
-else argmax over {LL, UL}. The two validity rules (val.py:119-122) hold by
-construction and are checked:
+Counterpart of ``lp_gnn_tpu/infer/decode.py`` (:25-186; reference
+val.py:106-197), label for label. The decode picks the top-m nodes by
+P(basic) as the basis (m = #constraints) and gives everyone else argmax
+over {LL, UL}. The two validity rules (val.py:119-122) hold by construction
+and are checked by the host decode:
 
 - exactly m basic nodes in total;
 - #basic structural variables == #nonbasic rows.
+
+:func:`inference_gnn` is the host decode (numpy) of the prediction passes;
+:func:`decode_topm_device` the same selection on the device, for the
+trainer's per-step accuracy.
 """
 from __future__ import annotations
 
 import ast
 
 import numpy as np
+import torch
 
 
 def _softmax_np(x):
@@ -79,6 +84,29 @@ def inference_gnn_sparsity(logits: np.ndarray, m: int, nnzs=None,
     pr[:, 1] = pr.min() - 1
     pr[topk_idx, 1] = pr.max() + 1
     return pr.argmax(-1)
+
+
+def decode_topm_device(logit_cons, logit_vars, cons_mask, vars_mask, m):
+    """Top-m decode on the device (decode.py:87): rank by descending
+    P(basic) with a stable sort (torch.topk's tie order), masked rows
+    excluded; the top ``m`` (a Python int or a 0-d tensor) are basic, the
+    rest LL where P(LL) >= P(UL), else UL. Returns (pred_cons, pred_vars)
+    int64, masked rows -1."""
+    pr_c = torch.softmax(logit_cons.float(), dim=-1).nan_to_num(nan=0.0)
+    pr_v = torch.softmax(logit_vars.float(), dim=-1).nan_to_num(nan=0.0)
+    key = torch.cat([torch.where(cons_mask, pr_c[:, 1], -torch.inf),
+                     torch.where(vars_mask, pr_v[:, 1], -torch.inf)])
+    order = torch.argsort(-key, stable=True)
+    # the inverse permutation (the JAX package takes a second argsort,
+    # which avoids a scatter on the TPU; the result is the same)
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], device=order.device))
+    p0 = torch.cat([pr_c[:, 0], pr_v[:, 0]])
+    p2 = torch.cat([pr_c[:, 2], pr_v[:, 2]])
+    pred = torch.where(rank < m, 1, torch.where(p0 >= p2, 0, 2))
+    pred = torch.where(torch.cat([cons_mask, vars_mask]), pred, -1)
+    mp = logit_cons.shape[0]
+    return pred[:mp], pred[mp:]
 
 
 class InferenceManager:

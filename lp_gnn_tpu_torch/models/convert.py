@@ -94,7 +94,7 @@ class _JaxCkptUnpickler(pickle.Unpickler):
             f"refusing global {module}.{name} in a JAX checkpoint")
 
 
-def _is_torch_checkpoint(path: str) -> bool:
+def is_torch_checkpoint(path: str) -> bool:
     """torch.save writes a zip archive (``PK``), or legacy pickles whose
     globals import from ``torch``; a JAX ckpt is a pickle of numpy arrays
     and optax state (same sniff as ``lp_gnn_tpu/train/trainer.py:240``)."""
@@ -123,7 +123,7 @@ def _is_torch_checkpoint(path: str) -> bool:
 def load_checkpoint(path: str) -> "OrderedDict[str, torch.Tensor]":
     """A GCN_FC state_dict (fp32, on the CPU) from a torch ``mdl.pth`` or a
     JAX ``mdl.ckpt``."""
-    if _is_torch_checkpoint(path):
+    if is_torch_checkpoint(path):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if not isinstance(sd, dict):
             raise ValueError(f"{path}: expected a state_dict, got "

@@ -5,9 +5,10 @@ Counterpart of ``lp_gnn_tpu/models/gcn.py`` (``make_gcn_fc`` :48,
 (GCN, GCNRand, GCNDeeper, GENDeeper) is not ported yet: asking for it
 raises and names the ROADMAP item.
 
-Forward contract: ``model(g)`` with ``g`` a
+Forward contract: ``model(g, generator=None)`` with ``g`` a
 :class:`~lp_gnn_tpu_torch.data.graph.GraphTensors` ->
 (cons_logits (m, 3), vars_logits (n, 3)), fp32, after the knowledge mask.
+Dropout draws from ``generator`` and runs only in training mode.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import ast
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .layers import BidirGraphConv, Linear, add_knowledge
+from .layers import (BidirGraphConv, Linear, add_knowledge,
+                     bidir_conv_apply_input, dropout)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -26,7 +29,13 @@ class GCN_FC(nn.Module):
     """1 input conv, depth-2 hidden convs, per-side Linear(hids, 3) heads;
     conv1 -> relu; hidden: conv -> dropout -> relu; heads -> knowledge
     mask. ``dtype='bfloat16'`` runs the conv / linear stack in bf16 with
-    fp32 parameters, fp32 SpMM accumulation and an fp32 knowledge mask."""
+    fp32 parameters, fp32 SpMM accumulation and an fp32 knowledge mask.
+
+    ``remat=True`` recomputes each conv in the backward pass instead of
+    keeping its activations (``torch.utils.checkpoint`` around each conv
+    only, as ``jax.checkpoint`` wraps the conv, gcn.py:67-69). The dropout
+    stays outside the recomputed function: the recompute restores the
+    default generators' state, not that of an explicit one."""
 
     name = "GCN_FC"
 
@@ -37,11 +46,8 @@ class GCN_FC(nn.Module):
         super().__init__()
         if dtype not in _DTYPES:
             raise ValueError(f"dtype {dtype!r}: use one of {sorted(_DTYPES)}")
-        if remat:
-            raise NotImplementedError(
-                "remat recomputes activations in the backward pass, which "
-                "comes with training (ROADMAP.md, queue item 1: training)")
         self.depth, self.hids, self.dp = depth, hids, dp
+        self.remat = remat
         self.dtype = dtype
         self.cdtype = _DTYPES[dtype]
         n_hidden = max(depth - 2, 0)
@@ -54,15 +60,21 @@ class GCN_FC(nn.Module):
         self.lin_left = Linear(hids, 3, generator=generator)
         self.lin_right = Linear(hids, 3, generator=generator)
 
-    def forward(self, g):
+    def _conv(self, fn, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def forward(self, g, generator: torch.Generator | None = None):
         x_left = g.c_feas.to(self.cdtype)
         x_right = g.v_feas.to(self.cdtype)
-        left, right = self.conv1(g, x_left, x_right)
+        left, right = self._conv(bidir_conv_apply_input, self.conv1, g,
+                                 x_left, x_right)
         left, right = F.relu(left), F.relu(right)
         for conv in self.layers:
-            left, right = conv(g, left, right)
-            left = F.dropout(left, self.dp, self.training)
-            right = F.dropout(right, self.dp, self.training)
+            left, right = self._conv(conv, g, left, right)
+            left = dropout(left, self.dp, generator, self.training)
+            right = dropout(right, self.dp, generator, self.training)
             left, right = F.relu(left), F.relu(right)
         left = self.lin_left(left)
         right = self.lin_right(right)

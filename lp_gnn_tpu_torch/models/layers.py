@@ -1,4 +1,5 @@
-"""Model building blocks: linear, two-direction graph conv, knowledge mask.
+"""Model building blocks: linear, two-direction graph conv, knowledge mask,
+dropout.
 
 Counterpart of ``lp_gnn_tpu/models/layers.py`` (reference arch.py:51-141),
 as ``nn.Module``s named after the reference's state_dict keys
@@ -69,6 +70,20 @@ class BidirGraphConv(nn.Module):
         return left_new, right_new
 
 
+def bidir_conv_apply_input(conv: BidirGraphConv, g, left: torch.Tensor,
+                           right: torch.Tensor):
+    """``conv`` as the input conv (layers.py:73-89): where ``g`` carries the
+    cached input aggregations (``ops/spmm.py attach_input_agg``) in the
+    inputs' dtype, it uses them instead of running the two SpMMs (exact:
+    the raw features are constants of the graph); otherwise it is
+    ``conv(g, left, right)``."""
+    agg_c, agg_v = g.in_agg_c, g.in_agg_v
+    if agg_c is None or agg_v is None or agg_c.dtype != right.dtype or \
+            agg_v.dtype != left.dtype:
+        return conv(g, left, right)
+    return conv.right2left(agg_c, left), conv.left2right(agg_v, right)
+
+
 def add_knowledge(left_logit, right_logit, left_feas, right_feas,
                   bound: float = 10.0):
     """Suppress infeasible statuses given +-inf bounds (layers.py:93,
@@ -89,3 +104,16 @@ def add_knowledge(left_logit, right_logit, left_feas, right_feas,
 
     return (mask(norm10(left_logit), left_feas),
             mask(norm10(right_logit), right_feas))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None, train: bool) -> torch.Tensor:
+    """Inverted dropout (layers.py:124-129) drawing its mask from an
+    explicit ``generator`` on x's device (the default one if None): keep
+    each entry with probability 1 - rate, scale kept ones by 1 / (1 -
+    rate), in x's dtype. The identity unless ``train`` and rate > 0."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)

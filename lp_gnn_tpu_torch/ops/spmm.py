@@ -1,20 +1,25 @@
 """Sparse bipartite aggregation: the CSR SpMM and its two directions.
 
-Counterpart of ``lp_gnn_tpu/ops/spmm.py`` (``segment_spmm`` :34,
-``blocked_spmm`` :77, ``spmm_cons_to_vars`` :203, ``spmm_vars_to_cons``
-:216, ``bidir_spmm`` :226). One kernel serves both directions:
+Counterpart of ``lp_gnn_tpu/ops/spmm.py`` (``segment_spmm`` :34 and its
+VJP :61, ``blocked_spmm`` :77 and its VJP :172, ``spmm_cons_to_vars`` :203,
+``spmm_vars_to_cons`` :216, ``bidir_spmm`` :226, ``attach_input_agg``
+:231). One kernel serves both directions:
 ``out[d] = sum over e in [ptr[d], ptr[d+1]) of val[e] * x[idx[e]]``, run
 over the CSR (vars -> cons) or the CSC (cons -> vars) of
 :class:`~lp_gnn_tpu_torch.data.graph.GraphTensors`.
 
 On a CUDA tensor :func:`spmm_csr` launches the hand-written kernel
 (``csrc/spmm.cu``) or raises; on a CPU tensor it runs the plain version,
-:func:`spmm_csr_plain`. It is forward-only: the backward (the same kernel
-over the transpose ordering) comes with training.
+:func:`spmm_csr_plain`. :func:`spmm_csr` itself is forward-only;
+:class:`SpmmCSR` makes it differentiable in ``x``: its backward is the same
+kernel over the other ordering of the same edges (the transpose), so no
+atomics are needed and the gradient is deterministic. The two directions
+go through :class:`SpmmCSR`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -121,9 +126,11 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     """
     if x.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
-            "spmm_csr is forward-only: its backward (the kernel over the "
-            "transpose ordering) comes with the training slice (ROADMAP.md, "
-            "queue item 1: training). Run under torch.no_grad().")
+            "spmm_csr is forward-only: SpmmCSR.apply gives it a backward "
+            "(spmm_vars_to_cons / spmm_cons_to_vars go through it); the "
+            "edge-partitioned path that calls it with out= trains with the "
+            "halo pair's backward (ROADMAP.md, queue item 7: edge partition, "
+            "the rest). Run under torch.no_grad().")
     dev = _check(ptr, idx, val, x)
     num_dst, d = ptr.shape[0] - 1, x.shape[1]
     if out is not None:
@@ -150,16 +157,59 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
 spmm_csr.launches = 0   # kernel launches since the last reset
 
 
+class SpmmCSR(torch.autograd.Function):
+    """:func:`spmm_csr` with a gradient for ``x``:
+    ``SpmmCSR.apply(ptr, idx, val, x, t_ptr, t_idx, t_val)``, where
+    ``t_*`` are the same edges ordered by source (the transpose). The
+    backward is ``dx = spmm_csr(t_ptr, t_idx, t_val, grad_out)``, one launch
+    of the same kernel in x's dtype with fp32 sums; ``val`` and the indices
+    get no gradient (``None``, as the JAX VJPs return)."""
+
+    @staticmethod
+    def forward(ctx, ptr, idx, val, x, t_ptr, t_idx, t_val):
+        ctx.transpose = (t_ptr, t_idx, t_val)
+        return spmm_csr(ptr, idx, val, x)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[3]:
+            return (None,) * 7
+        # the kernel takes contiguous, 16-byte aligned rows: a gradient that
+        # is neither is copied into a fresh (aligned) tensor first
+        g = grad_out.contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
+        dx = spmm_csr(*ctx.transpose, g)
+        return None, None, None, dx, None, None, None
+
+
 def spmm_cons_to_vars(g, x_cons: torch.Tensor) -> torch.Tensor:
-    """``out[j] = sum_i A_ij * x_cons[i]`` -- (n, D), over the CSC."""
-    return spmm_csr(g.colptr, g.row, g.val_c, x_cons)
+    """``out[j] = sum_i A_ij * x_cons[i]`` -- (n, D), over the CSC; its
+    backward runs over the CSR."""
+    return SpmmCSR.apply(g.colptr, g.row, g.val_c, x_cons,
+                         g.rowptr, g.col, g.val_r)
 
 
 def spmm_vars_to_cons(g, x_vars: torch.Tensor) -> torch.Tensor:
-    """``out[i] = sum_j A_ij * x_vars[j]`` -- (m, D), over the CSR."""
-    return spmm_csr(g.rowptr, g.col, g.val_r, x_vars)
+    """``out[i] = sum_j A_ij * x_vars[j]`` -- (m, D), over the CSR; its
+    backward runs over the CSC."""
+    return SpmmCSR.apply(g.rowptr, g.col, g.val_r, x_vars,
+                         g.colptr, g.row, g.val_c)
 
 
 def bidir_spmm(g, x_cons: torch.Tensor, x_vars: torch.Tensor):
     """Both directions of the two-tower aggregation in one call."""
     return spmm_vars_to_cons(g, x_vars), spmm_cons_to_vars(g, x_cons)
+
+
+def attach_input_agg(g, dtype: torch.dtype):
+    """``g`` with the input conv's two aggregations, ``in_agg_c = A
+    v_feas`` (m, q) and ``in_agg_v = A^T c_feas`` (n, p), computed once in
+    the model's compute ``dtype`` (ops/spmm.py:231). The raw features are
+    constants of the graph and the kernel is deterministic, so the result is
+    bit-identical to what conv1 computes, and every later step and
+    inference skips those two launches."""
+    with torch.no_grad():
+        agg_v = spmm_cons_to_vars(g, g.c_feas.to(dtype))
+        agg_c = spmm_vars_to_cons(g, g.v_feas.to(dtype))
+    return dataclasses.replace(g, in_agg_c=agg_c, in_agg_v=agg_v)

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data.dataset import BipartiteGraph
-from ..models.layers import add_knowledge
+from ..models.layers import add_knowledge, dropout
 from ..ops.gather import gather_rows
 from ..ops.spmm import spmm_csr
 from .halo import halo_all_to_all
@@ -450,8 +450,8 @@ def dist_gcn_fc_apply(model, dg: DistGraphTensors):
     left, right = F.relu(left), F.relu(right)
     for conv in model.layers:
         left, right = _dist_bidir_conv(conv, dg, left, right)
-        left = F.dropout(left, model.dp, model.training)
-        right = F.dropout(right, model.dp, model.training)
+        left = dropout(left, model.dp, None, model.training)
+        right = dropout(right, model.dp, None, model.training)
         left, right = F.relu(left), F.relu(right)
     left = model.lin_left(left)
     right = model.lin_right(right)

@@ -1,13 +1,15 @@
 """Pipeline stages (counterpart of ``lp_gnn_tpu/pipeline.py``).
 
-Ported so far: ``stage_pred_basis`` (:328-357), the serving path. It writes
-the same on-disk layout as the JAX package::
+Ported so far: ``stage_train`` (:198), the single-device trainer, and
+``stage_pred_basis`` (:328-357), the serving path. They write the same
+on-disk layout as the JAX package, with ``mdl.pth`` for ``mdl.ckpt``::
 
+    {log_prefix}/{exp_nm}/mdl.pth, train_state.pth, metrics.jsonl, args.json
     {log_prefix}/{exp_nm}/{pred-basis}/*.bas, *.bas.sort
     {log_prefix}/{exp_nm}/inf_time.json    (and time.h5 where pandas is)
 
-The other stages (generate, solve, train, warm start, val, extract) wait
-for later slices; ROADMAP.md lists them in order.
+The other stages (generate, solve, warm start, val, extract) wait for later
+slices; ROADMAP.md lists them in order.
 """
 from __future__ import annotations
 
@@ -22,7 +24,13 @@ from .infer.decode import parse_inference_manager
 from .infer.predict import predict_and_write_bases, timed_inference
 from .models.convert import load_checkpoint
 from .models.gcn import build_model
+from .train.trainer import run_exp
 from .utils.serialize import have_pandas
+
+
+def stage_train(cfg: Config) -> str:
+    """Train and return the ``mdl.pth`` path (pipeline.py:198)."""
+    return run_exp(cfg)
 
 
 def stage_pred_basis(cfg: Config, ckpt_path: str | None = None) -> str:

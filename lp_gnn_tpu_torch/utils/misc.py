@@ -4,6 +4,7 @@ from __future__ import annotations
 import logging
 import os
 import random
+from collections import deque
 
 import numpy as np
 
@@ -51,3 +52,22 @@ def increment_path(path: str, exist_ok: bool = False) -> str:
 def init_seeds(seed: int = 0) -> None:
     random.seed(seed)
     np.random.seed(seed)
+
+
+class AverageMeter:
+    """Sliding-window mean over the last ``window`` updates
+    (lp_gnn_tpu/utils/misc.py:46; reference utils.py:881-907)."""
+
+    def __init__(self, window: int = 10):
+        self.window = window
+        self.reset()
+
+    def reset(self):
+        self._buf = deque(maxlen=self.window)
+
+    def update(self, val: float):
+        self._buf.append(float(val))
+
+    @property
+    def avg(self) -> float:
+        return float(np.mean(self._buf)) if self._buf else 0.0

@@ -68,10 +68,14 @@ def test_spmm_wrapper_checks():
     with pytest.raises(ValueError, match="contiguous"):
         tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r,
                        torch.randn(8, g.nvars).t())
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tspmm.spmm_vars_to_cons(gt, x.requires_grad_())
-    with torch.no_grad():   # no gradient asked for: runs
-        tspmm.spmm_vars_to_cons(gt, x)
+    # a gradient flows through the plain version on the CPU: the plain
+    # SpMM over the transpose ordering, with no launch
+    xg = x.clone().requires_grad_()
+    w = torch.randn(g.ncons, 8)
+    (tspmm.spmm_vars_to_cons(gt, xg) * w).sum().backward()
+    assert torch.equal(xg.grad, tspmm.spmm_csr_plain(gt.colptr, gt.row,
+                                                     gt.val_c, w))
+    assert tspmm.spmm_csr.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -278,6 +282,52 @@ def test_spmm_kernel_rejects_widths_it_does_not_take(cuda_device, dtype, d):
     with pytest.raises(ValueError, match="aligned"):
         tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
     assert tspmm.spmm_csr.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 1024])
+def test_spmm_backward_matches_plain_on_card(cuda_device, dtype, d):
+    """The gradient through SpmmCSR in both directions: one launch of the
+    kernel over the transpose ordering per backward, within the forward's
+    tolerance of the gradient through the plain version taken in fp32 and
+    rounded to x's dtype once (in bf16, autograd through the plain version
+    would scatter bf16 messages with a bf16 index_add_, summing in bf16;
+    the kernel, like the JAX VJP, sums in fp32), bit-identical over two
+    backward passes; a gradient at a misaligned offset is copied, not
+    refused."""
+    g = port_graph(np.random.RandomState(d + 1), m=300, n=500, e=4000)
+    gt = GraphTensors.from_graph(g, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+    for fwd, n_src, n_dst, plain in (
+            (tspmm.spmm_vars_to_cons, g.nvars, g.ncons,
+             (gt.rowptr, gt.col, gt.val_r)),
+            (tspmm.spmm_cons_to_vars, g.ncons, g.nvars,
+             (gt.colptr, gt.row, gt.val_c))):
+        x = torch.randn(n_src, d, generator=gen, device=cuda_device).to(dtype)
+        w = torch.randn(n_dst, d, generator=gen, device=cuda_device).to(dtype)
+        x.requires_grad_()
+        out = fwd(gt, x)
+        before = tspmm.spmm_csr.launches
+        got, = torch.autograd.grad(out, x, w, retain_graph=True)
+        again, = torch.autograd.grad(out, x, w)
+        assert tspmm.spmm_csr.launches == before + 2
+        xp = x.detach().float().requires_grad_()
+        want, = torch.autograd.grad(tspmm.spmm_csr_plain(*plain, xp), xp,
+                                    w.float())
+        want = want.to(dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(got.view(bits), again.view(bits))
+        flat = torch.empty(n_dst * d + 1, device=cuda_device, dtype=dtype)
+        w_off = flat[1:].view(n_dst, d)
+        w_off.copy_(w)
+        xo = x.detach().clone().requires_grad_()
+        odd, = torch.autograd.grad(fwd(gt, xo), xo, w_off)
+        assert torch.equal(odd, got)
 
 
 def csr_from_counts(rng, counts, n_src, positive):
