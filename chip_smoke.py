@@ -20,7 +20,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    makes; computes each kernel's bound. The SpMM's backward (through
    ``SpmmCSR``: the kernel over the transpose ordering) at D=1024 bf16 in
    both directions, against the gradient through the plain version, one
-   launch a backward, bit-identical over two calls.
+   launch a backward, bit-identical over two calls. The SpMM also at the
+   pipeline's shapes: a mirp_bench LP's structure, D=8 and D=1024 bf16.
 3. reference: GCN_FC(8,8,hids=1024,depth=3) logits on the card against the
    same weights on the CPU, on a small graph, in fp32 and bf16.
 4. serve: writes 6 processed LPs of the bench shape (reference blob
@@ -55,6 +56,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fp64 (small graph), parameter by parameter; one step's gradients
    through the kernel against the plain version (bench shape, fp32); remat
    against no remat (bench shape, bf16).
+11. pipeline: the flagship recipe end to end through the entry points (in
+   this process, through runpy). ``python -m lp_gnn_tpu_torch.run_prep_data``
+   generates the recipe's family (``mirp_like --size bench``, 40 instances
+   from ``--seed``), cold-solves it with HiGHS (and the crash baseline), one
+   worker process a CPU, and writes the blobs; ``python -m
+   lp_gnn_tpu_torch.run_train_test`` trains GCN_FC(8,8,hids=1024,depth=3)
+   in bf16 with balanced CE for 20 epochs, predicts the 12 val LPs,
+   calibrates the warm gate on train LPs, warm-starts, validates and
+   reports. Fails on a broken pipeline, not on a weak model: every prep
+   artifact and every cold solve Optimal, finite losses, the gate's k in
+   [5, 12], 12 valid bases, 12 warm logs with no basis rejected, the
+   results columns of every val LP, the run-dir logs, and ``spmm_csr``
+   launched exactly as the design counts (the formula is printed). Prints
+   the machine's solver stack (scipy, its HiGHS, pandas, pytables, g++),
+   the gate's decision and interval, the val means (cold and warm
+   iterations, ``impr_niter``, ``acc``), each stage's wall seconds and the
+   peak device memory.
+
+``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
+11, with the recipe's 800 epochs (RESULTS.md:576-583).
 
 The kernels phase also holds the halo all-to-all (K1) exactly against its
 plain version at the bench graph's halo (K=4, Bh=30,056, stacked and list
@@ -68,19 +89,26 @@ nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
+import logging
 import os
 import os.path as osp
 import runpy
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+import scipy
 import torch
 
+from lp_gnn_tpu_torch import pipeline as port_pipeline
+from lp_gnn_tpu_torch import prep as port_prep
 from lp_gnn_tpu_torch.data.dataset import BipartiteGraph, LPDataset
+from lp_gnn_tpu_torch.data.generator import SIZES, generate_instance
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.infer.decode import inference_gnn
 from lp_gnn_tpu_torch.infer.predict import model_inference
@@ -96,6 +124,8 @@ from lp_gnn_tpu_torch.parallel import edge_partition
 from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
                                             halo_all_to_all_plain)
 from lp_gnn_tpu_torch.parallel.mesh import make_mesh
+from lp_gnn_tpu_torch.reporting.extract import extract_time
+from lp_gnn_tpu_torch.solver import highs_bridge
 from lp_gnn_tpu_torch.train import trainer
 from lp_gnn_tpu_torch.train.losses import LOSS_REGISTRY
 from lp_gnn_tpu_torch.utils.serialize import json_load, msgpack_dump
@@ -123,6 +153,12 @@ TRAIN_EPOCHS = 5            # one val pass, after the last epoch
 # aggregation cache), 4 a step (the hidden conv's 2 forward, 2 backward;
 # conv1 reads the cache and its inputs take no gradient), 4 a val forward
 SPMM_PER_STEP = 4
+# the pipeline phase: the recipe's family (RESULTS.md:576-579, mirp_like at
+# --size bench, 40 instances: 28 train, 12 val), 20 epochs; --flagship
+# runs the recipe's 800
+N_PIPE_LPS = 40
+PIPE_EPOCHS = 20
+FLAGSHIP_EPOCHS = 800
 
 
 class SmokeFailure(Exception):
@@ -309,6 +345,41 @@ def check_spmm(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
                 rows.append(spmm_case(
                     f"{dname} D={d} {str(dt).split('.')[-1]}", ptr, idx, val,
                     x32.to(dt), "serve" if dt == torch.bfloat16 else False))
+    return rows
+
+
+def mirp_bench_graph(seed: int) -> BipartiteGraph:
+    """The structure of the pipeline's LPs: instance 0 of the recipe's
+    family (``mirp_like --size bench`` from ``seed``: 1,860 rows, 21,780
+    columns, 55,902 nonzeros), its values scaled into [-1, 1], random
+    features."""
+    lp = generate_instance("mirp_like", seed, 0, **SIZES["mirp_like"]["bench"])
+    a = lp.A.tocoo()
+    order = np.lexsort((a.col, a.row))
+    m, n = lp.A.shape
+    rng = np.random.RandomState(seed)
+    val = a.data[order] / np.abs(a.data).max()
+    return BipartiteGraph(
+        row=a.row[order].astype(np.int32), col=a.col[order].astype(np.int32),
+        val=val.astype(np.float32),
+        c_feas=rng.rand(m, 8).astype(np.float32) - 0.5,
+        v_feas=rng.rand(n, 8).astype(np.float32) - 0.5,
+        y_s=np.zeros(m, np.int32), y_t=np.zeros(n, np.int32))
+
+
+def check_spmm_pipeline(seed: int, gen: torch.Generator) -> list[dict]:
+    """The SpMM at the pipeline's shapes (a mirp_bench LP, bf16): D=8 as
+    the input aggregation cache runs it, D=1024 as the hidden conv does,
+    both directions (the c2v case is also the v2c backward's shape)."""
+    gt = GraphTensors.from_graph(mirp_bench_graph(seed), "cuda")
+    dirs = {"v2c": (gt.rowptr, gt.col, gt.val_r, gt.nvars),
+            "c2v": (gt.colptr, gt.row, gt.val_c, gt.ncons)}
+    rows = []
+    for dname, (ptr, idx, val, n_src) in dirs.items():
+        for d in (8, 1024):
+            x = torch.randn(n_src, d, generator=gen, device="cuda")
+            rows.append(spmm_case(f"mirp_bench {dname} D={d} bfloat16", ptr,
+                                  idx, val, x.to(torch.bfloat16), "pipeline"))
     return rows
 
 
@@ -695,14 +766,25 @@ def write_dataset(root: str, seed: int, n_lps: int) -> None:
 
 def run_module(module: str, argv: list[str]) -> float:
     """Run ``python -m module argv`` in this process (runpy), so the
-    kernels' launch counts are readable after it; returns its wall time."""
-    saved_argv = sys.argv
+    kernels' launch counts are readable after it; returns its wall time.
+    The run-dir logs it attaches (stdout and stderr teed, a root file
+    handler) are taken off again after it."""
+    saved = sys.argv, sys.stdout, sys.stderr
+    handlers = list(logging.getLogger().handlers)
     sys.argv = [module, *argv]
     t0 = time.perf_counter()
     try:
         runpy.run_module(module, run_name="__main__", alter_sys=True)
     finally:
-        sys.argv = saved_argv
+        for stream in (sys.stdout, sys.stderr):
+            if stream not in saved:
+                stream.flush()
+                stream.close()
+        sys.argv, sys.stdout, sys.stderr = saved
+        for h in logging.getLogger().handlers:
+            if h not in handlers:
+                logging.getLogger().removeHandler(h)
+                h.close()
     return time.perf_counter() - t0
 
 
@@ -1338,9 +1420,214 @@ def train_reference(seed: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- pipeline
+def machine_probe() -> dict:
+    """What the solver and the reporting find on this machine: scipy and
+    its HiGHS, pandas, pytables, g++."""
+    out = {"scipy": scipy.__version__,
+           "highspy_core": highs_bridge.HAVE_HIGHS,
+           "highs": highs_bridge.HIGHS_VERSION, "gxx": shutil.which("g++"),
+           "cpus": os.cpu_count()}
+    for mod in ("pandas", "tables"):
+        try:
+            out[mod] = importlib.import_module(mod).__version__
+        except ImportError:
+            out[mod] = None
+    return out
+
+
+def time_stages(stages: dict, module, names: tuple[str, ...]) -> dict:
+    """Wrap ``module.<name>`` for each name so that its wall seconds add up
+    in ``stages[name]`` (ending in a device synchronize); returns the real
+    functions, to put back."""
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(name):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    return real
+
+
+def valid_basis(path: str) -> tuple[bool, int]:
+    """(valid, m): exactly m basic, #basic structurals = #nonbasic rows."""
+    con, var = read_bas_highs(path)
+    n_basic = int((con == 1).sum() + (var == 1).sum())
+    return (n_basic == len(con) and
+            int((var == 1).sum()) == int(((con == 0) | (con == 2)).sum()),
+            len(con))
+
+
+def pipeline_phase(seed: int, epochs: int, n_lps: int) -> dict:
+    """The flagship pipeline through its entry points (in this process,
+    through runpy): ``run_prep_data`` preps the recipe's family
+    (``mirp_like --size bench``, n_lps instances, the HiGHS engine, one
+    worker process a CPU), then ``run_train_test`` trains
+    GCN_FC(8,8,hids=1024,depth=3) in bf16 with balanced CE for ``epochs``,
+    predicts, calibrates the warm gate (``--warm_gate auto``), warm-starts
+    the val split, validates and reports. Checks: every prep artifact for
+    each LP and every cold solve Optimal; finite losses and ``mdl.pth``;
+    ``warm_gate.json`` with k in [5, 12]; a valid predicted basis a val LP;
+    a warm log a val LP with no basis rejected; the results columns of
+    every val LP; the run-dir logs; ``spmm_csr`` launched exactly as the
+    design counts (SPMM_PIPELINE), no other kernel."""
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    n_train, n_val = map(len, split_idxs_train_val(n_lps))
+    workers = min(8, os.cpu_count() or 1)
+    stages: dict = {}
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_pipe_") as tmp:
+        data_prefix = osp.join(tmp, "lp-dataset")
+        common = ["--dataset", "mirp_bench", "--data_prefix", data_prefix,
+                  "--seed", str(seed), "--engine", "highs"]
+        real_prep = time_stages(stages, port_prep, (
+            "stage_generate", "stage_run_solver", "stage_cvt_to_pkl",
+            "stage_process"))
+        try:
+            t_prep = run_module("lp_gnn_tpu_torch.run_prep_data", [
+                *common, "--family", "mirp_like", "--size", "bench",
+                "--n_instances", str(n_lps), "--num_workers", str(workers)])
+        finally:
+            for n, f in real_prep.items():
+                setattr(port_prep, n, f)
+        ds = osp.join(data_prefix, "mirp_bench")
+        proc = osp.join(ds, "highs-inp_tgt")
+        counts = {sub: len(os.listdir(osp.join(ds, sub))) for sub in (
+            "mps", "highs-basis", "log/highs-no-bas", "log/highs-ca-bas-m1",
+            "highs-inp_tgt/raw")}
+        counts["highs-inp_tgt/processed"] = len(
+            [f for f in os.listdir(osp.join(proc, "processed"))
+             if f.endswith(".pk")])
+        if set(counts.values()) != {n_lps}:
+            raise SmokeFailure(f"prep wrote {counts}, expected {n_lps} each")
+        cold = [extract_time(osp.join(ds, "log/highs-no-bas", f))[0]
+                for f in sorted(os.listdir(osp.join(ds, "log/highs-no-bas")))]
+        if min(cold) < 0:
+            raise SmokeFailure(f"cold solves not all Optimal: {cold}")
+
+        log_prefix = osp.join(tmp, "runs")
+        argv = [*common, "--log_prefix", log_prefix, "--exp_nm", "pipe",
+                "--arch", ARCH, "--fp16", "1", "--loss", "balanced",
+                "--epochs", str(epochs), "--warm_gate", "auto"]
+        real_pipe = time_stages(stages, port_pipeline, (
+            "stage_train", "predict_and_write_bases", "calibrate_warm_gate",
+            "timed_inference", "stage_warm_start", "stage_val",
+            "stage_extract"))
+        real_train = time_stages(stages, trainer,
+                                 ("train_step", "save_checkpoint"))
+        for kern in KERNELS:
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t_run = run_module("lp_gnn_tpu_torch.run_train_test", argv)
+        finally:
+            for mod, real in ((port_pipeline, real_pipe),
+                              (trainer, real_train)):
+                for n, f in real.items():
+                    setattr(mod, n, f)
+        launches = {kern.__name__: kern.launches for kern in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        run = osp.join(log_prefix, "pipe")
+        gate = json_load(osp.join(run, "warm_gate.json"))
+        k = gate["k"]
+        # spmm_csr: 2 a train graph once (the input aggregation cache), 4 a
+        # step, 4 a forward: the val LPs' prediction, k calibration LPs,
+        # the timing pass (1 + 3 a val LP), validation twice (labels and
+        # converged bases)
+        formula = (f"2 x {n_train} + 4 x {n_train} x {epochs} + 4 x {n_val}"
+                   f" + 4 x {k} + 16 x {n_val} + 8 x {n_val}")
+        want = (2 * n_train + SPMM_PER_STEP * n_train * epochs
+                + SPMM_PER_FORWARD * (n_val + k + 4 * n_val + 2 * n_val))
+        if launches != {"spmm_csr": want, "gather_rows": 0,
+                        "halo_all_to_all": 0}:
+            raise SmokeFailure(f"pipeline launches {launches}, expected "
+                               f"spmm_csr {want} = {formula} and no other")
+        if not 5 <= k <= 12:
+            raise SmokeFailure(f"warm gate calibrated on {k} LPs: {gate}")
+        losses = []
+        with open(osp.join(run, "metrics.jsonl")) as f:
+            for line in f:
+                r = json.loads(line)
+                if r["tag"] == "train/loss":
+                    losses.append(r["value"])
+        if not losses or not np.isfinite(losses).all() or \
+                not osp.exists(osp.join(run, "mdl.pth")):
+            raise SmokeFailure(f"train: losses {losses}, or no mdl.pth")
+        bases = sorted(f for f in os.listdir(osp.join(run, "pred-basis"))
+                       if f.endswith(".bas"))
+        valid = [valid_basis(osp.join(run, "pred-basis", f)) for f in bases]
+        if len(bases) != n_val or not all(v for v, _ in valid):
+            raise SmokeFailure(f"predicted bases {bases}: valid {valid}")
+        warm_dir = osp.join(run, "log", "gnn-bas-0")
+        warm_logs = sorted(os.listdir(warm_dir))
+        rejected = []
+        for f in warm_logs:
+            with open(osp.join(warm_dir, f)) as fh:
+                if "WarmBasisRejected" in fh.read():
+                    rejected.append(f)
+        if len(warm_logs) != n_val or rejected:
+            raise SmokeFailure(f"warm logs {warm_logs}, rejected {rejected}")
+        rows = json_load(osp.join(run, "time.json"))
+        val = [r for r in rows if r.get("split") == "val"]
+        cols = ("highs-no-bas/niter", "gnn-bas-0/niter",
+                "gnn-bas-0/impr_niter", "acc", "cvg/acc")
+        missing = [(r["fn"], c) for r in val for c in cols
+                   if r.get(c) is None]
+        if len(val) != n_val or missing:
+            raise SmokeFailure(f"results table: {len(val)} val rows, "
+                               f"missing {missing}")
+        for f in ("log-ing", "log-prt", "log-prt-err"):
+            if not osp.exists(osp.join(run, f)):
+                raise SmokeFailure(f"run dir has no {f}")
+        with open(osp.join(run, "log-prt")) as fh:
+            if "gnn-bas-0/impr_niter" not in fh.read():
+                raise SmokeFailure("log-prt holds no summary")
+    order = ("stage_generate", "stage_run_solver", "stage_cvt_to_pkl",
+             "stage_process", "stage_train", "predict_and_write_bases",
+             "calibrate_warm_gate", "timed_inference", "stage_warm_start",
+             "stage_val", "stage_extract")
+    names = ("generate", "cold_solves", "cvt", "process", "train", "predict",
+             "calibrate", "timing_pass", "warm_start", "val", "extract")
+    return {"engine": "highs", "machine": machine_probe(), "lps": n_lps,
+            "train_lps": n_train, "val_lps": n_val, "epochs": epochs,
+            "workers": workers, "prep_counts": counts,
+            "cold_niter": cold,
+            "gate": {key: gate[key] for key in (
+                "proceed", "mean_impr", "ci90", "k", "failures")},
+            "gate_lps": gate["lps"],
+            "val_mean": {c: float(np.mean([r[c] for r in val]))
+                         for c in cols},
+            "val_std": {c: float(np.std([r[c] for r in val], ddof=1))
+                        for c in cols},
+            "val_rows": [{c: r[c] for c in ("fn", *cols)} for r in val],
+            "bases_valid": len(valid), "warm_logs": len(warm_logs),
+            "launches": launches, "spmm_expected": want,
+            "spmm_formula": formula,
+            "train_loss_first_last": [losses[0], losses[-1]],
+            "stage_s": {nm: stages.get(st) for st, nm in zip(order, names)},
+            # inside train: the steps (each to a device synchronize) and the
+            # checkpoints, one an epoch
+            "train_steps_s": stages.get("train_step"),
+            "train_step_ms": 1e3 * stages.get("train_step", 0.0)
+            / (n_train * epochs),
+            "checkpoints_s": stages.get("save_checkpoint"),
+            "prep_s": t_prep, "run_train_test_s": t_run,
+            "peak_device_bytes": peak}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--flagship", action="store_true",
+                    help="run only the pipeline phase, with the recipe's "
+                         f"{FLAGSHIP_EPOCHS} epochs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1349,19 +1636,30 @@ def main(argv=None) -> int:
     try:
         smi = nvidia_smi()
         t0 = time.perf_counter()
-        logs = _build.build_all(["spmm", "gather", "halo_a2a"])
+        logs = _build.build_all(["spmm"] if args.flagship
+                                else ["spmm", "gather", "halo_a2a"])
         ptxas = {k: [ln.strip() for ln in v.splitlines()
                      if "registers" in ln or "spill" in ln] for k, v in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "nvidia_smi": smi, "ptxas": ptxas,
               "torch": torch.__version__, "cuda": torch.version.cuda})
+        if args.flagship:
+            emit({"phase": "pipeline", **pipeline_phase(
+                args.seed, FLAGSHIP_EPOCHS, N_PIPE_LPS)})
+            print(smi, flush=True)
+            emit({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}})
+            return 0
 
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         rng = np.random.RandomState(args.seed)
         g = bench_graph(args.seed)
         gt = GraphTensors.from_graph(g, "cuda")
         kernels = (check_spmm(gt, gen) + check_spmm_backward(gt, gen)
-                   + check_spmm_shapes(gen, rng) + check_gather(gt, gen, rng))
+                   + check_spmm_shapes(gen, rng)
+                   + check_spmm_pipeline(args.seed, gen)
+                   + check_gather(gt, gen, rng))
         del gt
         kernels += check_dist_kernels(g, gen)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
@@ -1382,6 +1680,9 @@ def main(argv=None) -> int:
         emit({"phase": "train_breakdown", **train_breakdown(args.seed)})
         torch.cuda.empty_cache()
         emit({"phase": "train_reference", **train_reference(args.seed)})
+        torch.cuda.empty_cache()
+        piped = pipeline_phase(args.seed, PIPE_EPOCHS, N_PIPE_LPS)
+        emit({"phase": "pipeline", **piped})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -1391,7 +1692,8 @@ def main(argv=None) -> int:
         k["launches"] = dist["launches"][k["name"]]
         k["launches_by_path"] = {"serve": served["launches"][k["name"]],
                                  "dist_serve": dist["launches"][k["name"]],
-                                 "train": trained["launches"][k["name"]]}
+                                 "train": trained["launches"][k["name"]],
+                                 "pipeline": piped["launches"][k["name"]]}
         k["card"] = smi
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,34 +1,41 @@
-"""lp-gnn-tpu on PyTorch and CUDA: training and basis prediction on an NVIDIA
-H100.
+"""lp-gnn-tpu on PyTorch and CUDA: data prep, training, basis prediction,
+warm starts and reporting on an NVIDIA H100.
 
 A second implementation of ``lp_gnn_tpu`` (the JAX package, which stays the
 reference). It keeps the JAX package's layout and module names, so every
-module here has a counterpart of the same path there, and it imports neither
-JAX nor anything of ``lp_gnn_tpu``: what it needs from JAX-free modules
-there (the msgpack blob codec, ``.bas`` files, the decode) it keeps as its
-own copy.
+module here has a counterpart of the same path there (``prep.py`` holds the
+data-prep half of ``lp_gnn_tpu/pipeline.py``, apart so that its solver
+processes import no torch), and it imports neither JAX nor anything of
+``lp_gnn_tpu``: what it needs from JAX-free modules there (the msgpack blob
+codec, MPS and ``.bas`` files, the generators, the HiGHS bridge, the
+reporting, the decode) it keeps as its own copy. No module needs pandas.
 
-What runs here so far is training, ``python -m lp_gnn_tpu_torch.train``
-(one device, full graphs: GCN_FC forward and backward over a hand-written
-CUDA SpMM whose backward is the same kernel over the transpose edge
-ordering, the four losses, Adam + StepLR, checkpoints), and the serving
-path, ``pred_basis``: a processed LP blob -> graph tensors (CSR and CSC
-edge orderings) -> GCN_FC forward -> top-m decode -> HiGHS ``.bas`` +
-``.sort``, with the per-LP pure-inference time; and, under ``--mesh_shape
-edge=K``, the same forward edge-partitioned into K shards with the
-boundary halo exchange (a hand-written CUDA all-to-all), all shards on one
-device. ROADMAP.md lists what is still to come.
+The flagship pipeline runs end to end: ``run_prep_data`` (generate an LP
+family, cold-solve it with HiGHS, label, write the blobs) and
+``run_train_test`` (train GCN_FC over a hand-written CUDA SpMM whose
+backward is the same kernel over the transpose edge ordering, predict
+bases, calibrate the warm gate, warm-start the solver, score, report into
+``time.json``). The serving path, ``pred_basis``, goes processed LP blob ->
+graph tensors (CSR and CSC edge orderings) -> GCN_FC forward -> top-m
+decode -> HiGHS ``.bas`` + ``.sort``, with the per-LP pure-inference time;
+under ``--mesh_shape edge=K`` the same forward is edge-partitioned into K
+shards with the boundary halo exchange (a hand-written CUDA all-to-all),
+all shards on one device. ROADMAP.md lists what is still to come.
 
 Subpackages
 -----------
-- ``utils``   msgpack+numpy blob codec (plain Python), json, path helpers
-- ``data``    processed-blob dataset, graph tensors on a device
+- ``utils``   msgpack+numpy blob codec (plain Python), json, the results
+              table, the run dir's logs, path helpers
+- ``data``    LP generators, scaling and features, raw -> processed blobs,
+              the dataset, graph tensors on a device
 - ``ops``     CSR SpMM and row gather: CUDA kernels, their plain versions
 - ``parallel`` edge mesh, graph partition, halo all-to-all kernel, dist GCN_FC
 - ``models``  GCN_FC as an ``nn.Module``; weights carried from JAX / torch
-- ``infer``   top-m decode, prediction and timing passes
+- ``infer``   top-m decode, prediction, validation and timing passes
 - ``train``   losses, metrics, the trainer and its entry point
-- ``io``      HiGHS ``.bas`` files
+- ``io``      MPS and ``.bas`` files
+- ``solver``  HiGHS through scipy's bindings, the crash basis
+- ``reporting`` solver-log parsing, the results table and its summary
 
 Entry points run on ``cuda`` and raise when no GPU is found, unless the
 caller asks for the CPU (``device="cpu"``, CLI ``--device cpu``).

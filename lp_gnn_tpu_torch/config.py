@@ -1,15 +1,20 @@
-"""Configuration of the predict and train stages (counterpart of
+"""Configuration of the pipeline's stages (counterpart of
 ``lp_gnn_tpu/config.py``).
 
-The fields and CLI flags those stages read, with the JAX package's
-defaults and the same derived paths (``finalize``, config.py:186-200)::
+The fields and CLI flags the stages read, with the JAX package's defaults
+and the same derived paths (``finalize``, config.py:186-200)::
 
-    {data_prefix}/{dataset}/{solver_prefix}inp_tgt[-mM]/processed/*.pk
+    {data_prefix}/{dataset}/mps/*.mps[.gz]
+    {data_prefix}/{dataset}/{solver_prefix}basis[-mM]/*.bas
+    {data_prefix}/{dataset}/log/{solver_prefix}no-bas[-mM]/*.log
+    {data_prefix}/{dataset}/{solver_prefix}inp_tgt[-mM]/{raw,processed}/*.pk
     {log_prefix}/{exp_nm}/...
 
 plus ``--device`` (``cuda`` by default; ``cpu`` only when asked). Edge
 partitions are cached in ``.../inp_tgt[-mM]/partitions/`` beside
-``processed/`` (``--part_cache``).
+``processed/`` (``--part_cache``). A run dir made by ``parse_args`` gets
+the reference's logs: ``log-ing``, ``log-prt`` and ``log-prt-err``
+(config.py:286-292).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import dataclasses
 import logging
 import os
 
+from .utils.log import set_file_logger, set_file_logger_prt
 from .utils.misc import increment_path, init_seeds, mkdir_p
 
 LP_METHOD_MAP = {"dual": 1, "primal": 4}
@@ -33,6 +39,9 @@ class Config:
     solver_prefix: str = "highs-"
     exist_ok: int = 1
     seed: int = 0
+    skip_exist: int = 0                    # prep stages: keep what exists
+    chunk: str | None = None               # "k/N": the k-th of N shares of
+                                           # the MPS files (run_solver.py:46)
     split: str = "val"                     # val | trainval
     # model
     arch: str = "GCN_FC(8,8,hids=128)"
@@ -45,6 +54,8 @@ class Config:
     opt: str = "adam"                      # adam | anything else: sgd
     lr: float = 1e-3
     epochs: int = 30
+    num_workers: int = 0                   # prep: processes for the per-LP
+                                           # solves and conversions
     graph_batch: int = 1                   # graphs a step (1 only, so far)
     steps_per_call: int = 1                # 1 only, so far
     step_acc: int = 0                      # 1: decode accuracy every step;
@@ -53,10 +64,17 @@ class Config:
     trace: int = 0                         # 0 only, so far
     # solver / decode
     lp_method: int | str = 1               # 1=dual, 4=primal
+    engine: str = "highs"                  # highs | auto (= highs while the
+                                           # native engine is not ported)
+                                           # | native (raises)
     inference_manager: str = "InferenceManager(0,)"
-    warm_gate: str = "auto"                # only "off" is ported (the
-                                           # "auto" calibration needs the
-                                           # solver)
+    warm_gate: str = "auto"                # auto: calibrate the warm
+                                           # starts' payback on train LPs
+                                           # and decline them on measured
+                                           # harm; off: always warm-start
+    warm_gate_k: int = 5                   # calibration LPs before the gate
+                                           # may decide
+    warm_gate_kmax: int = 12               # calibration budget
     # parallelism
     mesh_shape: str = ""                   # edge=K: edge-partitioned forward
                                            # of graphs above edge_num_thresh,
@@ -133,4 +151,9 @@ def parse_args(argv=None, make_log_dir: bool = True, **defaults) -> Config:
         logging.warning("unknown args: %s", unknown)
     for k, v in vars(known).items():
         setattr(cfg, k, v)
-    return cfg.finalize(make_log_dir=make_log_dir)
+    cfg.finalize(make_log_dir=make_log_dir)
+    if make_log_dir:
+        # the run dir's logs (reference Environment, utils.py:452-497)
+        set_file_logger(cfg.log_dir)
+        set_file_logger_prt(cfg.log_dir)
+    return cfg

@@ -1,22 +1,30 @@
-"""Processed LP blobs as host-side bipartite graphs.
+"""LP blobs: raw -> processed, and processed blobs as host-side bipartite
+graphs.
 
 Counterpart of ``lp_gnn_tpu/data/dataset.py`` (reference ``LPDataset``,
-dataset.py:99-264). Blob format: ``processed/*.pk`` =
+dataset.py:99-264). Blob format: ``raw/*.pk`` = ``[c, b_l, (row, col, data),
+b_u, l, u, con_lbls, var_lbls, con_nms, var_nms]``; ``processed/*.pk`` =
 ``[row, col, data, c_feas, v_feas, y_s, y_t, nnodes]`` plus the ``.meta``
-sidecar, read with this package's own msgpack codec. Turning raw blobs into
-processed ones (``process_one_raw``) is the data-prep slice's, not yet here.
+sidecar, written and read with this package's own msgpack codec, byte for
+byte the JAX package's.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import glob
+import logging
 import os
 import os.path as osp
 
 import numpy as np
+from scipy.sparse import coo_matrix
 
 from ..utils.misc import extract_fn, split_idxs_train_val
-from ..utils.serialize import json_dump, json_load, msgpack_load
+from ..utils.serialize import (json_dump, json_load, msgpack_dump,
+                               msgpack_load, table_dump)
+from .features import cvt_to_features
+from .scaling import scaling
 
 
 @dataclasses.dataclass
@@ -56,6 +64,64 @@ class BipartiteGraph:
         if self.c_feas.size and (self.c_feas.max() > tol or
                                  self.c_feas.min() < -tol):
             raise ValueError(f"{self.fn}: constraint features outside [-1, 1]")
+
+
+def process_one_raw(raw_path: str, processed_path: str) -> None:
+    """raw/*.pk -> processed/*.pk + .meta (reference dataset.py:178-224):
+    scale the LP, build the node features, check labels against bounds."""
+    [c, b_l, (row, col, data), b_u, l, u,
+     con_lbls, var_lbls, con_nms, var_nms] = msgpack_load(raw_path, copy=True)
+    ncons, nvars = len(con_nms), len(var_nms)
+    A = coo_matrix((data, (row, col)), shape=(ncons, nvars)).tocsr()
+    c, b_l, A, b_u, l, u = scaling(c, b_l, A, b_u, l, u)
+    v_feas, c_feas = cvt_to_features(c, b_l, A, b_u, l, u)
+    v_feas = v_feas.astype(np.float32)
+    c_feas = c_feas.astype(np.float32)
+    y_s = np.asarray(con_lbls, dtype=np.int64)
+    y_t = np.asarray(var_lbls, dtype=np.int64)
+
+    # label/bound consistency (dataset.py:201-207): a row with a finite
+    # lower bound tag cannot be labeled LL=0, one with an upper tag not UL=2
+    cons_l_mask = np.abs(c_feas[:, -3]) > 0
+    cons_u_mask = np.abs(c_feas[:, -1]) > 0
+    vars_l_mask = np.abs(v_feas[:, -3]) > 0
+    vars_u_mask = np.abs(v_feas[:, -1]) > 0
+    if (y_s[cons_l_mask] == 0).any() or (y_s[cons_u_mask] == 2).any():
+        raise ValueError(f"{raw_path}: constraint labels contradict the bounds")
+    violates = int((y_t[vars_l_mask] == 0).sum())
+    if violates:
+        logging.warning("label violations on var lower-bound side: %d", violates)
+    if (y_t[vars_u_mask] == 2).any():
+        raise ValueError(f"{raw_path}: variable labels contradict the bounds")
+
+    Ac = A.tocoo()
+    msgpack_dump(
+        [Ac.row, Ac.col, Ac.data.astype(np.float64), c_feas, v_feas,
+         y_s, y_t, ncons + nvars],
+        processed_path,
+    )
+    msgpack_dump(
+        dict(num_cons=ncons, num_vars=nvars, raw_path=raw_path,
+             processed_path=processed_path,
+             con_nms=list(map(str, con_nms)), var_nms=list(map(str, var_nms))),
+        processed_path + ".meta",
+    )
+
+
+def process_raw_dir(root: str, skip_exist: bool = True) -> list[str]:
+    """Process every raw/*.pk under ``root`` into processed/. Returns the
+    processed paths (reference LPDataset.process, dataset.py:178-224)."""
+    raw_dir = osp.join(root, "raw")
+    out_dir = osp.join(root, "processed")
+    os.makedirs(out_dir, exist_ok=True)
+    fns = sorted(glob.glob(osp.join(raw_dir, "*.pk")), key=lambda p: (len(p), p))
+    out = []
+    for raw_path in fns:
+        dst = osp.join(out_dir, osp.basename(raw_path))
+        if not (skip_exist and osp.exists(dst) and osp.exists(dst + ".meta")):
+            process_one_raw(raw_path, dst)
+        out.append(dst)
+    return out
 
 
 class LPDataset:
@@ -113,11 +179,12 @@ class LPDataset:
             g.var_nms = list(meta["var_nms"])
         return g
 
-    def size_info(self) -> list[dict]:
+    def size_info(self, recache: bool = False) -> list[dict]:
         """Per-graph size stats of the whole dataset, cached in
-        ``size.json`` beside ``processed/`` (reference dataset.py:119-156)."""
+        ``size.json`` beside ``processed/`` (reference dataset.py:119-156);
+        ``recache`` rewrites the cache."""
         dump_fn = osp.join(self.root, "size.json")
-        if osp.exists(dump_fn):
+        if not recache and osp.exists(dump_fn):
             res = json_load(dump_fn)
             if len(res) == len(self.fns) and all(
                     r.get("fn") == osp.basename(self.fns[r["idx"]])
@@ -135,21 +202,22 @@ class LPDataset:
         json_dump(res, dump_fn)
         return res
 
-    def dump_size_info(self, dst: str):
-        """Write the size table with its train/val split column to ``dst``
-        (``time.h5``, reference dataset.py:107-117). Needs pandas; the
-        caller checks that it is importable."""
-        import pandas as pd
-        from ..utils.serialize import df_dump
+    def dump_size_info(self, dst: str) -> list[dict] | None:
+        """Start the results table ``dst`` (``time.json``, reference
+        dataset.py:107-117): a row a graph, its size stats and its split
+        (``train``/``val``). Keeps an existing table."""
         if osp.exists(dst):
             return None
-        df = pd.DataFrame(self.size_info()).loc[list(self._indices), :]
-        df["fn"] = df.fn.str.replace(".pk", "", regex=False)
+        info = self.size_info()
+        rows = [dict(info[i], fn=info[i]["fn"].replace(".pk", ""))
+                for i in self._indices]
+        by_idx = {r["idx"]: r for r in rows}
         tr, va = split_train_val(self, seed=0)
-        df.loc[tr.indices(), "split"] = "train"
-        df.loc[va.indices(), "split"] = "val"
-        df_dump(df, dst)
-        return df
+        for split, part in (("train", tr), ("val", va)):
+            for i in part.indices():
+                by_idx[i]["split"] = split
+        table_dump(rows, dst)
+        return rows
 
 
 def split_train_val(ds: LPDataset, seed: int = 0):

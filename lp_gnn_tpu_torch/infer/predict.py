@@ -1,4 +1,5 @@
-"""Prediction and timing passes (counterpart of ``lp_gnn_tpu/infer/predict.py``).
+"""Prediction, validation and timing passes (counterpart of
+``lp_gnn_tpu/infer/predict.py``).
 
 ``model_inference`` (:116) runs one LP's full-graph forward on the model's
 device, or, under ``--mesh_shape edge=K`` for graphs above
@@ -23,11 +24,12 @@ from torch import nn
 
 from ..data.dataset import BipartiteGraph, LPDataset
 from ..data.graph import GraphTensors
-from ..io.bas import write_bas_highs
+from ..io.bas import read_bas, write_bas_highs
 from ..parallel import edge_partition
 from ..parallel.mesh import EdgeMesh, make_mesh, parse_mesh_shape
-from ..utils.serialize import df_dump, df_load, json_dump
-from .decode import inference_gnn
+from ..train.metrics import accuracy
+from ..utils.serialize import json_dump, json_load, table_dump
+from .decode import inference_gnn, parse_inference_manager
 
 
 def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
@@ -95,6 +97,53 @@ def model_inference(model: nn.Module, g: BipartiteGraph,
     return lc.cpu().numpy(), lv.cpu().numpy()
 
 
+def validation(model: nn.Module, ds: LPDataset, cfg,
+               table: str | None = None, wrt_converged: bool = False):
+    """Per-LP accuracy/precision/recall of the decoded prediction against
+    the optimal-basis labels (reference val.py:43-68), or with
+    ``wrt_converged`` against the basis the warm-started solver converged
+    to (val.py:70-104; LPs without one are skipped), into the columns
+    ``acc|prec|recl`` (``cvg/acc|prec|recl``) of the results table
+    ``table``. Returns the mean accuracy over the LPs scored."""
+    rows = json_load(table) if table and osp.exists(table) else None
+    by_fn = {r["fn"]: r for r in rows} if rows is not None else {}
+    mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
+    dist_cache: dict = {}
+    part_dir = part_cache_dir(cfg)
+    avg_acc, n_eval = 0.0, 0
+    prefix = "cvg/" if wrt_converged else ""
+    if wrt_converged:
+        # the warm-start stage writes converged bases to
+        # opt-from-{basis_folder} (pipeline.stage_warm_start)
+        basis_folder = parse_inference_manager(
+            cfg.inference_manager, cfg.dataset).get_basis_folder()
+    for i in range(len(ds)):
+        g = ds[i]
+        lc, lv = model_inference(model, g, cfg.edge_num_thresh, mesh=mesh,
+                                 dist_cache=dist_cache, part_dir=part_dir)
+        if wrt_converged:
+            tgt = f"{cfg.log_dir}/opt-from-{basis_folder}/{g.fn}.bas"
+            if not osp.exists(tgt):
+                continue
+            con_lbls, var_lbls = read_bas(tgt)
+            gt = np.concatenate([con_lbls, var_lbls])
+        else:
+            gt = np.concatenate([g.y_s, g.y_t])
+        acc, prec, recl = accuracy(np.concatenate([lc, lv]), gt, g.ncons,
+                                   return_pr=True, dataset_name=cfg.dataset)
+        avg_acc += acc
+        n_eval += 1
+        if g.fn in by_fn:
+            by_fn[g.fn].update({prefix + "acc": acc, prefix + "prec": prec,
+                                prefix + "recl": recl})
+        if i % 9 == 1:
+            logging.info("val %d/%d %s acc %.4f prec %.4f recl %.4f",
+                         i, len(ds), g.fn, acc, prec, recl)
+    if rows is not None:
+        table_dump(rows, table)
+    return avg_acc / max(n_eval, 1)
+
+
 def predict_and_write_bases(model: nn.Module, ds: LPDataset, cfg,
                             out_dir: str, decode_fn=inference_gnn,
                             decode_kwargs: dict | None = None) -> None:
@@ -142,7 +191,7 @@ def _write_sort_vars(fn: str, logits: np.ndarray, m: int):
 
 
 def timed_inference(model: nn.Module, ds: LPDataset, cfg,
-                    dump_info: str | None = None) -> dict:
+                    table: str | None = None) -> dict:
     """Pure-inference timing pass -> per-LP ``inf_time`` in seconds
     (reference pred_basis.py:158-176).
 
@@ -152,9 +201,8 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
     one warm-up, each ending with ``torch.cuda.synchronize()`` on the card.
     The host partition of an edge-partitioned graph is a per-graph constant,
     timed once into ``part_time`` and kept out of ``inf_time`` (predict.py
-    :290-295). Both go to ``{log_dir}/inf_time.json`` and, where pandas is
-    importable, into the ``inf_time`` / ``part_time`` columns of
-    ``dump_info`` (``time.h5``)."""
+    :290-295). Both go to ``{log_dir}/inf_time.json`` and into the
+    ``inf_time`` / ``part_time`` columns of the results table ``table``."""
     device = next(model.parameters()).device
     mesh = mesh_from_cfg(cfg, device)
     dist_cache: dict = {}
@@ -190,11 +238,12 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
     json_dump({"device": str(device), "inf_time": times,
                "part_time": part_times},
               osp.join(cfg.log_dir, "inf_time.json"))
-    if dump_info and osp.exists(dump_info):
-        df = df_load(dump_info)
-        for fn, t in times.items():
-            df.loc[df.fn == fn, "inf_time"] = t
-        for fn, t in part_times.items():
-            df.loc[df.fn == fn, "part_time"] = t
-        df_dump(df, dump_info)
+    if table and osp.exists(table):
+        rows = json_load(table)
+        for r in rows:
+            if r["fn"] in times:
+                r["inf_time"] = times[r["fn"]]
+            if r["fn"] in part_times:
+                r["part_time"] = part_times[r["fn"]]
+        table_dump(rows, table)
     return times

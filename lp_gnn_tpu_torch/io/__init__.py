@@ -1,1 +1,1 @@
-"""Basis file formats."""
+"""LP files: MPS and basis (.bas) formats."""

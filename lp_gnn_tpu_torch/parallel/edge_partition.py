@@ -29,7 +29,7 @@ left out.
 
 All K shards sit on one device (``mesh.EdgeMesh``) and run one after another
 on one stream. The all-gather branch (:709-736), the backward of the halo
-pair and the distributed losses wait for ROADMAP.md queue items 1 and 7.
+pair and the distributed losses wait for ROADMAP.md queue item 7.
 """
 from __future__ import annotations
 

@@ -77,8 +77,8 @@ def _check_common(k, shape, dtype, contiguous, grad):
     if grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "halo_all_to_all is forward-only: its backward (the same exchange) "
-            "comes with the training slice (ROADMAP.md, queue item 1: "
-            "training). Run under torch.no_grad().")
+            "comes with edge-partitioned training (ROADMAP.md, queue item 7: "
+            "edge partition, the rest). Run under torch.no_grad().")
 
 
 def _check(bufs: Sequence[torch.Tensor]) -> None:

@@ -2,7 +2,7 @@
 
     python -m lp_gnn_tpu_torch.pred_basis --dataset DS --exp_nm X \\
         --arch "GCN_FC(8,8,hids=1024,depth=3)" --fp16 1 \\
-        --load_from runs/X/mdl.pth --split val --warm_gate off [--device cpu]
+        --load_from runs/X/mdl.pth --split val [--device cpu]
 
 ``--load_from`` takes a torch ``mdl.pth`` state_dict (reference or this
 package) or a JAX ``mdl.ckpt``. Runs on the GPU unless ``--device cpu``.

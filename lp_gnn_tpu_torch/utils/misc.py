@@ -5,6 +5,7 @@ import logging
 import os
 import random
 from collections import deque
+from typing import Sequence
 
 import numpy as np
 
@@ -36,6 +37,17 @@ def split_idxs_train_val(ngraphs: int, seed: int = 0):
     rng = np.random.RandomState(seed)
     idxs = rng.permutation(ngraphs)
     return np.sort(idxs[:ntrain]), np.sort(idxs[ntrain:])
+
+
+def split_out_chunk(fns: Sequence, chunk: str | None = None) -> list:
+    """Select the k-th of N chunks ``"k/N"`` of a file list
+    (utils.py:662-669); all of it for no chunk."""
+    if chunk is None or str(chunk).lower() == "none":
+        return list(fns)
+    ck, ttl = map(float, chunk.split("/"))
+    n = len(fns)
+    sta, ed = int(n / ttl * ck), int(n / ttl * (ck + 1))
+    return list(fns)[sta:ed]
 
 
 def increment_path(path: str, exist_ok: bool = False) -> str:

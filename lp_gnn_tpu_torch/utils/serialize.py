@@ -301,3 +301,23 @@ def df_load(path: str):
     if magic == _HDF5_MAGIC:
         return pd.read_hdf(path, key="df")
     return pd.read_pickle(path)
+
+
+def _cell(v):
+    """A results-table cell as json writes it: NaN as null."""
+    if isinstance(v, (float, np.floating)):
+        v = float(v)
+        return None if v != v else v
+    return v
+
+
+def table_dump(rows: list[dict], path: str) -> None:
+    """Write the results table, one dict a LP (the JAX package's ``time.h5``
+    rows, the same column names), to ``path`` (``time.json``; a missing or
+    NaN cell is null), and where pandas imports also to ``time.h5`` beside
+    it through :func:`df_dump`."""
+    json_dump([{k: _cell(v) for k, v in r.items()} for r in rows], path)
+    if have_pandas():
+        import pandas as pd
+        df_dump(pd.DataFrame(rows), os.path.splitext(path)[0] + ".h5")
+

@@ -1,7 +1,9 @@
 """The port stands alone: no module of lp_gnn_tpu_torch, and not
-chip_smoke.py, imports jax, optax or lp_gnn_tpu; a JAX-trained ``mdl.ckpt``
-serves without JAX; the entry point refuses to run without a GPU unless the
-CPU is asked for."""
+chip_smoke.py, imports jax, optax or lp_gnn_tpu, and none imports pandas
+when it is imported; a JAX-trained ``mdl.ckpt`` serves without JAX; the
+whole pipeline (prep, train, predict, warm start, val, report) runs where
+neither JAX nor pandas imports; the entry point refuses to run without a
+GPU unless the CPU is asked for."""
 import os
 import os.path as osp
 import pickle
@@ -42,9 +44,10 @@ sys.path.insert(0, {ROOT!r})
 """
 
 
-def run_isolated(body: str, tmp_path) -> str:
+def run_isolated(body: str, tmp_path, blocked=BLOCKED) -> str:
     script = tmp_path / "isolated.py"
-    script.write_text(PRELUDE + textwrap.dedent(body))
+    script.write_text(PRELUDE.replace(repr(BLOCKED), repr(blocked))
+                      + textwrap.dedent(body))
     env = dict(os.environ, OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, str(script)], cwd=str(tmp_path),
                          capture_output=True, text=True, timeout=120, env=env)
@@ -67,6 +70,48 @@ def test_every_module_imports_without_jax(tmp_path):
         print(len(names))
     """, tmp_path)
     assert int(out.split()[-1]) >= 20
+
+
+def test_no_module_imports_pandas_when_imported(tmp_path):
+    """pandas is optional (the card's machine may lack it): importing any
+    module of the port, or chip_smoke.py, must not need it."""
+    out = run_isolated("""
+        import importlib, pkgutil
+        import lp_gnn_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            lp_gnn_tpu_torch.__path__, "lp_gnn_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        print(len(names))
+    """, tmp_path, blocked=BLOCKED + ("pandas",))
+    assert int(out.split()[-1]) >= 35
+
+
+def test_pipeline_cli_without_jax_or_pandas(tmp_path):
+    """``run_prep_data`` then ``run_train_test --device cpu`` on a tiny
+    family, in a process where jax, optax, lp_gnn_tpu and pandas do not
+    import: the summary is printed and the run dir holds the results table
+    and the reference's logs."""
+    out = run_isolated("""
+        import runpy
+        def run(module, *argv):
+            sys.argv = [module, *argv]
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        run("lp_gnn_tpu_torch.run_prep_data", "--dataset", "mirp_like",
+            "--n_instances", "10", "--size", "small")
+        run("lp_gnn_tpu_torch.run_train_test", "--dataset", "mirp_like",
+            "--exp_nm", "cli", "--arch", "GCN_FC(8,8,hids=16,depth=3)",
+            "--epochs", "3", "--device", "cpu")
+    """, tmp_path, blocked=BLOCKED + ("pandas",))
+    assert "gnn-bas-0/impr_niter" in out and "val mean" in out
+    run = tmp_path / "runs" / "cli"
+    for f in ("mdl.pth", "warm_gate.json", "time.json", "summary.tex.csv",
+              "log-ing", "log-prt", "log-prt-err"):
+        assert (run / f).exists(), f
+    assert not (run / "time.h5").exists()
+    assert len(os.listdir(run / "log" / "gnn-bas-0")) == 3
+    assert "gnn-bas-0/impr_niter" in (run / "log-prt").read_text()
 
 
 def test_no_import_statement_names_jax():

@@ -216,10 +216,27 @@ def test_pred_basis_cli_edge_partitioned(data_prefix, params, tmp_path):
     assert len(parts) == N_LPS and all(p.endswith(".tpart.npz") for p in parts)
 
 
+def test_warm_gate_auto_runs(data_prefix, params, tmp_path):
+    """``--warm_gate auto`` (the default) calibrates the warm starts in the
+    predict stage and writes ``warm_gate.json``. This dataset has no MPS
+    files and no cold logs, so no LP can be calibrated: the gate proceeds
+    with k = 0, as predict.py:314 rules for no data."""
+    model = build_model(ARCH)
+    model.load_state_dict(state_dict_from_jax_params(params))
+    ckpt = str(tmp_path / "mdl.pth")
+    torch.save(model.state_dict(), ckpt)
+    out_dir = pred_basis.main(_cli(data_prefix, str(tmp_path / "runs"),
+                                   "--load_from", ckpt, "--device", "cpu"))
+    assert len(_files(out_dir, ".bas")) == 2   # the val split of 4 LPs
+    with open(osp.join(osp.dirname(out_dir.rstrip("/")),
+                       "warm_gate.json")) as f:
+        gate = json.load(f)
+    assert gate["proceed"] is True and gate["k"] == 0
+    assert gate["decode"] == "pred-basis" and gate["lps"] == []
+
+
 # explicit ids keep each remaining case's test name
 @pytest.mark.parametrize("extra,match", [
-    pytest.param(["--warm_gate", "auto"], "--warm_gate off",
-                 id="extra0---warm_gate off"),
     pytest.param(["--warm_gate", "off", "--edge_num_thresh", "100"],
                  "sampling", id="extra2-sampling"),
 ])
