@@ -74,6 +74,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    iterations, ``impr_niter``, ``acc``), each stage's wall seconds and the
    peak device memory.
 
+12. gen_reference: GENDeeper(8,8,hids=256,depth=5) logits on the card
+   against the same weights on the CPU (small graph, fp32 and bf16), and 3
+   fp32 training steps on the card against the CPU in fp64 and in fp32.
+13. gen_serve: the slice's configuration, the JAX package's GENDeeper bench
+   arch (bench.py:61-73,193-195:
+   GENDeeper(8,8,hids=256,depth=5,dtype='bfloat16',remat=True)), serving 3
+   bench-shape LPs through ``python -m lp_gnn_tpu_torch.pred_basis``:
+   valid bases, ``gen_agg_fwd`` launched exactly 10 times a forward (5
+   convs x 2 directions) and the SpMM not at all; ``inf_time`` and one
+   LP's breakdown with the forward's device time by kernel.
+14. gen_train: the same arch through ``python -m lp_gnn_tpu_torch.train``
+   on 4 bench-shape LPs (2 train, 2 val), 2 epochs: finite losses, the
+   launches of the printed formula (a step: 10 forward + 10 recomputed by
+   remat ``gen_agg_fwd``, 10 ``gen_agg_bwd``, 10 SpMMs for the gathers'
+   backwards, none for an input cache; 10 ``gen_agg_fwd`` a val forward),
+   the trained ``mdl.pth`` serving valid bases; then one step's wall time,
+   span on the card, device time by kernel, idle share and peak memory.
+15. zoo_serve: GCN(8,8,hids=256), GCNDeeper(8,8,hids=256,depth=5) and
+   GCNRand() through ``pred_basis`` on 2 bench-shape LPs each: valid bases
+   and the SpMM launched exactly 6, 10 and 0 times a forward.
+
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
 
@@ -81,7 +102,12 @@ The kernels phase also holds the halo all-to-all (K1) exactly against its
 plain version at the bench graph's halo (K=4, Bh=30,056, stacked and list
 forms; K=8 at its own Bh), holds the composed halo gather exactly against
 its plain version and against the route it replaced (K send-row gathers
-and K1), and times the SpMM and the gather at the dist path's shapes.
+and K1), and times the SpMM and the gather at the dist path's shapes. It
+holds the GEN aggregation's two kernels (``gen_agg_fwd``, ``gen_agg_bwd``)
+against their plain versions on the bench graph, both directions, at D=256
+bf16 and fp32 and D=3 bf16, and on one dense 65,536-edge segment, each
+bit-identical over two calls, with the transpose SpMM of the gathers'
+backward over the kernel's ``dpre``.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -117,6 +143,8 @@ from lp_gnn_tpu_torch.models.gcn import build_model
 from lp_gnn_tpu_torch.ops import _build
 from lp_gnn_tpu_torch.ops import spmm as spmm_mod
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from lp_gnn_tpu_torch.ops.gen_agg import (gen_agg_bwd, gen_agg_bwd_plain,
+                                          gen_agg_fwd, gen_agg_fwd_plain)
 from lp_gnn_tpu_torch.ops.spmm import (attach_input_agg, spmm_cons_to_vars,
                                        spmm_csr, spmm_csr_plain,
                                        spmm_vars_to_cons)
@@ -146,7 +174,7 @@ N_DIST_LPS = 3              # LPs served edge-partitioned
 # (local v2c, local c2v, halo v2c, halo c2v, owner-side reduce)
 DIST_PER_FORWARD = {"halo_all_to_all": 2, "gather_rows": 2,
                     "spmm_csr": 2 * K_EDGE * 5}
-KERNELS = (spmm_csr, gather_rows, halo_all_to_all)
+KERNELS = (spmm_csr, gather_rows, halo_all_to_all, gen_agg_fwd, gen_agg_bwd)
 N_TRAIN_LPS = 4             # LPs written for training: 2 train, 2 val
 TRAIN_EPOCHS = 5            # one val pass, after the last epoch
 # spmm_csr launches of the train phase: 2 a train graph once (the input
@@ -159,6 +187,21 @@ SPMM_PER_STEP = 4
 N_PIPE_LPS = 40
 PIPE_EPOCHS = 20
 FLAGSHIP_EPOCHS = 800
+# the GEN phases: the JAX package's GENDeeper bench arch (bench.py:61-73,
+# 193-195); 5 convs x 2 directions a forward
+GEN_ARCH = "GENDeeper(8,8,hids=256,depth=5,dtype='bfloat16',remat=True)"
+GEN_PER_FORWARD = 10
+N_GEN_LPS = 3
+GEN_EPOCHS = 2
+# launches a GEN step: the forward, remat's recompute of every conv, one
+# backward a direction and one SpMM a direction (the gather's backward);
+# no input cache
+GEN_PER_STEP = {"gen_agg_fwd": 2 * GEN_PER_FORWARD,
+                "gen_agg_bwd": GEN_PER_FORWARD, "spmm_csr": GEN_PER_FORWARD}
+# the rest of the zoo at the GEN phases' width: SpMM launches a forward
+ZOO_SERVE = {"GCN(8,8,hids=256)": 6, "GCNDeeper(8,8,hids=256,depth=5)": 10,
+             "GCNRand()": 0}
+N_ZOO_LPS = 2
 
 
 class SmokeFailure(Exception):
@@ -711,6 +754,206 @@ def gather_floor(kernels: list[dict]) -> dict:
             "floor_ms": min(gat["ms"], gat["library_ms"]), "floor_by": by}
 
 
+# -------------------------------------------------------------- GEN kernels
+# gen_agg on the card against its plain version (the reasons beside the
+# same limits in tests/test_torch_kernels.py): the forward in fp32 and, in
+# bf16, against the plain version's bf16 roundings (JAX's) and against the
+# plain version in fp32 on the same bf16-valued inputs (the kernel's own
+# arithmetic, held at the fp32 limits), every fp32 rtol at least 2^-24 L
+# for a longest segment of L edges (its sums of L positive terms, in two
+# orders); the backward's dpre, and its sums
+# dw, db within GEN_SUM_RTOL (or 2^-24 L) of the sum of their terms'
+# magnitudes, dt of |dt| + 1
+GEN_FWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -5)}
+GEN_DPRE_TOL = {torch.float32: (1e-4, 1e-6), torch.bfloat16: (2 ** -7, 1e-6)}
+GEN_SUM_RTOL = 1e-5
+# fp32 operations an (edge, channel): forward (encoder fma, add, relu,
+# eps, t, the online update's exp, fma and compare) and backward (the
+# same message, exp, the dm product, the mask, three sums)
+GEN_FWD_OPS, GEN_BWD_OPS = 10, 20
+
+
+def gen_operands(n_src: int, d: int, dt, gen) -> tuple:
+    """x (n_src, d) and the encoder w, b and t (its init, 1) of one GEN
+    direction, in dt."""
+    x = torch.randn(n_src, d, generator=gen, device="cuda").to(dt)
+    w = torch.randn(d, generator=gen, device="cuda").to(dt)
+    b = (torch.randn(d, generator=gen, device="cuda") * 0.3).to(dt)
+    return x, w, b, torch.ones((), device="cuda").to(dt)
+
+
+def gen_fwd_case(case: str, args: tuple, on_path) -> tuple[dict, torch.Tensor,
+                                                            torch.Tensor]:
+    """gen_agg_fwd against its plain version (GEN_FWD_TOL), bit-identical
+    over two calls; returns the row, aggr and lse."""
+    ptr, src, a, x = args[:4]
+    dt, d = x.dtype, x.shape[1]
+    aggr, lse = gen_agg_fwd(*args)
+    aggr2, lse2 = gen_agg_fwd(*args)
+    want, want_lse = gen_agg_fwd_plain(*args)
+    exact = gen_agg_fwd_plain(ptr, src, a.to(dt).float(),
+                              *(v.float() for v in args[3:]))
+    torch.cuda.synchronize()
+    if not (torch.equal(aggr, aggr2) and torch.equal(lse, lse2)):
+        raise SmokeFailure(f"gen_agg_fwd {case}: two calls differ")
+    full = ptr[1:] > ptr[:-1]
+    longest = int((ptr[1:] - ptr[:-1]).max())
+    x_rtol = max(1e-4, 2 ** -24 * longest)
+    rtol, atol = GEN_FWD_TOL[dt]
+    rtol = max(rtol, x_rtol)
+    err, ok = within(aggr, want, rtol, atol)
+    err_l, ok_l = within(lse[full], want_lse[full], rtol, atol)
+    err_x, ok_x = within(aggr, exact[0], x_rtol, 1e-5)
+    err_xl, ok_xl = within(lse[full], exact[1][full], x_rtol, 1e-5)
+    if not (ok and ok_l and ok_x and ok_xl) or aggr[~full].any():
+        raise SmokeFailure(
+            f"gen_agg_fwd {case}: max |err| aggr {err}, lse {err_l} (rtol="
+            f"{rtol}, atol={atol}); against the fp32 plain on the same "
+            f"inputs {err_x}, {err_xl} ({x_rtol}, 1e-5); or an empty "
+            "segment not 0")
+    del want, want_lse, exact, aggr2, lse2
+    n_dst, n_e, b = ptr.shape[0] - 1, src.shape[0], x.element_size()
+    s_used = int(torch.unique(src).numel())
+    n_bytes = ((n_dst + 1) * 4 + n_e * 8 + s_used * d * b + (2 * d + 1) * b
+               + 2 * n_dst * d * 4)
+    bound_ms, bound_by = bound(n_bytes, GEN_FWD_OPS * n_e * d)
+    row = {
+        "name": "gen_agg_fwd", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/gen_agg.cu",
+        "replaces": "lp_gnn_tpu/models/gen.py:39",
+        "launches": None, "max_abs_err": max(err, err_l),
+        "ms": time_ms(lambda: gen_agg_fwd(*args), 20),
+        "device_ms": kernel_device_ms(lambda: gen_agg_fwd(*args),
+                                      "gen_agg_fwd_kernel"),
+        "plain_ms": time_ms(lambda: gen_agg_fwd_plain(*args), 3, warm=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "case": case, "on_path": on_path,
+        "num_dst": n_dst, "num_src": x.shape[0], "nnz": n_e, "D": d,
+        "longest_segment": longest,
+        "tol": {"rtol": rtol, "atol": atol, "fp32_plain_rtol": x_rtol},
+        "max_abs_err_vs_fp32_plain": max(err_x, err_xl),
+        "also_replaces": ["lp_gnn_tpu/models/gen.py:136",
+                          "lp_gnn_tpu/ops/spmm.py:252"],
+        "library": "none: no one PyTorch call computes the segment-softmax "
+                   "aggregation",
+    }
+    return row, aggr, lse
+
+
+def gen_bwd_case(case: str, args: tuple, aggr, lse, gen,
+                 on_path) -> tuple[dict, torch.Tensor]:
+    """gen_agg_bwd against its plain version from the same aggr, lse and a
+    random dL/daggr, bit-identical over two calls; returns the row and the
+    kernel's dpre."""
+    ptr, src, a, x = args[:4]
+    dt, d = x.dtype, x.shape[1]
+    g = torch.randn(aggr.shape, generator=gen, device=aggr.device)
+    got = gen_agg_bwd(*args, g, aggr, lse)
+    again = gen_agg_bwd(*args, g, aggr, lse)
+    want = gen_agg_bwd_plain(*args, g, aggr, lse)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    if not (torch.equal(got[0].view(bits), again[0].view(bits))
+            and all(torch.equal(u, v) for u, v in zip(got[1:], again[1:]))):
+        raise SmokeFailure(f"gen_agg_bwd {case}: two calls differ")
+    rtol, atol = GEN_DPRE_TOL[dt]
+    err, ok = within(got[0], want[0], rtol, atol)
+    dp = want[0][:, :d].float().abs()
+    mass = ((a.to(dt).float().abs()[:, None] * dp).sum(0), dp.sum(0),
+            want[3].abs() + 1)
+    sums_err = [float((u - v.float()).abs().max()) for u, v in
+                zip(got[1:], want[1:])]
+    sums_rtol = max(GEN_SUM_RTOL, 2 ** -24 * int((ptr[1:] - ptr[:-1]).max()))
+    sums_ok = all(bool(((u - v.float()).abs() <= sums_rtol * m).all())
+                  for u, v, m in zip(got[1:], want[1:], mass))
+    if not (ok and sums_ok):
+        raise SmokeFailure(f"gen_agg_bwd {case}: dpre max |err| {err} "
+                           f"(rtol={rtol}, atol={atol}); dw, db, dt max "
+                           f"|err| {sums_err} (rtol {sums_rtol} of their "
+                           "terms' magnitudes)")
+    dpre = got[0]
+    del got, again, want, dp, mass
+    n_dst, n_e, b = ptr.shape[0] - 1, src.shape[0], x.element_size()
+    s_used = int(torch.unique(src).numel())
+    n_bytes = ((n_dst + 1) * 4 + n_e * 8 + s_used * d * b + (2 * d + 1) * b
+               + 3 * n_dst * d * 4 + n_e * dpre.shape[1] * b + (2 * d + 1) * 4)
+    bound_ms, bound_by = bound(n_bytes, GEN_BWD_OPS * n_e * d)
+
+    def call():
+        return gen_agg_bwd(*args, g, aggr, lse)
+
+    row = {
+        "name": "gen_agg_bwd", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/gen_agg.cu",
+        "replaces": "lp_gnn_tpu/models/gen.py:39",
+        "launches": None, "max_abs_err": err,
+        "ms": time_ms(call, 20),
+        "device_ms": kernel_device_ms(call, "gen_agg_bwd_kernel"),
+        "reduce_device_ms": kernel_device_ms(call, "gen_agg_reduce_kernel"),
+        "plain_ms": time_ms(lambda: gen_agg_bwd_plain(*args, g, aggr, lse),
+                            3, warm=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "case": f"backward of {case}", "on_path": on_path,
+        "num_dst": n_dst, "num_src": x.shape[0], "nnz": n_e, "D": d,
+        "dpre_row": dpre.shape[1],
+        "tol": {"rtol": rtol, "atol": atol, "sums_rtol": sums_rtol},
+        "sums_max_abs_err": sums_err,
+        "also_replaces": ["lp_gnn_tpu/models/gen.py:136"],
+        "part": "the VJP JAX derives for the message and the aggregation "
+                "(the gather's is the transpose SpMM)",
+        "library": "none",
+    }
+    return row, dpre
+
+
+def check_gen_kernels(g: BipartiteGraph, gen: torch.Generator,
+                      rng: np.random.RandomState) -> list[dict]:
+    """The GEN aggregation's kernels on the bench graph, both directions
+    (v2c: constraints from variables over the CSR; c2v: the reverse over
+    the CSC), at D=256 bf16 (the slice's hidden convs), D=256 fp32 and D=3
+    bf16 (its conv_out), then the gathers' backward, the SpMM over the
+    transpose ordering with the edge permutation as its index, over the
+    kernel's dpre (bf16; D=3 in rows of 8); and one dense segment of 65,536
+    edges among 1,023 rows of 0-8 (S=4096, D=256 bf16)."""
+    gt = GraphTensors.from_graph(g, "cuda", perms=True)
+    dirs = {"v2c": (gt.rowptr, gt.col, gt.val_r, gt.nvars, gt.colptr,
+                    gt.eperm_c),
+            "c2v": (gt.colptr, gt.row, gt.val_c, gt.ncons, gt.rowptr,
+                    gt.eperm_r)}
+    ones = torch.ones(gt.nnz, device="cuda")
+    rows = []
+    for dname, (ptr, src, a, n_src, t_ptr, eperm) in dirs.items():
+        for d, dt in ((256, torch.bfloat16), (256, torch.float32),
+                      (3, torch.bfloat16)):
+            args = (ptr, src, a, *gen_operands(n_src, d, dt, gen))
+            case = f"{dname} D={d} {str(dt).split('.')[-1]}"
+            on = dt == torch.bfloat16
+            row, aggr, lse = gen_fwd_case(
+                case, args, "gen_serve, gen_train" if on else False)
+            rows.append(row)
+            brow, dpre = gen_bwd_case(case, args, aggr, lse, gen,
+                                      "gen_train" if on else False)
+            rows.append(brow)
+            if on:
+                srow = spmm_case(
+                    f"gen gather backward of {dname}: dpre (E={gt.nnz}, "
+                    f"{dpre.shape[1]}) over the transpose, D={d} bfloat16",
+                    t_ptr, eperm, ones, dpre, "gen_train")
+                srow["replaces"] = "lp_gnn_tpu/ops/spmm.py:279"
+                rows.append(srow)
+            del args, aggr, lse, dpre
+            torch.cuda.empty_cache()
+    counts = rng.randint(0, 9, 1024)
+    counts[512] = 65_536
+    ptr, src, a = csr_of(counts, 4096, rng, False)
+    args = (ptr, src, a, *gen_operands(4096, 256, torch.bfloat16, gen))
+    case = "dense segment 65536 edges S=4096 D=256 bfloat16"
+    row, aggr, lse = gen_fwd_case(case, args, False)
+    rows.append(row)
+    rows.append(gen_bwd_case(case, args, aggr, lse, gen, False)[0])
+    return rows
+
+
 # ---------------------------------------------------------------- reference
 def check_reference(seed: int) -> dict:
     """GCN_FC at full width on the card against the same weights on the CPU
@@ -808,15 +1051,16 @@ def check_bases(out_dir: str, n_lps: int) -> int:
 
 def serve_and_check(data_prefix: str, log_prefix: str, ckpt: str,
                     seed: int, n_lps: int, split: str, per_forward: dict,
-                    extra: list[str]) -> dict:
+                    extra: list[str], arch: str = ARCH) -> dict:
     """Run the entry point ``python -m lp_gnn_tpu_torch.pred_basis`` on
-    the dataset ``smoke`` under ``data_prefix`` with the weights ``ckpt``,
-    the kernels' launch counts set to 0 just before and read just after,
-    and check its output: ``n_lps`` valid bases, ``per_forward`` launches
-    of each kernel in every forward, finite per-LP times."""
+    the dataset ``smoke`` under ``data_prefix`` with ``arch`` in bf16 and
+    the weights ``ckpt``, the kernels' launch counts set to 0 just before
+    and read just after, and check its output: ``n_lps`` valid bases,
+    ``per_forward`` launches of each kernel in every forward (0 of the
+    others), finite per-LP times."""
     argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
             "--log_prefix", log_prefix, "--exp_nm", "smoke",
-            "--arch", ARCH, "--fp16", "1", "--load_from", ckpt,
+            "--arch", arch, "--fp16", "1", "--load_from", ckpt,
             "--split", split, "--warm_gate", "off", "--seed", str(seed),
             *extra]
     for kern in KERNELS:
@@ -842,20 +1086,34 @@ def serve_and_check(data_prefix: str, log_prefix: str, ckpt: str,
             "inf_time_device": inf["device"], "pred_basis_s": t_serve}
 
 
+def bf16_arch(arch: str) -> str:
+    """``arch`` with dtype='bfloat16' unless it names a dtype (what --fp16 1
+    gives, config.py arch_with_dtype)."""
+    if "dtype" in arch:
+        return arch
+    base = arch.strip()[:-1]
+    return base + ("" if base.endswith("(") else ",") + "dtype='bfloat16')"
+
+
+def save_seeded(arch: str, seed: int, path: str) -> str:
+    """A seeded bf16 ``arch``'s state_dict at ``path``."""
+    model = build_model(bf16_arch(arch),
+                        generator=torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), path)
+    return path
+
+
 def run_pred_basis(tmp: str, seed: int, n_lps: int, per_forward: dict,
-                   extra: list[str]) -> dict:
-    """Write ``n_lps`` bench-shape LPs and a seeded bf16 GCN_FC and serve
+                   extra: list[str], arch: str = ARCH) -> dict:
+    """Write ``n_lps`` bench-shape LPs and a seeded bf16 ``arch`` and serve
     every LP through the entry point (``serve_and_check``)."""
     data_prefix = osp.join(tmp, "data")
     t0 = time.perf_counter()
     write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), seed, n_lps)
     t_write = time.perf_counter() - t0
-    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
-                        generator=torch.Generator().manual_seed(seed))
-    ckpt = osp.join(tmp, "mdl.pth")
-    torch.save(model.state_dict(), ckpt)
+    ckpt = save_seeded(arch, seed, osp.join(tmp, "mdl.pth"))
     res = serve_and_check(data_prefix, osp.join(tmp, "runs"), ckpt, seed,
-                          n_lps, "trainval", per_forward, extra)
+                          n_lps, "trainval", per_forward, extra, arch)
     return {**res, "write_dataset_s": t_write, "data_prefix": data_prefix}
 
 
@@ -1002,14 +1260,16 @@ def dist_reference(seed: int) -> dict:
                          "single_max_abs_err": float(single16.max())}}
 
 
-def breakdown(seed: int) -> dict:
+def breakdown(seed: int, arch: str = ARCH, profile: dict | None = None) -> dict:
     """Where one LP's ``inf_time`` goes, at the bench shape in bf16: graph
     tensors built and copied to the card, the forward (ends in a
     synchronize), logits back to the host, the top-m decode, on the host
     clock; and the forward's span on the card by CUDA events. Medians of 3
-    after one warm-up."""
+    after one warm-up. With ``profile`` (a part of a kernel's name ->
+    launches a forward), also one forward's device time by kernel
+    (``torch.profiler``)."""
     g = bench_graph(seed)
-    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
+    model = build_model(bf16_arch(arch),
                         generator=torch.Generator().manual_seed(seed))
     model = model.to("cuda").eval()
     stages = {"graph_tensors_s": [], "forward_s": [], "to_host_s": [],
@@ -1036,41 +1296,79 @@ def breakdown(seed: int) -> dict:
             for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
                 stages[k].append(v)
             device_ms.append(ev0.elapsed_time(ev1))
-    return {**{k: sorted(v)[1] for k, v in stages.items()},
-            "forward_device_ms": sorted(device_ms)[1]}
+    out = {**{k: sorted(v)[1] for k, v in stages.items()},
+           "forward_device_ms": sorted(device_ms)[1]}
+    if profile:
+        with torch.inference_mode():
+            seen, complete = profile_kernels(lambda: model(gt), 1, profile)
+        out["forward_by_kernel_ms"] = {
+            k[:90]: t for k, (t, _) in sorted(seen.items(),
+                                             key=lambda kv: -kv[1][0])[:12]}
+        out["forward_kernels_busy_ms"] = sum(t for t, _ in seen.values())
+        out["forward_profile_complete"] = complete
+    return out
 
 
 # -------------------------------------------------------------------- train
-def train(seed: int) -> dict:
+def no_launches() -> dict:
+    return {kern.__name__: 0 for kern in KERNELS}
+
+
+def gcn_fc_train_launches(n_train: int, n_val: int, steps: int):
+    """GCN_FC: spmm_csr 2 a train graph once (the input aggregation cache),
+    SPMM_PER_STEP a step, SPMM_PER_FORWARD a val forward; no other kernel."""
+    want = {**no_launches(), "spmm_csr": 2 * n_train + SPMM_PER_STEP * steps
+            + SPMM_PER_FORWARD * n_val}
+    return want, (f"spmm_csr 2 x {n_train} + {SPMM_PER_STEP} x {steps} + "
+                  f"{SPMM_PER_FORWARD} x {n_val}, no other kernel")
+
+
+def gen_train_launches(n_train: int, n_val: int, steps: int):
+    """GENDeeper with remat: GEN_PER_STEP a step, GEN_PER_FORWARD
+    gen_agg_fwd a val forward, no input cache."""
+    want = {**no_launches(),
+            **{k: n * steps for k, n in GEN_PER_STEP.items()}}
+    want["gen_agg_fwd"] += GEN_PER_FORWARD * n_val
+    return want, (f"gen_agg_fwd {GEN_PER_STEP['gen_agg_fwd']} x {steps} + "
+                  f"{GEN_PER_FORWARD} x {n_val}; gen_agg_bwd "
+                  f"{GEN_PER_STEP['gen_agg_bwd']} x {steps}; spmm_csr "
+                  f"{GEN_PER_STEP['spmm_csr']} x {steps} + 0 (no input "
+                  "cache); no other kernel")
+
+
+def train(seed: int, arch: str = ARCH, epochs: int = TRAIN_EPOCHS,
+          data_seed: int = 100, expect=gcn_fc_train_launches,
+          serve_per_forward: dict | None = None) -> dict:
     """The training entry point ``python -m lp_gnn_tpu_torch.train`` (in
     this process, through runpy) at full width and depth in bf16 on
     N_TRAIN_LPS bench-shape LPs (the 70/30 split: 2 train, 2 val),
-    TRAIN_EPOCHS epochs and a val pass after the last, the launch counts set
+    ``epochs`` epochs and a val pass after the last, the launch counts set
     to 0 just before and read just after. Checks: every step's loss and
-    every logged ``train/loss`` finite; ``spmm_csr`` launched exactly 2 a
-    train graph + SPMM_PER_STEP a step + 4 a val forward, the other
-    kernels not at all; ``mdl.pth``, ``train_state.pth``, ``args.json``
-    written; the trained ``mdl.pth`` serves valid bases for the val LPs
-    through ``python -m lp_gnn_tpu_torch.pred_basis``. Reports each epoch's
-    wall time (to the start of its checkpoint write; epoch 0 from the
-    entry point's start) and every step's loss, read through wrappers of
-    ``trainer.train_step`` and ``trainer.save_checkpoint`` that add no
-    work on the card."""
+    every logged ``train/loss`` finite; each kernel launched exactly as
+    ``expect`` counts (for GCN_FC: ``spmm_csr`` 2 a train graph +
+    SPMM_PER_STEP a step + 4 a val forward, the other kernels not at all);
+    ``mdl.pth``, ``train_state.pth``, ``args.json`` written; the trained
+    ``mdl.pth`` serves valid bases for the val LPs through ``python -m
+    lp_gnn_tpu_torch.pred_basis`` (``serve_per_forward`` launches a
+    forward). Reports each epoch's wall time (to the start of its
+    checkpoint write; epoch 0 from the entry point's start) and every
+    step's loss, read through wrappers of ``trainer.train_step`` and
+    ``trainer.save_checkpoint`` that add no work on the card."""
     from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
     n_train, n_val = map(len, split_idxs_train_val(N_TRAIN_LPS))
-    steps = n_train * TRAIN_EPOCHS
-    want = 2 * n_train + SPMM_PER_STEP * steps + SPMM_PER_FORWARD * n_val
+    steps = n_train * epochs
+    want, formula = expect(n_train, n_val, steps)
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_train_") as tmp:
         data_prefix = osp.join(tmp, "data")
         t0 = time.perf_counter()
         write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"),
-                      seed + 100, N_TRAIN_LPS)
+                      seed + data_seed, N_TRAIN_LPS)
         t_write = time.perf_counter() - t0
         argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
                 "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", "train",
-                "--arch", ARCH, "--fp16", "1", "--loss", "balanced",
-                "--epochs", str(TRAIN_EPOCHS), "--eval_every",
-                str(TRAIN_EPOCHS), "--seed", str(seed)]
+                "--arch", arch, "--fp16", "1", "--loss", "balanced",
+                "--epochs", str(epochs), "--eval_every",
+                str(epochs), "--seed", str(seed)]
         step_losses, epoch_ends = [], []
         real_step, real_save = trainer.train_step, trainer.save_checkpoint
 
@@ -1092,12 +1390,9 @@ def train(seed: int) -> dict:
         finally:
             trainer.train_step, trainer.save_checkpoint = real_step, real_save
         launches = {kern.__name__: kern.launches for kern in KERNELS}
-        if launches != {"spmm_csr": want, "gather_rows": 0,
-                        "halo_all_to_all": 0}:
-            raise SmokeFailure(f"train launches {launches}, expected "
-                               f"spmm_csr {want} (2 x {n_train} + "
-                               f"{SPMM_PER_STEP} x {steps} + "
-                               f"{SPMM_PER_FORWARD} x {n_val}) and no other")
+        if launches != want:
+            raise SmokeFailure(f"train launches {launches}, expected {want} "
+                               f"({formula})")
         losses = [float(v) for v in step_losses]
         if len(losses) != steps or not np.isfinite(losses).all():
             raise SmokeFailure(f"train step losses {losses}")
@@ -1113,13 +1408,16 @@ def train(seed: int) -> dict:
         if not logged.get("train/loss") or not np.isfinite(
                 [v for _, v in logged["train/loss"]]).all():
             raise SmokeFailure(f"metrics.jsonl train/loss {logged}")
-        served = serve_and_check(data_prefix, osp.join(tmp, "serve"),
-                                 osp.join(log_dir, "mdl.pth"), seed, n_val,
-                                 "val", {"spmm_csr": SPMM_PER_FORWARD}, [])
+        served = serve_and_check(
+            data_prefix, osp.join(tmp, "serve"), osp.join(log_dir, "mdl.pth"),
+            seed, n_val, "val",
+            serve_per_forward or {"spmm_csr": SPMM_PER_FORWARD}, [], arch)
     ends = [t_start] + epoch_ends
-    return {"lps": N_TRAIN_LPS, "train_lps": n_train, "val_lps": n_val,
-            "epochs": TRAIN_EPOCHS, "steps": steps, "launches": launches,
-            "spmm_expected": want, "step_losses": losses,
+    return {"arch": bf16_arch(arch), "lps": N_TRAIN_LPS, "train_lps": n_train,
+            "val_lps": n_val, "epochs": epochs, "steps": steps,
+            "launches": launches, "spmm_expected": want["spmm_csr"],
+            "launches_expected": want, "launch_formula": formula,
+            "step_losses": losses,
             "epoch_wall_s": [b - a for a, b in zip(ends, ends[1:])],
             "train_s": t_train, "write_dataset_s": t_write,
             "metrics": logged,
@@ -1128,14 +1426,17 @@ def train(seed: int) -> dict:
 
 
 def categorize(seen: dict) -> dict:
-    """Device ms of one profiled call by kind of kernel: the SpMM, cuBLAS
-    GEMMs, the optimizer (Adam's foreach kernels), the rest (losses,
-    casts, activations, reductions)."""
-    out = {"spmm_csr": 0.0, "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
+    """Device ms of one profiled call by kind of kernel: the SpMM, the GEN
+    aggregation's kernels, cuBLAS GEMMs, the optimizer (Adam's foreach
+    kernels), the rest (losses, casts, activations, norms, reductions)."""
+    out = {"spmm_csr": 0.0, "gen_agg": 0.0, "gemm": 0.0, "optimizer": 0.0,
+           "other": 0.0}
     for k, (t, _) in seen.items():
         low = k.lower()
         if "spmm_csr_kernel" in low:
             out["spmm_csr"] += t
+        elif "gen_agg_" in low:
+            out["gen_agg"] += t
         elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
             out["gemm"] += t
         elif "multi_tensor_apply" in low:
@@ -1145,21 +1446,23 @@ def categorize(seen: dict) -> dict:
     return out
 
 
-def train_breakdown(seed: int) -> dict:
-    """One training step on one bench-shape LP, bf16, balanced CE, Adam,
-    the input aggregation cache: 2 warm-up steps, then medians of 10 of the
-    step's wall time on the host clock (ends when the loss reaches the
+def train_breakdown(seed: int, arch: str = ARCH,
+                    per_step: dict | None = None) -> dict:
+    """One training step of ``arch`` on one bench-shape LP, bf16, balanced
+    CE, Adam, the graph as the trainer builds it (the input aggregation
+    cache where the model reads it): 2 warm-up steps, then medians of 10 of
+    the step's wall time on the host clock (ends when the loss reaches the
     host) and its span on the card (CUDA events around the step's
-    launches), the SpMM launches a step, the peak of allocated device
-    memory; then one step's device time by kernel (``torch.profiler``,
-    after an unrecorded warm-up round) and the card's idle share of the
-    step (1 - kernel time / span, and / wall)."""
+    launches), the kernels' launches a step (``per_step``, exact), the peak
+    of allocated device memory; then one step's device time by kernel
+    (``torch.profiler``, after an unrecorded warm-up round) and the card's
+    idle share of the step (1 - kernel time / span, and / wall)."""
+    per_step = per_step or {"spmm_csr": SPMM_PER_STEP}
     g = bench_graph(seed + 3000)
-    model = build_model(f"{ARCH[:-1]},dtype='bfloat16')",
+    model = build_model(bf16_arch(arch),
                         generator=torch.Generator().manual_seed(seed))
     model = model.to("cuda")
-    gt = attach_input_agg(GraphTensors.from_graph(g, "cuda", labels=True),
-                          torch.bfloat16)
+    gt = trainer.train_graph(model, g, "cuda")
     optimizer = trainer.make_optimizer(model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(seed)
     loss_fn = LOSS_REGISTRY["balanced"]
@@ -1175,7 +1478,7 @@ def train_breakdown(seed: int) -> dict:
     ev1 = torch.cuda.Event(enable_timing=True)
     walls, spans, launches = [], [], []
     for _ in range(10):
-        before = spmm_csr.launches
+        before = {kern.__name__: kern.launches for kern in KERNELS}
         t0 = time.perf_counter()
         ev0.record()
         loss = step()
@@ -1183,23 +1486,27 @@ def train_breakdown(seed: int) -> dict:
         float(loss)
         walls.append((time.perf_counter() - t0) * 1e3)
         spans.append(ev0.elapsed_time(ev1))
-        launches.append(spmm_csr.launches - before)
+        launches.append({k.__name__: k.launches - before[k.__name__]
+                         for k in KERNELS})
     peak = torch.cuda.max_memory_allocated()
-    if set(launches) != {SPMM_PER_STEP}:
-        raise SmokeFailure(f"train step spmm launches {launches}, expected "
-                           f"{SPMM_PER_STEP} each")
-    seen, complete = profile_kernels(step, 1,
-                                     {"spmm_csr_kernel": SPMM_PER_STEP})
+    want = {**no_launches(), **per_step}
+    if any(n != want for n in launches):
+        raise SmokeFailure(f"train step launches {launches}, expected "
+                           f"{want} each")
+    seen, complete = profile_kernels(
+        step, 1, {f"{k}_kernel": n for k, n in per_step.items()})
     kinds = categorize(seen)
     busy = sum(kinds.values())
     top = {k[:90]: t for k, (t, _) in sorted(seen.items(),
                                              key=lambda kv: -kv[1][0])[:15]}
     counts = {k[:90]: n for k, (_, n) in seen.items() if k[:90] in top}
     wall, span = sorted(walls)[5], sorted(spans)[5]
-    return {"lp_nodes": M + N, "nnz": E, "step_wall_ms": wall,
+    return {"arch": bf16_arch(arch), "lp_nodes": M + N, "nnz": E,
+            "step_wall_ms": wall,
             "step_wall_ms_all": walls, "step_device_span_ms": span,
             "step_device_span_ms_all": spans, "spmm_launches_per_step":
-            SPMM_PER_STEP, "device_ms_by_kind": kinds,
+            want["spmm_csr"], "launches_per_step": want,
+            "device_ms_by_kind": kinds,
             "device_ms_busy": busy, "idle_share_of_span": 1 - busy / span,
             "idle_share_of_wall": 1 - busy / wall,
             "device_ms_top_kernels": top, "top_kernel_launches": counts,
@@ -1228,14 +1535,17 @@ def spmm_sum_in_x_dtype(ptr, idx, val, x):
 
 def small_train_run(arch: str, sd: dict, g: BipartiteGraph, dev: str,
                     fp64: bool, steps: int = 3):
-    """``steps`` Adam steps of ``arch`` from ``sd`` on ``g`` on ``dev``:
-    (losses, the first step's gradients, the params after the last), the
-    tensors copied to the host as fp64. ``fp64``: the model and its convs
-    in fp64 (the SpMM summed in fp64; the knowledge mask and the loss stay
-    fp32, as in every run)."""
+    """``steps`` Adam steps of ``arch`` from ``sd`` on ``g`` on ``dev``,
+    dropout 0, the graph as the trainer builds it: (losses, the first
+    step's gradients, the params after the last), the tensors copied to
+    the host as fp64. ``fp64``: the model and its convs in fp64 (the SpMM
+    summed in fp64; GEN's plain aggregation and its gather's backward take
+    fp64 as they are; the knowledge mask and the loss stay fp32, as in
+    every run)."""
     loss_fn = LOSS_REGISTRY["balanced"]
     model = build_model(arch)
     model.load_state_dict(sd)
+    model.dp = 0.0
     real = spmm_mod.spmm_csr
     if fp64:
         model.double()
@@ -1243,8 +1553,7 @@ def small_train_run(arch: str, sd: dict, g: BipartiteGraph, dev: str,
         spmm_mod.spmm_csr = spmm_sum_in_x_dtype
     try:
         model.to(dev)
-        gt = attach_input_agg(GraphTensors.from_graph(g, dev, labels=True),
-                              model.cdtype)
+        gt = trainer.train_graph(model, g, dev)
         opt = trainer.make_optimizer(model.parameters())
         losses = [float(trainer.train_step(model, opt, gt, loss_fn)[0])]
         # the step leaves its gradient in .grad until the next one
@@ -1545,8 +1854,7 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int) -> dict:
                    f" + 4 x {k} + 16 x {n_val} + 8 x {n_val}")
         want = (2 * n_train + SPMM_PER_STEP * n_train * epochs
                 + SPMM_PER_FORWARD * (n_val + k + 4 * n_val + 2 * n_val))
-        if launches != {"spmm_csr": want, "gather_rows": 0,
-                        "halo_all_to_all": 0}:
+        if launches != {**no_launches(), "spmm_csr": want}:
             raise SmokeFailure(f"pipeline launches {launches}, expected "
                                f"spmm_csr {want} = {formula} and no other")
         if not 5 <= k <= 12:
@@ -1622,6 +1930,126 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int) -> dict:
             "peak_device_bytes": peak}
 
 
+# ---------------------------------------------------------------------- GEN
+# limits (loss, first-step gradient, update) of the card's 3 small GEN
+# steps against the CPU's fp64 run and its fp32 run
+RTOL_GEN_RUN = {"card_vs_cpu_fp64": (1e-5, 1e-3, 2e-2),
+                "card_vs_cpu_fp32": (1e-4, 1e-2, 5e-2)}
+
+
+def gen_reference(seed: int) -> dict:
+    """GENDeeper(8,8,hids=256,depth=5) held to the CPU on a small graph
+    (300 x 500, 4,000 edges), the same weights:
+    1. logits: fp32 max |err| <= 1e-3 on the +-10-scaled logits (the
+       kernel's online softmax, fmaf and expf against the plain two-pass
+       version); bf16: the card's mean |err| against the CPU's fp32 logits
+       at most twice the CPU bf16 logits' (the plain version rounds as JAX
+       does; the kernel keeps its message and softmax in fp32).
+    2. training: 3 Adam steps, fp32, dropout 0, on the card, on the CPU in
+       fp32 and in fp64 (the plain aggregation, its gather's backward and
+       the norms in fp64), held as ``train_reference`` holds GCN_FC
+       (``RTOL_GEN_RUN``)."""
+    arch = "GENDeeper(8,8,hids=256,depth=5)"
+    g = bench_graph(seed + 7000, m=300, n=500, e=4000)
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(f"{arch[:-1]},dtype='{dtype}')",
+                            generator=torch.Generator().manual_seed(seed)).eval()
+        for dev in ("cpu", "cuda"):
+            got = np.concatenate(model_inference(model.to(dev), g))
+            if not (np.isfinite(got).all() and got.shape == (800, 3)):
+                raise SmokeFailure(f"gen_reference {dtype} on {dev}: bad logits")
+            logits[dtype, dev] = got
+    ref = logits["float32", "cpu"]
+    err32 = float(np.abs(logits["float32", "cuda"] - ref).max())
+    card16 = np.abs(logits["bfloat16", "cuda"] - ref)
+    cpu16 = np.abs(logits["bfloat16", "cpu"] - ref)
+    if err32 > 1e-3 or card16.mean() > 2 * cpu16.mean():
+        raise SmokeFailure(f"gen_reference logits: fp32 max |err| {err32} "
+                           f"(1e-3); bf16 card mean |err| {card16.mean()} "
+                           f"(2 x the CPU's {cpu16.mean()})")
+    out = {"logits": {"float32": {"max_abs_err": err32, "atol": 1e-3},
+                      "bfloat16": {"card_mean_abs_err": float(card16.mean()),
+                                   "cpu_mean_abs_err": float(cpu16.mean()),
+                                   "card_max_abs_err": float(card16.max()),
+                                   "cpu_max_abs_err": float(cpu16.max())}}}
+    sd = build_model(arch, generator=torch.Generator().manual_seed(seed)
+                     ).state_dict()
+    before = {k.__name__: k.launches for k in KERNELS}
+    card = small_train_run(arch, sd, g, "cuda", fp64=False)
+    card_launches = {k.__name__: k.launches - before[k.__name__]
+                     for k in KERNELS}
+    cpu32 = small_train_run(arch, sd, g, "cpu", fp64=False)
+    cpu64 = small_train_run(arch, sd, g, "cpu", fp64=True)
+    held = {"card_vs_cpu_fp64": held_to(card, cpu64, sd),
+            "card_vs_cpu_fp32": held_to(card, cpu32, sd)}
+    for name, h in held.items():
+        worst = (h["loss_max_rel"], max(h["grad1_rel"].values()),
+                 max(max(h["update_rel"].values()), h["update_rel_all"]))
+        if any(w > lim for w, lim in zip(worst, RTOL_GEN_RUN[name])):
+            raise SmokeFailure(f"gen_reference {name}: loss, grad1, update "
+                               f"rel {worst} (limits {RTOL_GEN_RUN[name]})")
+        h["max_rel_loss_grad1_update"] = worst
+        h["limits"] = RTOL_GEN_RUN[name]
+        del h["param_max_abs_n_over_1e-4"]
+    held["cpu_fp32_vs_cpu_fp64"] = held_to(cpu32, cpu64, sd)
+    del held["cpu_fp32_vs_cpu_fp64"]["param_max_abs_n_over_1e-4"]
+    out["train"] = {"losses_card": card[0], "losses_cpu_fp32": cpu32[0],
+                    "losses_cpu_fp64": cpu64[0],
+                    "card_launches_3_steps": card_launches, **held}
+    return out
+
+
+def gen_serve(seed: int) -> dict:
+    """The slice's configuration serving N_GEN_LPS bench-shape LPs through
+    the entry point: GEN_PER_FORWARD gen_agg_fwd launches a forward, no
+    other kernel; then one LP's breakdown with the forward's device time
+    by kernel."""
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_gen_") as tmp:
+        res = run_pred_basis(tmp, seed + 300, N_GEN_LPS,
+                             {"gen_agg_fwd": GEN_PER_FORWARD}, [], GEN_ARCH)
+    del res["data_prefix"], res["part_time_s"]
+    res["breakdown"] = breakdown(seed + 300, GEN_ARCH,
+                                 {"gen_agg_fwd_kernel": GEN_PER_FORWARD})
+    return {"arch": GEN_ARCH, **res}
+
+
+def gen_train(seed: int) -> dict:
+    """The slice's configuration through the training entry point (``train``
+    with GEN's launch formula), then one step's breakdown."""
+    res = train(seed, GEN_ARCH, GEN_EPOCHS, 200, gen_train_launches,
+                {"gen_agg_fwd": GEN_PER_FORWARD})
+    torch.cuda.empty_cache()
+    res["step"] = train_breakdown(seed, GEN_ARCH, GEN_PER_STEP)
+    return res
+
+
+def zoo_serve(seed: int) -> dict:
+    """The rest of the zoo at width 256 in bf16 through the entry point on
+    N_ZOO_LPS bench-shape LPs each: valid bases, the SpMM launched
+    ZOO_SERVE times a forward (the input conv's 2 included: serving builds
+    no cache), no other kernel."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_zoo_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"),
+                      seed + 400, N_ZOO_LPS)
+        for i, (arch, per) in enumerate(ZOO_SERVE.items()):
+            ckpt = save_seeded(arch, seed, osp.join(tmp, f"mdl{i}.pth"))
+            res = serve_and_check(data_prefix, osp.join(tmp, f"runs{i}"), ckpt,
+                                  seed, N_ZOO_LPS, "trainval",
+                                  {"spmm_csr": per}, [], arch)
+            out[bf16_arch(arch)] = {
+                "spmm_per_forward": per,
+                **{k: res[k] for k in ("lps", "bas_valid", "forwards",
+                                       "launches", "inf_time_s")}}
+    total = no_launches()
+    for r in out.values():
+        for k, n in r["launches"].items():
+            total[k] += n
+    return {"archs": out, "launches": total}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1637,7 +2065,7 @@ def main(argv=None) -> int:
         smi = nvidia_smi()
         t0 = time.perf_counter()
         logs = _build.build_all(["spmm"] if args.flagship
-                                else ["spmm", "gather", "halo_a2a"])
+                                else ["spmm", "gather", "halo_a2a", "gen_agg"])
         ptxas = {k: [ln.strip() for ln in v.splitlines()
                      if "registers" in ln or "spill" in ln] for k, v in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -1662,6 +2090,8 @@ def main(argv=None) -> int:
                    + check_gather(gt, gen, rng))
         del gt
         kernels += check_dist_kernels(g, gen)
+        torch.cuda.empty_cache()
+        kernels += check_gen_kernels(g, gen, rng)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
               "gather_floor": gather_floor(kernels)})
         torch.cuda.empty_cache()
@@ -1683,17 +2113,31 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         piped = pipeline_phase(args.seed, PIPE_EPOCHS, N_PIPE_LPS)
         emit({"phase": "pipeline", **piped})
+        torch.cuda.empty_cache()
+        emit({"phase": "gen_reference", **gen_reference(args.seed)})
+        torch.cuda.empty_cache()
+        gen_served = gen_serve(args.seed)
+        emit({"phase": "gen_serve", **gen_served})
+        torch.cuda.empty_cache()
+        gen_trained = gen_train(args.seed)
+        emit({"phase": "gen_train", **gen_trained})
+        torch.cuda.empty_cache()
+        zoo = zoo_serve(args.seed)
+        emit({"phase": "zoo_serve", **zoo})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
-    # launches: on the edge-partitioned path, the one path that runs all
-    # three kernels; each path's count beside it
+    # launches: the SpMM, the gather and K1 on the edge-partitioned path,
+    # the one path that runs all three; the GEN kernels on the GEN training
+    # path, which runs both; each path's count beside it
+    paths = {"serve": served, "dist_serve": dist, "train": trained,
+             "pipeline": piped, "gen_serve": gen_served,
+             "gen_train": gen_trained, "zoo_serve": zoo}
     for k in kernels:
-        k["launches"] = dist["launches"][k["name"]]
-        k["launches_by_path"] = {"serve": served["launches"][k["name"]],
-                                 "dist_serve": dist["launches"][k["name"]],
-                                 "train": trained["launches"][k["name"]],
-                                 "pipeline": piped["launches"][k["name"]]}
+        main_path = gen_trained if k["name"].startswith("gen_agg") else dist
+        k["launches"] = main_path["launches"][k["name"]]
+        k["launches_by_path"] = {p: r["launches"][k["name"]]
+                                 for p, r in paths.items()}
         k["card"] = smi
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -8,8 +8,10 @@ TPU (bucket padding to static shapes, the MXU block layout, ``strip_coo``)
 has no use under PyTorch's eager execution and is left out, so there are no
 padded rows: every tensor covers the real nodes and edges only.
 
-Two optional parts: the labels (``from_graph(..., labels=True)``, for
-training) and the input conv's cached aggregations
+Three optional parts: the labels (``from_graph(..., labels=True)``, for
+training), the permutations between the two edge orderings
+(``from_graph(..., perms=True)``, for the GEN aggregation's backward,
+``:236-244``) and the input conv's cached aggregations
 (``ops/spmm.py attach_input_agg``).
 """
 from __future__ import annotations
@@ -38,6 +40,9 @@ class GraphTensors:
     y_t: torch.Tensor | None = None      # (n,) int64 labels
     in_agg_c: torch.Tensor | None = None   # (m, q) A v_feas, compute dtype
     in_agg_v: torch.Tensor | None = None   # (n, p) A^T c_feas, compute dtype
+    # the position of each CSR edge in the CSC ordering, and the reverse
+    eperm_r: torch.Tensor | None = None    # (E,) int32
+    eperm_c: torch.Tensor | None = None    # (E,) int32
 
     @property
     def ncons(self) -> int:
@@ -57,7 +62,7 @@ class GraphTensors:
 
     @classmethod
     def from_graph(cls, g: BipartiteGraph, device: torch.device | str,
-                   labels: bool = False) -> "GraphTensors":
+                   labels: bool = False, perms: bool = False) -> "GraphTensors":
         m, n, e = g.ncons, g.nvars, g.nnz
         if e >= 2 ** 31:
             raise ValueError(f"{g.fn}: {e} edges overflow int32 pointers")
@@ -77,6 +82,16 @@ class GraphTensors:
         else:
             order_r = np.lexsort((col, row))
             order_c = np.lexsort((row, col))
+        eperm_r = eperm_c = None
+        if perms:
+            inv_c = np.empty(e, np.int64)
+            inv_c[order_c] = np.arange(e)
+            if isinstance(order_r, slice):   # the CSR order is the input's
+                eperm_r, eperm_c = inv_c, order_c
+            else:
+                inv_r = np.empty(e, np.int64)
+                inv_r[order_r] = np.arange(e)
+                eperm_r, eperm_c = inv_c[order_r], inv_r[order_c]
 
         def ptr(dst, num):
             p = np.zeros(num + 1, np.int32)
@@ -96,4 +111,6 @@ class GraphTensors:
             v_feas=dev(np.asarray(g.v_feas, np.float32)),
             y_s=dev(np.asarray(g.y_s, np.int64)) if labels else None,
             y_t=dev(np.asarray(g.y_t, np.int64)) if labels else None,
+            eperm_r=dev(eperm_r.astype(np.int32)) if perms else None,
+            eperm_c=dev(eperm_c.astype(np.int32)) if perms else None,
         )

@@ -1,6 +1,8 @@
-"""Weights carried across: JAX GCN_FC params and checkpoints -> state_dict.
+"""Weights carried across: JAX params and checkpoints -> state_dict.
 
-:func:`state_dict_from_jax_params` is the exact inverse of
+:func:`state_dict_from_jax_params` maps the params tree of any JAX zoo
+model (``lp_gnn_tpu/models/gcn.py``) onto this package's module names. For
+GCN_FC it is the exact inverse of
 ``lp_gnn_tpu/models/torch_import.py:56 gcn_fc_params_from_state_dict``::
 
     conv1.l2r.rel.w (in,out)  -> conv1.left2right.lin_rel.weight (out,in) = w.T
@@ -9,6 +11,16 @@
     conv1.r2l.*               -> conv1.right2left.*
     layers[i].*               -> layers.{i}.*
     lin_left / lin_right      -> lin_left / lin_right .weight (= w.T) / .bias
+
+GCN (``conv1..3``) and GCNDeeper (``conv_in``, ``blocks[i].conv``,
+``conv_out``) reuse the GraphConv keys; a res+ block's ``norm_l`` /
+``norm_r`` ``{g, b}`` become ``blocks.{i}.norm_l.weight`` / ``.bias``.
+GENDeeper's GEN directions keep the JAX tree's names under the port's
+direction names (``conv_in.left2right.edge.weight``, ``....t``,
+``....mlp.l1``, ``....mlp.ln.weight``, ``....lin_src``, ...); the
+reference's PyG ``GENConv`` keys are not reproduced (the JAX package maps
+GCN_FC only, and no reference GEN checkpoint is at hand). GCNRand's one
+leaf ``_`` keeps its name.
 
 :func:`load_checkpoint` reads either checkpoint kind without JAX: a
 reference or port ``mdl.pth`` (a torch state_dict), or a JAX ``mdl.ckpt``
@@ -27,29 +39,65 @@ import numpy as np
 import torch
 
 
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
 def _put_lin(sd, prefix, p):
     sd[prefix + ".weight"] = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(p["w"], np.float32).T))
+        np.array(np.asarray(p["w"], np.float32).T, order="C"))
     if "b" in p:
-        sd[prefix + ".bias"] = torch.from_numpy(
-            np.array(p["b"], np.float32))
+        sd[prefix + ".bias"] = _tensor(p["b"])
+
+
+def _put_ln(sd, prefix, p):
+    sd[prefix + ".weight"] = _tensor(p["g"])
+    sd[prefix + ".bias"] = _tensor(p["b"])
+
+
+def _put_gen_dir(sd, prefix, p):
+    """One GEN direction (gen.py:109-124), in the port's module order."""
+    _put_lin(sd, prefix + ".edge", p["edge"])
+    sd[prefix + ".t"] = _tensor(p["t"])
+    _put_lin(sd, prefix + ".mlp.l1", p["mlp"]["l1"])
+    _put_ln(sd, prefix + ".mlp.ln", p["mlp"]["ln"])
+    _put_lin(sd, prefix + ".mlp.l2", p["mlp"]["l2"])
+    for side in ("lin_src", "lin_dst"):
+        if side in p:
+            _put_lin(sd, f"{prefix}.{side}", p[side])
 
 
 def _put_bidir(sd, prefix, p):
-    _put_lin(sd, prefix + ".left2right.lin_rel", p["l2r"]["rel"])
-    _put_lin(sd, prefix + ".left2right.lin_root", p["l2r"]["root"])
-    _put_lin(sd, prefix + ".right2left.lin_rel", p["r2l"]["rel"])
-    _put_lin(sd, prefix + ".right2left.lin_root", p["r2l"]["root"])
+    """A two-direction conv: GraphConv (``rel``, ``root``) or GEN."""
+    for jax_dir, port_dir in (("l2r", "left2right"), ("r2l", "right2left")):
+        d, pre = p[jax_dir], f"{prefix}.{port_dir}"
+        if "rel" in d:
+            _put_lin(sd, pre + ".lin_rel", d["rel"])
+            _put_lin(sd, pre + ".lin_root", d["root"])
+        else:
+            _put_gen_dir(sd, pre, d)
 
 
 def state_dict_from_jax_params(params: dict) -> "OrderedDict[str, torch.Tensor]":
-    """JAX GCN_FC params (numpy leaves) -> this package's GCN_FC state_dict."""
+    """JAX zoo params (numpy leaves) -> this package's state_dict of the
+    same model, told apart by the tree's keys."""
     sd: OrderedDict = OrderedDict()
-    _put_bidir(sd, "conv1", params["conv1"])
-    for i, layer in enumerate(params["layers"]):
+    if "_" in params:                                   # GCNRand
+        sd["_"] = _tensor(params["_"])
+    for name in ("conv1", "conv2", "conv3", "conv_in"):
+        if name in params:
+            _put_bidir(sd, name, params[name])
+    for i, layer in enumerate(params.get("layers", [])):
         _put_bidir(sd, f"layers.{i}", layer)
-    _put_lin(sd, "lin_left", params["lin_left"])
-    _put_lin(sd, "lin_right", params["lin_right"])
+    for i, blk in enumerate(params.get("blocks", [])):
+        _put_bidir(sd, f"blocks.{i}.conv", blk["conv"])
+        _put_ln(sd, f"blocks.{i}.norm_l", blk["norm_l"])
+        _put_ln(sd, f"blocks.{i}.norm_r", blk["norm_r"])
+    if "conv_out" in params:
+        _put_bidir(sd, "conv_out", params["conv_out"])
+    for name in ("lin_left", "lin_right"):
+        if name in params:
+            _put_lin(sd, name, params[name])
     return sd
 
 
@@ -121,8 +169,8 @@ def is_torch_checkpoint(path: str) -> bool:
 
 
 def load_checkpoint(path: str) -> "OrderedDict[str, torch.Tensor]":
-    """A GCN_FC state_dict (fp32, on the CPU) from a torch ``mdl.pth`` or a
-    JAX ``mdl.ckpt``."""
+    """A state_dict of the zoo (fp32, on the CPU) from a torch ``mdl.pth``
+    or a JAX ``mdl.ckpt`` of any architecture."""
     if is_torch_checkpoint(path):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if not isinstance(sd, dict):

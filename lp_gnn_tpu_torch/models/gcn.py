@@ -1,14 +1,21 @@
-"""GCN_FC, the flagship model, and the safe arch-string parser.
+"""The model zoo and the safe arch-string parser.
 
-Counterpart of ``lp_gnn_tpu/models/gcn.py`` (``make_gcn_fc`` :48,
-``build_model`` :230; reference arch.py:167-193). The rest of the JAX zoo
-(GCN, GCNRand, GCNDeeper, GENDeeper) is not ported yet: asking for it
-raises and names the ROADMAP item.
+Counterpart of ``lp_gnn_tpu/models/gcn.py`` (reference arch.py:108-289):
+GCN_FC, the flagship (``make_gcn_fc`` :48), GCN (:99), GCNRand (:128),
+and the DeepGCN res+ stacks GCNDeeper and GENDeeper (``_make_deeper``
+:148-218); ``build_model`` :230. Each model takes the options its JAX
+factory takes, and no other.
 
 Forward contract: ``model(g, generator=None)`` with ``g`` a
 :class:`~lp_gnn_tpu_torch.data.graph.GraphTensors` ->
 (cons_logits (m, 3), vars_logits (n, 3)), fp32, after the knowledge mask.
-Dropout draws from ``generator`` and runs only in training mode.
+Dropout (and GCNRand's logits) draw from ``generator`` and dropout runs
+only in training mode. Each model class says what its graphs need:
+``reads_input_agg`` (its input conv uses the cached aggregations of
+``ops/spmm.py attach_input_agg``; GEN's depends on its parameters and
+cannot, trainer.py:457-459) and ``needs_edge_perms`` (its backward needs
+the permutations between the two edge orderings, ``from_graph(...,
+perms=True)``).
 """
 from __future__ import annotations
 
@@ -19,23 +26,48 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import (BidirGraphConv, Linear, add_knowledge,
+from .gen import BidirGENConv
+from .layers import (BidirGraphConv, LayerNorm, Linear, add_knowledge,
                      bidir_conv_apply_input, dropout)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-class GCN_FC(nn.Module):
+class ZooModel(nn.Module):
+    """What the models share: the compute dtype, remat around a conv, and
+    what a graph must carry for them."""
+
+    name = ""
+    reads_input_agg = True
+    needs_edge_perms = False
+
+    def __init__(self, dtype: str = "float32", remat: bool = False):
+        super().__init__()
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype {dtype!r}: use one of {sorted(_DTYPES)}")
+        self.dtype = dtype
+        self.cdtype = _DTYPES[dtype]
+        self.remat = remat
+
+    def _conv(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass under remat
+        (``torch.utils.checkpoint`` around the conv only, as
+        ``jax.checkpoint`` wraps the conv, gcn.py:67-69 and :180-182).
+        Dropout stays outside the recomputed function: the recompute
+        restores the default generators' state, not that of an explicit
+        one."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+
+class GCN_FC(ZooModel):
     """1 input conv, depth-2 hidden convs, per-side Linear(hids, 3) heads;
     conv1 -> relu; hidden: conv -> dropout -> relu; heads -> knowledge
-    mask. ``dtype='bfloat16'`` runs the conv / linear stack in bf16 with
-    fp32 parameters, fp32 SpMM accumulation and an fp32 knowledge mask.
-
-    ``remat=True`` recomputes each conv in the backward pass instead of
-    keeping its activations (``torch.utils.checkpoint`` around each conv
-    only, as ``jax.checkpoint`` wraps the conv, gcn.py:67-69). The dropout
-    stays outside the recomputed function: the recompute restores the
-    default generators' state, not that of an explicit one."""
+    mask (gcn.py:48). ``dtype='bfloat16'`` runs the conv / linear stack in
+    bf16 with fp32 parameters, fp32 SpMM accumulation and an fp32
+    knowledge mask. ``remat=True`` recomputes each conv in the backward
+    pass instead of keeping its activations."""
 
     name = "GCN_FC"
 
@@ -43,13 +75,8 @@ class GCN_FC(nn.Module):
                  depth: int = 3, dp: float = 0.1, dtype: str = "float32",
                  remat: bool = False,
                  generator: torch.Generator | None = None):
-        super().__init__()
-        if dtype not in _DTYPES:
-            raise ValueError(f"dtype {dtype!r}: use one of {sorted(_DTYPES)}")
+        super().__init__(dtype, remat)
         self.depth, self.hids, self.dp = depth, hids, dp
-        self.remat = remat
-        self.dtype = dtype
-        self.cdtype = _DTYPES[dtype]
         n_hidden = max(depth - 2, 0)
         # construction order = the JAX init's key order (conv1, layers,
         # heads); the numbers differ (torch vs threefry generators)
@@ -59,11 +86,6 @@ class GCN_FC(nn.Module):
             for _ in range(n_hidden))
         self.lin_left = Linear(hids, 3, generator=generator)
         self.lin_right = Linear(hids, 3, generator=generator)
-
-    def _conv(self, fn, *args):
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
 
     def forward(self, g, generator: torch.Generator | None = None):
         x_left = g.c_feas.to(self.cdtype)
@@ -81,23 +103,140 @@ class GCN_FC(nn.Module):
         return add_knowledge(left, right, x_left, x_right)
 
 
-MODEL_REGISTRY = {"GCN_FC": GCN_FC}
-# archs of the JAX zoo that wait for ROADMAP.md's queue item "GEN and the
-# rest of the zoo"
-_NOT_YET = ("GCN", "GCNRand", "GCNDeeper", "GENDeeper")
+class GCN(ZooModel):
+    """3 fixed convs (gcn.py:99-124): conv1 -> relu -> conv2 -> relu ->
+    dropout 0.1 -> conv3 (width 3) -> knowledge mask."""
+
+    name = "GCN"
+
+    def __init__(self, p: int = 8, q: int = 8, hids: int = 128,
+                 dtype: str = "float32",
+                 generator: torch.Generator | None = None):
+        super().__init__(dtype)
+        self.hids, self.dp = hids, 0.1
+        self.conv1 = BidirGraphConv(p, q, hids, generator)
+        self.conv2 = BidirGraphConv(hids, hids, hids, generator)
+        self.conv3 = BidirGraphConv(hids, hids, 3, generator)
+
+    def forward(self, g, generator: torch.Generator | None = None):
+        x_left = g.c_feas.to(self.cdtype)
+        x_right = g.v_feas.to(self.cdtype)
+        left, right = bidir_conv_apply_input(self.conv1, g, x_left, x_right)
+        left, right = F.relu(left), F.relu(right)
+        left, right = self.conv2(g, left, right)
+        left, right = F.relu(left), F.relu(right)
+        left = dropout(left, self.dp, generator, self.training)
+        right = dropout(right, self.dp, generator, self.training)
+        left, right = self.conv3(g, left, right)
+        return add_knowledge(left, right, x_left, x_right)
+
+
+class GCNRand(ZooModel):
+    """Random-logit control baseline (gcn.py:128-145): U[0, 1) logits
+    through the knowledge mask, drawn from ``generator`` on the graph's
+    device, or from one seeded 0 when none is given (the JAX apply's
+    ``PRNGKey(0)`` default). Its one parameter ``_`` (0, the JAX tree's)
+    gives the model a device; ``dtype`` is accepted for ``--fp16`` and has
+    no effect."""
+
+    name = "GCNRand"
+    reads_input_agg = False
+
+    def __init__(self, dtype: str = "float32",
+                 generator: torch.Generator | None = None):
+        super().__init__(dtype)
+        self.register_parameter("_", nn.Parameter(torch.zeros(())))
+
+    def forward(self, g, generator: torch.Generator | None = None):
+        if generator is None:
+            generator = torch.Generator(device=g.device).manual_seed(0)
+        left = torch.rand((g.ncons, 3), generator=generator, device=g.device)
+        right = torch.rand((g.nvars, 3), generator=generator, device=g.device)
+        return add_knowledge(left, right, g.c_feas, g.v_feas)
+
+
+class DeepBlock(nn.Module):
+    """A res+ block's parameters (gcn.py:149-152): ``conv``, ``norm_l``,
+    ``norm_r``."""
+
+    def __init__(self, hids: int, conv_cls, generator):
+        super().__init__()
+        self.conv = conv_cls(hids, hids, hids, generator)
+        self.norm_l = LayerNorm(hids)
+        self.norm_r = LayerNorm(hids)
+
+
+class _Deeper(ZooModel):
+    """DeepGCN res+ stack (``_make_deeper`` gcn.py:167-204): ``conv_in``
+    (p, q -> hids), depth-2 blocks of norm -> relu -> dropout 0.1 -> conv
+    -> + residual, ``conv_out`` (hids -> 3), the knowledge mask."""
+
+    conv_cls = BidirGraphConv
+
+    def __init__(self, p: int = 8, q: int = 8, hids: int = 128,
+                 depth: int = 5, dtype: str = "float32", remat: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__(dtype, remat)
+        self.depth, self.hids, self.dp = depth, hids, 0.1
+        self.conv_in = self.conv_cls(p, q, hids, generator)
+        self.blocks = nn.ModuleList(
+            DeepBlock(hids, self.conv_cls, generator)
+            for _ in range(max(depth - 2, 0)))
+        self.conv_out = self.conv_cls(hids, hids, 3, generator)
+
+    def forward(self, g, generator: torch.Generator | None = None):
+        x_left = g.c_feas.to(self.cdtype)
+        x_right = g.v_feas.to(self.cdtype)
+        if self.reads_input_agg:
+            left, right = self._conv(bidir_conv_apply_input, self.conv_in, g,
+                                     x_left, x_right)
+        else:
+            left, right = self._conv(self.conv_in, g, x_left, x_right)
+        for blk in self.blocks:
+            h_l = F.relu(blk.norm_l(left))
+            h_r = F.relu(blk.norm_r(right))
+            h_l = dropout(h_l, self.dp, generator, self.training)
+            h_r = dropout(h_r, self.dp, generator, self.training)
+            h_l, h_r = self._conv(blk.conv, g, h_l, h_r)
+            left, right = left + h_l, right + h_r
+        left, right = self._conv(self.conv_out, g, left, right)
+        return add_knowledge(left, right, x_left, x_right)
+
+
+class GCNDeeper(_Deeper):
+    """The res+ stack over GraphConv (gcn.py:207)."""
+
+    name = "GCNDeeper"
+
+    def __init__(self, p: int = 8, q: int = 8, hids: int = 128,
+                 depth: int = 50, dtype: str = "float32", remat: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__(p, q, hids, depth, dtype, remat, generator)
+
+
+class GENDeeper(_Deeper):
+    """The res+ stack over GENConv (gcn.py:215): its aggregation depends
+    on its parameters, so the input conv reads no cache, and its backward
+    needs the edge permutations."""
+
+    name = "GENDeeper"
+    conv_cls = BidirGENConv
+    reads_input_agg = False
+    needs_edge_perms = True
+
+
+MODEL_REGISTRY = {"GCN_FC": GCN_FC, "GCN": GCN, "GCNRand": GCNRand,
+                  "GCNDeeper": GCNDeeper, "GENDeeper": GENDeeper}
 
 
 def build_model(arch: str, generator: torch.Generator | None = None) -> nn.Module:
     """Parse an arch string like ``GCN_FC(8,8,hids=1024,depth=3)`` safely
-    (literal arguments only, never ``eval``)."""
+    (literal arguments only, never ``eval``); ``generator`` draws the
+    initial weights."""
     tree = ast.parse(arch.strip(), mode="eval").body
     if not (isinstance(tree, ast.Call) and isinstance(tree.func, ast.Name)):
         raise ValueError(f"arch must look like Name(args...), got {arch!r}")
     name = tree.func.id
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"{name} is not ported to lp_gnn_tpu_torch yet (ROADMAP.md, queue "
-            f"item 4: GEN and the rest of the zoo); only GCN_FC is")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"unknown arch {name!r}")
     args = [ast.literal_eval(a) for a in tree.args]

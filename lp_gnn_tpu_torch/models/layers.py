@@ -1,5 +1,5 @@
-"""Model building blocks: linear, two-direction graph conv, knowledge mask,
-dropout.
+"""Model building blocks: linear, layer norm, two-direction graph conv,
+knowledge mask, dropout.
 
 Counterpart of ``lp_gnn_tpu/models/layers.py`` (reference arch.py:51-141),
 as ``nn.Module``s named after the reference's state_dict keys
@@ -36,6 +36,24 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.bias.to(x.dtype) if self.bias is not None else None
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis (layers.py:132-141): computed in fp32
+    (fp64 for fp64 x) with the population variance and eps 1e-5, the
+    affine ``weight`` (JAX ``g``, init 1) and ``bias`` (``b``, init 0),
+    cast back to x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.to(acc), (x.shape[-1],), self.weight.to(acc),
+                            self.bias.to(acc), self.eps).to(x.dtype)
 
 
 class GraphConv(nn.Module):

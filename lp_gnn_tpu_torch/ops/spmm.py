@@ -30,17 +30,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_PIECES = 256   # 16-byte pieces a row (csrc/spmm.cu kMaxPieces)
 
 
+def segment_ids(ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
+    """The destination of each edge of a CSR: d repeated ptr[d+1] - ptr[d]
+    times."""
+    return torch.repeat_interleave(
+        torch.arange(ptr.shape[0] - 1, device=ptr.device),
+        (ptr[1:] - ptr[:-1]).long(), output_size=n_edges)
+
+
 def spmm_csr_plain(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: a sorted segment sum by ``index_add_`` with
-    fp32 accumulation, cast to ``x``'s dtype."""
+    fp32 accumulation (fp64 for fp64 x, a dtype the kernel does not take),
+    cast to ``x``'s dtype."""
     num_dst = ptr.shape[0] - 1
-    dst = torch.repeat_interleave(
-        torch.arange(num_dst, device=x.device),
-        (ptr[1:] - ptr[:-1]).long(), output_size=idx.shape[0])
-    msg = x.index_select(0, idx.long()).float() * val[:, None]
-    out = torch.zeros(num_dst, x.shape[1], dtype=torch.float32,
-                      device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dst = segment_ids(ptr, idx.shape[0])
+    msg = x.index_select(0, idx.long()).to(acc) * val[:, None]
+    out = torch.zeros(num_dst, x.shape[1], dtype=acc, device=x.device)
     return out.index_add_(0, dst, msg).to(x.dtype)
 
 

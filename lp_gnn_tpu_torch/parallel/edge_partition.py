@@ -460,7 +460,7 @@ def dist_gcn_fc_apply(model, dg: DistGraphTensors):
 
 #: arch name -> distributed forward (edge_partition.py:1043); every one
 #: takes the halo exchange, the only partition the port builds. The rest
-#: of the JAX zoo waits for ROADMAP.md queue item 4.
+#: of the zoo's dist forwards wait for ROADMAP.md queue item 7.
 DIST_MODELS = {"GCN_FC": dist_gcn_fc_apply}
 
 
@@ -472,7 +472,7 @@ def dist_apply(model, dg: PartitionedGraph, mesh: EdgeMesh):
     if model.name not in DIST_MODELS:
         raise NotImplementedError(
             f"edge-partitioned {model.name} is not ported to lp_gnn_tpu_torch "
-            "yet (ROADMAP.md, queue item 4: GEN and the rest of the zoo); "
-            "only GCN_FC is")
+            "yet (ROADMAP.md, queue item 7: edge partition, the rest); only "
+            "GCN_FC is")
     dgt = DistGraphTensors.from_partition(dg, mesh)
     return DIST_MODELS[model.name](model, dgt)

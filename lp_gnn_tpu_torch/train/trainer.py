@@ -7,8 +7,10 @@ train.py:55-172): the single-device, full-graph path of ``run_exp``.
   set on the param groups each epoch (trainer.py:56), so a resume is exact.
 - One step a graph, graphs in the order ``np.random.RandomState(seed)
   .permutation(n_train)`` draws each epoch, as the JAX package does. Graph
-  tensors and the input conv's aggregations (``attach_input_agg``, exact)
-  are built once a graph and kept across epochs.
+  tensors are built once a graph and kept across epochs, with what the
+  model reads (``train_graph``): the input conv's aggregations
+  (``attach_input_agg``, exact) for the models that use them, the edge
+  permutations for GEN's backward.
 - Dropout draws from one ``torch.Generator`` seeded with ``--seed`` on the
   run's device (the JAX package splits a PRNG key a step; the masks
   differ).
@@ -105,13 +107,27 @@ def train_step(model, optimizer, g: GraphTensors, loss_fn,
     ms, mt = seed_masks(g)
     loss = loss_fn(lc, lv, g.y_s, g.y_t, ms, mt)
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    if loss.requires_grad:   # GCNRand's logits depend on no parameter
+        loss.backward()
     optimizer.step()
     acc = None
     if with_acc:
         with torch.no_grad():
             acc = step_accuracy(g, lc.detach(), lv.detach(), ms, mt)
     return loss.detach(), acc
+
+
+def train_graph(model, g, device) -> GraphTensors:
+    """One training graph's tensors on ``device`` with its labels and what
+    ``model`` reads: the edge permutations where its backward needs them
+    (GEN's gather), the input conv's cached aggregations where its input
+    conv uses them (not GEN's: its aggregation depends on its parameters,
+    trainer.py:457-459; not GCNRand's, which reads no graph)."""
+    gt = GraphTensors.from_graph(g, device, labels=True,
+                                 perms=model.needs_edge_perms)
+    if model.reads_input_agg:
+        gt = attach_input_agg(gt, model.cdtype)
+    return gt
 
 
 # ------------------------------------------------------------------ metrics IO
@@ -282,8 +298,7 @@ def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
     graphs: dict[int, GraphTensors] = {}
 
     def graph_for(idx: int) -> GraphTensors:
-        """Graph tensors with labels and the input aggregations, built
-        once a graph and kept."""
+        """``train_graph``'s tensors, built once a graph and kept."""
         if idx not in graphs:
             g = train_ds[idx]
             if g.nnz > cfg.edge_num_thresh:
@@ -292,8 +307,7 @@ def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
                     f"{cfg.edge_num_thresh:g} takes sampled training, which "
                     "is not ported to lp_gnn_tpu_torch yet (ROADMAP.md, "
                     "queue item 5: sampling)")
-            graphs[idx] = attach_input_agg(
-                GraphTensors.from_graph(g, device, labels=True), model.cdtype)
+            graphs[idx] = train_graph(model, g, device)
         return graphs[idx]
 
     loss_meter, acc_meter = AverageMeter(), AverageMeter()

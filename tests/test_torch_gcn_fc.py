@@ -14,6 +14,9 @@ from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.models.convert import (load_checkpoint,
                                              state_dict_from_jax_params)
 from lp_gnn_tpu_torch.models.gcn import GCN_FC, build_model
+from lp_gnn_tpu_torch.models.gen import BidirGENConv
+from lp_gnn_tpu_torch.parallel import edge_partition
+from lp_gnn_tpu_torch.parallel.mesh import make_mesh
 from tests.test_torch_import import fabricate_state_dict
 from tests.test_torch_spmm import random_graph
 
@@ -131,11 +134,25 @@ def test_init_is_seeded_and_torch_linear_shaped():
 def test_build_model_parses_safely():
     m = build_model("GCN_FC(8,8,hids=16,depth=5,dtype='bfloat16')")
     assert len(m.layers) == 3 and m.cdtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("GENDeeper(8,8,hids=16,depth=3)")
+    m = build_model("GENDeeper(8,8,hids=16,depth=3)")
+    assert isinstance(m.conv_in, BidirGENConv) and len(m.blocks) == 1
+    assert m.needs_edge_perms and not m.reads_input_agg
     with pytest.raises(ValueError, match="unknown arch"):
         build_model("MLP(8)")
     with pytest.raises(ValueError):
         build_model("GCN_FC(__import__('os').getpid())")
     with pytest.raises(TypeError):
         build_model("GCN_FC(8,8,hidden=16)")
+
+
+@pytest.mark.parametrize("arch", ["GENDeeper(8,8,hids=16,depth=3)",
+                                  "GCN(8,8,hids=16)",
+                                  "GCNDeeper(8,8,hids=16,depth=3)",
+                                  "GCNRand()"])
+def test_dist_apply_refuses_the_rest_of_the_zoo(arch):
+    """Every arch builds; only GCN_FC has an edge-partitioned forward: the
+    others raise and name the ROADMAP item of the dist forwards."""
+    g, _ = random_graph(np.random.RandomState(13))
+    dg = edge_partition.partition_graph(g, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*queue item 7"):
+        edge_partition.dist_apply(build_model(arch), dg, make_mesh(2, "cpu"))

@@ -15,6 +15,7 @@ import torch
 from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.ops import _build
+from lp_gnn_tpu_torch.ops import gen_agg
 from lp_gnn_tpu_torch.ops import spmm as tspmm
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from lp_gnn_tpu_torch.parallel.edge_partition import (compose_halo_src,
@@ -150,6 +151,53 @@ def test_spmm_csr_out():
                      (torch.empty(8, g.ncons).t(), ValueError)):
         with pytest.raises(err, match="out="):
             tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x, out=out)
+
+
+def gen_inputs(rng, counts, n_src, d, dtype, device="cpu"):
+    """One GEN direction's kernel inputs: rows of ``counts`` edges from
+    ``n_src`` sources, x (n_src, d), the encoder w, b and t in ``dtype``,
+    and the transpose ordering (t_ptr over the sources, eperm the position
+    of each of its edges in the row ordering)."""
+    ptr, src, a = csr_from_counts(rng, counts, n_src, False)
+    t_ptr = np.zeros(n_src + 1, np.int32)
+    np.cumsum(np.bincount(src, minlength=n_src), out=t_ptr[1:])
+    eperm = np.argsort(src, kind="stable").astype(np.int32)
+    gen = torch.Generator().manual_seed(len(counts) + d)
+    x = torch.randn(n_src, d, generator=gen)
+    w, b = torch.randn(d, generator=gen), torch.randn(d, generator=gen) * 0.3
+    t = torch.tensor(1.5)
+    dev = [torch.from_numpy(v).to(device) for v in (ptr, src, a)]
+    dense = [v.to(dtype).to(device) for v in (x, w, b, t)]
+    return dev + dense, [torch.from_numpy(v).to(device) for v in (t_ptr, eperm)]
+
+
+def test_gen_agg_wrapper_checks():
+    """On the CPU both wrappers run their plain versions (no launch); they
+    refuse what the kernels do not take, and a direct call in grad mode."""
+    rng = np.random.RandomState(30)
+    args, _ = gen_inputs(rng, np.array([3, 0, 5, 1]), 6, 3, torch.float32)
+    before = (gen_agg.gen_agg_fwd.launches, gen_agg.gen_agg_bwd.launches)
+    aggr, lse = gen_agg.gen_agg_fwd(*args)
+    assert aggr.shape == (4, 3) and aggr.dtype == torch.float32
+    assert not aggr[1].any()   # the empty segment
+    dpre, dw, db, dt = gen_agg.gen_agg_bwd(*args, torch.ones(4, 3), aggr, lse)
+    assert dpre.shape == (9, 4) and not dpre[:, 3].any()   # 16-byte rows
+    assert dw.shape == db.shape == (3,) and dt.shape == ()
+    assert (gen_agg.gen_agg_fwd.launches,
+            gen_agg.gen_agg_bwd.launches) == before
+    ptr, src, a, x, w, b, t = args
+    with pytest.raises(TypeError, match="int32"):
+        gen_agg.gen_agg_fwd(ptr.long(), src, a, x, w, b, t)
+    with pytest.raises(TypeError, match="x's dtype"):
+        gen_agg.gen_agg_fwd(ptr, src, a, x, w.double(), b, t)
+    with pytest.raises(ValueError, match="0-d"):
+        gen_agg.gen_agg_fwd(ptr, src, a, x, w, b, t.reshape(1))
+    with pytest.raises(ValueError, match="contiguous"):
+        gen_agg.gen_agg_fwd(ptr, src, a, torch.randn(3, 6).t(), w, b, t)
+    with pytest.raises(NotImplementedError, match="GenSoftmaxAgg"):
+        gen_agg.gen_agg_fwd(ptr, src, a, x.clone().requires_grad_(), w, b, t)
+    with pytest.raises(ValueError, match="g must be"):
+        gen_agg.gen_agg_bwd(*args, torch.ones(4, 2), aggr, lse)
 
 
 def test_lib_path_hashes_included_headers(tmp_path, monkeypatch):
@@ -575,3 +623,142 @@ def test_halo_all_to_all_stacked_rejects_misaligned(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         halo_all_to_all(x)
     assert halo_all_to_all.launches == before
+
+
+# the GEN aggregation on the card against its plain version:
+# - forward fp32: rtol 1e-4, atol 1e-5 (online vs two-pass softmax, the
+#   kernel's fmaf and expf), rtol 2^-24 L where the longest segment has L
+#   edges (a sum of L positive terms in fp32, in two orders: the dense
+#   65,536-edge segment differs by 5.7e-4 relative on the H100);
+# - forward bf16: the plain version rounds the message, its logits and
+#   their exps to bf16 as JAX does, the kernel keeps them in fp32: rtol
+#   2^-6, atol 2^-5 (a few bf16 ulps of O(1) values); and against the plain
+#   version run in fp32 on the same bf16-valued inputs (the kernel's own
+#   arithmetic) at the fp32 tolerance;
+# - backward: both take fp32 from the same inputs: dpre fp32 rtol 1e-4,
+#   atol 1e-6; bf16 one bf16 ulp (rtol 2^-7) of the rounded plain value;
+#   dw, db, dt (sums over every edge, in another order) within 1e-5 (2^-24
+#   L for a longest segment of L edges) of the sum of their terms'
+#   magnitudes.
+GEN_FWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -5)}
+GEN_DPRE_TOL = {torch.float32: (1e-4, 1e-6), torch.bfloat16: (2 ** -7, 1e-6)}
+
+
+def gen_counts(rng, name):
+    if name == "long":      # rows past a team's share, some over many CTAs
+        counts = rng.randint(0, 20, 3000)
+        counts[::97] = rng.randint(65, 3000, len(counts[::97]))
+        counts[5:40] = 0
+        return counts, 2000
+    if name == "dense":     # one 65,536-edge segment
+        counts = rng.randint(0, 9, 64)
+        counts[17] = 65_536
+        return counts, 4096
+    return rng.randint(0, 12, 5000), 3000
+
+
+def sum_rtol(ptr) -> float:
+    """fp32's relative limit for sums over the longest segment."""
+    return max(1e-4, 2 ** -24 * int((ptr[1:] - ptr[:-1]).max()))
+
+
+def fp32_reference_inputs(args):
+    """The inputs as fp32 values of x's dtype (a rounded as the kernel
+    rounds it): the plain version run on them computes the kernel's
+    arithmetic."""
+    ptr, src, a, x, w, b, t = args
+    return [ptr, src, a.to(x.dtype).float()] + [v.float() for v in (x, w, b, t)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,name", [
+    (torch.bfloat16, 256, "long"), (torch.float32, 256, "long"),
+    (torch.bfloat16, 3, "long"), (torch.float32, 3, "short"),
+    (torch.bfloat16, 16, "short"), (torch.float32, 20, "short"),
+    (torch.bfloat16, 256, "dense")])
+def test_gen_agg_matches_plain_on_card(cuda_device, dtype, d, name):
+    """gen_agg_fwd and gen_agg_bwd against their plain versions (tolerances
+    above), bit-identical over two calls, one launch each a call; empty
+    segments give 0."""
+    rng = np.random.RandomState(d)
+    counts, n_src = gen_counts(rng, name)
+    args, _ = gen_inputs(rng, counts, n_src, d, dtype, cuda_device)
+    before = gen_agg.gen_agg_fwd.launches
+    aggr, lse = gen_agg.gen_agg_fwd(*args)
+    aggr2, lse2 = gen_agg.gen_agg_fwd(*args)
+    torch.cuda.synchronize()
+    assert gen_agg.gen_agg_fwd.launches == before + 2
+    assert torch.equal(aggr, aggr2) and torch.equal(lse, lse2)
+    empty = torch.from_numpy(counts == 0).to(cuda_device)
+    assert not aggr[empty].any()
+    want, want_lse = gen_agg.gen_agg_fwd_plain(*args)
+    rtol, atol = GEN_FWD_TOL[dtype]
+    long_rtol = sum_rtol(args[0])
+    rtol = max(rtol, long_rtol)
+    torch.testing.assert_close(aggr, want, rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=rtol,
+                               atol=atol)
+    exact, exact_lse = gen_agg.gen_agg_fwd_plain(*fp32_reference_inputs(args))
+    torch.testing.assert_close(aggr, exact, rtol=long_rtol, atol=1e-5)
+    torch.testing.assert_close(lse[~empty], exact_lse[~empty], rtol=long_rtol,
+                               atol=1e-5)
+    g = torch.randn(len(counts), d, device=cuda_device)
+    before = gen_agg.gen_agg_bwd.launches
+    got = gen_agg.gen_agg_bwd(*args, g, aggr, lse)
+    again = gen_agg.gen_agg_bwd(*args, g, aggr, lse)
+    torch.cuda.synchronize()
+    assert gen_agg.gen_agg_bwd.launches == before + 2
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got[0].view(bits), again[0].view(bits))
+    assert all(torch.equal(u, v) for u, v in zip(got[1:], again[1:]))
+    want = gen_agg.gen_agg_bwd_plain(*args, g, aggr, lse)
+    rtol, atol = GEN_DPRE_TOL[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=rtol,
+                               atol=atol)
+    a_t = args[2].to(dtype).float().abs()[:, None]
+    dp = want[0][:, :d].float().abs()
+    mass = [(a_t * dp).sum(0), dp.sum(0), None]
+    ptr = args[0]
+    sums = max(1e-5, 2 ** -24 * int((ptr[1:] - ptr[:-1]).max()))
+    for u, v, m in zip(got[1:], want[1:], mass):
+        scale = m if m is not None else (v.abs() + 1)
+        assert ((u - v.float()).abs() <= sums * scale + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.bfloat16, 3),
+                                     (torch.float32, 16)])
+def test_gen_softmax_agg_gradient_on_card(cuda_device, dtype, d):
+    """GenSoftmaxAgg's backward on the card: one gen_agg_bwd launch and one
+    SpMM over the transpose ordering (dpre's rows padded to 16 bytes, the
+    result cut to D), x's gradient equal to the SpMM's plain version over
+    the kernel's dpre, the others to gen_agg_bwd's."""
+    rng = np.random.RandomState(d + 1)
+    counts, n_src = gen_counts(rng, "long")
+    args, (t_ptr, eperm) = gen_inputs(rng, counts, n_src, d, dtype,
+                                      cuda_device)
+    ptr, src, a, x, w, b, t = args
+    leaves = [v.clone().requires_grad_() for v in (x, w, b, t)]
+    out = gen_agg.gen_softmax_agg(ptr, src, a, *leaves, t_ptr, eperm)
+    g = torch.randn_like(out)
+    counts_before = (gen_agg.gen_agg_bwd.launches, tspmm.spmm_csr.launches)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (gen_agg.gen_agg_bwd.launches - counts_before[0],
+            tspmm.spmm_csr.launches - counts_before[1]) == (1, 1)
+    with torch.no_grad():
+        aggr, lse = gen_agg.gen_agg_fwd(*args)
+        dpre, dw, db, dt = gen_agg.gen_agg_bwd(*args, g, aggr, lse)
+        ones = torch.ones(eperm.shape[0], device=cuda_device)
+        dx = tspmm.spmm_csr_plain(t_ptr, eperm, ones, dpre)[:, :d]
+    rtol, atol = tspmm_tol(dtype)
+    torch.testing.assert_close(grads[0].float(), dx.float(), rtol=rtol,
+                               atol=atol)
+    assert grads[0].dtype == dtype and grads[0].shape == x.shape
+    for got, want in zip(grads[1:], (dw, db, dt)):
+        assert torch.equal(got, want.to(dtype))
+
+
+def tspmm_tol(dtype):
+    """The SpMM kernel against its plain version (test_kernels_match_plain_on_card)."""
+    return (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
