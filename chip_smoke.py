@@ -98,6 +98,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
 
+``python3 chip_smoke.py --gen_ab`` measures only the GEN aggregation of
+the checkout that holds the script, for comparing two checkouts on one
+card in one chip call: copy the script into the other checkout (this
+mode calls ``gen_agg_fwd`` and ``gen_agg_bwd`` with no ``need_lse`` and
+no ``kernel_attrs``, so it runs in a checkout without them too) and run
+the two in turns (A, B, B, A). It builds the SpMM and the GEN kernels,
+then prints one JSON line: ``gen_agg_fwd`` and ``gen_agg_bwd`` on the
+bench graph, both directions, at D=256 and D=3 bf16, each held to its
+plain version (GEN_FWD_TOL, GEN_DPRE_TOL), with its event ms
+(back-to-back calls: at D=3 the host's cost a call) and device ms; a GEN
+forward's span and device time by kernel (phase 5's breakdown for the
+GEN arch); and a GEN training step (phase 9's). It exits 1 without a
+card or on a failed check.
+
 The kernels phase also holds the halo all-to-all (K1) exactly against its
 plain version at the bench graph's halo (K=4, Bh=30,056, stacked and list
 forms; K=8 at its own Bh), holds the composed halo gather exactly against
@@ -105,9 +119,12 @@ its plain version and against the route it replaced (K send-row gathers
 and K1), and times the SpMM and the gather at the dist path's shapes. It
 holds the GEN aggregation's two kernels (``gen_agg_fwd``, ``gen_agg_bwd``)
 against their plain versions on the bench graph, both directions, at D=256
-bf16 and fp32 and D=3 bf16, and on one dense 65,536-edge segment, each
+bf16 and fp32 and D=3 bf16, on one dense 65,536-edge segment and on a
+mirp_bench LP's structure (D=256 bf16, both directions), each
 bit-identical over two calls, with the transpose SpMM of the gathers'
-backward over the kernel's ``dpre``.
+backward over the kernel's ``dpre``; each forward also without its lse
+(``need_lse=False``: the same aggr, timed), each row with the kernel's
+registers and resident CTAs an SM.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -141,6 +158,7 @@ from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
 from lp_gnn_tpu_torch.models.gcn import build_model
 from lp_gnn_tpu_torch.ops import _build
+from lp_gnn_tpu_torch.ops import gen_agg as gen_agg_mod
 from lp_gnn_tpu_torch.ops import spmm as spmm_mod
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from lp_gnn_tpu_torch.ops.gen_agg import (gen_agg_bwd, gen_agg_bwd_plain,
@@ -811,12 +829,21 @@ def gen_fwd_case(case: str, args: tuple, on_path) -> tuple[dict, torch.Tensor,
             f"{rtol}, atol={atol}); against the fp32 plain on the same "
             f"inputs {err_x}, {err_xl} ({x_rtol}, 1e-5); or an empty "
             "segment not 0")
-    del want, want_lse, exact, aggr2, lse2
+    served, no_lse = gen_agg_fwd(*args, need_lse=False)
+    torch.cuda.synchronize()
+    if no_lse is not None or not torch.equal(served, aggr):
+        raise SmokeFailure(f"gen_agg_fwd {case}: need_lse=False gave an lse "
+                           "or another aggr")
+    del want, want_lse, exact, aggr2, lse2, served
     n_dst, n_e, b = ptr.shape[0] - 1, src.shape[0], x.element_size()
     s_used = int(torch.unique(src).numel())
     n_bytes = ((n_dst + 1) * 4 + n_e * 8 + s_used * d * b + (2 * d + 1) * b
                + 2 * n_dst * d * 4)
     bound_ms, bound_by = bound(n_bytes, GEN_FWD_OPS * n_e * d)
+
+    def serve():
+        return gen_agg_fwd(*args, need_lse=False)
+
     row = {
         "name": "gen_agg_fwd", "route": "cuda",
         "source": "lp_gnn_tpu_torch/ops/csrc/gen_agg.cu",
@@ -828,6 +855,10 @@ def gen_fwd_case(case: str, args: tuple, on_path) -> tuple[dict, torch.Tensor,
         "plain_ms": time_ms(lambda: gen_agg_fwd_plain(*args), 3, warm=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "case": case, "on_path": on_path,
+        "ms_no_lse": time_ms(serve, 20),
+        "device_ms_no_lse": kernel_device_ms(serve, "gen_agg_fwd_kernel"),
+        "bound_no_lse_ms": bound(n_bytes - n_dst * d * 4, 0)[0],
+        **gen_agg_mod.kernel_attrs(dt, d, backward=False),
         "num_dst": n_dst, "num_src": x.shape[0], "nnz": n_e, "D": d,
         "longest_segment": longest,
         "tol": {"rtol": rtol, "atol": atol, "fp32_plain_rtol": x_rtol},
@@ -894,6 +925,7 @@ def gen_bwd_case(case: str, args: tuple, aggr, lse, gen,
                             3, warm=1),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "case": f"backward of {case}", "on_path": on_path,
+        **gen_agg_mod.kernel_attrs(dt, d, backward=True),
         "num_dst": n_dst, "num_src": x.shape[0], "nnz": n_e, "D": d,
         "dpre_row": dpre.shape[1],
         "tol": {"rtol": rtol, "atol": atol, "sums_rtol": sums_rtol},
@@ -907,14 +939,16 @@ def gen_bwd_case(case: str, args: tuple, aggr, lse, gen,
 
 
 def check_gen_kernels(g: BipartiteGraph, gen: torch.Generator,
-                      rng: np.random.RandomState) -> list[dict]:
-    """The GEN aggregation's kernels on the bench graph, both directions
-    (v2c: constraints from variables over the CSR; c2v: the reverse over
-    the CSC), at D=256 bf16 (the slice's hidden convs), D=256 fp32 and D=3
-    bf16 (its conv_out), then the gathers' backward, the SpMM over the
-    transpose ordering with the edge permutation as its index, over the
-    kernel's dpre (bf16; D=3 in rows of 8); and one dense segment of 65,536
-    edges among 1,023 rows of 0-8 (S=4096, D=256 bf16)."""
+                      rng: np.random.RandomState, seed: int) -> list[dict]:
+    """The GEN aggregation's kernels on the bench graph, both directions (v2c:
+    constraints from variables over the CSR; c2v: the reverse over the
+    CSC), at D=256 bf16 (the slice's hidden convs), D=256 fp32 and D=3 bf16
+    (its conv_out), then the gathers' backward, the SpMM over the transpose
+    ordering with the edge permutation as its index, over the kernel's dpre
+    (bf16; D=3 in rows of 8); one dense segment of 65,536 edges among 1,023
+    rows of 0-8 (S=4096, D=256 bf16); and the pipeline's LP structure
+    (``mirp_bench_graph``: 60 segments of 273 edges at v2c) at D=256 bf16,
+    both directions."""
     gt = GraphTensors.from_graph(g, "cuda", perms=True)
     dirs = {"v2c": (gt.rowptr, gt.col, gt.val_r, gt.nvars, gt.colptr,
                     gt.eperm_c),
@@ -951,6 +985,15 @@ def check_gen_kernels(g: BipartiteGraph, gen: torch.Generator,
     row, aggr, lse = gen_fwd_case(case, args, False)
     rows.append(row)
     rows.append(gen_bwd_case(case, args, aggr, lse, gen, False)[0])
+    mt = GraphTensors.from_graph(mirp_bench_graph(seed), "cuda")
+    for dname, (ptr, src, a, n_src) in {
+            "v2c": (mt.rowptr, mt.col, mt.val_r, mt.nvars),
+            "c2v": (mt.colptr, mt.row, mt.val_c, mt.ncons)}.items():
+        args = (ptr, src, a, *gen_operands(n_src, 256, torch.bfloat16, gen))
+        case = f"mirp_bench {dname} D=256 bfloat16"
+        row, aggr, lse = gen_fwd_case(case, args, False)
+        rows.append(row)
+        rows.append(gen_bwd_case(case, args, aggr, lse, gen, False)[0])
     return rows
 
 
@@ -2014,6 +2057,68 @@ def gen_serve(seed: int) -> dict:
     return {"arch": GEN_ARCH, **res}
 
 
+def gen_ab(seed: int) -> dict:
+    """The ``--gen_ab`` measurement of this checkout (module docstring):
+    its GEN kernels on the bench graph, a GEN forward, a GEN step. It keeps
+    to the wrappers' arguments that predate ``need_lse``, so that a copy
+    of the script measures an older checkout as well."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gt = GraphTensors.from_graph(bench_graph(seed), "cuda")
+    dirs = {"v2c": (gt.rowptr, gt.col, gt.val_r, gt.nvars),
+            "c2v": (gt.colptr, gt.row, gt.val_c, gt.ncons)}
+    cases = []
+    for dname, (ptr, src, a, n_src) in dirs.items():
+        for d in (256, 3):
+            dt = torch.bfloat16
+            args = (ptr, src, a, *gen_operands(n_src, d, dt, gen))
+            case = f"{dname} D={d} bfloat16"
+            aggr, lse = gen_agg_fwd(*args)
+            g = torch.randn(aggr.shape, generator=gen, device="cuda")
+            err, ok = within(aggr, gen_agg_fwd_plain(*args)[0],
+                             *GEN_FWD_TOL[dt])
+            berr, bok = within(gen_agg_bwd(*args, g, aggr, lse)[0],
+                               gen_agg_bwd_plain(*args, g, aggr, lse)[0],
+                               *GEN_DPRE_TOL[dt])
+            if not (ok and bok):
+                raise SmokeFailure(f"gen_ab {case}: aggr max |err| {err}, "
+                                   f"dpre {berr}")
+
+            def fwd():
+                return gen_agg_fwd(*args)
+
+            def bwd():
+                return gen_agg_bwd(*args, g, aggr, lse)
+
+            iters = 200 if d == 3 else 20
+            fwd()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()   # enqueue only: the host's cost a call
+            for _ in range(iters):
+                fwd()
+            host_us = (time.perf_counter() - t0) / iters * 1e6
+            torch.cuda.synchronize()
+            cases.append({
+                "case": case, "fwd_ms": time_ms(fwd, iters),
+                "fwd_host_us": host_us,
+                "fwd_device_ms": kernel_device_ms(fwd, "gen_agg_fwd_kernel"),
+                "bwd_ms": time_ms(bwd, iters),
+                "bwd_device_ms": kernel_device_ms(bwd, "gen_agg_bwd_kernel")})
+            del args, aggr, lse, g
+    del gt, dirs
+    torch.cuda.empty_cache()
+    forward = breakdown(seed + 300, GEN_ARCH,
+                        {"gen_agg_fwd_kernel": GEN_PER_FORWARD})
+    torch.cuda.empty_cache()
+    step = train_breakdown(seed, GEN_ARCH, GEN_PER_STEP)
+    return {"cases": cases,
+            "forward": {k: v for k, v in forward.items()
+                        if k.startswith("forward")},
+            "step": {k: step[k] for k in (
+                "step_wall_ms", "step_device_span_ms",
+                "step_device_span_ms_all", "device_ms_by_kind",
+                "device_ms_busy", "idle_share_of_span", "profile_complete")}}
+
+
 def gen_train(seed: int) -> dict:
     """The slice's configuration through the training entry point (``train``
     with GEN's launch formula), then one step's breakdown."""
@@ -2056,6 +2161,9 @@ def main(argv=None) -> int:
     ap.add_argument("--flagship", action="store_true",
                     help="run only the pipeline phase, with the recipe's "
                          f"{FLAGSHIP_EPOCHS} epochs")
+    ap.add_argument("--gen_ab", action="store_true",
+                    help="measure only the GEN aggregation of this "
+                         "checkout (kernels, a forward, a step)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -2064,13 +2172,18 @@ def main(argv=None) -> int:
     try:
         smi = nvidia_smi()
         t0 = time.perf_counter()
-        logs = _build.build_all(["spmm"] if args.flagship
-                                else ["spmm", "gather", "halo_a2a", "gen_agg"])
+        logs = _build.build_all(
+            ["spmm"] if args.flagship else ["spmm", "gen_agg"] if args.gen_ab
+            else ["spmm", "gather", "halo_a2a", "gen_agg"])
         ptxas = {k: [ln.strip() for ln in v.splitlines()
                      if "registers" in ln or "spill" in ln] for k, v in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "nvidia_smi": smi, "ptxas": ptxas,
               "torch": torch.__version__, "cuda": torch.version.cuda})
+        if args.gen_ab:
+            emit({"phase": "gen_ab", "nvidia_smi": smi,
+                  **gen_ab(args.seed)})
+            return 0
         if args.flagship:
             emit({"phase": "pipeline", **pipeline_phase(
                 args.seed, FLAGSHIP_EPOCHS, N_PIPE_LPS)})
@@ -2091,7 +2204,7 @@ def main(argv=None) -> int:
         del gt
         kernels += check_dist_kernels(g, gen)
         torch.cuda.empty_cache()
-        kernels += check_gen_kernels(g, gen, rng)
+        kernels += check_gen_kernels(g, gen, rng, args.seed)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
               "gather_floor": gather_floor(kernels)})
         torch.cuda.empty_cache()

@@ -135,3 +135,35 @@ def launch_on(dev: torch.device, fn, *args) -> int:
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     with torch.cuda.device(dev):
         return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+# Each kernel's workspaces, one set per kernel, device and stream (launches
+# that share one must be ordered): zeroed when allocated, grown when the
+# kernel asks for more, and handed back by every launch zeroed where it
+# counts. Each entry holds the tensors and their (pointer, bytes) pairs.
+_WORKSPACE: dict[tuple[str, int, int], tuple[list, tuple]] = {}
+
+
+def launch_with_workspace(name: str, dev: torch.device, fn, *args,
+                          buffers: int = 1) -> int:
+    """``fn(*args, ws_1, bytes_1, ..., ws_k, bytes_k, stream)`` on ``dev``'s
+    current stream (as :func:`launch_on`) for a launcher that takes its
+    caller's ``buffers`` workspaces last and returns -n, without launching,
+    when one of them holds fewer than n KiB: every one is then made n KiB
+    of zeros and the launch made again. A kernel whose launches differ in
+    grid keeps its arrival counts in a workspace of their own, so that one
+    launch's scratch never lands where another's counts are."""
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch_with_workspace(name, dev, fn, *args, buffers=buffers)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    key = (name, dev.index, stream)
+    ws = _WORKSPACE.get(key)
+    rc = fn(*args, *(ws[1] if ws else (0, 0) * buffers), stream)
+    if rc < 0:
+        tensors = [torch.zeros(-rc * 1024, dtype=torch.uint8, device=dev)
+                   for _ in range(buffers)]
+        sizes = tuple(v for t in tensors for v in (t.data_ptr(), t.numel()))
+        _WORKSPACE[key] = (tensors, sizes)
+        rc = fn(*args, *sizes, stream)
+    return rc

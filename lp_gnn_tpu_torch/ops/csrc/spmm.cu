@@ -485,16 +485,10 @@ cudaError_t device_info(int kind, DeviceInfo** out) {
   return cudaSuccess;
 }
 
-// Bytes of the caller's workspace that a launch of `grid` CTAs at width D
-// needs: the arrival counts, then two fp32 shares of D a CTA.
-long long workspace_bytes(long long grid, int D) {
-  return (grid * 4 + 255) / 256 * 256 + grid * 2 * D * 4;
-}
-
 template <typename T>
 int launch(const int* ptr, const int* idx, const float* val, const void* x, void* out,
-           int num_dst, int num_src, long long nnz, int D, int kind, void* ws,
-           long long ws_bytes, cudaStream_t stream) {
+           int num_dst, int num_src, long long nnz, int D, int kind, void* count,
+           long long count_bytes, void* ws, long long ws_bytes, cudaStream_t stream) {
   constexpr int VEC = Vec<T>::kN;
   const int pieces = D / VEC;
   if (D % VEC != 0 || pieces > kMaxPieces || num_src < 0 || nnz < 0 ||
@@ -525,8 +519,10 @@ int launch(const int* ptr, const int* idx, const float* val, const void* x, void
   if (need > grid) grid = (need + wave - 1) / wave * wave;
   if (grid < 1) grid = 1;
   if (grid > 0x7fffffff) return cudaErrorInvalidValue;
-  const long long ws_need = workspace_bytes(grid, D);
-  if (ws_bytes < ws_need) return -static_cast<int>((ws_need + 1023) / 1024);
+  // the arrival counts, and two fp32 shares of D a CTA
+  const long long ws_need = grid * 2 * D * 4;
+  if (count_bytes < grid * 4 || ws_bytes < ws_need)
+    return -static_cast<int>((ws_need > grid * 4 ? ws_need : grid * 4) / 1024 + 1);
 
   // R: lane groups split a row's edges only where a CTA has fewer rows than
   // lane groups (narrow widths, long rows): the split costs a shuffle tree
@@ -535,9 +531,7 @@ int launch(const int* ptr, const int* idx, const float* val, const void* x, void
   while (g_log + r_log < 5 && (rows_per_cta << (r_log + 1)) <= (kThreads >> g_log)) ++r_log;
 
   const Plan plan = {num_dst, pieces, slab, (pieces + slab - 1) / slab, g_log, r_log, units};
-  char* w = static_cast<char*>(ws);
-  const Split split = {reinterpret_cast<float*>(w + (grid * 4 + 255) / 256 * 256),
-                       reinterpret_cast<int*>(w)};
+  const Split split = {static_cast<float*>(ws), static_cast<int*>(count)};
   spmm_csr_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
       ptr, idx, val, static_cast<const T*>(x), static_cast<T*>(out), plan, split);
   return cudaGetLastError();
@@ -548,25 +542,27 @@ int launch(const int* ptr, const int* idx, const float* val, const void* x, void
 // dtype: 0 = fp32 (D a multiple of 4, at most 1024), 1 = bf16 (D a multiple
 // of 8, at most 2048); x (num_src, D), out (num_dst, D) and ws 16-byte
 // aligned; ptr a CSR over nnz = len(idx) = ptr[num_dst] edges (ptr[0] = 0,
-// non-decreasing). ws is the caller's workspace of ws_bytes, zeroed when
-// first allocated and then left to the kernel, which hands it back zeroed
-// where it counts; launches that share one must be ordered (one stream).
-// Returns cudaGetLastError() after the launch (0 = launched),
-// cudaErrorInvalidValue for arguments the kernel does not take, or -n
-// without launching when ws holds fewer than n KiB; the caller raises on
-// anything but 0 and -n.
+// non-decreasing). count (count_bytes) holds the arrival counts of split
+// rows: zeroed when first allocated and then left to the kernel, which
+// hands it back zeroed; ws (ws_bytes) the split rows' shares. Launches that
+// share them must be ordered (one stream). Returns cudaGetLastError() after
+// the launch (0 = launched), cudaErrorInvalidValue for arguments the kernel
+// does not take, or -n without launching when count or ws holds fewer than
+// n KiB; the caller raises on anything but 0 and -n.
 extern "C" int lp_spmm_csr(const void* ptr, const void* idx, const void* val,
                            const void* x, void* out, int num_dst, int num_src,
-                           long long nnz, int D, int dtype, void* ws, long long ws_bytes,
-                           void* stream) {
+                           long long nnz, int D, int dtype, void* count, long long count_bytes,
+                           void* ws, long long ws_bytes, void* stream) {
   if (num_dst <= 0 || D <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(ptr);
   const int* i = static_cast<const int*>(idx);
   const float* v = static_cast<const float*>(val);
   if (dtype == 0)
-    return launch<float>(p, i, v, x, out, num_dst, num_src, nnz, D, 0, ws, ws_bytes, st);
+    return launch<float>(p, i, v, x, out, num_dst, num_src, nnz, D, 0, count, count_bytes, ws,
+                         ws_bytes, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(p, i, v, x, out, num_dst, num_src, nnz, D, 1, ws, ws_bytes, st);
+    return launch<__nv_bfloat16>(p, i, v, x, out, num_dst, num_src, nnz, D, 1, count,
+                                 count_bytes, ws, ws_bytes, st);
   return cudaErrorInvalidValue;
 }

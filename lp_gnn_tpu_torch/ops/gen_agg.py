@@ -11,14 +11,15 @@ the temperature) and ``_segment_softmax_agg`` :39-106 in its default
     m    = relu(pre) + 1e-7
     aggr = sum over a segment of softmax(t * m) * m     (per channel; 0 if empty)
 
-:func:`gen_agg_fwd` computes aggr (and the log-sum-exp the backward needs);
-:func:`gen_agg_bwd` the gradients of pre, w, b and t from dL/daggr. On a
-CUDA tensor each launches its hand-written kernel (``csrc/gen_agg.cu``) or
-raises; on a CPU tensor it runs its plain version. :class:`GenSoftmaxAgg`
-is the differentiable form: its backward is :func:`gen_agg_bwd`, then the
-gather's backward, ``gather_src``'s VJP (spmm.py:279-283), which is the CSR
-SpMM (``csrc/spmm.cu``) over the transpose ordering with the edge
-permutation as its index (``dx = spmm_csr(t_ptr, eperm, 1, dpre)``).
+:func:`gen_agg_fwd` computes aggr (and, where a gradient will be taken, the
+log-sum-exp the backward needs); :func:`gen_agg_bwd` the gradients of pre,
+w, b and t from dL/daggr. On a CUDA tensor each launches its hand-written
+kernel (``csrc/gen_agg.cu``) or raises; on a CPU tensor it runs its plain
+version. :class:`GenSoftmaxAgg` is the differentiable form: its backward
+is :func:`gen_agg_bwd`, then the gather's backward, ``gather_src``'s VJP
+(spmm.py:279-283), which is the CSR SpMM (``csrc/spmm.cu``) over the
+transpose ordering with the edge permutation as its index
+(``dx = spmm_csr(t_ptr, eperm, 1, dpre)``).
 
 The JAX package's probe knobs of the TPU lowering (``LP_GNN_GEN_MAX``,
 ``LP_GNN_GEN_FUSE``, ``LP_GNN_GEN_ACC``) have no counterpart: the kernel
@@ -28,16 +29,16 @@ computes the ``seg`` semantics, with fp32 sums.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
 from . import spmm as _spmm
-from ._build import launch_on
+from ._build import launch_with_workspace
 
 EPS = 1e-7   # gen.py:36
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_PART_ROWS = 1024   # the backward's workspace rows: an upper bound on its grid
 
 
 def padded_width(d: int, dtype: torch.dtype) -> int:
@@ -82,9 +83,11 @@ def gen_agg_bwd_plain(ptr, src, a, x, w, b, t, g, aggr, lse):
     """Plain PyTorch version of the backward, the kernel's formula in fp32
     (fp64 for fp64 x) from the same inputs: m and alpha = exp(t m - lse)
     recomputed, ``dpre = g alpha (1 + t (m - aggr)) [pre > 0]``, dw = sum
-    of a dpre, db = sum of dpre, dt = sum of g alpha m (m - aggr). Returns
-    dpre (E, padded_width(D)) in x's dtype, zero-filled past D, and dw, db
-    (D,), dt () in the accumulation type."""
+    of a dpre, db = sum of dpre, dt = sum of g alpha m (m - aggr), the
+    terms in the accumulation type and their sums taken in fp64 (dt's terms
+    cancel: an fp32 sum of a bench-size segment set errs by more than the
+    kernel's limit). Returns dpre (E, padded_width(D)) in x's dtype,
+    zero-filled past D, and dw, db (D,), dt () in the accumulation type."""
     d = x.shape[1]
     acc = _acc(x.dtype)
     seg = _spmm.segment_ids(ptr, src.shape[0])
@@ -100,13 +103,77 @@ def gen_agg_bwd_plain(ptr, src, a, x, w, b, t, g, aggr, lse):
     dpre = torch.zeros(src.shape[0], padded_width(d, x.dtype), dtype=x.dtype,
                        device=x.device)
     dpre[:, :d] = dp.to(x.dtype)
-    return dpre, (ar * dp).sum(0), dp.sum(0), (gal * m * dev).sum()
+    f64 = torch.float64
+    return (dpre, (ar * dp).sum(0, dtype=f64).to(acc),
+            dp.sum(0, dtype=f64).to(acc),
+            (gal * m * dev).sum(dtype=f64).to(acc))
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# the C launchers' arguments, the stream last (csrc/gen_agg.cu)
-_ARGTYPES = {"lp_gen_agg_fwd": [_P] * 9 + [_I] * 3 + [_P],
-             "lp_gen_agg_bwd": [_P] * 11 + [_I, _P, _I, _P] + [_I] * 3 + [_P]}
+def gen_agg_fwd_split_plain(ptr, src, a, x, w, b, t, cuts):
+    """Plain version of the kernel's forward over parts: the edges are cut
+    at the positions ``cuts`` (any, sorted, inside a segment or not); each
+    part of a segment gives its triple in base 2, over its edges' z = t
+    log2(e) m: M its max, S the sum of 2^(z - M), N the sum of 2^(z - M) m;
+    the triples of a segment are merged in edge order by the kernel's rule
+    (``merge3``: rescale both to the larger M and add). Returns aggr = N / S
+    and lse = ln 2 (M + log2 S), 0 for an empty segment, in fp32 (fp64 for
+    fp64 x), the message in that type as the kernel computes it. CPU
+    tensors only: a test oracle for the kernel's merges."""
+    num_dst, d = ptr.shape[0] - 1, x.shape[1]
+    n_e = src.shape[0]
+    acc = _acc(x.dtype)
+    seg = _spmm.segment_ids(ptr, n_e)
+    part = torch.searchsorted(torch.as_tensor(cuts, dtype=torch.long),
+                              torch.arange(n_e), right=True)
+    # parts of segments: runs of edges of one segment and one cut range
+    new = torch.ones(n_e, dtype=torch.bool)
+    new[1:] = (seg[1:] != seg[:-1]) | (part[1:] != part[:-1])
+    piece = torch.cumsum(new.long(), 0) - 1
+    n_p = int(piece[-1]) + 1 if n_e else 0
+    ar = a.to(x.dtype).to(acc)[:, None]
+    pre = x.index_select(0, src.long()).to(acc) + (ar * w.to(acc) + b.to(acc))
+    m = torch.relu(pre) + EPS
+    t2 = t.to(acc) * math.log2(math.e)
+    z = t2 * m
+    idx = piece[:, None].expand(-1, d)
+    pm = torch.full((n_p, d), float("-inf"), dtype=acc).scatter_reduce(
+        0, idx, z, "amax")
+    pe = torch.exp2(z - pm.index_select(0, piece))
+    ps = torch.zeros(n_p, d, dtype=acc).index_add_(0, piece, pe)
+    pn = torch.zeros(n_p, d, dtype=acc).index_add_(0, piece, pe * m)
+    # merge each segment's parts in order: the j-th part of every segment
+    # with one at once
+    p_seg = seg[new]
+    first = torch.full((num_dst,), n_p, dtype=torch.long)
+    first = first.scatter_reduce(0, p_seg, torch.arange(n_p), "amin")
+    rank = torch.arange(n_p) - first.index_select(0, p_seg)
+    M = torch.full((num_dst, d), float("-inf"), dtype=acc)
+    S = torch.zeros(num_dst, d, dtype=acc)
+    N = torch.zeros(num_dst, d, dtype=acc)
+    for j in range(int(rank.max()) + 1 if n_p else 0):
+        sel = rank == j
+        r = p_seg[sel]
+        m2, s2, n2 = pm[sel], ps[sel], pn[sel]
+        mo, so, no = M[r], S[r], N[r]
+        mn = torch.maximum(mo, m2)
+        fa, fb = torch.exp2(mo - mn), torch.exp2(m2 - mn)
+        M[r], S[r], N[r] = mn, so * fa + s2 * fb, no * fa + n2 * fb
+    full = S > 0
+    aggr = torch.where(full, N / torch.where(full, S, 1), 0)
+    lse = torch.where(full, math.log(2) * (M + torch.log2(
+        torch.where(full, S, 1))), 0)
+    return aggr, lse
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C launchers' arguments: ..., num_dst, nnz, D, dtype, the
+# workspaces and their bytes (the forward's arrival counts, then its
+# scratch), the stream (csrc/gen_agg.cu)
+_ARGTYPES = {"lp_gen_agg_fwd": [_P] * 9 + [_I, _L, _I, _I] + [_P, _L] * 2
+             + [_P],
+             "lp_gen_agg_bwd": [_P] * 11 + [_I, _P, _I, _L, _I, _I, _P, _L,
+                                            _P],
+             "lp_gen_agg_attrs": [_I, _I, _I, _P]}
 
 
 def _lib(name: str):
@@ -153,24 +220,28 @@ def _check(ptr, src, a, x, w, b, t):
     return dev
 
 
-def gen_agg_fwd(ptr, src, a, x, w, b, t):
+def gen_agg_fwd(ptr, src, a, x, w, b, t, need_lse: bool = True):
     """The aggregation of one GEN direction (module docstring): ptr
     (num_dst+1,) and src (E,) int32, a (E,) fp32, x (S, D), w and b (D,)
     and t () in x's dtype (fp32 or bf16; fp64 on the CPU only). Returns
     (aggr, lse), (num_dst, D) fp32 each (fp64 for fp64): aggr, 0 where a
-    segment is empty, and the per-segment log-sum-exp of t * m."""
+    segment is empty, and the per-segment log-sum-exp of t * m, which only
+    the backward reads: with ``need_lse=False`` the kernel writes none and
+    lse is None."""
     dev = _check(ptr, src, a, x, w, b, t)
     if dev.type == "cpu":
-        return gen_agg_fwd_plain(ptr, src, a, x, w, b, t)
+        aggr, lse = gen_agg_fwd_plain(ptr, src, a, x, w, b, t)
+        return aggr, (lse if need_lse else None)
     num_dst, d = ptr.shape[0] - 1, x.shape[1]
     aggr = torch.empty(num_dst, d, dtype=torch.float32, device=dev)
-    lse = torch.empty_like(aggr)
+    lse = torch.empty_like(aggr) if need_lse else None
     if aggr.numel() == 0:
         return aggr, lse
-    rc = launch_on(dev, _lib("lp_gen_agg_fwd"), ptr.data_ptr(),
-                   src.data_ptr(), a.data_ptr(), x.data_ptr(), w.data_ptr(),
-                   b.data_ptr(), t.data_ptr(), aggr.data_ptr(),
-                   lse.data_ptr(), num_dst, d, _DTYPE_CODE[x.dtype])
+    rc = launch_with_workspace(
+        "gen_agg_fwd", dev, _lib("lp_gen_agg_fwd"), ptr.data_ptr(),
+        src.data_ptr(), a.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        t.data_ptr(), aggr.data_ptr(), 0 if lse is None else lse.data_ptr(),
+        num_dst, src.shape[0], d, _DTYPE_CODE[x.dtype], buffers=2)
     if rc != 0:
         raise RuntimeError(f"gen_agg_fwd kernel launch failed: CUDA error {rc}")
     gen_agg_fwd.launches += 1
@@ -187,6 +258,9 @@ def gen_agg_bwd(ptr, src, a, x, w, b, t, g, aggr, lse):
     the SpMM), and dw, db (D,), dt () fp32, summed in a fixed order (no
     atomics: bit-identical over two calls). One call launches the per-CTA
     pass and the fixed-order reduce of its partial sums."""
+    if lse is None:
+        raise ValueError("gen_agg_bwd needs the forward's lse: run "
+                         "gen_agg_fwd with need_lse=True")
     dev = _check(ptr, src, a, x, w, b, t)
     num_dst, d = ptr.shape[0] - 1, x.shape[1]
     acc = _acc(x.dtype)
@@ -203,14 +277,12 @@ def gen_agg_bwd(ptr, src, a, x, w, b, t, g, aggr, lse):
     out = torch.zeros(2 * d + 1, dtype=torch.float32, device=dev)
     if num_dst == 0 or d == 0:
         return dpre, out[:d], out[d:2 * d], out[2 * d]
-    part = torch.empty(_PART_ROWS * (2 * d + 1), dtype=torch.float32,
-                       device=dev)
-    rc = launch_on(dev, _lib("lp_gen_agg_bwd"), ptr.data_ptr(),
-                   src.data_ptr(), a.data_ptr(), x.data_ptr(), w.data_ptr(),
-                   b.data_ptr(), t.data_ptr(), g.data_ptr(), aggr.data_ptr(),
-                   lse.data_ptr(), dpre.data_ptr(), ld, part.data_ptr(),
-                   _PART_ROWS, out.data_ptr(), num_dst, d,
-                   _DTYPE_CODE[x.dtype])
+    rc = launch_with_workspace(
+        "gen_agg_bwd", dev, _lib("lp_gen_agg_bwd"), ptr.data_ptr(),
+        src.data_ptr(), a.data_ptr(), x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        t.data_ptr(), g.data_ptr(), aggr.data_ptr(), lse.data_ptr(),
+        dpre.data_ptr(), ld, out.data_ptr(), num_dst, src.shape[0], d,
+        _DTYPE_CODE[x.dtype])
     if rc != 0:
         raise RuntimeError(f"gen_agg_bwd kernel launch failed: CUDA error {rc}")
     gen_agg_bwd.launches += 1
@@ -218,6 +290,20 @@ def gen_agg_bwd(ptr, src, a, x, w, b, t, g, aggr, lse):
 
 
 gen_agg_bwd.launches = 0   # kernel launches since the last reset
+
+
+def kernel_attrs(dtype: torch.dtype, d: int, backward: bool) -> dict:
+    """Registers, resident CTAs an SM and static shared memory of the
+    kernel that :func:`gen_agg_fwd` (or :func:`gen_agg_bwd`) launches for
+    x of ``dtype`` and width ``d`` (16-byte aligned tensors), read from the
+    loaded library on the current device."""
+    out = (ctypes.c_int * 3)()
+    vector = int(d % (16 // torch.empty((), dtype=dtype).element_size()) == 0)
+    rc = _lib("lp_gen_agg_attrs")(int(backward), _DTYPE_CODE[dtype], vector,
+                                  ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"lp_gen_agg_attrs failed: CUDA error {rc}")
+    return {"regs": out[0], "ctas_per_sm": out[1], "smem_bytes": out[2]}
 
 
 def gather_backward(t_ptr, eperm, dpre, d: int) -> torch.Tensor:
@@ -240,13 +326,15 @@ class GenSoftmaxAgg(torch.autograd.Function):
     aggr (num_dst, D) fp32, :func:`gen_agg_fwd`'s aggregation with a
     gradient for x, w, b and t. ``t_ptr`` and ``eperm`` are the transpose
     ordering (the edges sorted by source) and, for each of its edges, the
-    position in this ordering; they are needed only for x's gradient. The
-    backward is one :func:`gen_agg_bwd` call and, for x, one SpMM over the
-    transpose ordering (:func:`gather_backward`)."""
+    position in this ordering; they are needed only for x's gradient.
+    ``need_lse`` (an optional last argument, True by default) says whether
+    a gradient will be taken: the forward writes the lse the backward reads
+    only then. The backward is one :func:`gen_agg_bwd` call and, for x, one
+    SpMM over the transpose ordering (:func:`gather_backward`)."""
 
     @staticmethod
-    def forward(ctx, ptr, src, a, x, w, b, t, t_ptr, eperm):
-        aggr, lse = gen_agg_fwd(ptr, src, a, x, w, b, t)
+    def forward(ctx, ptr, src, a, x, w, b, t, t_ptr, eperm, need_lse=True):
+        aggr, lse = gen_agg_fwd(ptr, src, a, x, w, b, t, need_lse)
         ctx.save_for_backward(ptr, src, a, x, w, b, t, aggr, lse, t_ptr,
                               eperm)
         return aggr
@@ -260,17 +348,22 @@ class GenSoftmaxAgg(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             dx = gather_backward(t_ptr, eperm, dpre, x.shape[1])
         return (None, None, None, dx, dw.to(w.dtype), db.to(b.dtype),
-                dt.to(t.dtype), None, None)
+                dt.to(t.dtype), None, None, None)
 
 
 def gen_softmax_agg(ptr, src, a, x, w, b, t, t_ptr=None, eperm=None):
     """:class:`GenSoftmaxAgg` on contiguous w, b, t; refuses, before any
     work, a forward whose x will want a gradient without the transpose
-    ordering's permutation."""
-    if eperm is None and torch.is_grad_enabled() and x.requires_grad:
+    ordering's permutation. The forward writes its lse only where a
+    gradient will be taken: in grad mode with x, w, b or t requiring one
+    (remat's recompute is such a forward), not when serving."""
+    grad = torch.is_grad_enabled()
+    if eperm is None and grad and x.requires_grad:
         raise ValueError(
             "the GEN aggregation's gradient for x needs the edge "
             "permutations: build the graph with "
             "GraphTensors.from_graph(..., perms=True)")
+    need_lse = grad and any(v.requires_grad for v in (x, w, b, t))
     return GenSoftmaxAgg.apply(ptr, src, a, x, w.contiguous(),
-                               b.contiguous(), t.contiguous(), t_ptr, eperm)
+                               b.contiguous(), t.contiguous(), t_ptr, eperm,
+                               need_lse)

@@ -24,7 +24,7 @@ import dataclasses
 import torch
 
 from . import _build
-from ._build import check_out, launch_on
+from ._build import check_out, launch_with_workspace
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_PIECES = 256   # 16-byte pieces a row (csrc/spmm.cu kMaxPieces)
@@ -56,28 +56,9 @@ def _lib():
     if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
             [ctypes.c_longlong] + [ctypes.c_int] * 2 + \
-            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+            [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
-
-
-# The kernel's workspace for rows it splits across CTAs, one per device and
-# stream (launches that share one must be ordered): zeroed when allocated,
-# grown when the kernel asks for more, and handed back zeroed where it
-# counts by every launch.
-_WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _launch(dev, fn, *args) -> int:
-    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
-    ws = _WORKSPACE.get(key)
-    ws_ptr, ws_bytes = (0, 0) if ws is None else (ws.data_ptr(), ws.numel())
-    rc = launch_on(dev, fn, *args, ws_ptr, ws_bytes)
-    if rc < 0:   # the workspace holds fewer than -rc KiB: grow it, launch again
-        ws = _WORKSPACE[key] = torch.zeros(-rc * 1024, dtype=torch.uint8,
-                                           device=dev)
-        rc = launch_on(dev, fn, *args, ws.data_ptr(), ws.numel())
-    return rc
 
 
 def _check(ptr, idx, val, x):
@@ -152,9 +133,10 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     if out.numel() == 0:
         return out
     _check_kernel_width(x)
-    rc = _launch(dev, _lib(), ptr.data_ptr(), idx.data_ptr(), val.data_ptr(),
-                 x.data_ptr(), out.data_ptr(), num_dst, x.shape[0],
-                 idx.shape[0], d, _DTYPE_CODE[x.dtype])
+    rc = launch_with_workspace(
+        "spmm", dev, _lib(), ptr.data_ptr(), idx.data_ptr(), val.data_ptr(),
+        x.data_ptr(), out.data_ptr(), num_dst, x.shape[0], idx.shape[0], d,
+        _DTYPE_CODE[x.dtype], buffers=2)
     if rc != 0:
         raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {rc}")
     spmm_csr.launches += 1

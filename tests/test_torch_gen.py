@@ -30,8 +30,8 @@ from lp_gnn_tpu.data.batching import pad_graph
 from lp_gnn_tpu.data.dataset import BipartiteGraph as JaxGraph
 from lp_gnn_tpu.models import gcn as jgcn
 from lp_gnn_tpu.models.gcn import build_model as jax_build_model
-from lp_gnn_tpu.models.gen import (gen_bidir_apply, gen_bidir_init,
-                                   gen_dir_apply)
+from lp_gnn_tpu.models.gen import (_segment_softmax_agg, gen_bidir_apply,
+                                   gen_bidir_init, gen_dir_apply)
 from lp_gnn_tpu.train import trainer as jtrainer
 from lp_gnn_tpu_torch import pred_basis
 from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
@@ -555,3 +555,72 @@ def test_cli_trains_and_serves_gendeeper(tmp_path):
                                         path, "--warm_gate", "off",
                                         "--split", "trainval"])
     assert len([f for f in os.listdir(out_dir) if f.endswith(".bas")]) == 4
+
+
+def split_case(rng, case):
+    """Segment lengths: mixed (empty, short and long segments) or one
+    segment holding every edge between empty ones."""
+    if case == "one_segment":
+        return np.array([0, 0, 700, 0])
+    counts = rng.randint(0, 12, 60)
+    counts[[3, 20, 41]] = [150, 90, 260]
+    counts[30:36] = 0
+    return counts
+
+
+def merge_path_cuts(ptr, grid):
+    """The edges where a merge path over f(r) = r + ptr[r] cuts the work
+    into ``grid`` equal shares of its num_dst + E units (as the kernels'
+    ``stage_cta`` does): share c starts at unit d = c U / grid, in the
+    last segment r with r + ptr[r] <= d, at edge d - r."""
+    f = np.arange(len(ptr)) + ptr
+    d = np.arange(1, grid) * int(f[-1]) // grid
+    return d - (np.searchsorted(f, d, "right") - 1)
+
+
+@pytest.mark.parametrize("cuts", ["merge_path", "random"])
+@pytest.mark.parametrize("case", ["mixed", "one_segment"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_forward_matches_plain_and_jax(dtype, case, cuts):
+    """gen_agg_fwd_split_plain, the kernel's forward over parts merged in
+    order, against gen_agg_fwd_plain and the JAX _segment_softmax_agg on the
+    same inputs, with parts cut by the kernels' partition (7 CTAs) or at
+    random edges (inside segments too). fp32: rtol max(1e-4, 2^-24 L),
+    atol 1e-5 (base-2 exps and the merges against one exp pass); bf16: the
+    plain version and JAX round the message and its exps to bf16, the split
+    version keeps fp32: rtol 2^-6, atol 2^-5."""
+    rng = np.random.RandomState(len(case) + len(cuts))
+    counts = split_case(rng, case)
+    ptr = np.zeros(len(counts) + 1, np.int32)
+    np.cumsum(counts, out=ptr[1:])
+    n_e, s, d = int(ptr[-1]), 40, 16
+    src = rng.randint(0, s, n_e).astype(np.int32)
+    a = (rng.rand(n_e) - 0.5).astype(np.float32)
+    x = rng.randn(s, d).astype(np.float32)
+    w, b = rng.randn(d).astype(np.float32), (rng.randn(d) * 0.3).astype(np.float32)
+    t = np.float32(1.5)
+    tdt = getattr(torch, dtype)
+    args = [torch.from_numpy(v) for v in (ptr, src, a)] + [
+        torch.from_numpy(v).to(tdt) for v in (x, w, b, np.array(t))]
+    if cuts == "merge_path":
+        cut = merge_path_cuts(ptr, 7)
+    else:
+        cut = np.sort(rng.choice(n_e, 9, replace=False))
+    got, got_lse = gen_agg.gen_agg_fwd_split_plain(*args, cut)
+    want, want_lse = gen_agg.gen_agg_fwd_plain(*args)
+    rtol, atol = ((max(1e-4, 2 ** -24 * counts.max()), 1e-5)
+                  if dtype == "float32" else (2 ** -6, 2 ** -5))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    full = torch.from_numpy(counts > 0)
+    torch.testing.assert_close(got_lse[full], want_lse[full], rtol=rtol,
+                               atol=atol)
+    assert not got[~full].any() and not got_lse[~full].any()
+    jdt = getattr(jnp, dtype)
+    xj, wj, bj = (jnp.asarray(v).astype(jdt) for v in (x, w, b))
+    msg = jax.nn.relu(xj[src] + (jnp.asarray(a).astype(jdt)[:, None] * wj
+                                 + bj)) + jnp.asarray(1e-7, jdt)
+    seg = np.repeat(np.arange(len(counts)), counts)
+    jx = _segment_softmax_agg(msg * jnp.asarray(t, jdt), msg, seg, len(counts),
+                              np.ones(n_e, bool))
+    torch.testing.assert_close(got, torch.from_numpy(np.array(jx, np.float32)),
+                               rtol=rtol, atol=atol)

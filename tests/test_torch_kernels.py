@@ -642,6 +642,9 @@ def test_halo_all_to_all_stacked_rejects_misaligned(cuda_device):
 #   magnitudes.
 GEN_FWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -5)}
 GEN_DPRE_TOL = {torch.float32: (1e-4, 1e-6), torch.bfloat16: (2 ** -7, 1e-6)}
+# forwards compared bit for bit, and seeded draws of dL/daggr for the
+# backward, in each case of test_gen_agg_matches_plain_on_card
+GEN_REPEATS, GEN_G_DRAWS = 8, 8
 
 
 def gen_counts(rng, name):
@@ -654,6 +657,21 @@ def gen_counts(rng, name):
         counts = rng.randint(0, 9, 64)
         counts[17] = 65_536
         return counts, 4096
+    if name == "spans":     # segments over 2 and over many CTAs' shares
+        counts = rng.randint(0, 12, 3000)
+        counts[500], counts[1000] = 100, 1500
+        return counts, 2000
+    if name == "half":      # one segment of half the edges
+        counts = rng.randint(0, 9, 2000)
+        counts[700] = counts.sum()
+        return counts, 2000
+    if name == "all":       # one segment of every edge, over every CTA
+        return np.array([0, 0, 200_000, 0]), 3000
+    if name == "side":      # long segments side by side, empty runs between
+        counts = np.zeros(400, np.int64)
+        counts[::4] = rng.randint(200, 2000, 100)
+        counts[1::8] = rng.randint(65, 300, 50)
+        return counts, 2000
     return rng.randint(0, 12, 5000), 3000
 
 
@@ -675,20 +693,36 @@ def fp32_reference_inputs(args):
     (torch.bfloat16, 256, "long"), (torch.float32, 256, "long"),
     (torch.bfloat16, 3, "long"), (torch.float32, 3, "short"),
     (torch.bfloat16, 16, "short"), (torch.float32, 20, "short"),
-    (torch.bfloat16, 256, "dense")])
+    (torch.bfloat16, 256, "dense"), (torch.bfloat16, 256, "spans"),
+    (torch.bfloat16, 3, "spans"), (torch.float32, 256, "half"),
+    (torch.bfloat16, 256, "half"), (torch.bfloat16, 3, "all"),
+    (torch.float32, 256, "all"), (torch.float32, 3, "side"),
+    (torch.bfloat16, 256, "side"), (torch.bfloat16, 256, "long-t"),
+    (torch.float32, 16, "short-t")])
 def test_gen_agg_matches_plain_on_card(cuda_device, dtype, d, name):
     """gen_agg_fwd and gen_agg_bwd against their plain versions (tolerances
-    above), bit-identical over two calls, one launch each a call; empty
-    segments give 0."""
+    above), bit-identical over repeated calls (GEN_REPEATS forwards, two
+    backwards), one launch each a call; empty segments give 0; with
+    need_lse=False the same aggr and no lse; the backward over GEN_G_DRAWS
+    seeded draws of dL/daggr. Segments split across CTAs: "long", "dense",
+    "spans" (2 and many CTAs), "half" (E/2), "all" (every CTA), "side" (long
+    ones between empty runs); "-t": a negative temperature (the chunk's max
+    then comes from its least message)."""
     rng = np.random.RandomState(d)
-    counts, n_src = gen_counts(rng, name)
+    counts, n_src = gen_counts(rng, name.removesuffix("-t"))
     args, _ = gen_inputs(rng, counts, n_src, d, dtype, cuda_device)
+    if name.endswith("-t"):
+        args[6] = torch.tensor(-0.7).to(dtype).to(cuda_device)
     before = gen_agg.gen_agg_fwd.launches
     aggr, lse = gen_agg.gen_agg_fwd(*args)
-    aggr2, lse2 = gen_agg.gen_agg_fwd(*args)
+    for rep in range(GEN_REPEATS - 1):
+        aggr2, lse2 = gen_agg.gen_agg_fwd(*args)
+        assert torch.equal(aggr, aggr2) and torch.equal(lse, lse2), \
+            f"forward {rep + 2} differs from the first"
     torch.cuda.synchronize()
-    assert gen_agg.gen_agg_fwd.launches == before + 2
-    assert torch.equal(aggr, aggr2) and torch.equal(lse, lse2)
+    assert gen_agg.gen_agg_fwd.launches == before + GEN_REPEATS
+    served, none = gen_agg.gen_agg_fwd(*args, need_lse=False)
+    assert none is None and torch.equal(served, aggr)
     empty = torch.from_numpy(counts == 0).to(cuda_device)
     assert not aggr[empty].any()
     want, want_lse = gen_agg.gen_agg_fwd_plain(*args)
@@ -702,27 +736,34 @@ def test_gen_agg_matches_plain_on_card(cuda_device, dtype, d, name):
     torch.testing.assert_close(aggr, exact, rtol=long_rtol, atol=1e-5)
     torch.testing.assert_close(lse[~empty], exact_lse[~empty], rtol=long_rtol,
                                atol=1e-5)
-    g = torch.randn(len(counts), d, device=cuda_device)
-    before = gen_agg.gen_agg_bwd.launches
-    got = gen_agg.gen_agg_bwd(*args, g, aggr, lse)
-    again = gen_agg.gen_agg_bwd(*args, g, aggr, lse)
-    torch.cuda.synchronize()
-    assert gen_agg.gen_agg_bwd.launches == before + 2
-    bits = torch.int32 if dtype == torch.float32 else torch.int16
-    assert torch.equal(got[0].view(bits), again[0].view(bits))
-    assert all(torch.equal(u, v) for u, v in zip(got[1:], again[1:]))
-    want = gen_agg.gen_agg_bwd_plain(*args, g, aggr, lse)
-    rtol, atol = GEN_DPRE_TOL[dtype]
-    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=rtol,
-                               atol=atol)
-    a_t = args[2].to(dtype).float().abs()[:, None]
-    dp = want[0][:, :d].float().abs()
-    mass = [(a_t * dp).sum(0), dp.sum(0), None]
-    ptr = args[0]
-    sums = max(1e-5, 2 ** -24 * int((ptr[1:] - ptr[:-1]).max()))
-    for u, v, m in zip(got[1:], want[1:], mass):
-        scale = m if m is not None else (v.abs() + 1)
-        assert ((u - v.float()).abs() <= sums * scale + 1e-6).all()
+    gen = torch.Generator(device=cuda_device)
+    for draw in range(GEN_G_DRAWS):
+        gen.manual_seed(1000 * d + draw)
+        g = torch.randn(len(counts), d, generator=gen, device=cuda_device)
+        before = gen_agg.gen_agg_bwd.launches
+        got = gen_agg.gen_agg_bwd(*args, g, aggr, lse)
+        again = gen_agg.gen_agg_bwd(*args, g, aggr, lse)
+        torch.cuda.synchronize()
+        assert gen_agg.gen_agg_bwd.launches == before + 2
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(got[0].view(bits), again[0].view(bits))
+        assert all(torch.equal(u, v) for u, v in zip(got[1:], again[1:]))
+        want = gen_agg.gen_agg_bwd_plain(*args, g, aggr, lse)
+        rtol, atol = GEN_DPRE_TOL[dtype]
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=rtol, atol=atol,
+                                   msg=lambda m: f"g draw {draw}: {m}")
+        a_t = args[2].to(dtype).float().abs()[:, None]
+        dp = want[0][:, :d].float().abs()
+        mass = [(a_t * dp).sum(0), dp.sum(0), None]
+        ptr = args[0]
+        sums = max(1e-5, 2 ** -24 * int((ptr[1:] - ptr[:-1]).max()))
+        for part, u, v, m in zip(("dw", "db", "dt"), got[1:], want[1:], mass):
+            scale = m if m is not None else (v.abs() + 1)
+            err = (u - v.float()).abs()
+            assert (err <= sums * scale + 1e-6).all(), \
+                (f"g draw {draw}: {part} max |err| {float(err.max())}, "
+                 f"limit {float((sums * scale + 1e-6).min())}")
 
 
 @pytest.mark.cuda
@@ -762,3 +803,77 @@ def test_gen_softmax_agg_gradient_on_card(cuda_device, dtype, d):
 def tspmm_tol(dtype):
     """The SpMM kernel against its plain version (test_kernels_match_plain_on_card)."""
     return (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+
+
+def test_gen_agg_lse_only_where_a_gradient_is_taken(monkeypatch):
+    """gen_softmax_agg asks the forward for lse only where a gradient will
+    be taken: not under no_grad (serving), yes in grad mode and in remat's
+    recompute; gen_agg_fwd then returns lse None, and the backward refuses
+    a missing lse."""
+    from torch.utils.checkpoint import checkpoint
+    rng = np.random.RandomState(31)
+    args, (t_ptr, eperm) = gen_inputs(rng, np.array([3, 0, 5, 1, 7]), 6, 8,
+                                      torch.float32)
+    ptr, src, a, x, w, b, t = args
+    seen = []
+    fwd = gen_agg.gen_agg_fwd
+
+    def spy(*a_, **kw):
+        out = fwd(*a_, **kw)
+        seen.append((a_[7] if len(a_) > 7 else kw.get("need_lse", True),
+                     out[1] is None))
+        return out
+
+    monkeypatch.setattr(gen_agg, "gen_agg_fwd", spy)
+    xg = x.clone().requires_grad_()
+
+    def agg(xx):
+        return gen_agg.gen_softmax_agg(ptr, src, a, xx, w, b, t, t_ptr, eperm)
+
+    with torch.no_grad():
+        served = agg(xg)
+    assert seen == [(False, True)]
+    seen.clear()
+    agg(xg).sum().backward()
+    plain_grad = xg.grad.clone()
+    assert seen == [(True, False)]
+    seen.clear()
+    xg.grad = None
+    checkpoint(agg, xg, use_reentrant=False).sum().backward()
+    assert seen == [(True, False), (True, False)]   # forward, recompute
+    assert torch.equal(xg.grad, plain_grad)
+    assert torch.equal(served, agg(x))
+    aggr, lse = fwd(*args, need_lse=False)
+    assert lse is None and torch.equal(aggr, served)
+    with pytest.raises(ValueError, match="need_lse=True"):
+        gen_agg.gen_agg_bwd(*args, torch.ones_like(aggr), aggr, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gen_agg_fwd", "spmm_csr"])
+def test_split_rows_after_a_smaller_grid(cuda_device, kernel):
+    """A kernel that splits long rows across CTAs keeps its arrival counts
+    in a workspace of their own: a launch of a small grid that splits a
+    row, then one of a larger grid (several waves) that splits rows, gives
+    the plain version's result."""
+    rng = np.random.RandomState(40)
+    small = rng.randint(0, 9, 400)
+    small[200] = 6000
+    large = rng.randint(0, 12, 60_000)
+    large[::5000] = 9000
+    for counts in (small, large):
+        if kernel == "gen_agg_fwd":
+            args, _ = gen_inputs(rng, counts, 3000, 64, torch.bfloat16,
+                                 cuda_device)
+            got = gen_agg.gen_agg_fwd(*args)[0]
+            want = gen_agg.gen_agg_fwd_plain(*fp32_reference_inputs(args))[0]
+            rtol = sum_rtol(args[0])
+        else:
+            ptr, idx, val = (torch.from_numpy(v).to(cuda_device) for v in
+                             csr_from_counts(rng, counts, 3000, True))
+            x = torch.rand(3000, 64, device=cuda_device)
+            got = tspmm.spmm_csr(ptr, idx, val, x)
+            want = tspmm.spmm_csr_plain(ptr, idx, val, x)
+            rtol = 1e-4
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
