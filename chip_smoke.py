@@ -94,6 +94,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
 15. zoo_serve: GCN(8,8,hids=256), GCNDeeper(8,8,hids=256,depth=5) and
    GCNRand() through ``pred_basis`` on 2 bench-shape LPs each: valid bases
    and the SpMM launched exactly 6, 10 and 0 times a forward.
+16. sampled_serve: ``pred_basis`` with ``--edge_num_thresh 500000
+   --batch_size 32768`` on 2 bench-shape LPs (1M edges: the sampled route,
+   6 exact shards an LP): valid bases, the SpMM launched exactly 4 times a
+   shard forward, each LP's sampled bf16 logits held to its full-graph
+   forward (the bf16 spread rule of phase 3); one LP's breakdown (host
+   sampling, graph tensors, the shards' forwards on the card, decode); the
+   SpMM against its plain version on graphs of falling, then rising size;
+   GENDeeper through the same route on 1 LP (10 ``gen_agg_fwd`` a shard
+   forward).
+17. sampled_train: ``train`` with the same flags on 4 bench-shape LPs (2
+   train, 2 val), 1 epoch: 6 fanout-6 subgraphs a graph, one step each,
+   finite losses, the SpMM launched exactly 2 a subgraph (its input cache)
+   + 2 a step forward + 2 a step backward; the host seconds of sampling and
+   of the subgraphs' tensors, each step's span on the card, peak memory.
+18. graph_batch: ``train --graph_batch 2`` on 3 train LPs (2 of one
+   constraint pattern, stacked; 1 single): the stacks, singles and sampled
+   graphs it made, 4 SpMM launches the union step (not 8); then one union
+   step against a step on the serial mean loss of the same 2 graphs
+   (GCN_FC fp32, SGD at lr 1, from the same weights: updates within 1e-4
+   of the largest).
+19. dp: two processes of ``train --mesh_shape dp=2`` joined over gloo by
+   the LP_GNN_DIST_* contract on the one card take one step; rank 0's
+   weights are held to the single-process ``--graph_batch 2`` step's
+   (the same rule), rank 1 writes no file; then one process joins an NCCL
+   group (NPROCS=1) and all-reduces a gradient-sized buffer on the card.
 
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
@@ -153,6 +178,7 @@ from lp_gnn_tpu_torch import prep as port_prep
 from lp_gnn_tpu_torch.data.dataset import BipartiteGraph, LPDataset
 from lp_gnn_tpu_torch.data.generator import SIZES, generate_instance
 from lp_gnn_tpu_torch.data.graph import GraphTensors
+from lp_gnn_tpu_torch.data.sampling import sample_subgraphs
 from lp_gnn_tpu_torch.infer.decode import inference_gnn
 from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
@@ -1034,20 +1060,23 @@ def check_reference(seed: int) -> dict:
 
 
 # -------------------------------------------------------------------- serve
-def write_dataset(root: str, seed: int, n_lps: int) -> None:
-    """n_lps processed LPs of the bench shape in the reference blob format
-    ([row, col, data, c_feas, v_feas, y_s, y_t, nnodes] + .meta)."""
+def write_dataset(root: str, seed: int, n_lps: int,
+                  graphs: list | None = None) -> None:
+    """n_lps processed LPs of the bench shape (or the given ``graphs``) in
+    the reference blob format ([row, col, data, c_feas, v_feas, y_s, y_t,
+    nnodes] + .meta)."""
     proc = osp.join(root, "processed")
-    con_nms = [f"c{i}" for i in range(M)]
-    var_nms = [f"x{j}" for j in range(N)]
-    for i in range(n_lps):
-        g = bench_graph(seed + i)
+    for i, g in enumerate(graphs or (bench_graph(seed + i)
+                                     for i in range(n_lps))):
+        m, n = g.ncons, g.nvars
         path = osp.join(proc, f"lp_{i}.pk")
         msgpack_dump([g.row, g.col, g.val.astype(np.float64), g.c_feas,
                       g.v_feas, g.y_s.astype(np.int64), g.y_t.astype(np.int64),
-                      M + N], path)
-        msgpack_dump(dict(num_cons=M, num_vars=N, raw_path="", processed_path=path,
-                          con_nms=con_nms, var_nms=var_nms), path + ".meta")
+                      m + n], path)
+        msgpack_dump(dict(num_cons=m, num_vars=n, raw_path="",
+                          processed_path=path,
+                          con_nms=[f"c{k}" for k in range(m)],
+                          var_nms=[f"x{k}" for k in range(n)]), path + ".meta")
 
 
 def run_module(module: str, argv: list[str]) -> float:
@@ -2155,6 +2184,553 @@ def zoo_serve(seed: int) -> dict:
     return {"archs": out, "launches": total}
 
 
+# ------------------------------------------- sampled, batched and dp paths
+# The bench-shape LPs (1M edges) above SAMPLED_THRESH take the sampler:
+# exact shards when serving, fanout-6 subgraphs when training, seed batches
+# of SAMPLED_BATCH nodes (the 196,608 nodes make 6 whole batches)
+SAMPLED_THRESH = 500_000
+SAMPLED_BATCH = 32_768
+SAMPLED_ARGS = ["--edge_num_thresh", str(SAMPLED_THRESH),
+                "--batch_size", str(SAMPLED_BATCH)]
+SHARDS_PER_LP = -(-(M + N) // SAMPLED_BATCH)
+N_SAMPLED_LPS = 2
+# GCN_FC without dropout, for the batched and dp steps held to a serial
+# step: the ranks' dropout masks differ from a single process's
+ARCH_NO_DROPOUT = f"{ARCH[:-1]},dp=0.0)"
+# an SGD step's update (w0 - w1) / lr against another's, per tensor, in
+# fp32: relative to the tensor's largest update (Adam's first step is
+# lr * sign(g), which would turn rounding-level gradient differences near
+# 0 into lr-sized ones). At lr 1 the update is the size of the weights, so
+# their fp32 rounding stays far below it (at lr 1e-3 one ulp of a weight
+# of 0.35 is 5e-5 of the largest update)
+UPDATE_RTOL = 1e-4
+UPDATE_LR = 1.0
+DP_RANKS = 2
+
+
+def sampled_reference(seed: int, g: BipartiteGraph) -> dict:
+    """One bench-shape LP's exact sampled logits (bf16, the served
+    configuration) against its full-graph forward on the card, same
+    weights. Exact sampling equals the full graph (GCN_FC's 2 convs read 2
+    hops), and bf16 is held to its own spread, as the reference phase
+    holds the card: the sampled logits' mean |err| against the full fp32
+    logits at most twice the full bf16 logits'."""
+    logits = {}
+    for dtype, kw in (("float32", {}), ("bfloat16", {}),
+                      ("bfloat16_sampled", dict(
+                          edge_num_thresh=SAMPLED_THRESH,
+                          batch_size=SAMPLED_BATCH, depth=3))):
+        model = build_model(f"{ARCH[:-1]},dtype='{dtype.split('_')[0]}')",
+                            generator=torch.Generator().manual_seed(seed))
+        got = np.concatenate(model_inference(model.to("cuda").eval(), g, **kw))
+        if not (np.isfinite(got).all() and got.shape == (M + N, 3)):
+            raise SmokeFailure(f"sampled_reference {dtype}: bad logits")
+        logits[dtype] = got
+    ref = logits["float32"]
+    samp = np.abs(logits["bfloat16_sampled"] - ref)
+    full = np.abs(logits["bfloat16"] - ref)
+    if samp.mean() > 2 * full.mean():
+        raise SmokeFailure(f"sampled_reference: sampled bf16 mean |err| "
+                           f"{samp.mean()} > 2 x the full graph's "
+                           f"{full.mean()}")
+    vs16 = np.abs(logits["bfloat16_sampled"] - logits["bfloat16"])
+    return {"lp": g.fn, "sampled_mean_abs_err": float(samp.mean()),
+            "full_mean_abs_err": float(full.mean()),
+            "sampled_max_abs_err": float(samp.max()),
+            "full_max_abs_err": float(full.max()),
+            "sampled_vs_full_bf16_max": float(vs16.max()),
+            "sampled_vs_full_bf16_mean": float(vs16.mean())}
+
+
+def sampled_breakdown(seed: int, g: BipartiteGraph) -> dict:
+    """Where one LP's sampled ``inf_time`` goes (bf16, one pass after the
+    entry point's): the host sampling of the exact shards, their graph
+    tensors built and copied to the card, the shards' forwards (ends in a
+    synchronize; their span on the card by CUDA events), the seed logits
+    back to the host, the top-m decode; and the shards' sizes."""
+    model = build_model(bf16_arch(ARCH),
+                        generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda").eval()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    shards = sample_subgraphs(g, np.random.RandomState(0), [-1, -1],
+                              SAMPLED_BATCH, shuffle=False, drop_last=False,
+                              exact=True)
+    t1 = time.perf_counter()
+    gts = [GraphTensors.from_graph(sub.g, "cuda") for sub in shards]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ev0.record()
+    with torch.inference_mode():
+        outs = [model(gt) for gt in gts]
+    ev1.record()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    lc = np.concatenate([o[0][:sub.s_bs].cpu().numpy()
+                         for o, sub in zip(outs, shards)])
+    lv = np.concatenate([o[1][:sub.t_bs].cpu().numpy()
+                         for o, sub in zip(outs, shards)])
+    t4 = time.perf_counter()
+    inference_gnn(np.concatenate([lc, lv]), g.ncons)
+    t5 = time.perf_counter()
+    return {"lp": g.fn, "shards": [
+        {"nnz": sub.g.nnz, "ncons": sub.g.ncons, "nvars": sub.g.nvars,
+         "s_bs": sub.s_bs, "t_bs": sub.t_bs} for sub in shards],
+        "sampling_s": t1 - t0, "graph_tensors_s": t2 - t1,
+        "forward_s": t3 - t2, "forward_device_ms": ev0.elapsed_time(ev1),
+        "to_host_s": t4 - t3, "decode_s": t5 - t4, "total_s": t5 - t0}
+
+
+def spmm_sequence(g: BipartiteGraph, seed: int) -> list[dict]:
+    """The SpMM on graphs of falling, then rising size, as the sampled
+    paths launch it (each launch's grid and workspace sized anew): the
+    full graph, an exact shard, a fanout-6 subgraph, a small one and one
+    without an edge, then back; each direction at D=1024 bf16 against its
+    plain version (SPMM_TOL)."""
+    rng = np.random.RandomState(seed)
+    subs = [sample_subgraphs(g, rng, [-1, -1], SAMPLED_BATCH,
+                             shuffle=False, exact=True)[0].g,
+            sample_subgraphs(g, rng, [6, 6], SAMPLED_BATCH)[0].g,
+            sample_subgraphs(g, rng, [6, 6], 1024)[0].g]
+    empty = BipartiteGraph(
+        row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
+        val=np.zeros(0, np.float32), c_feas=g.c_feas[:300],
+        v_feas=g.v_feas[:500], y_s=g.y_s[:300], y_t=g.y_t[:500])
+    seq = [g, *subs, empty]
+    gts = [GraphTensors.from_graph(x, "cuda") for x in seq]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for gt in gts + gts[-2::-1]:
+        row = {"nnz": gt.nnz, "ncons": gt.ncons, "nvars": gt.nvars}
+        for name, ptr, idx, val, n_src in (
+                ("v2c", gt.rowptr, gt.col, gt.val_r, gt.nvars),
+                ("c2v", gt.colptr, gt.row, gt.val_c, gt.ncons)):
+            x = torch.randn(n_src, 1024, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            err, ok = within(spmm_csr(ptr, idx, val, x),
+                             spmm_csr_plain(ptr, idx, val, x),
+                             *SPMM_TOL[torch.bfloat16])
+            if not ok:
+                raise SmokeFailure(f"spmm_sequence {name} on {row}: max "
+                                   f"|err| {err}")
+            row[f"{name}_max_abs_err"] = err
+        out.append(row)
+    return out
+
+
+def sampled_serve(seed: int) -> dict:
+    """The sampled serving path through the entry point: N_SAMPLED_LPS
+    bench-shape LPs above SAMPLED_THRESH served by exact shards of
+    SAMPLED_BATCH seeds: valid bases, the SpMM launched SPMM_PER_FORWARD
+    times a shard forward, each LP's logits held to its full-graph forward
+    (``sampled_reference``); one LP's breakdown, the SpMM over a sequence
+    of falling and rising sizes; then GENDeeper on 1 LP (10 gen_agg_fwd a
+    shard forward; its 5 convs read more than the 4 hops sampled, so its
+    logits are not held to the full graph)."""
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_sampled_") as tmp:
+        res = run_pred_basis(tmp, seed + 500, N_SAMPLED_LPS,
+                             {"spmm_csr": SPMM_PER_FORWARD * SHARDS_PER_LP},
+                             SAMPLED_ARGS)
+        ds = LPDataset(osp.join(res.pop("data_prefix"), "smoke",
+                                "highs-inp_tgt"))
+        res["reference"] = [sampled_reference(seed + 500, ds[i])
+                            for i in range(len(ds))]
+        g = ds[0]
+    del res["part_time_s"]
+    res["breakdown"] = sampled_breakdown(seed + 500, g)
+    res["spmm_sequence"] = spmm_sequence(g, seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_sampled_") as tmp:
+        gen_res = run_pred_basis(
+            tmp, seed + 700, 1, {"gen_agg_fwd": GEN_PER_FORWARD * SHARDS_PER_LP},
+            SAMPLED_ARGS, GEN_ARCH)
+    res["gen"] = {"arch": GEN_ARCH, **{k: gen_res[k] for k in (
+        "lps", "bas_valid", "forwards", "launches", "inf_time_s")}}
+    return {"arch": bf16_arch(ARCH), "edge_num_thresh": SAMPLED_THRESH,
+            "batch_size": SAMPLED_BATCH, "shards_per_lp": SHARDS_PER_LP,
+            "spmm_formula": f"{SPMM_PER_FORWARD} x {SHARDS_PER_LP} shards x "
+                            f"{FORWARDS_PER_LP} forwards x {N_SAMPLED_LPS} LPs",
+            **res}
+
+
+class StepTrace:
+    """Wrappers of the trainer's functions that read what a run does and
+    add no work on the card but a synchronize where a host time needs one:
+    the sampler's host seconds, each graph's tensors (host and copy), each
+    step's loss, span on the card (CUDA events) and kernel launches, and
+    the SpMM launches of the backward passes."""
+
+    def __init__(self):
+        self.sample_s, self.tensors_s, self.steps = [], [], []
+        self.backward_spmm = 0
+        self._saved = []
+
+    def _patch(self, owner, name, fn):
+        self._saved.append((owner, name, owner.__dict__[name]))
+        setattr(owner, name, fn)
+
+    def __enter__(self):
+        real = {n: getattr(trainer, n) for n in (
+            "sample_subgraphs", "train_graph", "train_step", "dp_train_step")}
+        real_bwd = spmm_mod.SpmmCSR.backward
+
+        def sample(*a, **kw):
+            t0 = time.perf_counter()
+            out = real["sample_subgraphs"](*a, **kw)
+            self.sample_s.append(time.perf_counter() - t0)
+            return out
+
+        def tensors(*a, **kw):
+            t0 = time.perf_counter()
+            out = real["train_graph"](*a, **kw)
+            torch.cuda.synchronize()
+            self.tensors_s.append(time.perf_counter() - t0)
+            return out
+
+        def stepper(name):
+            def step(*a, **kw):
+                before = {k.__name__: k.launches for k in KERNELS}
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = real[name](*a, **kw)
+                ev[1].record()
+                loss = out[0] if isinstance(out, tuple) else out
+                self.steps.append({
+                    "kind": name, "loss": float(loss),
+                    "device_ms": ev[0].elapsed_time(ev[1]),
+                    "launches": {k.__name__: k.launches - before[k.__name__]
+                                 for k in KERNELS}})
+                return out
+            return step
+
+        def backward(ctx, grad):
+            n0 = spmm_csr.launches
+            out = real_bwd(ctx, grad)
+            self.backward_spmm += spmm_csr.launches - n0
+            return out
+
+        self._patch(trainer, "sample_subgraphs", sample)
+        self._patch(trainer, "train_graph", tensors)
+        self._patch(trainer, "train_step", stepper("train_step"))
+        self._patch(trainer, "dp_train_step", stepper("dp_train_step"))
+        self._patch(spmm_mod.SpmmCSR, "backward", staticmethod(backward))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+
+def run_train(tmp: str, data_prefix: str, argv: list[str], exp: str):
+    """``python -m lp_gnn_tpu_torch.train`` on the dataset ``smoke`` (in
+    this process), the launch counts set to 0 just before and read just
+    after, under a ``StepTrace``; returns (launches, trace, seconds, peak
+    allocated bytes, log dir)."""
+    argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
+            "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", exp, *argv]
+    for kern in KERNELS:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with StepTrace() as tr:
+        t = run_module("lp_gnn_tpu_torch.train", argv)
+    launches = {kern.__name__: kern.launches for kern in KERNELS}
+    log_dir = osp.join(tmp, "runs", exp)
+    for f in ("mdl.pth", "train_state.pth", "args.json", "metrics.jsonl"):
+        if not osp.exists(osp.join(log_dir, f)):
+            raise SmokeFailure(f"{exp} wrote no {f}")
+    losses = [st["loss"] for st in tr.steps]
+    if not losses or not np.isfinite(losses).all():
+        raise SmokeFailure(f"{exp} step losses {losses}")
+    return launches, tr, t, torch.cuda.max_memory_allocated(), log_dir
+
+
+def sampled_train(seed: int) -> dict:
+    """The sampled training path through the entry point: 4 bench-shape LPs
+    (2 train, 2 val) above SAMPLED_THRESH, GCN_FC bf16, balanced CE, Adam,
+    1 epoch: each train graph sampled afresh (fanout [6, 6], SAMPLED_BATCH
+    seeds, the short last batch dropped: 6 subgraphs a graph), one step a
+    subgraph, its tensors with the input cache. Checks the steps, finite
+    losses and the SpMM launches exactly: 2 a subgraph (the cache) + 2 a
+    step forward, 2 a step backward."""
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    n_train = len(split_idxs_train_val(N_TRAIN_LPS)[0])
+    steps = n_train * ((M + N) // SAMPLED_BATCH)
+    want_bwd = 2 * steps
+    want = {**no_launches(), "spmm_csr": 2 * steps + 2 * steps + want_bwd}
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_strain_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"),
+                      seed + 600, N_TRAIN_LPS)
+        launches, tr, t, peak, _ = run_train(
+            tmp, data_prefix, ["--arch", ARCH, "--fp16", "1", "--loss",
+                               "balanced", "--epochs", "1", "--seed",
+                               str(seed), *SAMPLED_ARGS], "strain")
+    if launches != want or tr.backward_spmm != want_bwd or \
+            len(tr.steps) != steps:
+        raise SmokeFailure(
+            f"sampled_train: {len(tr.steps)} steps, launches {launches} "
+            f"({tr.backward_spmm} in backwards), expected {steps} steps, "
+            f"{want} ({want_bwd})")
+    dev = [st["device_ms"] for st in tr.steps]
+    return {"arch": bf16_arch(ARCH), "train_lps": n_train,
+            "fanout": [6, 6], "batch_size": SAMPLED_BATCH, "steps": steps,
+            "launches": launches, "spmm_forward": want["spmm_csr"] - want_bwd,
+            "spmm_backward": tr.backward_spmm,
+            "spmm_formula": f"2 x {steps} subgraphs (input cache) + "
+                            f"2 x {steps} forward + 2 x {steps} backward",
+            "step_losses": [st["loss"] for st in tr.steps],
+            "sampling_s": tr.sample_s, "graph_tensors_s_total":
+            sum(tr.tensors_s), "graph_tensors_s": tr.tensors_s,
+            "step_device_ms": dev, "step_device_ms_median": sorted(dev)[len(dev) // 2],
+            "train_s": t, "max_memory_allocated_bytes": peak}
+
+
+def twin_graphs(seed: int) -> list[BipartiteGraph]:
+    """Two bench-shape LPs of one constraint pattern (an LP family's
+    members share it) with their own values, features and labels: the
+    same stack key, so --graph_batch 2 and dp=2 stack them."""
+    g = bench_graph(seed)
+    other = bench_graph(seed + 1)
+    return [g, BipartiteGraph(row=g.row, col=g.col, val=other.val,
+                              c_feas=other.c_feas, v_feas=other.v_feas,
+                              y_s=other.y_s, y_t=other.y_t)]
+
+
+def split_dataset(n_lps: int, train: list, seed: int) -> list:
+    """``train`` at the train positions of the 70/30 split of n_lps LPs,
+    small bench-like LPs at the val positions (no val pass reads them)."""
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    train_idx = list(split_idxs_train_val(n_lps)[0])
+    assert len(train_idx) == len(train)
+    it = iter(train)
+    return [next(it) if i in train_idx else
+            bench_graph(seed + 50 + i, m=M // 16, n=N // 16, e=E // 16)
+            for i in range(n_lps)]
+
+
+def update_diff(w0: dict, a: dict, b: dict, lr: float) -> float:
+    """The largest, over tensors, of max |u_a - u_b| / max |u_b| where u
+    is an SGD step's update (w0 - w) / lr."""
+    worst = 0.0
+    for k in w0:
+        ua = (w0[k].double() - a[k].double().cpu()) / lr
+        ub = (w0[k].double() - b[k].double().cpu()) / lr
+        worst = max(worst, float((ua - ub).abs().max()
+                                 / ub.abs().max().clamp(min=1e-30)))
+    return worst
+
+
+def seeded_state(arch: str, seed: int) -> dict:
+    model = build_model(arch, generator=torch.Generator().manual_seed(seed))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def union_vs_serial(seed: int, graphs: list) -> dict:
+    """One ``dp_train_step`` over the union of ``graphs`` against one step
+    on the serial mean of the same graphs' losses, on the card from the
+    same weights: GCN_FC at full width, fp32, no dropout, SGD at
+    UPDATE_LR; the loss within rtol 1e-5, the updates within
+    UPDATE_RTOL."""
+    from lp_gnn_tpu_torch.data.graph import union
+    from lp_gnn_tpu_torch.parallel.dp import dp_train_step
+    lr = UPDATE_LR
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    loss_fn = LOSS_REGISTRY["balanced"]
+    out = {}
+    for way in ("union", "serial"):
+        model = build_model(ARCH_NO_DROPOUT)
+        model.load_state_dict(w0)
+        model = model.to("cuda").train()
+        opt = trainer.make_optimizer(model.parameters(), "sgd", lr)
+        gts = [trainer.train_graph(model, g, "cuda") for g in graphs]
+        if way == "union":
+            before = spmm_csr.launches
+            loss = float(dp_train_step(model, opt, union(gts), loss_fn))
+            out["union_step_spmm"] = spmm_csr.launches - before
+        else:
+            total = 0.0
+            for gt in gts:
+                lc, lv = model(gt)
+                total = total + loss_fn(lc, lv, gt.y_s, gt.y_t,
+                                        *trainer.seed_masks(gt))
+            total = total / len(gts)
+            opt.zero_grad()
+            total.backward()
+            opt.step()
+            loss = float(total.detach())
+        out[way] = ({k: v.detach().cpu() for k, v in
+                     model.state_dict().items()}, loss)
+        del model, opt, gts
+        torch.cuda.empty_cache()
+    diff = update_diff(w0, out["union"][0], out["serial"][0], lr)
+    lu, ls = out["union"][1], out["serial"][1]
+    if abs(lu - ls) > 1e-5 * abs(ls) or diff > UPDATE_RTOL:
+        raise SmokeFailure(f"union vs serial step: loss {lu} vs {ls}, "
+                           f"update rel diff {diff} > {UPDATE_RTOL}")
+    return {"loss_union": lu, "loss_serial": ls, "update_rel_diff": diff,
+            "update_rtol": UPDATE_RTOL,
+            "union_step_spmm": out["union_step_spmm"]}
+
+
+def graph_batch(seed: int) -> dict:
+    """``--graph_batch 2`` through the train entry point (GCN_FC bf16, 1
+    epoch) on 3 train LPs: two of one stack key (a stack) and one of
+    another (half the edges: a single). Checks the stacks, singles and
+    sampled graphs the trainer made, the SpMM launches (2 a member for its
+    input cache, 4 the union step, not 4 a graph; 2 + 4 the single) and
+    finite losses; then ``union_vs_serial`` on the twins."""
+    from lp_gnn_tpu_torch.data.stacking import stack_key
+    twins = twin_graphs(seed + 800)
+    single = bench_graph(seed + 803, e=E // 2)
+    if stack_key(twins[0]) != stack_key(twins[1]) or \
+            stack_key(single) == stack_key(twins[0]):
+        raise SmokeFailure("graph_batch: stack keys not as designed")
+    groups = {}
+    real_groups = trainer.stack_groups
+
+    def seen_groups(*a, **kw):
+        groups["v"] = real_groups(*a, **kw)
+        return groups["v"]
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_gb_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), 0, 5,
+                      split_dataset(5, [*twins, single], seed))
+        trainer.stack_groups = seen_groups
+        try:
+            launches, tr, t, peak, _ = run_train(
+                tmp, data_prefix, ["--arch", ARCH, "--fp16", "1", "--epochs",
+                                   "1", "--graph_batch", "2", "--seed",
+                                   str(seed)], "gb")
+        finally:
+            trainer.stack_groups = real_groups
+    stacks, singles, sampled = groups["v"]
+    kinds = [st["kind"] for st in tr.steps]
+    per_step = [st["launches"]["spmm_csr"] for st in tr.steps]
+    want = {**no_launches(), "spmm_csr": 2 * 2 + 4 + 2 + 4}
+    if (len(stacks), len(singles), len(sampled)) != (1, 1, 0) or \
+            kinds != ["dp_train_step", "train_step"] or \
+            per_step != [4, 4] or launches != want:
+        raise SmokeFailure(f"graph_batch: stacks {stacks}, singles "
+                           f"{singles}, sampled {sampled}, steps {kinds}, "
+                           f"SpMM a step {per_step}, launches {launches} "
+                           f"(expected {want})")
+    torch.cuda.empty_cache()
+    return {"arch": bf16_arch(ARCH), "stacks": stacks, "singles": singles,
+            "sampled": sampled, "steps": kinds,
+            "spmm_per_step": per_step, "launches": launches,
+            "spmm_formula": "2 x 2 members' input caches + 4 the union step "
+                            "+ (2 + 4) the single",
+            "step_losses": [st["loss"] for st in tr.steps],
+            "step_device_ms": [st["device_ms"] for st in tr.steps],
+            "graph_tensors_s": tr.tensors_s, "train_s": t,
+            "max_memory_allocated_bytes": peak,
+            "union_vs_serial": union_vs_serial(seed, twins)}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_allreduce(numel: int) -> dict:
+    """One process joins an NCCL group through the LP_GNN_DIST_* contract
+    (NPROCS=1) and all-reduces ``numel`` fp32 values on the card (the
+    size of the model's gradients), checked and timed; the group is
+    destroyed and the contract taken off after."""
+    from lp_gnn_tpu_torch.parallel import mesh
+    env = {"LP_GNN_DIST_COORD": f"localhost:{free_port()}",
+           "LP_GNN_DIST_NPROCS": "1", "LP_GNN_DIST_PROC_ID": "0"}
+    os.environ.update(env)
+    try:
+        dev, created = mesh.init_distributed(torch.device("cuda"))
+        try:
+            backend = torch.distributed.get_backend()
+            x = torch.arange(numel, dtype=torch.float32, device=dev)
+            want = x.clone()
+            torch.distributed.all_reduce(x)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: torch.distributed.all_reduce(x), 10)
+            if backend != "nccl" or not created or not torch.equal(x, want):
+                raise SmokeFailure(f"nccl: backend {backend}, created "
+                                   f"{created}, all-reduce wrong")
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        for k in env:
+            del os.environ[k]
+    return {"backend": backend, "world": 1, "device": str(dev),
+            "numel": numel, "allreduce_ms": ms}
+
+
+def dp_phase(seed: int) -> dict:
+    """Two ranks on the one card (processes of ``python -m
+    lp_gnn_tpu_torch.train`` joined over gloo by the LP_GNN_DIST_*
+    contract; NCCL refuses two ranks on one device) take ``--mesh_shape
+    dp=2`` for 1 epoch on the twins (one dp step), GCN_FC fp32 without
+    dropout, SGD at UPDATE_LR; the single-process ``--graph_batch 2`` run
+    on the same data and weights takes the same step. Rank 0's
+    ``mdl.pth`` is held to the single process's (updates within
+    UPDATE_RTOL); rank 1 writes no file. Then ``nccl_allreduce``."""
+    root = osp.dirname(osp.abspath(__file__))
+    lr = UPDATE_LR
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dp_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), 0, 4,
+                      split_dataset(4, twin_graphs(seed + 900), seed))
+        argv = ["--arch", ARCH_NO_DROPOUT, "--opt", "sgd", "--lr", str(lr),
+                "--epochs", "1", "--seed", str(seed)]
+        port = free_port()
+        procs, outs = [], []
+        t0 = time.perf_counter()
+        try:
+            for rank in range(DP_RANKS):
+                env = dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
+                           LP_GNN_DIST_NPROCS=str(DP_RANKS),
+                           LP_GNN_DIST_PROC_ID=str(rank))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "lp_gnn_tpu_torch.train",
+                     "--dataset", "smoke", "--data_prefix", data_prefix,
+                     "--exp_nm", "dp", *argv, "--mesh_shape",
+                     f"dp={DP_RANKS}", "--log_prefix",
+                     osp.join(tmp, f"rank{rank}")],
+                    cwd=root, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        t_ranks = time.perf_counter() - t0
+        if [p.returncode for p in procs] != [0] * DP_RANKS:
+            raise SmokeFailure("dp ranks failed: " + " | ".join(
+                o[-2000:] for o in outs))
+        if osp.exists(osp.join(tmp, "rank1")):
+            raise SmokeFailure("dp: rank 1 wrote files")
+        groups = [ln.split("process group:")[1].strip() for o in outs
+                  for ln in o.splitlines() if "process group:" in ln]
+        ranks = torch.load(osp.join(tmp, "rank0", "dp", "mdl.pth"),
+                           weights_only=True)
+        launches, tr, t, peak, log_dir = run_train(
+            tmp, data_prefix, argv + ["--graph_batch", "2"], "gb")
+        single = torch.load(osp.join(log_dir, "mdl.pth"), weights_only=True)
+    diff = update_diff(seeded_state(ARCH_NO_DROPOUT, seed), ranks, single,
+                       lr)
+    if diff > UPDATE_RTOL or len(groups) != DP_RANKS or \
+            not all("gloo" in s for s in groups):
+        raise SmokeFailure(f"dp: update rel diff {diff} (limit "
+                           f"{UPDATE_RTOL}), groups {groups}")
+    return {"ranks": DP_RANKS, "groups": groups, "ranks_s": t_ranks,
+            "update_rel_diff_vs_graph_batch": diff,
+            "update_rtol": UPDATE_RTOL, "launches": launches,
+            "single_step_losses": [st["loss"] for st in tr.steps],
+            "single_train_s": t,
+            "nccl": nccl_allreduce(sum(v.numel() for v in single.values()))}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2237,6 +2813,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         zoo = zoo_serve(args.seed)
         emit({"phase": "zoo_serve", **zoo})
+        torch.cuda.empty_cache()
+        sampled = sampled_serve(args.seed)
+        emit({"phase": "sampled_serve", **sampled})
+        torch.cuda.empty_cache()
+        strained = sampled_train(args.seed)
+        emit({"phase": "sampled_train", **strained})
+        torch.cuda.empty_cache()
+        batched = graph_batch(args.seed)
+        emit({"phase": "graph_batch", **batched})
+        torch.cuda.empty_cache()
+        dp = dp_phase(args.seed)
+        emit({"phase": "dp", **dp})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -2245,7 +2833,10 @@ def main(argv=None) -> int:
     # path, which runs both; each path's count beside it
     paths = {"serve": served, "dist_serve": dist, "train": trained,
              "pipeline": piped, "gen_serve": gen_served,
-             "gen_train": gen_trained, "zoo_serve": zoo}
+             "gen_train": gen_trained, "zoo_serve": zoo,
+             "sampled_serve": sampled, "sampled_serve_gen": sampled["gen"],
+             "sampled_train": strained, "graph_batch": batched,
+             "dp_graph_batch": dp}
     for k in kernels:
         main_path = gen_trained if k["name"].startswith("gen_agg") else dist
         k["launches"] = main_path["launches"][k["name"]]

@@ -20,16 +20,22 @@ graph tensors (CSR and CSC edge orderings) -> GCN_FC forward -> top-m
 decode -> HiGHS ``.bas`` + ``.sort``, with the per-LP pure-inference time;
 under ``--mesh_shape edge=K`` the same forward is edge-partitioned into K
 shards with the boundary halo exchange (a hand-written CUDA all-to-all),
-all shards on one device. ROADMAP.md lists what is still to come.
+all shards on one device. Graphs above ``--edge_num_thresh`` without a
+mesh are served by exact sampled shards and trained on fanout-sampled
+subgraphs; ``--graph_batch`` and ``--mesh_shape dp=K`` (K processes over
+``torch.distributed``) train several graphs a step. ROADMAP.md lists what
+is still to come.
 
 Subpackages
 -----------
 - ``utils``   msgpack+numpy blob codec (plain Python), json, the results
               table, the run dir's logs, path helpers
 - ``data``    LP generators, scaling and features, raw -> processed blobs,
-              the dataset, graph tensors on a device
+              the dataset, graph tensors on a device and their disjoint
+              union, the neighbor sampler, the stack key
 - ``ops``     CSR SpMM and row gather: CUDA kernels, their plain versions
-- ``parallel`` edge mesh, graph partition, halo all-to-all kernel, dist GCN_FC
+- ``parallel`` edge mesh, graph partition, halo all-to-all kernel, dist
+              GCN_FC; the dp process group and the batched step
 - ``models``  GCN_FC as an ``nn.Module``; weights carried from JAX / torch
 - ``infer``   top-m decode, prediction, validation and timing passes
 - ``train``   losses, metrics, the trainer and its entry point

@@ -10,7 +10,8 @@ and the same derived paths (``finalize``, config.py:186-200)::
     {data_prefix}/{dataset}/{solver_prefix}inp_tgt[-mM]/{raw,processed}/*.pk
     {log_prefix}/{exp_nm}/...
 
-plus ``--device`` (``cuda`` by default; ``cpu`` only when asked). Edge
+plus ``--device`` (``cuda`` by default; ``cpu`` only when asked). Under
+the ``LP_GNN_DIST_*`` contract only rank 0 makes the run dir. Edge
 partitions are cached in ``.../inp_tgt[-mM]/partitions/`` beside
 ``processed/`` (``--part_cache``). A run dir made by ``parse_args`` gets
 the reference's logs: ``log-ing``, ``log-prt`` and ``log-prt-err``
@@ -22,6 +23,7 @@ import argparse
 import dataclasses
 import logging
 import os
+import re
 
 from .utils.log import set_file_logger, set_file_logger_prt
 from .utils.misc import increment_path, init_seeds, mkdir_p
@@ -45,6 +47,7 @@ class Config:
     split: str = "val"                     # val | trainval
     # model
     arch: str = "GCN_FC(8,8,hids=128)"
+    batch_size: int = 10240 * 8 * 4        # max seed nodes a sampled batch
     edge_num_thresh: float = 4e6 * 3       # full-graph vs sampled switch
     load_from: str = "None"
     fp16: int = 0                          # reference --fp16: bf16 compute
@@ -56,7 +59,8 @@ class Config:
     epochs: int = 30
     num_workers: int = 0                   # prep: processes for the per-LP
                                            # solves and conversions
-    graph_batch: int = 1                   # graphs a step (1 only, so far)
+    graph_batch: int = 1                   # graphs a step, stacked into
+                                           # one disjoint union per rank
     steps_per_call: int = 1                # 1 only, so far
     step_acc: int = 0                      # 1: decode accuracy every step;
                                            # 0: only on logged steps
@@ -78,7 +82,9 @@ class Config:
     # parallelism
     mesh_shape: str = ""                   # edge=K: edge-partitioned forward
                                            # of graphs above edge_num_thresh,
-                                           # K shards on the one device
+                                           # K shards on the one device;
+                                           # dp=K: training over K ranks
+                                           # (the LP_GNN_DIST_* contract)
     part_cache: int = 1                    # partition cache on disk
     # device
     device: str = "cuda"                   # cuda | cpu
@@ -96,6 +102,12 @@ class Config:
         if isinstance(m, str):
             m = LP_METHOD_MAP.get(m, m)
         return int(m)
+
+    def arch_depth(self) -> int:
+        """The depth the arch string names, 3 where it names none
+        (config.py:162; reference train.py:108-110)."""
+        m = re.findall(r"depth=(\d+)", self.arch)
+        return int(m[0]) if m else 3
 
     def arch_with_dtype(self) -> str:
         """Arch string honoring --fp16 (bf16 compute, fp32 knowledge mask)."""
@@ -151,6 +163,11 @@ def parse_args(argv=None, make_log_dir: bool = True, **defaults) -> Config:
         logging.warning("unknown args: %s", unknown)
     for k, v in vars(known).items():
         setattr(cfg, k, v)
+    # only rank 0 of a dp run makes the run dir and its logs (torch is
+    # imported here, not with the module: prep's solver processes import
+    # this module and no torch)
+    from .parallel.mesh import is_primary
+    make_log_dir = make_log_dir and is_primary()
     cfg.finalize(make_log_dir=make_log_dir)
     if make_log_dir:
         # the run dir's logs (reference Environment, utils.py:452-497)

@@ -12,16 +12,43 @@ Three optional parts: the labels (``from_graph(..., labels=True)``, for
 training), the permutations between the two edge orderings
 (``from_graph(..., perms=True)``, for the GEN aggregation's backward,
 ``:236-244``) and the input conv's cached aggregations
-(``ops/spmm.py attach_input_agg``).
+(``ops/spmm.py attach_input_agg``). A sampled subgraph's seeds are its
+first ``s_bs`` constraints and ``t_bs`` variables (``:285-286``; the whole
+graph by default). :func:`union` joins several graphs into one disjoint
+graph for the graph-batched step (the port's form of the JAX package's
+stacked ``PaddedGraph``s, ``parallel/dp.py:27 stack_graphs``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from .dataset import BipartiteGraph
+
+
+class Member(NamedTuple):
+    """One graph of a disjoint union: its first constraint and variable
+    in the union, its node counts and its seed prefix."""
+    c0: int
+    v0: int
+    ncons: int
+    nvars: int
+    s_bs: int
+    t_bs: int
+
+
+def seed_masks(ncons: int, nvars: int, s_bs: int, t_bs: int,
+               device: torch.device):
+    """The loss masks of a graph (JAX trainer.py:63): its first ``s_bs``
+    constraints and ``t_bs`` variables, every node of a full graph."""
+    def mask(n, k):
+        if k == n:
+            return torch.ones((), dtype=torch.bool, device=device).expand(n)
+        return torch.arange(n, device=device) < k
+    return mask(ncons, s_bs), mask(nvars, t_bs)
 
 
 @dataclasses.dataclass
@@ -43,6 +70,17 @@ class GraphTensors:
     # the position of each CSR edge in the CSC ordering, and the reverse
     eperm_r: torch.Tensor | None = None    # (E,) int32
     eperm_c: torch.Tensor | None = None    # (E,) int32
+    # the seeds: constraints [0, s_bs), variables [0, t_bs); all if None
+    s_bs: int | None = None
+    t_bs: int | None = None
+    # the graphs of a disjoint union (``union``), in order; None for one
+    members: tuple[Member, ...] | None = None
+
+    def __post_init__(self):
+        if self.s_bs is None:
+            self.s_bs = self.ncons
+        if self.t_bs is None:
+            self.t_bs = self.nvars
 
     @property
     def ncons(self) -> int:
@@ -62,7 +100,9 @@ class GraphTensors:
 
     @classmethod
     def from_graph(cls, g: BipartiteGraph, device: torch.device | str,
-                   labels: bool = False, perms: bool = False) -> "GraphTensors":
+                   labels: bool = False, perms: bool = False,
+                   s_bs: int | None = None,
+                   t_bs: int | None = None) -> "GraphTensors":
         m, n, e = g.ncons, g.nvars, g.nnz
         if e >= 2 ** 31:
             raise ValueError(f"{g.fn}: {e} edges overflow int32 pointers")
@@ -113,4 +153,47 @@ class GraphTensors:
             y_t=dev(np.asarray(g.y_t, np.int64)) if labels else None,
             eperm_r=dev(eperm_r.astype(np.int32)) if perms else None,
             eperm_c=dev(eperm_c.astype(np.int32)) if perms else None,
+            s_bs=s_bs, t_bs=t_bs,
         )
+
+
+def union(graphs: Sequence[GraphTensors]) -> GraphTensors:
+    """The disjoint union of ``graphs`` (one device): node ids offset by
+    the graphs before, the CSR and CSC pointers by their edges, and so the
+    edge permutations; features, labels and the input aggregation cache
+    concatenated (each graph's rows of a kernel's output depend on its own
+    edges only, so the union computes what each graph would, up to the
+    order of fp32 sums where the kernel splits a row across CTAs).
+    ``members`` keeps each graph's node range and seeds, for its own
+    loss. Labels, cache and permutations are kept where every graph has
+    them."""
+    if not graphs:
+        raise ValueError("a union needs at least one graph")
+    ms = np.cumsum([0] + [g.ncons for g in graphs])
+    ns = np.cumsum([0] + [g.nvars for g in graphs])
+    es = np.cumsum([0] + [g.nnz for g in graphs])
+    if es[-1] >= 2 ** 31:
+        raise ValueError(f"a union of {es[-1]} edges overflows int32 pointers")
+
+    def cat(name, off=None, ptr=False):
+        parts = [getattr(g, name) for g in graphs]
+        if any(p is None for p in parts):
+            return None
+        if ptr:   # each graph's pointers after the first drop their 0
+            parts = [parts[0]] + [p[1:] for p in parts[1:]]
+        if off is not None:
+            parts = [p + int(o) for p, o in zip(parts, off)]
+        return torch.cat(parts)
+
+    return GraphTensors(
+        rowptr=cat("rowptr", es, ptr=True), col=cat("col", ns),
+        val_r=cat("val_r"),
+        colptr=cat("colptr", es, ptr=True), row=cat("row", ms),
+        val_c=cat("val_c"),
+        c_feas=cat("c_feas"), v_feas=cat("v_feas"),
+        y_s=cat("y_s"), y_t=cat("y_t"),
+        in_agg_c=cat("in_agg_c"), in_agg_v=cat("in_agg_v"),
+        eperm_r=cat("eperm_r", es), eperm_c=cat("eperm_c", es),
+        members=tuple(Member(int(c0), int(v0), g.ncons, g.nvars, g.s_bs,
+                             g.t_bs)
+                      for g, c0, v0 in zip(graphs, ms, ns)))

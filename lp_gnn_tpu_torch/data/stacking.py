@@ -1,0 +1,79 @@
+"""Which graphs the JAX package would stack: its padded leaf shapes,
+computed in numpy without building padded tensors.
+
+The JAX trainer groups the graphs of a graph-batched or dp step by the
+full leaf-shape signature of ``pad_graph``'s output (``trainer.py:538-568``):
+the ``(m_pad, n_pad, e_pad)`` bucket (``batching.py:113, 192-211``) and the
+chunk counts of the two blocked MXU layouts (``:129-190``, ``:278``), which
+depend on how the edges fall into 128-row blocks. The port pads nothing,
+but it groups the same graphs in the same order, so that
+``rng_np.permutation(len(stacks))`` (``:664``) and every draw after it stay
+the JAX trainer's. :func:`stack_key` is that signature; the helpers are own
+copies of ``batching.py``'s.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .dataset import BipartiteGraph
+
+BLOCK_R = 128       # dst rows a block (batching.py:102)
+BLOCK_K = 512       # least edges a chunk
+BLOCK_K_MAX = 1024  # most edges a chunk
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((max(x, 1) + mult - 1) // mult) * mult
+
+
+def make_buckets(base: int = 256, growth: float = 1.5,
+                 max_size: int = 1 << 28) -> list[int]:
+    """Geometric bucket sizes snapped to multiples of 128
+    (batching.py:192)."""
+    sizes = []
+    s = float(base)
+    while s < max_size:
+        sizes.append(_round_up(int(s), 128))
+        s *= growth
+    return sizes
+
+
+_DEFAULT_BUCKETS = make_buckets()
+
+
+def bucket_for(size: int, buckets=None) -> int:
+    """The smallest bucket >= size (batching.py:205)."""
+    for b in buckets or _DEFAULT_BUCKETS:
+        if b >= size:
+            return b
+    return _round_up(size, 128)
+
+
+def pick_block_k(e_pad: int, num_dst: int, r: int = BLOCK_R) -> int:
+    """Chunk depth from the padded sizes (batching.py:113)."""
+    per_block = e_pad / max(_round_up(num_dst, r) // r, 1)
+    k = BLOCK_K
+    while k < per_block and k < BLOCK_K_MAX:
+        k *= 2
+    return k
+
+
+def chunk_count(dst: np.ndarray, num_dst: int, k: int,
+                r: int = BLOCK_R) -> int:
+    """Chunks of ``block_layout`` (batching.py:129): each r-row block of
+    the ``num_dst`` padded destinations takes ceil(its edges / k) chunks,
+    at least one."""
+    nblk = _round_up(num_dst, r) // r
+    counts = np.bincount(np.asarray(dst, np.int64) // r, minlength=nblk)
+    return int(np.maximum((counts + k - 1) // k, 1).sum())
+
+
+def stack_key(g: BipartiteGraph) -> tuple[int, ...]:
+    """What fixes the shapes of ``pad_graph(g)``'s leaves: the bucket,
+    the feature widths and the two blocked layouts' chunk counts (their
+    chunk depths follow from the bucket)."""
+    m_pad, n_pad, e_pad = (bucket_for(g.ncons), bucket_for(g.nvars),
+                           bucket_for(g.nnz))
+    return (m_pad, n_pad, e_pad, g.c_feas.shape[1], g.v_feas.shape[1],
+            chunk_count(g.row, m_pad, pick_block_k(e_pad, m_pad)),
+            chunk_count(g.col, n_pad, pick_block_k(e_pad, n_pad)))

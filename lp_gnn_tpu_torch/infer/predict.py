@@ -7,9 +7,10 @@ device, or, under ``--mesh_shape edge=K`` for graphs above
 with the halo exchange. The JAX package builds no mesh when K exceeds its
 device count (``mesh_from_cfg`` :35-48); the port places all K shards on
 the model's one device instead (``parallel/mesh.py``), so the path runs on
-one GPU. Graphs above ``edge_num_thresh`` without a mesh take the sampled
-branch (:142-162), which is not ported: it raises and names the ROADMAP
-item.
+one GPU. Graphs above ``edge_num_thresh`` without a mesh take the exact
+sampled branch (:142-162): fanout -1 shards over seed batches of
+``batch_size`` nodes in index order, one forward a shard, each shard's
+seed logits written back in place, which equals the full-graph forward.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from torch import nn
 
 from ..data.dataset import BipartiteGraph, LPDataset
 from ..data.graph import GraphTensors
+from ..data.sampling import sample_subgraphs
 from ..io.bas import read_bas, write_bas_highs
 from ..parallel import edge_partition
 from ..parallel.mesh import EdgeMesh, make_mesh, parse_mesh_shape
@@ -71,30 +73,50 @@ def _dist_partition(g: BipartiteGraph, mesh: EdgeMesh,
 
 def model_inference(model: nn.Module, g: BipartiteGraph,
                     edge_num_thresh: float = np.inf,
-                    mesh: EdgeMesh | None = None,
+                    batch_size: int = 10240 * 32, depth: int | None = None,
+                    rng=None, mesh: EdgeMesh | None = None,
                     dist_cache: dict | None = None,
                     part_dir: str | None = None):
     """Exact logits for every node of one graph (reference val.py:12-41):
-    one full-graph forward on the model's device, edge-partitioned over
-    ``mesh`` for graphs above ``edge_num_thresh`` (``dist_cache``, one dict
-    per dataset pass, holds the host partition). Returns
-    (logit_cons (m, 3), logit_vars (n, 3)) numpy fp32."""
+    one full-graph forward on the model's device; for graphs above
+    ``edge_num_thresh``, edge-partitioned over ``mesh`` (``dist_cache``,
+    one dict per dataset pass, holds the host partition) or, without a
+    mesh, exact sampled shards (:142-162): fanout -1 over ``max(depth - 1,
+    1)`` hops from seed batches of ``batch_size`` nodes in index order,
+    each shard's seed logits scattered back. ``rng`` (default
+    ``RandomState(0)``) is the sampler's, which an exact unshuffled pass
+    never draws from. Returns (logit_cons (m, 3), logit_vars (n, 3)) numpy
+    fp32."""
     if _uses_dist_path(g, edge_num_thresh, mesh):
         dg = _dist_partition(g, mesh, dist_cache, cache_dir=part_dir)
         with torch.inference_mode():
             lc, lv = edge_partition.dist_apply(model, dg, mesh)
         return lc[:g.ncons].cpu().numpy(), lv[:g.nvars].cpu().numpy()
-    if g.nnz > edge_num_thresh:
-        raise NotImplementedError(
-            f"{g.fn}: {g.nnz} edges > edge_num_thresh={edge_num_thresh:g} "
-            "takes the sampled-shard inference, which is not ported to "
-            "lp_gnn_tpu_torch yet (ROADMAP.md, queue item 5: sampling); "
-            "--mesh_shape edge=K runs it edge-partitioned instead")
     device = next(model.parameters()).device
-    gt = GraphTensors.from_graph(g, device)
-    with torch.inference_mode():
-        lc, lv = model(gt)
-    return lc.cpu().numpy(), lv.cpu().numpy()
+    if g.nnz <= edge_num_thresh:
+        gt = GraphTensors.from_graph(g, device)
+        with torch.inference_mode():
+            lc, lv = model(gt)
+        return lc.cpu().numpy(), lv.cpu().numpy()
+    rng = rng or np.random.RandomState(0)
+    hops = max((depth or 3) - 1, 1)
+    shards = sample_subgraphs(g, rng, fanout=[-1] * hops,
+                              batch_size=batch_size, shuffle=False,
+                              drop_last=False, exact=True)
+    lc_out = np.zeros((g.ncons, 3), np.float32)
+    lv_out = np.zeros((g.nvars, 3), np.float32)
+    # the shards' seeds run through the nodes in index order (no shuffle):
+    # constraints first, then variables
+    c_ptr = v_ptr = 0
+    for sub in shards:
+        gt = GraphTensors.from_graph(sub.g, device)
+        with torch.inference_mode():
+            lc, lv = model(gt)
+        lc_out[c_ptr:c_ptr + sub.s_bs] = lc[:sub.s_bs].cpu().numpy()
+        lv_out[v_ptr:v_ptr + sub.t_bs] = lv[:sub.t_bs].cpu().numpy()
+        c_ptr += sub.s_bs
+        v_ptr += sub.t_bs
+    return lc_out, lv_out
 
 
 def validation(model: nn.Module, ds: LPDataset, cfg,
@@ -119,7 +141,8 @@ def validation(model: nn.Module, ds: LPDataset, cfg,
             cfg.inference_manager, cfg.dataset).get_basis_folder()
     for i in range(len(ds)):
         g = ds[i]
-        lc, lv = model_inference(model, g, cfg.edge_num_thresh, mesh=mesh,
+        lc, lv = model_inference(model, g, cfg.edge_num_thresh,
+                                 cfg.batch_size, cfg.arch_depth(), mesh=mesh,
                                  dist_cache=dist_cache, part_dir=part_dir)
         if wrt_converged:
             tgt = f"{cfg.log_dir}/opt-from-{basis_folder}/{g.fn}.bas"
@@ -155,7 +178,8 @@ def predict_and_write_bases(model: nn.Module, ds: LPDataset, cfg,
     part_dir = part_cache_dir(cfg)
     for i in range(len(ds)):
         g = ds[i]
-        lc, lv = model_inference(model, g, cfg.edge_num_thresh, mesh=mesh,
+        lc, lv = model_inference(model, g, cfg.edge_num_thresh,
+                                 cfg.batch_size, cfg.arch_depth(), mesh=mesh,
                                  dist_cache=dist_cache, part_dir=part_dir)
         logits = np.concatenate([lc, lv]).astype(np.float32)
         m = g.ncons
@@ -197,7 +221,8 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
 
     ``inf_time`` covers the forward (graph tensors, or the partition's
     tensors, built on the device included, as the JAX package's includes
-    ``pad_graph``) plus the top-m decode: the median of 3 timed passes after
+    ``pad_graph``; on the sampled path the host sampling of the shards and
+    each shard's forward) plus the top-m decode: the median of 3 timed passes after
     one warm-up, each ending with ``torch.cuda.synchronize()`` on the card.
     The host partition of an edge-partitioned graph is a per-graph constant,
     timed once into ``part_time`` and kept out of ``inf_time`` (predict.py
@@ -221,8 +246,10 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
             part_times[g.fn] = time.perf_counter() - t0
 
         def infer():
-            return model_inference(model, g, cfg.edge_num_thresh, mesh=mesh,
-                                   dist_cache=dist_cache, part_dir=part_dir)
+            return model_inference(model, g, cfg.edge_num_thresh,
+                                   cfg.batch_size, cfg.arch_depth(),
+                                   mesh=mesh, dist_cache=dist_cache,
+                                   part_dir=part_dir)
 
         infer()   # warm-up
         sync()

@@ -1,0 +1,110 @@
+"""Graph-batched and data-parallel training steps (counterpart of
+``lp_gnn_tpu/parallel/dp.py``).
+
+The JAX package stacks same-shape padded graphs on a leading axis, shards
+the stack over the ``dp`` mesh axis and vmaps the loss over the graphs of
+each shard (``make_dp_train_step`` :46): the gradient of the mean of the
+per-graph losses, averaged over the shards. The port has no padding, so a
+stack is one disjoint union of its graphs (``data/graph.py union``) that
+the model runs in one forward: a step launches each kernel as often as one
+graph's step does, whatever the number of graphs. Under ``--mesh_shape
+dp=K`` every rank builds the same stacks of K*B graphs and takes the
+contiguous block ``[r*B, (r+1)*B)`` of each (as ``P("dp")`` splits the
+leading axis); after its backward the ranks average their gradients by
+one all-reduce and step the same optimizer, so they stay equal.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..data.graph import GraphTensors, seed_masks
+from ..data.stacking import stack_key
+from .mesh import world_and_rank
+
+
+def stack_groups(ds, size: int, edge_num_thresh: float):
+    """Group the graphs of ``ds`` as the JAX trainer does
+    (``trainer.py:538-568``): graphs above ``edge_num_thresh`` are sampled
+    every epoch and stack with none; the rest, in index order, fall into
+    groups of one stack key (``data/stacking.py``), each group cut into
+    stacks of ``size``, its remainder left to single steps. Returns
+    (stacks: lists of ``size`` indices, singles, sampled), all indices of
+    ``ds``, in the JAX package's order."""
+    by_key: dict = {}
+    sampled = []
+    for gi in range(len(ds)):
+        g = ds[gi]
+        if g.nnz > edge_num_thresh:
+            sampled.append(gi)
+            continue
+        by_key.setdefault(stack_key(g), []).append(gi)
+    stacks, singles = [], []
+    for group in by_key.values():
+        while len(group) >= size:
+            stacks.append(group[:size])
+            group = group[size:]
+        singles.extend(group)
+    return stacks, singles, sampled
+
+
+def rank_block(stack: list, world: int, rank: int) -> list:
+    """This rank's contiguous share of a stack of ``world`` x B graphs."""
+    per_rank = len(stack) // world
+    return stack[rank * per_rank:(rank + 1) * per_rank]
+
+
+def member_losses(lc, lv, g: GraphTensors, loss_fn) -> torch.Tensor:
+    """Each graph's loss over its own seeds, from the union's logits
+    (the per-graph ``loss_fn`` that ``jax.vmap`` maps, dp.py:52-58)."""
+    out = []
+    for mb in g.members:
+        cs = slice(mb.c0, mb.c0 + mb.ncons)
+        vs = slice(mb.v0, mb.v0 + mb.nvars)
+        ms, mt = seed_masks(mb.ncons, mb.nvars, mb.s_bs, mb.t_bs, g.device)
+        out.append(loss_fn(lc[cs], lv[vs], g.y_s[cs], g.y_t[vs], ms, mt))
+    return torch.stack(out)
+
+
+def step_generator(gen: torch.Generator | None,
+                   rank: int) -> torch.Generator | None:
+    """A dropout generator for one batched step on this rank: seeded from
+    one draw of the run's ``gen`` (the same draw on every rank) plus the
+    rank, so that the ranks' masks differ but their run generators stay
+    equal, whatever the size of each rank's graphs."""
+    if gen is None:
+        return None
+    seed = int(torch.randint(2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+    return torch.Generator(device=gen.device).manual_seed(seed + rank)
+
+
+def dp_train_step(model, optimizer: torch.optim.Optimizer, g: GraphTensors,
+                  loss_fn, generator: torch.Generator | None = None):
+    """One step on a union of graphs (``make_dp_train_step`` :46): one
+    forward in training mode, the mean of the per-graph losses, one
+    backward; across the ranks of a process group the gradients are
+    averaged (summed by one all-reduce, then divided by the ranks), then
+    the optimizer steps. Returns the mean loss over every rank's graphs, a
+    0-d tensor on the device (before the update)."""
+    model.train()
+    lc, lv = model(g, generator=generator)
+    loss = member_losses(lc, lv, g, loss_fn).mean()
+    optimizer.zero_grad(set_to_none=True)
+    if loss.requires_grad:   # GCNRand's logits depend on no parameter
+        loss.backward()
+    loss = loss.detach()
+    world, _ = world_and_rank()
+    if world > 1:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([t.reshape(-1) for t in grads]
+                         + [loss.reshape(1).float()])
+        dist.all_reduce(flat)
+        flat /= world
+        off = 0
+        for t in grads:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+        loss = flat[-1]
+    optimizer.step()
+    return loss

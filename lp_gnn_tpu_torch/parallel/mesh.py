@@ -1,4 +1,5 @@
-"""The ``edge`` mesh (counterpart of ``lp_gnn_tpu/parallel/mesh.py``).
+"""The ``edge`` mesh and the ``dp`` process group (counterpart of
+``lp_gnn_tpu/parallel/mesh.py``).
 
 The JAX package builds a ``jax.sharding.Mesh`` over its devices
 (``make_mesh`` :72) and its tests run the edge axis on a virtual 8-device
@@ -7,14 +8,25 @@ on devices it is given; in this version all K placements are one device
 (the card of the run, or the CPU when asked), which is how the path runs on
 one GPU. Shards on several cards (NVLink peer copies, NCCL) are ROADMAP.md
 queue item 7; a placement that names two distinct devices raises.
-Multi-host initialisation (``maybe_init_distributed`` :20) waits for queue
-items 6 and 7.
+
+The ``dp`` axis is one process a rank, joined by ``torch.distributed``
+from the JAX package's environment contract (``maybe_init_distributed``
+:20): ``LP_GNN_DIST_COORD`` (host:port of rank 0), ``LP_GNN_DIST_NPROCS``
+(the world size) and ``LP_GNN_DIST_PROC_ID`` (this rank). A launcher sets
+them, one process a rank. Rank r computes on ``cuda:{r % device_count}``
+(or the CPU when asked); the group runs NCCL where every rank has a card
+of its own and gloo otherwise (the CPU, or ranks that share a card: NCCL
+refuses two ranks on one device).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 def parse_mesh_shape(spec: str) -> dict[str, int]:
@@ -60,3 +72,59 @@ def make_mesh(n_shards: int, device: torch.device | str) -> EdgeMesh:
     if n_shards < 1:
         raise ValueError(f"edge mesh of {n_shards} shards")
     return EdgeMesh((torch.device(device),) * n_shards)
+
+
+class DistEnv(NamedTuple):
+    coord: str    # host:port of rank 0
+    world: int
+    rank: int
+
+
+def dist_env() -> DistEnv | None:
+    """The ``LP_GNN_DIST_*`` contract of this process (mesh.py:20-50), or
+    None where ``LP_GNN_DIST_COORD`` is unset."""
+    coord = os.environ.get("LP_GNN_DIST_COORD", "")
+    if not coord:
+        return None
+    env = DistEnv(coord, int(os.environ["LP_GNN_DIST_NPROCS"]),
+                  int(os.environ["LP_GNN_DIST_PROC_ID"]))
+    if env.world < 1 or not 0 <= env.rank < env.world:
+        raise ValueError(f"LP_GNN_DIST_PROC_ID={env.rank} outside "
+                         f"LP_GNN_DIST_NPROCS={env.world}")
+    return env
+
+
+def is_primary() -> bool:
+    """Whether this process writes the run's files: rank 0, or a process
+    outside the contract."""
+    env = dist_env()
+    return env is None or env.rank == 0
+
+
+def init_distributed(device: torch.device) -> tuple[torch.device, bool]:
+    """Join the process group of the contract, if one is set: returns this
+    rank's device (``cuda:{rank % device_count}`` for ``cuda``) and whether
+    this call created the group (its caller then destroys it)."""
+    env = dist_env()
+    if env is None:
+        return device, False
+    if device.type == "cuda":
+        device = torch.device("cuda", env.rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if dist.is_initialized():
+        return device, False
+    own_card = device.type == "cuda" and \
+        env.world <= torch.cuda.device_count()
+    backend = "nccl" if own_card else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://{env.coord}",
+                            world_size=env.world, rank=env.rank)
+    logging.info("process group: rank %d of %d, %s, %s", env.rank,
+                 env.world, backend, device)
+    return device, True
+
+
+def world_and_rank() -> tuple[int, int]:
+    """(ranks, this rank) of the process group; (1, 0) without one."""
+    if dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0

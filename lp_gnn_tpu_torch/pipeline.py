@@ -36,6 +36,7 @@ from .infer.predict import (_nnzs_for_decode, mesh_from_cfg, model_inference,
 from .io.bas import write_bas_highs
 from .models.convert import load_checkpoint
 from .models.gcn import build_model
+from .parallel.mesh import is_primary
 from .prep import (mps_files, solve_backend, stage_cvt_to_pkl,  # noqa: F401
                    stage_generate, stage_prep_data, stage_process,
                    stage_run_solver)
@@ -146,7 +147,8 @@ def calibrate_warm_gate(model, train_ds: LPDataset, cfg: Config, inf_mng,
         cold_niter, _ = extract_time(cold_log)
         if cold_niter < 0:
             continue
-        lc, lv = model_inference(model, g, cfg.edge_num_thresh, mesh=mesh,
+        lc, lv = model_inference(model, g, cfg.edge_num_thresh,
+                                 cfg.batch_size, cfg.arch_depth(), mesh=mesh,
                                  dist_cache=dist_cache, part_dir=part_dir)
         logits = np.concatenate([lc, lv]).astype(np.float32)
         pred = decode_fn(logits, g.ncons,
@@ -316,8 +318,11 @@ def stage_extract(cfg: Config):
 
 def run_train_test(cfg: Config) -> dict:
     """run_train_test.py: train -> predict -> warm start -> val -> extract
-    (pipeline.py:485; reference run_train_test.py:11-19)."""
+    (pipeline.py:485; reference run_train_test.py:11-19). Under the
+    LP_GNN_DIST_* contract every rank trains and rank 0 alone goes on."""
     ckpt = stage_train(cfg)
+    if not is_primary():
+        return {"ckpt": ckpt}
     stage_pred_basis(cfg, ckpt)
     stage_warm_start(cfg)
     stage_val(cfg, ckpt, wrt_converged=True)

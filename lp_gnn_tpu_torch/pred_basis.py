@@ -6,6 +6,8 @@
 
 ``--load_from`` takes a torch ``mdl.pth`` state_dict (reference or this
 package) or a JAX ``mdl.ckpt``. Runs on the GPU unless ``--device cpu``.
+Graphs above ``--edge_num_thresh`` are served by exact sampled shards of
+``--batch_size`` seeds, or edge-partitioned under ``--mesh_shape edge=K``.
 """
 from __future__ import annotations
 

@@ -6,7 +6,11 @@
 
 Writes ``{log_dir}/mdl.pth``, ``train_state.pth``, ``metrics.jsonl`` and
 ``args.json`` and prints the ``mdl.pth`` path. Runs on the GPU unless
-``--device cpu``.
+``--device cpu``. Graphs above ``--edge_num_thresh`` train on sampled
+subgraphs (``--batch_size`` seeds each); ``--graph_batch B`` steps B
+graphs of one stack key at a time; ``--mesh_shape dp=K`` runs as K
+processes, one a rank, each given ``LP_GNN_DIST_COORD`` (host:port of rank
+0), ``LP_GNN_DIST_NPROCS`` (K) and ``LP_GNN_DIST_PROC_ID`` (its rank).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Training engine (counterpart of ``lp_gnn_tpu/train/trainer.py``; reference
-train.py:55-172): the single-device, full-graph path of ``run_exp``.
+train.py:55-172): ``run_exp`` on one device or over the ranks of a dp
+process group, on full graphs, sampled subgraphs and graph-batched unions.
 
 - Optimizer: ``torch.optim.Adam(weight_decay=5e-4)``, the coupled L2 decay
   the JAX package builds as optax ``add_decayed_weights`` +
@@ -22,10 +23,25 @@ train.py:55-172): the single-device, full-graph path of ``run_exp``.
   weights from ``train_state.pth``: a save cut between the two files
   leaves ``mdl.pth`` an epoch behind, never a pair from two epochs.
 
+- A graph above ``edge_num_thresh`` is sampled afresh every epoch
+  (``data/sampling.py``, fanout ``[6] * max(depth - 1, 1)``, ``--batch_size``
+  seeds, trainer.py:467-470) at its place in the epoch, from the run's
+  numpy stream, and takes one step a subgraph over the subgraph's seeds;
+  its tensors are built a subgraph at a time, with the input cache (2 SpMM
+  launches a subgraph, as many as the input conv would run inline).
+- ``--graph_batch B`` and ``--mesh_shape dp=K`` (trainer.py:472-490,
+  649-671): the graphs at or below ``edge_num_thresh`` are grouped as the
+  JAX trainer groups them (``parallel/dp.py stack_groups``), each stack of
+  K*B graphs one step over the disjoint union of this rank's B
+  (``dp_train_step``), in the order ``rng_np.permutation(len(stacks))``
+  draws; then the graphs left single, then the sampled ones. ``dp=K``
+  runs K ranks of the ``LP_GNN_DIST_*`` contract (``parallel/mesh.py``);
+  with fewer ranks it falls back to single-graph steps with a warning, as
+  trainer.py:477-481 does. Only rank 0 writes files.
+
 What the JAX ``run_exp`` also does and the port does not yet raises and
-names its ROADMAP item: sampled training of a graph above
-``edge_num_thresh``, ``--mesh_shape`` dp / edge training, ``--graph_batch``
-and ``--steps_per_call`` above 1, ``--trace 1``.
+names its ROADMAP item: ``--mesh_shape`` edge training (and dp x edge),
+``--steps_per_call`` above 1, ``--trace 1``.
 """
 from __future__ import annotations
 
@@ -38,17 +54,21 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.dataset import LPDataset, split_train_val
-from ..data.graph import GraphTensors
+from ..data.graph import GraphTensors, seed_masks as _seed_masks, union
+from ..data.sampling import sample_subgraphs
 from ..device import resolve_device
 from ..infer.decode import decode_topm_device
 from ..infer.predict import model_inference
 from ..models.convert import is_torch_checkpoint, load_checkpoint
 from ..models.gcn import build_model
 from ..ops.spmm import attach_input_agg
-from ..parallel.mesh import parse_mesh_shape
+from ..parallel.dp import (dp_train_step, rank_block, stack_groups,
+                           step_generator)
+from ..parallel.mesh import init_distributed, parse_mesh_shape, world_and_rank
 from ..utils.misc import AverageMeter
 from ..utils.serialize import json_dump
 from .losses import LOSS_REGISTRY
@@ -81,9 +101,9 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 # ----------------------------------------------------------------- train step
 def seed_masks(g: GraphTensors):
-    """The loss masks (trainer.py:63): every node of a full graph."""
-    ones = torch.ones((), dtype=torch.bool, device=g.device)
-    return ones.expand(g.ncons), ones.expand(g.nvars)
+    """The loss masks (trainer.py:63): the seed prefix, every node of a
+    full graph."""
+    return _seed_masks(g.ncons, g.nvars, g.s_bs, g.t_bs, g.device)
 
 
 def step_accuracy(g: GraphTensors, lc, lv, ms, mt):
@@ -117,14 +137,17 @@ def train_step(model, optimizer, g: GraphTensors, loss_fn,
     return loss.detach(), acc
 
 
-def train_graph(model, g, device) -> GraphTensors:
-    """One training graph's tensors on ``device`` with its labels and what
+def train_graph(model, g, device, s_bs: int | None = None,
+                t_bs: int | None = None) -> GraphTensors:
+    """One training graph's tensors on ``device`` with its labels, its
+    seeds (a sampled subgraph's prefix; all nodes by default) and what
     ``model`` reads: the edge permutations where its backward needs them
     (GEN's gather), the input conv's cached aggregations where its input
     conv uses them (not GEN's: its aggregation depends on its parameters,
     trainer.py:457-459; not GCNRand's, which reads no graph)."""
     gt = GraphTensors.from_graph(g, device, labels=True,
-                                 perms=model.needs_edge_perms)
+                                 perms=model.needs_edge_perms,
+                                 s_bs=s_bs, t_bs=t_bs)
     if model.reads_input_agg:
         gt = attach_input_agg(gt, model.cdtype)
     return gt
@@ -158,6 +181,17 @@ class MetricsWriter:
         self._f.close()
         if self.tb is not None:
             self.tb.close()
+
+
+class NullWriter:
+    """The writer of a rank other than 0, which writes no file
+    (trainer.py:201)."""
+
+    def scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def close(self):
+        pass
 
 
 # ---------------------------------------------------------------- checkpoints
@@ -226,17 +260,11 @@ def _restore_rng(state: dict, rng_np: np.random.RandomState,
 # -------------------------------------------------------------------- run_exp
 def _refuse_unported(cfg: Config) -> None:
     mesh = parse_mesh_shape(cfg.mesh_shape or "")
-    if mesh.get("dp", 1) > 1 or mesh.get("edge", 1) > 1:
+    if mesh.get("edge", 1) > 1:
         raise NotImplementedError(
-            f"--mesh_shape {cfg.mesh_shape}: data-parallel and "
-            "edge-partitioned training are not ported to lp_gnn_tpu_torch "
-            "yet (ROADMAP.md, queue item 6: dp; queue item 7: edge "
-            "partition, the rest)")
-    if cfg.graph_batch > 1:
-        raise NotImplementedError(
-            f"--graph_batch {cfg.graph_batch}: several graphs a step go "
-            "through the batched (dp) step, which is not ported yet "
-            "(ROADMAP.md, queue item 6: dp)")
+            f"--mesh_shape {cfg.mesh_shape}: edge-partitioned training (and "
+            "dp x edge) is not ported to lp_gnn_tpu_torch yet (ROADMAP.md, "
+            "queue item 7: edge partition, the rest)")
     if cfg.steps_per_call > 1:
         raise NotImplementedError(
             f"--steps_per_call {cfg.steps_per_call}: several steps a "
@@ -265,14 +293,47 @@ def quick_val(model, val_ds: LPDataset, cfg: Config) -> float:
     return total / max(len(val_ds), 1)
 
 
+def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
+    """(dp, graph_batch) of the run: ``--mesh_shape dp=K`` over K ranks
+    of the process group, or, with fewer ranks, single-graph steps with a
+    warning, graph_batch dropped too (trainer.py:477-481)."""
+    dp_size = int(parse_mesh_shape(cfg.mesh_shape or "").get("dp", 1))
+    graph_batch = max(int(cfg.graph_batch), 1)
+    if dp_size > world:
+        logging.warning("mesh_shape dp=%d exceeds %d rank(s) — falling back "
+                        "to single-device steps%s", dp_size, world,
+                        " (graph_batch dropped too)" if graph_batch > 1
+                        else "")
+        return 1, 1
+    if world > 1 and dp_size != world:
+        raise ValueError(f"the process group has {world} ranks: "
+                         f"--mesh_shape dp={dp_size} must name them all")
+    return dp_size, graph_batch
+
+
 def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
-    """A full training run on ``cfg.device`` (trainer.py:282, the
-    single-device full-graph branch); returns the ``mdl.pth`` path."""
+    """A full training run on ``cfg.device`` (trainer.py:282); returns the
+    ``mdl.pth`` path. Under the ``LP_GNN_DIST_*`` contract it joins the
+    process group first (and leaves a group it created when it ends)."""
     device = resolve_device(cfg.device)
     _refuse_unported(cfg)
+    device, own_group = init_distributed(device)
+    try:
+        return _run(cfg, dataset, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
+    world, rank = world_and_rank()
+    dp_size, graph_batch = batch_shape(cfg, world)
+    stack_size = dp_size * graph_batch
+    primary = rank == 0
     log_dir = cfg.log_dir
-    writer = MetricsWriter(log_dir)
-    json_dump(cfg.to_dict(), osp.join(log_dir, "args.json"))
+    writer = MetricsWriter(log_dir) if primary else NullWriter()
+    if primary:
+        json_dump(cfg.to_dict(), osp.join(log_dir, "args.json"))
 
     ds = dataset or LPDataset(cfg.dataset_processed_prefix)
     train_ds, val_ds = split_train_val(ds, cfg.seed)
@@ -294,42 +355,56 @@ def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
         glstep = _restore_rng(state.get("run_state"), rng_np, gen)
         logging.info("resumed from %s at epoch %d", cfg.load_from,
                      start_epoch)
+    if stack_size > 1:
+        logging.info("batched training: %d rank(s) x %d graphs a step",
+                     dp_size, graph_batch)
 
-    graphs: dict[int, GraphTensors] = {}
+    graphs: dict = {}   # tensors kept across epochs: graphs and unions
+    hops = max(cfg.arch_depth() - 1, 1)
 
     def graph_for(idx: int) -> GraphTensors:
         """``train_graph``'s tensors, built once a graph and kept."""
         if idx not in graphs:
-            g = train_ds[idx]
-            if g.nnz > cfg.edge_num_thresh:
-                raise NotImplementedError(
-                    f"{g.fn}: {g.nnz} edges > edge_num_thresh="
-                    f"{cfg.edge_num_thresh:g} takes sampled training, which "
-                    "is not ported to lp_gnn_tpu_torch yet (ROADMAP.md, "
-                    "queue item 5: sampling)")
-            graphs[idx] = train_graph(model, g, device)
+            graphs[idx] = train_graph(model, train_ds[idx], device)
         return graphs[idx]
+
+    def batches_for(idx: int):
+        """The graph's tensors, or, above ``edge_num_thresh``, those of a
+        fresh sample of its subgraphs, built one at a time (trainer.py
+        :426-470)."""
+        g = train_ds[idx]
+        if g.nnz <= cfg.edge_num_thresh:
+            yield graph_for(idx)
+            return
+        for sub in sample_subgraphs(g, rng_np, fanout=[6] * hops,
+                                    batch_size=cfg.batch_size):
+            yield train_graph(model, sub.g, device, sub.s_bs, sub.t_bs)
+
+    def union_for(stack: list) -> GraphTensors:
+        """The union of this rank's block of a stack, built once."""
+        key = ("stack", *stack)
+        if key not in graphs:
+            graphs[key] = union([train_graph(model, train_ds[i], device)
+                                 for i in rank_block(stack, world, rank)])
+        return graphs[key]
 
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
     n_train = len(train_ds)
     extra = {"arch": cfg.arch, "loss": cfg.loss}
     mdl_path = osp.join(log_dir, "mdl.pth")
+    groups = None
     for epoch in range(start_epoch, cfg.epochs):
         lr = step_lr(cfg.lr, cfg.epochs, epoch)
         set_lr(optimizer, lr)
         loss_meter.reset(), acc_meter.reset()
-        for idx_graphs, gi in enumerate(rng_np.permutation(n_train)):
-            gt = graph_for(int(gi))
-            glstep += 1
-            want_acc = bool(cfg.step_acc) or glstep % LOG_EVERY == 1
-            loss, acc = train_step(model, optimizer, gt, loss_fn, gen,
-                                   want_acc)
-            loss_v = float(loss)
+        order = rng_np.permutation(n_train)
+
+        def log_step(idx_graphs, loss_v, acc):
             if np.isnan(loss_v):
                 raise FloatingPointError(
                     f"nan loss at step {glstep} (reference train.py:126)")
             loss_meter.update(loss_v)
-            if acc is not None:
+            if acc is not None:   # batched steps report no accuracy
                 acc_meter.update(float(acc))
             if glstep % LOG_EVERY == 1:
                 logging.info("ep %d %d/%d step %d loss %.4f acc %.4f lr %g",
@@ -339,15 +414,45 @@ def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
                 writer.scalar("train/loss", loss_meter.avg, glstep)
                 writer.scalar("train/acc", acc_meter.avg, glstep)
                 writer.scalar("train/lr", lr, glstep)
+
+        def run_one(idx_graphs, gt):
+            nonlocal glstep
+            glstep += 1
+            want_acc = bool(cfg.step_acc) or glstep % LOG_EVERY == 1
+            loss, acc = train_step(model, optimizer, gt, loss_fn, gen,
+                                   want_acc)
+            log_step(idx_graphs, float(loss), acc)
+
+        if stack_size > 1:
+            # trainer.py:649-671: the stacks in a drawn order, then the
+            # graphs left single, then the sampled ones
+            if groups is None:
+                groups = stack_groups(train_ds, stack_size,
+                                      cfg.edge_num_thresh)
+            stacks, singles, sampled = groups
+            for bi in rng_np.permutation(len(stacks)):
+                gt = union_for(stacks[int(bi)])
+                glstep += 1
+                loss = dp_train_step(model, optimizer, gt, loss_fn,
+                                     step_generator(gen, rank))
+                log_step(0, float(loss), None)
+            for gi in [*singles, *sampled]:
+                for gt in batches_for(gi):
+                    run_one(0, gt)
+        else:
+            for idx_graphs, gi in enumerate(order):
+                for gt in batches_for(int(gi)):
+                    run_one(idx_graphs, gt)
         # the NEXT epoch to run, so a resume does not repeat this one
-        save_checkpoint(log_dir, model, optimizer, epoch + 1, extra,
-                        _rng_state(rng_np, gen, glstep))
+        if primary:
+            save_checkpoint(log_dir, model, optimizer, epoch + 1, extra,
+                            _rng_state(rng_np, gen, glstep))
         if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0 and \
                 len(val_ds):
             va = quick_val(model, val_ds, cfg)
             writer.scalar("val/acc", va, glstep)
             logging.info("epoch %d val acc %.4f", epoch, va)
-    if start_epoch >= cfg.epochs:   # no epoch ran: the loaded weights
+    if start_epoch >= cfg.epochs and primary:   # no epoch ran
         save_checkpoint(log_dir, model, optimizer, cfg.epochs, extra,
                         _rng_state(rng_np, gen, glstep))
     writer.close()

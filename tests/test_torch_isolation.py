@@ -67,6 +67,10 @@ def test_every_module_imports_without_jax(tmp_path):
         loaded = [m for m, v in sys.modules.items() if v is not None and
                   m.split(".")[0] in ("jax", "jaxlib", "optax", "lp_gnn_tpu")]
         assert not loaded, loaded
+        # the sampled, graph-batched and dp paths' modules among them
+        assert {"lp_gnn_tpu_torch.data.sampling",
+                "lp_gnn_tpu_torch.data.stacking",
+                "lp_gnn_tpu_torch.parallel.dp"} <= set(names), names
         print(len(names))
     """, tmp_path)
     assert int(out.split()[-1]) >= 20

@@ -877,3 +877,50 @@ def test_split_rows_after_a_smaller_grid(cuda_device, kernel):
             rtol = 1e-4
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5)
+
+
+def edgeless(num_dst, n_src, d, dtype, device):
+    """A direction with ``num_dst`` rows and no edge (a sampled subgraph's
+    seeds can have none), x (n_src, d) and GEN's w, b, t."""
+    gen = torch.Generator().manual_seed(n_src + d)
+    ptr = torch.zeros(num_dst + 1, dtype=torch.int32)
+    idx = torch.zeros(0, dtype=torch.int32)
+    val = torch.zeros(0, dtype=torch.float32)
+    x, w, b = (torch.randn(*s, generator=gen) for s in ((n_src, d), (d,), (d,)))
+    dense = [v.to(dtype) for v in (x, w, b, torch.tensor(1.5))]
+    return [v.to(device) for v in (ptr, idx, val, *dense)]
+
+
+def check_edgeless(device, n_src, dtype):
+    ptr, idx, val, x, w, b, t = edgeless(300, n_src, 16, dtype, device)
+    out = tspmm.spmm_csr(ptr, idx, val, x)
+    aggr, lse = gen_agg.gen_agg_fwd(ptr, idx, val, x, w, b, t)
+    g = torch.randn(300, 16, device=device)
+    dpre, dw, db, dt = gen_agg.gen_agg_bwd(ptr, idx, val, x, w, b, t, g,
+                                           aggr, lse)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    assert out.shape == (300, 16) and out.dtype == dtype and not out.any()
+    assert aggr.shape == (300, 16) and not aggr.any()
+    assert dpre.shape[0] == 0 and not (dw.any() or db.any() or dt.any())
+
+
+@pytest.mark.parametrize("n_src", [0, 5])
+def test_kernels_on_edgeless_graphs(n_src):
+    """On the CPU the plain versions of an edgeless direction give zeros:
+    the SpMM's rows, GEN's aggregation and its gradients."""
+    check_edgeless(torch.device("cpu"), n_src, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_src", [0, 5])
+def test_kernels_on_edgeless_graphs_on_card(cuda_device, n_src, dtype):
+    """On the card the SpMM and GEN's two kernels launch once each over
+    300 rows and no edge, with no source row or some, and write zeros:
+    the plain versions' result."""
+    before = (tspmm.spmm_csr.launches, gen_agg.gen_agg_fwd.launches,
+              gen_agg.gen_agg_bwd.launches)
+    check_edgeless(cuda_device, n_src, dtype)
+    assert (tspmm.spmm_csr.launches, gen_agg.gen_agg_fwd.launches,
+            gen_agg.gen_agg_bwd.launches) == tuple(n + 1 for n in before)

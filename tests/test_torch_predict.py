@@ -235,14 +235,27 @@ def test_warm_gate_auto_runs(data_prefix, params, tmp_path):
     assert gate["decode"] == "pred-basis" and gate["lps"] == []
 
 
-# explicit ids keep each remaining case's test name
-@pytest.mark.parametrize("extra,match", [
-    pytest.param(["--warm_gate", "off", "--edge_num_thresh", "100"],
-                 "sampling", id="extra2-sampling"),
+# explicit ids keep each case's test name
+@pytest.mark.parametrize("extra", [
+    pytest.param(["--warm_gate", "off", "--edge_num_thresh", "100",
+                  "--batch_size", "17"], id="extra2-sampling"),
 ])
-def test_unported_routes_raise(data_prefix, tmp_path, extra, match):
-    """Routes this slice does not port raise and name the ROADMAP item;
-    none quietly takes another route."""
-    with pytest.raises(NotImplementedError, match=match):
-        pred_basis.main(_cli(data_prefix, str(tmp_path), "--device", "cpu",
-                             *extra))
+def test_unported_routes_raise(data_prefix, params, tmp_path, extra):
+    """The route of each case, once refused (it named its ROADMAP item),
+    now runs: graphs above --edge_num_thresh take exact sampled shards of
+    --batch_size seeds, which give GCN_FC the full graph's logits, so the
+    entry point writes the full-graph route's .bas files."""
+    model = build_model(ARCH)
+    model.load_state_dict(state_dict_from_jax_params(params))
+    ckpt = str(tmp_path / "mdl.pth")
+    torch.save(model.state_dict(), ckpt)
+    outs = [pred_basis.main(_cli(data_prefix, str(tmp_path / run),
+                                 "--device", "cpu", "--load_from", ckpt,
+                                 *args))
+            for run, args in (("sampled", extra),
+                              ("full", ["--warm_gate", "off"]))]
+    bas = _files(outs[0], ".bas")
+    assert bas and bas == _files(outs[1], ".bas")
+    for f in bas:
+        with open(osp.join(outs[0], f)) as a, open(osp.join(outs[1], f)) as b:
+            assert a.read() == b.read(), f

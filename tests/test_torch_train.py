@@ -550,12 +550,10 @@ def test_cli_trains_on_the_cpu_and_needs_a_gpu_otherwise(family, tmp_path,
 
 
 @pytest.mark.parametrize("flag,item", [
-    ({"mesh_shape": "dp=2"}, "queue item 6"),
     ({"mesh_shape": "edge=2"}, "queue item 7"),
-    ({"graph_batch": 2}, "queue item 6"),
+    ({"mesh_shape": "dp=2,edge=2"}, "queue item 7"),
     ({"steps_per_call": 2}, "make_scan_train_step"),
     ({"trace": 1}, "profiling"),
-    ({"edge_num_thresh": 0}, "queue item 5"),
 ])
 def test_unported_training_paths_name_their_roadmap_item(family, tmp_path,
                                                          flag, item):
@@ -563,6 +561,24 @@ def test_unported_training_paths_name_their_roadmap_item(family, tmp_path,
     cfg = port_cfg(data_prefix, tmp_path, "np", **flag)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         pipeline.stage_train(cfg)
+
+
+def test_dp_beyond_the_ranks_falls_back_with_a_warning(family, tmp_path,
+                                                       caplog):
+    """--mesh_shape dp=2 without a process group of 2 ranks warns and
+    trains single-graph steps, graph_batch dropped too (trainer.py:477-481):
+    the run equals one without either flag."""
+    data_prefix, ckpt = family
+    kw = dict(epochs=1, load_from=ckpt)
+    with caplog.at_level("WARNING"):
+        path = ttrainer.run_exp(port_cfg(data_prefix, tmp_path, "dp",
+                                         mesh_shape="dp=2", graph_batch=2,
+                                         **kw))
+    assert "mesh_shape dp=2 exceeds 1 rank(s)" in caplog.text
+    assert "graph_batch dropped too" in caplog.text
+    plain = ttrainer.run_exp(port_cfg(data_prefix, tmp_path, "plain", **kw))
+    a, b = load_checkpoint(path), load_checkpoint(plain)
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_raw_spmm_stays_forward_only():
