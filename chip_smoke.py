@@ -120,6 +120,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (the same rule), rank 1 writes no file; then one process joins an NCCL
    group (NPROCS=1) and all-reduces a gradient-sized buffer on the card.
 
+20. dist_train: the flagship GCN_FC(8,8,hids=1024,depth=3) bf16 through
+   ``train --mesh_shape edge=4 --edge_num_thresh 0`` on 3 bench-shape LPs
+   (2 train, 1 val), 2 epochs: every graph partitioned and stepped over
+   its 4 shards on the card, finite losses, the checkpoints, the launches
+   exactly by step (40 SpMM, 2 K1, 2 gathers: the hidden conv forward and
+   backward; conv1 reads the dist input cache) and in all (240, 12, 12:
+   caches and the val forward included); each epoch's wall time, the
+   steps' spans on the card, the partitions' host seconds, peak memory;
+   then one dist step held against the single-card step from the same
+   weights on one LP (fp32, dropout 0, SGD at lr 1: updates within 1e-4
+   of the largest), the dist step's launches exact.
+21. dist_zoo_serve: GCN(8,8,hids=256), GCNDeeper(8,8,hids=256,depth=5),
+   GENDeeper(8,8,hids=256,depth=5) and GCNRand() through ``pred_basis
+   --mesh_shape edge=4 --edge_num_thresh 0`` on one bench-shape LP each:
+   valid bases, the launches a forward exactly (a GraphConv conv a gather,
+   a K1 and 20 SpMMs; a GEN conv a gather, 8 ``gen_agg_fwd``, a K1 and a
+   ``gen_lse_merge``), ``inf_time``; each arch's dist logits against the
+   single card's (fp32 max |err| <= 1e-3; bf16 mean |err| at most 3x the
+   single card's own bf16 error).
+22. dist_gen_train: one dist GENDeeper(8,8,hids=256,depth=5) step at K=4
+   held against the single-card GEN step (phase 20's rule), its launches
+   exact (40 ``gen_agg_fwd``, 40 ``gen_agg_bwd``, 60 SpMMs, 10 K1, 10
+   gathers, 5 merges).
+
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
 
@@ -149,7 +173,11 @@ mirp_bench LP's structure (D=256 bf16, both directions), each
 bit-identical over two calls, with the transpose SpMM of the gathers'
 backward over the kernel's ``dpre``; each forward also without its lse
 (``need_lse=False``: the same aggr, timed), each row with the kernel's
-registers and resident CTAs an SM.
+registers and resident CTAs an SM. At the dist GEN layer's shapes (the
+bench graph at K=4, shard 0's compact CSRs) it holds both GEN kernels
+again, and ``gen_lse_merge`` over the owners' rows with the slot parts K1
+delivers, D=256 and D=3 fp32, against its plain version, bit-identical
+over two calls.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -188,7 +216,8 @@ from lp_gnn_tpu_torch.ops import gen_agg as gen_agg_mod
 from lp_gnn_tpu_torch.ops import spmm as spmm_mod
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from lp_gnn_tpu_torch.ops.gen_agg import (gen_agg_bwd, gen_agg_bwd_plain,
-                                          gen_agg_fwd, gen_agg_fwd_plain)
+                                          gen_agg_fwd, gen_agg_fwd_plain,
+                                          gen_lse_merge, gen_lse_merge_plain)
 from lp_gnn_tpu_torch.ops.spmm import (attach_input_agg, spmm_cons_to_vars,
                                        spmm_csr, spmm_csr_plain,
                                        spmm_vars_to_cons)
@@ -218,7 +247,8 @@ N_DIST_LPS = 3              # LPs served edge-partitioned
 # (local v2c, local c2v, halo v2c, halo c2v, owner-side reduce)
 DIST_PER_FORWARD = {"halo_all_to_all": 2, "gather_rows": 2,
                     "spmm_csr": 2 * K_EDGE * 5}
-KERNELS = (spmm_csr, gather_rows, halo_all_to_all, gen_agg_fwd, gen_agg_bwd)
+KERNELS = (spmm_csr, gather_rows, halo_all_to_all, gen_agg_fwd, gen_agg_bwd,
+           gen_lse_merge)
 N_TRAIN_LPS = 4             # LPs written for training: 2 train, 2 val
 TRAIN_EPOCHS = 5            # one val pass, after the last epoch
 # spmm_csr launches of the train phase: 2 a train graph once (the input
@@ -2358,11 +2388,13 @@ class StepTrace:
     """Wrappers of the trainer's functions that read what a run does and
     add no work on the card but a synchronize where a host time needs one:
     the sampler's host seconds, each graph's tensors (host and copy), each
-    step's loss, span on the card (CUDA events) and kernel launches, and
-    the SpMM launches of the backward passes."""
+    partition's host seconds and its tensors on the card (the input cache
+    included), each step's loss, span on the card (CUDA events) and kernel
+    launches, and the SpMM launches of the backward passes."""
 
     def __init__(self):
         self.sample_s, self.tensors_s, self.steps = [], [], []
+        self.partition_s, self.dist_tensors_s = [], []
         self.backward_spmm = 0
         self._saved = []
 
@@ -2372,7 +2404,8 @@ class StepTrace:
 
     def __enter__(self):
         real = {n: getattr(trainer, n) for n in (
-            "sample_subgraphs", "train_graph", "train_step", "dp_train_step")}
+            "sample_subgraphs", "train_graph", "train_step", "dp_train_step",
+            "dist_train_step", "cached_partition_graph", "dist_tensors")}
         real_bwd = spmm_mod.SpmmCSR.backward
 
         def sample(*a, **kw):
@@ -2381,12 +2414,14 @@ class StepTrace:
             self.sample_s.append(time.perf_counter() - t0)
             return out
 
-        def tensors(*a, **kw):
-            t0 = time.perf_counter()
-            out = real["train_graph"](*a, **kw)
-            torch.cuda.synchronize()
-            self.tensors_s.append(time.perf_counter() - t0)
-            return out
+        def timed(name, into):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = real[name](*a, **kw)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
 
         def stepper(name):
             def step(*a, **kw):
@@ -2411,9 +2446,14 @@ class StepTrace:
             return out
 
         self._patch(trainer, "sample_subgraphs", sample)
-        self._patch(trainer, "train_graph", tensors)
-        self._patch(trainer, "train_step", stepper("train_step"))
-        self._patch(trainer, "dp_train_step", stepper("dp_train_step"))
+        self._patch(trainer, "train_graph", timed("train_graph",
+                                                  self.tensors_s))
+        self._patch(trainer, "cached_partition_graph",
+                    timed("cached_partition_graph", self.partition_s))
+        self._patch(trainer, "dist_tensors", timed("dist_tensors",
+                                                   self.dist_tensors_s))
+        for name in ("train_step", "dp_train_step", "dist_train_step"):
+            self._patch(trainer, name, stepper(name))
         self._patch(spmm_mod.SpmmCSR, "backward", staticmethod(backward))
         return self
 
@@ -2509,16 +2549,21 @@ def split_dataset(n_lps: int, train: list, seed: int) -> list:
             for i in range(n_lps)]
 
 
-def update_diff(w0: dict, a: dict, b: dict, lr: float) -> float:
-    """The largest, over tensors, of max |u_a - u_b| / max |u_b| where u
-    is an SGD step's update (w0 - w) / lr."""
-    worst = 0.0
+def update_rels(w0: dict, a: dict, b: dict, lr: float) -> dict:
+    """Per tensor: max |u_a - u_b| / max |u_b|, where u is an SGD step's
+    update (w0 - w) / lr."""
+    out = {}
     for k in w0:
         ua = (w0[k].double() - a[k].double().cpu()) / lr
         ub = (w0[k].double() - b[k].double().cpu()) / lr
-        worst = max(worst, float((ua - ub).abs().max()
-                                 / ub.abs().max().clamp(min=1e-30)))
-    return worst
+        out[k] = float((ua - ub).abs().max()
+                       / ub.abs().max().clamp(min=1e-30))
+    return out
+
+
+def update_diff(w0: dict, a: dict, b: dict, lr: float) -> float:
+    """The largest, over tensors, of ``update_rels``."""
+    return max(update_rels(w0, a, b, lr).values())
 
 
 def seeded_state(arch: str, seed: int) -> dict:
@@ -2731,6 +2776,403 @@ def dp_phase(seed: int) -> dict:
             "nccl": nccl_allreduce(sum(v.numel() for v in single.values()))}
 
 
+# ------------------------------------- edge-partitioned training and the zoo
+# Every shard of K_EDGE on the one card. A GraphConv conv over the partition
+# launches one gather (the gather direction), one stacked K1 (the reduce
+# direction) and K x 5 SpMMs; its backward the same again, the halo pair's
+# backwards swapping the gather and K1 (HaloGather's is a K1 and K SpMMs,
+# HaloReduce's one gather) and every SpMM's backward one SpMM over its
+# partner CSR. A GEN conv launches one gather (r2l's halo), K gen_agg_fwd a
+# direction, one K1 and one gen_lse_merge (l2r's owners); its backward one
+# K1 and K SpMMs (HaloGather), one gather (l2r's statistics to the slots),
+# K gen_agg_bwd a direction and K SpMMs a direction (the gathers' backward).
+DIST_ARGS = ["--mesh_shape", f"edge={K_EDGE}", "--edge_num_thresh", "0"]
+DIST_CONV = {"halo_all_to_all": 1, "gather_rows": 1, "spmm_csr": 5 * K_EDGE}
+DIST_GEN_CONV = {"gather_rows": 1, "gen_agg_fwd": 2 * K_EDGE,
+                 "halo_all_to_all": 1, "gen_lse_merge": 1}
+DIST_GEN_CONV_BWD = {"halo_all_to_all": 1, "gather_rows": 1,
+                     "gen_agg_bwd": 2 * K_EDGE, "spmm_csr": 3 * K_EDGE}
+N_DIST_TRAIN_LPS = 3        # 2 train, 1 val
+DIST_TRAIN_EPOCHS = 2
+# the zoo served edge-partitioned at the GEN phases' width: convs a forward
+DIST_ZOO = {"GCN(8,8,hids=256)": 3, "GCNDeeper(8,8,hids=256,depth=5)": 5,
+            "GENDeeper(8,8,hids=256,depth=5)": 5, "GCNRand()": 0}
+DIST_GEN_ARCH = "GENDeeper(8,8,hids=256,depth=5)"
+# dist vs single-card logits in bf16: the dist mean |err| against the single
+# card's fp32 at most this times the single card's own bf16 mean |err| (the
+# rule of tests/test_torch_edge_partition.py's bf16 test)
+DIST_BF16_SPREAD = 3.0
+# the dist step's fp32 update against the single card's, per tensor: at
+# most this times the single card's own spread in that tensor against its
+# fp64 step (each fp32 step lies within about that spread of the fp64
+# one), and never below UPDATE_RTOL
+DIST_UPDATE_SPREAD = 2.0
+
+
+def scaled(per: dict, n: int) -> dict:
+    return {k: v * n for k, v in per.items()}
+
+
+def add_launches(*parts: dict) -> dict:
+    out = no_launches()
+    for p in parts:
+        for k, v in p.items():
+            out[k] += v
+    return out
+
+
+def launch_counts() -> dict:
+    return {kern.__name__: kern.launches for kern in KERNELS}
+
+
+def launches_since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def dist_step_launches(arch: str) -> dict:
+    """Launches of one dist step (input cache built): GCN_FC(depth=3)'s one
+    hidden conv forward and backward (conv1 reads the cache and its inputs
+    take no gradient); every GEN conv of DIST_GEN_ARCH forward and backward
+    (no cache, no remat)."""
+    if arch.startswith("GENDeeper"):
+        convs = DIST_ZOO[DIST_GEN_ARCH]
+        return add_launches(scaled(DIST_GEN_CONV, convs),
+                            scaled(DIST_GEN_CONV_BWD, convs))
+    return add_launches(scaled(DIST_CONV, 2))
+
+
+def dist_vs_single_step(seed: int, arch: str, g: BipartiteGraph,
+                        fp64_witness: bool = False) -> dict:
+    """One dist step (K_EDGE shards on the card, the trainer's tensors and
+    input cache) against the single-card step, from the same weights on
+    the same LP: ``arch`` in fp32, dropout 0, SGD at UPDATE_LR, balanced CE.
+    The loss within rtol 1e-5; each tensor's update within its limit of
+    that tensor's largest (``update_rels``): UPDATE_RTOL, or with
+    ``fp64_witness`` the larger of UPDATE_RTOL and DIST_UPDATE_SPREAD times
+    the single card's own spread in that tensor, its ``update_rels`` of the
+    fp32 step against the same step with its convs and SpMM sums in fp64
+    (the SpMM's plain version summed in fp64 on the card; the loss stays
+    fp32, as in every run). The dist step's launches exact
+    (``dist_step_launches``); both fp32 steps' spans on the card (CUDA
+    events) and peak memory."""
+    lr = UPDATE_LR
+    w0 = seeded_state(arch, seed)
+    loss_fn = LOSS_REGISTRY["balanced"]
+    dg = edge_partition.partition_graph(g, K_EDGE)
+    mesh = make_mesh(K_EDGE, "cuda")
+    out = {}
+    for way in ("single", "dist") + (("fp64",) if fp64_witness else ()):
+        model = build_model(arch)
+        model.load_state_dict(w0)
+        model.dp = 0.0
+        real = spmm_mod.spmm_csr
+        if way == "fp64":
+            model.double()
+            model.cdtype = torch.float64
+            spmm_mod.spmm_csr = spmm_sum_in_x_dtype
+        try:
+            model = model.to("cuda").train()
+            opt = trainer.make_optimizer(model.parameters(), "sgd", lr)
+            if way == "dist":
+                data = edge_partition.dist_tensors(model, dg, mesh,
+                                                   input_agg=True)
+            else:
+                data = trainer.train_graph(model, g, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            before = launch_counts()
+            ev[0].record()
+            if way == "dist":
+                loss = edge_partition.dist_train_step(model, opt, data,
+                                                      loss_fn)
+            else:
+                loss, _ = trainer.train_step(model, opt, data, loss_fn)
+            ev[1].record()
+            torch.cuda.synchronize()
+        finally:
+            spmm_mod.spmm_csr = real
+        out[way] = {"state": {k: v.detach().cpu() for k, v in
+                              model.state_dict().items()},
+                    "loss": float(loss), "launches": launches_since(before),
+                    "step_device_ms": ev[0].elapsed_time(ev[1]),
+                    "max_memory_allocated_bytes":
+                        torch.cuda.max_memory_allocated()}
+        del model, opt, data
+        torch.cuda.empty_cache()
+    want = dist_step_launches(arch)
+    got = out["dist"]["launches"]
+    rels = update_rels(w0, out["dist"]["state"], out["single"]["state"], lr)
+    held = {"update_rels": rels}
+    limits = {k: UPDATE_RTOL for k in rels}
+    if fp64_witness:
+        spread = update_rels(w0, out["single"]["state"],
+                             out["fp64"]["state"], lr)
+        limits = {k: max(UPDATE_RTOL, DIST_UPDATE_SPREAD * spread[k])
+                  for k in rels}
+        held.update(single_vs_fp64_update_rels=spread,
+                    dist_vs_fp64_update_rels=update_rels(
+                        w0, out["dist"]["state"], out["fp64"]["state"], lr),
+                    loss_fp64=out["fp64"]["loss"],
+                    spread_factor=DIST_UPDATE_SPREAD)
+    ld, ls = out["dist"]["loss"], out["single"]["loss"]
+    worst = max(rels, key=lambda k: rels[k] / limits[k])
+    if got != want or abs(ld - ls) > 1e-5 * abs(ls) or \
+            rels[worst] > limits[worst]:
+        raise SmokeFailure(
+            f"{arch} dist vs single-card step: launches {got} (expected "
+            f"{want}), loss {ld} vs {ls}, update rel diff {rels[worst]} in "
+            f"{worst} > {limits[worst]}: {json.dumps(held)}")
+    return {"arch": arch, "K": K_EDGE, "dtype": "float32", "lr": lr,
+            "loss_dist": ld, "loss_single": ls,
+            "update_diff_max": max(rels.values()),
+            "nearest_limit": {"tensor": worst, "update_diff": rels[worst],
+                              "limit": limits[worst]},
+            **held, "launches": got,
+            **{f"{way}_{k}": out[way][k] for way in ("single", "dist")
+               for k in ("step_device_ms", "max_memory_allocated_bytes")}}
+
+
+def dist_train(seed: int) -> dict:
+    """The flagship recipe edge-partitioned through ``python -m
+    lp_gnn_tpu_torch.train --mesh_shape edge=4 --edge_num_thresh 0``: GCN_FC
+    bf16, balanced CE, Adam, N_DIST_TRAIN_LPS bench-shape LPs (2 train, 1
+    val), DIST_TRAIN_EPOCHS epochs and a val pass through the dist forward.
+    Checks finite losses, the checkpoints, and the launches exactly, by
+    step and in all: a train graph's input cache one conv's, a step the
+    hidden conv's forward and backward, a val forward two convs'. Reports
+    each epoch's wall time, the steps' spans on the card, the partitions'
+    host seconds and tensors, peak memory; then ``dist_vs_single_step``."""
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    n_train, n_val = map(len, split_idxs_train_val(N_DIST_TRAIN_LPS))
+    steps = n_train * DIST_TRAIN_EPOCHS
+    per_step = dist_step_launches(ARCH)
+    want = add_launches(scaled(DIST_CONV, n_train),
+                        scaled(per_step, steps),
+                        scaled(DIST_CONV, 2 * n_val))
+    epoch_ends = []
+    real_save = trainer.save_checkpoint
+
+    def save_seen(*a, **kw):
+        epoch_ends.append(time.perf_counter())
+        return real_save(*a, **kw)
+
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dtrain_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"),
+                      seed + 1000, N_DIST_TRAIN_LPS)
+        trainer.save_checkpoint = save_seen
+        t0 = time.perf_counter()
+        try:
+            launches, tr, t, peak, _ = run_train(
+                tmp, data_prefix, ["--arch", ARCH, "--fp16", "1", "--loss",
+                                   "balanced", "--epochs",
+                                   str(DIST_TRAIN_EPOCHS), "--eval_every",
+                                   str(DIST_TRAIN_EPOCHS), "--seed",
+                                   str(seed), *DIST_ARGS], "dtrain")
+        finally:
+            trainer.save_checkpoint = real_save
+    kinds = {st["kind"] for st in tr.steps}
+    per = [st["launches"] for st in tr.steps]
+    if launches != want or len(tr.steps) != steps or \
+            kinds != {"dist_train_step"} or any(p != per_step for p in per):
+        raise SmokeFailure(f"dist_train: {len(tr.steps)} steps {kinds}, "
+                           f"launches {launches} (expected {want}), a step "
+                           f"{per} (expected {per_step})")
+    dev = [st["device_ms"] for st in tr.steps]
+    ends = [t0] + epoch_ends
+    return {"arch": bf16_arch(ARCH), "K": K_EDGE, "train_lps": n_train,
+            "val_lps": n_val, "epochs": DIST_TRAIN_EPOCHS, "steps": steps,
+            "launches": launches, "launches_expected": want,
+            "launches_per_step": per_step,
+            "launch_formula": f"one conv's (DIST_CONV {DIST_CONV}) x "
+                              f"{n_train} input caches + a step's x {steps} "
+                              f"+ 2 convs' x {n_val} val forwards",
+            "step_losses": [st["loss"] for st in tr.steps],
+            "step_device_ms": dev,
+            "step_device_ms_median_after_first": sorted(dev[1:])[
+                len(dev[1:]) // 2] if len(dev) > 1 else None,
+            "epoch_wall_s": [b - a for a, b in zip(ends, ends[1:])],
+            "partition_s": tr.partition_s,
+            "dist_tensors_s": tr.dist_tensors_s, "train_s": t,
+            "max_memory_allocated_bytes": peak,
+            "vs_single_card": dist_vs_single_step(
+                seed, ARCH_NO_DROPOUT, bench_graph(seed + 1100),
+                fp64_witness=True)}
+
+
+def dist_zoo_per_forward(arch: str) -> dict:
+    convs = DIST_ZOO[arch]
+    if arch.startswith("GENDeeper"):
+        return scaled(DIST_GEN_CONV, convs)
+    return scaled(DIST_CONV, convs)
+
+
+def dist_zoo_serve(seed: int) -> dict:
+    """GCN, GCNDeeper, GENDeeper (width 256) and GCNRand through
+    ``pred_basis --mesh_shape edge=4 --edge_num_thresh 0`` on one
+    bench-shape LP each (the partition cached by the first): valid bases,
+    the launches of ``dist_zoo_per_forward`` exactly in every forward,
+    ``inf_time``; then each arch's dist logits on that LP against the
+    single card's with the same weights: fp32 max |err| <= 1e-3, bf16 mean
+    |err| against the single card's fp32 at most DIST_BF16_SPREAD times the
+    single card's bf16 mean |err| (GCNRand: finite, of the shape)."""
+    out = {}
+    g = bench_graph(seed + 1200)
+    mesh = make_mesh(K_EDGE, "cuda")
+    dg = edge_partition.partition_graph(g, K_EDGE)
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dzoo_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), 0, 1,
+                      [g])
+        for i, arch in enumerate(DIST_ZOO):
+            ckpt = save_seeded(arch, seed, osp.join(tmp, f"mdl{i}.pth"))
+            per = dist_zoo_per_forward(arch)
+            res = serve_and_check(data_prefix, osp.join(tmp, f"runs{i}"), ckpt,
+                                  seed, 1, "trainval", per, DIST_ARGS, arch)
+            out[bf16_arch(arch)] = {
+                "per_forward": per, "reference": dist_logits_held(arch, seed,
+                                                                  g, dg, mesh),
+                **{k: res[k] for k in ("lps", "bas_valid", "forwards",
+                                       "launches", "inf_time_s",
+                                       "part_time_s")}}
+            torch.cuda.empty_cache()
+    total = no_launches()
+    for r in out.values():
+        for k, n in r["launches"].items():
+            total[k] += n
+    return {"K": K_EDGE, "archs": out, "launches": total}
+
+
+def dist_logits_held(arch: str, seed: int, g: BipartiteGraph, dg, mesh) -> dict:
+    """``arch``'s dist logits on ``g`` (partition ``dg``) against the single
+    card's, with the weights ``save_seeded`` gives (dist_zoo_serve's rule)."""
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        base = arch.strip()[:-1]
+        spec = base + ("" if base.endswith("(") else ",") + f"dtype='{dtype}')"
+        model = build_model(spec, generator=torch.Generator().manual_seed(seed))
+        model = model.to("cuda").eval()
+        with torch.inference_mode():
+            for path in ("single", "dist"):
+                if path == "single":
+                    lc, lv = model(GraphTensors.from_graph(g, "cuda"))
+                else:
+                    lc, lv = edge_partition.dist_apply(model, dg, mesh)
+                    lc, lv = lc[:g.ncons], lv[:g.nvars]
+                got = torch.cat([lc, lv]).cpu().numpy()
+                if not (np.isfinite(got).all() and got.shape == (M + N, 3)):
+                    raise SmokeFailure(f"{arch} {dtype} {path}: bad logits")
+                logits[dtype, path] = got
+        del model
+    if arch == "GCNRand()":
+        return {"checked": "finite, (M+N, 3): its logits are random"}
+    ref = logits["float32", "single"]
+    err32 = np.abs(logits["float32", "dist"] - ref)
+    dist16 = np.abs(logits["bfloat16", "dist"] - ref).mean()
+    single16 = np.abs(logits["bfloat16", "single"] - ref).mean()
+    if err32.max() > 1e-3 or dist16 > DIST_BF16_SPREAD * single16:
+        raise SmokeFailure(f"{arch}: dist vs single fp32 max |err| "
+                           f"{err32.max()} (limit 1e-3); bf16 mean |err| "
+                           f"{dist16} > {DIST_BF16_SPREAD} x {single16}")
+    return {"float32_max_abs_err": float(err32.max()), "atol": 1e-3,
+            "bfloat16_dist_mean_abs_err": float(dist16),
+            "bfloat16_single_mean_abs_err": float(single16),
+            "bf16_spread_factor": DIST_BF16_SPREAD}
+
+
+def dist_gen_train(seed: int) -> dict:
+    """One dist GENDeeper(8,8,hids=256,depth=5) step at K=4 held against
+    the single-card GEN step (``dist_vs_single_step``, every tensor's
+    update within UPDATE_RTOL); its measured launches are this path's."""
+    return dist_vs_single_step(seed, DIST_GEN_ARCH, bench_graph(seed + 1400))
+
+
+MERGE_TOL = (1e-5, 1e-6)   # rtol, atol: expf / logf and the online order
+
+
+def merge_case(case: str, args: tuple, on_path) -> dict:
+    """gen_lse_merge against its plain version (MERGE_TOL), bit-identical
+    over two calls, timed beside it; its bound is bytes."""
+    local_edges, loc_aggr, loc_lse, ptr, idx, parts = args
+    aggr, lse = gen_lse_merge(*args)
+    again = gen_lse_merge(*args)
+    want = gen_lse_merge_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(aggr, again[0]) and torch.equal(lse, again[1])):
+        raise SmokeFailure(f"gen_lse_merge {case}: two calls differ")
+    err, ok = within(aggr, want[0], *MERGE_TOL)
+    err_l, ok_l = within(lse, want[1], *MERGE_TOL)
+    if not (ok and ok_l):
+        raise SmokeFailure(f"gen_lse_merge {case}: max |err| {err}, {err_l} "
+                           f"beyond rtol, atol {MERGE_TOL}")
+    rows, d = loc_aggr.shape
+    n = idx.shape[0]
+    n_bytes = rows * 4 + (rows + 1) * 4 + n * 4 + 4 * rows * d * 4 \
+        + n * 2 * d * 4
+    bound_ms, bound_by = bound(n_bytes, 6.0 * (rows + n) * d)
+    return {
+        "name": "gen_lse_merge", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/gen_lse_merge.cu",
+        "replaces": "lp_gnn_tpu/parallel/edge_partition.py:930",
+        "launches": None, "max_abs_err": max(err, err_l),
+        "ms": time_ms(lambda: gen_lse_merge(*args), 20),
+        "device_ms": kernel_device_ms(lambda: gen_lse_merge(*args),
+                                      "gen_lse_merge_kernel"),
+        "plain_ms": time_ms(lambda: gen_lse_merge_plain(*args), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "case": case, "on_path": on_path, "path": "dist_gen_train",
+        "rows": rows, "slot_parts": n, "D": d,
+        "tol": {"rtol": MERGE_TOL[0], "atol": MERGE_TOL[1]},
+        "library": "none: no one PyTorch call merges log-sum-exps by segment",
+    }
+
+
+def check_dist_gen_kernels(g: BipartiteGraph, gen: torch.Generator) -> list:
+    """GEN's kernels at the shapes the dist GEN layer runs on the bench
+    graph at K=4 (shard 0, the most edges): gen_agg_fwd / gen_agg_bwd over
+    the l2r compact CSR (ns + nh rows from ms constraints) and the r2l CSR
+    (ms rows from ns + nh compact sources), D=256 bf16; and gen_lse_merge
+    over the owners' K*ns rows with the slot parts that K1 delivers from the
+    l2r forwards of all 4 shards, D=256 and D=3 (conv_out) fp32."""
+    dgt = edge_partition.DistGraphTensors.from_partition(
+        edge_partition.partition_graph(g, K_EDGE), make_mesh(K_EDGE, "cuda"),
+        gen=True)
+    k, ms, ns, nh = dgt.n_shards, dgt.ms, dgt.ns, dgt.nh
+    dg = dgt.gen
+    rows = []
+    on = "dist_zoo_serve, dist_gen_train"
+    for dname, csr, n_src in (("l2r", dg.l2r[0], ms),
+                              ("r2l", dg.r2l[0], ns + nh)):
+        args = (*csr, *gen_operands(n_src, 256, torch.bfloat16, gen))
+        case = (f"dist {dname} shard 0 compact ({csr.ptr.shape[0] - 1} rows, "
+                f"{n_src} sources) D=256 bfloat16")
+        row, aggr, lse = gen_fwd_case(case, args, on)
+        brow, _ = gen_bwd_case(case, args, aggr, lse, gen, "dist_gen_train")
+        rows += [{**row, "path": "dist_gen_train"},
+                 {**brow, "path": "dist_gen_train"}]
+        del args, aggr, lse
+        torch.cuda.empty_cache()
+    for d in (256, 3):
+        x, w, b, t = gen_operands(ms, d, torch.float32, gen)
+        parts = [gen_agg_fwd(*dg.l2r[s], x, w, b, t) for s in range(k)]
+        send = torch.zeros(k, nh, gen_agg_mod.padded_width(2 * d,
+                                                           torch.float32),
+                           device="cuda")
+        for s, (a, lse) in enumerate(parts):
+            send[s, :, :d], send[s, :, d:2 * d] = a[ns:], lse[ns:]
+        back = halo_all_to_all(send)
+        args = (dg.local_edges, torch.cat([a[:ns] for a, _ in parts]),
+                torch.cat([lse[:ns] for _, lse in parts]), dg.merge_ptr,
+                dg.merge_idx, back.view(k * nh, back.shape[2]))
+        rows.append(merge_case(f"owners' merge K={k}, {k * ns} rows, "
+                               f"D={d} float32", args, on))
+        del parts, send, back, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2750,7 +3192,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         logs = _build.build_all(
             ["spmm"] if args.flagship else ["spmm", "gen_agg"] if args.gen_ab
-            else ["spmm", "gather", "halo_a2a", "gen_agg"])
+            else ["spmm", "gather", "halo_a2a", "gen_agg", "gen_lse_merge"])
         ptxas = {k: [ln.strip() for ln in v.splitlines()
                      if "registers" in ln or "spill" in ln] for k, v in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -2781,6 +3223,8 @@ def main(argv=None) -> int:
         kernels += check_dist_kernels(g, gen)
         torch.cuda.empty_cache()
         kernels += check_gen_kernels(g, gen, rng, args.seed)
+        torch.cuda.empty_cache()
+        kernels += check_dist_gen_kernels(g, gen)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
               "gather_floor": gather_floor(kernels)})
         torch.cuda.empty_cache()
@@ -2825,20 +3269,32 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         dp = dp_phase(args.seed)
         emit({"phase": "dp", **dp})
+        torch.cuda.empty_cache()
+        dtrained = dist_train(args.seed)
+        emit({"phase": "dist_train", **dtrained})
+        torch.cuda.empty_cache()
+        dzoo = dist_zoo_serve(args.seed)
+        emit({"phase": "dist_zoo_serve", **dzoo})
+        torch.cuda.empty_cache()
+        dgen = dist_gen_train(args.seed)
+        emit({"phase": "dist_gen_train", **dgen})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
     # launches: the SpMM, the gather and K1 on the edge-partitioned path,
     # the one path that runs all three; the GEN kernels on the GEN training
-    # path, which runs both; each path's count beside it
+    # path, which runs both; a case at the dist GEN layer's shapes (and the
+    # merge) on the dist GEN step; each path's count beside it
     paths = {"serve": served, "dist_serve": dist, "train": trained,
              "pipeline": piped, "gen_serve": gen_served,
              "gen_train": gen_trained, "zoo_serve": zoo,
              "sampled_serve": sampled, "sampled_serve_gen": sampled["gen"],
              "sampled_train": strained, "graph_batch": batched,
-             "dp_graph_batch": dp}
+             "dp_graph_batch": dp, "dist_train": dtrained,
+             "dist_zoo_serve": dzoo, "dist_gen_train": dgen}
     for k in kernels:
-        main_path = gen_trained if k["name"].startswith("gen_agg") else dist
+        main_path = paths[k["path"]] if "path" in k else \
+            gen_trained if k["name"].startswith("gen_agg") else dist
         k["launches"] = main_path["launches"][k["name"]]
         k["launches_by_path"] = {p: r["launches"][k["name"]]
                                  for p, r in paths.items()}

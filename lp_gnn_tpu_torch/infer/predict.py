@@ -43,8 +43,8 @@ def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
 
 def _uses_dist_path(g: BipartiteGraph, edge_num_thresh,
                     mesh: EdgeMesh | None) -> bool:
-    """predict.py:65; an arch without a distributed forward raises in
-    ``dist_apply``."""
+    """predict.py:65: every arch has a distributed forward
+    (``edge_partition.DIST_MODELS``)."""
     return mesh is not None and g.nnz > edge_num_thresh
 
 

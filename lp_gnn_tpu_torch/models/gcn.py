@@ -13,9 +13,11 @@ Dropout (and GCNRand's logits) draw from ``generator`` and dropout runs
 only in training mode. Each model class says what its graphs need:
 ``reads_input_agg`` (its input conv uses the cached aggregations of
 ``ops/spmm.py attach_input_agg``; GEN's depends on its parameters and
-cannot, trainer.py:457-459) and ``needs_edge_perms`` (its backward needs
+cannot, trainer.py:457-459), ``needs_edge_perms`` (its backward needs
 the permutations between the two edge orderings, ``from_graph(...,
-perms=True)``).
+perms=True)``) and ``softmax_aggregation`` (its convs aggregate by GEN's
+softmax, which the edge-partitioned forward runs over the compact halo
+space, ``DistGraphTensors.from_partition(..., gen=True)``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ class ZooModel(nn.Module):
     name = ""
     reads_input_agg = True
     needs_edge_perms = False
+    softmax_aggregation = False
 
     def __init__(self, dtype: str = "float32", remat: bool = False):
         super().__init__()
@@ -223,6 +226,7 @@ class GENDeeper(_Deeper):
     conv_cls = BidirGENConv
     reads_input_agg = False
     needs_edge_perms = True
+    softmax_aggregation = True
 
 
 MODEL_REGISTRY = {"GCN_FC": GCN_FC, "GCN": GCN, "GCNRand": GCNRand,

@@ -49,22 +49,36 @@ class GENConv(nn.Module):
         self.lin_dst = (Linear(d_dst, d_out, generator=generator)
                         if d_dst != d_out else None)
 
+    def project(self, x_src: torch.Tensor, x_dst: torch.Tensor):
+        """x_src and x_dst in the output width (``lin_src`` / ``lin_dst``)."""
+        if self.lin_src is not None:
+            x_src = self.lin_src(x_src)
+        if self.lin_dst is not None:
+            x_dst = self.lin_dst(x_dst)
+        return x_src, x_dst
+
+    def encoder(self, dtype: torch.dtype):
+        """The aggregation's w, b (the edge encoder) and t in ``dtype``,
+        contiguous."""
+        return (self.edge.weight[:, 0].to(dtype).contiguous(),
+                self.edge.bias.to(dtype).contiguous(),
+                self.t.to(dtype).contiguous())
+
+    def update(self, aggr: torch.Tensor, x_dst: torch.Tensor) -> torch.Tensor:
+        """``l2(relu(ln(l1(aggr + x_dst))))`` in x_dst's dtype."""
+        h = aggr.to(x_dst.dtype) + x_dst
+        h = F.relu(self.mlp["ln"](self.mlp["l1"](h)))
+        return self.mlp["l2"](h)
+
     def forward(self, ptr, src, a, t_ptr, eperm, x_src: torch.Tensor,
                 x_dst: torch.Tensor) -> torch.Tensor:
         """Over the edges (ptr, src, a) sorted by destination; (t_ptr,
         eperm) is the transpose ordering for x_src's gradient (None when
         none is wanted)."""
-        if self.lin_src is not None:
-            x_src = self.lin_src(x_src)
-        if self.lin_dst is not None:
-            x_dst = self.lin_dst(x_dst)
-        dt = x_src.dtype
-        aggr = gen_softmax_agg(ptr, src, a, x_src, self.edge.weight[:, 0].to(dt),
-                               self.edge.bias.to(dt), self.t.to(dt), t_ptr,
-                               eperm)
-        h = aggr.to(x_dst.dtype) + x_dst
-        h = F.relu(self.mlp["ln"](self.mlp["l1"](h)))
-        return self.mlp["l2"](h)
+        x_src, x_dst = self.project(x_src, x_dst)
+        aggr = gen_softmax_agg(ptr, src, a, x_src, *self.encoder(x_src.dtype),
+                               t_ptr, eperm)
+        return self.update(aggr, x_dst)
 
 
 class BidirGENConv(nn.Module):

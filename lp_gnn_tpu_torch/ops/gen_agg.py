@@ -21,6 +21,10 @@ is :func:`gen_agg_bwd`, then the gather's backward, ``gather_src``'s VJP
 transpose ordering with the edge permutation as its index
 (``dx = spmm_csr(t_ptr, eperm, 1, dpre)``).
 
+:func:`gen_lse_merge` (``csrc/gen_lse_merge.cu``) merges the (aggr, lse)
+of a segment's parts into the segment's own, by log-sum-exp: the
+edge-partitioned GEN layer's owner-side step (``parallel/dist_gen.py``).
+
 The JAX package's probe knobs of the TPU lowering (``LP_GNN_GEN_MAX``,
 ``LP_GNN_GEN_FUSE``, ``LP_GNN_GEN_ACC``) have no counterpart: the kernel
 keeps an online max per segment, which costs nothing extra, so the port
@@ -35,7 +39,7 @@ import torch
 
 from . import _build
 from . import spmm as _spmm
-from ._build import launch_with_workspace
+from ._build import launch_on, launch_with_workspace
 
 EPS = 1e-7   # gen.py:36
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -306,15 +310,96 @@ def kernel_attrs(dtype: torch.dtype, d: int, backward: bool) -> dict:
     return {"regs": out[0], "ctas_per_sm": out[1], "smem_bytes": out[2]}
 
 
+def gen_lse_merge_plain(local_edges, loc_aggr, loc_lse, ptr, idx, parts):
+    """Plain PyTorch version of :func:`gen_lse_merge`: the parts of each row
+    (its local part where ``local_edges`` > 0, then its slot parts), their
+    largest lse, and the sums of exp(lse_p - max) and of those times
+    aggr_p, in the inputs' type; 0 for a row without parts."""
+    rows, d = loc_aggr.shape
+    has = torch.nonzero(local_edges > 0)[:, 0]
+    p_row = torch.cat([has, _spmm.segment_ids(ptr, idx.shape[0])])
+    slot = parts.index_select(0, idx.long())
+    p_aggr = torch.cat([loc_aggr.index_select(0, has), slot[:, :d]])
+    p_lse = torch.cat([loc_lse.index_select(0, has), slot[:, d:2 * d]])
+    mx = torch.full((rows, d), float("-inf"), dtype=loc_lse.dtype,
+                    device=loc_lse.device).scatter_reduce(
+        0, p_row[:, None].expand(-1, d), p_lse, "amax")
+    e = torch.exp(p_lse - mx.index_select(0, p_row))
+    s = torch.zeros_like(loc_aggr).index_add_(0, p_row, e)
+    n = torch.zeros_like(loc_aggr).index_add_(0, p_row, e * p_aggr)
+    full = s > 0
+    s1 = torch.where(full, s, 1)
+    return (torch.where(full, n / s1, 0),
+            torch.where(full, mx + torch.log(s1), 0))
+
+
+def _merge_lib():
+    fn = _build.load("gen_lse_merge").lp_gen_lse_merge
+    if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
+        fn.argtypes = [_P] * 6 + [_L, _I, _I, _P, _P, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gen_lse_merge(local_edges, loc_aggr, loc_lse, ptr, idx, parts):
+    """The softmax aggregation of rows whose edges come in parts, from each
+    part's (aggr_p, lse_p) (``csrc/gen_lse_merge.cu``): ``lse = log sum_p
+    exp(lse_p)``, ``aggr = sum_p exp(lse_p - lse) aggr_p``, per row and
+    channel, 0 and 0 for a row without parts. ``local_edges`` (R,) int32
+    (> 0: the row has a local part, ``loc_aggr`` / ``loc_lse`` (R, D));
+    ``ptr`` (R+1,) and ``idx`` (n,) int32 list each row's other parts as
+    rows of ``parts`` (P, >= 2D), aggr in its first D columns and lse in
+    the next D. fp32 on the card (fp64 too on the CPU). Returns (aggr, lse),
+    (R, D) each."""
+    rows, d = loc_aggr.shape
+    dev = loc_aggr.device
+    tensors = (local_edges, loc_aggr, loc_lse, ptr, idx, parts)
+    if any(v.device != dev for v in tensors) or \
+            not all(v.is_contiguous() for v in tensors):
+        raise ValueError("gen_lse_merge takes contiguous tensors on one device")
+    if local_edges.dtype != torch.int32 or ptr.dtype != torch.int32 or \
+            idx.dtype != torch.int32:
+        raise TypeError("local_edges, ptr and idx must be int32")
+    if loc_lse.shape != (rows, d) or local_edges.shape != (rows,) or \
+            ptr.shape != (rows + 1,) or parts.dim() != 2 or \
+            parts.shape[1] < 2 * d:
+        raise ValueError("gen_lse_merge: loc_aggr, loc_lse (R, D), "
+                         "local_edges (R,), ptr (R+1,), parts (P, >= 2D)")
+    if not loc_aggr.dtype == loc_lse.dtype == parts.dtype:
+        raise TypeError("loc_aggr, loc_lse and parts must share one dtype")
+    if dev.type == "cpu":
+        return gen_lse_merge_plain(*tensors)
+    if dev.type != "cuda":
+        raise ValueError(f"gen_lse_merge runs on cuda or cpu, not {dev}")
+    if parts.dtype != torch.float32:
+        raise TypeError(f"gen_lse_merge kernel takes fp32, not {parts.dtype}")
+    aggr = torch.empty_like(loc_aggr)
+    lse = torch.empty_like(loc_aggr)
+    if aggr.numel() == 0:
+        return aggr, lse
+    rc = launch_on(dev, _merge_lib(), local_edges.data_ptr(),
+                   loc_aggr.data_ptr(), loc_lse.data_ptr(), ptr.data_ptr(),
+                   idx.data_ptr(), parts.data_ptr(), parts.shape[1], rows, d,
+                   aggr.data_ptr(), lse.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"gen_lse_merge kernel launch failed: CUDA error {rc}")
+    gen_lse_merge.launches += 1
+    return aggr, lse
+
+
+gen_lse_merge.launches = 0   # kernel launches since the last reset
+
+
 def gather_backward(t_ptr, eperm, dpre, d: int) -> torch.Tensor:
     """``gather_src``'s VJP (spmm.py:279-283): ``dx[s] = sum of dpre[e]``
     over the edges e of source s, taken in the transpose ordering (``t_ptr``
     over the sources, ``eperm`` the position of each of its edges in
     dpre's ordering) by the SpMM with unit values; the first d columns.
-    fp64 (a CPU-only dtype of the plain versions, for gradcheck) takes the
-    SpMM's plain version, which the wrapper refuses fp64 for."""
+    fp64 on the CPU (a dtype of the plain versions only, for gradcheck)
+    takes the SpMM's plain version, which the wrapper refuses fp64 for; on
+    the card the wrapper raises for it."""
     ones = torch.ones(eperm.shape[0], dtype=torch.float32, device=dpre.device)
-    if dpre.dtype == torch.float64:
+    if dpre.dtype == torch.float64 and dpre.device.type == "cpu":
         dx = _spmm.spmm_csr_plain(t_ptr, eperm, ones, dpre)
     else:
         dx = _spmm.spmm_csr(t_ptr, eperm, ones, dpre)

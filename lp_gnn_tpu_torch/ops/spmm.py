@@ -114,11 +114,10 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     """
     if x.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
-            "spmm_csr is forward-only: SpmmCSR.apply gives it a backward "
-            "(spmm_vars_to_cons / spmm_cons_to_vars go through it); the "
-            "edge-partitioned path that calls it with out= trains with the "
-            "halo pair's backward (ROADMAP.md, queue item 7: edge partition, "
-            "the rest). Run under torch.no_grad().")
+            "spmm_csr is forward-only: SpmmCSR.apply gives it a backward, the "
+            "same kernel over the transpose ordering (spmm_vars_to_cons, "
+            "spmm_cons_to_vars and the edge-partitioned convs go through "
+            "it). Run under torch.no_grad().")
     dev = _check(ptr, idx, val, x)
     num_dst, d = ptr.shape[0] - 1, x.shape[1]
     if out is not None:

@@ -1,10 +1,11 @@
-"""Edge-partitioned GCN_FC prediction with boundary halo exchange.
+"""Edge-partitioned forwards and training with boundary halo exchange.
 
-Counterpart of ``lp_gnn_tpu/parallel/edge_partition.py``, forward only and
-for GCN_FC only. Constraint rows are cut into K blocks of ``ms`` rows and
-variables into K blocks of ``ns`` (``_shard_sizes`` :161); shard d owns its
-row block, every edge of those rows and its variable block. Per
-two-direction conv (``_dist_aggs`` :655, halo branch :673-708):
+Counterpart of ``lp_gnn_tpu/parallel/edge_partition.py``: every arch of the
+zoo serves and trains over K shards. Constraint rows are cut into K blocks
+of ``ms`` rows and variables into K blocks of ``ns`` (``_shard_sizes``
+:161); shard d owns its row block, every edge of those rows and its
+variable block. Per two-direction conv (``_dist_aggs`` :655, halo branch
+:673-708):
 
 - ``halo_gather``: each shard receives the rows of other shards' variable
   blocks that its edges reference (``halo_send``), in its compact halo
@@ -17,19 +18,30 @@ two-direction conv (``_dist_aggs`` :655, halo branch :673-708):
   through the halo all-to-all (K1) and a sorted segment sum over
   ``halo_ids`` (``halo_reduce``).
 
+The two halo directions are each other's transpose, and each is the other's
+backward (:585-652): :class:`HaloGather` and :class:`HaloReduce`. Every SpMM
+of a conv goes through :class:`ShardSpmm` (``SpmmCSR`` over the shards),
+whose backward is the same kernel over the partner CSR (local v2c <->
+local c2v, halo v2c <-> halo c2v), so a dist step's gradient is the
+single-card gradient with no atomics. GEN's
+aggregation over the compact halo space lives in ``parallel/dist_gen.py``.
+
 The JAX package lays each shard's edges out for the TPU's matrix unit
 (``blkl_*``, ``blkh_*``, padded to one edge count). The port keeps four CSRs
 a shard instead, for its CSR SpMM kernel: local v2c (ms dst rows, ns src),
 local c2v (ns, ms), halo v2c (ms, nh = K*Bh) and halo c2v (nh, ms). The cut
 points are the JAX package's (``_shard_sizes``, Bh rounded to 8, edges with
 ``val == 0`` dropped), so ``halo_send``, ``halo_perm``, ``halo_ids`` and
-``nnz_s`` equal its own. The fields of other paths (GEN compact indices,
-``eperm_*``, the all-gather layouts ``blkr``/``blkc``, ``in_agg_*``) are
-left out.
+``nnz_s`` equal its own. GEN's compact CSRs are built from those four when
+the device tensors are made (``DistGraphTensors.from_partition(...,
+gen=True)``); the all-gather layouts ``blkr``/``blkc`` are left out.
 
 All K shards sit on one device (``mesh.EdgeMesh``) and run one after another
-on one stream. The all-gather branch (:709-736), the backward of the halo
-pair and the distributed losses wait for ROADMAP.md queue item 7.
+on one stream, so the psums of the JAX losses are sums over the stacked
+shards: the single-card losses of ``train/losses.py`` on the stacked logits
+with the partition's masks are the dist losses (:1066-1171). The
+all-gather branch (:709-736), shards on several cards and dp x edge wait
+for ROADMAP.md queue item 7.
 """
 from __future__ import annotations
 
@@ -44,9 +56,10 @@ import torch.nn.functional as F
 
 from ..data.dataset import BipartiteGraph
 from ..models.layers import add_knowledge, dropout
-from ..ops.gather import gather_rows
-from ..ops.spmm import spmm_csr
-from .halo import halo_all_to_all
+from ..ops.gather import gather_rows, gather_rows_plain
+from ..ops.gen_agg import padded_width
+from ..ops.spmm import spmm_csr, spmm_csr_plain
+from .halo import halo_all_to_all, halo_all_to_all_plain
 from .mesh import EdgeMesh
 
 CSR_KINDS = ("local_v2c", "local_c2v", "halo_v2c", "halo_c2v")
@@ -107,12 +120,17 @@ def compute_halo_width(g: BipartiteGraph, n_shards: int) -> int:
     return _round_up(int(cnt.max()), 8)
 
 
+def _ptr(dst, num_dst: int) -> np.ndarray:
+    ptr = np.zeros(num_dst + 1, np.int32)
+    np.cumsum(np.bincount(dst, minlength=num_dst), out=ptr[1:])
+    return ptr
+
+
 def _sorted_csr(dst, src, val, num_dst: int) -> CSR:
     """CSR of (dst, src, val) edges, ordered by (dst, src)."""
     order = np.lexsort((src, dst))
-    ptr = np.zeros(num_dst + 1, np.int32)
-    np.cumsum(np.bincount(dst, minlength=num_dst), out=ptr[1:])
-    return CSR(ptr, src[order].astype(np.int32), val[order].astype(np.float32))
+    return CSR(_ptr(dst, num_dst), src[order].astype(np.int32),
+               val[order].astype(np.float32))
 
 
 @dataclasses.dataclass
@@ -124,6 +142,8 @@ class PartitionedGraph:
     bh: int                    # halo slots per (sender, receiver) pair
     c_feas: np.ndarray         # (K, ms, 8) float32, zero rows past ncons
     v_feas: np.ndarray         # (K, ns, 8) float32
+    y_s: np.ndarray            # (K, ms) int32 labels, 0 past ncons
+    y_t: np.ndarray            # (K, ns) int32
     cons_mask: np.ndarray      # (K, ms) bool, real rows
     vars_mask: np.ndarray      # (K, ns) bool
     nnz_s: np.ndarray          # (K,) int32 edges per shard
@@ -181,15 +201,18 @@ def partition_graph(g: BipartiteGraph, n_shards: int) -> PartitionedGraph:
         csr["halo_v2c"].append(_sorted_csr(r[bnd], s, v[bnd], ms))
         csr["halo_c2v"].append(_sorted_csr(s, r[bnd], v[bnd], nh))
 
-    def shard_nodes(x, per):
-        out = np.zeros((nk * per,) + x.shape[1:], x.dtype)
+    def shard_nodes(x, per, dtype):
+        x = np.asarray(x, dtype)
+        out = np.zeros((nk * per,) + x.shape[1:], dtype)
         out[:x.shape[0]] = x
         return out.reshape(nk, per, *x.shape[1:])
 
     return PartitionedGraph(
         n_shards=nk, ms=ms, ns=ns, bh=bh,
-        c_feas=shard_nodes(np.asarray(g.c_feas, np.float32), ms),
-        v_feas=shard_nodes(np.asarray(g.v_feas, np.float32), ns),
+        c_feas=shard_nodes(g.c_feas, ms, np.float32),
+        v_feas=shard_nodes(g.v_feas, ns, np.float32),
+        y_s=shard_nodes(g.y_s, ms, np.int32),
+        y_t=shard_nodes(g.y_t, ns, np.int32),
         cons_mask=(np.arange(nk * ms) < g.ncons).reshape(nk, ms),
         vars_mask=(np.arange(nk * ns) < g.nvars).reshape(nk, ns),
         nnz_s=lens.astype(np.int32), halo_send=halo_send,
@@ -198,9 +221,9 @@ def partition_graph(g: BipartiteGraph, n_shards: int) -> PartitionedGraph:
 
 # ---------------------------------------------------------- partition cache
 _CACHE_SUFFIX = ".tpart.npz"   # never the JAX package's .pk pickles
-_CACHE_VERSION = 1
-_CACHE_ARRAYS = ("c_feas", "v_feas", "cons_mask", "vars_mask", "nnz_s",
-                 "halo_send", "halo_perm", "halo_ids")
+_CACHE_VERSION = 2             # 2: the labels y_s, y_t
+_CACHE_ARRAYS = ("c_feas", "v_feas", "y_s", "y_t", "cons_mask", "vars_mask",
+                 "nnz_s", "halo_send", "halo_perm", "halo_ids")
 _CACHE_INTS = ("n_shards", "ms", "ns", "bh")
 
 
@@ -209,7 +232,7 @@ def _graph_fingerprint(g: BipartiteGraph) -> str:
     shapes, CRC32 of a strided sample of every array the partition embeds,
     and exact sums of the edge arrays."""
     h = 0
-    for a in (g.row, g.col, g.val, g.c_feas, g.v_feas):
+    for a in (g.row, g.col, g.val, g.c_feas, g.v_feas, g.y_s, g.y_t):
         flat = np.ascontiguousarray(np.asarray(a)).reshape(-1)
         step = max(flat.shape[0] // 65536, 1)
         h = zlib.crc32(np.ascontiguousarray(flat[::step]).tobytes(), h)
@@ -235,11 +258,12 @@ def _store_partition(path: str, dg: PartitionedGraph) -> None:
     os.replace(tmp, path)
 
 
-def _load_partition(path: str) -> PartitionedGraph:
+def _load_partition(path: str) -> PartitionedGraph | None:
+    """The cached partition, or None where the file is of another
+    ``_CACHE_VERSION`` (its caller rebuilds and rewrites it)."""
     with np.load(path, allow_pickle=False) as z:
         if int(z["version"]) != _CACHE_VERSION:
-            raise ValueError(f"{path}: partition cache version "
-                             f"{int(z['version'])}, expected {_CACHE_VERSION}")
+            return None
         ints = {k: int(z[k]) for k in _CACHE_INTS}
         kw = {k: z[k] for k in _CACHE_ARRAYS}
         for kind in CSR_KINDS:
@@ -253,13 +277,16 @@ def cached_partition_graph(g: BipartiteGraph, n_shards: int,
                            fn: str | None = None) -> PartitionedGraph:
     """``partition_graph`` with an on-disk cache (edge_partition.py:538),
     keyed by graph name, shard count and content fingerprint, in the port's
-    own ``.tpart.npz`` files beside the dataset's ``processed/`` blobs."""
+    own ``.tpart.npz`` files beside the dataset's ``processed/`` blobs. A
+    file of an older cache version is a miss, rebuilt and rewritten."""
     if not cache_dir or not fn:
         return partition_graph(g, n_shards)
     path = os.path.join(
         cache_dir, f"{fn}-D{n_shards}-{_graph_fingerprint(g)}{_CACHE_SUFFIX}")
     if os.path.exists(path):
-        return _load_partition(path)
+        dg = _load_partition(path)
+        if dg is not None:
+            return dg
     dg = partition_graph(g, n_shards)
     os.makedirs(cache_dir, exist_ok=True)
     _store_partition(path, dg)
@@ -303,33 +330,64 @@ def halo_schedule(halo_src: np.ndarray, window: int = 16) -> np.ndarray:
     return np.stack([first[order], rows[order]], 1).astype(np.int32)
 
 
+def _halo_red_host(dg: PartitionedGraph) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Per owner o, the owner-side sorted segment sum of halo_reduce (:636)
+    over its real slots: (ptr (ns+1), positions in o's received buffer).
+    The padding slots are left out: their partials are zeros (no edge
+    targets them), and all of them point at local row 0, which would make
+    that row one long serial segment for the kernel. Slot o*bh + r of
+    sender e's buffer is real iff some edge of e targets it; it lands at
+    position e*bh + r of owner o's buffer."""
+    k = dg.n_shards
+    real = np.stack([np.diff(m.ptr) > 0 for m in dg.halo_c2v]).reshape(
+        k, k, dg.bh)
+    out = []
+    for o in range(k):
+        perm = dg.halo_perm[o][real[:, o].reshape(-1)[dg.halo_perm[o]]]
+        out.append((_ptr(dg.halo_send[o].reshape(-1)[perm], dg.ns), perm))
+    return out
+
+
 @dataclasses.dataclass
 class DistGraphTensors:
-    """A partition on its mesh's device: node features stacked shard after
-    shard (row ``d*ms + i`` is shard d's row i, which is global row
-    ``d*ms + i``), per-shard CSRs, the composed halo index and the
-    owner-side reduce CSRs."""
+    """A partition on its mesh's device: node features, labels and masks
+    stacked shard after shard (row ``d*ms + i`` is shard d's row i, which is
+    global row ``d*ms + i``), per-shard CSRs, the composed halo index, the
+    owner-side reduce CSRs, and what its users attach: the input conv's
+    aggregations (``attach_dist_input_agg``) and GEN's compact CSRs
+    (``gen``)."""
     n_shards: int
     ms: int
     ns: int
     c_feas: torch.Tensor           # (K*ms, 8) float32
     v_feas: torch.Tensor           # (K*ns, 8) float32
+    y_s: torch.Tensor              # (K*ms,) int64
+    y_t: torch.Tensor              # (K*ns,) int64
+    cons_mask: torch.Tensor        # (K*ms,) bool
+    vars_mask: torch.Tensor        # (K*ns,) bool
     halo_src: torch.Tensor         # (K, K*bh) int32, compose_halo_src
     halo_sched: torch.Tensor       # (n, 2) int32, halo_schedule(halo_src)
-    # per shard, the owner-side sorted segment sum of halo_reduce (:636)
-    # over its real slots: ns dst rows, ptr from halo_ids, idx = halo_perm,
-    # val = 1. The padding slots are left out: their partials are zeros
-    # (no edge targets them), and all of them point at local row 0, which
-    # would make that row one long serial segment for the kernel.
-    halo_red: list[CSR]
+    halo_red: list[CSR]            # ns dst rows, idx = real slots, val = 1
     local_v2c: list[CSR]
     local_c2v: list[CSR]
     halo_v2c: list[CSR]
     halo_c2v: list[CSR]
+    in_agg_c: torch.Tensor | None = None   # (K*ms, 8) in a compute dtype
+    in_agg_v: torch.Tensor | None = None   # (K*ns, 8)
+    gen: object | None = None              # dist_gen.DistGenTensors
+
+    @property
+    def nh(self) -> int:
+        return self.halo_src.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.c_feas.device
 
     @classmethod
-    def from_partition(cls, dg: PartitionedGraph,
-                       mesh: EdgeMesh) -> "DistGraphTensors":
+    def from_partition(cls, dg: PartitionedGraph, mesh: EdgeMesh,
+                       gen: bool = False) -> "DistGraphTensors":
+        """``gen``: also build GEN's compact CSRs (``dist_gen``)."""
         if dg.n_shards != mesh.n_shards:
             raise ValueError(f"a partition of {dg.n_shards} shards on a mesh "
                              f"of {mesh.n_shards}")
@@ -338,30 +396,56 @@ class DistGraphTensors:
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        # slot o*bh + r of sender e's halo buffer is real iff some edge of e
-        # targets it; it lands at position e*bh + r of owner o's buffer
-        real = np.stack([np.diff(m.ptr) > 0 for m in dg.halo_c2v]).reshape(
-            dg.n_shards, dg.n_shards, dg.bh)
-
-        def red(o):
-            perm = dg.halo_perm[o][real[:, o].reshape(-1)[dg.halo_perm[o]]]
-            ptr = np.zeros(dg.ns + 1, np.int32)
-            np.cumsum(np.bincount(dg.halo_send[o].reshape(-1)[perm],
-                                  minlength=dg.ns), out=ptr[1:])
-            return CSR(t(ptr), t(perm), t(np.ones(len(perm), np.float32)))
-
+        red = _halo_red_host(dg)
         src = compose_halo_src(dg.halo_send, dg.ns)
-        return cls(
+        out = cls(
             n_shards=dg.n_shards, ms=dg.ms, ns=dg.ns,
             c_feas=t(dg.c_feas.reshape(-1, dg.c_feas.shape[-1])),
             v_feas=t(dg.v_feas.reshape(-1, dg.v_feas.shape[-1])),
+            y_s=t(dg.y_s.reshape(-1).astype(np.int64)),
+            y_t=t(dg.y_t.reshape(-1).astype(np.int64)),
+            cons_mask=t(dg.cons_mask.reshape(-1)),
+            vars_mask=t(dg.vars_mask.reshape(-1)),
             halo_src=t(src), halo_sched=t(halo_schedule(src)),
-            halo_red=[red(d) for d in range(dg.n_shards)],
+            halo_red=[CSR(t(p), t(i), t(np.ones(len(i), np.float32)))
+                      for p, i in red],
             **{k: [CSR(*map(t, m)) for m in getattr(dg, k)]
                for k in CSR_KINDS})
+        if gen:
+            from .dist_gen import DistGenTensors
+            out.gen = DistGenTensors.from_partition(dg, red, t)
+        return out
 
 
 # --------------------------------------------------------------- halo pair
+def plain_fp64(x: torch.Tensor) -> bool:
+    """Whether ``x`` is an fp64 tensor on the CPU: a dtype of the plain
+    versions only (for gradcheck), which the kernels' wrappers refuse, so
+    the dist path takes the plain versions for it. An fp64 tensor on the
+    card goes to the wrapper, which raises."""
+    return x.dtype == torch.float64 and x.device.type == "cpu"
+
+
+def _gather(table: torch.Tensor, idx: torch.Tensor,
+            schedule: torch.Tensor | None) -> torch.Tensor:
+    if plain_fp64(table):
+        return gather_rows_plain(table, idx)
+    return gather_rows(table, idx, schedule=schedule)
+
+
+def _a2a(bufs: torch.Tensor) -> torch.Tensor:
+    if plain_fp64(bufs):
+        return halo_all_to_all_plain(bufs)
+    return halo_all_to_all(bufs)
+
+
+def _spmm(m: CSR, x: torch.Tensor, out: torch.Tensor | None = None):
+    if plain_fp64(x):
+        ref = spmm_csr_plain(*m, x)
+        return ref if out is None else out.copy_(ref)
+    return spmm_csr(*m, x, out=out)
+
+
 def halo_gather(right: torch.Tensor, halo_src: torch.Tensor,
                 halo_sched: torch.Tensor) -> torch.Tensor:
     """Collect the remote variable rows each shard's edges reference
@@ -382,8 +466,8 @@ def halo_gather(right: torch.Tensor, halo_src: torch.Tensor,
     cards would bring back the gather-then-K1 route, with peer addresses in
     K1's table (ROADMAP.md, queue item 7)."""
     k = halo_src.shape[0]
-    return gather_rows(right, halo_src.view(-1),
-                       schedule=pick_halo_schedule(right, halo_sched)).view(
+    return _gather(right, halo_src.view(-1),
+                   pick_halo_schedule(right, halo_sched)).view(
         k, halo_src.shape[1], right.shape[1])
 
 
@@ -397,6 +481,23 @@ def pick_halo_schedule(right: torch.Tensor,
     return None
 
 
+def _halo_reduce_stacked(parts: torch.Tensor,
+                         halo_red: list[CSR]) -> torch.Tensor:
+    """(K*ns, F). Rows narrower than whole 16-byte pieces (GEN's conv_out
+    aggregates 3 channels) are zero-padded for K1 and the SpMM, which move
+    16-byte pieces, and the result is the first F columns."""
+    f = parts.shape[2]
+    width = padded_width(f, parts.dtype)
+    if width != f:
+        parts = F.pad(parts, (0, width - f))
+    back = _a2a(parts)
+    ns = halo_red[0].ptr.shape[0] - 1
+    out = parts.new_empty((len(halo_red) * ns, width))
+    for d, (r, b) in enumerate(zip(halo_red, back)):
+        _spmm(r, b, out=out[d * ns:(d + 1) * ns])
+    return out[:, :f]
+
+
 def halo_reduce(parts: torch.Tensor, halo_red: list[CSR]) -> list[torch.Tensor]:
     """Route each shard's halo-slot partial sums back to their owners and
     fold them into the owners' (ns, F) blocks (edge_partition.py:624,
@@ -404,75 +505,268 @@ def halo_reduce(parts: torch.Tensor, halo_red: list[CSR]) -> list[torch.Tensor]:
     of the stacked form, then a sorted segment sum over ``halo_ids`` as a
     CSR SpMM with ``idx = halo_perm`` and ``val = 1``
     (``DistGraphTensors.halo_red``), which skips the padding slots: the
-    forward's partials there are zeros, since no edge targets them."""
-    back = halo_all_to_all(parts)
-    return [spmm_csr(*r, b) for r, b in zip(halo_red, back)]
+    forward's partials there are zeros, since no edge targets them.
+    Returns K views of one stacked (K*ns, F) tensor."""
+    ns = halo_red[0].ptr.shape[0] - 1
+    return list(_halo_reduce_stacked(parts, halo_red).split(ns))
+
+
+class HaloGather(torch.autograd.Function):
+    """``HaloGather.apply(right, dg)``: :func:`halo_gather` of the stacked
+    (K*ns, F) ``right`` over the partition ``dg`` (a
+    :class:`DistGraphTensors`), with a gradient for ``right``. Its backward
+    is :func:`halo_reduce`'s forward (edge_partition.py:612
+    ``_halo_gather_bwd``): one stacked K1 launch and the owner-side SpMM,
+    no gather. That SpMM skips the padding slots, so the backward is the
+    exact transpose for a cotangent that is zero there, which every
+    cotangent of the dist path is (no edge reads a padding slot)."""
+
+    @staticmethod
+    def forward(ctx, right, dg):
+        ctx.dg = dg
+        return halo_gather(right, dg.halo_src, dg.halo_sched)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _halo_reduce_stacked(grad.contiguous(), ctx.dg.halo_red), None
+
+
+class HaloReduce(torch.autograd.Function):
+    """``HaloReduce.apply(parts, dg)`` -> (K*ns, F): :func:`halo_reduce` of
+    the stacked (K, K*bh, F) slot partials, with a gradient for ``parts``.
+    Its backward is :func:`halo_gather`'s forward (edge_partition.py:645
+    ``_halo_reduce_bwd``): the one gather over the composed index, which
+    also fills the padding slots, as the JAX VJP does; no edge reads them."""
+
+    @staticmethod
+    def forward(ctx, parts, dg):
+        ctx.dg = dg
+        return _halo_reduce_stacked(parts, dg.halo_red)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dg = ctx.dg
+        return halo_gather(grad.contiguous(), dg.halo_src, dg.halo_sched), None
 
 
 # ---------------------------------------------------------------- forward
+def _shard_spmm(m: list[CSR], x: torch.Tensor) -> torch.Tensor:
+    """Shard d's CSR ``m[d]`` over shard d's rows of the stacked ``x``, one
+    launch a shard, each written into its rows of one stacked output."""
+    k = len(m)
+    n_in, n_out = x.shape[0] // k, m[0].ptr.shape[0] - 1
+    out = x.new_empty((k * n_out, x.shape[1]))
+    for d in range(k):
+        _spmm(m[d], x[d * n_in:(d + 1) * n_in],
+              out=out[d * n_out:(d + 1) * n_out])
+    return out
+
+
+class ShardSpmm(torch.autograd.Function):
+    """``ShardSpmm.apply(x, m, t)``: ``SpmmCSR`` over the shards. Shard d's
+    CSR ``m[d]`` is applied to shard d's block of the stacked ``x``, and
+    the results are stacked, with no copy; the backward is the same over
+    the partner orderings ``t`` of the same edges (local v2c <-> local c2v,
+    halo v2c <-> halo c2v), one launch a shard."""
+
+    @staticmethod
+    def forward(ctx, x, m, t):
+        ctx.t = t
+        return _shard_spmm(m, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the kernel takes contiguous, 16-byte aligned rows
+        g = grad.contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
+        return _shard_spmm(ctx.t, g), None, None
+
+
 def _dist_aggs(dg: DistGraphTensors, left: torch.Tensor, right: torch.Tensor):
     """Both aggregations of one two-direction conv over the halo exchange
-    (edge_partition.py:655, halo branch :673-708). ``left`` (K*ms, F) and
-    ``right`` (K*ns, F) are stacked by shard. The local and halo parts add
-    in the compute dtype, as there (:703-707)."""
-    k, ms, ns = dg.n_shards, dg.ms, dg.ns
-    ls, rs = left.split(ms), right.split(ns)
-    h = halo_gather(right, dg.halo_src, dg.halo_sched)
-    part = left.new_empty((k, dg.halo_src.shape[1], left.shape[1]))
-    for d in range(k):
-        spmm_csr(*dg.halo_c2v[d], ls[d], out=part[d])
-    red = halo_reduce(part, dg.halo_red)
-    agg_c = left.new_empty((k * ms, right.shape[1]))
-    agg_v = right.new_empty((k * ns, left.shape[1]))
-    for d in range(k):
-        torch.add(spmm_csr(*dg.local_v2c[d], rs[d]),
-                  spmm_csr(*dg.halo_v2c[d], h[d]),
-                  out=agg_c[d * ms:(d + 1) * ms])
-        torch.add(spmm_csr(*dg.local_c2v[d], ls[d]), red[d],
-                  out=agg_v[d * ns:(d + 1) * ns])
+    (edge_partition.py:655, halo branch :673-708), differentiable in
+    ``left`` (K*ms, F) and ``right`` (K*ns, F), both stacked by shard. The
+    local and halo parts add in the compute dtype, as there (:703-707)."""
+    k, nh = dg.n_shards, dg.nh
+    h = HaloGather.apply(right, dg).view(k * nh, right.shape[1])
+    part = ShardSpmm.apply(left, dg.halo_c2v, dg.halo_v2c)
+    red = HaloReduce.apply(part.view(k, nh, left.shape[1]), dg)
+    agg_c = ShardSpmm.apply(right, dg.local_v2c, dg.local_c2v) + \
+        ShardSpmm.apply(h, dg.halo_v2c, dg.halo_c2v)
+    agg_v = ShardSpmm.apply(left, dg.local_c2v, dg.local_v2c) + red
     return agg_c, agg_v
 
 
-def _dist_bidir_conv(conv, dg: DistGraphTensors, left, right):
+def attach_dist_input_agg(dg: DistGraphTensors,
+                          dtype: torch.dtype) -> DistGraphTensors:
+    """``dg`` with the input conv's two aggregations computed once, in the
+    model's compute ``dtype`` (edge_partition.py:1184, the dist analog of
+    ``ops/spmm.py attach_input_agg``): the raw features are constants of the
+    graph and every kernel is deterministic, so the input conv of every
+    later step reads the same bits it would compute, and skips a gather, a
+    K1 and 5 SpMMs a shard each forward, and as many in its backward."""
+    with torch.no_grad():
+        agg_c, agg_v = _dist_aggs(dg, dg.c_feas.to(dtype), dg.v_feas.to(dtype))
+    return dataclasses.replace(dg, in_agg_c=agg_c, in_agg_v=agg_v)
+
+
+def _dist_bidir_conv(conv, dg: DistGraphTensors, left, right,
+                     input_conv: bool = False):
     """A ``BidirGraphConv`` over the partition (edge_partition.py:739): the
-    module's own linears, applied to all shards' rows at once."""
-    agg_c, agg_v = _dist_aggs(dg, left, right)
+    module's own linears, applied to all shards' rows at once. The input
+    conv reads the aggregations ``attach_dist_input_agg`` cached, where
+    they are of its inputs' dtype (the ``aggs=`` short-cut)."""
+    if input_conv and dg.in_agg_c is not None and \
+            dg.in_agg_c.dtype == right.dtype and dg.in_agg_v.dtype == left.dtype:
+        agg_c, agg_v = dg.in_agg_c, dg.in_agg_v
+    else:
+        agg_c, agg_v = _dist_aggs(dg, left, right)
     return conv.right2left(agg_c, left), conv.left2right(agg_v, right)
 
 
-def dist_gcn_fc_apply(model, dg: DistGraphTensors):
+def dist_gcn_fc_apply(model, dg: DistGraphTensors,
+                      generator: torch.Generator | None = None):
     """GCN_FC forward over a partition (edge_partition.py:757), with the
     weights of the single-device ``GCN_FC`` module ``model``. Returns the
-    stacked (K*ms, 3) and (K*ns, 3) fp32 logits."""
+    stacked (K*ms, 3) and (K*ns, 3) fp32 logits. Dropout (training mode)
+    draws its masks from ``generator`` over the stacked rows."""
     x_left = dg.c_feas.to(model.cdtype)
     x_right = dg.v_feas.to(model.cdtype)
-    left, right = _dist_bidir_conv(model.conv1, dg, x_left, x_right)
+    left, right = _dist_bidir_conv(model.conv1, dg, x_left, x_right, True)
     left, right = F.relu(left), F.relu(right)
     for conv in model.layers:
         left, right = _dist_bidir_conv(conv, dg, left, right)
-        left = dropout(left, model.dp, None, model.training)
-        right = dropout(right, model.dp, None, model.training)
+        left = dropout(left, model.dp, generator, model.training)
+        right = dropout(right, model.dp, generator, model.training)
         left, right = F.relu(left), F.relu(right)
     left = model.lin_left(left)
     right = model.lin_right(right)
     return add_knowledge(left, right, x_left, x_right)
 
 
-#: arch name -> distributed forward (edge_partition.py:1043); every one
-#: takes the halo exchange, the only partition the port builds. The rest
-#: of the zoo's dist forwards wait for ROADMAP.md queue item 7.
-DIST_MODELS = {"GCN_FC": dist_gcn_fc_apply}
+def dist_gcn_apply(model, dg: DistGraphTensors,
+                   generator: torch.Generator | None = None):
+    """GCN forward over a partition (edge_partition.py:791): 3 convs."""
+    x_left = dg.c_feas.to(model.cdtype)
+    x_right = dg.v_feas.to(model.cdtype)
+    left, right = _dist_bidir_conv(model.conv1, dg, x_left, x_right, True)
+    left, right = F.relu(left), F.relu(right)
+    left, right = _dist_bidir_conv(model.conv2, dg, left, right)
+    left, right = F.relu(left), F.relu(right)
+    left = dropout(left, model.dp, generator, model.training)
+    right = dropout(right, model.dp, generator, model.training)
+    left, right = _dist_bidir_conv(model.conv3, dg, left, right)
+    return add_knowledge(left, right, x_left, x_right)
 
 
-def dist_apply(model, dg: PartitionedGraph, mesh: EdgeMesh):
+def dist_gcn_rand_apply(model, dg: DistGraphTensors,
+                        generator: torch.Generator | None = None):
+    """The random-logit control over a partition (edge_partition.py:816):
+    U[0, 1) logits for the stacked rows through the knowledge mask, no
+    exchange; from one generator seeded 0 when none is given, as the
+    single-card model."""
+    if generator is None:
+        generator = torch.Generator(device=dg.device).manual_seed(0)
+    left = torch.rand((dg.c_feas.shape[0], 3), generator=generator,
+                      device=dg.device)
+    right = torch.rand((dg.v_feas.shape[0], 3), generator=generator,
+                       device=dg.device)
+    return add_knowledge(left, right, dg.c_feas, dg.v_feas)
+
+
+def _dist_deeper_apply(model, dg: DistGraphTensors, conv_fn,
+                       generator: torch.Generator | None = None):
+    """The res+ stack over a partition (edge_partition.py:1007): the
+    single-card ``_Deeper.forward`` with ``conv_fn`` for its convs. Like
+    the JAX dist forward, it takes no remat."""
+    x_left = dg.c_feas.to(model.cdtype)
+    x_right = dg.v_feas.to(model.cdtype)
+    left, right = conv_fn(model.conv_in, dg, x_left, x_right, True)
+    for blk in model.blocks:
+        h_l = F.relu(blk.norm_l(left))
+        h_r = F.relu(blk.norm_r(right))
+        h_l = dropout(h_l, model.dp, generator, model.training)
+        h_r = dropout(h_r, model.dp, generator, model.training)
+        h_l, h_r = conv_fn(blk.conv, dg, h_l, h_r)
+        left, right = left + h_l, right + h_r
+    left, right = conv_fn(model.conv_out, dg, left, right)
+    return add_knowledge(left, right, x_left, x_right)
+
+
+def dist_gcn_deeper_apply(model, dg: DistGraphTensors,
+                          generator: torch.Generator | None = None):
+    return _dist_deeper_apply(model, dg, _dist_bidir_conv, generator)
+
+
+def dist_gen_deeper_apply(model, dg: DistGraphTensors,
+                          generator: torch.Generator | None = None):
+    from .dist_gen import dist_gen_bidir_conv
+    if dg.gen is None:
+        raise ValueError("a dist GENDeeper forward needs GEN's compact CSRs: "
+                         "DistGraphTensors.from_partition(..., gen=True)")
+    return _dist_deeper_apply(model, dg, dist_gen_bidir_conv, generator)
+
+
+#: arch name -> distributed forward (edge_partition.py:1043)
+DIST_MODELS = {
+    "GCN_FC": dist_gcn_fc_apply,
+    "GCN": dist_gcn_apply,
+    "GCNRand": dist_gcn_rand_apply,
+    "GCNDeeper": dist_gcn_deeper_apply,
+    "GENDeeper": dist_gen_deeper_apply,
+}
+
+#: the archs whose forward takes the halo exchange (edge_partition.py
+#: :1057): every one but GCNRand, which sends nothing. The port builds the
+#: halo partition only, so the set says which archs launch its kernels.
+DIST_HALO_ARCHS = frozenset(DIST_MODELS) - {"GCNRand"}
+
+
+def dist_tensors(model, dg: PartitionedGraph, mesh: EdgeMesh,
+                 input_agg: bool = False) -> DistGraphTensors:
+    """The partition on the mesh's device with what ``model`` reads: GEN's
+    compact CSRs where its convs aggregate by softmax, and with ``input_agg`` the input conv's
+    cached aggregations where the model's input conv uses them (not GEN's,
+    whose aggregation depends on its parameters; not GCNRand's)."""
+    dgt = DistGraphTensors.from_partition(
+        dg, mesh, gen=model.softmax_aggregation)
+    if input_agg and model.reads_input_agg:
+        dgt = attach_dist_input_agg(dgt, model.cdtype)
+    return dgt
+
+
+def dist_forward(model, dgt: DistGraphTensors,
+                 generator: torch.Generator | None = None):
+    """The arch's distributed forward over device tensors: the stacked
+    logits ((K*ms, 3), (K*ns, 3)); global row i is row i, padding rows
+    last."""
+    return DIST_MODELS[model.name](model, dgt, generator)
+
+
+def dist_apply(model, dg: PartitionedGraph, mesh: EdgeMesh,
+               generator: torch.Generator | None = None):
     """Full-graph forward of one partitioned graph on ``mesh``
     (edge_partition.py:1207): the partition goes to the mesh's device, then
-    the arch's distributed forward runs. Returns the stacked logits
-    ((K*ms, 3), (K*ns, 3)); global row i is row i, padding rows last."""
-    if model.name not in DIST_MODELS:
-        raise NotImplementedError(
-            f"edge-partitioned {model.name} is not ported to lp_gnn_tpu_torch "
-            "yet (ROADMAP.md, queue item 7: edge partition, the rest); only "
-            "GCN_FC is")
-    dgt = DistGraphTensors.from_partition(dg, mesh)
-    return DIST_MODELS[model.name](model, dgt)
+    the arch's distributed forward runs."""
+    return dist_forward(model, dist_tensors(model, dg, mesh), generator)
+
+
+def dist_train_step(model, optimizer, dg: DistGraphTensors, loss_fn,
+                    generator: torch.Generator | None = None):
+    """One step over a partitioned graph (edge_partition.py:1230
+    make_dist_train_step): the dist forward in training mode, the loss over
+    the stacked logits with the partition's masks (the dist loss: the
+    shards' sums are the psums), backward through the halo pair and the
+    SpMMs' partner orderings, the optimizer's update. With every shard on
+    one device there is no psum whose transpose the JAX step's 1/D scaling
+    undoes, and, as in the JAX trainer, no per-step accuracy. Returns the
+    loss before the update, a 0-d tensor on the device."""
+    model.train()
+    lc, lv = dist_forward(model, dg, generator)
+    loss = loss_fn(lc, lv, dg.y_s, dg.y_t, dg.cons_mask, dg.vars_mask)
+    optimizer.zero_grad(set_to_none=True)
+    if loss.requires_grad:   # GCNRand's logits depend on no parameter
+        loss.backward()
+    optimizer.step()
+    return loss.detach()

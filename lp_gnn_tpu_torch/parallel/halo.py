@@ -8,8 +8,9 @@ in[p][q*Bh:(q+1)*Bh]``, the tiled ``lax.all_to_all`` over the ``edge`` axis.
 
 On CUDA tensors :func:`halo_all_to_all` launches ``ops/csrc/halo_a2a.cu``
 (one launch for all K*K blocks) or raises; on CPU tensors it runs
-:func:`halo_all_to_all_plain`. There is no switch between transports: on
-the card this kernel is the only one. It takes the K buffers stacked in one
+:func:`halo_all_to_all_plain`. :class:`HaloAllToAll` gives the stacked form
+a gradient: the exchange is its own transpose. There is no switch between
+transports: on the card this kernel is the only one. It takes the K buffers stacked in one
 (K, K*Bh, F) tensor, as the reduce direction of the edge-partitioned
 forward holds them, or as a list of K tensors. The gather direction runs
 no all-to-all on one card: there the exchange is a fixed permutation of
@@ -76,9 +77,9 @@ def _check_common(k, shape, dtype, contiguous, grad):
         raise ValueError("halo buffers must be contiguous")
     if grad and torch.is_grad_enabled():
         raise NotImplementedError(
-            "halo_all_to_all is forward-only: its backward (the same exchange) "
-            "comes with edge-partitioned training (ROADMAP.md, queue item 7: "
-            "edge partition, the rest). Run under torch.no_grad().")
+            "halo_all_to_all is forward-only: HaloAllToAll.apply gives the "
+            "stacked form its backward (the same exchange). Run under "
+            "torch.no_grad().")
 
 
 def _check(bufs: Sequence[torch.Tensor]) -> None:
@@ -165,3 +166,18 @@ def halo_all_to_all(bufs: Halo) -> Halo:
 
 
 halo_all_to_all.launches = 0   # kernel launches since the last reset
+
+
+class HaloAllToAll(torch.autograd.Function):
+    """``HaloAllToAll.apply(bufs)``: :func:`halo_all_to_all` of one stacked
+    (K, K*Bh, F) tensor with a gradient. The exchange maps block (p -> q)
+    to (q -> p), so it is its own transpose: the backward is one more
+    stacked launch, on the gradient."""
+
+    @staticmethod
+    def forward(ctx, bufs):
+        return halo_all_to_all(bufs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return halo_all_to_all(grad.contiguous())

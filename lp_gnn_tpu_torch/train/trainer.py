@@ -39,8 +39,17 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
   with fewer ranks it falls back to single-graph steps with a warning, as
   trainer.py:477-481 does. Only rank 0 writes files.
 
+- ``--mesh_shape edge=K`` (trainer.py:356-391, 445-461, 611-620): the
+  graphs above ``edge_num_thresh`` are partitioned once
+  (``parallel/edge_partition.py cached_partition_graph``, the dataset's
+  ``partitions/`` cache), their K shards' tensors built on the run's
+  device with the input conv's aggregations (not for GEN) and kept, and
+  each takes one ``dist_train_step`` a visit, without per-step accuracy;
+  smaller graphs keep the full-graph step. The val pass sends graphs above
+  the threshold through the dist forward.
+
 What the JAX ``run_exp`` also does and the port does not yet raises and
-names its ROADMAP item: ``--mesh_shape`` edge training (and dp x edge),
+names its ROADMAP item: dp x edge (``--mesh_shape dp=K,edge=K``),
 ``--steps_per_call`` above 1, ``--trace 1``.
 """
 from __future__ import annotations
@@ -62,12 +71,15 @@ from ..data.graph import GraphTensors, seed_masks as _seed_masks, union
 from ..data.sampling import sample_subgraphs
 from ..device import resolve_device
 from ..infer.decode import decode_topm_device
-from ..infer.predict import model_inference
+from ..infer.predict import mesh_from_cfg, model_inference, part_cache_dir
 from ..models.convert import is_torch_checkpoint, load_checkpoint
 from ..models.gcn import build_model
 from ..ops.spmm import attach_input_agg
 from ..parallel.dp import (dp_train_step, rank_block, stack_groups,
                            step_generator)
+from ..parallel.edge_partition import (DistGraphTensors,
+                                       cached_partition_graph,
+                                       dist_tensors, dist_train_step)
 from ..parallel.mesh import init_distributed, parse_mesh_shape, world_and_rank
 from ..utils.misc import AverageMeter
 from ..utils.serialize import json_dump
@@ -260,11 +272,12 @@ def _restore_rng(state: dict, rng_np: np.random.RandomState,
 # -------------------------------------------------------------------- run_exp
 def _refuse_unported(cfg: Config) -> None:
     mesh = parse_mesh_shape(cfg.mesh_shape or "")
-    if mesh.get("edge", 1) > 1:
+    if mesh.get("edge", 1) > 1 and mesh.get("dp", 1) > 1:
         raise NotImplementedError(
-            f"--mesh_shape {cfg.mesh_shape}: edge-partitioned training (and "
-            "dp x edge) is not ported to lp_gnn_tpu_torch yet (ROADMAP.md, "
-            "queue item 7: edge partition, the rest)")
+            f"--mesh_shape {cfg.mesh_shape}: dp x edge training "
+            "(parallel/combined.py) is not ported to lp_gnn_tpu_torch yet "
+            "(ROADMAP.md, queue item 7: edge partition, the rest: dp x edge, "
+            "shards on several cards, the all-gather branch)")
     if cfg.steps_per_call > 1:
         raise NotImplementedError(
             f"--steps_per_call {cfg.steps_per_call}: several steps a "
@@ -280,12 +293,17 @@ def _refuse_unported(cfg: Config) -> None:
 
 def quick_val(model, val_ds: LPDataset, cfg: Config) -> float:
     """Mean decode accuracy over the val split, one full-graph forward a
-    graph (trainer.py:711 _quick_val)."""
+    graph (trainer.py:711 _quick_val); under ``--mesh_shape edge=K`` the
+    graphs above ``edge_num_thresh`` take the dist forward, as
+    ``model_inference`` does given a mesh."""
     model.eval()
+    mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
+    thresh = cfg.edge_num_thresh if mesh is not None else np.inf
     total = 0.0
     for i in range(len(val_ds)):
         g = val_ds[i]
-        lc, lv = model_inference(model, g)
+        lc, lv = model_inference(model, g, thresh, mesh=mesh,
+                                 part_dir=part_cache_dir(cfg))
         total += accuracy(np.concatenate([lc, lv]),
                           np.concatenate([g.y_s, g.y_t]), g.ncons,
                           dataset_name=cfg.dataset)
@@ -361,6 +379,11 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
 
     graphs: dict = {}   # tensors kept across epochs: graphs and unions
     hops = max(cfg.arch_depth() - 1, 1)
+    mesh = mesh_from_cfg(cfg, device)
+    if mesh is not None:
+        logging.info("edge-partitioned training: %d shards on %s, graphs "
+                     "above %g edges", mesh.n_shards, device,
+                     cfg.edge_num_thresh)
 
     def graph_for(idx: int) -> GraphTensors:
         """``train_graph``'s tensors, built once a graph and kept."""
@@ -369,12 +392,20 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         return graphs[idx]
 
     def batches_for(idx: int):
-        """The graph's tensors, or, above ``edge_num_thresh``, those of a
-        fresh sample of its subgraphs, built one at a time (trainer.py
+        """The graph's tensors, or, above ``edge_num_thresh``, its
+        partition's (built once and kept) under an edge mesh, else those of
+        a fresh sample of its subgraphs, built one at a time (trainer.py
         :426-470)."""
         g = train_ds[idx]
         if g.nnz <= cfg.edge_num_thresh:
             yield graph_for(idx)
+            return
+        if mesh is not None:
+            if idx not in graphs:
+                dg = cached_partition_graph(g, mesh.n_shards,
+                                            part_cache_dir(cfg), g.fn)
+                graphs[idx] = dist_tensors(model, dg, mesh, input_agg=True)
+            yield graphs[idx]
             return
         for sub in sample_subgraphs(g, rng_np, fanout=[6] * hops,
                                     batch_size=cfg.batch_size):
@@ -418,6 +449,10 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         def run_one(idx_graphs, gt):
             nonlocal glstep
             glstep += 1
+            if isinstance(gt, DistGraphTensors):
+                loss = dist_train_step(model, optimizer, gt, loss_fn, gen)
+                log_step(idx_graphs, float(loss), None)
+                return
             want_acc = bool(cfg.step_acc) or glstep % LOG_EVERY == 1
             loss, acc = train_step(model, optimizer, gt, loss_fn, gen,
                                    want_acc)

@@ -18,11 +18,13 @@ from lp_gnn_tpu_torch.ops import _build
 from lp_gnn_tpu_torch.ops import gen_agg
 from lp_gnn_tpu_torch.ops import spmm as tspmm
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from lp_gnn_tpu_torch.parallel import dist_gen
+from lp_gnn_tpu_torch.parallel import edge_partition as tEP
 from lp_gnn_tpu_torch.parallel.edge_partition import (compose_halo_src,
                                                       halo_gather,
                                                       halo_schedule,
                                                       pick_halo_schedule)
-from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
+from lp_gnn_tpu_torch.parallel.halo import (HaloAllToAll, halo_all_to_all,
                                             halo_all_to_all_plain)
 from lp_gnn_tpu_torch.parallel.mesh import EdgeMesh, make_mesh
 
@@ -924,3 +926,200 @@ def test_kernels_on_edgeless_graphs_on_card(cuda_device, n_src, dtype):
     check_edgeless(cuda_device, n_src, dtype)
     assert (tspmm.spmm_csr.launches, gen_agg.gen_agg_fwd.launches,
             gen_agg.gen_agg_bwd.launches) == tuple(n + 1 for n in before)
+
+
+# ------------------------------------------- edge-partitioned training paths
+def merge_inputs(rng, rows, d, n_parts, device="cpu"):
+    """gen_lse_merge's inputs: rows with a local part or not, and 0-3 slot
+    parts each (rows 0 and 1 without any), parts rows 2D + 2 wide."""
+    local = rng.randint(0, 3, rows).astype(np.int32)
+    per = rng.randint(0, 4, rows)
+    local[:2], per[:2] = 0, 0
+    ptr = np.concatenate([[0], np.cumsum(per)]).astype(np.int32)
+    idx = rng.randint(0, n_parts, ptr[-1]).astype(np.int32)
+    parts = rng.randn(n_parts, 2 * d + 2).astype(np.float32)
+    parts[:, d:2 * d] *= 4
+    t = [torch.from_numpy(a).to(device) for a in (
+        local, rng.randn(rows, d).astype(np.float32),
+        (rng.randn(rows, d) * 4).astype(np.float32), ptr, idx, parts)]
+    return t
+
+
+def test_gen_lse_merge_checks():
+    """The merge's wrapper refuses what the kernel does not take, and on the
+    CPU runs its plain version: a row without parts gives 0 and 0."""
+    t = merge_inputs(np.random.RandomState(1), 20, 3, 9)
+    before = gen_agg.gen_lse_merge.launches
+    aggr, lse = gen_agg.gen_lse_merge(*t)
+    assert gen_agg.gen_lse_merge.launches == before
+    assert not aggr[:2].any() and not lse[:2].any()
+    with pytest.raises(TypeError, match="int32"):
+        gen_agg.gen_lse_merge(t[0].long(), *t[1:])
+    with pytest.raises(ValueError, match="2D"):
+        gen_agg.gen_lse_merge(*t[:5], t[5][:, :5].contiguous())
+    with pytest.raises(TypeError, match="one dtype"):
+        gen_agg.gen_lse_merge(*t[:5], t[5].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gen_agg.gen_lse_merge(*t[:5], t[5].t().contiguous().t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 256])
+def test_gen_lse_merge_matches_plain_on_card(cuda_device, d):
+    """gen_lse_merge on the card, one launch, against its plain version
+    (rtol 1e-5 atol 1e-6: the online rescale and expf/logf against a
+    max-first sum in another order), bit-identical over two calls."""
+    t = merge_inputs(np.random.RandomState(d), 5000, d, 3000, cuda_device)
+    before = gen_agg.gen_lse_merge.launches
+    aggr, lse = gen_agg.gen_lse_merge(*t)
+    again = gen_agg.gen_lse_merge(*t)
+    torch.cuda.synchronize()
+    assert gen_agg.gen_lse_merge.launches == before + 2
+    want = gen_agg.gen_lse_merge_plain(*t)
+    torch.testing.assert_close(aggr, want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want[1], rtol=1e-5, atol=1e-6)
+    assert torch.equal(aggr, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 1024])
+def test_halo_all_to_all_backward_on_card(cuda_device, d):
+    """K1's backward (HaloAllToAll) is one more stacked launch, on the
+    gradient: the exchange of the gradient, exactly."""
+    x, _ = stacked_halo(4, 40, d, torch.bfloat16, cuda_device, seed=d)
+    x.requires_grad_()
+    ct, _ = stacked_halo(4, 40, d, torch.bfloat16, cuda_device, seed=d + 1)
+    before = halo_all_to_all.launches
+    out = HaloAllToAll.apply(x)
+    assert halo_all_to_all.launches == before + 1
+    out.backward(ct)
+    torch.cuda.synchronize()
+    assert halo_all_to_all.launches == before + 2
+    assert torch.equal(x.grad, halo_all_to_all_plain(ct))
+
+
+def dist_case(device, k, gen=False):
+    g = port_graph(np.random.RandomState(k), m=600, n=900, e=6000)
+    dg = tEP.partition_graph(g, k)
+    return tEP.DistGraphTensors.from_partition(dg, make_mesh(k, device),
+                                               gen=gen)
+
+
+def launch_counts():
+    return {"spmm_csr": tspmm.spmm_csr.launches,
+            "gather_rows": gather_rows.launches,
+            "halo_all_to_all": halo_all_to_all.launches,
+            "gen_agg_fwd": gen_agg.gen_agg_fwd.launches,
+            "gen_agg_bwd": gen_agg.gen_agg_bwd.launches,
+            "gen_lse_merge": gen_agg.gen_lse_merge.launches}
+
+
+def launched_since(before):
+    return {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+def test_halo_pair_backward_on_card(cuda_device, k):
+    """The halo pair's backwards on the card: HaloGather's is one stacked
+    K1 and K owner-side SpMMs, no gather; HaloReduce's one gather. Both
+    against the CPU's (fp32: the gather and K1 exact, the SpMM's sums rtol
+    1e-5 atol 1e-6)."""
+    on = {dev: dist_case(dev, k) for dev in ("cpu", cuda_device)}
+    rng = np.random.RandomState(k)
+    dgt = on["cpu"]
+    real = torch.stack([torch.diff(m.ptr) > 0 for m in dgt.halo_c2v])
+    ct_h = torch.from_numpy(rng.randn(k, dgt.nh, 16).astype(np.float32)) * \
+        real[..., None]
+    ct_r = torch.from_numpy(rng.randn(k * dgt.ns, 16).astype(np.float32))
+    right = torch.from_numpy(rng.randn(k * dgt.ns, 16).astype(np.float32))
+    parts = torch.from_numpy(rng.randn(k, dgt.nh, 16).astype(np.float32))
+    grads = {}
+    for dev, d in on.items():
+        r = right.to(dev).detach().requires_grad_()
+        p = parts.to(dev).detach().requires_grad_()
+        hg, hr = tEP.HaloGather.apply(r, d), tEP.HaloReduce.apply(p, d)
+        before = launch_counts()
+        hg.backward(ct_h.to(dev))
+        n_gather = launched_since(before)
+        before = launch_counts()
+        hr.backward(ct_r.to(dev))
+        n_reduce = launched_since(before)
+        grads[str(dev)] = (r.grad.cpu(), p.grad.cpu())
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert n_gather == {"halo_all_to_all": 1, "spmm_csr": k}
+            assert n_reduce == {"gather_rows": 1}
+    cpu, card = grads["cpu"], grads[str(cuda_device)]
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(card[1], cpu[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.bfloat16, 16),
+                                     (torch.float32, 3), (torch.bfloat16, 3)])
+def test_dist_gen_l2r_on_card(cuda_device, dtype, d):
+    """DistGenL2R on the card (K gen_agg_fwd, one K1 of the padded (aggr,
+    lse) rows, one gen_lse_merge; backward one gather, K gen_agg_bwd, K
+    SpMMs) against the CPU's plain versions on the same inputs: aggr and
+    the gradients at the GEN kernels' tolerances (fp32 rtol 1e-4 atol
+    1e-5; bf16 rtol 2^-6 atol 2^-5)."""
+    k = 4
+    on = {dev: dist_case(dev, k, gen=True) for dev in ("cpu", cuda_device)}
+    rng = np.random.RandomState(d)
+    x = torch.from_numpy(rng.randn(k * on["cpu"].ms, d).astype(np.float32))
+    w, b = (torch.from_numpy(rng.randn(d).astype(np.float32)) for _ in "wb")
+    t = torch.tensor(1.2)
+    g = torch.from_numpy(rng.randn(k * on["cpu"].ns, d).astype(np.float32))
+    got = {}
+    for dev, dgt in on.items():
+        leaves = [v.to(dev).to(dtype).detach().requires_grad_()
+                  for v in (x, w, b, t)]
+        before = launch_counts()
+        aggr = dist_gen.DistGenL2R.apply(*leaves, dgt)
+        fwd = launched_since(before)
+        before = launch_counts()
+        aggr.backward(g.to(dev))
+        bwd = launched_since(before)
+        got[str(dev)] = [aggr.detach().cpu()] + [v.grad.float().cpu()
+                                                  for v in leaves]
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert fwd == {"gen_agg_fwd": k, "halo_all_to_all": 1,
+                           "gen_lse_merge": 1}
+            assert bwd == {"gather_rows": 1, "gen_agg_bwd": k, "spmm_csr": k}
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -6, 2 ** -5)
+    for name, a, b_ in zip(("aggr", "dx", "dw", "db", "dt"),
+                           got[str(cuda_device)], got["cpu"]):
+        scale = b_.abs().max().clamp(min=1)
+        torch.testing.assert_close(a / scale, b_ / scale, rtol=rtol, atol=atol,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_dist_conv_step_on_card(cuda_device):
+    """A dist GCN_FC and GENDeeper forward and backward on the card (K=4,
+    fp32) against the CPU from the same weights: logits and gradients
+    within the SpMM's fp32 tolerance of the scale (rtol 1e-4, atol 1e-5 of
+    the largest)."""
+    from lp_gnn_tpu_torch.models.gcn import build_model
+    from lp_gnn_tpu_torch.train.losses import balanced
+    g = port_graph(np.random.RandomState(9), m=600, n=900, e=6000)
+    dg = tEP.partition_graph(g, 4)
+    for arch in ("GCN_FC(8,8,hids=32,depth=3,dp=0.0)",
+                 "GENDeeper(8,8,hids=16,depth=3)"):
+        out = {}
+        for dev in ("cpu", cuda_device):
+            model = build_model(arch, generator=torch.Generator().manual_seed(1))
+            model = model.to(dev).train()
+            model.dp = 0.0
+            dgt = tEP.dist_tensors(model, dg, make_mesh(4, dev), input_agg=True)
+            lc, lv = tEP.dist_forward(model, dgt)
+            balanced(lc, lv, dgt.y_s, dgt.y_t, dgt.cons_mask,
+                     dgt.vars_mask).backward()
+            out[str(dev)] = [lc.detach().cpu(), lv.detach().cpu()] + [
+                p.grad.cpu() for p in model.parameters()]
+        for a, b_ in zip(out[str(cuda_device)], out["cpu"]):
+            scale = b_.abs().max().clamp(min=1e-30)
+            torch.testing.assert_close(a / scale, b_ / scale, rtol=1e-4,
+                                       atol=1e-5, msg=arch)

@@ -550,7 +550,6 @@ def test_cli_trains_on_the_cpu_and_needs_a_gpu_otherwise(family, tmp_path,
 
 
 @pytest.mark.parametrize("flag,item", [
-    ({"mesh_shape": "edge=2"}, "queue item 7"),
     ({"mesh_shape": "dp=2,edge=2"}, "queue item 7"),
     ({"steps_per_call": 2}, "make_scan_train_step"),
     ({"trace": 1}, "profiling"),
@@ -582,10 +581,11 @@ def test_dp_beyond_the_ranks_falls_back_with_a_warning(family, tmp_path,
 
 
 def test_raw_spmm_stays_forward_only():
-    """spmm_csr called directly (the dist path's out= form) refuses a
-    gradient and names the ROADMAP item of dist training."""
+    """spmm_csr called directly refuses a gradient and points at SpmmCSR,
+    through which every path that trains (the dist convs too) takes its
+    gradient."""
     g, _ = random_graph(np.random.RandomState(5))
     gt = GraphTensors.from_graph(g, "cpu")
     x = torch.randn(g.nvars, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*queue item 7"):
+    with pytest.raises(NotImplementedError, match="forward-only.*SpmmCSR"):
         tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
