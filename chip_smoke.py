@@ -143,6 +143,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    held against the single-card GEN step (phase 20's rule), its launches
    exact (40 ``gen_agg_fwd``, 40 ``gen_agg_bwd``, 60 SpMMs, 10 K1, 10
    gathers, 5 merges).
+23. dp_edge: dp x edge training, two ranks on the one card (gloo, the
+   LP_GNN_DIST_* contract), each holding one of two bench-shape twins as 4
+   shards. ``train --mesh_shape dp=2,edge=4 --edge_num_thresh 0`` in fp32,
+   SGD at lr 1, no dropout, 1 epoch: rank 0's weights held to the single
+   process's ``--graph_batch 2`` step on the twins (each tensor's update
+   within the larger of 1e-4 and twice that step's own spread against its
+   fp64 witness), both groups gloo, no rank-1 file. Then the recipe (bf16,
+   Adam, the arch's dropout, 2 epochs) through ``chip_smoke.py
+   --train_rank``, which runs the same entry point under the step trace in
+   the rank's process: each rank's launches exactly (an input cache 20
+   SpMM / 1 K1 / 1 gather, a step 40 / 2 / 2), equal finite losses on both
+   ranks, each rank's step spans on the card, all-reduce ms (and its wait
+   for the other rank), peak memory, partition seconds and wall.
 
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
@@ -1264,7 +1277,7 @@ def dist_breakdown(model, g: BipartiteGraph) -> dict:
         t2 = time.perf_counter()
         with torch.inference_mode():
             ev[0].record()
-            lc, lv = edge_partition.dist_gcn_fc_apply(model, dt)
+            lc, lv = edge_partition.dist_forward(model, dt)
             ev[1].record()
             torch.cuda.synchronize()
             t3 = time.perf_counter()
@@ -1284,7 +1297,7 @@ def dist_breakdown(model, g: BipartiteGraph) -> dict:
                 stages[k].append(v)
     with torch.inference_mode():
         by_kernel, complete = device_ms_by_kernel(
-            lambda: edge_partition.dist_gcn_fc_apply(model, dt))
+            lambda: edge_partition.dist_forward(model, dt))
     return {**{k: sorted(v)[1] for k, v in stages.items()},
             "dist_forward_by_kernel_ms": by_kernel,
             "dist_forward_profile_complete": complete}
@@ -2405,7 +2418,8 @@ class StepTrace:
     def __enter__(self):
         real = {n: getattr(trainer, n) for n in (
             "sample_subgraphs", "train_graph", "train_step", "dp_train_step",
-            "dist_train_step", "cached_partition_graph", "dist_tensors")}
+            "dist_train_step", "dp_edge_train_step", "cached_partition_graph",
+            "dist_tensors")}
         real_bwd = spmm_mod.SpmmCSR.backward
 
         def sample(*a, **kw):
@@ -2452,7 +2466,8 @@ class StepTrace:
                     timed("cached_partition_graph", self.partition_s))
         self._patch(trainer, "dist_tensors", timed("dist_tensors",
                                                    self.dist_tensors_s))
-        for name in ("train_step", "dp_train_step", "dist_train_step"):
+        for name in ("train_step", "dp_train_step", "dist_train_step",
+                     "dp_edge_train_step"):
             self._patch(trainer, name, stepper(name))
         self._patch(spmm_mod.SpmmCSR, "backward", staticmethod(backward))
         return self
@@ -2710,6 +2725,40 @@ def nccl_allreduce(numel: int) -> dict:
             "numel": numel, "allreduce_ms": ms}
 
 
+def run_ranks(name: str, args_of) -> tuple[list[str], float, list[str]]:
+    """DP_RANKS processes of this Python, ``args_of(rank)`` each, joined by
+    the LP_GNN_DIST_* contract on the one card (over gloo: NCCL refuses two
+    ranks on one device), started together and waited for; returns their
+    output, the wall seconds of all and each rank's ``process group:``
+    line. Every process is ended before it returns; a rank that fails
+    fails the phase."""
+    root = osp.dirname(osp.abspath(__file__))
+    port = free_port()
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(DP_RANKS):
+            env = dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
+                       LP_GNN_DIST_NPROCS=str(DP_RANKS),
+                       LP_GNN_DIST_PROC_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, *args_of(rank)], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    if [p.returncode for p in procs] != [0] * DP_RANKS:
+        raise SmokeFailure(f"{name} ranks failed: " + " | ".join(
+            o[-2000:] for o in outs))
+    groups = [ln.split("process group:")[1].strip() for o in outs
+              for ln in o.splitlines() if "process group:" in ln]
+    return outs, wall, groups
+
+
 def dp_phase(seed: int) -> dict:
     """Two ranks on the one card (processes of ``python -m
     lp_gnn_tpu_torch.train`` joined over gloo by the LP_GNN_DIST_*
@@ -2719,7 +2768,6 @@ def dp_phase(seed: int) -> dict:
     on the same data and weights takes the same step. Rank 0's
     ``mdl.pth`` is held to the single process's (updates within
     UPDATE_RTOL); rank 1 writes no file. Then ``nccl_allreduce``."""
-    root = osp.dirname(osp.abspath(__file__))
     lr = UPDATE_LR
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dp_") as tmp:
         data_prefix = osp.join(tmp, "data")
@@ -2727,36 +2775,13 @@ def dp_phase(seed: int) -> dict:
                       split_dataset(4, twin_graphs(seed + 900), seed))
         argv = ["--arch", ARCH_NO_DROPOUT, "--opt", "sgd", "--lr", str(lr),
                 "--epochs", "1", "--seed", str(seed)]
-        port = free_port()
-        procs, outs = [], []
-        t0 = time.perf_counter()
-        try:
-            for rank in range(DP_RANKS):
-                env = dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
-                           LP_GNN_DIST_NPROCS=str(DP_RANKS),
-                           LP_GNN_DIST_PROC_ID=str(rank))
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "lp_gnn_tpu_torch.train",
-                     "--dataset", "smoke", "--data_prefix", data_prefix,
-                     "--exp_nm", "dp", *argv, "--mesh_shape",
-                     f"dp={DP_RANKS}", "--log_prefix",
-                     osp.join(tmp, f"rank{rank}")],
-                    cwd=root, env=env, stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT, text=True))
-            for p in procs:
-                outs.append(p.communicate(timeout=600)[0])
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
-        t_ranks = time.perf_counter() - t0
-        if [p.returncode for p in procs] != [0] * DP_RANKS:
-            raise SmokeFailure("dp ranks failed: " + " | ".join(
-                o[-2000:] for o in outs))
+        _, t_ranks, groups = run_ranks("dp", lambda rank: [
+            "-m", "lp_gnn_tpu_torch.train", "--dataset", "smoke",
+            "--data_prefix", data_prefix, "--exp_nm", "dp", *argv,
+            "--mesh_shape", f"dp={DP_RANKS}", "--log_prefix",
+            osp.join(tmp, f"rank{rank}")])
         if osp.exists(osp.join(tmp, "rank1")):
             raise SmokeFailure("dp: rank 1 wrote files")
-        groups = [ln.split("process group:")[1].strip() for o in outs
-                  for ln in o.splitlines() if "process group:" in ln]
         ranks = torch.load(osp.join(tmp, "rank0", "dp", "mdl.pth"),
                            weights_only=True)
         launches, tr, t, peak, log_dir = run_train(
@@ -3089,6 +3114,207 @@ def dist_gen_train(seed: int) -> dict:
     return dist_vs_single_step(seed, DIST_GEN_ARCH, bench_graph(seed + 1400))
 
 
+# ------------------------------------------------------- dp x edge training
+# DP_RANKS ranks on the one card, each holding its block of a batch (one of
+# the twins) as K_EDGE shards; every oversize graph is a batch member.
+DP_EDGE_ARGS = ["--mesh_shape", f"dp={DP_RANKS},edge={K_EDGE}",
+                "--edge_num_thresh", "0"]
+DP_EDGE_EPOCHS = 2
+
+
+def rank_train(report: str, argv: list[str]) -> None:
+    """One rank of a dp x edge run, in this process (``--train_rank``): the
+    train entry point with ``argv`` under a ``StepTrace``, the launch
+    counts set to 0 just before and read just after; the partitions' host
+    seconds and each all-reduce's wall ms (synchronized on both sides)
+    read from wrappers that add no work on the card. Writes its launches,
+    steps, partition and tensor seconds, all-reduce ms (after a barrier:
+    the wait for the other rank, its own ms) peak memory and wall seconds
+    as JSON to ``report``."""
+    from lp_gnn_tpu_torch.parallel import combined
+    allreduce_ms, wait_ms, partition_s = [], [], []
+    real_avg, real_part = combined.average_over_ranks, trainer.partition_batch
+
+    def avg(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.barrier()
+        t1 = time.perf_counter()
+        out = real_avg(*a, **kw)
+        torch.cuda.synchronize()
+        wait_ms.append((t1 - t0) * 1e3)
+        allreduce_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def part(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_part(*a, **kw)
+        partition_s.append(time.perf_counter() - t0)
+        return out
+
+    for kern in KERNELS:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    combined.average_over_ranks, trainer.partition_batch = avg, part
+    try:
+        with StepTrace() as tr:
+            t = run_module("lp_gnn_tpu_torch.train", argv)
+    finally:
+        combined.average_over_ranks, trainer.partition_batch = \
+            real_avg, real_part
+    with open(report, "w") as f:
+        json.dump({"launches": launch_counts(), "steps": tr.steps,
+                   "partition_s": partition_s,
+                   "dist_tensors_s": tr.dist_tensors_s,
+                   "allreduce_ms": allreduce_ms,
+                   "allreduce_wait_ms": wait_ms, "wall_s": t,
+                   "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated()}, f)
+
+
+def union_step_fp64(seed: int, graphs: list, lr: float) -> dict:
+    """The single process's ``--graph_batch 2`` step on ``graphs`` (one
+    ``dp_train_step`` over their union, from the seeded weights of
+    ARCH_NO_DROPOUT, SGD at ``lr``, balanced CE) with its convs and SpMM
+    sums in fp64 on the card (``dist_vs_single_step``'s witness); returns
+    the weights."""
+    from lp_gnn_tpu_torch.data.graph import union
+    from lp_gnn_tpu_torch.parallel.dp import dp_train_step
+    model = build_model(ARCH_NO_DROPOUT)
+    model.load_state_dict(seeded_state(ARCH_NO_DROPOUT, seed))
+    model.double()
+    model.cdtype = torch.float64
+    real = spmm_mod.spmm_csr
+    spmm_mod.spmm_csr = spmm_sum_in_x_dtype
+    try:
+        model = model.to("cuda").train()
+        opt = trainer.make_optimizer(model.parameters(), "sgd", lr)
+        u = union([trainer.train_graph(model, g, "cuda") for g in graphs])
+        dp_train_step(model, opt, u, LOSS_REGISTRY["balanced"])
+    finally:
+        spmm_mod.spmm_csr = real
+    out = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, opt, u
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_edge(seed: int) -> dict:
+    """dp x edge training through ``python -m lp_gnn_tpu_torch.train
+    --mesh_shape dp=2,edge=4 --edge_num_thresh 0``: DP_RANKS processes on
+    the one card (gloo), the twins as one batch, each rank one of them as
+    K_EDGE shards. Parity: one epoch (one dp x edge step) of GCN_FC fp32
+    without dropout, SGD at UPDATE_LR; rank 0's ``mdl.pth`` held to the
+    single process's ``--graph_batch 2`` step on the same twins and
+    weights, each tensor's update within the larger of UPDATE_RTOL and
+    DIST_UPDATE_SPREAD times that step's own spread against its fp64
+    witness (``union_step_fp64``); both groups gloo, no rank-1 file.
+    Recipe: the same ranks through this script's ``--train_rank`` (the
+    entry point under a ``StepTrace``) run GCN_FC bf16, balanced CE, Adam,
+    the arch's dropout, DP_EDGE_EPOCHS epochs: each rank's launches
+    exactly one input cache (one dist conv) and a dist step's a step,
+    equal finite losses on both ranks; each rank's step spans on the card,
+    all-reduce ms, peak memory, partition and tensor seconds, wall."""
+    lr = UPDATE_LR
+    script = osp.abspath(__file__)
+    twins = twin_graphs(seed + 1200)
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dpe_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), 0, 4,
+                      split_dataset(4, twins, seed))
+        data = ["--dataset", "smoke", "--data_prefix", data_prefix]
+        argv = ["--arch", ARCH_NO_DROPOUT, "--opt", "sgd", "--lr", str(lr),
+                "--epochs", "1", "--seed", str(seed)]
+        _, t_parity, groups = run_ranks("dp_edge", lambda rank: [
+            "-m", "lp_gnn_tpu_torch.train", *data, "--exp_nm", "dpe", *argv,
+            *DP_EDGE_ARGS, "--log_prefix", osp.join(tmp, f"rank{rank}")])
+        if osp.exists(osp.join(tmp, "rank1")) or len(groups) != DP_RANKS \
+                or not all("gloo" in g for g in groups):
+            raise SmokeFailure(f"dp_edge: groups {groups}, rank 1's files "
+                               f"{osp.exists(osp.join(tmp, 'rank1'))}")
+        ranks = torch.load(osp.join(tmp, "rank0", "dpe", "mdl.pth"),
+                           weights_only=True)
+        _, tr_single, _, _, log_dir = run_train(
+            tmp, data_prefix, argv + ["--graph_batch", "2"], "gb")
+        single = torch.load(osp.join(log_dir, "mdl.pth"), weights_only=True)
+
+        recipe = ["--arch", ARCH, "--fp16", "1", "--loss", "balanced",
+                  "--epochs", str(DP_EDGE_EPOCHS), "--seed", str(seed)]
+        reports = [osp.join(tmp, f"report{r}.json") for r in range(DP_RANKS)]
+        _, t_recipe, groups_r = run_ranks("dp_edge recipe", lambda rank: [
+            script, "--train_rank", reports[rank], "--", *data, "--exp_nm",
+            "dpe_recipe", *recipe, *DP_EDGE_ARGS, "--log_prefix",
+            osp.join(tmp, f"recipe{rank}")])
+        recipe_files = [osp.exists(osp.join(tmp, f"recipe{r}", "dpe_recipe",
+                                            "mdl.pth"))
+                        for r in range(DP_RANKS)]
+        recipe_rank1 = osp.exists(osp.join(tmp, "recipe1"))
+        per_rank = []
+        for path in reports:
+            with open(path) as f:
+                per_rank.append(json.load(f))
+    fp64 = union_step_fp64(seed, twins, lr)
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    rels = update_rels(w0, ranks, single, lr)
+    spread = update_rels(w0, single, fp64, lr)
+    limits = {k: max(UPDATE_RTOL, DIST_UPDATE_SPREAD * spread[k])
+              for k in rels}
+    worst = max(rels, key=lambda k: rels[k] / limits[k])
+    if rels[worst] > limits[worst]:
+        raise SmokeFailure(f"dp_edge vs --graph_batch 2: update rel diff "
+                           f"{rels[worst]} in {worst} > {limits[worst]}: "
+                           f"{json.dumps(rels)}")
+    per_step = dist_step_launches(ARCH)
+    want = add_launches(DIST_CONV, scaled(per_step, DP_EDGE_EPOCHS))
+    losses = [[st["loss"] for st in r["steps"]] for r in per_rank]
+    for r, rep in enumerate(per_rank):
+        kinds = {st["kind"] for st in rep["steps"]}
+        if rep["launches"] != want or kinds != {"dp_edge_train_step"} or \
+                len(rep["steps"]) != DP_EDGE_EPOCHS or \
+                any(st["launches"] != per_step for st in rep["steps"]):
+            raise SmokeFailure(
+                f"dp_edge recipe rank {r}: {len(rep['steps'])} steps "
+                f"{kinds}, launches {rep['launches']} (expected {want}), a "
+                f"step {[st['launches'] for st in rep['steps']]} (expected "
+                f"{per_step})")
+    if losses[0] != losses[1] or not np.isfinite(losses[0]).all() or \
+            recipe_files != [True, False] or recipe_rank1 or \
+            not all("gloo" in g for g in groups_r):
+        raise SmokeFailure(f"dp_edge recipe: losses {losses}, mdl.pth by "
+                           f"rank {recipe_files}, groups {groups_r}")
+    return {"arch": bf16_arch(ARCH), "ranks": DP_RANKS, "K": K_EDGE,
+            "groups": groups,
+            "parity": {"arch": ARCH_NO_DROPOUT, "dtype": "float32",
+                       "lr": lr, "ranks_s": t_parity,
+                       "single_step_losses": [st["loss"] for st in
+                                              tr_single.steps],
+                       "update_rels": rels,
+                       "single_vs_fp64_update_rels": spread,
+                       "dp_edge_vs_fp64_update_rels": update_rels(
+                           w0, ranks, fp64, lr),
+                       "spread_factor": DIST_UPDATE_SPREAD,
+                       "nearest_limit": {"tensor": worst,
+                                         "update_diff": rels[worst],
+                                         "limit": limits[worst]}},
+            "epochs": DP_EDGE_EPOCHS, "launches": add_launches(
+                *(r["launches"] for r in per_rank)),
+            "launches_per_rank": want, "launches_per_step": per_step,
+            "launch_formula": f"a rank: one conv's (DIST_CONV {DIST_CONV}) "
+                              f"input cache + a dist step's x "
+                              f"{DP_EDGE_EPOCHS} steps",
+            "step_losses": losses[0],
+            "step_device_ms": [[st["device_ms"] for st in r["steps"]]
+                               for r in per_rank],
+            "allreduce_ms": [r["allreduce_ms"] for r in per_rank],
+            "allreduce_wait_ms": [r["allreduce_wait_ms"] for r in per_rank],
+            "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                           for r in per_rank],
+            "partition_s": [r["partition_s"] for r in per_rank],
+            "dist_tensors_s": [r["dist_tensors_s"] for r in per_rank],
+            "rank_wall_s": [r["wall_s"] for r in per_rank],
+            "recipe_ranks_s": t_recipe}
+
+
 MERGE_TOL = (1e-5, 1e-6)   # rtol, atol: expf / logf and the online order
 
 
@@ -3182,11 +3408,19 @@ def main(argv=None) -> int:
     ap.add_argument("--gen_ab", action="store_true",
                     help="measure only the GEN aggregation of this "
                          "checkout (kernels, a forward, a step)")
+    ap.add_argument("--train_rank", metavar="REPORT",
+                    help="run as one rank of the dp_edge phase: the train "
+                         "entry point with the arguments after --, its "
+                         "measures written to REPORT")
+    ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.train_rank:
+        rank_train(args.train_rank, args.train_argv)
+        return 0
     try:
         smi = nvidia_smi()
         t0 = time.perf_counter()
@@ -3278,6 +3512,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         dgen = dist_gen_train(args.seed)
         emit({"phase": "dist_gen_train", **dgen})
+        torch.cuda.empty_cache()
+        dpe = dp_edge(args.seed)
+        emit({"phase": "dp_edge", **dpe})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -3291,7 +3528,8 @@ def main(argv=None) -> int:
              "sampled_serve": sampled, "sampled_serve_gen": sampled["gen"],
              "sampled_train": strained, "graph_batch": batched,
              "dp_graph_batch": dp, "dist_train": dtrained,
-             "dist_zoo_serve": dzoo, "dist_gen_train": dgen}
+             "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
+             "dp_edge": dpe}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

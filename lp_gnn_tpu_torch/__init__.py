@@ -23,8 +23,9 @@ shards with the boundary halo exchange (a hand-written CUDA all-to-all),
 all shards on one device. Graphs above ``--edge_num_thresh`` without a
 mesh are served by exact sampled shards and trained on fanout-sampled
 subgraphs; ``--graph_batch`` and ``--mesh_shape dp=K`` (K processes over
-``torch.distributed``) train several graphs a step. ROADMAP.md lists what
-is still to come.
+``torch.distributed``) train several graphs a step, and ``--mesh_shape
+dp=K,edge=E`` a rank's block of a batch of edge-partitioned graphs.
+ROADMAP.md lists what is still to come.
 
 Subpackages
 -----------
@@ -34,8 +35,9 @@ Subpackages
               the dataset, graph tensors on a device and their disjoint
               union, the neighbor sampler, the stack key
 - ``ops``     CSR SpMM and row gather: CUDA kernels, their plain versions
-- ``parallel`` edge mesh, graph partition, halo all-to-all kernel, dist
-              GCN_FC; the dp process group and the batched step
+- ``parallel`` edge mesh, graph partition, halo all-to-all kernel, the
+              dist step; the dp process group and the batched step; dp x
+              edge
 - ``models``  GCN_FC as an ``nn.Module``; weights carried from JAX / torch
 - ``infer``   top-m decode, prediction, validation and timing passes
 - ``train``   losses, metrics, the trainer and its entry point

@@ -84,8 +84,13 @@ class Config:
                                            # of graphs above edge_num_thresh,
                                            # K shards on the one device;
                                            # dp=K: training over K ranks
-                                           # (the LP_GNN_DIST_* contract)
+                                           # (the LP_GNN_DIST_* contract);
+                                           # both: dp x edge training
     part_cache: int = 1                    # partition cache on disk
+    cache_in_agg: int = 1                  # 1: the input conv's
+                                           # aggregations computed once a
+                                           # training graph (exact; not
+                                           # for GEN); 0: every step
     # device
     device: str = "cuda"                   # cuda | cpu
     # derived (filled by finalize)

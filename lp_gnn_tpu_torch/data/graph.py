@@ -76,6 +76,9 @@ class GraphTensors:
     # the graphs of a disjoint union (``union``), in order; None for one
     members: tuple[Member, ...] | None = None
 
+    #: a conv over this graph may be recomputed in the backward (remat)
+    remat = True
+
     def __post_init__(self):
         if self.s_bs is None:
             self.s_bs = self.ncons
@@ -97,6 +100,17 @@ class GraphTensors:
     @property
     def device(self) -> torch.device:
         return self.c_feas.device
+
+    def apply_conv(self, conv, left: torch.Tensor, right: torch.Tensor,
+                   input_conv: bool = False):
+        """A model's two-direction ``conv`` over this graph: the module's
+        own forward, or, as the input conv, its ``apply_input``, which
+        reads the cached aggregations. The models call their convs through
+        the graph, so that a partition's tensors (``parallel/edge_partition
+        .py DistGraphTensors``) run the same forwards over their shards."""
+        if input_conv:
+            return conv.apply_input(self, left, right)
+        return conv(self, left, right)
 
     @classmethod
     def from_graph(cls, g: BipartiteGraph, device: torch.device | str,

@@ -68,12 +68,18 @@ def chunk_count(dst: np.ndarray, num_dst: int, k: int,
     return int(np.maximum((counts + k - 1) // k, 1).sum())
 
 
+def bucket_key(g: BipartiteGraph) -> tuple[int, int, int]:
+    """``pad_graph(g).bucket_key()`` (batching.py:113): (m_pad, n_pad,
+    e_pad), by which the JAX trainer groups dp x edge batches
+    (trainer.py:580-583)."""
+    return bucket_for(g.ncons), bucket_for(g.nvars), bucket_for(g.nnz)
+
+
 def stack_key(g: BipartiteGraph) -> tuple[int, ...]:
     """What fixes the shapes of ``pad_graph(g)``'s leaves: the bucket,
     the feature widths and the two blocked layouts' chunk counts (their
     chunk depths follow from the bucket)."""
-    m_pad, n_pad, e_pad = (bucket_for(g.ncons), bucket_for(g.nvars),
-                           bucket_for(g.nnz))
+    m_pad, n_pad, e_pad = bucket_key(g)
     return (m_pad, n_pad, e_pad, g.c_feas.shape[1], g.v_feas.shape[1],
             chunk_count(g.row, m_pad, pick_block_k(e_pad, m_pad)),
             chunk_count(g.col, n_pad, pick_block_k(e_pad, n_pad)))

@@ -9,6 +9,10 @@ factory takes, and no other.
 Forward contract: ``model(g, generator=None)`` with ``g`` a
 :class:`~lp_gnn_tpu_torch.data.graph.GraphTensors` ->
 (cons_logits (m, 3), vars_logits (n, 3)), fp32, after the knowledge mask.
+Every conv runs through ``g.apply_conv``, so the same forward runs over a
+partition's ``parallel/edge_partition.py DistGraphTensors`` (the stacked
+shards' logits), which applies each conv over the shards; the models
+import nothing of ``parallel/``.
 Dropout (and GCNRand's logits) draw from ``generator`` and dropout runs
 only in training mode. Each model class says what its graphs need:
 ``reads_input_agg`` (its input conv uses the cached aggregations of
@@ -29,8 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .gen import BidirGENConv
-from .layers import (BidirGraphConv, LayerNorm, Linear, add_knowledge,
-                     bidir_conv_apply_input, dropout)
+from .layers import BidirGraphConv, LayerNorm, Linear, add_knowledge, dropout
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,16 +55,20 @@ class ZooModel(nn.Module):
         self.cdtype = _DTYPES[dtype]
         self.remat = remat
 
-    def _conv(self, fn, *args):
-        """``fn(*args)``, recomputed in the backward pass under remat
-        (``torch.utils.checkpoint`` around the conv only, as
-        ``jax.checkpoint`` wraps the conv, gcn.py:67-69 and :180-182).
-        Dropout stays outside the recomputed function: the recompute
-        restores the default generators' state, not that of an explicit
-        one."""
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
+    def _conv(self, g, conv, left, right, input_conv: bool = False):
+        """``conv`` over the graph ``g`` (``g.apply_conv``: the module's
+        own conv on a graph, the conv over the shards on a partition),
+        recomputed in the backward pass under remat (``torch.utils
+        .checkpoint`` around the conv only, as ``jax.checkpoint`` wraps the
+        conv, gcn.py:67-69 and :180-182) where ``g`` allows it: a
+        partition does not, as JAX's dist forward takes no remat
+        (edge_partition.py:1007-1034). Dropout stays outside the recomputed
+        function: the recompute restores the default generators' state, not
+        that of an explicit one."""
+        if self.remat and g.remat and torch.is_grad_enabled():
+            return checkpoint(g.apply_conv, conv, left, right, input_conv,
+                              use_reentrant=False)
+        return g.apply_conv(conv, left, right, input_conv)
 
 
 class GCN_FC(ZooModel):
@@ -93,11 +100,11 @@ class GCN_FC(ZooModel):
     def forward(self, g, generator: torch.Generator | None = None):
         x_left = g.c_feas.to(self.cdtype)
         x_right = g.v_feas.to(self.cdtype)
-        left, right = self._conv(bidir_conv_apply_input, self.conv1, g,
-                                 x_left, x_right)
+        left, right = self._conv(g, self.conv1, x_left, x_right,
+                                 input_conv=True)
         left, right = F.relu(left), F.relu(right)
         for conv in self.layers:
-            left, right = self._conv(conv, g, left, right)
+            left, right = self._conv(g, conv, left, right)
             left = dropout(left, self.dp, generator, self.training)
             right = dropout(right, self.dp, generator, self.training)
             left, right = F.relu(left), F.relu(right)
@@ -124,13 +131,14 @@ class GCN(ZooModel):
     def forward(self, g, generator: torch.Generator | None = None):
         x_left = g.c_feas.to(self.cdtype)
         x_right = g.v_feas.to(self.cdtype)
-        left, right = bidir_conv_apply_input(self.conv1, g, x_left, x_right)
+        left, right = self._conv(g, self.conv1, x_left, x_right,
+                                 input_conv=True)
         left, right = F.relu(left), F.relu(right)
-        left, right = self.conv2(g, left, right)
+        left, right = self._conv(g, self.conv2, left, right)
         left, right = F.relu(left), F.relu(right)
         left = dropout(left, self.dp, generator, self.training)
         right = dropout(right, self.dp, generator, self.training)
-        left, right = self.conv3(g, left, right)
+        left, right = self._conv(g, self.conv3, left, right)
         return add_knowledge(left, right, x_left, x_right)
 
 
@@ -190,19 +198,16 @@ class _Deeper(ZooModel):
     def forward(self, g, generator: torch.Generator | None = None):
         x_left = g.c_feas.to(self.cdtype)
         x_right = g.v_feas.to(self.cdtype)
-        if self.reads_input_agg:
-            left, right = self._conv(bidir_conv_apply_input, self.conv_in, g,
-                                     x_left, x_right)
-        else:
-            left, right = self._conv(self.conv_in, g, x_left, x_right)
+        left, right = self._conv(g, self.conv_in, x_left, x_right,
+                                 input_conv=self.reads_input_agg)
         for blk in self.blocks:
             h_l = F.relu(blk.norm_l(left))
             h_r = F.relu(blk.norm_r(right))
             h_l = dropout(h_l, self.dp, generator, self.training)
             h_r = dropout(h_r, self.dp, generator, self.training)
-            h_l, h_r = self._conv(blk.conv, g, h_l, h_r)
+            h_l, h_r = self._conv(g, blk.conv, h_l, h_r)
             left, right = left + h_l, right + h_r
-        left, right = self._conv(self.conv_out, g, left, right)
+        left, right = self._conv(g, self.conv_out, left, right)
         return add_knowledge(left, right, x_left, x_right)
 
 

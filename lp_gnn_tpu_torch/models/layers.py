@@ -87,19 +87,17 @@ class BidirGraphConv(nn.Module):
         left_new = self.right2left(spmm_vars_to_cons(g, right), left)
         return left_new, right_new
 
-
-def bidir_conv_apply_input(conv: BidirGraphConv, g, left: torch.Tensor,
-                           right: torch.Tensor):
-    """``conv`` as the input conv (layers.py:73-89): where ``g`` carries the
-    cached input aggregations (``ops/spmm.py attach_input_agg``) in the
-    inputs' dtype, it uses them instead of running the two SpMMs (exact:
-    the raw features are constants of the graph); otherwise it is
-    ``conv(g, left, right)``."""
-    agg_c, agg_v = g.in_agg_c, g.in_agg_v
-    if agg_c is None or agg_v is None or agg_c.dtype != right.dtype or \
-            agg_v.dtype != left.dtype:
-        return conv(g, left, right)
-    return conv.right2left(agg_c, left), conv.left2right(agg_v, right)
+    def apply_input(self, g, left: torch.Tensor, right: torch.Tensor):
+        """This conv as the input conv (layers.py:73-89): where ``g``
+        carries the cached input aggregations (``ops/spmm.py
+        attach_input_agg``) in the inputs' dtype, it uses them instead of
+        running the two SpMMs (exact: the raw features are constants of the
+        graph); otherwise it is ``self(g, left, right)``."""
+        agg_c, agg_v = g.in_agg_c, g.in_agg_v
+        if agg_c is None or agg_v is None or agg_c.dtype != right.dtype or \
+                agg_v.dtype != left.dtype:
+            return self(g, left, right)
+        return self.right2left(agg_c, left), self.left2right(agg_v, right)
 
 
 def add_knowledge(left_logit, right_logit, left_feas, right_feas,

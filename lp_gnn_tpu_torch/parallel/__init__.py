@@ -1,3 +1,3 @@
-"""Edge-partitioned execution of one graph: the ``edge`` mesh, the host
-partition with its boundary halo lists, the halo all-to-all kernel and the
-distributed GCN_FC forward."""
+"""Distributed execution: the ``edge`` mesh, the host partition with its
+boundary halo lists, the halo kernels and the dist step; the ``dp``
+process group and the batched step; dp x edge (``combined``)."""

@@ -1,0 +1,90 @@
+"""dp x edge training: a batch of same-bucket graphs over the ranks of the
+``dp`` process group, each graph edge-partitioned over the ``edge`` axis
+(counterpart of ``lp_gnn_tpu/parallel/combined.py``, the JAX package's
+full multi-chip configuration).
+
+The JAX package stacks a batch's partitions into one pytree of (B, D, ...)
+leaves and shards it over a (dp, edge) device grid, so every leaf must have
+one shape across the batch: ``partition_batch`` (:29) gives each graph the
+batch's shard sizes and halo width, then pads what still differs (each
+shard's edge pad, the blocked layouts' chunk counts) with no-op fills
+(:62-107). The port stacks nothing. Each rank runs its own block's dist
+forwards one after another, each over CSRs of its graph's own edges, so
+the fills have no counterpart; what carries over is the shared ``ms``,
+``ns`` and Bh, which give every node and halo field of the batch one shape,
+as there. All K edge shards of a rank's graphs sit on the rank's device
+(``mesh.EdgeMesh``); the ranks run one process each (``mesh.py``).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..data.dataset import BipartiteGraph
+from ..data.stacking import bucket_key
+from .dp import average_over_ranks
+from .edge_partition import (DistGraphTensors, PartitionedGraph,
+                             _shard_sizes, compute_halo_width, dist_forward,
+                             partition_graph)
+
+
+def dist_stack_groups(ds, size: int, edge_num_thresh: float):
+    """The trainer's dp x edge work units (``trainer.py:570-612
+    dist_stacked_groups``): the graphs above ``edge_num_thresh``, in index
+    order, grouped by ``bucket_key`` (buckets in first-seen order), each
+    group cut into batches of ``size``. Returns (batches: lists of
+    ``size`` indices of ``ds``, the set of indices they cover); the rest of
+    the oversize graphs keep the single-graph dist step."""
+    by_bucket: dict = {}
+    for gi in range(len(ds)):
+        g = ds[gi]
+        if g.nnz > edge_num_thresh:
+            by_bucket.setdefault(bucket_key(g), []).append(gi)
+    batches = []
+    for group in by_bucket.values():
+        while len(group) >= size:
+            batches.append(group[:size])
+            group = group[size:]
+    return batches, {gi for b in batches for gi in b}
+
+
+def partition_batch(graphs: list[BipartiteGraph], n_edge: int,
+                    own: list[int] | None = None) -> list[PartitionedGraph]:
+    """The partitions of a batch's graphs into ``n_edge`` shards, all with
+    the batch's shard sizes (the largest ``_shard_sizes``) and halo width
+    (the largest ``compute_halo_width`` at those sizes), as ``combined.py
+    :53-61`` builds them: every node and halo field then has one shape
+    across the batch. ``own`` lists the positions in ``graphs`` to
+    partition (a rank's block; all by default): the shared sizes come from
+    every graph of the batch. One ``PartitionedGraph`` a graph, nothing
+    padded or stacked (module docstring). The all-gather branch
+    (``halo=False``) is ROADMAP.md queue item 7d."""
+    ms = max(_shard_sizes(g, n_edge)[0] for g in graphs)
+    ns = max(_shard_sizes(g, n_edge)[1] for g in graphs)
+    bh = max(compute_halo_width(g, n_edge, ms=ms, ns=ns) for g in graphs)
+    return [partition_graph(graphs[i], n_edge, halo_width=bh, ms=ms, ns=ns)
+            for i in (range(len(graphs)) if own is None else own)]
+
+
+def dp_edge_train_step(model, optimizer: torch.optim.Optimizer,
+                       dgs: list[DistGraphTensors], loss_fn,
+                       generator: torch.Generator | None = None):
+    """One dp x edge step on this rank's block ``dgs`` of a batch
+    (``make_dp_edge_train_step`` :108): the dist forward of each graph in
+    training mode, the mean of their dist losses, one backward; the
+    gradients and the loss averaged over the ranks (``dp.py
+    average_over_ranks``: with blocks of equal size, the mean of the
+    ranks' means is JAX's ``pmean(mean(losses))``), then one optimizer
+    step. JAX's ``loss / n_edge`` and ``loss * n_edge`` (:136, :146) undo
+    the transpose of the edge axis' psum; with every shard on one device
+    there is no psum (``dist_train_step``). Returns the mean loss over
+    every rank's graphs, a 0-d tensor on the device (before the update)."""
+    model.train()
+    loss = torch.stack([
+        loss_fn(*dist_forward(model, dg, generator), dg.y_s, dg.y_t,
+                dg.cons_mask, dg.vars_mask) for dg in dgs]).mean()
+    optimizer.zero_grad(set_to_none=True)
+    if loss.requires_grad:   # GCNRand's logits depend on no parameter
+        loss.backward()
+    loss = average_over_ranks(model, loss.detach())
+    optimizer.step()
+    return loss

@@ -169,12 +169,11 @@ class DistGenL2R(torch.autograd.Function):
                 db.to(b.dtype), dt.to(t.dtype), None)
 
 
-def dist_gen_bidir_conv(conv, dg, left, right, input_conv: bool = False):
+def dist_gen_bidir_conv(conv, dg, left, right):
     """A ``BidirGENConv`` over the partition ``dg`` (edge_partition.py:880):
     the module's own projections, encoders and MLPs on all shards' rows at
-    once, the two aggregations over the compact halo space. ``input_conv``
-    is accepted for the GraphConv signature: GEN's input aggregation depends
-    on its parameters and is never cached."""
+    once, the two aggregations over the compact halo space. GEN's input
+    aggregation depends on its parameters and is never cached."""
     gen, k, ns = dg.gen, dg.n_shards, dg.ns
     r2l, l2r = conv.right2left, conv.left2right
     # r2l: dst = constraints, sources through the halo

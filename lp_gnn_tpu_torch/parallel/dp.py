@@ -79,32 +79,41 @@ def step_generator(gen: torch.Generator | None,
     return torch.Generator(device=gen.device).manual_seed(seed + rank)
 
 
+def average_over_ranks(model, loss: torch.Tensor) -> torch.Tensor:
+    """Across the ranks of a process group, after each rank's backward:
+    every gradient of ``model`` and ``loss`` (this rank's mean) averaged
+    over the ranks, by one all-reduce of one flat fp32 buffer, each
+    gradient then written back in place. Returns the mean loss over the
+    ranks; ``loss`` itself without a group."""
+    world, _ = world_and_rank()
+    if world == 1:
+        return loss
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([t.reshape(-1) for t in grads]
+                     + [loss.reshape(1).float()])
+    dist.all_reduce(flat)
+    flat /= world
+    off = 0
+    for t in grads:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+    return flat[-1]
+
+
 def dp_train_step(model, optimizer: torch.optim.Optimizer, g: GraphTensors,
                   loss_fn, generator: torch.Generator | None = None):
     """One step on a union of graphs (``make_dp_train_step`` :46): one
     forward in training mode, the mean of the per-graph losses, one
     backward; across the ranks of a process group the gradients are
-    averaged (summed by one all-reduce, then divided by the ranks), then
-    the optimizer steps. Returns the mean loss over every rank's graphs, a
-    0-d tensor on the device (before the update)."""
+    averaged (``average_over_ranks``), then the optimizer steps. Returns
+    the mean loss over every rank's graphs, a 0-d tensor on the device
+    (before the update)."""
     model.train()
     lc, lv = model(g, generator=generator)
     loss = member_losses(lc, lv, g, loss_fn).mean()
     optimizer.zero_grad(set_to_none=True)
     if loss.requires_grad:   # GCNRand's logits depend on no parameter
         loss.backward()
-    loss = loss.detach()
-    world, _ = world_and_rank()
-    if world > 1:
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        flat = torch.cat([t.reshape(-1) for t in grads]
-                         + [loss.reshape(1).float()])
-        dist.all_reduce(flat)
-        flat /= world
-        off = 0
-        for t in grads:
-            t.copy_(flat[off:off + t.numel()].view_as(t))
-            off += t.numel()
-        loss = flat[-1]
+    loss = average_over_ranks(model, loss.detach())
     optimizer.step()
     return loss

@@ -40,8 +40,14 @@ All K shards sit on one device (``mesh.EdgeMesh``) and run one after another
 on one stream, so the psums of the JAX losses are sums over the stacked
 shards: the single-card losses of ``train/losses.py`` on the stacked logits
 with the partition's masks are the dist losses (:1066-1171). The
-all-gather branch (:709-736), shards on several cards and dp x edge wait
-for ROADMAP.md queue item 7.
+all-gather branch (:709-736) and shards on several cards wait for
+ROADMAP.md queue items 7d and 7c; dp x edge, a rank's block of a batch of
+partitions, is ``parallel/combined.py``.
+
+The arch forwards are the modules' own (``models/gcn.py``):
+:class:`DistGraphTensors` applies each conv over the shards
+(``apply_conv``), so ``DIST_MODELS`` calls the module, except for GCNRand,
+whose logits are drawn over the stacked rows and need no graph.
 """
 from __future__ import annotations
 
@@ -55,7 +61,8 @@ import torch
 import torch.nn.functional as F
 
 from ..data.dataset import BipartiteGraph
-from ..models.layers import add_knowledge, dropout
+from ..models.gen import BidirGENConv
+from ..models.layers import add_knowledge
 from ..ops.gather import gather_rows, gather_rows_plain
 from ..ops.gen_agg import padded_width
 from ..ops.spmm import spmm_csr, spmm_csr_plain
@@ -108,10 +115,24 @@ def _boundary_keys(row, col, n_shards, ms, ns):
     return d, owner, off, uk, inv
 
 
-def compute_halo_width(g: BipartiteGraph, n_shards: int) -> int:
+def _sizes(g: BipartiteGraph, n_shards: int, ms: int | None,
+           ns: int | None) -> tuple[int, int]:
+    """``ms`` and ``ns`` where given (a batch's shared sizes), else
+    ``_shard_sizes``; either way they must cover the graph."""
+    ms0, ns0 = _shard_sizes(g, n_shards)
+    ms, ns = ms or ms0, ns or ns0
+    if ms < ms0 or ns < ns0:
+        raise ValueError(f"shard sizes ({ms}, {ns}) below the graph's "
+                         f"({ms0}, {ns0})")
+    return ms, ns
+
+
+def compute_halo_width(g: BipartiteGraph, n_shards: int,
+                       ms: int | None = None, ns: int | None = None) -> int:
     """Bh: the largest boundary set over all (requester, owner) pairs,
-    rounded to 8 (edge_partition.py:175, :336-337)."""
-    ms, ns = _shard_sizes(g, n_shards)
+    rounded to 8 (edge_partition.py:175, :336-337), for the partition
+    with shard sizes ``ms`` and ``ns`` (``_shard_sizes`` by default)."""
+    ms, ns = _sizes(g, n_shards, ms, ns)
     row, col, _ = _real_edges(g)
     _, _, _, uk, _ = _boundary_keys(row, col, n_shards, ms, ns)
     if len(uk) == 0:
@@ -162,11 +183,16 @@ class PartitionedGraph:
         return self.n_shards * self.bh
 
 
-def partition_graph(g: BipartiteGraph, n_shards: int) -> PartitionedGraph:
+def partition_graph(g: BipartiteGraph, n_shards: int,
+                    halo_width: int | None = None, ms: int | None = None,
+                    ns: int | None = None) -> PartitionedGraph:
     """Host-side row partition of ``g`` into ``n_shards`` with the boundary
     halo lists (edge_partition.py:205 with ``halo=True``, boundary lists
-    :304-370)."""
-    ms, ns = _shard_sizes(g, n_shards)
+    :304-370). ``ms``, ``ns`` and ``halo_width`` (Bh) fix the shard sizes
+    and the halo width where a batch shares them
+    (``parallel/combined.py partition_batch``); they default to the
+    graph's own."""
+    ms, ns = _sizes(g, n_shards, ms, ns)
     nk = n_shards
     row, col, val = _real_edges(g)
     d_all, owner, off, uk, inv = _boundary_keys(row, col, nk, ms, ns)
@@ -174,7 +200,11 @@ def partition_graph(g: BipartiteGraph, n_shards: int) -> PartitionedGraph:
     pair_u = uk // ns
     counts = np.bincount(pair_u, minlength=nk * nk)
     starts = np.concatenate([[0], np.cumsum(counts)])
-    bh = _round_up(int(counts.max()) if len(uk) else 1, 8)
+    need = _round_up(int(counts.max()) if len(uk) else 1, 8)
+    bh = halo_width or need
+    if bh < need:
+        raise ValueError(f"halo width {bh} below the {need} slots a pair "
+                         "needs")
     nh = nk * bh
 
     # halo_send[e, d, rank] = the rank-th column of d's boundary set in e
@@ -376,6 +406,9 @@ class DistGraphTensors:
     in_agg_v: torch.Tensor | None = None   # (K*ns, 8)
     gen: object | None = None              # dist_gen.DistGenTensors
 
+    #: JAX's dist forward takes no remat (edge_partition.py:1007-1034)
+    remat = False
+
     @property
     def nh(self) -> int:
         return self.halo_src.shape[1]
@@ -383,6 +416,18 @@ class DistGraphTensors:
     @property
     def device(self) -> torch.device:
         return self.c_feas.device
+
+    def apply_conv(self, conv, left: torch.Tensor, right: torch.Tensor,
+                   input_conv: bool = False):
+        """A model's two-direction ``conv`` over the shards, in place of
+        ``GraphTensors.apply_conv``: GEN's over the compact halo space
+        (``dist_gen.dist_gen_bidir_conv``), a GraphConv's over the halo
+        exchange, the input conv reading the cached aggregations
+        (``_dist_bidir_conv``)."""
+        if isinstance(conv, BidirGENConv):
+            from .dist_gen import dist_gen_bidir_conv
+            return dist_gen_bidir_conv(conv, self, left, right)
+        return _dist_bidir_conv(conv, self, left, right, input_conv)
 
     @classmethod
     def from_partition(cls, dg: PartitionedGraph, mesh: EdgeMesh,
@@ -464,7 +509,7 @@ def halo_gather(right: torch.Tensor, halo_src: torch.Tensor,
     once; a table L2 holds whole is read once in any order, and there the
     schedule's short ranges would only leave lanes idle. Shards on distinct
     cards would bring back the gather-then-K1 route, with peer addresses in
-    K1's table (ROADMAP.md, queue item 7)."""
+    K1's table (ROADMAP.md, queue item 7c)."""
     k = halo_src.shape[0]
     return _gather(right, halo_src.view(-1),
                    pick_halo_schedule(right, halo_sched)).view(
@@ -625,41 +670,6 @@ def _dist_bidir_conv(conv, dg: DistGraphTensors, left, right,
     return conv.right2left(agg_c, left), conv.left2right(agg_v, right)
 
 
-def dist_gcn_fc_apply(model, dg: DistGraphTensors,
-                      generator: torch.Generator | None = None):
-    """GCN_FC forward over a partition (edge_partition.py:757), with the
-    weights of the single-device ``GCN_FC`` module ``model``. Returns the
-    stacked (K*ms, 3) and (K*ns, 3) fp32 logits. Dropout (training mode)
-    draws its masks from ``generator`` over the stacked rows."""
-    x_left = dg.c_feas.to(model.cdtype)
-    x_right = dg.v_feas.to(model.cdtype)
-    left, right = _dist_bidir_conv(model.conv1, dg, x_left, x_right, True)
-    left, right = F.relu(left), F.relu(right)
-    for conv in model.layers:
-        left, right = _dist_bidir_conv(conv, dg, left, right)
-        left = dropout(left, model.dp, generator, model.training)
-        right = dropout(right, model.dp, generator, model.training)
-        left, right = F.relu(left), F.relu(right)
-    left = model.lin_left(left)
-    right = model.lin_right(right)
-    return add_knowledge(left, right, x_left, x_right)
-
-
-def dist_gcn_apply(model, dg: DistGraphTensors,
-                   generator: torch.Generator | None = None):
-    """GCN forward over a partition (edge_partition.py:791): 3 convs."""
-    x_left = dg.c_feas.to(model.cdtype)
-    x_right = dg.v_feas.to(model.cdtype)
-    left, right = _dist_bidir_conv(model.conv1, dg, x_left, x_right, True)
-    left, right = F.relu(left), F.relu(right)
-    left, right = _dist_bidir_conv(model.conv2, dg, left, right)
-    left, right = F.relu(left), F.relu(right)
-    left = dropout(left, model.dp, generator, model.training)
-    right = dropout(right, model.dp, generator, model.training)
-    left, right = _dist_bidir_conv(model.conv3, dg, left, right)
-    return add_knowledge(left, right, x_left, x_right)
-
-
 def dist_gcn_rand_apply(model, dg: DistGraphTensors,
                         generator: torch.Generator | None = None):
     """The random-logit control over a partition (edge_partition.py:816):
@@ -675,46 +685,27 @@ def dist_gcn_rand_apply(model, dg: DistGraphTensors,
     return add_knowledge(left, right, dg.c_feas, dg.v_feas)
 
 
-def _dist_deeper_apply(model, dg: DistGraphTensors, conv_fn,
-                       generator: torch.Generator | None = None):
-    """The res+ stack over a partition (edge_partition.py:1007): the
-    single-card ``_Deeper.forward`` with ``conv_fn`` for its convs. Like
-    the JAX dist forward, it takes no remat."""
-    x_left = dg.c_feas.to(model.cdtype)
-    x_right = dg.v_feas.to(model.cdtype)
-    left, right = conv_fn(model.conv_in, dg, x_left, x_right, True)
-    for blk in model.blocks:
-        h_l = F.relu(blk.norm_l(left))
-        h_r = F.relu(blk.norm_r(right))
-        h_l = dropout(h_l, model.dp, generator, model.training)
-        h_r = dropout(h_r, model.dp, generator, model.training)
-        h_l, h_r = conv_fn(blk.conv, dg, h_l, h_r)
-        left, right = left + h_l, right + h_r
-    left, right = conv_fn(model.conv_out, dg, left, right)
-    return add_knowledge(left, right, x_left, x_right)
-
-
-def dist_gcn_deeper_apply(model, dg: DistGraphTensors,
-                          generator: torch.Generator | None = None):
-    return _dist_deeper_apply(model, dg, _dist_bidir_conv, generator)
-
-
-def dist_gen_deeper_apply(model, dg: DistGraphTensors,
-                          generator: torch.Generator | None = None):
-    from .dist_gen import dist_gen_bidir_conv
-    if dg.gen is None:
-        raise ValueError("a dist GENDeeper forward needs GEN's compact CSRs: "
-                         "DistGraphTensors.from_partition(..., gen=True)")
-    return _dist_deeper_apply(model, dg, dist_gen_bidir_conv, generator)
+def module_forward(model, dg: DistGraphTensors,
+                   generator: torch.Generator | None = None):
+    """The arch's own forward over a partition (edge_partition.py:757,
+    :791, :1007): ``dg.apply_conv`` runs each conv over the shards, with
+    the module's weights, and dropout (training mode) draws its masks from
+    ``generator`` over the stacked rows. Returns the stacked (K*ms, 3) and
+    (K*ns, 3) fp32 logits."""
+    if model.softmax_aggregation and dg.gen is None:
+        raise ValueError(f"a dist {model.name} forward needs GEN's compact "
+                         "CSRs: DistGraphTensors.from_partition(..., "
+                         "gen=True)")
+    return model(dg, generator=generator)
 
 
 #: arch name -> distributed forward (edge_partition.py:1043)
 DIST_MODELS = {
-    "GCN_FC": dist_gcn_fc_apply,
-    "GCN": dist_gcn_apply,
+    "GCN_FC": module_forward,
+    "GCN": module_forward,
     "GCNRand": dist_gcn_rand_apply,
-    "GCNDeeper": dist_gcn_deeper_apply,
-    "GENDeeper": dist_gen_deeper_apply,
+    "GCNDeeper": module_forward,
+    "GENDeeper": module_forward,
 }
 
 #: the archs whose forward takes the halo exchange (edge_partition.py

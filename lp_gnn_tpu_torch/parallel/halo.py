@@ -92,7 +92,8 @@ def _check(bufs: Sequence[torch.Tensor]) -> None:
         raise NotImplementedError(
             f"halo buffers on distinct devices {sorted(map(str, devs))}: the "
             "exchange between cards (NVLink peer copies, NCCL) is not ported "
-            "yet (ROADMAP.md, queue item 7: edge partition)")
+            "yet (ROADMAP.md, queue item 7c: edge shards on several "
+            "devices)")
     if any(b.shape != shape for b in bufs):
         raise ValueError("halo buffers of one exchange must share one shape, got "
                          f"{sorted({tuple(b.shape) for b in bufs})}")

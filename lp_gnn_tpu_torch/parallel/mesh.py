@@ -7,7 +7,7 @@ CPU mesh. The port's counterpart places the K shards of the ``edge`` axis
 on devices it is given; in this version all K placements are one device
 (the card of the run, or the CPU when asked), which is how the path runs on
 one GPU. Shards on several cards (NVLink peer copies, NCCL) are ROADMAP.md
-queue item 7; a placement that names two distinct devices raises.
+queue item 7c; a placement that names two distinct devices raises.
 
 The ``dp`` axis is one process a rank, joined by ``torch.distributed``
 from the JAX package's environment contract (``maybe_init_distributed``
@@ -53,8 +53,8 @@ class EdgeMesh:
             raise NotImplementedError(
                 f"edge shards on distinct devices {devs}: "
                 "placing shards on several cards (NVLink peer copies, NCCL) "
-                "is not ported yet (ROADMAP.md, queue item 7: edge "
-                "partition); all shards share one device")
+                "is not ported yet (ROADMAP.md, queue item 7c: edge shards "
+                "on several devices); all shards share one device")
 
     @property
     def n_shards(self) -> int:

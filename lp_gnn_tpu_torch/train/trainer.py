@@ -47,10 +47,21 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
   each takes one ``dist_train_step`` a visit, without per-step accuracy;
   smaller graphs keep the full-graph step. The val pass sends graphs above
   the threshold through the dist forward.
+- ``--mesh_shape dp=K,edge=E`` (trainer.py:356-387, 570-671): the graphs
+  above ``edge_num_thresh`` are grouped by bucket into batches of
+  K*graph_batch (``parallel/combined.py dist_stack_groups``), built once;
+  each rank partitions its block of each batch at the batch's shared
+  sizes (``partition_batch``, outside the partition cache) and keeps its
+  tensors; each batch is one ``dp_edge_train_step``, the batches in the
+  order ``rng_np.permutation`` draws before the dp stacks'. An oversize
+  graph left over takes ``dist_train_step`` on every rank; the rest is the
+  dp path above. With fewer than K ranks the dp axis is dropped with a
+  warning (trainer.py:350-353) and the run is edge-only.
+- ``--cache_in_agg 0`` (config.py:116) builds no input aggregation cache:
+  the input conv aggregates in every step.
 
 What the JAX ``run_exp`` also does and the port does not yet raises and
-names its ROADMAP item: dp x edge (``--mesh_shape dp=K,edge=K``),
-``--steps_per_call`` above 1, ``--trace 1``.
+names its ROADMAP item: ``--steps_per_call`` above 1, ``--trace 1``.
 """
 from __future__ import annotations
 
@@ -75,6 +86,8 @@ from ..infer.predict import mesh_from_cfg, model_inference, part_cache_dir
 from ..models.convert import is_torch_checkpoint, load_checkpoint
 from ..models.gcn import build_model
 from ..ops.spmm import attach_input_agg
+from ..parallel.combined import (dist_stack_groups, dp_edge_train_step,
+                                 partition_batch)
 from ..parallel.dp import (dp_train_step, rank_block, stack_groups,
                            step_generator)
 from ..parallel.edge_partition import (DistGraphTensors,
@@ -150,17 +163,19 @@ def train_step(model, optimizer, g: GraphTensors, loss_fn,
 
 
 def train_graph(model, g, device, s_bs: int | None = None,
-                t_bs: int | None = None) -> GraphTensors:
+                t_bs: int | None = None,
+                input_agg: bool = True) -> GraphTensors:
     """One training graph's tensors on ``device`` with its labels, its
     seeds (a sampled subgraph's prefix; all nodes by default) and what
     ``model`` reads: the edge permutations where its backward needs them
-    (GEN's gather), the input conv's cached aggregations where its input
-    conv uses them (not GEN's: its aggregation depends on its parameters,
-    trainer.py:457-459; not GCNRand's, which reads no graph)."""
+    (GEN's gather), and with ``input_agg`` (``--cache_in_agg``) the input
+    conv's cached aggregations where its input conv uses them (not GEN's:
+    its aggregation depends on its parameters, trainer.py:457-459; not
+    GCNRand's, which reads no graph)."""
     gt = GraphTensors.from_graph(g, device, labels=True,
                                  perms=model.needs_edge_perms,
                                  s_bs=s_bs, t_bs=t_bs)
-    if model.reads_input_agg:
+    if input_agg and model.reads_input_agg:
         gt = attach_input_agg(gt, model.cdtype)
     return gt
 
@@ -271,13 +286,6 @@ def _restore_rng(state: dict, rng_np: np.random.RandomState,
 
 # -------------------------------------------------------------------- run_exp
 def _refuse_unported(cfg: Config) -> None:
-    mesh = parse_mesh_shape(cfg.mesh_shape or "")
-    if mesh.get("edge", 1) > 1 and mesh.get("dp", 1) > 1:
-        raise NotImplementedError(
-            f"--mesh_shape {cfg.mesh_shape}: dp x edge training "
-            "(parallel/combined.py) is not ported to lp_gnn_tpu_torch yet "
-            "(ROADMAP.md, queue item 7: edge partition, the rest: dp x edge, "
-            "shards on several cards, the all-gather branch)")
     if cfg.steps_per_call > 1:
         raise NotImplementedError(
             f"--steps_per_call {cfg.steps_per_call}: several steps a "
@@ -314,9 +322,17 @@ def quick_val(model, val_ds: LPDataset, cfg: Config) -> float:
 def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
     """(dp, graph_batch) of the run: ``--mesh_shape dp=K`` over K ranks
     of the process group, or, with fewer ranks, single-graph steps with a
-    warning, graph_batch dropped too (trainer.py:477-481)."""
-    dp_size = int(parse_mesh_shape(cfg.mesh_shape or "").get("dp", 1))
+    warning, graph_batch dropped too (trainer.py:477-481); under dp x edge
+    with fewer ranks, the dp axis alone is dropped with a warning
+    (trainer.py:350-353), and the run is edge-only."""
+    mesh = parse_mesh_shape(cfg.mesh_shape or "")
+    dp_size = int(mesh.get("dp", 1))
     graph_batch = max(int(cfg.graph_batch), 1)
+    edge_size = int(mesh.get("edge", 1))
+    if dp_size > 1 and edge_size > 1 and dp_size > world:
+        logging.warning("mesh_shape dp=%d,edge=%d exceeds %d rank(s) — "
+                        "dropping the dp axis", dp_size, edge_size, world)
+        dp_size = 1
     if dp_size > world:
         logging.warning("mesh_shape dp=%d exceeds %d rank(s) — falling back "
                         "to single-device steps%s", dp_size, world,
@@ -379,16 +395,22 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
 
     graphs: dict = {}   # tensors kept across epochs: graphs and unions
     hops = max(cfg.arch_depth() - 1, 1)
+    input_agg = bool(cfg.cache_in_agg)
     mesh = mesh_from_cfg(cfg, device)
     if mesh is not None:
         logging.info("edge-partitioned training: %d shards on %s, graphs "
                      "above %g edges", mesh.n_shards, device,
                      cfg.edge_num_thresh)
+    combined = mesh is not None and dp_size > 1
+    if combined:
+        logging.info("combined dp x edge training: %d rank(s) x %d shards",
+                     dp_size, mesh.n_shards)
 
     def graph_for(idx: int) -> GraphTensors:
         """``train_graph``'s tensors, built once a graph and kept."""
         if idx not in graphs:
-            graphs[idx] = train_graph(model, train_ds[idx], device)
+            graphs[idx] = train_graph(model, train_ds[idx], device,
+                                      input_agg=input_agg)
         return graphs[idx]
 
     def batches_for(idx: int):
@@ -404,26 +426,41 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
             if idx not in graphs:
                 dg = cached_partition_graph(g, mesh.n_shards,
                                             part_cache_dir(cfg), g.fn)
-                graphs[idx] = dist_tensors(model, dg, mesh, input_agg=True)
+                graphs[idx] = dist_tensors(model, dg, mesh,
+                                           input_agg=input_agg)
             yield graphs[idx]
             return
         for sub in sample_subgraphs(g, rng_np, fanout=[6] * hops,
                                     batch_size=cfg.batch_size):
-            yield train_graph(model, sub.g, device, sub.s_bs, sub.t_bs)
+            yield train_graph(model, sub.g, device, sub.s_bs, sub.t_bs,
+                              input_agg=input_agg)
 
     def union_for(stack: list) -> GraphTensors:
         """The union of this rank's block of a stack, built once."""
         key = ("stack", *stack)
         if key not in graphs:
-            graphs[key] = union([train_graph(model, train_ds[i], device)
+            graphs[key] = union([train_graph(model, train_ds[i], device,
+                                             input_agg=input_agg)
                                  for i in rank_block(stack, world, rank)])
+        return graphs[key]
+
+    def dist_block_for(batch: list) -> list[DistGraphTensors]:
+        """This rank's block of a dp x edge batch: its graphs' partitions
+        at the batch's shared sizes, on the device, built once."""
+        key = ("dist_stack", *batch)
+        if key not in graphs:
+            own = rank_block(list(range(len(batch))), world, rank)
+            parts = partition_batch([train_ds[i] for i in batch],
+                                    mesh.n_shards, own=own)
+            graphs[key] = [dist_tensors(model, dg, mesh, input_agg=input_agg)
+                           for dg in parts]
         return graphs[key]
 
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
     n_train = len(train_ds)
     extra = {"arch": cfg.arch, "loss": cfg.loss}
     mdl_path = osp.join(log_dir, "mdl.pth")
-    groups = None
+    groups = dist_groups = None
     for epoch in range(start_epoch, cfg.epochs):
         lr = step_lr(cfg.lr, cfg.epochs, epoch)
         set_lr(optimizer, lr)
@@ -459,19 +496,31 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
             log_step(idx_graphs, float(loss), acc)
 
         if stack_size > 1:
-            # trainer.py:649-671: the stacks in a drawn order, then the
-            # graphs left single, then the sampled ones
+            # trainer.py:649-671: under dp x edge the oversize graphs'
+            # batches in a drawn order, then the stacks in a drawn order,
+            # then the graphs left single, then the oversize ones left
             if groups is None:
                 groups = stack_groups(train_ds, stack_size,
                                       cfg.edge_num_thresh)
+                dist_groups = dist_stack_groups(
+                    train_ds, stack_size, cfg.edge_num_thresh) \
+                    if combined else ([], set())
             stacks, singles, sampled = groups
+            dist_batches, covered = dist_groups
+            if combined:
+                for bi in rng_np.permutation(len(dist_batches)):
+                    dgs = dist_block_for(dist_batches[int(bi)])
+                    glstep += 1
+                    loss = dp_edge_train_step(model, optimizer, dgs, loss_fn,
+                                              step_generator(gen, rank))
+                    log_step(0, float(loss), None)
             for bi in rng_np.permutation(len(stacks)):
                 gt = union_for(stacks[int(bi)])
                 glstep += 1
                 loss = dp_train_step(model, optimizer, gt, loss_fn,
                                      step_generator(gen, rank))
                 log_step(0, float(loss), None)
-            for gi in [*singles, *sampled]:
+            for gi in [*singles, *(i for i in sampled if i not in covered)]:
                 for gt in batches_for(gi):
                     run_one(0, gt)
         else:

@@ -376,16 +376,25 @@ def test_edge_training_runs_every_arch(dist_family, tmp_path, monkeypatch,
     assert moved == (arch != "GCNRand()")
 
 
-def test_dp_and_edge_training_still_refused(dist_family, tmp_path):
-    """dp x edge (parallel/combined.py) raises and names what is left of
-    queue item 7."""
+def test_dp_and_edge_on_one_rank_trains_and_keeps_graph_batch(
+        dist_family, tmp_path, monkeypatch, caplog):
+    """dp x edge (parallel/combined.py; refused until it was ported) on one
+    rank trains: the dp axis is dropped with a warning and graph_batch is
+    kept (trainer.py:350-353 drops dp alone, unlike the dp-only fallback),
+    and every train graph, above the threshold, takes one dist step."""
     data_prefix, _ = dist_family
+    seen = record_dist_steps(monkeypatch)
     cfg = Config(exp_nm="dpe", dataset="fam", data_prefix=data_prefix,
                  log_prefix=str(tmp_path), device="cpu", arch=ARCH,
-                 mesh_shape="dp=2,edge=2").finalize()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*queue item 7.*dp x edge"):
-        ttrainer.run_exp(cfg)
+                 epochs=1, graph_batch=2, mesh_shape="dp=2,edge=2",
+                 edge_num_thresh=0).finalize()
+    with caplog.at_level("INFO"):
+        path = ttrainer.run_exp(cfg)
+    assert "mesh_shape dp=2,edge=2 exceeds 1 rank(s) — dropping the dp " \
+        "axis" in caplog.text
+    assert "1 rank(s) x 2 graphs a step" in caplog.text
+    assert len(seen["port"]) == 2 and np.isfinite(seen["port"]).all()
+    assert os.path.exists(path)
 
 
 def test_old_partition_cache_is_rebuilt(tmp_path, monkeypatch):

@@ -550,7 +550,6 @@ def test_cli_trains_on_the_cpu_and_needs_a_gpu_otherwise(family, tmp_path,
 
 
 @pytest.mark.parametrize("flag,item", [
-    ({"mesh_shape": "dp=2,edge=2"}, "queue item 7"),
     ({"steps_per_call": 2}, "make_scan_train_step"),
     ({"trace": 1}, "profiling"),
 ])
@@ -560,6 +559,87 @@ def test_unported_training_paths_name_their_roadmap_item(family, tmp_path,
     cfg = port_cfg(data_prefix, tmp_path, "np", **flag)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         pipeline.stage_train(cfg)
+
+
+def test_dp_and_edge_trains_through_the_train_stage(family, tmp_path,
+                                                    monkeypatch, caplog):
+    """--mesh_shape dp=2,edge=2 (refused by the stage until dp x edge was
+    ported) trains through the pipeline's train stage: without 2 ranks it
+    drops the dp axis with a warning (trainer.py:350-353) and trains every
+    graph edge-partitioned, one dist step a graph."""
+    data_prefix, _ = family
+    steps = []
+    real = ttrainer.dist_train_step
+
+    def counted(*a, **kw):
+        steps.append(float(real(*a, **kw)))
+        return steps[-1]
+    monkeypatch.setattr(ttrainer, "dist_train_step", counted)
+    cfg = port_cfg(data_prefix, tmp_path, "dpe", mesh_shape="dp=2,edge=2",
+                   edge_num_thresh=0, epochs=1)
+    with caplog.at_level("WARNING"):
+        path = pipeline.stage_train(cfg)
+    assert "dropping the dp axis" in caplog.text and osp.exists(path)
+    assert len(steps) == 4 and np.isfinite(steps).all()
+
+
+def test_cache_in_agg_is_a_parsed_field(caplog):
+    """--cache_in_agg (config.py:116) is a field of the port's Config, not
+    an unknown arg."""
+    from lp_gnn_tpu_torch.config import parse_args
+    with caplog.at_level("WARNING"):
+        cfg = parse_args(["--cache_in_agg", "0"], make_log_dir=False)
+    assert cfg.cache_in_agg == 0 and Config().cache_in_agg == 1
+    assert "unknown args" not in caplog.text
+
+
+@pytest.mark.parametrize("mesh_shape,per_step", [
+    ("", {"spmm": 2}),
+    ("edge=2", {"spmm": 5 * 2, "gather": 1, "a2a": 1}),
+], ids=["single", "edge2"])
+def test_cache_in_agg_off_trains_the_same(family, tmp_path, monkeypatch,
+                                          mesh_shape, per_step):
+    """--cache_in_agg 0 trains as 1 does, bit for bit (the cache is
+    exact), with the input conv's launches in every step instead of once a
+    graph: on one device its 2 SpMMs, edge-partitioned one dist conv's (a
+    gather, a K1, 5 SpMMs a shard). On the CPU the wrappers' calls are
+    counted: those are what launch on the card."""
+    from lp_gnn_tpu_torch.parallel import edge_partition as tEP
+    data_prefix, ckpt = family
+    calls = dict.fromkeys(("spmm", "gather", "a2a"), 0)
+    for mod, name, key in ((tspmm, "spmm_csr", "spmm"),
+                           (tEP, "spmm_csr", "spmm"),
+                           (tEP, "gather_rows", "gather"),
+                           (tEP, "halo_all_to_all", "a2a")):
+        def counted(*a, _real=getattr(mod, name), _key=key, **kw):
+            calls[_key] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    steps = []   # (loss, calls) of each step of the current run
+    for name in ("train_step", "dist_train_step"):
+        def step(*a, _real=getattr(ttrainer, name), **kw):
+            before = dict(calls)
+            out = _real(*a, **kw)
+            loss = out[0] if isinstance(out, tuple) else out
+            steps.append((float(loss),
+                          {k: calls[k] - before[k] for k in calls}))
+            return out
+        monkeypatch.setattr(ttrainer, name, step)
+    runs = {}
+    for cache in (1, 0):
+        steps.clear()
+        path = ttrainer.run_exp(port_cfg(
+            data_prefix, tmp_path, f"cache{cache}", epochs=2,
+            load_from=ckpt, cache_in_agg=cache, mesh_shape=mesh_shape,
+            edge_num_thresh=0 if mesh_shape else 4e6 * 3))
+        runs[cache] = (list(steps), load_checkpoint(path))
+    (on, w_on), (off, w_off) = runs[1], runs[0]
+    assert len(on) == len(off) == 8
+    assert [lv for lv, _ in on] == [lv for lv, _ in off]
+    for (_, a), (_, b) in zip(on, off):
+        assert {k: b[k] - a[k] for k in a} == {k: per_step.get(k, 0)
+                                                for k in a}
+    assert all(torch.equal(w_on[k], w_off[k]) for k in w_on)
 
 
 def test_dp_beyond_the_ranks_falls_back_with_a_warning(family, tmp_path,
