@@ -156,6 +156,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    SpMM / 1 K1 / 1 gather, a step 40 / 2 / 2), equal finite losses on both
    ranks, each rank's step spans on the card, all-reduce ms (and its wait
    for the other rank), peak memory, partition seconds and wall.
+24. edge_ranks: edge shards on their own ranks, four processes of this
+   script (``--edge_rank``) time-sharing the card under the LP_GNN_DIST_*
+   contract (gloo), shard k on rank k, K1 as its rank form (each rank
+   writes its blocks into the ranks' receive windows through CUDA IPC).
+   K1's rank form at the bench graph's Bh, D=1024 and D=8 bf16, bit for
+   bit against its plain version on every rank (the exchange's two
+   launches timed one rank at a time, device ms, the exchange with its
+   barriers, the gloo plain version); one fp32 step (SGD at lr 1, no dropout) held to the
+   one-process stacked dist step on the same partition (each tensor's
+   update within the larger of 1e-4 and twice the single card's
+   fp32-vs-fp64 spread), and one fp32 GENDeeper(8,8,hids=256,depth=5)
+   step held to the stacked dist GEN step (each update within 1e-4);
+   ``pred_basis --mesh_shape edge=4`` on 3 bench
+   LPs, every .bas valid and equal to the stacked path's on the same data
+   and checkpoint, rank 0's logits within (rtol, atol) 2^-6 of the stacked
+   path's; the recipe through ``train`` (bf16, 2 train LPs and 1 val, 2
+   epochs), equal finite losses on every rank, rank 0 alone writing. Each
+   rank's launches exact: a conv 1 gather, 2 rank-form K1 exchanges of 2
+   launches each (the write and the copy-out), 5 SpMMs (a GEN conv 1 / 4
+   and 2 ``gen_agg_fwd``, 1 merge; its backward 1 / 4, 2 ``gen_agg_bwd``,
+   3 SpMMs), the stacked K1 none; each rank's receive-window bytes beside
+   its peak memory.
 
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
@@ -198,6 +220,7 @@ nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import filecmp
 import importlib
 import json
 import logging
@@ -235,8 +258,11 @@ from lp_gnn_tpu_torch.ops.spmm import (attach_input_agg, spmm_cons_to_vars,
                                        spmm_csr, spmm_csr_plain,
                                        spmm_vars_to_cons)
 from lp_gnn_tpu_torch.parallel import edge_partition
+from lp_gnn_tpu_torch.parallel import halo as halo_mod
 from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
-                                            halo_all_to_all_plain)
+                                            halo_all_to_all_plain,
+                                            halo_all_to_all_ranks,
+                                            halo_all_to_all_ranks_plain)
 from lp_gnn_tpu_torch.parallel.mesh import make_mesh
 from lp_gnn_tpu_torch.reporting.extract import extract_time
 from lp_gnn_tpu_torch.solver import highs_bridge
@@ -261,7 +287,7 @@ N_DIST_LPS = 3              # LPs served edge-partitioned
 DIST_PER_FORWARD = {"halo_all_to_all": 2, "gather_rows": 2,
                     "spmm_csr": 2 * K_EDGE * 5}
 KERNELS = (spmm_csr, gather_rows, halo_all_to_all, gen_agg_fwd, gen_agg_bwd,
-           gen_lse_merge)
+           gen_lse_merge, halo_all_to_all_ranks)
 N_TRAIN_LPS = 4             # LPs written for training: 2 train, 2 val
 TRAIN_EPOCHS = 5            # one val pass, after the last epoch
 # spmm_csr launches of the train phase: 2 a train graph once (the input
@@ -2725,21 +2751,22 @@ def nccl_allreduce(numel: int) -> dict:
             "numel": numel, "allreduce_ms": ms}
 
 
-def run_ranks(name: str, args_of) -> tuple[list[str], float, list[str]]:
-    """DP_RANKS processes of this Python, ``args_of(rank)`` each, joined by
-    the LP_GNN_DIST_* contract on the one card (over gloo: NCCL refuses two
-    ranks on one device), started together and waited for; returns their
-    output, the wall seconds of all and each rank's ``process group:``
-    line. Every process is ended before it returns; a rank that fails
-    fails the phase."""
+def run_ranks(name: str, args_of, ranks: int = DP_RANKS
+              ) -> tuple[list[str], float, list[str]]:
+    """``ranks`` processes of this Python, ``args_of(rank)`` each, joined
+    by the LP_GNN_DIST_* contract on the one card (over gloo: NCCL refuses
+    two ranks on one device), started together and waited for; returns
+    their output, the wall seconds of all and each rank's ``process
+    group:`` lines. Every process is ended before it returns; a rank that
+    fails fails the phase."""
     root = osp.dirname(osp.abspath(__file__))
     port = free_port()
     procs, outs = [], []
     t0 = time.perf_counter()
     try:
-        for rank in range(DP_RANKS):
+        for rank in range(ranks):
             env = dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
-                       LP_GNN_DIST_NPROCS=str(DP_RANKS),
+                       LP_GNN_DIST_NPROCS=str(ranks),
                        LP_GNN_DIST_PROC_ID=str(rank))
             procs.append(subprocess.Popen(
                 [sys.executable, *args_of(rank)], cwd=root, env=env,
@@ -2751,7 +2778,7 @@ def run_ranks(name: str, args_of) -> tuple[list[str], float, list[str]]:
             p.kill()
             p.wait()
     wall = time.perf_counter() - t0
-    if [p.returncode for p in procs] != [0] * DP_RANKS:
+    if [p.returncode for p in procs] != [0] * ranks:
         raise SmokeFailure(f"{name} ranks failed: " + " | ".join(
             o[-2000:] for o in outs))
     groups = [ln.split("process group:")[1].strip() for o in outs
@@ -2867,27 +2894,20 @@ def dist_step_launches(arch: str) -> dict:
     return add_launches(scaled(DIST_CONV, 2))
 
 
-def dist_vs_single_step(seed: int, arch: str, g: BipartiteGraph,
-                        fp64_witness: bool = False) -> dict:
-    """One dist step (K_EDGE shards on the card, the trainer's tensors and
-    input cache) against the single-card step, from the same weights on
-    the same LP: ``arch`` in fp32, dropout 0, SGD at UPDATE_LR, balanced CE.
-    The loss within rtol 1e-5; each tensor's update within its limit of
-    that tensor's largest (``update_rels``): UPDATE_RTOL, or with
-    ``fp64_witness`` the larger of UPDATE_RTOL and DIST_UPDATE_SPREAD times
-    the single card's own spread in that tensor, its ``update_rels`` of the
-    fp32 step against the same step with its convs and SpMM sums in fp64
-    (the SpMM's plain version summed in fp64 on the card; the loss stays
-    fp32, as in every run). The dist step's launches exact
-    (``dist_step_launches``); both fp32 steps' spans on the card (CUDA
-    events) and peak memory."""
+def step_states(arch: str, w0: dict, g: BipartiteGraph, ways) -> dict:
+    """One step of ``arch`` from the weights ``w0`` on ``g`` each way of
+    ``ways``: ``single`` (the single card's, fp32), ``dist`` (K_EDGE
+    shards on the card, the trainer's tensors and input cache, fp32),
+    ``fp64`` (the single card's with its convs and SpMM sums in fp64);
+    dropout 0, SGD at UPDATE_LR, balanced CE. Returns each way's weights on
+    the host, loss, launches, span on the card (CUDA events) and peak
+    memory."""
     lr = UPDATE_LR
-    w0 = seeded_state(arch, seed)
     loss_fn = LOSS_REGISTRY["balanced"]
     dg = edge_partition.partition_graph(g, K_EDGE)
     mesh = make_mesh(K_EDGE, "cuda")
     out = {}
-    for way in ("single", "dist") + (("fp64",) if fp64_witness else ()):
+    for way in ways:
         model = build_model(arch)
         model.load_state_dict(w0)
         model.dp = 0.0
@@ -2926,6 +2946,27 @@ def dist_vs_single_step(seed: int, arch: str, g: BipartiteGraph,
                         torch.cuda.max_memory_allocated()}
         del model, opt, data
         torch.cuda.empty_cache()
+    return out
+
+
+def dist_vs_single_step(seed: int, arch: str, g: BipartiteGraph,
+                        fp64_witness: bool = False) -> dict:
+    """One dist step (K_EDGE shards on the card, the trainer's tensors and
+    input cache) against the single-card step, from the same weights on
+    the same LP: ``arch`` in fp32, dropout 0, SGD at UPDATE_LR, balanced CE.
+    The loss within rtol 1e-5; each tensor's update within its limit of
+    that tensor's largest (``update_rels``): UPDATE_RTOL, or with
+    ``fp64_witness`` the larger of UPDATE_RTOL and DIST_UPDATE_SPREAD times
+    the single card's own spread in that tensor, its ``update_rels`` of the
+    fp32 step against the same step with its convs and SpMM sums in fp64
+    (the SpMM's plain version summed in fp64 on the card; the loss stays
+    fp32, as in every run). The dist step's launches exact
+    (``dist_step_launches``); both fp32 steps' spans on the card (CUDA
+    events) and peak memory."""
+    lr = UPDATE_LR
+    w0 = seeded_state(arch, seed)
+    out = step_states(arch, w0, g, ("single", "dist")
+                      + (("fp64",) if fp64_witness else ()))
     want = dist_step_launches(arch)
     got = out["dist"]["launches"]
     rels = update_rels(w0, out["dist"]["state"], out["single"]["state"], lr)
@@ -3315,6 +3356,563 @@ def dp_edge(seed: int) -> dict:
             "recipe_ranks_s": t_recipe}
 
 
+# ------------------------------------------------ edge shards on their ranks
+# EDGE_RANKS ranks time-share the one card (gloo for the barriers, the IPC
+# handles and the gradients), shard k on rank k. A conv over the ranks'
+# shards launches, on each rank: one gather of the send rows, K1's rank
+# form twice (the gather direction, then the reduce direction), each
+# exchange two launches of its kernel (the write into the ranks' windows
+# and the copy-out of the rank's own), and 5 SpMMs
+# (local v2c, local c2v, halo v2c, halo c2v, the owner's reduce); its
+# backward the same again (the halo pair's backwards swap the two routes,
+# each SpMM's backward is one SpMM over its partner CSR). The stacked K1
+# launches nowhere on this path.
+EDGE_RANKS = K_EDGE
+RANK_CONV = {"gather_rows": 1, "halo_all_to_all_ranks": 4, "spmm_csr": 5}
+# a GEN conv over the ranks' shards, per rank: r2l's halo gather (the send
+# rows' gather and K1), 2 gen_agg_fwd (r2l, l2r), l2r's K1 and merge; its
+# backward: r2l's and l2r's gen_agg_bwd, HaloGather's K1 and owner SpMM,
+# l2r's statistics to the slots (a gather and K1), the two gathers'
+# transpose SpMMs
+RANK_GEN_CONV = {"gather_rows": 1, "halo_all_to_all_ranks": 4,
+                 "gen_agg_fwd": 2, "gen_lse_merge": 1}
+RANK_GEN_CONV_BWD = {"gather_rows": 1, "halo_all_to_all_ranks": 4,
+                     "gen_agg_bwd": 2, "spmm_csr": 3}
+RANK_ARGS = ["--mesh_shape", f"edge={EDGE_RANKS}", "--edge_num_thresh", "0"]
+# rank vs stacked logits in bf16, the same kernels on the same rows: within
+# atol + rtol |stacked| (about two bf16 roundings of a logit of 1-10)
+RANK_LOGIT_TOL = (2 ** -6, 2 ** -6)   # rtol, atol
+
+
+class CaptureLogits:
+    """``infer/predict.py model_inference`` wrapped to keep each LP's
+    first logits this process receives (the bases' decode; rank 0's alone
+    over ranks), keyed by LP name."""
+
+    def __init__(self):
+        from lp_gnn_tpu_torch.infer import predict
+        self.mod, self.real, self.logits = predict, predict.model_inference, {}
+
+    def __enter__(self):
+        def capture(model, g, *a, **kw):
+            lc, lv = self.real(model, g, *a, **kw)
+            if lc is not None and g.fn not in self.logits:
+                self.logits[g.fn] = np.concatenate([lc, lv])
+            return lc, lv
+        self.mod.model_inference = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.model_inference = self.real
+
+
+class WindowPeak:
+    """``parallel/halo.py _make_window`` wrapped to keep the most bytes
+    this process's receive windows held at once: cudaMalloc'ed outside
+    torch's caching allocator, they stand beside
+    ``max_memory_allocated``."""
+
+    def __enter__(self):
+        self.real, self.peak = halo_mod._make_window, halo_mod.window_bytes()
+
+        def make(nbytes, group, dev):
+            w = self.real(nbytes, group, dev)
+            self.peak = max(self.peak, halo_mod.window_bytes() + w.nbytes)
+            return w
+        halo_mod._make_window = make
+        return self
+
+    def __exit__(self, *exc):
+        halo_mod._make_window = self.real
+
+
+def rank_k1_cases(seed: int, bh: int) -> list[dict]:
+    """K1's rank form on this rank, bench shape (K=EDGE_RANKS, the bench
+    graph's Bh) at D=1024 and D=8 bf16: every rank makes all K buffers from
+    one seed and holds its result (twice: the window reused) and the plain
+    version's (gloo, host copies) to the stacked plain version's, bit for
+    bit. Times: the exchange's two launches alone, the write into the
+    windows and the copy-out of the own (CUDA events over back-to-back
+    pairs and the profiler's device time, one rank at a time while the
+    others wait); the whole exchange with its barriers and synchronises
+    (CUDA events, every rank at once); the plain version (one call, host
+    clock). Bytes: each launch reads and writes K*Bh*D*b, 4*K*Bh*D*b the
+    pair."""
+    k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    rows = []
+    for d in (1024, 8):
+        gen = torch.Generator(device="cuda").manual_seed(seed + d)
+        bufs = torch.randn(k, k * bh, d, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        want = halo_all_to_all_plain(bufs)[me].clone()
+        buf = bufs[me].clone()
+        del bufs
+        got = halo_all_to_all_ranks(buf)
+        again = halo_all_to_all_ranks(buf)
+        torch.cuda.synchronize()
+        diff = float((got.float() - want.float()).abs().max())
+        exact = torch.equal(got, want) and torch.equal(again, want)
+        del got, again
+        host = buf.cpu()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        plain = halo_all_to_all_ranks_plain(host)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        exact_plain = torch.equal(plain, want.cpu())
+        del host, plain, want
+        win = halo_mod._window(buf.nbytes, None, buf.device)
+        out = torch.empty_like(buf)
+
+        def launch():
+            halo_mod._rank_write(buf, win.table, me, k)
+            halo_mod._copy_out(win, out)
+
+        ms = device_ms = None
+        for r in range(k):
+            torch.distributed.barrier()
+            if r == me:
+                ms = time_ms(launch, kernel_iters(d))
+                launch()
+                torch.cuda.synchronize()
+                iters = 5
+                seen, complete = profile_kernels(
+                    launch, iters, {"halo_a2a_kernel": 2 * iters})
+                if complete:
+                    device_ms = sum(t for name, (t, _) in seen.items()
+                                    if "halo_a2a_kernel" in name) / iters
+            torch.cuda.synchronize()
+        del out
+        torch.distributed.barrier()
+        with_barriers_ms = time_ms(lambda: halo_all_to_all_ranks(buf), 10)
+        n_bytes = 4.0 * k * bh * d * buf.element_size()
+        rows.append({"D": d, "exact": exact, "exact_plain": exact_plain,
+                     "max_abs_err": diff, "ms": ms, "device_ms": device_ms,
+                     "with_barriers_ms": with_barriers_ms,
+                     "plain_ms": plain_ms, "bytes": n_bytes,
+                     "window_bytes": halo_mod.window_bytes()})
+        del buf
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rank_step(seed: int, out_path: str, arch: str, g: BipartiteGraph) -> dict:
+    """One fp32 dist step of ``arch`` on this rank's shard of ``g`` (from
+    the seeded weights, dropout 0, SGD at UPDATE_LR, balanced CE, the input
+    cache built first where the arch reads it), its launches (cache and
+    step) counted from 0; rank 0 writes the weights to ``out_path``."""
+    k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    dg = edge_partition.partition_graph(g, k)
+    mesh = make_mesh(k, "cuda", torch.distributed.group.WORLD)
+    model = build_model(arch)
+    model.load_state_dict(seeded_state(arch, seed))
+    model.dp = 0.0
+    model = model.to("cuda").train()
+    opt = trainer.make_optimizer(model.parameters(), "sgd", UPDATE_LR)
+    for kern in KERNELS:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with WindowPeak() as win:
+        dgt = edge_partition.dist_tensors(model, dg, mesh, input_agg=True)
+        cache = launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = edge_partition.dist_train_step(model, opt, dgt,
+                                              LOSS_REGISTRY["balanced"])
+        ev[1].record()
+        torch.cuda.synchronize()
+    if me == 0:
+        torch.save({n: v.detach().cpu() for n, v in
+                    model.state_dict().items()}, out_path)
+    return {"loss": float(loss), "cache_launches": cache,
+            "launches": launches_since(cache),
+            "step_device_ms": ev[0].elapsed_time(ev[1]),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "window_bytes": win.peak}
+
+
+def edge_rank(payload_path: str) -> None:
+    """One rank of the edge_ranks phase, in this process (``--edge_rank``):
+    (1) K1's rank form and one fp32 step, in a group of its own; (2) the
+    pred_basis entry point; (3) the train entry point under a
+    ``StepTrace``, the gloo gradient all-reduce timed after a barrier. Each
+    entry point joins a group of its own (the payload's coordinates), the
+    launch counts set to 0 just before it and read just after. Writes its
+    report (and rank 0 its logits) into the payload's directory."""
+    from lp_gnn_tpu_torch.parallel import mesh as mesh_mod
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    with open(payload_path) as f:
+        p = json.load(f)
+    rank = int(os.environ["LP_GNN_DIST_PROC_ID"])
+    t_all = time.perf_counter()
+    report = {}
+    os.environ["LP_GNN_DIST_COORD"] = p["coords"][0]
+    _, created = mesh_mod.init_distributed(torch.device("cuda"))
+    try:
+        report["k1"] = rank_k1_cases(p["seed"], p["bh"])
+        report["step"] = rank_step(
+            p["seed"], osp.join(p["dir"], "rank_step.pth"), ARCH_NO_DROPOUT,
+            bench_graph(p["seed"] + 1100))
+        torch.cuda.empty_cache()
+        report["gen_step"] = rank_step(
+            p["seed"], osp.join(p["dir"], "rank_gen_step.pth"),
+            DIST_GEN_ARCH, bench_graph(p["seed"] + 1400))
+    finally:
+        mesh_mod.leave_distributed(created)
+    torch.cuda.empty_cache()
+
+    os.environ["LP_GNN_DIST_COORD"] = p["coords"][1]
+    for kern in KERNELS:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with CaptureLogits() as cap, WindowPeak() as win:
+        t = run_module("lp_gnn_tpu_torch.pred_basis",
+                       [*p["serve"], "--log_prefix",
+                        osp.join(p["dir"], f"serve{rank}")])
+    report["serve"] = {"launches": launch_counts(), "wall_s": t,
+                       "max_memory_allocated_bytes":
+                           torch.cuda.max_memory_allocated(),
+                       "window_bytes": win.peak}
+    if cap.logits:
+        np.savez(osp.join(p["dir"], "rank_logits.npz"), **cap.logits)
+    torch.cuda.empty_cache()
+
+    os.environ["LP_GNN_DIST_COORD"] = p["coords"][2]
+    allreduce_ms, wait_ms = [], []
+    real_sum = edge_partition.sum_over_ranks
+
+    def timed_sum(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.barrier()
+        t1 = time.perf_counter()
+        out = real_sum(*a, **kw)
+        torch.cuda.synchronize()
+        wait_ms.append((t1 - t0) * 1e3)
+        allreduce_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    for kern in KERNELS:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    edge_partition.sum_over_ranks = timed_sum
+    try:
+        with StepTrace() as tr, WindowPeak() as win:
+            t = run_module("lp_gnn_tpu_torch.train",
+                           [*p["train"], "--log_prefix",
+                            osp.join(p["dir"], f"train{rank}")])
+    finally:
+        edge_partition.sum_over_ranks = real_sum
+    report["train"] = {"launches": launch_counts(), "steps": tr.steps,
+                       "partition_s": tr.partition_s,
+                       "dist_tensors_s": tr.dist_tensors_s,
+                       "allreduce_ms": allreduce_ms,
+                       "allreduce_wait_ms": wait_ms, "wall_s": t,
+                       "max_memory_allocated_bytes":
+                           torch.cuda.max_memory_allocated(),
+                       "window_bytes": win.peak}
+    report["wall_s"] = time.perf_counter() - t_all
+    with open(osp.join(p["dir"], f"report{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def k1_rank_rows(per_rank: list[dict], k: int, bh: int,
+                 launches: int) -> list[dict]:
+    """The kernels line's rows of K1's rank form, one a width: rank 0's
+    times, each rank's beside them."""
+    rows = []
+    for i, r0 in enumerate(per_rank[0]["k1"]):
+        d = r0["D"]
+        cases = [r["k1"][i] for r in per_rank]
+        bound_ms, bound_by = bound(r0["bytes"], 0.0)
+        rows.append({
+            "name": "halo_all_to_all_ranks", "route": "cuda",
+            "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
+            "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
+            "launches": launches, "max_abs_err": max(
+                c["max_abs_err"] for c in cases),
+            "ms": r0["ms"], "device_ms": r0["device_ms"],
+            "plain_ms": r0["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "with_barriers_ms": r0["with_barriers_ms"],
+            "by_rank": {key: [c[key] for c in cases] for key in (
+                "ms", "device_ms", "with_barriers_ms", "plain_ms")},
+            "case": f"rank form K={k} Bh={bh} D={d} bfloat16, one rank's "
+                    "exchange: the write and the copy-out",
+            "K": k, "Bh": bh, "D": d, "tol": "exact",
+            "bytes": r0["bytes"], "bound_ms_all_ranks": k * bound_ms,
+            "path": "edge_ranks", "on_path": "edge_ranks",
+            "also_replaces": ["lp_gnn_tpu/parallel/pallas_halo.py:54",
+                              "lp_gnn_tpu/parallel/pallas_halo.py:69"],
+            "plain": "all_to_all_single over gloo on host copies (one call)",
+            "library": "none: NCCL's all_to_all_single refuses ranks that "
+                       "share one card",
+            "note": f"{k} ranks time-share one card: no figure here stands "
+                    f"for {k} cards"})
+    return rows
+
+
+def edge_ranks(seed: int) -> dict:
+    """Edge shards on their own ranks: EDGE_RANKS processes of this script
+    (``--edge_rank``) time-share the card under the LP_GNN_DIST_* contract,
+    shard k on rank k. K1's rank form against its plain version, bit for
+    bit, timed (``rank_k1_cases``); one fp32 step held to the one-process
+    stacked dist step on the same partition, each tensor's update within
+    the larger of UPDATE_RTOL and DIST_UPDATE_SPREAD times the single
+    card's own fp32-vs-fp64 spread (``step_states``), and one GENDeeper
+    step held to the stacked dist GEN step (UPDATE_RTOL); ``pred_basis
+    --mesh_shape edge=4`` on N_DIST_LPS bench LPs with a seeded recipe
+    checkpoint, each .bas valid and equal to the stacked path's on the same
+    data and checkpoint, rank 0's logits within RANK_LOGIT_TOL of the
+    stacked path's; the recipe through ``train`` (bf16, 2 train LPs and 1
+    val, DIST_TRAIN_EPOCHS epochs), finite losses equal on every rank,
+    rank 0 alone writing. Each rank's launches exact: RANK_CONV a conv, no
+    stacked K1."""
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    k = EDGE_RANKS
+    script = osp.abspath(__file__)
+    n_train, n_val = map(len, split_idxs_train_val(N_DIST_TRAIN_LPS))
+    bh = edge_partition.compute_halo_width(bench_graph(seed), k)
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_ranks_") as tmp:
+        serve_data = osp.join(tmp, "serve_data")
+        write_dataset(osp.join(serve_data, "smoke", "highs-inp_tgt"), seed,
+                      N_DIST_LPS)
+        train_data = osp.join(tmp, "train_data")
+        write_dataset(osp.join(train_data, "smoke", "highs-inp_tgt"),
+                      seed + 1000, N_DIST_TRAIN_LPS)
+        ckpt = save_seeded(ARCH, seed, osp.join(tmp, "mdl.pth"))
+        serve_argv = ["--dataset", "smoke", "--data_prefix", serve_data,
+                      "--exp_nm", "smoke", "--arch", ARCH, "--fp16", "1",
+                      "--load_from", ckpt, "--split", "trainval",
+                      "--warm_gate", "off", "--seed", str(seed), *RANK_ARGS]
+        payload = {"dir": tmp, "seed": seed, "bh": bh,
+                   "coords": [f"localhost:{free_port()}" for _ in range(3)],
+                   "serve": serve_argv,
+                   "train": ["--dataset", "smoke", "--data_prefix",
+                             train_data, "--exp_nm", "recipe", "--arch", ARCH,
+                             "--fp16", "1", "--loss", "balanced", "--epochs",
+                             str(DIST_TRAIN_EPOCHS), "--eval_every",
+                             str(DIST_TRAIN_EPOCHS), "--seed", str(seed),
+                             *RANK_ARGS]}
+        payload_path = osp.join(tmp, "payload.json")
+        with open(payload_path, "w") as f:
+            json.dump(payload, f)
+        _, t_ranks, groups = run_ranks("edge_ranks", lambda rank: [
+            script, "--edge_rank", payload_path], ranks=k)
+        per_rank = []
+        for r in range(k):
+            with open(osp.join(tmp, f"report{r}.json")) as f:
+                per_rank.append(json.load(f))
+        rank_state = torch.load(osp.join(tmp, "rank_step.pth"),
+                                weights_only=True)
+        rank_gen_state = torch.load(osp.join(tmp, "rank_gen_step.pth"),
+                                    weights_only=True)
+        others = [osp.exists(osp.join(tmp, f"{w}{r}")) for r in range(1, k)
+                  for w in ("serve", "train")]
+        recipe_mdl = osp.exists(osp.join(tmp, "train0", "recipe", "mdl.pth"))
+        rank_dir = osp.join(tmp, "serve0", "smoke")
+        n_bas = check_bases(osp.join(rank_dir, "pred-basis"), N_DIST_LPS)
+        inf = json_load(osp.join(rank_dir, "inf_time.json"))
+        with np.load(osp.join(tmp, "rank_logits.npz")) as z:
+            rank_logits = {n: z[n] for n in z.files}
+        # the stacked path on the same data and checkpoint, in this process
+        with CaptureLogits() as cap:
+            stacked = serve_and_check(serve_data, osp.join(tmp, "stacked"),
+                                      ckpt, seed, N_DIST_LPS, "trainval",
+                                      DIST_PER_FORWARD, DIST_ARGS)
+        st_dir = osp.join(tmp, "stacked", "smoke", "pred-basis")
+        bas = sorted(f for f in os.listdir(st_dir) if f.endswith(".bas"))
+        same_bas = {f: filecmp.cmp(osp.join(st_dir, f),
+                                   osp.join(rank_dir, "pred-basis", f),
+                                   shallow=False) for f in bas}
+        same_sort = {f: filecmp.cmp(osp.join(st_dir, f + ".sort"),
+                                    osp.join(rank_dir, "pred-basis",
+                                             f + ".sort"), shallow=False)
+                     for f in bas}
+    # three groups a rank: K1 and the step's, pred_basis', train's
+    groups_ok = len(groups) == 3 * k and all("gloo" in gr for gr in groups)
+    if not groups_ok or any(others) or not recipe_mdl:
+        raise SmokeFailure(f"edge_ranks: groups {groups}, files of ranks "
+                           f"1-{k - 1} {others}, rank 0's mdl.pth "
+                           f"{recipe_mdl}")
+    for r, rep in enumerate(per_rank):
+        for c in rep["k1"]:
+            if not (c["exact"] and c["exact_plain"]):
+                raise SmokeFailure(f"edge_ranks rank {r}: K1's rank form at "
+                                   f"D={c['D']} differs from the plain "
+                                   f"version (max |err| {c['max_abs_err']}, "
+                                   f"plain exact {c['exact_plain']})")
+    # launches, a rank
+    serve_want = add_launches(scaled(RANK_CONV, 2 * FORWARDS_PER_LP
+                                     * N_DIST_LPS))
+    per_step = add_launches(scaled(RANK_CONV, 2))
+    train_want = add_launches(scaled(RANK_CONV, n_train),
+                              scaled(per_step, n_train * DIST_TRAIN_EPOCHS),
+                              scaled(RANK_CONV, 2 * n_val))
+    step_want = {"cache_launches": add_launches(RANK_CONV),
+                 "launches": per_step}
+    gen_want = {"cache_launches": no_launches(), "launches": add_launches(
+        *[RANK_GEN_CONV, RANK_GEN_CONV_BWD] * DIST_ZOO[DIST_GEN_ARCH])}
+    for r, rep in enumerate(per_rank):
+        steps = rep["train"]["steps"]
+        bad = [rep["serve"]["launches"] != serve_want,
+               rep["train"]["launches"] != train_want,
+               {st["kind"] for st in steps} != {"dist_train_step"},
+               len(steps) != n_train * DIST_TRAIN_EPOCHS,
+               any(st["launches"] != per_step for st in steps),
+               any(rep["step"][key] != v for key, v in step_want.items()),
+               any(rep["gen_step"][key] != v for key, v in gen_want.items())]
+        if any(bad):
+            raise SmokeFailure(
+                f"edge_ranks rank {r} launches: serve "
+                f"{rep['serve']['launches']} (expected {serve_want}), train "
+                f"{rep['train']['launches']} (expected {train_want}), steps "
+                f"{[st['launches'] for st in steps]} (a step {per_step}), "
+                f"the fp32 step {rep['step']['cache_launches']} + "
+                f"{rep['step']['launches']}, the GEN step "
+                f"{rep['gen_step']['launches']} (expected {gen_want})")
+    losses = [[st["loss"] for st in rep["train"]["steps"]]
+              for rep in per_rank]
+    if any(ls != losses[0] for ls in losses) or \
+            not np.isfinite(losses[0]).all():
+        raise SmokeFailure(f"edge_ranks recipe losses by rank {losses}")
+    # the bases and logits against the stacked path's
+    worst = {}
+    for fn, got in rank_logits.items():
+        want = cap.logits[fn]
+        err, ok = within(torch.from_numpy(got), torch.from_numpy(want),
+                         *RANK_LOGIT_TOL)
+        worst[fn] = err
+        if not ok:
+            raise SmokeFailure(f"edge_ranks {fn}: rank logits max |err| "
+                               f"{err} vs the stacked path's, beyond rtol, "
+                               f"atol {RANK_LOGIT_TOL}")
+    if len(rank_logits) != N_DIST_LPS or n_bas != N_DIST_LPS or \
+            not all(same_bas.values()):
+        raise SmokeFailure(f"edge_ranks: {n_bas} valid bases, logits of "
+                           f"{sorted(rank_logits)}, .bas equal to the "
+                           f"stacked path's {same_bas}")
+    # the fp32 step against the stacked dist step
+    lr = UPDATE_LR
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    ref = step_states(ARCH_NO_DROPOUT, w0, bench_graph(seed + 1100),
+                      ("single", "dist", "fp64"))
+    rels = update_rels(w0, rank_state, ref["dist"]["state"], lr)
+    spread = update_rels(w0, ref["single"]["state"], ref["fp64"]["state"],
+                         lr)
+    limits = {n: max(UPDATE_RTOL, DIST_UPDATE_SPREAD * spread[n])
+              for n in rels}
+    near = max(rels, key=lambda n: rels[n] / limits[n])
+    loss_r, loss_s = per_rank[0]["step"]["loss"], ref["dist"]["loss"]
+    if rels[near] > limits[near] or abs(loss_r - loss_s) > 1e-5 * abs(loss_s):
+        raise SmokeFailure(f"edge_ranks fp32 step vs the stacked dist step: "
+                           f"loss {loss_r} vs {loss_s}, update rel diff "
+                           f"{rels[near]} in {near} > {limits[near]}")
+    # GENDeeper's step over ranks against the stacked dist GEN step
+    w0g = seeded_state(DIST_GEN_ARCH, seed)
+    ref_g = step_states(DIST_GEN_ARCH, w0g, bench_graph(seed + 1400),
+                        ("dist",))["dist"]
+    rels_g = update_rels(w0g, rank_gen_state, ref_g["state"], lr)
+    near_g = max(rels_g, key=rels_g.get)
+    loss_gr = per_rank[0]["gen_step"]["loss"]
+    if rels_g[near_g] > UPDATE_RTOL or \
+            abs(loss_gr - ref_g["loss"]) > 1e-5 * abs(ref_g["loss"]):
+        raise SmokeFailure(f"edge_ranks GEN step vs the stacked dist step: "
+                           f"loss {loss_gr} vs {ref_g['loss']}, update rel "
+                           f"diff {rels_g[near_g]} in {near_g} > "
+                           f"{UPDATE_RTOL}")
+    total = add_launches(*(rep["serve"]["launches"] for rep in per_rank),
+                         *(rep["train"]["launches"] for rep in per_rank))
+    return {
+        "ranks": k, "groups": groups, "Bh": bh, "ranks_s": t_ranks,
+        "note": f"{k} ranks time-share one card: its spans are not a "
+                f"{k}-card figure",
+        "launches": total,
+        "launches_per_rank": {"serve": serve_want, "train": train_want,
+                              "step": per_step,
+                              "fp32_step": step_want,
+                              "gen_step": gen_want["launches"]},
+        "launch_formula": f"RANK_CONV {RANK_CONV} a conv: serve 2 convs x "
+                          f"{FORWARDS_PER_LP * N_DIST_LPS} forwards; train "
+                          f"{n_train} input caches + 2 a step x "
+                          f"{n_train * DIST_TRAIN_EPOCHS} + 2 x {n_val} val",
+        "k1": [{key: c[key] for key in ("D", "ms", "device_ms",
+                                        "with_barriers_ms", "plain_ms",
+                                        "window_bytes")}
+               | {"rank": r} for r, rep in enumerate(per_rank)
+               for c in rep["k1"]],
+        "serve": {"bas_valid": n_bas, "bas_equal_stacked": same_bas,
+                  "sort_equal_stacked": same_sort,
+                  "logits_max_abs_err_vs_stacked": worst,
+                  "logit_tol": {"rtol": RANK_LOGIT_TOL[0],
+                                "atol": RANK_LOGIT_TOL[1]},
+                  "inf_time_s": inf["inf_time"],
+                  "part_time_s": inf.get("part_time", {}),
+                  "stacked_inf_time_s": stacked["inf_time_s"],
+                  "rank_wall_s": [rep["serve"]["wall_s"] for rep in per_rank],
+                  "max_memory_allocated_bytes": [
+                      rep["serve"]["max_memory_allocated_bytes"]
+                      for rep in per_rank],
+                  "window_bytes": [rep["serve"]["window_bytes"]
+                                   for rep in per_rank]},
+        "step": {"arch": ARCH_NO_DROPOUT, "dtype": "float32", "lr": lr,
+                 "loss_ranks": loss_r, "loss_stacked": loss_s,
+                 "update_rels_vs_stacked": rels,
+                 "stacked_single_vs_fp64_update_rels": spread,
+                 "ranks_vs_fp64_update_rels": update_rels(
+                     w0, rank_state, ref["fp64"]["state"], lr),
+                 "spread_factor": DIST_UPDATE_SPREAD,
+                 "nearest_limit": {"tensor": near, "update_diff": rels[near],
+                                   "limit": limits[near]},
+                 "rank_step_device_ms": [rep["step"]["step_device_ms"]
+                                         for rep in per_rank],
+                 "rank_max_memory_allocated_bytes": [
+                     rep["step"]["max_memory_allocated_bytes"]
+                     for rep in per_rank],
+                 "rank_window_bytes": [rep["step"]["window_bytes"]
+                                       for rep in per_rank],
+                 "stacked_step_device_ms": ref["dist"]["step_device_ms"]},
+        "gen_step": {"arch": DIST_GEN_ARCH, "dtype": "float32", "lr": lr,
+                     "loss_ranks": loss_gr, "loss_stacked": ref_g["loss"],
+                     "update_rel_max_vs_stacked": rels_g[near_g],
+                     "tensor": near_g, "update_rtol": UPDATE_RTOL,
+                     "launches_per_rank": gen_want["launches"],
+                     "rank_step_device_ms": [rep["gen_step"]["step_device_ms"]
+                                             for rep in per_rank],
+                     "rank_max_memory_allocated_bytes": [
+                         rep["gen_step"]["max_memory_allocated_bytes"]
+                         for rep in per_rank],
+                     "rank_window_bytes": [rep["gen_step"]["window_bytes"]
+                                           for rep in per_rank],
+                     "stacked_step_device_ms": ref_g["step_device_ms"],
+                     "stacked_max_memory_allocated_bytes":
+                         ref_g["max_memory_allocated_bytes"]},
+        "recipe": {"arch": bf16_arch(ARCH), "epochs": DIST_TRAIN_EPOCHS,
+                   "train_lps": n_train, "val_lps": n_val,
+                   "step_losses": losses[0],
+                   "step_device_ms": [[st["device_ms"] for st in
+                                       rep["train"]["steps"]]
+                                      for rep in per_rank],
+                   "allreduce_ms": [rep["train"]["allreduce_ms"]
+                                    for rep in per_rank],
+                   "allreduce_wait_ms": [rep["train"]["allreduce_wait_ms"]
+                                         for rep in per_rank],
+                   "partition_s": [rep["train"]["partition_s"]
+                                   for rep in per_rank],
+                   "dist_tensors_s": [rep["train"]["dist_tensors_s"]
+                                      for rep in per_rank],
+                   "rank_wall_s": [rep["train"]["wall_s"] for rep in per_rank],
+                   "max_memory_allocated_bytes": [
+                       rep["train"]["max_memory_allocated_bytes"]
+                       for rep in per_rank],
+                   "window_bytes": [rep["train"]["window_bytes"]
+                                    for rep in per_rank]},
+        "rank_wall_s": [rep["wall_s"] for rep in per_rank],
+        "kernels": k1_rank_rows(per_rank, k, bh, total[
+            "halo_all_to_all_ranks"]),
+    }
+
+
 MERGE_TOL = (1e-5, 1e-6)   # rtol, atol: expf / logf and the online order
 
 
@@ -3412,6 +4010,9 @@ def main(argv=None) -> int:
                     help="run as one rank of the dp_edge phase: the train "
                          "entry point with the arguments after --, its "
                          "measures written to REPORT")
+    ap.add_argument("--edge_rank", metavar="PAYLOAD",
+                    help="run as one rank of the edge_ranks phase, with the "
+                         "phase's PAYLOAD (a JSON file)")
     ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3420,6 +4021,9 @@ def main(argv=None) -> int:
         return 1
     if args.train_rank:
         rank_train(args.train_rank, args.train_argv)
+        return 0
+    if args.edge_rank:
+        edge_rank(args.edge_rank)
         return 0
     try:
         smi = nvidia_smi()
@@ -3515,6 +4119,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         dpe = dp_edge(args.seed)
         emit({"phase": "dp_edge", **dpe})
+        torch.cuda.empty_cache()
+        ranked = edge_ranks(args.seed)
+        kernels += ranked.pop("kernels")
+        emit({"phase": "edge_ranks", **ranked})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -3529,7 +4137,7 @@ def main(argv=None) -> int:
              "sampled_train": strained, "graph_batch": batched,
              "dp_graph_batch": dp, "dist_train": dtrained,
              "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
-             "dp_edge": dpe}
+             "dp_edge": dpe, "edge_ranks": ranked}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

@@ -7,7 +7,11 @@ device, or, under ``--mesh_shape edge=K`` for graphs above
 with the halo exchange. The JAX package builds no mesh when K exceeds its
 device count (``mesh_from_cfg`` :35-48); the port places all K shards on
 the model's one device instead (``parallel/mesh.py``), so the path runs on
-one GPU. Graphs above ``edge_num_thresh`` without a mesh take the exact
+one GPU, or, under the ``LP_GNN_DIST_*`` contract with K ranks, shard k on
+rank k: each rank runs its shard's forward, the logits go to rank 0 (a
+gather), and rank 0 alone decodes and writes; the other ranks take part in
+the forwards of the partitioned graphs only. Graphs above
+``edge_num_thresh`` without a mesh take the exact
 sampled branch (:142-162): fanout -1 shards over seed batches of
 ``batch_size`` nodes in index order, one forward a shard, each shard's
 seed logits written back in place, which equals the full-graph forward.
@@ -21,6 +25,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..data.dataset import BipartiteGraph, LPDataset
@@ -28,17 +33,31 @@ from ..data.graph import GraphTensors
 from ..data.sampling import sample_subgraphs
 from ..io.bas import read_bas, write_bas_highs
 from ..parallel import edge_partition
-from ..parallel.mesh import EdgeMesh, make_mesh, parse_mesh_shape
+from ..parallel.mesh import (EdgeMesh, is_primary, make_mesh,
+                             parse_mesh_shape, world_and_rank)
 from ..train.metrics import accuracy
 from ..utils.serialize import json_dump, json_load, table_dump
 from .decode import inference_gnn, parse_inference_manager
 
 
 def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
-    """The edge mesh ``--mesh_shape edge=K`` asks for (K > 1), with every
-    shard on ``device``, or None (predict.py:35)."""
-    edge = parse_mesh_shape(cfg.mesh_shape).get("edge", 1)
-    return make_mesh(edge, device) if edge > 1 else None
+    """The edge mesh ``--mesh_shape edge=K`` asks for (K > 1), or None
+    (predict.py:35): over the ranks of the process group, one shard a rank,
+    where the group has ranks and ``dp`` names none of them (K must then be
+    the group's size); else with every shard on ``device`` (one process,
+    or a rank of dp x edge, ``parallel/combined.py``)."""
+    spec = parse_mesh_shape(cfg.mesh_shape)
+    edge = spec.get("edge", 1)
+    if edge <= 1:
+        return None
+    world, _ = world_and_rank()
+    if world > 1 and spec.get("dp", 1) == 1:
+        if edge != world:
+            raise ValueError(
+                f"--mesh_shape edge={edge} over a process group of {world} "
+                f"ranks: one shard a rank needs edge={world}")
+        return make_mesh(edge, device, dist.group.WORLD)
+    return make_mesh(edge, device)
 
 
 def _uses_dist_path(g: BipartiteGraph, edge_num_thresh,
@@ -46,6 +65,15 @@ def _uses_dist_path(g: BipartiteGraph, edge_num_thresh,
     """predict.py:65: every arch has a distributed forward
     (``edge_partition.DIST_MODELS``)."""
     return mesh is not None and g.nnz > edge_num_thresh
+
+
+def runs_here(g: BipartiteGraph, edge_num_thresh,
+              mesh: EdgeMesh | None) -> bool:
+    """Whether this process runs ``g``'s forward: always, but on a rank
+    other than 0 of an edge mesh over ranks only the partitioned graphs,
+    whose forwards every rank takes part in (rank 0 runs the rest)."""
+    return mesh is None or mesh.group is None or is_primary() or \
+        _uses_dist_path(g, edge_num_thresh, mesh)
 
 
 def part_cache_dir(cfg) -> str | None:
@@ -86,11 +114,15 @@ def model_inference(model: nn.Module, g: BipartiteGraph,
     each shard's seed logits scattered back. ``rng`` (default
     ``RandomState(0)``) is the sampler's, which an exact unshuffled pass
     never draws from. Returns (logit_cons (m, 3), logit_vars (n, 3)) numpy
-    fp32."""
+    fp32; over an edge mesh of ranks, on rank 0, and (None, None) on the
+    others, which take part in the forward and gather."""
     if _uses_dist_path(g, edge_num_thresh, mesh):
         dg = _dist_partition(g, mesh, dist_cache, cache_dir=part_dir)
         with torch.inference_mode():
-            lc, lv = edge_partition.dist_apply(model, dg, mesh)
+            lc, lv = edge_partition.gather_logits(
+                *edge_partition.dist_apply(model, dg, mesh), mesh)
+        if lc is None:
+            return None, None
         return lc[:g.ncons].cpu().numpy(), lv[:g.nvars].cpu().numpy()
     device = next(model.parameters()).device
     if g.nnz <= edge_num_thresh:
@@ -141,9 +173,13 @@ def validation(model: nn.Module, ds: LPDataset, cfg,
             cfg.inference_manager, cfg.dataset).get_basis_folder()
     for i in range(len(ds)):
         g = ds[i]
+        if not runs_here(g, cfg.edge_num_thresh, mesh):
+            continue
         lc, lv = model_inference(model, g, cfg.edge_num_thresh,
                                  cfg.batch_size, cfg.arch_depth(), mesh=mesh,
                                  dist_cache=dist_cache, part_dir=part_dir)
+        if lc is None:   # a rank other than 0: rank 0 scores
+            continue
         if wrt_converged:
             tgt = f"{cfg.log_dir}/opt-from-{basis_folder}/{g.fn}.bas"
             if not osp.exists(tgt):
@@ -171,16 +207,22 @@ def predict_and_write_bases(model: nn.Module, ds: LPDataset, cfg,
                             out_dir: str, decode_fn=inference_gnn,
                             decode_kwargs: dict | None = None) -> None:
     """Decode every graph and write HiGHS .bas + .sort files
-    (reference scripts/pred_basis.py:70-111)."""
-    os.makedirs(out_dir, exist_ok=True)
+    (reference scripts/pred_basis.py:70-111); over an edge mesh of ranks,
+    rank 0 alone decodes and writes."""
     mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
+    if is_primary():
+        os.makedirs(out_dir, exist_ok=True)
     dist_cache: dict = {}
     part_dir = part_cache_dir(cfg)
     for i in range(len(ds)):
         g = ds[i]
+        if not runs_here(g, cfg.edge_num_thresh, mesh):
+            continue
         lc, lv = model_inference(model, g, cfg.edge_num_thresh,
                                  cfg.batch_size, cfg.arch_depth(), mesh=mesh,
                                  dist_cache=dist_cache, part_dir=part_dir)
+        if lc is None:
+            continue
         logits = np.concatenate([lc, lv]).astype(np.float32)
         m = g.ncons
         pred = decode_fn(logits, m, nnzs=_nnzs_for_decode(g, decode_fn),
@@ -227,11 +269,16 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
     The host partition of an edge-partitioned graph is a per-graph constant,
     timed once into ``part_time`` and kept out of ``inf_time`` (predict.py
     :290-295). Both go to ``{log_dir}/inf_time.json`` and into the
-    ``inf_time`` / ``part_time`` columns of the results table ``table``."""
+    ``inf_time`` / ``part_time`` columns of the results table ``table``.
+    Over an edge mesh of ranks the times are rank 0's: every rank leaves a
+    barrier before each timed pass, so a pass spans the partition tensors
+    of the first rank to start through the exchanges, the gather and rank
+    0's decode; rank 0 alone writes."""
     device = next(model.parameters()).device
     mesh = mesh_from_cfg(cfg, device)
     dist_cache: dict = {}
     part_dir = part_cache_dir(cfg)
+    ranks = mesh is not None and mesh.group is not None
 
     def sync():
         if device.type == "cuda":
@@ -240,7 +287,10 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
     times, part_times = {}, {}
     for i in range(len(ds)):
         g = ds[i]
-        if _uses_dist_path(g, cfg.edge_num_thresh, mesh):
+        if not runs_here(g, cfg.edge_num_thresh, mesh):
+            continue
+        dist_path = _uses_dist_path(g, cfg.edge_num_thresh, mesh)
+        if dist_path:
             t0 = time.perf_counter()
             _dist_partition(g, mesh, dist_cache, cache_dir=part_dir)
             part_times[g.fn] = time.perf_counter() - t0
@@ -255,13 +305,18 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
         sync()
         reps = []
         for _ in range(3):
+            if ranks and dist_path:
+                dist.barrier(group=mesh.group)
             t0 = time.perf_counter()
             lc, lv = infer()
-            inference_gnn(np.concatenate([lc, lv]), g.ncons)
+            if lc is not None:
+                inference_gnn(np.concatenate([lc, lv]), g.ncons)
             sync()
             reps.append(time.perf_counter() - t0)
         times[g.fn] = sorted(reps)[1]
         logging.info("inf_time %s %.6f s", g.fn, times[g.fn])
+    if not is_primary():
+        return times
     json_dump({"device": str(device), "inf_time": times,
                "part_time": part_times},
               osp.join(cfg.log_dir, "inf_time.json"))

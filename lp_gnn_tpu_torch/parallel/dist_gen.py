@@ -15,9 +15,9 @@ rank`` is compact row ``ns + owner*bh + rank``.
 - l2r (dst = variables, whose edges spread over shards): ``gen_agg_fwd`` a
   shard over a CSR of ``ns + nh`` compact rows with sources in the shard's
   constraints gives each part of a variable its (aggr, lse); the slot rows'
-  parts go to their owners with one stacked K1 (fp32, 2D wide, padded to
-  16 bytes), and ``gen_lse_merge`` merges them with the local part by
-  log-sum-exp: ``lse = logsumexp_p lse_p``, ``aggr = sum_p exp(lse_p - lse)
+  parts go to their owners with one K1 (fp32, 2D wide, padded to 16
+  bytes; the stacked form, or over ranks its rank form), and
+  ``gen_lse_merge`` merges them with the local part by log-sum-exp: ``lse = logsumexp_p lse_p``, ``aggr = sum_p exp(lse_p - lse)
   aggr_p``, the exact single-card softmax. The JAX layer combines maxes at
   the owners, sends them back, and sums the exps there; the two differ in
   rounding only.
@@ -33,7 +33,11 @@ The two compact CSRs of a shard are each other's transpose orderings: r2l
 rows, sources the shard's constraints) sorted by (compact column, row).
 Both come from the partition's four CSRs with their edge permutations,
 built with the device tensors (``DistGraphTensors.from_partition(...,
-gen=True)``); the partition cache does not hold them.
+gen=True)``); the partition cache does not hold them. The per-shard loops
+run over the shards held here: all K in one process, or, with shard k on
+rank k, this rank's one, whose owner-side merge takes the parts its K1
+brings from every rank; the parameters' gradients are then this rank's
+part, summed over the ranks by ``dist_train_step``.
 """
 from __future__ import annotations
 
@@ -71,22 +75,23 @@ class DistGenTensors:
     l2r: list[CSR]             # per shard: ns+nh compact rows, idx [0, ms)
     eperm_r2l: list[torch.Tensor]  # in l2r's order: the edge's place in r2l's
     eperm_l2r: list[torch.Tensor]  # in r2l's order: the edge's place in l2r's
-    # the owner-side merge over K1's output (K*nh rows, stacked by owner):
-    # rows K*ns stacked by owner, each listing its real slots' rows
-    merge_ptr: torch.Tensor    # (K*ns+1,) int32
+    # the owner-side merge over K1's output (L*nh rows, stacked by owner):
+    # rows L*ns stacked by owner, each listing its real slots' rows
+    merge_ptr: torch.Tensor    # (L*ns+1,) int32
     merge_idx: torch.Tensor    # (n,) int32
-    local_edges: torch.Tensor  # (K*ns,) int32, each variable's local edges
+    local_edges: torch.Tensor  # (L*ns,) int32, each variable's local edges
 
     @classmethod
-    def from_partition(cls, dg, halo_red, t) -> "DistGenTensors":
+    def from_partition(cls, dg, halo_red, t, own) -> "DistGenTensors":
         """From the host partition ``dg``, its owner-side reduce lists
-        ``halo_red`` ((ptr, slot positions) an owner) and ``t``, which puts
-        a numpy array on the device. A shard's edges (its local and halo
-        v2c CSRs) go to the device, and the two orderings are stable sorts
-        there, by (row, compact column) and by (compact column, row)."""
-        k, ms, ns, nh = dg.n_shards, dg.ms, dg.ns, dg.nh
+        ``halo_red`` ((ptr, slot positions) an owner), ``t``, which puts
+        a numpy array on the device, and ``own``, the shards held here. A
+        shard's edges (its local and halo v2c CSRs) go to the device, and
+        the two orderings are stable sorts there, by (row, compact column)
+        and by (compact column, row)."""
+        ms, ns, nh = dg.ms, dg.ns, dg.nh
         out = {f: [] for f in ("r2l", "l2r", "eperm_r2l", "eperm_l2r")}
-        for d in range(k):
+        for d in own:
             r1, c1, v1 = _coo(dg.local_v2c[d])
             r2, s2, v2 = _coo(dg.halo_v2c[d])
             r = t(np.concatenate([r1, r2]))
@@ -98,29 +103,30 @@ class DistGenTensors:
             out["l2r"].append(CSR(_ptr_of(c, ns + nh), r[o_l].int(), v[o_l]))
             out["eperm_r2l"].append(_inverse(o_r)[o_l].int())
             out["eperm_l2r"].append(_inverse(o_l)[o_r].int())
-        sizes = [len(i) for _, i in halo_red]
+        red = [halo_red[d] for d in own]
+        sizes = [len(i) for _, i in red]
         offs = np.concatenate([[0], np.cumsum(sizes)])
         ptr = np.concatenate([p[:-1] + offs[o] for o, (p, _) in
-                              enumerate(halo_red)] + [offs[-1:]])
-        idx = np.concatenate([o * nh + i for o, (_, i) in enumerate(halo_red)])
-        local = np.concatenate([np.diff(m.ptr) for m in dg.local_c2v])
+                              enumerate(red)] + [offs[-1:]])
+        idx = np.concatenate([o * nh + i for o, (_, i) in enumerate(red)])
+        local = np.concatenate([np.diff(dg.local_c2v[d].ptr) for d in own])
         return cls(**out, merge_ptr=t(ptr.astype(np.int32)),
                    merge_idx=t(idx.astype(np.int32)),
                    local_edges=t(local.astype(np.int32)))
 
 
 class DistGenL2R(torch.autograd.Function):
-    """``DistGenL2R.apply(x, w, b, t, dg)`` -> aggr (K*ns, D) fp32 (fp64
+    """``DistGenL2R.apply(x, w, b, t, dg)`` -> aggr (L*ns, D) fp32 (fp64
     for fp64): the l2r aggregation of a GEN layer over the partition ``dg``
-    (with ``dg.gen``), from the projected constraint rows ``x`` (K*ms, D)
+    (with ``dg.gen``), from the projected constraint rows ``x`` (L*ms, D)
     and the edge encoder ``w``, ``b`` and temperature ``t`` in x's dtype,
-    with a gradient for all four (module docstring). Forward: K
+    with a gradient for all four (module docstring). Forward: L
     ``gen_agg_fwd``, one K1, one ``gen_lse_merge``; backward: one halo
-    gather, K ``gen_agg_bwd`` and, for x, K SpMMs."""
+    gather, L ``gen_agg_bwd`` and, for x, L SpMMs."""
 
     @staticmethod
     def forward(ctx, x, w, b, t, dg):
-        gen, k, ms, ns, nh = dg.gen, dg.n_shards, dg.ms, dg.ns, dg.nh
+        gen, k, ms, ns, nh = dg.gen, dg.n_local, dg.ms, dg.ns, dg.nh
         d = x.shape[1]
         xs = x.split(ms)
         parts = [gen_agg_fwd(*gen.l2r[s], xs[s], w, b, t) for s in range(k)]
@@ -133,7 +139,7 @@ class DistGenL2R(torch.autograd.Function):
             send[s, :, :d] = a[ns:]
             send[s, :, d:2 * d] = lse[ns:]
         del parts
-        back = _a2a(send)
+        back = _a2a(send, dg.group)
         aggr, lse = gen_lse_merge(gen.local_edges, loc_aggr, loc_lse,
                                   gen.merge_ptr, gen.merge_idx,
                                   back.view(k * nh, back.shape[2]))
@@ -145,13 +151,13 @@ class DistGenL2R(torch.autograd.Function):
     def backward(ctx, grad):
         x, w, b, t, aggr, lse = ctx.saved_tensors
         dg = ctx.dg
-        gen, k, ms, ns = dg.gen, dg.n_shards, dg.ms, dg.ns
+        gen, k, ms, ns = dg.gen, dg.n_local, dg.ms, dg.ns
         d = x.shape[1]
         # each owner's (g, aggr, lse), brought back to its slots
         table = aggr.new_empty((k * ns, padded_width(3 * d, aggr.dtype)))
         for j, v in enumerate((grad, aggr, lse)):
             table[:, j * d:(j + 1) * d] = v
-        slots = halo_gather(table, dg.halo_src, dg.halo_sched)
+        slots = halo_gather(table, dg.halo_src, dg.halo_sched, dg.group)
         xs = x.split(ms)
         dxs, sums = [], None
         for s in range(k):
@@ -174,7 +180,7 @@ def dist_gen_bidir_conv(conv, dg, left, right):
     the module's own projections, encoders and MLPs on all shards' rows at
     once, the two aggregations over the compact halo space. GEN's input
     aggregation depends on its parameters and is never cached."""
-    gen, k, ns = dg.gen, dg.n_shards, dg.ns
+    gen, k, ns = dg.gen, dg.n_local, dg.ns
     r2l, l2r = conv.right2left, conv.left2right
     # r2l: dst = constraints, sources through the halo
     r_src, x_dst_l = r2l.project(right, left)

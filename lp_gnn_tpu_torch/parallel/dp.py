@@ -79,6 +79,25 @@ def step_generator(gen: torch.Generator | None,
     return torch.Generator(device=gen.device).manual_seed(seed + rank)
 
 
+def _all_reduce_grads(model, extra: torch.Tensor | None = None,
+                      group=None, divide: int = 1) -> torch.Tensor:
+    """Every gradient of ``model`` (and ``extra``, a 0-d tensor) summed over
+    the ranks of ``group`` by one all-reduce of one flat fp32 buffer, then
+    divided by ``divide``, each gradient written back in place; returns the
+    buffer."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([t.reshape(-1) for t in grads]
+                     + ([] if extra is None else [extra.reshape(1).float()]))
+    dist.all_reduce(flat, group=group)
+    if divide != 1:
+        flat /= divide
+    off = 0
+    for t in grads:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+    return flat
+
+
 def average_over_ranks(model, loss: torch.Tensor) -> torch.Tensor:
     """Across the ranks of a process group, after each rank's backward:
     every gradient of ``model`` and ``loss`` (this rank's mean) averaged
@@ -88,16 +107,14 @@ def average_over_ranks(model, loss: torch.Tensor) -> torch.Tensor:
     world, _ = world_and_rank()
     if world == 1:
         return loss
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    flat = torch.cat([t.reshape(-1) for t in grads]
-                     + [loss.reshape(1).float()])
-    dist.all_reduce(flat)
-    flat /= world
-    off = 0
-    for t in grads:
-        t.copy_(flat[off:off + t.numel()].view_as(t))
-        off += t.numel()
-    return flat[-1]
+    return _all_reduce_grads(model, loss, divide=world)[-1]
+
+
+def sum_over_ranks(model, group) -> None:
+    """Every gradient of ``model`` summed over the ranks of ``group`` (one
+    all-reduce, as :func:`average_over_ranks`): the edge axis' gradient
+    psum when each rank holds one shard of a graph."""
+    _all_reduce_grads(model, group=group)
 
 
 def dp_train_step(model, optimizer: torch.optim.Optimizer, g: GraphTensors,

@@ -9,8 +9,9 @@ variable block. Per two-direction conv (``_dist_aggs`` :655, halo branch
 
 - ``halo_gather``: each shard receives the rows of other shards' variable
   blocks that its edges reference (``halo_send``), in its compact halo
-  buffer of K*Bh slots. On one card this is one row gather over a composed
-  index, the all-to-all folded into it;
+  buffer of K*Bh slots. With every shard in one process this is one row
+  gather over a composed index, the all-to-all folded into it; with one
+  shard a rank, the gather of the send rows and the rank form of K1;
 - the constraint side sums its own-block edges (local v2c) and its boundary
   edges against the halo buffer (halo v2c);
 - the variable side sums its own-block edges (local c2v), and each shard's
@@ -36,11 +37,17 @@ points are the JAX package's (``_shard_sizes``, Bh rounded to 8, edges with
 the device tensors are made (``DistGraphTensors.from_partition(...,
 gen=True)``); the all-gather layouts ``blkr``/``blkc`` are left out.
 
-All K shards sit on one device (``mesh.EdgeMesh``) and run one after another
-on one stream, so the psums of the JAX losses are sums over the stacked
-shards: the single-card losses of ``train/losses.py`` on the stacked logits
-with the partition's masks are the dist losses (:1066-1171). The
-all-gather branch (:709-736) and shards on several cards wait for
+The shards held here (``mesh.EdgeMesh``): all K on one device, run one
+after another on one stream, or, over ranks, this rank's one. The per-shard
+loops run over the shards held here, stacked shard after shard, and the
+exchange takes the transport of the layout (``_a2a``): the stacked K1, or
+its rank form over the mesh's group. With every shard here the psums of the
+JAX losses are sums over the stacked shards: the single-card losses of
+``train/losses.py`` on the stacked logits with the partition's masks are
+the dist losses (:1066-1171). Over ranks the losses' sums are all-reduced
+over the group (``psum``) and so are the parameters' gradients
+(:1255-1257), which gives every rank the single-graph loss and gradient.
+The all-gather branch (:709-736) and several cards in one process wait for
 ROADMAP.md queue items 7d and 7c; dp x edge, a rank's block of a batch of
 partitions, is ``parallel/combined.py``.
 
@@ -58,6 +65,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..data.dataset import BipartiteGraph
@@ -66,7 +74,9 @@ from ..models.layers import add_knowledge
 from ..ops.gather import gather_rows, gather_rows_plain
 from ..ops.gen_agg import padded_width
 from ..ops.spmm import spmm_csr, spmm_csr_plain
-from .halo import halo_all_to_all, halo_all_to_all_plain
+from .halo import (halo_all_to_all, halo_all_to_all_plain,
+                   halo_all_to_all_ranks, halo_all_to_all_ranks_plain)
+from .dp import step_generator, sum_over_ranks
 from .mesh import EdgeMesh
 
 CSR_KINDS = ("local_v2c", "local_c2v", "halo_v2c", "halo_c2v")
@@ -380,31 +390,35 @@ def _halo_red_host(dg: PartitionedGraph) -> list[tuple[np.ndarray, np.ndarray]]:
 
 @dataclasses.dataclass
 class DistGraphTensors:
-    """A partition on its mesh's device: node features, labels and masks
-    stacked shard after shard (row ``d*ms + i`` is shard d's row i, which is
-    global row ``d*ms + i``), per-shard CSRs, the composed halo index, the
-    owner-side reduce CSRs, and what its users attach: the input conv's
-    aggregations (``attach_dist_input_agg``) and GEN's compact CSRs
-    (``gen``)."""
-    n_shards: int
+    """The shards of a partition that this process holds, on its mesh's
+    device: node features, labels and masks stacked shard after shard (with
+    every shard here, row ``d*ms + i`` is shard d's row i, which is global
+    row ``d*ms + i``; over ranks, this rank's ms rows), per-shard CSRs, the
+    gather index of the halo exchange, the owner-side reduce CSRs, and what
+    its users attach: the input conv's aggregations
+    (``attach_dist_input_agg``) and GEN's compact CSRs (``gen``)."""
     ms: int
     ns: int
-    c_feas: torch.Tensor           # (K*ms, 8) float32
-    v_feas: torch.Tensor           # (K*ns, 8) float32
-    y_s: torch.Tensor              # (K*ms,) int64
-    y_t: torch.Tensor              # (K*ns,) int64
-    cons_mask: torch.Tensor        # (K*ms,) bool
-    vars_mask: torch.Tensor        # (K*ns,) bool
-    halo_src: torch.Tensor         # (K, K*bh) int32, compose_halo_src
+    # L shards held here (K, or 1 over ranks), stacked
+    c_feas: torch.Tensor           # (L*ms, 8) float32
+    v_feas: torch.Tensor           # (L*ns, 8) float32
+    y_s: torch.Tensor              # (L*ms,) int64
+    y_t: torch.Tensor              # (L*ns,) int64
+    cons_mask: torch.Tensor        # (L*ms,) bool
+    vars_mask: torch.Tensor        # (L*ns,) bool
+    # every shard here: (K, K*bh) compose_halo_src; over ranks: (1, K*bh)
+    # this rank's halo_send, the rows it sends, block p to rank p
+    halo_src: torch.Tensor         # int32
     halo_sched: torch.Tensor       # (n, 2) int32, halo_schedule(halo_src)
     halo_red: list[CSR]            # ns dst rows, idx = real slots, val = 1
     local_v2c: list[CSR]
     local_c2v: list[CSR]
     halo_v2c: list[CSR]
     halo_c2v: list[CSR]
-    in_agg_c: torch.Tensor | None = None   # (K*ms, 8) in a compute dtype
-    in_agg_v: torch.Tensor | None = None   # (K*ns, 8)
+    in_agg_c: torch.Tensor | None = None   # (L*ms, 8) in a compute dtype
+    in_agg_v: torch.Tensor | None = None   # (L*ns, 8)
     gen: object | None = None              # dist_gen.DistGenTensors
+    mesh: EdgeMesh | None = None           # where the shards live
 
     #: JAX's dist forward takes no remat (edge_partition.py:1007-1034)
     remat = False
@@ -412,6 +426,26 @@ class DistGraphTensors:
     @property
     def nh(self) -> int:
         return self.halo_src.shape[1]
+
+    @property
+    def n_shards(self) -> int:
+        """K, all shards of the partition."""
+        return self.mesh.n_shards
+
+    @property
+    def shards(self) -> tuple[int, ...]:
+        """The shards held here, in order: all K, or this rank's one."""
+        return self.mesh.shards
+
+    @property
+    def group(self):
+        """The ranks' process group, or None: every shard here."""
+        return self.mesh.group
+
+    @property
+    def n_local(self) -> int:
+        """The shards held here: K, or 1 over ranks."""
+        return len(self.shards)
 
     @property
     def device(self) -> torch.device:
@@ -432,33 +466,41 @@ class DistGraphTensors:
     @classmethod
     def from_partition(cls, dg: PartitionedGraph, mesh: EdgeMesh,
                        gen: bool = False) -> "DistGraphTensors":
-        """``gen``: also build GEN's compact CSRs (``dist_gen``)."""
+        """The mesh's shards of the host partition ``dg`` (every rank
+        partitions the whole graph with the same host code and keeps its
+        shard). ``gen``: also build GEN's compact CSRs (``dist_gen``)."""
         if dg.n_shards != mesh.n_shards:
             raise ValueError(f"a partition of {dg.n_shards} shards on a mesh "
                              f"of {mesh.n_shards}")
-        dev = mesh.device
+        dev, own = mesh.device, list(mesh.shards)
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+        def nodes(a, dtype=None):
+            a = a[own]
+            return t(a.reshape(-1, *a.shape[2:]).astype(dtype or a.dtype))
+
         red = _halo_red_host(dg)
-        src = compose_halo_src(dg.halo_send, dg.ns)
+        if mesh.group is None:
+            src = compose_halo_src(dg.halo_send, dg.ns)
+        else:
+            src = dg.halo_send[own].reshape(1, -1)
         out = cls(
-            n_shards=dg.n_shards, ms=dg.ms, ns=dg.ns,
-            c_feas=t(dg.c_feas.reshape(-1, dg.c_feas.shape[-1])),
-            v_feas=t(dg.v_feas.reshape(-1, dg.v_feas.shape[-1])),
-            y_s=t(dg.y_s.reshape(-1).astype(np.int64)),
-            y_t=t(dg.y_t.reshape(-1).astype(np.int64)),
-            cons_mask=t(dg.cons_mask.reshape(-1)),
-            vars_mask=t(dg.vars_mask.reshape(-1)),
+            ms=dg.ms, ns=dg.ns,
+            c_feas=nodes(dg.c_feas), v_feas=nodes(dg.v_feas),
+            y_s=nodes(dg.y_s, np.int64), y_t=nodes(dg.y_t, np.int64),
+            cons_mask=nodes(dg.cons_mask), vars_mask=nodes(dg.vars_mask),
             halo_src=t(src), halo_sched=t(halo_schedule(src)),
-            halo_red=[CSR(t(p), t(i), t(np.ones(len(i), np.float32)))
-                      for p, i in red],
-            **{k: [CSR(*map(t, m)) for m in getattr(dg, k)]
-               for k in CSR_KINDS})
+            halo_red=[CSR(t(red[d][0]), t(red[d][1]),
+                          t(np.ones(len(red[d][1]), np.float32)))
+                      for d in own],
+            **{k: [CSR(*map(t, getattr(dg, k)[d])) for d in own]
+               for k in CSR_KINDS},
+            mesh=mesh)
         if gen:
             from .dist_gen import DistGenTensors
-            out.gen = DistGenTensors.from_partition(dg, red, t)
+            out.gen = DistGenTensors.from_partition(dg, red, t, own)
         return out
 
 
@@ -478,10 +520,17 @@ def _gather(table: torch.Tensor, idx: torch.Tensor,
     return gather_rows(table, idx, schedule=schedule)
 
 
-def _a2a(bufs: torch.Tensor) -> torch.Tensor:
+def _a2a(bufs: torch.Tensor, group=None) -> torch.Tensor:
+    """K1 of the (L, K*bh, F) buffers of the L shards held here: the
+    stacked form where all K are (``group`` None), else the rank form of
+    this rank's one over ``group``."""
+    if group is None:
+        if plain_fp64(bufs):
+            return halo_all_to_all_plain(bufs)
+        return halo_all_to_all(bufs)
     if plain_fp64(bufs):
-        return halo_all_to_all_plain(bufs)
-    return halo_all_to_all(bufs)
+        return halo_all_to_all_ranks_plain(bufs[0], group)[None]
+    return halo_all_to_all_ranks(bufs[0], group)[None]
 
 
 def _spmm(m: CSR, x: torch.Tensor, out: torch.Tensor | None = None):
@@ -492,28 +541,30 @@ def _spmm(m: CSR, x: torch.Tensor, out: torch.Tensor | None = None):
 
 
 def halo_gather(right: torch.Tensor, halo_src: torch.Tensor,
-                halo_sched: torch.Tensor) -> torch.Tensor:
+                halo_sched: torch.Tensor, group=None) -> torch.Tensor:
     """Collect the remote variable rows each shard's edges reference
-    (edge_partition.py:585, forward). ``right`` (K*ns, F) is stacked by
-    shard; returns the K halo buffers stacked, (K, K*bh, F), where slot
+    (edge_partition.py:585, forward). ``right`` (L*ns, F) is stacked by
+    shard; returns the L halo buffers stacked, (L, K*bh, F), where slot
     ``p*bh + r`` of shard q's buffer holds the r-th row of q's boundary set
     in shard p.
 
     The JAX package gathers each shard's send rows ``x_p[halo_send[p]]`` and
-    exchanges them with an all-to-all (K1). With every shard on one card
-    that exchange is a fixed permutation of rows, so it is folded into the
-    index (``halo_src``) and one gather writes the receivers' buffers
-    directly, bit for bit the same rows. Where ``right`` is larger than
-    the card's L2, ``halo_sched`` (:func:`halo_schedule`) orders the work
-    so that a sender row several receivers need is read from device memory
-    once; a table L2 holds whole is read once in any order, and there the
-    schedule's short ranges would only leave lanes idle. Shards on distinct
-    cards would bring back the gather-then-K1 route, with peer addresses in
-    K1's table (ROADMAP.md, queue item 7c)."""
+    exchanges them with an all-to-all (K1). With every shard in this
+    process (``group`` None) that exchange is a fixed permutation of rows,
+    so it is folded into the index (``halo_src``, :func:`compose_halo_src`)
+    and one gather writes the receivers' buffers directly, bit for bit the
+    same rows. Over ranks the JAX route comes back: ``halo_src`` is this
+    rank's ``halo_send`` and the gather of its send rows goes through the
+    rank form of K1 over ``group``. Where ``right`` is larger than the
+    card's L2, ``halo_sched`` (:func:`halo_schedule`) orders the gather so
+    that a row several receivers need is read from device memory once; a
+    table L2 holds whole is read once in any order, and there the
+    schedule's short ranges would only leave lanes idle."""
     k = halo_src.shape[0]
-    return _gather(right, halo_src.view(-1),
-                   pick_halo_schedule(right, halo_sched)).view(
+    out = _gather(right, halo_src.view(-1),
+                  pick_halo_schedule(right, halo_sched)).view(
         k, halo_src.shape[1], right.shape[1])
+    return out if group is None else _a2a(out, group)
 
 
 def pick_halo_schedule(right: torch.Tensor,
@@ -526,16 +577,16 @@ def pick_halo_schedule(right: torch.Tensor,
     return None
 
 
-def _halo_reduce_stacked(parts: torch.Tensor,
-                         halo_red: list[CSR]) -> torch.Tensor:
-    """(K*ns, F). Rows narrower than whole 16-byte pieces (GEN's conv_out
+def _halo_reduce_stacked(parts: torch.Tensor, halo_red: list[CSR],
+                         group=None) -> torch.Tensor:
+    """(L*ns, F). Rows narrower than whole 16-byte pieces (GEN's conv_out
     aggregates 3 channels) are zero-padded for K1 and the SpMM, which move
     16-byte pieces, and the result is the first F columns."""
     f = parts.shape[2]
     width = padded_width(f, parts.dtype)
     if width != f:
         parts = F.pad(parts, (0, width - f))
-    back = _a2a(parts)
+    back = _a2a(parts, group)
     ns = halo_red[0].ptr.shape[0] - 1
     out = parts.new_empty((len(halo_red) * ns, width))
     for d, (r, b) in enumerate(zip(halo_red, back)):
@@ -543,55 +594,61 @@ def _halo_reduce_stacked(parts: torch.Tensor,
     return out[:, :f]
 
 
-def halo_reduce(parts: torch.Tensor, halo_red: list[CSR]) -> list[torch.Tensor]:
+def halo_reduce(parts: torch.Tensor, halo_red: list[CSR],
+                group=None) -> list[torch.Tensor]:
     """Route each shard's halo-slot partial sums back to their owners and
     fold them into the owners' (ns, F) blocks (edge_partition.py:624,
-    forward): ``parts`` (K, K*bh, F) stacked by shard, one all-to-all (K1)
-    of the stacked form, then a sorted segment sum over ``halo_ids`` as a
-    CSR SpMM with ``idx = halo_perm`` and ``val = 1``
+    forward): ``parts`` (L, K*bh, F) stacked by the shards held here, one
+    all-to-all (K1: the stacked form, or over ranks its rank form over
+    ``group``), then a sorted segment sum over ``halo_ids`` as a CSR SpMM
+    with ``idx = halo_perm`` and ``val = 1``
     (``DistGraphTensors.halo_red``), which skips the padding slots: the
     forward's partials there are zeros, since no edge targets them.
-    Returns K views of one stacked (K*ns, F) tensor."""
+    Returns L views of one stacked (L*ns, F) tensor."""
     ns = halo_red[0].ptr.shape[0] - 1
-    return list(_halo_reduce_stacked(parts, halo_red).split(ns))
+    return list(_halo_reduce_stacked(parts, halo_red, group).split(ns))
 
 
 class HaloGather(torch.autograd.Function):
     """``HaloGather.apply(right, dg)``: :func:`halo_gather` of the stacked
-    (K*ns, F) ``right`` over the partition ``dg`` (a
+    (L*ns, F) ``right`` over the partition ``dg`` (a
     :class:`DistGraphTensors`), with a gradient for ``right``. Its backward
     is :func:`halo_reduce`'s forward (edge_partition.py:612
-    ``_halo_gather_bwd``): one stacked K1 launch and the owner-side SpMM,
-    no gather. That SpMM skips the padding slots, so the backward is the
+    ``_halo_gather_bwd``): one K1 launch and the owner-side SpMM, no
+    gather. That SpMM skips the padding slots, so the backward is the
     exact transpose for a cotangent that is zero there, which every
     cotangent of the dist path is (no edge reads a padding slot)."""
 
     @staticmethod
     def forward(ctx, right, dg):
         ctx.dg = dg
-        return halo_gather(right, dg.halo_src, dg.halo_sched)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return _halo_reduce_stacked(grad.contiguous(), ctx.dg.halo_red), None
-
-
-class HaloReduce(torch.autograd.Function):
-    """``HaloReduce.apply(parts, dg)`` -> (K*ns, F): :func:`halo_reduce` of
-    the stacked (K, K*bh, F) slot partials, with a gradient for ``parts``.
-    Its backward is :func:`halo_gather`'s forward (edge_partition.py:645
-    ``_halo_reduce_bwd``): the one gather over the composed index, which
-    also fills the padding slots, as the JAX VJP does; no edge reads them."""
-
-    @staticmethod
-    def forward(ctx, parts, dg):
-        ctx.dg = dg
-        return _halo_reduce_stacked(parts, dg.halo_red)
+        return halo_gather(right, dg.halo_src, dg.halo_sched, dg.group)
 
     @staticmethod
     def backward(ctx, grad):
         dg = ctx.dg
-        return halo_gather(grad.contiguous(), dg.halo_src, dg.halo_sched), None
+        return _halo_reduce_stacked(grad.contiguous(), dg.halo_red,
+                                    dg.group), None
+
+
+class HaloReduce(torch.autograd.Function):
+    """``HaloReduce.apply(parts, dg)`` -> (L*ns, F): :func:`halo_reduce` of
+    the stacked (K, K*bh, F) slot partials, with a gradient for ``parts``.
+    Its backward is :func:`halo_gather`'s forward (edge_partition.py:645
+    ``_halo_reduce_bwd``): the one gather over the composed index, or over
+    ranks the send rows' gather and K1, which also fills the padding
+    slots, as the JAX VJP does; no edge reads them."""
+
+    @staticmethod
+    def forward(ctx, parts, dg):
+        ctx.dg = dg
+        return _halo_reduce_stacked(parts, dg.halo_red, dg.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dg = ctx.dg
+        return halo_gather(grad.contiguous(), dg.halo_src, dg.halo_sched,
+                           dg.group), None
 
 
 # ---------------------------------------------------------------- forward
@@ -631,9 +688,10 @@ class ShardSpmm(torch.autograd.Function):
 def _dist_aggs(dg: DistGraphTensors, left: torch.Tensor, right: torch.Tensor):
     """Both aggregations of one two-direction conv over the halo exchange
     (edge_partition.py:655, halo branch :673-708), differentiable in
-    ``left`` (K*ms, F) and ``right`` (K*ns, F), both stacked by shard. The
+    ``left`` (L*ms, F) and ``right`` (L*ns, F), both stacked by the shards
+    held here. The
     local and halo parts add in the compute dtype, as there (:703-707)."""
-    k, nh = dg.n_shards, dg.nh
+    k, nh = dg.n_local, dg.nh
     h = HaloGather.apply(right, dg).view(k * nh, right.shape[1])
     part = ShardSpmm.apply(left, dg.halo_c2v, dg.halo_v2c)
     red = HaloReduce.apply(part.view(k, nh, left.shape[1]), dg)
@@ -673,16 +731,19 @@ def _dist_bidir_conv(conv, dg: DistGraphTensors, left, right,
 def dist_gcn_rand_apply(model, dg: DistGraphTensors,
                         generator: torch.Generator | None = None):
     """The random-logit control over a partition (edge_partition.py:816):
-    U[0, 1) logits for the stacked rows through the knowledge mask, no
-    exchange; from one generator seeded 0 when none is given, as the
-    single-card model."""
+    U[0, 1) logits for the stacked rows of all K shards through the
+    knowledge mask, no exchange; from one generator seeded 0 when none is
+    given, as the single-card model. Over ranks each rank draws them all
+    and keeps its shard's rows, the stacked path's."""
     if generator is None:
         generator = torch.Generator(device=dg.device).manual_seed(0)
-    left = torch.rand((dg.c_feas.shape[0], 3), generator=generator,
-                      device=dg.device)
-    right = torch.rand((dg.v_feas.shape[0], 3), generator=generator,
-                       device=dg.device)
-    return add_knowledge(left, right, dg.c_feas, dg.v_feas)
+    k, d0 = dg.n_shards, dg.shards[0]
+    left = torch.rand((k * dg.ms, 3), generator=generator, device=dg.device)
+    right = torch.rand((k * dg.ns, 3), generator=generator, device=dg.device)
+    n = dg.n_local
+    return add_knowledge(left[d0 * dg.ms:(d0 + n) * dg.ms],
+                         right[d0 * dg.ns:(d0 + n) * dg.ns],
+                         dg.c_feas, dg.v_feas)
 
 
 def module_forward(model, dg: DistGraphTensors,
@@ -690,12 +751,16 @@ def module_forward(model, dg: DistGraphTensors,
     """The arch's own forward over a partition (edge_partition.py:757,
     :791, :1007): ``dg.apply_conv`` runs each conv over the shards, with
     the module's weights, and dropout (training mode) draws its masks from
-    ``generator`` over the stacked rows. Returns the stacked (K*ms, 3) and
-    (K*ns, 3) fp32 logits."""
+    ``generator`` over the stacked rows. Returns the stacked (L*ms, 3) and
+    (L*ns, 3) fp32 logits."""
     if model.softmax_aggregation and dg.gen is None:
         raise ValueError(f"a dist {model.name} forward needs GEN's compact "
                          "CSRs: DistGraphTensors.from_partition(..., "
                          "gen=True)")
+    if dg.group is not None and model.training:
+        # over ranks the shards' masks differ, as JAX folds the shard index
+        # into its key (edge_partition.py:771-774)
+        generator = step_generator(generator, dg.shards[0])
     return model(dg, generator=generator)
 
 
@@ -730,16 +795,17 @@ def dist_tensors(model, dg: PartitionedGraph, mesh: EdgeMesh,
 def dist_forward(model, dgt: DistGraphTensors,
                  generator: torch.Generator | None = None):
     """The arch's distributed forward over device tensors: the stacked
-    logits ((K*ms, 3), (K*ns, 3)); global row i is row i, padding rows
-    last."""
+    logits of the shards held here ((L*ms, 3), (L*ns, 3)); with all K here,
+    global row i is row i, padding rows last."""
     return DIST_MODELS[model.name](model, dgt, generator)
 
 
 def dist_apply(model, dg: PartitionedGraph, mesh: EdgeMesh,
                generator: torch.Generator | None = None):
     """Full-graph forward of one partitioned graph on ``mesh``
-    (edge_partition.py:1207): the partition goes to the mesh's device, then
-    the arch's distributed forward runs."""
+    (edge_partition.py:1207): the mesh's shards go to its device, then the
+    arch's distributed forward runs; the logits of the shards held here
+    (``gather_logits`` brings the ranks' to one)."""
     return dist_forward(model, dist_tensors(model, dg, mesh), generator)
 
 
@@ -751,13 +817,63 @@ def dist_train_step(model, optimizer, dg: DistGraphTensors, loss_fn,
     shards' sums are the psums), backward through the halo pair and the
     SpMMs' partner orderings, the optimizer's update. With every shard on
     one device there is no psum whose transpose the JAX step's 1/D scaling
-    undoes, and, as in the JAX trainer, no per-step accuracy. Returns the
-    loss before the update, a 0-d tensor on the device."""
+    undoes. Over ranks the loss's sums are all-reduced over the group
+    (``psum``, whose backward passes the cotangent as it is: each rank's
+    gradient is its shards' part of the single-graph gradient, with no 1/D
+    to undo) and the parameters' gradients summed over the group
+    (:1255-1257, ``dp.sum_over_ranks``) before the update. As in the JAX
+    trainer, no per-step accuracy. Returns the loss before the update, a
+    0-d tensor on the device (the whole graph's on every rank)."""
     model.train()
     lc, lv = dist_forward(model, dg, generator)
-    loss = loss_fn(lc, lv, dg.y_s, dg.y_t, dg.cons_mask, dg.vars_mask)
+    kw = {} if dg.group is None else {"psum": psum_over(dg.group)}
+    loss = loss_fn(lc, lv, dg.y_s, dg.y_t, dg.cons_mask, dg.vars_mask, **kw)
     optimizer.zero_grad(set_to_none=True)
     if loss.requires_grad:   # GCNRand's logits depend on no parameter
         loss.backward()
+        if dg.group is not None:
+            sum_over_ranks(model, dg.group)
     optimizer.step()
     return loss.detach()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of ``group``, whose backward passes
+    the cotangent on as it is: every rank computes the same loss from the
+    sums, so each rank's backward takes the part of the gradient that
+    flows through its own summands."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def psum_over(group):
+    """The losses' ``psum`` over ``group`` (``train/losses.py``)."""
+    return lambda x: _AllReduceSum.apply(x, group)
+
+
+def gather_logits(lc: torch.Tensor, lv: torch.Tensor, mesh: EdgeMesh):
+    """The stacked fp32 logits of all K shards on the group's rank 0, from
+    each rank's (ms, 3) and (ns, 3) (a gather: of host copies over gloo, of
+    the card's over NCCL), and (None, None) on the other ranks; the logits
+    as they are where every shard is here."""
+    if mesh.group is None:
+        return lc, lv
+    root = dist.get_global_rank(mesh.group, 0)
+    me = dist.get_rank(mesh.group)
+    on = "cpu" if dist.get_backend(mesh.group) == "gloo" else lc.device
+    out = []
+    for x in (lc, lv):
+        x = x.detach().float().to(on).contiguous()
+        parts = [torch.empty_like(x) for _ in range(mesh.n_shards)] \
+            if me == 0 else None
+        dist.gather(x, parts, dst=root, group=mesh.group)
+        out.append(torch.cat(parts) if me == 0 else None)
+    return tuple(out)

@@ -3,11 +3,21 @@
 
 The JAX package builds a ``jax.sharding.Mesh`` over its devices
 (``make_mesh`` :72) and its tests run the edge axis on a virtual 8-device
-CPU mesh. The port's counterpart places the K shards of the ``edge`` axis
-on devices it is given; in this version all K placements are one device
-(the card of the run, or the CPU when asked), which is how the path runs on
-one GPU. Shards on several cards (NVLink peer copies, NCCL) are ROADMAP.md
-queue item 7c; a placement that names two distinct devices raises.
+CPU mesh. The port's :class:`EdgeMesh` says where the K shards of the
+``edge`` axis live, in one of two layouts:
+
+- every shard in this process, on one device (the card of the run, or the
+  CPU when asked): the stacked path, which runs on one GPU;
+- one shard a process: under the contract below with K ranks and
+  ``--mesh_shape edge=K``, rank k holds shard k (``group`` names the
+  ranks), as the JAX package's edge axis spans ``jax.devices()`` across
+  processes (``train/trainer.py:356-391``). The ranks may share one card
+  or have a card each; K1 between them is the rank form of
+  ``parallel/halo.py``.
+
+Several devices in one process (peer pointers in K1's table) are ROADMAP.md
+queue item 7c's last part: a placement that names two distinct devices
+raises.
 
 The ``dp`` axis is one process a rank, joined by ``torch.distributed``
 from the JAX package's environment contract (``maybe_init_distributed``
@@ -42,8 +52,12 @@ def parse_mesh_shape(spec: str) -> dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class EdgeMesh:
-    """The device of each of the K shards along the ``edge`` axis."""
+    """The K shards of the ``edge`` axis as this process holds them:
+    ``devices``, the device of each shard held here, and ``group``, the
+    process group whose rank k holds shard k (then one shard is held here),
+    or None (every shard is held here)."""
     devices: tuple[torch.device, ...]
+    group: object = None
 
     def __post_init__(self):
         if not self.devices:
@@ -51,27 +65,48 @@ class EdgeMesh:
         devs = sorted(map(str, set(self.devices)))
         if len(devs) > 1:
             raise NotImplementedError(
-                f"edge shards on distinct devices {devs}: "
-                "placing shards on several cards (NVLink peer copies, NCCL) "
-                "is not ported yet (ROADMAP.md, queue item 7c: edge shards "
-                "on several devices); all shards share one device")
+                f"edge shards on distinct devices {devs} in one process: "
+                "shards on several cards of one process (peer pointers in "
+                "K1's table) are not ported yet (ROADMAP.md, queue item 7c: "
+                "edge shards on several devices); one shard a rank is "
+                "make_mesh(K, device, group)")
+        if self.group is not None and len(self.devices) != 1:
+            raise ValueError("an edge mesh over ranks holds one shard a rank")
 
     @property
     def n_shards(self) -> int:
-        return len(self.devices)
+        """K, the shards of the axis (not only those held here)."""
+        if self.group is None:
+            return len(self.devices)
+        return dist.get_world_size(self.group)
+
+    @property
+    def shards(self) -> tuple[int, ...]:
+        """The shards held here: all K, or this rank's one."""
+        if self.group is None:
+            return tuple(range(len(self.devices)))
+        return (dist.get_rank(self.group),)
 
     @property
     def device(self) -> torch.device:
-        """The one device that holds every shard."""
+        """The one device that holds this process's shards."""
         return self.devices[0]
 
 
-def make_mesh(n_shards: int, device: torch.device | str) -> EdgeMesh:
-    """K shard placements on ``device`` (counterpart of ``make_mesh``
-    :72, which takes K distinct devices)."""
+def make_mesh(n_shards: int, device: torch.device | str,
+              group=None) -> EdgeMesh:
+    """K shards on ``device`` (counterpart of ``make_mesh`` :72, which takes
+    K distinct devices), or, given ``group``, shard k on its rank k, this
+    rank's on ``device``; K must then be the group's size."""
     if n_shards < 1:
         raise ValueError(f"edge mesh of {n_shards} shards")
-    return EdgeMesh((torch.device(device),) * n_shards)
+    if group is None:
+        return EdgeMesh((torch.device(device),) * n_shards)
+    world = dist.get_world_size(group)
+    if world != n_shards:
+        raise ValueError(f"an edge mesh of {n_shards} shards over a group of "
+                         f"{world} ranks: one shard a rank")
+    return EdgeMesh((torch.device(device),), group)
 
 
 class DistEnv(NamedTuple):
@@ -128,3 +163,13 @@ def world_and_rank() -> tuple[int, int]:
     if dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+def leave_distributed(created: bool) -> None:
+    """The end of a run under the contract: the rank form's receive windows
+    released (``parallel/halo.py release_windows``), then the process group
+    destroyed where ``created`` (``init_distributed``'s second result)."""
+    from .halo import release_windows
+    release_windows()
+    if created:
+        dist.destroy_process_group()

@@ -25,6 +25,7 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Config
 from .data.dataset import LPDataset, split_train_val
@@ -32,7 +33,7 @@ from .device import resolve_device
 from .infer.decode import parse_inference_manager
 from .infer.predict import (_nnzs_for_decode, mesh_from_cfg, model_inference,
                             part_cache_dir, predict_and_write_bases,
-                            timed_inference, validation)
+                            runs_here, timed_inference, validation)
 from .io.bas import write_bas_highs
 from .models.convert import load_checkpoint
 from .models.gcn import build_model
@@ -117,16 +118,22 @@ def calibrate_warm_gate(model, train_ds: LPDataset, cfg: Config, inf_mng,
     straddles 0, up to ``cfg.warm_gate_kmax``; DECLINE only when its upper
     bound is <= 0 (measured harm), PROCEED otherwise. A failed warm solve
     (a rejected basis included) scores impr = -1.0 and counts in
-    ``failures``. Only training data is used (no val leakage)."""
+    ``failures``. Only training data is used (no val leakage). Over an edge
+    mesh of ranks rank 0 decides, LP by LP, and tells the others, which
+    take part in the forwards of the partitioned LPs; rank 0 alone solves,
+    writes, and returns the gate (the others None)."""
     solve_mps = solve_backend(cfg)
     method = cfg.normalized_lp_method()
     sfx = cfg.get_method_sfx()
     decode_fn, decode_kwargs = inf_mng.decode_fn(), inf_mng.decode_kwargs()
     calib_bas_dir = osp.join(cfg.log_dir, "warm-gate-calib")
     calib_log_dir = osp.join(cfg.log_dir, "log", "warm-gate-calib")
-    mkdir_p(calib_bas_dir), mkdir_p(calib_log_dir)
+    if is_primary():
+        mkdir_p(calib_bas_dir), mkdir_p(calib_log_dir)
     # the same inference configuration as the val predictions it gates
     mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
+    ranks = mesh is not None and mesh.group is not None
+    primary = is_primary()
     dist_cache: dict = {}
     part_dir = part_cache_dir(cfg)
     k_min = k if k is not None else int(cfg.warm_gate_k)
@@ -135,21 +142,32 @@ def calibrate_warm_gate(model, train_ds: LPDataset, cfg: Config, inf_mng,
     failures = 0
     mean_impr, lo, hi = 0.0, -np.inf, np.inf
     for i in range(len(train_ds)):
-        if len(lps) >= k_min:
-            mean_impr, lo, hi = _t_interval(imprs)
-            if lo > 0.0 or hi <= 0.0 or len(lps) >= k_max:
-                break   # interval excludes 0, or budget exhausted
         g = train_ds[i]
-        cold_log = (f"{cfg.dataset_prefix}/log/"
-                    f"{cfg.solver_prefix}no-bas{sfx}/{g.fn}.log")
-        if not osp.exists(cold_log):
-            continue
-        cold_niter, _ = extract_time(cold_log)
-        if cold_niter < 0:
+        step, cold_niter = "run", -1
+        if primary:
+            if len(lps) >= k_min:
+                mean_impr, lo, hi = _t_interval(imprs)
+                if lo > 0.0 or hi <= 0.0 or len(lps) >= k_max:
+                    step = "stop"   # interval excludes 0, or budget exhausted
+            cold_log = (f"{cfg.dataset_prefix}/log/"
+                        f"{cfg.solver_prefix}no-bas{sfx}/{g.fn}.log")
+            if step == "run" and osp.exists(cold_log):
+                cold_niter, _ = extract_time(cold_log)
+            if step == "run" and cold_niter < 0:
+                step = "skip"
+        if ranks:
+            box = [step]
+            dist.broadcast_object_list(box, src=0, group=mesh.group)
+            step = box[0]
+        if step == "stop":
+            break
+        if step == "skip" or not runs_here(g, cfg.edge_num_thresh, mesh):
             continue
         lc, lv = model_inference(model, g, cfg.edge_num_thresh,
                                  cfg.batch_size, cfg.arch_depth(), mesh=mesh,
                                  dist_cache=dist_cache, part_dir=part_dir)
+        if not primary:
+            continue
         logits = np.concatenate([lc, lv]).astype(np.float32)
         pred = decode_fn(logits, g.ncons,
                          nnzs=_nnzs_for_decode(g, decode_fn), **decode_kwargs)
@@ -166,6 +184,8 @@ def calibrate_warm_gate(model, train_ds: LPDataset, cfg: Config, inf_mng,
         imprs.append(impr)
         lps.append({"fn": g.fn, "cold_niter": int(cold_niter),
                     "warm_niter": int(res.niter), "impr": float(impr)})
+    if not primary:
+        return None
     if imprs:
         mean_impr, lo, hi = _t_interval(imprs)
     # DECLINE only on measured harm; no data => proceed
@@ -187,7 +207,10 @@ def stage_pred_basis(cfg: Config, ckpt_path: str | None = None) -> str:
     """Predict bases for the chosen split and write .bas files, calibrate
     the warm gate (``--warm_gate auto``), time the inference
     (pipeline.py:328; reference scripts/pred_basis.py main). Returns the
-    basis folder."""
+    basis folder. Under the ``LP_GNN_DIST_*`` contract with
+    ``--mesh_shape edge=K`` over K ranks (joined by the entry point,
+    ``pred_basis.py``) every rank runs its shard of each partitioned LP and
+    rank 0 alone decodes and writes (``infer/predict.py``)."""
     device = resolve_device(cfg.device)
     if cfg.warm_gate not in ("auto", "off"):
         raise ValueError(f"--warm_gate {cfg.warm_gate!r}: 'auto' or 'off'")
@@ -202,9 +225,10 @@ def stage_pred_basis(cfg: Config, ckpt_path: str | None = None) -> str:
                             decode_kwargs=inf_mng.decode_kwargs())
     if cfg.warm_gate == "auto":
         gate = calibrate_warm_gate(model, train_ds, cfg, inf_mng)
-        json_dump(gate, osp.join(cfg.log_dir, "warm_gate.json"))
+        if gate is not None:
+            json_dump(gate, osp.join(cfg.log_dir, "warm_gate.json"))
     # timing pass (pred_basis.py:158-176)
-    timed_inference(model, target, cfg, _table(cfg))
+    timed_inference(model, target, cfg, _table(cfg) if is_primary() else None)
     return out_dir
 
 

@@ -7,7 +7,11 @@
 ``--load_from`` takes a torch ``mdl.pth`` state_dict (reference or this
 package) or a JAX ``mdl.ckpt``. Runs on the GPU unless ``--device cpu``.
 Graphs above ``--edge_num_thresh`` are served by exact sampled shards of
-``--batch_size`` seeds, or edge-partitioned under ``--mesh_shape edge=K``.
+``--batch_size`` seeds, or edge-partitioned under ``--mesh_shape edge=K``:
+all K shards on the one device, or, as K processes, one a rank, each given
+``LP_GNN_DIST_COORD`` (host:port of rank 0), ``LP_GNN_DIST_NPROCS`` (K)
+and ``LP_GNN_DIST_PROC_ID`` (its rank), shard k on rank k; rank 0 writes
+the bases.
 """
 from __future__ import annotations
 
@@ -15,13 +19,19 @@ import logging
 
 from . import pipeline
 from .config import parse_args
+from .device import resolve_device
+from .parallel.mesh import init_distributed, leave_distributed
 
 
 def main(argv=None) -> str:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     cfg = parse_args(argv)
-    return pipeline.stage_pred_basis(cfg)
+    _, created = init_distributed(resolve_device(cfg.device))
+    try:
+        return pipeline.stage_pred_basis(cfg)
+    finally:
+        leave_distributed(created)
 
 
 if __name__ == "__main__":

@@ -46,7 +46,14 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
   device with the input conv's aggregations (not for GEN) and kept, and
   each takes one ``dist_train_step`` a visit, without per-step accuracy;
   smaller graphs keep the full-graph step. The val pass sends graphs above
-  the threshold through the dist forward.
+  the threshold through the dist forward. Under the contract with K ranks
+  (trainer.py:356-391, the edge axis across processes) shard k lives on
+  rank k: every rank partitions each graph and keeps its shard, K1 runs
+  in its rank form, the losses' sums and the gradients are summed over
+  the ranks (``dist_train_step``), the smaller graphs' steps run the same
+  on every rank, and the val pass gathers the logits to rank 0, which
+  alone writes. ``--graph_batch`` above 1 is refused there (ROADMAP.md,
+  queue item 7f).
 - ``--mesh_shape dp=K,edge=E`` (trainer.py:356-387, 570-671): the graphs
   above ``edge_num_thresh`` are grouped by bucket into batches of
   K*graph_batch (``parallel/combined.py dist_stack_groups``), built once;
@@ -56,7 +63,8 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
   order ``rng_np.permutation`` draws before the dp stacks'. An oversize
   graph left over takes ``dist_train_step`` on every rank; the rest is the
   dp path above. With fewer than K ranks the dp axis is dropped with a
-  warning (trainer.py:350-353) and the run is edge-only.
+  warning (trainer.py:350-353) and the run is edge-only. A group of
+  dp*E ranks (one shard a rank and dp across) is refused (queue item 7f).
 - ``--cache_in_agg 0`` (config.py:116) builds no input aggregation cache:
   the input conv aggregates in every step.
 
@@ -82,7 +90,8 @@ from ..data.graph import GraphTensors, seed_masks as _seed_masks, union
 from ..data.sampling import sample_subgraphs
 from ..device import resolve_device
 from ..infer.decode import decode_topm_device
-from ..infer.predict import mesh_from_cfg, model_inference, part_cache_dir
+from ..infer.predict import (mesh_from_cfg, model_inference, part_cache_dir,
+                             runs_here)
 from ..models.convert import is_torch_checkpoint, load_checkpoint
 from ..models.gcn import build_model
 from ..ops.spmm import attach_input_agg
@@ -93,7 +102,9 @@ from ..parallel.dp import (dp_train_step, rank_block, stack_groups,
 from ..parallel.edge_partition import (DistGraphTensors,
                                        cached_partition_graph,
                                        dist_tensors, dist_train_step)
-from ..parallel.mesh import init_distributed, parse_mesh_shape, world_and_rank
+from ..parallel.mesh import (init_distributed, is_primary,
+                             leave_distributed, parse_mesh_shape,
+                             world_and_rank)
 from ..utils.misc import AverageMeter
 from ..utils.serialize import json_dump
 from .losses import LOSS_REGISTRY
@@ -299,23 +310,31 @@ def _refuse_unported(cfg: Config) -> None:
         raise ValueError(f"loss {cfg.loss!r}: one of {sorted(LOSS_REGISTRY)}")
 
 
-def quick_val(model, val_ds: LPDataset, cfg: Config) -> float:
+def quick_val(model, val_ds: LPDataset, cfg: Config) -> float | None:
     """Mean decode accuracy over the val split, one full-graph forward a
     graph (trainer.py:711 _quick_val); under ``--mesh_shape edge=K`` the
     graphs above ``edge_num_thresh`` take the dist forward, as
-    ``model_inference`` does given a mesh."""
+    ``model_inference`` does given a mesh. Over an edge mesh of ranks,
+    rank 0 scores (the others take part in the dist forwards and return
+    None)."""
     model.eval()
     mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
     thresh = cfg.edge_num_thresh if mesh is not None else np.inf
     total = 0.0
     for i in range(len(val_ds)):
         g = val_ds[i]
+        if not runs_here(g, thresh, mesh):
+            continue
         lc, lv = model_inference(model, g, thresh, mesh=mesh,
                                  part_dir=part_cache_dir(cfg))
+        if lc is None:
+            continue
         total += accuracy(np.concatenate([lc, lv]),
                           np.concatenate([g.y_s, g.y_t]), g.ncons,
                           dataset_name=cfg.dataset)
     model.train()
+    if mesh is not None and mesh.group is not None and not is_primary():
+        return None   # rank 0 scored
     return total / max(len(val_ds), 1)
 
 
@@ -329,6 +348,14 @@ def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
     dp_size = int(mesh.get("dp", 1))
     graph_batch = max(int(cfg.graph_batch), 1)
     edge_size = int(mesh.get("edge", 1))
+    if world > 1 and dp_size == 1 and edge_size == world:
+        # one shard a rank: every step is the whole group's
+        if graph_batch > 1:
+            raise NotImplementedError(
+                f"--graph_batch {graph_batch} with edge shards on their own "
+                f"ranks (edge={edge_size} over {world} ranks) is not ported "
+                "yet (ROADMAP.md, queue item 7f)")
+        return 1, 1
     if dp_size > 1 and edge_size > 1 and dp_size > world:
         logging.warning("mesh_shape dp=%d,edge=%d exceeds %d rank(s) — "
                         "dropping the dp axis", dp_size, edge_size, world)
@@ -339,9 +366,17 @@ def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
                         " (graph_batch dropped too)" if graph_batch > 1
                         else "")
         return 1, 1
+    if world > 1 and dp_size > 1 and edge_size > 1 and \
+            dp_size * edge_size == world:
+        raise NotImplementedError(
+            f"--mesh_shape dp={dp_size},edge={edge_size} over {world} ranks "
+            "(one edge shard a rank, dp across) is not ported yet "
+            "(ROADMAP.md, queue item 7f); dp x edge takes dp ranks, each "
+            "holding its graphs' shards")
     if world > 1 and dp_size != world:
         raise ValueError(f"the process group has {world} ranks: "
-                         f"--mesh_shape dp={dp_size} must name them all")
+                         f"--mesh_shape dp={dp_size} must name them all, or "
+                         f"edge={world} one shard each")
     return dp_size, graph_batch
 
 
@@ -355,8 +390,8 @@ def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
     try:
         return _run(cfg, dataset, device)
     finally:
-        if own_group:
-            dist.destroy_process_group()
+        if dist.is_initialized():
+            leave_distributed(own_group)
 
 
 def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
@@ -399,7 +434,9 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     mesh = mesh_from_cfg(cfg, device)
     if mesh is not None:
         logging.info("edge-partitioned training: %d shards on %s, graphs "
-                     "above %g edges", mesh.n_shards, device,
+                     "above %g edges", mesh.n_shards,
+                     device if mesh.group is None else
+                     f"their own ranks (this rank's on {device})",
                      cfg.edge_num_thresh)
     combined = mesh is not None and dp_size > 1
     if combined:
@@ -534,8 +571,9 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0 and \
                 len(val_ds):
             va = quick_val(model, val_ds, cfg)
-            writer.scalar("val/acc", va, glstep)
-            logging.info("epoch %d val acc %.4f", epoch, va)
+            if va is not None:
+                writer.scalar("val/acc", va, glstep)
+                logging.info("epoch %d val acc %.4f", epoch, va)
     if start_epoch >= cfg.epochs and primary:   # no epoch ran
         save_checkpoint(log_dir, model, optimizer, cfg.epochs, extra,
                         _rng_state(rng_np, gen, glstep))

@@ -8,6 +8,11 @@ are not installed, such as the machine with the card::
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 """
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +29,7 @@ from lp_gnn_tpu_torch.parallel.edge_partition import (compose_halo_src,
                                                       halo_gather,
                                                       halo_schedule,
                                                       pick_halo_schedule)
+from lp_gnn_tpu_torch.parallel import halo as thalo
 from lp_gnn_tpu_torch.parallel.halo import (HaloAllToAll, halo_all_to_all,
                                             halo_all_to_all_plain)
 from lp_gnn_tpu_torch.parallel.mesh import EdgeMesh, make_mesh
@@ -996,6 +1002,89 @@ def test_halo_all_to_all_backward_on_card(cuda_device, d):
     torch.cuda.synchronize()
     assert halo_all_to_all.launches == before + 2
     assert torch.equal(x.grad, halo_all_to_all_plain(ct))
+
+
+# one rank of test_halo_all_to_all_ranks_on_card: every rank makes all K
+# buffers from one seed and holds its own result to the stacked plain
+# version's, bit for bit (a copy), through three shapes, a repeat of the
+# first (the window reused) and HaloAllToAllRanks' backward; the group
+# keeps one window, of the largest exchange; two launches an exchange
+RANK_WORKER = r"""
+import sys
+import torch
+from lp_gnn_tpu_torch.parallel import halo
+from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
+
+dev, _ = init_distributed(torch.device("cuda"))
+k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+gen = torch.Generator(device="cpu").manual_seed(7)
+cases = [(37, 8, torch.bfloat16), (37, 1024, torch.bfloat16),
+         (21, 8, torch.float32), (37, 8, torch.bfloat16)]
+for bh, f, dt in cases:
+    bufs = [torch.randn(k * bh, f, generator=gen).to(dt) for _ in range(k)]
+    want = halo.halo_all_to_all_plain(bufs)[me]
+    got = halo.halo_all_to_all_ranks(bufs[me].to(dev))
+    assert torch.equal(got.cpu(), want), (bh, f, dt)
+x = torch.randn(k * 16, 64, generator=gen)
+cts = [torch.randn(k * 16, 64, generator=gen) for _ in range(k)]
+xr = x.to(dev).requires_grad_()
+halo.HaloAllToAllRanks.apply(xr, None).backward(cts[me].to(dev))
+assert torch.equal(xr.grad.cpu(), halo.halo_all_to_all_plain(cts)[me])
+assert halo.halo_all_to_all_ranks.launches == 2 * (len(cases) + 2)
+assert halo.halo_all_to_all.launches == 0
+assert len(halo._WINDOWS) == 1
+assert halo.window_bytes() == k * 37 * 1024 * 2
+leave_distributed(True)
+print("rank", me, "ok")
+"""
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_halo_all_to_all_ranks_on_card(cuda_device, ranks):
+    """The rank form of K1 between ``ranks`` processes of the LP_GNN_DIST_*
+    contract sharing the card (gloo for the barriers and the handles): each
+    rank's result equals the plain version's, bit for bit, each exchange
+    is two rank-form launches (the write and the copy-out) and no stacked
+    one, and the group keeps one window, of the largest exchange."""
+    _build.build_all(["halo_a2a"])
+    port = free_port()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_WORKER], cwd=root,
+        env=dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
+                 LP_GNN_DIST_NPROCS=str(ranks), LP_GNN_DIST_PROC_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(ranks)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=240)[0])
+        finally:
+            p.kill()
+            p.wait()
+    assert [p.returncode for p in procs] == [0] * ranks, \
+        "\n".join(o[-3000:] for o in outs)
+
+
+@pytest.mark.cuda
+def test_halo_all_to_all_ranks_refuses_too_many_shards(cuda_device):
+    """Above MAX_SHARDS ranks the wrapper raises before it launches, and
+    the kernel's entry refuses the launch itself (cudaErrorInvalidValue)."""
+    x = torch.zeros(65 * 2, 8, device=cuda_device)
+    table = (thalo.ctypes.c_void_p * 65)(*[x.data_ptr()] * 65)
+    with pytest.raises(ValueError, match="at most 64"):
+        thalo._rank_write(x, table, 0, 65)
+    rc = thalo._rank_lib("lp_halo_a2a_rank")(
+        x.data_ptr(), table, 0, 65, 2 * 8 * 4,
+        torch._C._cuda_getCurrentRawStream(x.device.index))
+    assert rc == 1   # cudaErrorInvalidValue
 
 
 def dist_case(device, k, gen=False):
