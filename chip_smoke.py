@@ -179,6 +179,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    3 SpMMs), the stacked K1 none; each rank's receive-window bytes beside
    its peak memory.
 
+25. steps_per_call: several training steps in one call
+   (``train/scan.py make_scan_train_step``; one CUDA graph a stack after
+   its first, eager visit). On 4 bench-shape LPs sharing one sparsity
+   pattern (one stack key; values, features and labels their own),
+   GCN_FC(8,8,hids=1024,depth=3) bf16, dropout on, Adam built capturable:
+   K=4 calls with ``stacked=False`` (one LP) and ``stacked=True`` (the 4),
+   3 visits each (eager + capture, replay, replay), equal bit for bit to
+   the same steps taken one ``train_step`` at a time (losses, accuracies
+   where asked and -1 elsewhere, parameters, Adam's state, the dropout
+   generator's state), launches exact; the same for
+   GENDeeper(8,8,hids=256,depth=5,remat=True) bf16 at K=2, 2 visits
+   (``gen_agg``'s workspaces and remat under capture). Eager and captured
+   steps timed in turns (host wall and device span a step, peak memory,
+   the graphs' pool, the card's idle share, a replay's SpMM kernels by
+   name against the calls its capture recorded, the decode accuracy's
+   cost). Then the train stage on the pipeline's mirp_bench family (28
+   train LPs), 20 epochs at ``--steps_per_call 4`` and 1 in turns (4, 1, 1,
+   4): stacks and singles, epoch walls, last loss, peak memory and the
+   SpMM launches on the card against the printed formula (a wrapper's
+   count, less the calls a capture recorded, plus those its replays ran);
+   and ``--trace 1`` over 2 epochs at K=4: the trace under
+   ``{log_dir}/trace`` names the SpMM kernel, and its idle share.
+
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
 
@@ -243,6 +266,7 @@ from lp_gnn_tpu_torch.data.dataset import BipartiteGraph, LPDataset
 from lp_gnn_tpu_torch.data.generator import SIZES, generate_instance
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.data.sampling import sample_subgraphs
+from lp_gnn_tpu_torch.data.stacking import stack_key
 from lp_gnn_tpu_torch.infer.decode import inference_gnn
 from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
@@ -266,6 +290,7 @@ from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
 from lp_gnn_tpu_torch.parallel.mesh import make_mesh
 from lp_gnn_tpu_torch.reporting.extract import extract_time
 from lp_gnn_tpu_torch.solver import highs_bridge
+from lp_gnn_tpu_torch.train import scan as scan_mod
 from lp_gnn_tpu_torch.train import trainer
 from lp_gnn_tpu_torch.train.losses import LOSS_REGISTRY
 from lp_gnn_tpu_torch.utils.serialize import json_load, msgpack_dump
@@ -398,9 +423,10 @@ def profile_kernels(fn, calls: int, want: dict[str, int],
                 prof.step()
         seen: dict[str, list] = {}
         for e in prof.key_averages():
-            # the round's own span on the card is no kernel
+            # the round's own span on the card is no kernel, nor is that
+            # of a region the K-step call annotates (train/scan.py)
             if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.key.startswith("ProfilerStep")):
+                    and not e.key.startswith(("ProfilerStep", "scan_"))):
                 tn = seen.setdefault(e.key, [0.0, 0])
                 tn[0] += (getattr(e, "self_device_time_total", 0) or 0) / 1e3
                 tn[1] += e.count
@@ -1916,7 +1942,8 @@ def valid_basis(path: str) -> tuple[bool, int]:
             len(con))
 
 
-def pipeline_phase(seed: int, epochs: int, n_lps: int) -> dict:
+def pipeline_phase(seed: int, epochs: int, n_lps: int,
+                   keep: str | None = None) -> dict:
     """The flagship pipeline through its entry points (in this process,
     through runpy): ``run_prep_data`` preps the recipe's family
     (``mirp_like --size bench``, n_lps instances, the HiGHS engine, one
@@ -1928,7 +1955,9 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int) -> dict:
     ``warm_gate.json`` with k in [5, 12]; a valid predicted basis a val LP;
     a warm log a val LP with no basis rejected; the results columns of
     every val LP; the run-dir logs; ``spmm_csr`` launched exactly as the
-    design counts (SPMM_PIPELINE), no other kernel."""
+    design counts (SPMM_PIPELINE), no other kernel. ``keep``: a directory
+    the prepped blobs are copied into (``mirp_bench/highs-inp_tgt``) for a
+    later phase."""
     from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
     n_train, n_val = map(len, split_idxs_train_val(n_lps))
     workers = min(8, os.cpu_count() or 1)
@@ -2038,6 +2067,9 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int) -> dict:
         with open(osp.join(run, "log-prt")) as fh:
             if "gnn-bas-0/impr_niter" not in fh.read():
                 raise SmokeFailure("log-prt holds no summary")
+        if keep:
+            shutil.copytree(osp.join(proc, "processed"), osp.join(
+                keep, "mirp_bench", "highs-inp_tgt", "processed"))
     order = ("stage_generate", "stage_run_solver", "stage_cvt_to_pkl",
              "stage_process", "stage_train", "predict_and_write_bases",
              "calibrate_warm_gate", "timed_inference", "stage_warm_start",
@@ -3997,6 +4029,348 @@ def check_dist_gen_kernels(g: BipartiteGraph, gen: torch.Generator) -> list:
     return rows
 
 
+# ----------------------------------------------------------- steps_per_call
+SCAN_K = 4                  # steps a call: --steps_per_call 4
+SCAN_VISITS = 3             # visits of a stack: eager, capture + replay,
+                            # replay
+SCAN_TIMED_CALLS = 5        # K-step calls a timing turn
+SCAN_TRACE_EPOCHS = 2       # --trace 1 traces the second
+
+
+def reset_launches() -> None:
+    """Every wrapper's count and the K-step call's capture and replay
+    counts set to 0."""
+    for kern in KERNELS:
+        kern.launches = 0
+    scan_mod.reset_counts()
+
+
+def card_launches() -> dict:
+    """Each kernel's launches on the card since ``reset_launches``: its
+    wrapper's count (eager launches, and calls recorded by a CUDA graph
+    capture, which launch nothing) less the recorded calls plus the calls
+    the graphs' replays ran (``train/scan.py``): a graph's kernel nodes
+    are the wrapper calls its capture recorded."""
+    return {k.__name__: scan_mod.card_launches(k.__name__, k.launches)
+            for k in KERNELS}
+
+
+def pattern_twins(seed: int, n: int) -> list[BipartiteGraph]:
+    """n bench-shape LPs on the sparsity pattern of ``bench_graph(seed)``
+    (so one stack key), each with values, features and labels of its own
+    (from ``seed + 1 + i``)."""
+    base = bench_graph(seed)
+    out = []
+    for i in range(n):
+        rng = np.random.RandomState(seed + 1 + i)
+        feas = []
+        for rows in (M, N):
+            fe = rng.rand(rows, 8).astype(np.float32) - 0.5
+            fe[:, -3] = rng.randint(-1, 2, rows)
+            fe[:, -1] = rng.randint(-1, 2, rows)
+            feas.append(fe)
+        out.append(BipartiteGraph(
+            row=base.row, col=base.col,
+            val=rng.rand(E).astype(np.float32) - 0.5, c_feas=feas[0],
+            v_feas=feas[1], y_s=rng.randint(0, 3, M).astype(np.int32),
+            y_t=rng.randint(0, 3, N).astype(np.int32)))
+    return out
+
+
+def scan_setup(arch: str, seed: int):
+    """A seeded bf16 model on the card in training mode, Adam built
+    capturable (as the trainer builds it for --steps_per_call above 1) and
+    the dropout generator: the same for the same arguments."""
+    model = build_model(bf16_arch(arch),
+                        generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda").train()
+    opt = trainer.make_optimizer(model.parameters(), capturable=True)
+    return model, opt, torch.Generator(device="cuda").manual_seed(seed)
+
+
+def scan_vs_eager(seed: int, arch: str, graphs: list, stacked: bool, k: int,
+                  visits: int, per_step: dict) -> dict:
+    """``visits`` calls of the K-step function (the first eager on its
+    capture stream, the second captured and replayed, the rest replayed)
+    against the same steps taken one ``train_step`` at a time on the
+    default stream, from the same weights, Adam state and generator: the
+    losses, the accuracies (asked for at every other step, -1 elsewhere),
+    every parameter, Adam's moments and step counts and the generator's
+    state must be equal bit for bit; the K-step run's launches on the
+    card exactly ``per_step`` a step."""
+    runs = [scan_setup(arch, seed) for _ in range(2)]
+    gts = [trainer.train_graph(runs[0][0], g, "cuda") for g in graphs]
+    stack = gts if stacked else gts * k
+    step = scan_mod.make_scan_train_step(runs[0][0], "balanced", runs[0][1],
+                                         stacked=stacked,
+                                         generator=runs[0][2])
+    acc_on = [i % 2 == 0 for i in range(k)]
+    reset_launches()
+    got_l, got_a = [], []
+    for _ in range(visits):
+        losses, accs = step(gts if stacked else gts[0], acc_on=acc_on, k=k)
+        got_l += losses.tolist()
+        got_a += accs.tolist()
+    launches = card_launches()
+    nodes = dict(scan_mod.CAPTURED)
+    model, opt, gen = runs[1]
+    loss_fn = LOSS_REGISTRY["balanced"]
+    want_l, want_a = [], []
+    for _ in range(visits):
+        for gt, on in zip(stack, acc_on):
+            loss, acc = trainer.train_step(model, opt, gt, loss_fn, gen, on)
+            want_l.append(float(loss))
+            want_a.append(float(acc) if on else -1.0)
+    diff = max_diff(state_of(runs[0][0]), state_of(model))
+    opt_equal = all(torch.equal(runs[0][1].state[pa][key], opt.state[pb][key])
+                    for pa, pb in zip(runs[0][0].parameters(),
+                                      model.parameters())
+                    for key in ("exp_avg", "exp_avg_sq", "step"))
+    gen_equal = torch.equal(runs[0][2].get_state(), gen.get_state())
+    bitwise = (got_l == want_l and got_a == want_a and diff == 0.0
+               and opt_equal and gen_equal)
+    out = {"arch": bf16_arch(arch), "stacked": stacked, "k": k,
+           "visits": visits, "captures": step.captures,
+           "replays": step.replays, "losses": got_l, "eager_losses": want_l,
+           "accs": got_a, "params_max_abs_diff": diff,
+           "adam_state_equal": opt_equal, "generator_equal": gen_equal,
+           "bit_for_bit": bitwise, "launches": launches,
+           "graph_nodes": nodes}
+    if not bitwise:
+        raise SmokeFailure(f"captured steps differ from eager ones: {out}")
+    want = {**no_launches(),
+            **{name: n * k * visits for name, n in per_step.items()}}
+    if launches != want or step.captures != 1 or \
+            step.replays != visits - 1:
+        raise SmokeFailure(f"K-step launches {launches}, expected {want} "
+                           f"({per_step} a step), {step.captures} captures, "
+                           f"{step.replays} replays: {out}")
+    return out
+
+
+def scan_timing(seed: int, g: BipartiteGraph) -> dict:
+    """The flagship step on one bench-shape LP, K=SCAN_K steps a call,
+    eager (K ``train_step`` calls, the loss read after each, as the
+    trainer at --steps_per_call 1 reads it) and captured (one replay, one
+    read of the K losses), in turns E, C, C, E of SCAN_TIMED_CALLS calls:
+    host wall a step, the device span a step (CUDA events), the peak of
+    allocated memory (a replay allocates nothing: the graph's own
+    temporaries lie in its pool, whose reserved bytes are given apart);
+    then each mode's device time from ``torch.profiler`` over one call and
+    the card's idle share of its span, the replay's SpMM kernels by name
+    against the graph's recorded calls, and the cost of the decode
+    accuracy where a step asks for it (after a replay, from the step's
+    logits)."""
+    model, opt, gen = scan_setup(ARCH, seed)
+    gt = trainer.train_graph(model, g, "cuda")
+    loss_fn = LOSS_REGISTRY["balanced"]
+    step = scan_mod.make_scan_train_step(model, "balanced", opt,
+                                         stacked=False, generator=gen)
+    acc_on = [False] * SCAN_K
+
+    def eager():
+        for _ in range(SCAN_K):
+            float(trainer.train_step(model, opt, gt, loss_fn, gen)[0])
+
+    def captured():
+        losses, accs = step(gt, acc_on=acc_on, k=SCAN_K)
+        torch.stack((losses, accs)).tolist()
+
+    eager()                         # Adam's state, cuBLAS's workspace
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    step(gt, k=SCAN_K)              # the first visit: eager, then capture
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool_bytes = torch.cuda.memory_reserved() - reserved0
+    captured()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    turns = []
+    for mode, fn in (("eager", eager), ("captured", captured),
+                     ("captured", captured), ("eager", eager)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(SCAN_TIMED_CALLS):
+            fn()
+        ev1.record()
+        ev1.synchronize()
+        n = SCAN_TIMED_CALLS * SCAN_K
+        turns.append({"mode": mode,
+                      "host_wall_ms_per_step":
+                      (time.perf_counter() - t0) * 1e3 / n,
+                      "device_span_ms_per_step": ev0.elapsed_time(ev1) / n,
+                      "max_memory_allocated_bytes":
+                      torch.cuda.max_memory_allocated(),
+                      "max_memory_reserved_bytes":
+                      torch.cuda.max_memory_reserved()})
+    st = next(iter(step.stacks.values()))
+    profiled = {}
+    for mode, fn in (("eager", eager), ("captured", captured)):
+        seen, complete = profile_kernels(
+            fn, 1, {"spmm_csr_kernel": SPMM_PER_STEP * SCAN_K})
+        busy = sum(t for t, _ in seen.values())
+        span = np.median([t["device_span_ms_per_step"] for t in turns
+                          if t["mode"] == mode]) * SCAN_K
+        profiled[mode] = {
+            "device_ms_by_kind": categorize(seen), "busy_ms": busy,
+            "idle_share_of_span": 1 - busy / span,
+            "spmm_kernels": sum(n for name, (_, n) in seen.items()
+                                if "spmm_csr_kernel" in name),
+            "profile_complete": complete}
+    if profiled["captured"]["spmm_kernels"] != st.nodes.get("spmm_csr"):
+        raise SmokeFailure(f"a replay ran {profiled['captured']} SpMM "
+                           f"kernels, its capture recorded {st.nodes}")
+    with torch.no_grad():
+        lc, lv = model(gt, generator=gen)
+    ms, mt = trainer.seed_masks(gt)
+    decode_ms = time_ms(lambda: trainer.step_accuracy(gt, lc, lv, ms, mt), 20)
+    return {"arch": bf16_arch(ARCH), "k": SCAN_K, "lp_nodes": M + N,
+            "nnz": E, "turns": turns, "profiled": profiled,
+            "graph_nodes": st.nodes, "graph_pool_reserved_bytes": pool_bytes,
+            "decode_acc_ms_per_step": decode_ms}
+
+
+def trace_read(path: str) -> dict:
+    """The card's activity in one torch.profiler trace (Chrome JSON):
+    kernels (and copies, sets) by count, those of the SpMM, their union's
+    busy ms over the span from the first to the last, the idle share."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    spmm = sum(1 for e in events if e.get("cat") == "kernel"
+               and "spmm_csr_kernel" in e.get("name", ""))
+    busy, end = 0.0, -np.inf
+    for a, b in dev:   # sorted by start: what is new lies past ``end``
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = (dev[-1][1] - dev[0][0]) if dev else 0.0
+    return {"file": osp.basename(path), "bytes": osp.getsize(path),
+            "device_events": len(dev), "spmm_kernels": spmm,
+            "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "idle_share": 1 - busy / span if span else None}
+
+
+def mirp_train_turns(seed: int, data_prefix: str) -> dict:
+    """The train stage (``python -m lp_gnn_tpu_torch.train``) on the
+    pipeline's mirp_bench family (28 train LPs), the recipe's arch in bf16,
+    PIPE_EPOCHS epochs, with --steps_per_call SCAN_K and 1 in turns (K, 1,
+    1, K), the counts set to 0 just before each run and read just after:
+    each run's stacks and singles, epoch wall seconds, last logged loss,
+    peak memory and SpMM launches on the card against the printed formula
+    (the same for both: 2 a train graph for the input cache, SPMM_PER_STEP
+    a step); under K the graph nodes recorded and replayed exactly (one
+    capture a stack, replayed every epoch after the first two). Then
+    ``--trace 1`` over SCAN_TRACE_EPOCHS epochs at K: the trace under
+    ``{log_dir}/trace`` names the SpMM kernel; its idle share."""
+    from lp_gnn_tpu_torch.data.dataset import split_train_val
+    from lp_gnn_tpu_torch.parallel.dp import stack_groups
+    train_ds, _ = split_train_val(LPDataset(osp.join(
+        data_prefix, "mirp_bench", "highs-inp_tgt")), seed)
+    n_train = len(train_ds)
+    stacks, singles, _ = stack_groups(train_ds, SCAN_K, 4e6 * 3)
+    n_stacked = SCAN_K * len(stacks)
+    formula = f"2 x {n_train} + {SPMM_PER_STEP} x {n_train} x epochs"
+    tmp = tempfile.mkdtemp(prefix="lp_gnn_smoke_scan_")
+    runs = []
+
+    def run(k: int, exp: str, epochs: int, extra: list) -> tuple:
+        argv = ["--dataset", "mirp_bench", "--data_prefix", data_prefix,
+                "--log_prefix", osp.join(tmp, "runs"), "--exp_nm", exp,
+                "--arch", ARCH, "--fp16", "1", "--loss", "balanced",
+                "--epochs", str(epochs), "--seed", str(seed),
+                "--steps_per_call", str(k), *extra]
+        ends = []
+        real_save = trainer.save_checkpoint
+
+        def save_seen(*a, **kw):
+            ends.append(time.perf_counter())
+            return real_save(*a, **kw)
+
+        trainer.save_checkpoint = save_seen
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            wall = run_module("lp_gnn_tpu_torch.train", argv)
+        finally:
+            trainer.save_checkpoint = real_save
+        launches = card_launches()
+        want = {**no_launches(), "spmm_csr": 2 * n_train
+                + SPMM_PER_STEP * n_train * epochs}
+        nodes = {"recorded": dict(scan_mod.CAPTURED),
+                 "replayed": dict(scan_mod.REPLAYED)}
+        want_nodes = {"recorded": {}, "replayed": {}} if k == 1 else {
+            "recorded": {"spmm_csr": SPMM_PER_STEP * n_stacked},
+            "replayed": {"spmm_csr": SPMM_PER_STEP * n_stacked
+                         * (epochs - 1)}}
+        if launches != want or nodes != want_nodes:
+            raise SmokeFailure(f"steps_per_call {k}: launches {launches}, "
+                               f"nodes {nodes}; expected {want} ({formula})"
+                               f", nodes {want_nodes}")
+        log_dir = osp.join(tmp, "runs", exp)
+        with open(osp.join(log_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [r["value"] for r in logged if r["tag"] == "train/loss"]
+        if not losses or not np.isfinite(losses).all():
+            raise SmokeFailure(f"steps_per_call {k}: losses {losses}")
+        ends = [t0] + ends
+        return log_dir, {
+            "steps_per_call": k, "epochs": epochs, "wall_s": wall,
+            "epoch_wall_s": [b - a for a, b in zip(ends, ends[1:])],
+            "last_logged_loss": losses[-1], "launches": launches,
+            "graph_nodes": nodes, "max_memory_allocated_bytes":
+            torch.cuda.max_memory_allocated(), "max_memory_reserved_bytes":
+            torch.cuda.max_memory_reserved()}
+
+    try:
+        for i, k in enumerate((SCAN_K, 1, 1, SCAN_K)):
+            runs.append(run(k, f"k{k}_{i}", PIPE_EPOCHS, [])[1])
+        log_dir, traced = run(SCAN_K, "trace", SCAN_TRACE_EPOCHS,
+                              ["--trace", "1"])
+        files = sorted(os.listdir(osp.join(log_dir, "trace")))
+        if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+            raise SmokeFailure(f"--trace 1 wrote {files} under "
+                               f"{log_dir}/trace")
+        traced["trace"] = trace_read(osp.join(log_dir, "trace", files[0]))
+        if traced["trace"]["spmm_kernels"] == 0:
+            raise SmokeFailure(f"the trace names no SpMM kernel: {traced}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"train_lps": n_train, "stacks": len(stacks),
+            "stacked_lps": n_stacked, "singles": len(singles),
+            "spmm_formula": formula, "turns": runs, "trace": traced,
+            "launches": runs[0]["launches"]}
+
+
+def steps_per_call(seed: int, mirp_prefix: str) -> dict:
+    """Phase 25 (module docstring)."""
+    twins = pattern_twins(seed + 5000, SCAN_K)
+    keys = {stack_key(g) for g in twins}
+    if len(keys) != 1:
+        raise SmokeFailure(f"the twins' stack keys differ: {keys}")
+    per_step = {"spmm_csr": SPMM_PER_STEP}
+    single = scan_vs_eager(seed, ARCH, twins[:1], False, SCAN_K, SCAN_VISITS,
+                           per_step)
+    stacked = scan_vs_eager(seed, ARCH, twins, True, SCAN_K, SCAN_VISITS,
+                            per_step)
+    timing = scan_timing(seed, twins[0])
+    torch.cuda.empty_cache()
+    gen = scan_vs_eager(seed, GEN_ARCH, [bench_graph(seed + 5100)], False,
+                        2, 2, GEN_PER_STEP)
+    torch.cuda.empty_cache()
+    mirp = mirp_train_turns(seed, mirp_prefix)
+    return {"bench_lps": "4 bench-shape LPs on one sparsity pattern (one "
+            "stack key), values, features and labels of their own",
+            "single": single, "stacked": stacked, "timing": timing,
+            "gen": gen, "mirp_bench": mirp, "launches": mirp["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4025,6 +4399,8 @@ def main(argv=None) -> int:
     if args.edge_rank:
         edge_rank(args.edge_rank)
         return 0
+    # the pipeline's prepped family, kept for the steps_per_call phase
+    mirp_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_mirp_")
     try:
         smi = nvidia_smi()
         t0 = time.perf_counter()
@@ -4082,7 +4458,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         emit({"phase": "train_reference", **train_reference(args.seed)})
         torch.cuda.empty_cache()
-        piped = pipeline_phase(args.seed, PIPE_EPOCHS, N_PIPE_LPS)
+        piped = pipeline_phase(args.seed, PIPE_EPOCHS, N_PIPE_LPS,
+                               keep=mirp_keep)
         emit({"phase": "pipeline", **piped})
         torch.cuda.empty_cache()
         emit({"phase": "gen_reference", **gen_reference(args.seed)})
@@ -4123,9 +4500,14 @@ def main(argv=None) -> int:
         ranked = edge_ranks(args.seed)
         kernels += ranked.pop("kernels")
         emit({"phase": "edge_ranks", **ranked})
+        torch.cuda.empty_cache()
+        scanned = steps_per_call(args.seed, mirp_keep)
+        emit({"phase": "steps_per_call", "nvidia_smi": smi, **scanned})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(mirp_keep, ignore_errors=True)
     # launches: the SpMM, the gather and K1 on the edge-partitioned path,
     # the one path that runs all three; the GEN kernels on the GEN training
     # path, which runs both; a case at the dist GEN layer's shapes (and the
@@ -4137,7 +4519,8 @@ def main(argv=None) -> int:
              "sampled_train": strained, "graph_batch": batched,
              "dp_graph_batch": dp, "dist_train": dtrained,
              "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
-             "dp_edge": dpe, "edge_ranks": ranked}
+             "dp_edge": dpe, "edge_ranks": ranked,
+             "steps_per_call": scanned}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

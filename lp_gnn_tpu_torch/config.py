@@ -61,11 +61,13 @@ class Config:
                                            # solves and conversions
     graph_batch: int = 1                   # graphs a step, stacked into
                                            # one disjoint union per rank
-    steps_per_call: int = 1                # 1 only, so far
+    steps_per_call: int = 1                # K > 1: K steps a call, one
+                                           # CUDA graph a stack on the card
     step_acc: int = 0                      # 1: decode accuracy every step;
                                            # 0: only on logged steps
     eval_every: int = 0                    # epochs between val passes
-    trace: int = 0                         # 0 only, so far
+    trace: int = 0                         # 1: torch.profiler trace of
+                                           # one epoch in {log_dir}/trace
     # solver / decode
     lp_method: int | str = 1               # 1=dual, 4=primal
     engine: str = "highs"                  # highs | auto (= highs while the

@@ -63,11 +63,12 @@ class ZooModel(nn.Module):
         conv, gcn.py:67-69 and :180-182) where ``g`` allows it: a
         partition does not, as JAX's dist forward takes no remat
         (edge_partition.py:1007-1034). Dropout stays outside the recomputed
-        function: the recompute restores the default generators' state, not
-        that of an explicit one."""
+        function, which draws no random number: the recompute need not
+        restore a generator's state (and under CUDA graph capture the
+        default generator's state cannot be read)."""
         if self.remat and g.remat and torch.is_grad_enabled():
             return checkpoint(g.apply_conv, conv, left, right, input_conv,
-                              use_reentrant=False)
+                              use_reentrant=False, preserve_rng_state=False)
         return g.apply_conv(conv, left, right, input_conv)
 
 

@@ -142,6 +142,11 @@ def launch_on(dev: torch.device, fn, *args) -> int:
 # kernel asks for more, and handed back by every launch zeroed where it
 # counts. Each entry holds the tensors and their (pointer, bytes) pairs.
 _WORKSPACE: dict[tuple[str, int, int], tuple[list, tuple]] = {}
+# Keys whose current workspaces a CUDA graph has captured, and the
+# workspaces such a key outgrew: a captured graph keeps the pointers it was
+# captured with, so they are never freed.
+_CAPTURED: set = set()
+_OUTGROWN: list = []
 
 
 def launch_with_workspace(name: str, dev: torch.device, fn, *args,
@@ -152,7 +157,12 @@ def launch_with_workspace(name: str, dev: torch.device, fn, *args,
     when one of them holds fewer than n KiB: every one is then made n KiB
     of zeros and the launch made again. A kernel whose launches differ in
     grid keeps its arrival counts in a workspace of their own, so that one
-    launch's scratch never lands where another's counts are."""
+    launch's scratch never lands where another's counts are.
+
+    Under CUDA graph capture nothing is allocated: the same work run once
+    on the capture stream beforehand must have made the workspaces (a
+    capture that finds them too small raises). Workspaces a graph captured
+    stay allocated when their key grows."""
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return launch_with_workspace(name, dev, fn, *args, buffers=buffers)
@@ -161,9 +171,19 @@ def launch_with_workspace(name: str, dev: torch.device, fn, *args,
     ws = _WORKSPACE.get(key)
     rc = fn(*args, *(ws[1] if ws else (0, 0) * buffers), stream)
     if rc < 0:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{name}: its workspace on this stream is missing or too "
+                "small, and none is allocated during a CUDA graph capture: "
+                "run the same work once on the capture stream first")
+        if key in _CAPTURED:
+            _OUTGROWN.append(ws[0])
+            _CAPTURED.discard(key)
         tensors = [torch.zeros(-rc * 1024, dtype=torch.uint8, device=dev)
                    for _ in range(buffers)]
         sizes = tuple(v for t in tensors for v in (t.data_ptr(), t.numel()))
         _WORKSPACE[key] = (tensors, sizes)
         rc = fn(*args, *sizes, stream)
+    if key not in _CAPTURED and torch.cuda.is_current_stream_capturing():
+        _CAPTURED.add(key)
     return rc

@@ -68,8 +68,19 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
 - ``--cache_in_agg 0`` (config.py:116) builds no input aggregation cache:
   the input conv aggregates in every step.
 
-What the JAX ``run_exp`` also does and the port does not yet raises and
-names its ROADMAP item: ``--steps_per_call`` above 1, ``--trace 1``.
+- ``--steps_per_call K`` above 1 (trainer.py:492-500, 672-691), without
+  dp and ``--graph_batch``: the graphs at or below ``edge_num_thresh`` are
+  grouped as for a batched step (``stack_groups`` with K), each stack one
+  call of ``train/scan.py``'s K-step function (one CUDA graph a stack on
+  the card after its first visit; Adam built ``capturable``), in the order
+  ``rng_np.permutation(len(stacks))`` draws, with one read of the K losses
+  and ``log_step`` for each; then the graphs left single and those above
+  the threshold (sampled, or their dist step under ``--mesh_shape
+  edge=K``), in their stacking order.
+- ``--trace 1`` (trainer.py:507-520, 693-695): ``torch.profiler`` over the
+  epoch after the first (the first if only one runs) into
+  ``{log_dir}/trace`` (``utils/profiling.py``); ``show_resource`` at every
+  epoch divisible by 99.
 """
 from __future__ import annotations
 
@@ -106,21 +117,32 @@ from ..parallel.mesh import (init_distributed, is_primary,
                              leave_distributed, parse_mesh_shape,
                              world_and_rank)
 from ..utils.misc import AverageMeter
+from ..utils.profiling import show_resource, trace
 from ..utils.serialize import json_dump
 from .losses import LOSS_REGISTRY
 from .metrics import accuracy
+from .scan import make_scan_train_step
 
 LOG_EVERY = 9   # steps glstep % 9 == 1 reach the log (trainer.py:529)
 
 
 # ------------------------------------------------------------------ optimizer
 def make_optimizer(params, opt: str = "adam", lr: float = 1e-3,
-                   weight_decay: float = 5e-4) -> torch.optim.Optimizer:
+                   weight_decay: float = 5e-4,
+                   capturable: bool = False) -> torch.optim.Optimizer:
     """torch.optim.Adam / SGD with coupled weight decay (trainer.py:45):
-    ``adam``, and anything else SGD without momentum, as there."""
+    ``adam``, and anything else SGD without momentum, as there.
+    ``capturable`` (for CUDA graphs, ``train/scan.py``) builds Adam with its
+    step counts on the parameters' device and its learning rate a tensor
+    there, which :func:`set_lr` writes in place (the bias corrections are
+    then computed on the device in fp32)."""
+    params = list(params)
     if opt == "adam":
+        if capturable:
+            lr = torch.tensor(float(lr), device=params[0].device)
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=weight_decay)
+                                weight_decay=weight_decay,
+                                capturable=capturable)
     return torch.optim.SGD(params, lr=lr, weight_decay=weight_decay)
 
 
@@ -131,8 +153,40 @@ def step_lr(base_lr: float, epochs: int, epoch: int,
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate; a tensor one is written in place."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state: dict) -> None:
+    """``optimizer.load_state_dict(state)`` keeping the optimizer's own
+    form, whichever form wrote ``state``: torch takes the saved groups'
+    settings, so each group gets back its ``capturable`` flag and its own
+    learning rate object (a tensor filled in place, or a float) with the
+    saved value, and Adam's step counts move to where that form keeps them
+    (the parameter's device if capturable, else the host)."""
+    own = [(g["lr"], g.get("capturable")) for g in optimizer.param_groups]
+    optimizer.load_state_dict(state)
+    for group, (lr, capturable) in zip(optimizer.param_groups, own):
+        saved = float(group["lr"])
+        if torch.is_tensor(lr):
+            lr.fill_(saved)
+            group["lr"] = lr
+        else:
+            group["lr"] = saved
+        if capturable is None:
+            continue
+        group["capturable"] = capturable
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = torch.tensor(
+                    float(st["step"]), dtype=torch.float32,
+                    device=p.device if capturable else "cpu")
 
 
 # ----------------------------------------------------------------- train step
@@ -152,14 +206,19 @@ def step_accuracy(g: GraphTensors, lc, lv, ms, mt):
 
 def train_step(model, optimizer, g: GraphTensors, loss_fn,
                generator: torch.Generator | None = None,
-               with_acc: bool = False):
+               with_acc: bool = False, logits_out=None):
     """One step on one graph (trainer.py:80 make_train_step): forward in
     training mode, the loss over the seed nodes, backward, the optimizer's
     update. Returns the loss before the update and, if ``with_acc``, the
     decode accuracy of the same forward (else None), both 0-d tensors on
-    the device: reading them is the caller's synchronization."""
+    the device: reading them is the caller's synchronization.
+    ``logits_out``: a (cons, vars) pair of fp32 tensors the forward's
+    logits are copied into (a CUDA graph's outputs, ``train/scan.py``)."""
     model.train()
     lc, lv = model(g, generator=generator)
+    if logits_out is not None:
+        logits_out[0].copy_(lc.detach())
+        logits_out[1].copy_(lv.detach())
     ms, mt = seed_masks(g)
     loss = loss_fn(lc, lv, g.y_s, g.y_t, ms, mt)
     optimizer.zero_grad(set_to_none=True)
@@ -296,20 +355,6 @@ def _restore_rng(state: dict, rng_np: np.random.RandomState,
 
 
 # -------------------------------------------------------------------- run_exp
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.steps_per_call > 1:
-        raise NotImplementedError(
-            f"--steps_per_call {cfg.steps_per_call}: several steps a "
-            "dispatch is not ported yet (ROADMAP.md, later: a multi-step "
-            "dispatch analog of make_scan_train_step)")
-    if cfg.trace:
-        raise NotImplementedError(
-            "--trace 1: the profiler trace of an epoch is not ported yet "
-            "(ROADMAP.md, later: profiling on torch.profiler)")
-    if cfg.loss not in LOSS_REGISTRY:
-        raise ValueError(f"loss {cfg.loss!r}: one of {sorted(LOSS_REGISTRY)}")
-
-
 def quick_val(model, val_ds: LPDataset, cfg: Config) -> float | None:
     """Mean decode accuracy over the val split, one full-graph forward a
     graph (trainer.py:711 _quick_val); under ``--mesh_shape edge=K`` the
@@ -385,7 +430,8 @@ def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
     ``mdl.pth`` path. Under the ``LP_GNN_DIST_*`` contract it joins the
     process group first (and leaves a group it created when it ends)."""
     device = resolve_device(cfg.device)
-    _refuse_unported(cfg)
+    if cfg.loss not in LOSS_REGISTRY:
+        raise ValueError(f"loss {cfg.loss!r}: one of {sorted(LOSS_REGISTRY)}")
     device, own_group = init_distributed(device)
     try:
         return _run(cfg, dataset, device)
@@ -413,13 +459,18 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         sd, state = load_for_training(cfg.load_from)
         model.load_state_dict(sd)
     model.to(device).train()
-    optimizer = make_optimizer(model.parameters(), cfg.opt, cfg.lr)
+    # --steps_per_call K: K steps a call (trainer.py:492-500), not with dp
+    # or --graph_batch, which batch their own steps
+    scan_k = max(int(cfg.steps_per_call), 1)
+    use_scan = stack_size == 1 and scan_k > 1
+    optimizer = make_optimizer(model.parameters(), cfg.opt, cfg.lr,
+                               capturable=use_scan and device.type == "cuda")
     loss_fn = LOSS_REGISTRY[cfg.loss]
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     rng_np = np.random.RandomState(cfg.seed)
     start_epoch, glstep = 0, 0
     if state is not None:
-        optimizer.load_state_dict(state["opt_state"])
+        load_optimizer_state(optimizer, state["opt_state"])
         start_epoch = int(state["epoch"])
         glstep = _restore_rng(state.get("run_state"), rng_np, gen)
         logging.info("resumed from %s at epoch %d", cfg.load_from,
@@ -427,6 +478,11 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     if stack_size > 1:
         logging.info("batched training: %d rank(s) x %d graphs a step",
                      dp_size, graph_batch)
+    scan = None
+    if use_scan:
+        scan = make_scan_train_step(model, cfg.loss, optimizer, stacked=True,
+                                    generator=gen)
+        logging.info("scanned training: %d steps a call", scan_k)
 
     graphs: dict = {}   # tensors kept across epochs: graphs and unions
     hops = max(cfg.arch_depth() - 1, 1)
@@ -498,9 +554,14 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     extra = {"arch": cfg.arch, "loss": cfg.loss}
     mdl_path = osp.join(log_dir, "mdl.pth")
     groups = dist_groups = None
+    # --trace: the first epoch after the one that warms up (trainer.py:507)
+    trace_epoch = start_epoch + 1 if cfg.epochs - start_epoch > 1 \
+        else start_epoch
     for epoch in range(start_epoch, cfg.epochs):
         lr = step_lr(cfg.lr, cfg.epochs, epoch)
         set_lr(optimizer, lr)
+        if epoch % 99 == 0:   # the reference's cadence (train.py:99-100)
+            show_resource()
         loss_meter.reset(), acc_meter.reset()
         order = rng_np.permutation(n_train)
 
@@ -532,38 +593,64 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
                                    want_acc)
             log_step(idx_graphs, float(loss), acc)
 
-        if stack_size > 1:
-            # trainer.py:649-671: under dp x edge the oversize graphs'
-            # batches in a drawn order, then the stacks in a drawn order,
-            # then the graphs left single, then the oversize ones left
-            if groups is None:
-                groups = stack_groups(train_ds, stack_size,
-                                      cfg.edge_num_thresh)
-                dist_groups = dist_stack_groups(
-                    train_ds, stack_size, cfg.edge_num_thresh) \
-                    if combined else ([], set())
-            stacks, singles, sampled = groups
-            dist_batches, covered = dist_groups
-            if combined:
-                for bi in rng_np.permutation(len(dist_batches)):
-                    dgs = dist_block_for(dist_batches[int(bi)])
+        with trace(osp.join(log_dir, "trace"),
+                   enabled=bool(cfg.trace) and epoch == trace_epoch):
+            if stack_size > 1:
+                # trainer.py:649-671: under dp x edge the oversize graphs'
+                # batches in a drawn order, then the stacks in a drawn order,
+                # then the graphs left single, then the oversize ones left
+                if groups is None:
+                    groups = stack_groups(train_ds, stack_size,
+                                          cfg.edge_num_thresh)
+                    dist_groups = dist_stack_groups(
+                        train_ds, stack_size, cfg.edge_num_thresh) \
+                        if combined else ([], set())
+                stacks, singles, sampled = groups
+                dist_batches, covered = dist_groups
+                if combined:
+                    for bi in rng_np.permutation(len(dist_batches)):
+                        dgs = dist_block_for(dist_batches[int(bi)])
+                        glstep += 1
+                        loss = dp_edge_train_step(
+                            model, optimizer, dgs, loss_fn,
+                            step_generator(gen, rank))
+                        log_step(0, float(loss), None)
+                for bi in rng_np.permutation(len(stacks)):
+                    gt = union_for(stacks[int(bi)])
                     glstep += 1
-                    loss = dp_edge_train_step(model, optimizer, dgs, loss_fn,
-                                              step_generator(gen, rank))
+                    loss = dp_train_step(model, optimizer, gt, loss_fn,
+                                         step_generator(gen, rank))
                     log_step(0, float(loss), None)
-            for bi in rng_np.permutation(len(stacks)):
-                gt = union_for(stacks[int(bi)])
-                glstep += 1
-                loss = dp_train_step(model, optimizer, gt, loss_fn,
-                                     step_generator(gen, rank))
-                log_step(0, float(loss), None)
-            for gi in [*singles, *(i for i in sampled if i not in covered)]:
-                for gt in batches_for(gi):
-                    run_one(0, gt)
-        else:
-            for idx_graphs, gi in enumerate(order):
-                for gt in batches_for(int(gi)):
-                    run_one(idx_graphs, gt)
+                for gi in [*singles,
+                           *(i for i in sampled if i not in covered)]:
+                    for gt in batches_for(gi):
+                        run_one(0, gt)
+            elif scan is not None:
+                # trainer.py:672-691: the stacks in a drawn order, one read
+                # of the K losses a stack, then the graphs left single and
+                # those above the threshold, in their stacking order
+                if groups is None:
+                    groups = stack_groups(train_ds, scan_k,
+                                          cfg.edge_num_thresh)
+                stacks, singles, sampled = groups
+                for bi in rng_np.permutation(len(stacks)):
+                    acc_on = [bool(cfg.step_acc)
+                              or (glstep + i + 1) % LOG_EVERY == 1
+                              for i in range(scan_k)]
+                    losses, accs = scan(
+                        [graph_for(i) for i in stacks[int(bi)]],
+                        acc_on=acc_on)
+                    for loss_v, acc_v in torch.stack((losses, accs),
+                                                     1).tolist():
+                        glstep += 1
+                        log_step(0, loss_v, acc_v if acc_v >= 0 else None)
+                for gi in [*singles, *sampled]:
+                    for gt in batches_for(gi):
+                        run_one(0, gt)
+            else:
+                for idx_graphs, gi in enumerate(order):
+                    for gt in batches_for(int(gi)):
+                        run_one(idx_graphs, gt)
         # the NEXT epoch to run, so a resume does not repeat this one
         if primary:
             save_checkpoint(log_dir, model, optimizer, epoch + 1, extra,

@@ -549,18 +549,6 @@ def test_cli_trains_on_the_cpu_and_needs_a_gpu_otherwise(family, tmp_path,
         train_main.main(argv)
 
 
-@pytest.mark.parametrize("flag,item", [
-    ({"steps_per_call": 2}, "make_scan_train_step"),
-    ({"trace": 1}, "profiling"),
-])
-def test_unported_training_paths_name_their_roadmap_item(family, tmp_path,
-                                                         flag, item):
-    data_prefix, _ = family
-    cfg = port_cfg(data_prefix, tmp_path, "np", **flag)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        pipeline.stage_train(cfg)
-
-
 def test_dp_and_edge_trains_through_the_train_stage(family, tmp_path,
                                                     monkeypatch, caplog):
     """--mesh_shape dp=2,edge=2 (refused by the stage until dp x edge was
