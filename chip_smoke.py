@@ -202,6 +202,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and ``--trace 1`` over 2 epochs at K=4: the trace under
    ``{log_dir}/trace`` names the SpMM kernel, and its idle share.
 
+26. all_gather: the all-gather branch of the edge-partitioned path
+   (``partition_graph(..., halo=False)``) on a bench-shape LP, K=4, every
+   shard on the card. First the checks against the other routes, whose
+   launches are reported apart: GCN_FC(8,8,hids=1024,depth=3)'s fp32
+   logits within 1e-3 of the halo route's and the single card's, bf16 by
+   the dist_zoo_serve rule; the halo route's spans; the stacked
+   reduce-scatter (the partials' sum) beside K1; one fp32 step held per
+   tensor to the single card's (DIST_UPDATE_SPREAD with its fp64
+   witness); GENDeeper(8,8,hids=256,depth=5)'s logits against the halo
+   route and the single card, one fp32 step within 1e-4 a tensor of the
+   single card's. Then the path itself, its launches counted from 0 and
+   read just after: GCN_FC's and GENDeeper's bf16 forwards and steps over
+   the all-gather layout, their spans on the card, peak memory and
+   launches exactly (a GraphConv conv 2 SpMMs a shard; a GEN conv 8
+   ``gen_agg_fwd`` and 1 merge, its backward 8 ``gen_agg_bwd`` and 8
+   SpMMs; no K1, no gather). Then four gloo ranks of ``chip_smoke.py
+   --ag_rank`` sharing the card, shard k on rank k: rank 0's gathered
+   bf16 logits against the stacked route's (bit for bit, else within
+   RANK_LOGIT_TOL; the line says which), one fp32 step's weights against
+   the stacked step's (bit for bit, else UPDATE_RTOL a tensor), each
+   rank's launches exactly, spans, peak memory, and each gloo
+   collective's ms after a barrier with its wait.
+27. bench: the benchmark twins through their entry points, in this
+   process: ``python -m lp_gnn_tpu_torch.bench`` at its defaults and with
+   ``BENCH_MEASURE_BASELINE=1`` (the flagship's 6 traversals a step and
+   edge against its SpMM launches, 2 + 4 x 25 on the card; ``value`` = E x
+   6 / the fastest step; finite losses; the baseline measured live), and
+   ``python -m lp_gnn_tpu_torch.bench_scaling --devices 4`` with and
+   without ``--halo`` (the launches at 1, 2 and 4 shards exactly, mode
+   ``one-card``, finite losses). Their JSON lines are printed.
+
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
 
@@ -235,7 +266,11 @@ registers and resident CTAs an SM. At the dist GEN layer's shapes (the
 bench graph at K=4, shard 0's compact CSRs) it holds both GEN kernels
 again, and ``gen_lse_merge`` over the owners' rows with the slot parts K1
 delivers, D=256 and D=3 fp32, against its plain version, bit-identical
-over two calls.
+over two calls. At the all-gather branch's shapes (shard 0 at K=4) it
+holds the SpMM over the full v2c and full c2v CSRs (D=8 and D=1024 bf16),
+both GEN kernels over all n_pad variable rows (l2r) and over n_pad
+sources (r2l) at D=256 bf16, and ``gen_lse_merge`` of the 4 shards'
+full-width parts of every variable row at D=256 and D=3 fp32.
 
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
@@ -243,8 +278,10 @@ nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import filecmp
 import importlib
+import io
 import json
 import logging
 import os
@@ -847,7 +884,7 @@ def check_dist_kernels(g: BipartiteGraph, gen: torch.Generator) -> list[dict]:
     bf16."""
     rows = []
     bh8 = edge_partition.compute_halo_width(g, 8)
-    dg = edge_partition.partition_graph(g, K_EDGE)
+    dg = edge_partition.partition_graph(g, K_EDGE, halo=True)
     for d in (8, 1024):
         rows.append(halo_case(f"stacked K={K_EDGE} Bh={dg.bh} D={d} bfloat16",
                               K_EDGE, dg.bh, d, torch.bfloat16, gen, True))
@@ -1322,7 +1359,7 @@ def dist_breakdown(model, g: BipartiteGraph) -> dict:
     gt = GraphTensors.from_graph(g, "cuda")
     for rep in range(4):
         t0 = time.perf_counter()
-        dg = edge_partition.partition_graph(g, K_EDGE)
+        dg = edge_partition.partition_graph(g, K_EDGE, halo=True)
         t1 = time.perf_counter()
         dt = edge_partition.DistGraphTensors.from_partition(dg, mesh)
         torch.cuda.synchronize()
@@ -1371,7 +1408,8 @@ def dist_serve(seed: int) -> dict:
         parts = {}
         for i in range(len(ds)):
             g = ds[i]
-            dg = edge_partition.cached_partition_graph(g, K_EDGE, cache, g.fn)
+            dg = edge_partition.cached_partition_graph(
+                g, K_EDGE, cache, g.fn, halo=True)
             parts[g.fn] = {"K": dg.n_shards, "ms": dg.ms, "ns": dg.ns,
                            "Bh": dg.bh, "nh": dg.nh,
                            "edges_per_shard": dg.nnz_s.tolist()}
@@ -2876,6 +2914,14 @@ DIST_GEN_CONV = {"gather_rows": 1, "gen_agg_fwd": 2 * K_EDGE,
                  "halo_all_to_all": 1, "gen_lse_merge": 1}
 DIST_GEN_CONV_BWD = {"halo_all_to_all": 1, "gather_rows": 1,
                      "gen_agg_bwd": 2 * K_EDGE, "spmm_csr": 3 * K_EDGE}
+# the all-gather layout (K_EDGE shards on the card): a GraphConv conv one
+# SpMM a shard over full v2c and one over full c2v (their backward the
+# same); a GEN conv 2 gen_agg_fwd a shard and one merge of the K parts,
+# its backward 2 gen_agg_bwd and 2 SpMMs (the gathers' transpose) a shard;
+# no K1, no gather
+AG_CONV = {"spmm_csr": 2 * K_EDGE}
+AG_GEN_CONV = {"gen_agg_fwd": 2 * K_EDGE, "gen_lse_merge": 1}
+AG_GEN_CONV_BWD = {"gen_agg_bwd": 2 * K_EDGE, "spmm_csr": 2 * K_EDGE}
 N_DIST_TRAIN_LPS = 3        # 2 train, 1 val
 DIST_TRAIN_EPOCHS = 2
 # the zoo served edge-partitioned at the GEN phases' width: convs a forward
@@ -2914,29 +2960,42 @@ def launches_since(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now}
 
 
-def dist_step_launches(arch: str) -> dict:
-    """Launches of one dist step (input cache built): GCN_FC(depth=3)'s one
-    hidden conv forward and backward (conv1 reads the cache and its inputs
-    take no gradient); every GEN conv of DIST_GEN_ARCH forward and backward
-    (no cache, no remat)."""
+def dist_step_launches(arch: str, halo: bool = True) -> dict:
+    """Launches of one dist step (input cache built) over the halo or the
+    all-gather layout: GCN_FC(depth=3)'s one hidden conv forward and
+    backward (conv1 reads the cache and its inputs take no gradient); every
+    GEN conv of DIST_GEN_ARCH forward and backward (no cache, no remat)."""
     if arch.startswith("GENDeeper"):
         convs = DIST_ZOO[DIST_GEN_ARCH]
-        return add_launches(scaled(DIST_GEN_CONV, convs),
-                            scaled(DIST_GEN_CONV_BWD, convs))
-    return add_launches(scaled(DIST_CONV, 2))
+        fwd, bwd = (DIST_GEN_CONV, DIST_GEN_CONV_BWD) if halo else \
+            (AG_GEN_CONV, AG_GEN_CONV_BWD)
+        return add_launches(scaled(fwd, convs), scaled(bwd, convs))
+    return add_launches(scaled(DIST_CONV if halo else AG_CONV, 2))
 
 
-def step_states(arch: str, w0: dict, g: BipartiteGraph, ways) -> dict:
+def dist_forward_launches(arch: str, halo: bool = True) -> dict:
+    """Launches of one dist forward (no input cache) over the halo or the
+    all-gather layout: GCN_FC(depth=3)'s two convs; every GEN conv of
+    DIST_GEN_ARCH."""
+    if arch.startswith("GENDeeper"):
+        return add_launches(scaled(DIST_GEN_CONV if halo else AG_GEN_CONV,
+                                   DIST_ZOO[DIST_GEN_ARCH]))
+    return add_launches(scaled(DIST_CONV if halo else AG_CONV, 2))
+
+
+def step_states(arch: str, w0: dict, g: BipartiteGraph, ways,
+                halo: bool = True) -> dict:
     """One step of ``arch`` from the weights ``w0`` on ``g`` each way of
     ``ways``: ``single`` (the single card's, fp32), ``dist`` (K_EDGE
-    shards on the card, the trainer's tensors and input cache, fp32),
+    shards on the card over the halo or the all-gather layout, the
+    trainer's tensors and input cache, fp32),
     ``fp64`` (the single card's with its convs and SpMM sums in fp64);
     dropout 0, SGD at UPDATE_LR, balanced CE. Returns each way's weights on
     the host, loss, launches, span on the card (CUDA events) and peak
     memory."""
     lr = UPDATE_LR
     loss_fn = LOSS_REGISTRY["balanced"]
-    dg = edge_partition.partition_graph(g, K_EDGE)
+    dg = edge_partition.partition_graph(g, K_EDGE, halo=halo)
     mesh = make_mesh(K_EDGE, "cuda")
     out = {}
     for way in ways:
@@ -2982,7 +3041,7 @@ def step_states(arch: str, w0: dict, g: BipartiteGraph, ways) -> dict:
 
 
 def dist_vs_single_step(seed: int, arch: str, g: BipartiteGraph,
-                        fp64_witness: bool = False) -> dict:
+                        fp64_witness: bool = False, halo: bool = True) -> dict:
     """One dist step (K_EDGE shards on the card, the trainer's tensors and
     input cache) against the single-card step, from the same weights on
     the same LP: ``arch`` in fp32, dropout 0, SGD at UPDATE_LR, balanced CE.
@@ -2994,12 +3053,12 @@ def dist_vs_single_step(seed: int, arch: str, g: BipartiteGraph,
     (the SpMM's plain version summed in fp64 on the card; the loss stays
     fp32, as in every run). The dist step's launches exact
     (``dist_step_launches``); both fp32 steps' spans on the card (CUDA
-    events) and peak memory."""
+    events) and peak memory. ``halo``: the dist step's layout."""
     lr = UPDATE_LR
     w0 = seeded_state(arch, seed)
     out = step_states(arch, w0, g, ("single", "dist")
-                      + (("fp64",) if fp64_witness else ()))
-    want = dist_step_launches(arch)
+                      + (("fp64",) if fp64_witness else ()), halo)
+    want = dist_step_launches(arch, halo)
     got = out["dist"]["launches"]
     rels = update_rels(w0, out["dist"]["state"], out["single"]["state"], lr)
     held = {"update_rels": rels}
@@ -3023,6 +3082,7 @@ def dist_vs_single_step(seed: int, arch: str, g: BipartiteGraph,
             f"{want}), loss {ld} vs {ls}, update rel diff {rels[worst]} in "
             f"{worst} > {limits[worst]}: {json.dumps(held)}")
     return {"arch": arch, "K": K_EDGE, "dtype": "float32", "lr": lr,
+            "layout": "halo" if halo else "all-gather",
             "loss_dist": ld, "loss_single": ls,
             "update_diff_max": max(rels.values()),
             "nearest_limit": {"tensor": worst, "update_diff": rels[worst],
@@ -3119,7 +3179,7 @@ def dist_zoo_serve(seed: int) -> dict:
     out = {}
     g = bench_graph(seed + 1200)
     mesh = make_mesh(K_EDGE, "cuda")
-    dg = edge_partition.partition_graph(g, K_EDGE)
+    dg = edge_partition.partition_graph(g, K_EDGE, halo=True)
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dzoo_") as tmp:
         data_prefix = osp.join(tmp, "data")
         write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), 0, 1,
@@ -3527,13 +3587,15 @@ def rank_k1_cases(seed: int, bh: int) -> list[dict]:
     return rows
 
 
-def rank_step(seed: int, out_path: str, arch: str, g: BipartiteGraph) -> dict:
-    """One fp32 dist step of ``arch`` on this rank's shard of ``g`` (from
-    the seeded weights, dropout 0, SGD at UPDATE_LR, balanced CE, the input
-    cache built first where the arch reads it), its launches (cache and
-    step) counted from 0; rank 0 writes the weights to ``out_path``."""
+def rank_step(seed: int, out_path: str, arch: str, g: BipartiteGraph,
+              halo: bool = True) -> dict:
+    """One fp32 dist step of ``arch`` on this rank's shard of ``g`` over the
+    halo or the all-gather layout (from the seeded weights, dropout 0, SGD
+    at UPDATE_LR, balanced CE, the input cache built first where the arch
+    reads it), its launches (cache and step) counted from 0; rank 0 writes
+    the weights to ``out_path``."""
     k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
-    dg = edge_partition.partition_graph(g, k)
+    dg = edge_partition.partition_graph(g, k, halo=halo)
     mesh = make_mesh(k, "cuda", torch.distributed.group.WORLD)
     model = build_model(arch)
     model.load_state_dict(seeded_state(arch, seed))
@@ -3948,9 +4010,11 @@ def edge_ranks(seed: int) -> dict:
 MERGE_TOL = (1e-5, 1e-6)   # rtol, atol: expf / logf and the online order
 
 
-def merge_case(case: str, args: tuple, on_path) -> dict:
+def merge_case(case: str, args: tuple, on_path, local: bool = True,
+               path: str = "dist_gen_train") -> dict:
     """gen_lse_merge against its plain version (MERGE_TOL), bit-identical
-    over two calls, timed beside it; its bound is bytes."""
+    over two calls, timed beside it; its bound is bytes (without ``local``
+    no row has a local part, and the local operands are not read)."""
     local_edges, loc_aggr, loc_lse, ptr, idx, parts = args
     aggr, lse = gen_lse_merge(*args)
     again = gen_lse_merge(*args)
@@ -3965,8 +4029,8 @@ def merge_case(case: str, args: tuple, on_path) -> dict:
                            f"beyond rtol, atol {MERGE_TOL}")
     rows, d = loc_aggr.shape
     n = idx.shape[0]
-    n_bytes = rows * 4 + (rows + 1) * 4 + n * 4 + 4 * rows * d * 4 \
-        + n * 2 * d * 4
+    n_bytes = rows * 4 + (rows + 1) * 4 + n * 4 \
+        + (4 if local else 2) * rows * d * 4 + n * 2 * d * 4
     bound_ms, bound_by = bound(n_bytes, 6.0 * (rows + n) * d)
     return {
         "name": "gen_lse_merge", "route": "cuda",
@@ -3978,7 +4042,7 @@ def merge_case(case: str, args: tuple, on_path) -> dict:
                                       "gen_lse_merge_kernel"),
         "plain_ms": time_ms(lambda: gen_lse_merge_plain(*args), 5),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "case": case, "on_path": on_path, "path": "dist_gen_train",
+        "case": case, "on_path": on_path, "path": path,
         "rows": rows, "slot_parts": n, "D": d,
         "tol": {"rtol": MERGE_TOL[0], "atol": MERGE_TOL[1]},
         "library": "none: no one PyTorch call merges log-sum-exps by segment",
@@ -3993,8 +4057,8 @@ def check_dist_gen_kernels(g: BipartiteGraph, gen: torch.Generator) -> list:
     over the owners' K*ns rows with the slot parts that K1 delivers from the
     l2r forwards of all 4 shards, D=256 and D=3 (conv_out) fp32."""
     dgt = edge_partition.DistGraphTensors.from_partition(
-        edge_partition.partition_graph(g, K_EDGE), make_mesh(K_EDGE, "cuda"),
-        gen=True)
+        edge_partition.partition_graph(g, K_EDGE, halo=True),
+        make_mesh(K_EDGE, "cuda"), gen=True)
     k, ms, ns, nh = dgt.n_shards, dgt.ms, dgt.ns, dgt.nh
     dg = dgt.gen
     rows = []
@@ -4025,6 +4089,58 @@ def check_dist_gen_kernels(g: BipartiteGraph, gen: torch.Generator) -> list:
         rows.append(merge_case(f"owners' merge K={k}, {k * ns} rows, "
                                f"D={d} float32", args, on))
         del parts, send, back, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_all_gather_kernels(g: BipartiteGraph,
+                             gen: torch.Generator) -> list:
+    """The kernels at the all-gather branch's shapes on the bench graph at
+    K=4 (shard 0, the most edges): the SpMM over shard 0's full v2c (ms
+    rows from all n_pad variables) and full c2v (all n_pad rows from ms
+    constraints), D=8 and D=1024 bf16; gen_agg_fwd / gen_agg_bwd over the
+    l2r CSR of all n_pad variable rows and the r2l CSR of ms rows from
+    n_pad sources, D=256 bf16; and gen_lse_merge of the 4 shards' parts of
+    every variable row (no local part), D=256 and D=3 fp32."""
+    dg = edge_partition.partition_graph(g, K_EDGE)
+    dgt = edge_partition.DistGraphTensors.from_partition(
+        dg, make_mesh(K_EDGE, "cuda"), gen=True)
+    k, ms, n_pad = dgt.n_shards, dgt.ms, dgt.n_pad
+    rows = []
+    for d in (8, 1024):
+        for name, m, n_src in (("full v2c", dgt.full_v2c[0], n_pad),
+                               ("full c2v", dgt.full_c2v[0], ms)):
+            x = torch.randn(n_src, d, generator=gen, device="cuda")
+            rows.append({**spmm_case(
+                f"all-gather shard 0 {name} D={d} bfloat16", *m,
+                x.to(torch.bfloat16), "all_gather"), "path": "all_gather"})
+    gt = dgt.gen
+    for dname, csr, n_src in (("l2r", gt.l2r[0], ms),
+                              ("r2l", gt.r2l[0], n_pad)):
+        args = (*csr, *gen_operands(n_src, 256, torch.bfloat16, gen))
+        case = (f"all-gather {dname} shard 0 ({csr.ptr.shape[0] - 1} rows, "
+                f"{n_src} sources) D=256 bfloat16")
+        row, aggr, lse = gen_fwd_case(case, args, "all_gather")
+        brow, _ = gen_bwd_case(case, args, aggr, lse, gen, "all_gather")
+        rows += [{**row, "path": "all_gather"},
+                 {**brow, "path": "all_gather"}]
+        del args, aggr, lse
+        torch.cuda.empty_cache()
+    for d in (256, 3):
+        x, w, b, t = gen_operands(ms, d, torch.float32, gen)
+        parts = torch.empty(k, n_pad, 2 * d, device="cuda")
+        for s in range(k):
+            parts[s, :, :d], parts[s, :, d:] = gen_agg_fwd(*gt.l2r[s], x, w,
+                                                           b, t)
+        flat = parts.view(k * n_pad, 2 * d)
+        unread = flat.new_empty((n_pad, d))
+        args = (gt.local_edges, unread, unread, gt.merge_ptr, gt.merge_idx,
+                flat)
+        rows.append(merge_case(
+            f"all-gather merge of K={k} full-width parts, {n_pad} rows, "
+            f"D={d} float32", args, "all_gather", local=False,
+            path="all_gather"))
+        del parts, flat, unread, args
         torch.cuda.empty_cache()
     return rows
 
@@ -4371,6 +4487,448 @@ def steps_per_call(seed: int, mirp_prefix: str) -> dict:
             "gen": gen, "mirp_bench": mirp, "launches": mirp["launches"]}
 
 
+# ------------------------------------------------------------- all_gather
+AG_RANKS = K_EDGE
+# a GraphConv conv over the ranks' all-gather layout, per rank: one SpMM
+# over its full v2c and one over its full c2v
+AG_RANK_CONV = {"spmm_csr": 2}
+AG_TIMED = 3                # timed forwards / steps a route, after a warm-up
+
+
+def ag_logits_held(arch: str, seed: int, g: BipartiteGraph, dg_ag, dg_halo,
+                   mesh) -> dict:
+    """``arch``'s logits over the all-gather layout against the halo
+    route's and the single card's, with the weights ``save_seeded`` gives:
+    fp32 max |err| <= 1e-3 against each (the dist_serve phase's limit);
+    bf16 mean |err| against the single card's fp32 at most
+    DIST_BF16_SPREAD times the single card's own bf16 mean |err|
+    (``dist_logits_held``'s rule), the halo route's beside it."""
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        base = arch.strip()[:-1]
+        spec = base + ("" if base.endswith("(") else ",") + f"dtype='{dtype}')"
+        model = build_model(spec, generator=torch.Generator().manual_seed(seed))
+        model = model.to("cuda").eval()
+        with torch.inference_mode():
+            for path, dg in (("single", None), ("all_gather", dg_ag),
+                             ("halo", dg_halo)):
+                if dg is None:
+                    lc, lv = model(GraphTensors.from_graph(g, "cuda"))
+                else:
+                    lc, lv = edge_partition.dist_apply(model, dg, mesh)
+                    lc, lv = lc[:g.ncons], lv[:g.nvars]
+                got = torch.cat([lc, lv]).float().cpu().numpy()
+                if not (np.isfinite(got).all() and
+                        got.shape == (g.ncons + g.nvars, 3)):
+                    raise SmokeFailure(f"{arch} {dtype} {path}: bad logits")
+                logits[dtype, path] = got
+        del model
+        torch.cuda.empty_cache()
+    ref = logits["float32", "single"]
+    vs_single = np.abs(logits["float32", "all_gather"] - ref).max()
+    vs_halo = np.abs(logits["float32", "all_gather"]
+                     - logits["float32", "halo"]).max()
+    mean16 = {p: float(np.abs(logits["bfloat16", p] - ref).mean())
+              for p in ("single", "all_gather", "halo")}
+    if max(vs_single, vs_halo) > 1e-3 or \
+            mean16["all_gather"] > DIST_BF16_SPREAD * mean16["single"]:
+        raise SmokeFailure(f"{arch} all-gather logits: fp32 max |err| "
+                           f"{vs_single} vs single, {vs_halo} vs halo (limit "
+                           f"1e-3); bf16 mean |err| {mean16}")
+    return {"float32_max_abs_err_vs_single": float(vs_single),
+            "float32_max_abs_err_vs_halo": float(vs_halo), "atol": 1e-3,
+            "bfloat16_mean_abs_err": mean16,
+            "bf16_spread_factor": DIST_BF16_SPREAD}
+
+
+def median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def route_figures(seed: int, dg, mesh, arch: str = ARCH) -> dict:
+    """One route's figures for ``arch`` in bf16 (seeded; the recipe's
+    GCN_FC hids=1024 by default): a forward (eval, no input cache) and a
+    train step (Adam, dropout, the input cache where the arch reads one),
+    each AG_TIMED times after a warm-up: spans on the card (CUDA events),
+    launches a forward / step (exact: the layout's formula), peak memory.
+    ``launches``: the whole run's, warm-ups and cache included."""
+    halo = dg.halo
+    model = build_model(bf16_arch(arch),
+                        generator=torch.Generator().manual_seed(seed)).to("cuda")
+    per = {"forward": dist_forward_launches(arch, halo),
+           "step": dist_step_launches(arch, halo)}
+    cache = (DIST_CONV if halo else AG_CONV) if model.reads_input_agg else {}
+    out = {"arch": arch, "layout": "halo" if halo else "all-gather",
+           "launches": add_launches(cache, *(scaled(v, AG_TIMED + 1)
+                                             for v in per.values()))}
+    for kind in ("forward", "step"):
+        dgt = edge_partition.dist_tensors(model, dg, mesh,
+                                          input_agg=kind == "step")
+        opt = trainer.make_optimizer(model.parameters(), "adam", 1e-3)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        loss_fn = LOSS_REGISTRY["balanced"]
+
+        def run():
+            if kind == "forward":
+                with torch.inference_mode():
+                    return edge_partition.dist_forward(model.eval(), dgt)
+            return edge_partition.dist_train_step(model, opt, dgt, loss_fn,
+                                                  gen)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        spans, outs = [], []
+        for _ in range(AG_TIMED):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            outs.append(run())
+            ev[1].record()
+            torch.cuda.synchronize()
+            spans.append(ev[0].elapsed_time(ev[1]))
+        got = launches_since(before)
+        if got != scaled(add_launches(per[kind]), AG_TIMED):
+            raise SmokeFailure(f"{arch} {out['layout']} {kind}: launches "
+                               f"{got}, expected {per[kind]}")
+        if kind == "step" and not all(np.isfinite(float(v)) for v in outs):
+            raise SmokeFailure(f"{out['layout']} step: a loss not finite")
+        out[kind] = {"device_ms": spans, "device_ms_median": median(spans),
+                     "launches": per[kind],
+                     "max_memory_allocated_bytes":
+                         torch.cuda.max_memory_allocated()}
+        del dgt, opt, outs
+        torch.cuda.empty_cache()
+    return out
+
+
+def ag_rank(payload_path: str) -> None:
+    """One rank of the all_gather phase's rank run, in this process
+    (``--ag_rank``): shard k of the bench LP's all-gather partition on rank
+    k (gloo, the LP_GNN_DIST_* contract). The recipe's forward (GCN_FC
+    hids=1024 bf16, seeded, eval) with its logits gathered to rank 0, its
+    launches counted from 0 and its span timed (AG_TIMED after a
+    warm-up); one fp32 step (``rank_step`` over the all-gather layout);
+    each collective at the recipe's width alone, after a barrier whose
+    wait is timed (the all-gather of the rank's (ns, 1024) bf16 rows, the
+    reduce-scatter of its (n_pad, 1024) partials). Writes its report, and
+    rank 0 its logits and weights, into the payload's directory."""
+    from lp_gnn_tpu_torch.parallel import mesh as mesh_mod
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    with open(payload_path) as f:
+        p = json.load(f)
+    rank = int(os.environ["LP_GNN_DIST_PROC_ID"])
+    _, created = mesh_mod.init_distributed(torch.device("cuda"))
+    report = {}
+    try:
+        group = torch.distributed.group.WORLD
+        k = torch.distributed.get_world_size()
+        g = bench_graph(p["seed"] + 1500)
+        dg = edge_partition.partition_graph(g, k)
+        mesh = make_mesh(k, "cuda", group)
+        model = build_model(bf16_arch(ARCH), generator=torch.Generator(
+            ).manual_seed(p["seed"])).to("cuda").eval()
+        dgt = edge_partition.dist_tensors(model, dg, mesh)
+        reset_launches()
+        with torch.inference_mode():
+            lc, lv = edge_partition.gather_logits(
+                *edge_partition.dist_forward(model, dgt), mesh)
+        report["forward_launches"] = launch_counts()
+        if lc is not None:
+            np.save(osp.join(p["dir"], "ag_rank_logits.npy"),
+                    torch.cat([lc[:g.ncons], lv[:g.nvars]]).numpy())
+        spans = []
+        for _ in range(AG_TIMED):
+            torch.distributed.barrier()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            with torch.inference_mode():
+                edge_partition.dist_forward(model, dgt)
+            ev[1].record()
+            torch.cuda.synchronize()
+            spans.append(ev[0].elapsed_time(ev[1]))
+        report["forward_device_ms"] = spans
+        del model, dgt
+        torch.cuda.empty_cache()
+        report["step"] = rank_step(
+            p["seed"], osp.join(p["dir"], "ag_rank_step.pth"),
+            ARCH_NO_DROPOUT, bench_graph(p["seed"] + 1100), halo=False)
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(p["seed"] + rank)
+        rows = torch.randn(dg.ns, 1024, generator=gen,
+                           device="cuda").bfloat16()
+        parts = torch.randn(1, dg.n_pad, 1024, generator=gen,
+                            device="cuda").bfloat16()
+        coll = {}
+        for name, fn in (
+                ("all_gather", lambda: edge_partition.all_gather_vars(
+                    rows, group)),
+                ("reduce_scatter", lambda: edge_partition.reduce_scatter_vars(
+                    parts, group))):
+            wait, ms = [], []
+            for _ in range(AG_TIMED + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.distributed.barrier()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wait.append((t1 - t0) * 1e3)
+                ms.append((time.perf_counter() - t1) * 1e3)
+            coll[name] = {"ms": ms[1:], "wait_ms": wait[1:]}
+        report["collectives"] = coll
+        report["backend"] = torch.distributed.get_backend()
+    finally:
+        mesh_mod.leave_distributed(created)
+    with open(osp.join(p["dir"], f"ag_report{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def all_gather_ranks(seed: int, dg, mesh) -> dict:
+    """AG_RANKS processes of this script (``--ag_rank``) time-share the
+    card, shard k of the all-gather partition on rank k (``ag_rank``).
+    Rank 0's gathered bf16 logits against the stacked route's on the same
+    partition and weights: bit for bit (the reduce-scatter sums the ranks'
+    blocks in rank order, as the stacked route sums its shards), else
+    within RANK_LOGIT_TOL, and the line says which; the fp32 step's weights
+    against the stacked all-gather step's (``step_states``): bit for bit,
+    else each tensor's update within UPDATE_RTOL. Each rank's launches
+    exact: a forward AG_RANK_CONV a conv, 2 convs; a step's input cache
+    one conv's and the step the hidden conv's forward and backward; no K1
+    in either form and no gather."""
+    g = bench_graph(seed + 1500)
+    model = build_model(bf16_arch(ARCH),
+                        generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda").eval()
+    with torch.inference_mode():
+        lc, lv = edge_partition.dist_apply(model, dg, mesh)
+    stacked = torch.cat([lc[:g.ncons], lv[:g.nvars]]).cpu().numpy()
+    del model, lc, lv
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    step = step_states(ARCH_NO_DROPOUT, w0, bench_graph(seed + 1100),
+                       ("dist",), halo=False)["dist"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_agrank_") as tmp:
+        payload = osp.join(tmp, "payload.json")
+        with open(payload, "w") as f:
+            json.dump({"seed": seed, "dir": tmp}, f)
+        script = osp.abspath(__file__)
+        _, wall, groups = run_ranks(
+            "all_gather", lambda r: [script, "--ag_rank", payload], AG_RANKS)
+        reports = []
+        for r in range(AG_RANKS):
+            with open(osp.join(tmp, f"ag_report{r}.json")) as f:
+                reports.append(json.load(f))
+        got = np.load(osp.join(tmp, "ag_rank_logits.npy"))
+        state = torch.load(osp.join(tmp, "ag_rank_step.pth"))
+    fwd = add_launches(scaled(AG_RANK_CONV, 2))
+    cache = add_launches(AG_RANK_CONV)
+    per_step = add_launches(scaled(AG_RANK_CONV, 2))
+    bad = [r for r, rep in enumerate(reports)
+           if rep["forward_launches"] != fwd
+           or rep["step"]["cache_launches"] != cache
+           or rep["step"]["launches"] != per_step]
+    logits_equal = bool(np.array_equal(got, stacked))
+    err = float(np.abs(got - stacked).max())
+    rtol, atol = RANK_LOGIT_TOL
+    state_equal = all(torch.equal(state[n], step["state"][n]) for n in w0)
+    rels = update_rels(w0, state, step["state"], UPDATE_LR)
+    if bad or not (logits_equal or np.all(
+            np.abs(got - stacked) <= atol + rtol * np.abs(stacked))) or \
+            max(rels.values()) > UPDATE_RTOL:
+        raise SmokeFailure(
+            f"all_gather ranks: launches off on ranks {bad} "
+            f"({[rep['forward_launches'] for rep in reports]}, expected "
+            f"{fwd}; step {cache} + {per_step}); logits max |err| {err}; "
+            f"update rels {max(rels.values())}")
+    return {
+        "ranks": AG_RANKS, "process_groups": groups, "wall_s": wall,
+        "logits_bit_for_bit": logits_equal, "logits_max_abs_err": err,
+        "logits_tol_if_not_bit_for_bit": {"rtol": rtol, "atol": atol},
+        "step_bit_for_bit": state_equal,
+        "step_update_rel_max": max(rels.values()),
+        "step_loss_rank0": reports[0]["step"]["loss"],
+        "step_loss_stacked": step["loss"],
+        "launches_forward": fwd, "launches_cache": cache,
+        "launches_step": per_step,
+        "forward_device_ms": [rep["forward_device_ms"] for rep in reports],
+        "step_device_ms": [rep["step"]["step_device_ms"] for rep in reports],
+        "max_memory_allocated_bytes": [
+            rep["step"]["max_memory_allocated_bytes"] for rep in reports],
+        "collectives": [rep["collectives"] for rep in reports],
+        "backend": reports[0]["backend"],
+        "transport": "gloo on host copies: the all-gather an all_gather of "
+                     "(ns, D) rows, the reduce-scatter an all_to_all_single "
+                     "of the (n_pad, D) partials and the sum of the K "
+                     "received blocks in rank order on the card",
+        "note": f"{AG_RANKS} ranks time-share one card: no figure here "
+                f"stands for {AG_RANKS} cards"}
+
+
+def all_gather_phase(seed: int) -> dict:
+    """The all-gather branch (queue item 7d) at the bench shape, K=4, all
+    shards on the card; then over AG_RANKS gloo ranks sharing it.
+
+    First the checks, which hold the all-gather route against the halo
+    route and the single card and so launch their kernels too (their
+    launches stand under ``checks_launches``): GCN_FC(8,8,hids=1024,
+    depth=3)'s logits against both (``ag_logits_held``); the halo route's
+    figures (``route_figures``); the stacked reduce-scatter's and K1's ms
+    at the recipe's width; one fp32 step held per tensor to the single
+    card's by the DIST_UPDATE_SPREAD rule with its fp64 witness
+    (``dist_vs_single_step``); GENDeeper(8,8,hids=256,depth=5)'s logits
+    against both routes, and one fp32 step within UPDATE_RTOL a tensor of
+    the single card's.
+
+    Then the path itself, the all-gather route's own runs, with the launch
+    counts set to 0 just before them and read just after (``launches``,
+    exact, no K1 and no gather): GCN_FC's and GENDeeper's forwards and
+    steps with their spans and peak memory (``route_figures``). Last the
+    rank form (``all_gather_ranks``), whose ranks count their launches in
+    their own processes."""
+    g = bench_graph(seed + 1500)
+    mesh = make_mesh(K_EDGE, "cuda")
+    t0 = time.perf_counter()
+    dg_ag = edge_partition.partition_graph(g, K_EDGE)
+    t1 = time.perf_counter()
+    dg_h = edge_partition.partition_graph(g, K_EDGE, halo=True)
+    t2 = time.perf_counter()
+    g_gen = bench_graph(seed + 1400)
+    dg_gen_ag, dg_gen_h = (edge_partition.partition_graph(
+        g_gen, K_EDGE, halo=halo) for halo in (False, True))
+    out = {"K": K_EDGE, "ms": dg_ag.ms, "ns": dg_ag.ns, "n_pad": dg_ag.n_pad,
+           "Bh": dg_h.bh, "edges_per_shard": dg_ag.nnz_s.tolist(),
+           "partition_s": {"all_gather": t1 - t0, "halo": t2 - t1}}
+    reset_launches()
+    out["gcn_fc_logits"] = ag_logits_held(ARCH, seed, g, dg_ag, dg_h, mesh)
+    halo_route = route_figures(seed, dg_h, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    parts = torch.randn(K_EDGE, dg_ag.n_pad, 1024, generator=gen,
+                        device="cuda").bfloat16()
+    out["reduce_scatter_ms"] = time_ms(
+        lambda: edge_partition.reduce_scatter_vars(parts), 10)
+    del parts
+    bufs = torch.randn(K_EDGE, dg_h.nh, 1024, generator=gen,
+                       device="cuda").bfloat16()
+    out["halo_k1_ms"] = time_ms(lambda: halo_all_to_all(bufs), 10)
+    del bufs
+    torch.cuda.empty_cache()
+    out["gcn_fc_step"] = dist_vs_single_step(
+        seed, ARCH_NO_DROPOUT, bench_graph(seed + 1100), fp64_witness=True,
+        halo=False)
+    torch.cuda.empty_cache()
+    out["gen_logits"] = ag_logits_held(DIST_GEN_ARCH, seed, g_gen, dg_gen_ag,
+                                       dg_gen_h, mesh)
+    torch.cuda.empty_cache()
+    out["gen_step"] = dist_vs_single_step(seed, DIST_GEN_ARCH, g_gen,
+                                          halo=False)
+    torch.cuda.empty_cache()
+    out["checks_launches"] = card_launches()
+
+    reset_launches()
+    routes = (route_figures(seed, dg_ag, mesh),
+              route_figures(seed, dg_gen_ag, mesh, DIST_GEN_ARCH))
+    out["launches"] = card_launches()
+    want = add_launches(*(r["launches"] for r in routes))
+    if out["launches"] != want:
+        raise SmokeFailure(f"all_gather path: launches {out['launches']}, "
+                           f"expected {want}")
+    out["routes"] = {"all-gather": routes[0], "halo": halo_route}
+    out["gen_route"] = routes[1]
+    torch.cuda.empty_cache()
+    out["ranks"] = all_gather_ranks(seed, dg_ag, mesh)
+    return out
+
+
+# ------------------------------------------------------------------ bench
+BENCH_STEPS = 25            # (2 warm-up + 3 timed calls) x 5 steps a call
+SCALING_ARGS = ["--devices", str(K_EDGE)]
+
+
+def twin_line(module: str, argv: list[str], env: dict) -> tuple[dict, dict]:
+    """``python -m module argv`` in this process with ``env`` set (the
+    launch counts set to 0 just before and read just after), its one JSON
+    line, printed here too, and its launches on the card."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            run_module(module, argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    launches = card_launches()
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    if len(lines) != 1:
+        raise SmokeFailure(f"{module} {argv}: {len(lines)} JSON lines")
+    emit(lines[0])
+    return lines[0], launches
+
+
+def bench_phase(seed: int) -> dict:
+    """The benchmark twins through their entry points:
+    ``lp_gnn_tpu_torch.bench`` at its defaults and with
+    ``BENCH_MEASURE_BASELINE=1``, ``lp_gnn_tpu_torch.bench_scaling
+    --devices 4`` with and without ``--halo``. Holds: the flagship's 6
+    traversals a step and edge against its launches (2 SpMMs for the input
+    cache, then 4 a step on the card: BENCH_STEPS steps, captured or
+    eager), ``value`` = E * 6 / min(step time), the baseline measured live
+    (its SpMM the plain version: no launch), every step loss finite;
+    ``bench_scaling``'s launches at 1, 2 and 4 shards (all-gather: 2d
+    SpMMs for the cache and 4d a step; halo: 5d, a K1 and a gather for the
+    cache, 10d, 2 K1 and 2 gathers a step; 1 warm-up + 3 timed steps).
+    The graph is the repo's own (``bench.make_graph``, seed 0)."""
+    from lp_gnn_tpu_torch import bench as port_bench
+    out = {}
+    flagship = add_launches({"spmm_csr": 2},
+                            scaled({"spmm_csr": 4}, BENCH_STEPS))
+    for name, env in (("bench", {"BENCH_MEASURE_BASELINE": ""}),
+                      ("bench_baseline", {"BENCH_MEASURE_BASELINE": "1"})):
+        line, launches = twin_line("lp_gnn_tpu_torch.bench", [], env)
+        value = port_bench.SPMM_PER_EDGE * E / min(line["step_s"])
+        measured = name == "bench_baseline"
+        if launches != flagship or \
+                abs(line["value"] - value) > 1e-9 * value or \
+                not np.isfinite(line["losses"]).all() or \
+                port_bench.SPMM_PER_EDGE != 2 + 4 or \
+                (line["baseline_source"] == "measured") != measured or \
+                (line["vs_baseline"] is None) == measured:
+            raise SmokeFailure(f"{name}: launches {launches} (expected "
+                               f"{flagship}), line {json.dumps(line)}")
+        out[name] = {"line": line, "launches": launches}
+    steps = 4   # 1 warm-up + 3 timed
+    ds = [1, 2, K_EDGE]
+    want = {
+        "all_gather": add_launches({"spmm_csr": sum(
+            2 * d + steps * 4 * d for d in ds)}),
+        "halo": add_launches({"spmm_csr": sum(
+            5 * d + steps * 10 * d for d in ds),
+            "halo_all_to_all": len(ds) * (1 + 2 * steps),
+            "gather_rows": len(ds) * (1 + 2 * steps)})}
+    for name, argv in (("all_gather", SCALING_ARGS),
+                       ("halo", SCALING_ARGS + ["--halo"])):
+        line, launches = twin_line("lp_gnn_tpu_torch.bench_scaling", argv,
+                                   {})
+        losses = [v for vs in line["losses"].values() for v in vs]
+        if launches != want[name] or line["mode"] != "one-card" or \
+                line["collectives"] != name.replace("_", "-") or \
+                set(line["step_time_s"]) != {str(d) for d in ds} or \
+                not np.isfinite(losses).all():
+            raise SmokeFailure(f"bench_scaling {name}: launches {launches} "
+                               f"(expected {want[name]}), line "
+                               f"{json.dumps(line)}")
+        out[f"scaling_{name}"] = {"line": line, "launches": launches}
+    out["launches"] = add_launches(*(r["launches"] for r in out.values()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4387,6 +4945,9 @@ def main(argv=None) -> int:
     ap.add_argument("--edge_rank", metavar="PAYLOAD",
                     help="run as one rank of the edge_ranks phase, with the "
                          "phase's PAYLOAD (a JSON file)")
+    ap.add_argument("--ag_rank", metavar="PAYLOAD",
+                    help="run as one rank of the all_gather phase's ranks, "
+                         "with the phase's PAYLOAD (a JSON file)")
     ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4398,6 +4959,9 @@ def main(argv=None) -> int:
         return 0
     if args.edge_rank:
         edge_rank(args.edge_rank)
+        return 0
+    if args.ag_rank:
+        ag_rank(args.ag_rank)
         return 0
     # the pipeline's prepped family, kept for the steps_per_call phase
     mirp_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_mirp_")
@@ -4439,6 +5003,8 @@ def main(argv=None) -> int:
         kernels += check_gen_kernels(g, gen, rng, args.seed)
         torch.cuda.empty_cache()
         kernels += check_dist_gen_kernels(g, gen)
+        torch.cuda.empty_cache()
+        kernels += check_all_gather_kernels(g, gen)
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
               "gather_floor": gather_floor(kernels)})
         torch.cuda.empty_cache()
@@ -4503,6 +5069,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         scanned = steps_per_call(args.seed, mirp_keep)
         emit({"phase": "steps_per_call", "nvidia_smi": smi, **scanned})
+        torch.cuda.empty_cache()
+        gathered = all_gather_phase(args.seed)
+        emit({"phase": "all_gather", **gathered})
+        torch.cuda.empty_cache()
+        benched = bench_phase(args.seed)
+        emit({"phase": "bench", "nvidia_smi": smi, **benched})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -4520,7 +5092,8 @@ def main(argv=None) -> int:
              "dp_graph_batch": dp, "dist_train": dtrained,
              "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
              "dp_edge": dpe, "edge_ranks": ranked,
-             "steps_per_call": scanned}
+             "steps_per_call": scanned, "all_gather": gathered,
+             "bench": benched}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

@@ -84,18 +84,21 @@ def part_cache_dir(cfg) -> str | None:
     return None
 
 
-def _dist_partition(g: BipartiteGraph, mesh: EdgeMesh,
+def _dist_partition(g: BipartiteGraph, mesh: EdgeMesh, model,
                     dist_cache: dict | None = None,
                     cache_dir: str | None = None):
     """The host partition of one graph, once per dataset pass
-    (predict.py:80): ``dist_cache`` holds the most recent graph and its
-    partition (the drivers visit graphs one after another)."""
-    if dist_cache and dist_cache["g"] is g:
+    (predict.py:80), with the halo lists for the archs that exchange
+    anything (``DIST_HALO_ARCHS``, predict.py:106), else the all-gather
+    layout: ``dist_cache`` holds the most recent graph and its partition
+    (its callers visit graphs one after another)."""
+    halo = model.name in edge_partition.DIST_HALO_ARCHS
+    if dist_cache and dist_cache["g"] is g and dist_cache["halo"] == halo:
         return dist_cache["dg"]
     dg = edge_partition.cached_partition_graph(
-        g, mesh.n_shards, cache_dir=cache_dir, fn=g.fn)
+        g, mesh.n_shards, cache_dir=cache_dir, fn=g.fn, halo=halo)
     if dist_cache is not None:
-        dist_cache.update(g=g, dg=dg)
+        dist_cache.update(g=g, halo=halo, dg=dg)
     return dg
 
 
@@ -117,7 +120,8 @@ def model_inference(model: nn.Module, g: BipartiteGraph,
     fp32; over an edge mesh of ranks, on rank 0, and (None, None) on the
     others, which take part in the forward and gather."""
     if _uses_dist_path(g, edge_num_thresh, mesh):
-        dg = _dist_partition(g, mesh, dist_cache, cache_dir=part_dir)
+        dg = _dist_partition(g, mesh, model, dist_cache,
+                             cache_dir=part_dir)
         with torch.inference_mode():
             lc, lv = edge_partition.gather_logits(
                 *edge_partition.dist_apply(model, dg, mesh), mesh)
@@ -292,7 +296,7 @@ def timed_inference(model: nn.Module, ds: LPDataset, cfg,
         dist_path = _uses_dist_path(g, cfg.edge_num_thresh, mesh)
         if dist_path:
             t0 = time.perf_counter()
-            _dist_partition(g, mesh, dist_cache, cache_dir=part_dir)
+            _dist_partition(g, mesh, model, dist_cache, cache_dir=part_dir)
             part_times[g.fn] = time.perf_counter() - t0
 
         def infer():

@@ -48,20 +48,22 @@ def dist_stack_groups(ds, size: int, edge_num_thresh: float):
 
 
 def partition_batch(graphs: list[BipartiteGraph], n_edge: int,
+                    halo: bool = False,
                     own: list[int] | None = None) -> list[PartitionedGraph]:
     """The partitions of a batch's graphs into ``n_edge`` shards, all with
-    the batch's shard sizes (the largest ``_shard_sizes``) and halo width
-    (the largest ``compute_halo_width`` at those sizes), as ``combined.py
-    :53-61`` builds them: every node and halo field then has one shape
-    across the batch. ``own`` lists the positions in ``graphs`` to
-    partition (a rank's block; all by default): the shared sizes come from
-    every graph of the batch. One ``PartitionedGraph`` a graph, nothing
-    padded or stacked (module docstring). The all-gather branch
-    (``halo=False``) is ROADMAP.md queue item 7d."""
+    the batch's shard sizes (the largest ``_shard_sizes``) and, with
+    ``halo``, halo width (the largest ``compute_halo_width`` at those
+    sizes), as ``combined.py :29-61`` builds them: every node and halo
+    field then has one shape across the batch. ``own`` lists the positions
+    in ``graphs`` to partition (a rank's block; all by default): the shared
+    sizes come from every graph of the batch. One ``PartitionedGraph`` a
+    graph, nothing padded or stacked (module docstring)."""
     ms = max(_shard_sizes(g, n_edge)[0] for g in graphs)
     ns = max(_shard_sizes(g, n_edge)[1] for g in graphs)
-    bh = max(compute_halo_width(g, n_edge, ms=ms, ns=ns) for g in graphs)
-    return [partition_graph(graphs[i], n_edge, halo_width=bh, ms=ms, ns=ns)
+    bh = max(compute_halo_width(g, n_edge, ms=ms, ns=ns)
+             for g in graphs) if halo else None
+    return [partition_graph(graphs[i], n_edge, halo=halo, halo_width=bh,
+                            ms=ms, ns=ns)
             for i in (range(len(graphs)) if own is None else own)]
 
 

@@ -1,11 +1,13 @@
-"""GEN's two-direction layer over the compact halo space of a partition.
+"""GEN's two-direction layer over a partition: over the compact halo space,
+or over the all-gather layout.
 
-Counterpart of ``lp_gnn_tpu/parallel/edge_partition.py:880
-_dist_gen_bidir_halo`` (with ``_dist_gen_softmax_agg_local`` :829). Each
-shard's edges address the concatenated space of its own variables and its
-halo slots, ``[local (ns); slots (nh)]`` (the JAX package's ``hcol_r``,
-``hseg``): local variable j is compact row j, and halo slot ``owner*bh +
-rank`` is compact row ``ns + owner*bh + rank``.
+**The halo layout**, counterpart of
+``lp_gnn_tpu/parallel/edge_partition.py:880 _dist_gen_bidir_halo`` (with
+``_dist_gen_softmax_agg_local`` :829). Each shard's edges address the
+concatenated space of its own variables and its halo slots, ``[local (ns);
+slots (nh)]`` (the JAX package's ``hcol_r``, ``hseg``): local variable j
+is compact row j, and halo slot ``owner*bh + rank`` is compact row ``ns +
+owner*bh + rank``.
 
 - r2l (dst = constraints, every edge of a row on its shard, so the softmax
   is local): one :class:`~.edge_partition.HaloGather` of the projected
@@ -17,10 +19,10 @@ rank`` is compact row ``ns + owner*bh + rank``.
   constraints gives each part of a variable its (aggr, lse); the slot rows'
   parts go to their owners with one K1 (fp32, 2D wide, padded to 16
   bytes; the stacked form, or over ranks its rank form), and
-  ``gen_lse_merge`` merges them with the local part by log-sum-exp: ``lse = logsumexp_p lse_p``, ``aggr = sum_p exp(lse_p - lse)
-  aggr_p``, the exact single-card softmax. The JAX layer combines maxes at
-  the owners, sends them back, and sums the exps there; the two differ in
-  rounding only.
+  ``gen_lse_merge`` merges them with the local part by log-sum-exp: ``lse =
+  logsumexp_p lse_p``, ``aggr = sum_p exp(lse_p - lse) aggr_p``, the exact
+  single-card softmax. The JAX layer combines maxes at the owners, sends
+  them back, and sums the exps there; the two differ in rounding only.
 - l2r's backward needs no merge backward: one halo gather brings each
   owner's (g, aggr, lse) back to its slots, and ``gen_agg_bwd`` runs over
   all ``ns + nh`` compact rows with the merged statistics, which recomputes
@@ -28,16 +30,37 @@ rank`` is compact row ``ns + owner*bh + rank``.
   gradient is the SpMM over the transpose ordering with the edge
   permutation (``ops/gen_agg.py gather_backward``).
 
-The two compact CSRs of a shard are each other's transpose orderings: r2l
-(ms rows, sources compact) sorted by (row, compact column), l2r (ns + nh
-rows, sources the shard's constraints) sorted by (compact column, row).
-Both come from the partition's four CSRs with their edge permutations,
-built with the device tensors (``DistGraphTensors.from_partition(...,
-gen=True)``); the partition cache does not hold them. The per-shard loops
-run over the shards held here: all K in one process, or, with shard k on
-rank k, this rank's one, whose owner-side merge takes the parts its K1
-brings from every rank; the parameters' gradients are then this rank's
-part, summed over the ranks by ``dist_train_step``.
+**The all-gather layout**, counterpart of :960 ``_dist_gen_bidir`` (with
+:829 and :847 ``_dist_gen_softmax_agg_global``). A shard's edges address
+the global variable axis of ``n_pad = K*ns`` rows.
+
+- r2l: the projected sources' ``all_gather``
+  (:class:`~.edge_partition.AllGatherVars`: with every shard here the
+  stacked rows themselves), then one ``GenSoftmaxAgg`` a shard over a CSR
+  of ``ms`` rows with sources in ``[0, n_pad)``.
+- l2r: ``gen_agg_fwd`` a shard over a CSR of all ``n_pad`` variable rows
+  gives the shard's part of every variable, (aggr, lse); ``gen_lse_merge``
+  merges the K parts of each variable, one launch over all rows (over
+  ranks, after an exchange that brings each rank the K parts of its own
+  rows, ``edge_partition.exchange_var_blocks``). Every part goes in the
+  merge's ``parts``: no row has a local part. The JAX layer takes the
+  max with ``pmax`` and sums the exps with one ``psum_scatter``; the
+  merge by log-sum-exp is the same softmax, rounded otherwise.
+- l2r's backward: the merged (g, aggr, lse) of every variable row
+  (``all_gather``: with every shard here the rows themselves), then one
+  ``gen_agg_bwd`` a shard over its ``n_pad`` rows, and the sources'
+  gradient by the SpMM over the transpose ordering.
+
+The two CSRs of a shard are each other's transpose orderings: r2l (ms
+rows) sorted by (row, source), l2r (the compact or the global variable
+rows, sources the shard's constraints) sorted by (variable, row). Both
+come from the partition's CSRs with their edge permutations, built with
+the device tensors (``DistGraphTensors.from_partition(..., gen=True)``);
+the partition cache does not hold them. The per-shard loops run over the
+shards held here: all K in one process, or, with shard k on rank k, this
+rank's one, whose owner-side merge takes the parts its exchange brings
+from every rank; the parameters' gradients are then this rank's part,
+summed over the ranks by ``dist_train_step``.
 """
 from __future__ import annotations
 
@@ -48,7 +71,9 @@ import torch
 
 from ..ops.gen_agg import (gather_backward, gen_agg_bwd, gen_agg_fwd,
                            gen_lse_merge, gen_softmax_agg, padded_width)
-from .edge_partition import CSR, HaloGather, _a2a, halo_gather
+from .edge_partition import (CSR, AllGatherVars, HaloGather, _a2a,
+                             all_gather_vars, exchange_var_blocks,
+                             halo_gather)
 
 
 def _coo(m: CSR):
@@ -68,41 +93,52 @@ def _inverse(order: torch.Tensor) -> torch.Tensor:
     return inv
 
 
+def _orderings(r, c, v, n_rows: int, n_cols: int) -> dict:
+    """A shard's edges (r in [0, n_rows) constraint rows, c in [0, n_cols)
+    sources, on the device) as the two orderings: r2l sorted by (r, c) and
+    l2r by (c, r), both stable, with the permutations between them."""
+    o_r = torch.argsort(r * n_cols + c, stable=True)
+    o_l = torch.argsort(c * n_rows + r, stable=True)
+    return {"r2l": CSR(_ptr_of(r, n_rows), c[o_r].int(), v[o_r]),
+            "l2r": CSR(_ptr_of(c, n_cols), r[o_l].int(), v[o_l]),
+            "eperm_r2l": _inverse(o_r)[o_l].int(),
+            "eperm_l2r": _inverse(o_l)[o_r].int()}
+
+
 @dataclasses.dataclass
 class DistGenTensors:
-    """GEN's compact CSRs of a partition on its device."""
-    r2l: list[CSR]             # per shard: ms rows, idx compact [0, ns+nh)
-    l2r: list[CSR]             # per shard: ns+nh compact rows, idx [0, ms)
+    """GEN's CSRs of a partition on its device, for either layout. l2r's
+    rows are ``C`` = ns + nh compact rows (halo) or n_pad global rows
+    (all-gather)."""
+    r2l: list[CSR]             # per shard: ms rows, idx in [0, C)
+    l2r: list[CSR]             # per shard: C rows, idx in [0, ms)
     eperm_r2l: list[torch.Tensor]  # in l2r's order: the edge's place in r2l's
     eperm_l2r: list[torch.Tensor]  # in r2l's order: the edge's place in l2r's
-    # the owner-side merge over K1's output (L*nh rows, stacked by owner):
-    # rows L*ns stacked by owner, each listing its real slots' rows
+    # the owner-side merge: rows L*ns stacked by owner, each listing its
+    # parts' rows in the merge's parts (halo: K1's output, L*nh rows stacked
+    # by owner, the real slots; all-gather: the K parts of every row)
     merge_ptr: torch.Tensor    # (L*ns+1,) int32
     merge_idx: torch.Tensor    # (n,) int32
     local_edges: torch.Tensor  # (L*ns,) int32, each variable's local edges
 
     @classmethod
     def from_partition(cls, dg, halo_red, t, own) -> "DistGenTensors":
-        """From the host partition ``dg``, its owner-side reduce lists
-        ``halo_red`` ((ptr, slot positions) an owner), ``t``, which puts
-        a numpy array on the device, and ``own``, the shards held here. A
-        shard's edges (its local and halo v2c CSRs) go to the device, and
-        the two orderings are stable sorts there, by (row, compact column)
-        and by (compact column, row)."""
+        """From the host partition ``dg`` (halo layout), its owner-side
+        reduce lists ``halo_red`` ((ptr, slot positions) an owner), ``t``,
+        which puts a numpy array on the device, and ``own``, the shards
+        held here. A shard's edges (its local and halo v2c CSRs) go to the
+        device, and the two orderings are stable sorts there, by (row,
+        compact column) and by (compact column, row)."""
         ms, ns, nh = dg.ms, dg.ns, dg.nh
         out = {f: [] for f in ("r2l", "l2r", "eperm_r2l", "eperm_l2r")}
         for d in own:
             r1, c1, v1 = _coo(dg.local_v2c[d])
             r2, s2, v2 = _coo(dg.halo_v2c[d])
-            r = t(np.concatenate([r1, r2]))
-            c = t(np.concatenate([c1, ns + s2]).astype(np.int64))
-            v = t(np.concatenate([v1, v2]))
-            o_r = torch.argsort(r * (ns + nh) + c, stable=True)
-            o_l = torch.argsort(c * ms + r, stable=True)
-            out["r2l"].append(CSR(_ptr_of(r, ms), c[o_r].int(), v[o_r]))
-            out["l2r"].append(CSR(_ptr_of(c, ns + nh), r[o_l].int(), v[o_l]))
-            out["eperm_r2l"].append(_inverse(o_r)[o_l].int())
-            out["eperm_l2r"].append(_inverse(o_l)[o_r].int())
+            for k, v in _orderings(
+                    t(np.concatenate([r1, r2])),
+                    t(np.concatenate([c1, ns + s2]).astype(np.int64)),
+                    t(np.concatenate([v1, v2])), ms, ns + nh).items():
+                out[k].append(v)
         red = [halo_red[d] for d in own]
         sizes = [len(i) for _, i in red]
         offs = np.concatenate([[0], np.cumsum(sizes)])
@@ -114,35 +150,51 @@ class DistGenTensors:
                    merge_idx=t(idx.astype(np.int32)),
                    local_edges=t(local.astype(np.int32)))
 
+    @classmethod
+    def from_full(cls, dg, t, own) -> "DistGenTensors":
+        """From the host partition ``dg`` in the all-gather layout (its full
+        v2c CSRs), ``t`` and ``own`` as :meth:`from_partition`. The merge
+        lists, for each of the L*ns variable rows held here, the shards
+        whose edges reach it, in shard order: with every shard here, row v's
+        part from shard s is row ``s*n_pad + v`` of the K stacked parts;
+        over ranks, row i's from rank p is row ``p*ns + i`` of the
+        exchanged blocks. Every shard's edge counts are on the host (every
+        rank partitions the whole graph)."""
+        ms, n_pad, ns = dg.ms, dg.n_pad, dg.ns
+        out = {f: [] for f in ("r2l", "l2r", "eperm_r2l", "eperm_l2r")}
+        for d in own:
+            r, c, v = _coo(dg.full_v2c[d])
+            for k, x in _orderings(t(r), t(np.asarray(c, np.int64)), t(v),
+                                   ms, n_pad).items():
+                out[k].append(x)
+        rows = np.concatenate([np.arange(d * ns, (d + 1) * ns) for d in own])
+        has = np.stack([np.diff(m.ptr) > 0 for m in dg.full_c2v])[:, rows]
+        row_of, part_of = np.nonzero(has.T)   # by row, then shard
+        ptr = np.zeros(len(rows) + 1, np.int32)
+        np.cumsum(has.sum(0), out=ptr[1:])
+        return cls(**out, merge_ptr=t(ptr),
+                   merge_idx=t((part_of * len(rows) + row_of).astype(
+                       np.int32)),
+                   local_edges=t(np.zeros(len(rows), np.int32)))
+
 
 class DistGenL2R(torch.autograd.Function):
     """``DistGenL2R.apply(x, w, b, t, dg)`` -> aggr (L*ns, D) fp32 (fp64
     for fp64): the l2r aggregation of a GEN layer over the partition ``dg``
     (with ``dg.gen``), from the projected constraint rows ``x`` (L*ms, D)
     and the edge encoder ``w``, ``b`` and temperature ``t`` in x's dtype,
-    with a gradient for all four (module docstring). Forward: L
-    ``gen_agg_fwd``, one K1, one ``gen_lse_merge``; backward: one halo
-    gather, L ``gen_agg_bwd`` and, for x, L SpMMs."""
+    with a gradient for all four (module docstring). Halo layout: forward
+    L ``gen_agg_fwd``, one K1, one ``gen_lse_merge``; backward one halo
+    gather, L ``gen_agg_bwd`` and, for x, L SpMMs. All-gather layout:
+    forward L ``gen_agg_fwd`` and one merge (over ranks after the parts'
+    exchange); backward (over ranks after an all-gather) L ``gen_agg_bwd``
+    and L SpMMs."""
 
     @staticmethod
     def forward(ctx, x, w, b, t, dg):
-        gen, k, ms, ns, nh = dg.gen, dg.n_local, dg.ms, dg.ns, dg.nh
-        d = x.shape[1]
-        xs = x.split(ms)
-        parts = [gen_agg_fwd(*gen.l2r[s], xs[s], w, b, t) for s in range(k)]
-        acc = parts[0][0].dtype
-        loc_aggr = torch.cat([a[:ns] for a, _ in parts])
-        loc_lse = torch.cat([lse[:ns] for _, lse in parts])
-        # the slot rows' (aggr, lse), one row each, to the owners
-        send = x.new_empty((k, nh, padded_width(2 * d, acc)), dtype=acc)
-        for s, (a, lse) in enumerate(parts):
-            send[s, :, :d] = a[ns:]
-            send[s, :, d:2 * d] = lse[ns:]
-        del parts
-        back = _a2a(send, dg.group)
-        aggr, lse = gen_lse_merge(gen.local_edges, loc_aggr, loc_lse,
-                                  gen.merge_ptr, gen.merge_idx,
-                                  back.view(k * nh, back.shape[2]))
+        xs = x.split(dg.ms)
+        l2r = _l2r_halo if dg.halo else _l2r_full
+        aggr, lse = l2r(dg, xs, w, b, t)
         ctx.dg = dg
         ctx.save_for_backward(x, w, b, t, aggr, lse)
         return aggr
@@ -153,20 +205,36 @@ class DistGenL2R(torch.autograd.Function):
         dg = ctx.dg
         gen, k, ms, ns = dg.gen, dg.n_local, dg.ms, dg.ns
         d = x.shape[1]
-        # each owner's (g, aggr, lse), brought back to its slots
-        table = aggr.new_empty((k * ns, padded_width(3 * d, aggr.dtype)))
-        for j, v in enumerate((grad, aggr, lse)):
-            table[:, j * d:(j + 1) * d] = v
-        slots = halo_gather(table, dg.halo_src, dg.halo_sched, dg.group)
+        # each owner's (g, aggr, lse) where every shard's rows read them
+        if dg.halo:
+            table = aggr.new_empty((k * ns, padded_width(3 * d, aggr.dtype)))
+            for j, v in enumerate((grad, aggr, lse)):
+                table[:, j * d:(j + 1) * d] = v
+            slots = halo_gather(table, dg.halo_src, dg.halo_sched, dg.group)
+
+            def stats(s):
+                own = table[s * ns:(s + 1) * ns]
+                return [torch.cat([own[:, j * d:(j + 1) * d],
+                                   slots[s, :, j * d:(j + 1) * d]])
+                        for j in range(3)]
+        else:
+            if dg.group is None:
+                full = [grad.contiguous(), aggr, lse]
+            else:
+                table = all_gather_vars(torch.cat([grad, aggr, lse], 1),
+                                        dg.group)
+                full = [table[:, j * d:(j + 1) * d].contiguous()
+                        for j in range(3)]
+
+            def stats(s):
+                return full
         xs = x.split(ms)
         dxs, sums = [], None
         for s in range(k):
-            own = table[s * ns:(s + 1) * ns]
-            g, a, lse_s = (torch.cat([own[:, j * d:(j + 1) * d],
-                                      slots[s, :, j * d:(j + 1) * d]])
-                           for j in range(3))
+            g, a, lse_s = stats(s)
             dpre, *part = gen_agg_bwd(*gen.l2r[s], xs[s], w, b, t, g, a, lse_s)
-            sums = part if sums is None else [u + v for u, v in zip(sums, part)]
+            sums = part if sums is None else \
+                [u + v for u, v in zip(sums, part)]
             if ctx.needs_input_grad[0]:
                 dxs.append(gather_backward(gen.r2l[s].ptr, gen.eperm_l2r[s],
                                            dpre, d))
@@ -175,21 +243,70 @@ class DistGenL2R(torch.autograd.Function):
                 db.to(b.dtype), dt.to(t.dtype), None)
 
 
+def _l2r_halo(dg, xs, w, b, t):
+    """The halo layout's l2r forward: the parts of every compact row, the
+    slot rows' sent to their owners (K1), merged there."""
+    gen, k, ns, nh = dg.gen, dg.n_local, dg.ns, dg.nh
+    d = xs[0].shape[1]
+    parts = [gen_agg_fwd(*gen.l2r[s], xs[s], w, b, t) for s in range(k)]
+    acc = parts[0][0].dtype
+    loc_aggr = torch.cat([a[:ns] for a, _ in parts])
+    loc_lse = torch.cat([lse[:ns] for _, lse in parts])
+    # the slot rows' (aggr, lse), one row each, to the owners
+    send = xs[0].new_empty((k, nh, padded_width(2 * d, acc)), dtype=acc)
+    for s, (a, lse) in enumerate(parts):
+        send[s, :, :d] = a[ns:]
+        send[s, :, d:2 * d] = lse[ns:]
+    del parts
+    back = _a2a(send, dg.group)
+    return gen_lse_merge(gen.local_edges, loc_aggr, loc_lse, gen.merge_ptr,
+                         gen.merge_idx, back.view(k * nh, back.shape[2]))
+
+
+def _l2r_full(dg, xs, w, b, t):
+    """The all-gather layout's l2r forward: each shard's part of every
+    variable row, (aggr, lse) side by side in one (L, n_pad, 2D) buffer;
+    over ranks each rank's blocks go to their owners; one merge of the K
+    parts of each row held here. No row has a local part, so the merge's
+    local operands are an unread buffer of their shape."""
+    gen, k, n_pad = dg.gen, dg.n_local, dg.n_pad
+    d = xs[0].shape[1]
+    parts = None
+    for s in range(k):
+        a, lse = gen_agg_fwd(*gen.l2r[s], xs[s], w, b, t)
+        if parts is None:
+            parts = a.new_empty((k, n_pad, 2 * d))
+        parts[s, :, :d] = a
+        parts[s, :, d:] = lse
+        del a, lse
+    parts = parts.view(k * n_pad, 2 * d)
+    if dg.group is not None:
+        parts = exchange_var_blocks(parts, dg.group)
+    unread = parts.new_empty((gen.local_edges.shape[0], d))
+    return gen_lse_merge(gen.local_edges, unread, unread, gen.merge_ptr,
+                         gen.merge_idx, parts)
+
+
 def dist_gen_bidir_conv(conv, dg, left, right):
-    """A ``BidirGENConv`` over the partition ``dg`` (edge_partition.py:880):
-    the module's own projections, encoders and MLPs on all shards' rows at
-    once, the two aggregations over the compact halo space. GEN's input
-    aggregation depends on its parameters and is never cached."""
+    """A ``BidirGENConv`` over the partition ``dg`` (edge_partition.py:880,
+    :960): the module's own projections, encoders and MLPs on all shards'
+    rows at once, the two aggregations over the compact halo space or the
+    all-gather layout. GEN's input aggregation depends on its parameters
+    and is never cached."""
     gen, k, ns = dg.gen, dg.n_local, dg.ns
     r2l, l2r = conv.right2left, conv.left2right
-    # r2l: dst = constraints, sources through the halo
+    # r2l: dst = constraints, sources through the halo or all of them
     r_src, x_dst_l = r2l.project(right, left)
     w, b, t = r2l.encoder(r_src.dtype)
-    hbuf = HaloGather.apply(r_src, dg)
-    rs = r_src.split(ns)
+    if dg.halo:
+        hbuf = HaloGather.apply(r_src, dg)
+        rs = r_src.split(ns)
+        srcs = [torch.cat([rs[s], hbuf[s]]) for s in range(k)]
+    else:
+        srcs = [AllGatherVars.apply(r_src, dg)] * k
     aggr_c = torch.cat([
-        gen_softmax_agg(*gen.r2l[s], torch.cat([rs[s], hbuf[s]]), w, b, t,
-                        gen.l2r[s].ptr, gen.eperm_r2l[s]) for s in range(k)])
+        gen_softmax_agg(*gen.r2l[s], srcs[s], w, b, t, gen.l2r[s].ptr,
+                        gen.eperm_r2l[s]) for s in range(k)])
     left_new = r2l.update(aggr_c, x_dst_l)
     # l2r: dst = variables, the parts merged at the owners
     l_src, x_dst_r = l2r.project(left, right)

@@ -1,11 +1,15 @@
-"""Edge-partitioned forwards and training with boundary halo exchange.
+"""Edge-partitioned forwards and training, over a halo exchange or over
+all-gather / reduce-scatter.
 
 Counterpart of ``lp_gnn_tpu/parallel/edge_partition.py``: every arch of the
 zoo serves and trains over K shards. Constraint rows are cut into K blocks
 of ``ms`` rows and variables into K blocks of ``ns`` (``_shard_sizes``
 :161); shard d owns its row block, every edge of those rows and its
-variable block. Per two-direction conv (``_dist_aggs`` :655, halo branch
-:673-708):
+variable block. A two-direction conv (``_dist_aggs`` :655) takes one of two
+branches, as the partition says (``partition_graph(..., halo=)``, :205):
+
+**The halo branch** (``halo=True``, :673-708), which the trainer and
+predict take for every arch in ``DIST_HALO_ARCHS``:
 
 - ``halo_gather``: each shard receives the rows of other shards' variable
   blocks that its edges reference (``halo_send``), in its compact halo
@@ -20,36 +24,52 @@ variable block. Per two-direction conv (``_dist_aggs`` :655, halo branch
   ``halo_ids`` (``halo_reduce``).
 
 The two halo directions are each other's transpose, and each is the other's
-backward (:585-652): :class:`HaloGather` and :class:`HaloReduce`. Every SpMM
-of a conv goes through :class:`ShardSpmm` (``SpmmCSR`` over the shards),
-whose backward is the same kernel over the partner CSR (local v2c <->
-local c2v, halo v2c <-> halo c2v), so a dist step's gradient is the
-single-card gradient with no atomics. GEN's
-aggregation over the compact halo space lives in ``parallel/dist_gen.py``.
+backward (:585-652): :class:`HaloGather` and :class:`HaloReduce`.
+
+**The all-gather branch** (``halo=False``, the default, :709-736), which
+GCNRand takes there and API callers may take for any arch: every shard
+reads all ``n_pad = K*ns`` variable rows (``all_gather``,
+:class:`AllGatherVars`), sums its rows' edges against them (full v2c), and
+writes its partials over all ``n_pad`` variable rows (full c2v), which are
+summed over the shards, each owner keeping its block (``psum_scatter``,
+:class:`ReduceScatterVars`). The two collectives are each other's
+transpose and backward. With every shard in one process the stacked
+variable rows are ``right_full`` (no copy) and the reduce-scatter is the
+sum of the K partials in shard order; over ranks they are the group's
+collectives (:func:`all_gather_vars`, :func:`reduce_scatter_vars`).
+
+Every SpMM of a conv goes through :class:`ShardSpmm` (``SpmmCSR`` over the
+shards) or its all-gather forms (:class:`SpmmFromFull`,
+:class:`ShardPartials`), whose backward is the same kernel over the
+partner CSR (local v2c <-> local c2v, halo v2c <-> halo c2v, full v2c <->
+full c2v), so a dist step's gradient is the single-card gradient with no
+atomics. GEN's aggregation over either layout lives in
+``parallel/dist_gen.py``.
 
 The JAX package lays each shard's edges out for the TPU's matrix unit
-(``blkl_*``, ``blkh_*``, padded to one edge count). The port keeps four CSRs
-a shard instead, for its CSR SpMM kernel: local v2c (ms dst rows, ns src),
-local c2v (ns, ms), halo v2c (ms, nh = K*Bh) and halo c2v (nh, ms). The cut
-points are the JAX package's (``_shard_sizes``, Bh rounded to 8, edges with
-``val == 0`` dropped), so ``halo_send``, ``halo_perm``, ``halo_ids`` and
-``nnz_s`` equal its own. GEN's compact CSRs are built from those four when
-the device tensors are made (``DistGraphTensors.from_partition(...,
-gen=True)``); the all-gather layouts ``blkr``/``blkc`` are left out.
+(``blkl_*``, ``blkh_*``, ``blkr``/``blkc``, padded to one edge count). The
+port keeps CSRs a shard instead, for its CSR SpMM kernel: with halo, local
+v2c (ms dst rows, ns src), local c2v (ns, ms), halo v2c (ms, nh = K*Bh) and
+halo c2v (nh, ms); without, full v2c (ms, n_pad) and full c2v (n_pad, ms).
+The cut points are the JAX package's (``_shard_sizes``, Bh rounded to 8,
+edges with ``val == 0`` dropped), so ``halo_send``, ``halo_perm``,
+``halo_ids`` and ``nnz_s`` equal its own. GEN's CSRs are built from these
+when the device tensors are made (``DistGraphTensors.from_partition(...,
+gen=True)``).
 
 The shards held here (``mesh.EdgeMesh``): all K on one device, run one
 after another on one stream, or, over ranks, this rank's one. The per-shard
 loops run over the shards held here, stacked shard after shard, and the
-exchange takes the transport of the layout (``_a2a``): the stacked K1, or
-its rank form over the mesh's group. With every shard here the psums of the
-JAX losses are sums over the stacked shards: the single-card losses of
+exchanges take the transport of the layout: for the halo, the stacked K1
+or its rank form over the mesh's group (``_a2a``); for the all-gather
+pair, none, or the group's collectives. With every shard here the psums of
+the JAX losses are sums over the stacked shards: the single-card losses of
 ``train/losses.py`` on the stacked logits with the partition's masks are
 the dist losses (:1066-1171). Over ranks the losses' sums are all-reduced
 over the group (``psum``) and so are the parameters' gradients
 (:1255-1257), which gives every rank the single-graph loss and gradient.
-The all-gather branch (:709-736) and several cards in one process wait for
-ROADMAP.md queue items 7d and 7c; dp x edge, a rank's block of a batch of
-partitions, is ``parallel/combined.py``.
+Several cards in one process wait for ROADMAP.md queue item 7c; dp x edge,
+a rank's block of a batch of partitions, is ``parallel/combined.py``.
 
 The arch forwards are the modules' own (``models/gcn.py``):
 :class:`DistGraphTensors` applies each conv over the shards
@@ -80,6 +100,7 @@ from .dp import step_generator, sum_over_ranks
 from .mesh import EdgeMesh
 
 CSR_KINDS = ("local_v2c", "local_c2v", "halo_v2c", "halo_c2v")
+FULL_KINDS = ("full_v2c", "full_c2v")   # the all-gather layout's
 
 
 class CSR(NamedTuple):
@@ -166,11 +187,12 @@ def _sorted_csr(dst, src, val, num_dst: int) -> CSR:
 
 @dataclasses.dataclass
 class PartitionedGraph:
-    """The host-side partition of one graph into ``n_shards`` (numpy)."""
+    """The host-side partition of one graph into ``n_shards`` (numpy):
+    with halo lists (``halo``), or the all-gather layout."""
     n_shards: int
     ms: int                    # constraint rows a shard owns
     ns: int                    # variables a shard owns
-    bh: int                    # halo slots per (sender, receiver) pair
+    bh: int                    # halo slots per (sender, receiver) pair; 0
     c_feas: np.ndarray         # (K, ms, 8) float32, zero rows past ncons
     v_feas: np.ndarray         # (K, ns, 8) float32
     y_s: np.ndarray            # (K, ms) int32 labels, 0 past ncons
@@ -179,34 +201,80 @@ class PartitionedGraph:
     vars_mask: np.ndarray      # (K, ns) bool
     nnz_s: np.ndarray          # (K,) int32 edges per shard
     # halo_send[d, e]: local variable rows shard d sends to shard e (the
-    # boundary set of e's edges in d's block), padded with row 0
-    halo_send: np.ndarray      # (K, K, bh) int32
-    halo_perm: np.ndarray      # (K, K*bh) int32, stable sort of halo_send[d]
-    halo_ids: np.ndarray       # (K, K*bh) int32, halo_send[d] sorted
-    local_v2c: list[CSR]       # per shard: ms dst / ns src (own block)
+    # boundary set of e's edges in d's block), padded with row 0; the three
+    # lists are None in the all-gather layout
+    halo_send: np.ndarray | None   # (K, K, bh) int32
+    halo_perm: np.ndarray | None   # (K, K*bh) int32, halo_send[d]'s stable sort
+    halo_ids: np.ndarray | None    # (K, K*bh) int32, halo_send[d] sorted
+    # the halo layout's CSRs, per shard (empty in the all-gather layout)
+    local_v2c: list[CSR]       # ms dst / ns src (own block)
     local_c2v: list[CSR]       # ns dst / ms src
     halo_v2c: list[CSR]        # ms dst / nh src halo slots (owner*bh + rank)
     halo_c2v: list[CSR]        # nh dst / ms src
+    # the all-gather layout's, per shard (empty in the halo layout)
+    full_v2c: list[CSR] = dataclasses.field(default_factory=list)  # ms / n_pad
+    full_c2v: list[CSR] = dataclasses.field(default_factory=list)  # n_pad / ms
+
+    @property
+    def halo(self) -> bool:
+        return self.halo_send is not None
 
     @property
     def nh(self) -> int:
         return self.n_shards * self.bh
 
+    @property
+    def n_pad(self) -> int:
+        """The global variable axis, K*ns."""
+        return self.n_shards * self.ns
 
-def partition_graph(g: BipartiteGraph, n_shards: int,
+
+def partition_graph(g: BipartiteGraph, n_shards: int, halo: bool = False,
                     halo_width: int | None = None, ms: int | None = None,
                     ns: int | None = None) -> PartitionedGraph:
-    """Host-side row partition of ``g`` into ``n_shards`` with the boundary
-    halo lists (edge_partition.py:205 with ``halo=True``, boundary lists
-    :304-370). ``ms``, ``ns`` and ``halo_width`` (Bh) fix the shard sizes
-    and the halo width where a batch shares them
-    (``parallel/combined.py partition_batch``); they default to the
-    graph's own."""
+    """Host-side row partition of ``g`` into ``n_shards`` (edge_partition.py
+    :205). ``halo=True`` builds the boundary halo lists (:304-370) and the
+    halo layout's four CSRs a shard; ``halo=False`` (the default, as there)
+    builds no halo list, and each shard's two full-width CSRs: full v2c
+    (its ``ms`` rows from all ``n_pad = K*ns`` variables) and full c2v (all
+    ``n_pad`` variables from its rows), for the all-gather branch. ``ms``,
+    ``ns`` and ``halo_width`` (Bh) fix the shard sizes and the halo width
+    where a batch shares them (``parallel/combined.py partition_batch``);
+    they default to the graph's own (Bh is ignored without halo)."""
     ms, ns = _sizes(g, n_shards, ms, ns)
     nk = n_shards
     row, col, val = _real_edges(g)
-    d_all, owner, off, uk, inv = _boundary_keys(row, col, nk, ms, ns)
+    d_all = row // ms
     lens = np.bincount(d_all, minlength=nk)
+    ends = np.cumsum(lens)
+
+    def shard_nodes(x, per, dtype):
+        x = np.asarray(x, dtype)
+        out = np.zeros((nk * per,) + x.shape[1:], dtype)
+        out[:x.shape[0]] = x
+        return out.reshape(nk, per, *x.shape[1:])
+
+    nodes = dict(
+        n_shards=nk, ms=ms, ns=ns,
+        c_feas=shard_nodes(g.c_feas, ms, np.float32),
+        v_feas=shard_nodes(g.v_feas, ns, np.float32),
+        y_s=shard_nodes(g.y_s, ms, np.int32),
+        y_t=shard_nodes(g.y_t, ns, np.int32),
+        cons_mask=(np.arange(nk * ms) < g.ncons).reshape(nk, ms),
+        vars_mask=(np.arange(nk * ns) < g.nvars).reshape(nk, ns),
+        nnz_s=lens.astype(np.int32))
+    if not halo:
+        full = {k: [] for k in FULL_KINDS}
+        for d in range(nk):
+            sl = slice(ends[d] - lens[d], ends[d])
+            r, c, v = row[sl] - d * ms, col[sl], val[sl]
+            full["full_v2c"].append(_sorted_csr(r, c, v, ms))
+            full["full_c2v"].append(_sorted_csr(c, r, v, nk * ns))
+        return PartitionedGraph(
+            **nodes, bh=0, halo_send=None, halo_perm=None, halo_ids=None,
+            **{k: [] for k in CSR_KINDS}, **full)
+
+    _, owner, off, uk, inv = _boundary_keys(row, col, nk, ms, ns)
     pair_u = uk // ns
     counts = np.bincount(pair_u, minlength=nk * nk)
     starts = np.concatenate([[0], np.cumsum(counts)])
@@ -228,7 +296,6 @@ def partition_graph(g: BipartiteGraph, n_shards: int,
     # each boundary edge's halo slot: owner * bh + rank in its boundary set
     slot = np.full(len(row), -1, np.int64)
     slot[off] = owner[off] * bh + (inv - starts[pair_u[inv]])
-    ends = np.cumsum(lens)
     csr = {k: [] for k in CSR_KINDS}
     for d in range(nk):
         sl = slice(ends[d] - lens[d], ends[d])
@@ -240,30 +307,16 @@ def partition_graph(g: BipartiteGraph, n_shards: int,
         csr["local_c2v"].append(_sorted_csr(c_loc, r[own], v[own], ns))
         csr["halo_v2c"].append(_sorted_csr(r[bnd], s, v[bnd], ms))
         csr["halo_c2v"].append(_sorted_csr(s, r[bnd], v[bnd], nh))
-
-    def shard_nodes(x, per, dtype):
-        x = np.asarray(x, dtype)
-        out = np.zeros((nk * per,) + x.shape[1:], dtype)
-        out[:x.shape[0]] = x
-        return out.reshape(nk, per, *x.shape[1:])
-
-    return PartitionedGraph(
-        n_shards=nk, ms=ms, ns=ns, bh=bh,
-        c_feas=shard_nodes(g.c_feas, ms, np.float32),
-        v_feas=shard_nodes(g.v_feas, ns, np.float32),
-        y_s=shard_nodes(g.y_s, ms, np.int32),
-        y_t=shard_nodes(g.y_t, ns, np.int32),
-        cons_mask=(np.arange(nk * ms) < g.ncons).reshape(nk, ms),
-        vars_mask=(np.arange(nk * ns) < g.nvars).reshape(nk, ns),
-        nnz_s=lens.astype(np.int32), halo_send=halo_send,
-        halo_perm=halo_perm, halo_ids=halo_ids, **csr)
+    return PartitionedGraph(**nodes, bh=bh, halo_send=halo_send,
+                            halo_perm=halo_perm, halo_ids=halo_ids, **csr)
 
 
 # ---------------------------------------------------------- partition cache
 _CACHE_SUFFIX = ".tpart.npz"   # never the JAX package's .pk pickles
-_CACHE_VERSION = 2             # 2: the labels y_s, y_t
+_CACHE_VERSION = 3             # 2: labels y_s, y_t; 3: the all-gather layout
 _CACHE_ARRAYS = ("c_feas", "v_feas", "y_s", "y_t", "cons_mask", "vars_mask",
-                 "nnz_s", "halo_send", "halo_perm", "halo_ids")
+                 "nnz_s")
+_CACHE_HALO = ("halo_send", "halo_perm", "halo_ids")   # None: not stored
 _CACHE_INTS = ("n_shards", "ms", "ns", "bh")
 
 
@@ -284,11 +337,13 @@ def _graph_fingerprint(g: BipartiteGraph) -> str:
 
 
 def _store_partition(path: str, dg: PartitionedGraph) -> None:
-    """``np.savez`` of every field (atomic rename)."""
+    """``np.savez`` of every field (atomic rename); a halo list that is
+    None and a CSR list that is empty store nothing."""
     arrays = {"version": np.int64(_CACHE_VERSION)}
     arrays.update({k: np.int64(getattr(dg, k)) for k in _CACHE_INTS})
-    arrays.update({k: getattr(dg, k) for k in _CACHE_ARRAYS})
-    for kind in CSR_KINDS:
+    arrays.update({k: getattr(dg, k) for k in _CACHE_ARRAYS + _CACHE_HALO
+                   if getattr(dg, k) is not None})
+    for kind in CSR_KINDS + FULL_KINDS:
         for d, m in enumerate(getattr(dg, kind)):
             for field, a in m._asdict().items():
                 arrays[f"{kind}.{field}.{d}"] = a
@@ -306,28 +361,32 @@ def _load_partition(path: str) -> PartitionedGraph | None:
             return None
         ints = {k: int(z[k]) for k in _CACHE_INTS}
         kw = {k: z[k] for k in _CACHE_ARRAYS}
-        for kind in CSR_KINDS:
+        kw.update({k: z[k] if k in z.files else None for k in _CACHE_HALO})
+        for kind in CSR_KINDS + FULL_KINDS:
             kw[kind] = [CSR(*(z[f"{kind}.{f}.{d}"] for f in CSR._fields))
-                        for d in range(ints["n_shards"])]
+                        for d in range(ints["n_shards"])
+                        if f"{kind}.ptr.{d}" in z.files]
     return PartitionedGraph(**ints, **kw)
 
 
 def cached_partition_graph(g: BipartiteGraph, n_shards: int,
                            cache_dir: str | None = None,
-                           fn: str | None = None) -> PartitionedGraph:
+                           fn: str | None = None,
+                           halo: bool = False) -> PartitionedGraph:
     """``partition_graph`` with an on-disk cache (edge_partition.py:538),
-    keyed by graph name, shard count and content fingerprint, in the port's
-    own ``.tpart.npz`` files beside the dataset's ``processed/`` blobs. A
-    file of an older cache version is a miss, rebuilt and rewritten."""
+    keyed by graph name, shard count, ``halo`` (``-h0`` / ``-h1``, as
+    :558-560) and content fingerprint, in the port's own ``.tpart.npz``
+    files beside the dataset's ``processed/`` blobs. A file of an older
+    cache version is a miss, rebuilt and rewritten."""
     if not cache_dir or not fn:
-        return partition_graph(g, n_shards)
-    path = os.path.join(
-        cache_dir, f"{fn}-D{n_shards}-{_graph_fingerprint(g)}{_CACHE_SUFFIX}")
+        return partition_graph(g, n_shards, halo=halo)
+    path = os.path.join(cache_dir, f"{fn}-D{n_shards}-h{int(halo)}-"
+                        f"{_graph_fingerprint(g)}{_CACHE_SUFFIX}")
     if os.path.exists(path):
         dg = _load_partition(path)
         if dg is not None:
             return dg
-    dg = partition_graph(g, n_shards)
+    dg = partition_graph(g, n_shards, halo=halo)
     os.makedirs(cache_dir, exist_ok=True)
     _store_partition(path, dg)
     return dg
@@ -393,10 +452,11 @@ class DistGraphTensors:
     """The shards of a partition that this process holds, on its mesh's
     device: node features, labels and masks stacked shard after shard (with
     every shard here, row ``d*ms + i`` is shard d's row i, which is global
-    row ``d*ms + i``; over ranks, this rank's ms rows), per-shard CSRs, the
-    gather index of the halo exchange, the owner-side reduce CSRs, and what
-    its users attach: the input conv's aggregations
-    (``attach_dist_input_agg``) and GEN's compact CSRs (``gen``)."""
+    row ``d*ms + i``; over ranks, this rank's ms rows), per-shard CSRs of
+    the partition's layout (the halo layout's four, with the gather index
+    of the halo exchange and the owner-side reduce CSRs; or the all-gather
+    layout's two), and what its users attach: the input conv's aggregations
+    (``attach_dist_input_agg``) and GEN's CSRs (``gen``)."""
     ms: int
     ns: int
     # L shards held here (K, or 1 over ranks), stacked
@@ -406,15 +466,19 @@ class DistGraphTensors:
     y_t: torch.Tensor              # (L*ns,) int64
     cons_mask: torch.Tensor        # (L*ms,) bool
     vars_mask: torch.Tensor        # (L*ns,) bool
-    # every shard here: (K, K*bh) compose_halo_src; over ranks: (1, K*bh)
-    # this rank's halo_send, the rows it sends, block p to rank p
-    halo_src: torch.Tensor         # int32
-    halo_sched: torch.Tensor       # (n, 2) int32, halo_schedule(halo_src)
-    halo_red: list[CSR]            # ns dst rows, idx = real slots, val = 1
-    local_v2c: list[CSR]
-    local_c2v: list[CSR]
-    halo_v2c: list[CSR]
-    halo_c2v: list[CSR]
+    # the halo layout (None / empty in the all-gather layout). Every shard
+    # here: (K, K*bh) compose_halo_src; over ranks: (1, K*bh) this rank's
+    # halo_send, the rows it sends, block p to rank p
+    halo_src: torch.Tensor | None = None   # int32
+    halo_sched: torch.Tensor | None = None  # (n, 2) int32, halo_schedule
+    halo_red: list[CSR] = dataclasses.field(default_factory=list)
+    local_v2c: list[CSR] = dataclasses.field(default_factory=list)
+    local_c2v: list[CSR] = dataclasses.field(default_factory=list)
+    halo_v2c: list[CSR] = dataclasses.field(default_factory=list)
+    halo_c2v: list[CSR] = dataclasses.field(default_factory=list)
+    # the all-gather layout (empty in the halo layout)
+    full_v2c: list[CSR] = dataclasses.field(default_factory=list)
+    full_c2v: list[CSR] = dataclasses.field(default_factory=list)
     in_agg_c: torch.Tensor | None = None   # (L*ms, 8) in a compute dtype
     in_agg_v: torch.Tensor | None = None   # (L*ns, 8)
     gen: object | None = None              # dist_gen.DistGenTensors
@@ -424,8 +488,19 @@ class DistGraphTensors:
     remat = False
 
     @property
+    def halo(self) -> bool:
+        """Whether the shards carry the halo layout (else the all-gather
+        layout's)."""
+        return self.halo_src is not None
+
+    @property
     def nh(self) -> int:
-        return self.halo_src.shape[1]
+        return self.halo_src.shape[1] if self.halo else 0
+
+    @property
+    def n_pad(self) -> int:
+        """The global variable axis, K*ns."""
+        return self.n_shards * self.ns
 
     @property
     def n_shards(self) -> int:
@@ -454,10 +529,10 @@ class DistGraphTensors:
     def apply_conv(self, conv, left: torch.Tensor, right: torch.Tensor,
                    input_conv: bool = False):
         """A model's two-direction ``conv`` over the shards, in place of
-        ``GraphTensors.apply_conv``: GEN's over the compact halo space
+        ``GraphTensors.apply_conv``: GEN's over the partition's layout
         (``dist_gen.dist_gen_bidir_conv``), a GraphConv's over the halo
-        exchange, the input conv reading the cached aggregations
-        (``_dist_bidir_conv``)."""
+        exchange or the all-gather pair, the input conv reading the cached
+        aggregations (``_dist_bidir_conv``)."""
         if isinstance(conv, BidirGENConv):
             from .dist_gen import dist_gen_bidir_conv
             return dist_gen_bidir_conv(conv, self, left, right)
@@ -468,7 +543,8 @@ class DistGraphTensors:
                        gen: bool = False) -> "DistGraphTensors":
         """The mesh's shards of the host partition ``dg`` (every rank
         partitions the whole graph with the same host code and keeps its
-        shard). ``gen``: also build GEN's compact CSRs (``dist_gen``)."""
+        shard), in the partition's layout. ``gen``: also build GEN's CSRs
+        (``dist_gen``)."""
         if dg.n_shards != mesh.n_shards:
             raise ValueError(f"a partition of {dg.n_shards} shards on a mesh "
                              f"of {mesh.n_shards}")
@@ -481,23 +557,32 @@ class DistGraphTensors:
             a = a[own]
             return t(a.reshape(-1, *a.shape[2:]).astype(dtype or a.dtype))
 
+        def csrs(kinds):
+            return {k: [CSR(*map(t, getattr(dg, k)[d])) for d in own]
+                    for k in kinds}
+
+        base = dict(ms=dg.ms, ns=dg.ns, c_feas=nodes(dg.c_feas),
+                    v_feas=nodes(dg.v_feas), y_s=nodes(dg.y_s, np.int64),
+                    y_t=nodes(dg.y_t, np.int64),
+                    cons_mask=nodes(dg.cons_mask),
+                    vars_mask=nodes(dg.vars_mask), mesh=mesh)
+        if not dg.halo:
+            out = cls(**base, **csrs(FULL_KINDS))
+            if gen:
+                from .dist_gen import DistGenTensors
+                out.gen = DistGenTensors.from_full(dg, t, own)
+            return out
         red = _halo_red_host(dg)
         if mesh.group is None:
             src = compose_halo_src(dg.halo_send, dg.ns)
         else:
             src = dg.halo_send[own].reshape(1, -1)
         out = cls(
-            ms=dg.ms, ns=dg.ns,
-            c_feas=nodes(dg.c_feas), v_feas=nodes(dg.v_feas),
-            y_s=nodes(dg.y_s, np.int64), y_t=nodes(dg.y_t, np.int64),
-            cons_mask=nodes(dg.cons_mask), vars_mask=nodes(dg.vars_mask),
-            halo_src=t(src), halo_sched=t(halo_schedule(src)),
+            **base, halo_src=t(src), halo_sched=t(halo_schedule(src)),
             halo_red=[CSR(t(red[d][0]), t(red[d][1]),
                           t(np.ones(len(red[d][1]), np.float32)))
                       for d in own],
-            **{k: [CSR(*map(t, getattr(dg, k)[d])) for d in own]
-               for k in CSR_KINDS},
-            mesh=mesh)
+            **csrs(CSR_KINDS))
         if gen:
             from .dist_gen import DistGenTensors
             out.gen = DistGenTensors.from_partition(dg, red, t, own)
@@ -652,16 +737,24 @@ class HaloReduce(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------- forward
-def _shard_spmm(m: list[CSR], x: torch.Tensor) -> torch.Tensor:
-    """Shard d's CSR ``m[d]`` over shard d's rows of the stacked ``x``, one
-    launch a shard, each written into its rows of one stacked output."""
-    k = len(m)
-    n_in, n_out = x.shape[0] // k, m[0].ptr.shape[0] - 1
-    out = x.new_empty((k * n_out, x.shape[1]))
-    for d in range(k):
-        _spmm(m[d], x[d * n_in:(d + 1) * n_in],
-              out=out[d * n_out:(d + 1) * n_out])
+def _shard_spmm(m: list[CSR], xs) -> torch.Tensor:
+    """Shard d's CSR ``m[d]`` over its input ``xs[d]``, one launch a
+    shard, each written into its slice of one (L, n_out, F) output."""
+    out = xs[0].new_empty((len(m), m[0].ptr.shape[0] - 1, xs[0].shape[1]))
+    for d, md in enumerate(m):
+        _spmm(md, xs[d], out=out[d])
     return out
+
+
+def _stacked(out: torch.Tensor) -> torch.Tensor:
+    """An (L, n, F) output as the (L*n, F) rows stacked by shard."""
+    return out.view(-1, out.shape[2])
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernel takes it: contiguous, 16-byte aligned rows."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 class ShardSpmm(torch.autograd.Function):
@@ -674,23 +767,172 @@ class ShardSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, m, t):
         ctx.t = t
-        return _shard_spmm(m, x)
+        return _stacked(_shard_spmm(m, x.tensor_split(len(m))))
 
     @staticmethod
     def backward(ctx, grad):
-        # the kernel takes contiguous, 16-byte aligned rows
-        g = grad.contiguous()
-        if g.data_ptr() % 16:
-            g = g.clone()
-        return _shard_spmm(ctx.t, g), None, None
+        t = ctx.t
+        return _stacked(_shard_spmm(t, _aligned(grad).tensor_split(len(t)))), \
+            None, None
+
+
+# ------------------------------------------------------- the all-gather pair
+def _on_host(group) -> bool:
+    """Whether ``group``'s collectives move host tensors: gloo's (the CPU,
+    or ranks that share a card, which NCCL refuses) are staged through
+    host copies, as ``gather_logits`` stages its gather; NCCL's run on the
+    card."""
+    return dist.get_backend(group) == "gloo"
+
+
+def all_gather_vars(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``right_full`` (edge_partition.py:728 ``all_gather``): the (K*ns, F)
+    variable rows of all K shards from the (L*ns, F) rows held here. With
+    every shard here (``group`` None) that is ``x`` itself; over ranks the
+    group's all-gather, rank p's rows at block p."""
+    if group is None:
+        return x
+    k = dist.get_world_size(group)
+    if _on_host(group):
+        xc = x.detach().cpu().contiguous()
+        parts = [torch.empty_like(xc) for _ in range(k)]
+        dist.all_gather(parts, xc, group=group)
+        return torch.cat(parts).to(x.device)
+    out = x.new_empty((k * x.shape[0], x.shape[1]))
+    dist.all_gather_into_tensor(out, x.detach().contiguous(), group=group)
+    return out
+
+
+def exchange_var_blocks(x: torch.Tensor, group) -> torch.Tensor:
+    """Over ranks, this rank's (K*ns, F) rows over the global variable axis
+    split into K blocks of ns, block p to rank p: the (K*ns, F) rows back,
+    block p from rank p (each the sender's rows of this rank's block), by
+    ``all_to_all_single``."""
+    if _on_host(group):
+        xc = x.detach().cpu().contiguous()
+        out = torch.empty_like(xc)
+        dist.all_to_all_single(out, xc, group=group)
+        return out.to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.detach().contiguous(), group=group)
+    return out
+
+
+def _sum_in_order(parts) -> torch.Tensor:
+    """``parts[0] + parts[1] + ...``, left to right, each add rounded to
+    the parts' dtype: the shard order of ``psum_scatter``'s sum."""
+    out = parts[0]
+    if len(parts) > 1:
+        out = out + parts[1]
+        for p in parts[2:]:
+            out += p
+    return out
+
+
+def reduce_scatter_vars(parts: torch.Tensor, group=None) -> torch.Tensor:
+    """``psum_scatter`` of the partials (edge_partition.py:735): ``parts``
+    (L, K*ns, F), each shard's partial sums over the whole variable axis,
+    to the (L*ns, F) rows of the variable blocks held here, each the sum
+    of the K shards' partials, in shard order and in the partials' dtype.
+    With every shard here that is the sum of the K partials, stacked by
+    owner. Over ranks the transport is an exchange of blocks
+    (:func:`exchange_var_blocks`; gloo has no reduce-scatter) and the K
+    received blocks are summed here in rank order: the same adds in the
+    same order as the stacked route, so its rows bit for bit."""
+    if group is None:
+        return _sum_in_order(parts)
+    k = dist.get_world_size(group)
+    got = exchange_var_blocks(parts[0], group)
+    return _sum_in_order(got.view(k, -1, got.shape[1]))
+
+
+class AllGatherVars(torch.autograd.Function):
+    """``AllGatherVars.apply(x, dg)`` -> (K*ns, F): :func:`all_gather_vars`
+    of the (L*ns, F) rows held here over the partition ``dg``'s mesh, with
+    a gradient for ``x``: :func:`reduce_scatter_vars` of the cotangent, as
+    ``all_gather``'s transpose is ``psum_scatter``. With every shard here
+    the forward is ``x`` itself and the backward the identity (the K
+    shards' contributions to ``right_full``'s gradient are summed, in
+    shard order, by :class:`SpmmFromFull`, its consumer)."""
+
+    @staticmethod
+    def forward(ctx, x, dg):
+        ctx.group = dg.group
+        return all_gather_vars(x, dg.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_vars(grad.contiguous()[None], ctx.group), None
+
+
+class ReduceScatterVars(torch.autograd.Function):
+    """``ReduceScatterVars.apply(parts, dg)`` -> (L*ns, F):
+    :func:`reduce_scatter_vars` of the (L, K*ns, F) partials, with a
+    gradient for ``parts``: the cotangent's :func:`all_gather_vars`, the
+    same (K*ns, F) rows for each of the L partials (expanded, not
+    copied)."""
+
+    @staticmethod
+    def forward(ctx, parts, dg):
+        ctx.group, ctx.n = dg.group, parts.shape[0]
+        return reduce_scatter_vars(parts, dg.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        full = all_gather_vars(grad.contiguous(), ctx.group)
+        return full.expand(ctx.n, *full.shape), None
+
+
+class SpmmFromFull(torch.autograd.Function):
+    """``SpmmFromFull.apply(full, m, t)`` -> (L*ms, F): shard d's full v2c
+    CSR ``m[d]`` over all (K*ns, F) variable rows ``full``, one launch a
+    shard, each written into its rows of one stacked output; the backward
+    is the partner CSRs ``t[d]`` (full c2v) over each shard's rows of the
+    cotangent, one launch a shard, and the L partials summed in shard order
+    (the gradient of ``full``, which every shard read)."""
+
+    @staticmethod
+    def forward(ctx, full, m, t):
+        ctx.t = t
+        return _stacked(_shard_spmm(m, [full] * len(m)))
+
+    @staticmethod
+    def backward(ctx, grad):
+        t = ctx.t
+        parts = _shard_spmm(t, _aligned(grad).tensor_split(len(t)))
+        return _sum_in_order(parts), None, None
+
+
+class ShardPartials(torch.autograd.Function):
+    """``ShardPartials.apply(x, m, t)`` -> (L, K*ns, F): shard d's full c2v
+    CSR ``m[d]`` over shard d's rows of the stacked ``x``, each written into
+    its slice of one buffer (the partials the reduce-scatter sums); the
+    backward is the partner CSRs ``t[d]`` (full v2c) over each slice of the
+    cotangent, one launch a shard, into one stacked (L*ms, F) output. The
+    cotangent :class:`ReduceScatterVars` gives is one (K*ns, F) tensor
+    expanded over L: each slice is read in place."""
+
+    @staticmethod
+    def forward(ctx, x, m, t):
+        ctx.t = t
+        return _shard_spmm(m, x.tensor_split(len(m)))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _stacked(_shard_spmm(ctx.t, [_aligned(g) for g in grad])), \
+            None, None
 
 
 def _dist_aggs(dg: DistGraphTensors, left: torch.Tensor, right: torch.Tensor):
-    """Both aggregations of one two-direction conv over the halo exchange
-    (edge_partition.py:655, halo branch :673-708), differentiable in
-    ``left`` (L*ms, F) and ``right`` (L*ns, F), both stacked by the shards
-    held here. The
-    local and halo parts add in the compute dtype, as there (:703-707)."""
+    """Both aggregations of one two-direction conv over the partition's
+    layout (edge_partition.py:655), differentiable in ``left`` (L*ms, F)
+    and ``right`` (L*ns, F), both stacked by the shards held here. The
+    halo branch (:673-708): the local and halo parts add in the compute
+    dtype, as there (:703-707). The all-gather branch (:709-736): every
+    shard's rows against ``right_full``, and its partials over the whole
+    variable axis reduce-scattered (:func:`_dist_aggs_full`)."""
+    if not dg.halo:
+        return _dist_aggs_full(dg, left, right)
     k, nh = dg.n_local, dg.nh
     h = HaloGather.apply(right, dg).view(k * nh, right.shape[1])
     part = ShardSpmm.apply(left, dg.halo_c2v, dg.halo_v2c)
@@ -699,6 +941,19 @@ def _dist_aggs(dg: DistGraphTensors, left: torch.Tensor, right: torch.Tensor):
         ShardSpmm.apply(h, dg.halo_v2c, dg.halo_c2v)
     agg_v = ShardSpmm.apply(left, dg.local_c2v, dg.local_v2c) + red
     return agg_c, agg_v
+
+
+def _dist_aggs_full(dg: DistGraphTensors, left: torch.Tensor,
+                    right: torch.Tensor):
+    """The all-gather branch (edge_partition.py:709-736): ``agg_c`` one
+    SpMM a shard over full v2c against ``right_full``
+    (:class:`AllGatherVars`), ``agg_v`` the reduce-scatter
+    (:class:`ReduceScatterVars`) of one SpMM a shard over full c2v. 2L
+    launches a conv and 2L in its backward, no exchange kernel."""
+    full = AllGatherVars.apply(right, dg)
+    agg_c = SpmmFromFull.apply(full, dg.full_v2c, dg.full_c2v)
+    parts = ShardPartials.apply(left, dg.full_c2v, dg.full_v2c)
+    return agg_c, ReduceScatterVars.apply(parts, dg)
 
 
 def attach_dist_input_agg(dg: DistGraphTensors,
@@ -774,8 +1029,9 @@ DIST_MODELS = {
 }
 
 #: the archs whose forward takes the halo exchange (edge_partition.py
-#: :1057): every one but GCNRand, which sends nothing. The port builds the
-#: halo partition only, so the set says which archs launch its kernels.
+#: :1057): every one but GCNRand, which sends nothing. The trainer and
+#: predict partition with ``halo=`` membership here (trainer.py:368,
+#: predict.py:106), so GCNRand takes the all-gather partition there.
 DIST_HALO_ARCHS = frozenset(DIST_MODELS) - {"GCNRand"}
 
 

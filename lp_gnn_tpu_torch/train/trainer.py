@@ -42,7 +42,9 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
 - ``--mesh_shape edge=K`` (trainer.py:356-391, 445-461, 611-620): the
   graphs above ``edge_num_thresh`` are partitioned once
   (``parallel/edge_partition.py cached_partition_graph``, the dataset's
-  ``partitions/`` cache), their K shards' tensors built on the run's
+  ``partitions/`` cache; with the halo lists for every arch in
+  ``DIST_HALO_ARCHS``, the all-gather layout for GCNRand, trainer.py:368),
+  their K shards' tensors built on the run's
   device with the input conv's aggregations (not for GEN) and kept, and
   each takes one ``dist_train_step`` a visit, without per-step accuracy;
   smaller graphs keep the full-graph step. The val pass sends graphs above
@@ -110,7 +112,7 @@ from ..parallel.combined import (dist_stack_groups, dp_edge_train_step,
                                  partition_batch)
 from ..parallel.dp import (dp_train_step, rank_block, stack_groups,
                            step_generator)
-from ..parallel.edge_partition import (DistGraphTensors,
+from ..parallel.edge_partition import (DIST_HALO_ARCHS, DistGraphTensors,
                                        cached_partition_graph,
                                        dist_tensors, dist_train_step)
 from ..parallel.mesh import (init_distributed, is_primary,
@@ -488,12 +490,16 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     hops = max(cfg.arch_depth() - 1, 1)
     input_agg = bool(cfg.cache_in_agg)
     mesh = mesh_from_cfg(cfg, device)
+    # the halo exchange for the archs that exchange anything, the
+    # all-gather partition for GCNRand (trainer.py:368)
+    dist_halo = model.name in DIST_HALO_ARCHS
     if mesh is not None:
         logging.info("edge-partitioned training: %d shards on %s, graphs "
-                     "above %g edges", mesh.n_shards,
+                     "above %g edges, %s", mesh.n_shards,
                      device if mesh.group is None else
                      f"their own ranks (this rank's on {device})",
-                     cfg.edge_num_thresh)
+                     cfg.edge_num_thresh,
+                     "halo" if dist_halo else "all-gather")
     combined = mesh is not None and dp_size > 1
     if combined:
         logging.info("combined dp x edge training: %d rank(s) x %d shards",
@@ -518,7 +524,8 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         if mesh is not None:
             if idx not in graphs:
                 dg = cached_partition_graph(g, mesh.n_shards,
-                                            part_cache_dir(cfg), g.fn)
+                                            part_cache_dir(cfg), g.fn,
+                                            halo=dist_halo)
                 graphs[idx] = dist_tensors(model, dg, mesh,
                                            input_agg=input_agg)
             yield graphs[idx]
@@ -544,7 +551,7 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         if key not in graphs:
             own = rank_block(list(range(len(batch))), world, rank)
             parts = partition_batch([train_ds[i] for i in batch],
-                                    mesh.n_shards, own=own)
+                                    mesh.n_shards, halo=dist_halo, own=own)
             graphs[key] = [dist_tensors(model, dg, mesh, input_agg=input_agg)
                            for dg in parts]
         return graphs[key]

@@ -91,7 +91,7 @@ def rank_step(payload):
     mesh = make_mesh(K_EDGE, "cpu")
     graphs = [g for g, _ in step_graphs()]
     parts = tcombined.partition_batch(
-        graphs, K_EDGE, own=rank_block([0, 1], world, rank))
+        graphs, K_EDGE, halo=True, own=rank_block([0, 1], world, rank))
     out = {}
     for i, (arch, cache) in enumerate(STEP_CASES):
         model = build_model(arch)
@@ -186,7 +186,7 @@ def test_partition_batch_shares_jax_sizes(sizes):
     pgs = [pad_graph(jg) for _, jg in pairs]
     assert pgs[0].bucket_key() == pgs[1].bucket_key()
     graphs = [g for g, _ in pairs]
-    parts = tcombined.partition_batch(graphs, K_EDGE)
+    parts = tcombined.partition_batch(graphs, K_EDGE, halo=True)
     jb = jcombined.partition_batch(pgs, K_EDGE, halo=True)
     _, _, ms, _ = jb["c_feas"].shape
     ns = jb["v_feas"].shape[2]
@@ -198,7 +198,7 @@ def test_partition_batch_shares_jax_sizes(sizes):
         assert (dg.ms, dg.ns, dg.bh) == (ms, ns, bh)
         for f in ("halo_send", "halo_perm", "halo_ids", "nnz_s"):
             np.testing.assert_array_equal(getattr(dg, f), jb[f][b], err_msg=f)
-    (last,) = tcombined.partition_batch(graphs, K_EDGE, own=[1])
+    (last,) = tcombined.partition_batch(graphs, K_EDGE, halo=True, own=[1])
     np.testing.assert_array_equal(last.halo_send, parts[1].halo_send)
     assert (last.ms, last.ns, last.bh) == (ms, ns, bh)
 
@@ -207,9 +207,9 @@ def test_partition_refuses_sizes_below_the_graphs():
     g, _ = random_graph(np.random.RandomState(3), m=400, n=420, e=1500)
     from lp_gnn_tpu_torch.parallel.edge_partition import partition_graph
     with pytest.raises(ValueError, match="below the graph"):
-        partition_graph(g, K_EDGE, ms=128)
+        partition_graph(g, K_EDGE, halo=True, ms=128)
     with pytest.raises(ValueError, match="halo width"):
-        partition_graph(g, K_EDGE, halo_width=8)
+        partition_graph(g, K_EDGE, halo=True, halo_width=8)
 
 
 def test_dist_stack_groups_by_bucket():

@@ -73,7 +73,7 @@ def shard_map_edge(body, k, n_in, out=P("edge")):
 def partitions(seed, k):
     """The port's partition on the CPU, its device tensors, and JAX's."""
     g, jg = graphs(seed)
-    dg = tEP.partition_graph(g, k)
+    dg = tEP.partition_graph(g, k, halo=True)
     dgt = tEP.DistGraphTensors.from_partition(dg, make_mesh(k, "cpu"))
     return g, dg, dgt, jEP.partition_graph(pad_graph(jg), k, halo=True)
 
@@ -402,7 +402,8 @@ def test_old_partition_cache_is_rebuilt(tmp_path, monkeypatch):
     miss: the partition is built again and the file rewritten, not a
     ValueError."""
     g, _ = graphs(8)
-    dg = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path), fn="g")
+    dg = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path), fn="g",
+                                    halo=True)
     (name,) = os.listdir(tmp_path)
     path = str(tmp_path / name)
     with np.load(path) as z:
@@ -418,10 +419,12 @@ def test_old_partition_cache_is_rebuilt(tmp_path, monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(tEP, "partition_graph", counted)
-    again = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path), fn="g")
+    again = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path),
+                                       fn="g", halo=True)
     assert calls["n"] == 1
     np.testing.assert_array_equal(again.y_s, dg.y_s)
     with np.load(path) as z:
-        assert int(z["version"]) == tEP._CACHE_VERSION == 2
-    tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path), fn="g")
+        assert int(z["version"]) == tEP._CACHE_VERSION == 3
+    tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path), fn="g",
+                               halo=True)
     assert calls["n"] == 1

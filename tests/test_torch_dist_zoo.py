@@ -78,7 +78,8 @@ def jax_dist(arch, params, jg, k):
 
 def port_dist(model, g, k):
     with torch.no_grad():
-        lc, lv = tEP.dist_apply(model, tEP.partition_graph(g, k),
+        lc, lv = tEP.dist_apply(model,
+                                tEP.partition_graph(g, k, halo=True),
                                 make_mesh(k, "cpu"))
     return np.concatenate([lc[: g.ncons].numpy(), lv[: g.nvars].numpy()])
 
@@ -222,7 +223,7 @@ def test_dist_gen_l2r_gradcheck(k):
     the lse merge forward; the halo gather of the merged statistics,
     gen_agg_bwd over every compact row and the gather's SpMM backward."""
     g, _ = graphs(20 + k)
-    dg = tEP.partition_graph(g, k)
+    dg = tEP.partition_graph(g, k, halo=True)
     dgt = tEP.DistGraphTensors.from_partition(dg, make_mesh(k, "cpu"),
                                               gen=True)
     rng = np.random.RandomState(k)
@@ -255,7 +256,8 @@ def test_dist_gen_step_matches_single_card(k):
             gt = ttrainer.train_graph(model, g, "cpu")
             loss, _ = ttrainer.train_step(model, opt, gt, balanced)
         else:
-            dgt = tEP.dist_tensors(model, tEP.partition_graph(g, k),
+            dgt = tEP.dist_tensors(model,
+                                   tEP.partition_graph(g, k, halo=True),
                                    make_mesh(k, "cpu"), input_agg=True)
             assert dgt.gen is not None and dgt.in_agg_c is None
             loss = tEP.dist_train_step(model, opt, dgt, balanced)

@@ -63,7 +63,7 @@ def test_partition_matches_jax(k):
     """The cut points and halo lists equal partition_graph(pad_graph(g), K,
     halo=True)'s, and each shard's four CSRs hold exactly its edges."""
     g, jg = graphs(k)
-    dg = tEP.partition_graph(g, k)
+    dg = tEP.partition_graph(g, k, halo=True)
     jd = jEP.partition_graph(pad_graph(jg), k, halo=True)
     bh = jd.halo_send.shape[-1]
     assert (dg.ms, dg.ns, dg.bh) == (jd.ms, jd.ns, bh)
@@ -109,7 +109,7 @@ def test_all_to_all_plain_matches_jax(k):
 @pytest.mark.parametrize("k", [2, 4])
 def test_halo_gather_reduce_match_jax(k):
     g, jg = graphs(10 + k)
-    dg = tEP.partition_graph(g, k)
+    dg = tEP.partition_graph(g, k, halo=True)
     dt = tEP.DistGraphTensors.from_partition(dg, make_mesh(k, "cpu"))
     rng = np.random.RandomState(k)
     x = rng.randn(k, dg.ns, 8).astype(np.float32)
@@ -163,7 +163,7 @@ def test_halo_schedule_covers_each_slot_once(k):
     and one window of sender rows, at most a window long, listed window by
     window."""
     g, _ = graphs(30 + k)
-    dg = tEP.partition_graph(g, k)
+    dg = tEP.partition_graph(g, k, halo=True)
     src = tEP.compose_halo_src(dg.halo_send, dg.ns)
     window = 16
     sched = tEP.halo_schedule(src, window)
@@ -221,7 +221,8 @@ def port_logits(arch, sd, g, k=None):
         if k is None:
             lc, lv = model(GraphTensors.from_graph(g, "cpu"))
         else:
-            lc, lv = tEP.dist_apply(model, tEP.partition_graph(g, k),
+            lc, lv = tEP.dist_apply(model,
+                                    tEP.partition_graph(g, k, halo=True),
                                     make_mesh(k, "cpu"))
             lc, lv = lc[: g.ncons], lv[: g.nvars]
     return np.concatenate([lc.numpy(), lv.numpy()])
@@ -303,8 +304,10 @@ def test_partition_disk_cache_roundtrip(tmp_path, monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(tEP, "partition_graph", counted)
-    d1 = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path), fn="g0")
-    d2 = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path), fn="g0")
+    d1 = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path),
+                                    fn="g0", halo=True)
+    d2 = tEP.cached_partition_graph(g, 2, cache_dir=str(tmp_path),
+                                    fn="g0", halo=True)
     assert calls["n"] == 1
     for f in d1.__dataclass_fields__:
         a, b = getattr(d1, f), getattr(d2, f)
@@ -314,10 +317,12 @@ def test_partition_disk_cache_roundtrip(tmp_path, monkeypatch):
                     np.testing.assert_array_equal(x, y)
         else:
             np.testing.assert_array_equal(a, b)
-    tEP.cached_partition_graph(g, 4, cache_dir=str(tmp_path), fn="g0")
+    tEP.cached_partition_graph(g, 4, cache_dir=str(tmp_path), fn="g0",
+                               halo=True)
     assert calls["n"] == 2
     g2, _ = graphs(5)
-    tEP.cached_partition_graph(g2, 2, cache_dir=str(tmp_path), fn="g0")
+    tEP.cached_partition_graph(g2, 2, cache_dir=str(tmp_path), fn="g0",
+                               halo=True)
     assert calls["n"] == 3
     files = sorted(os.listdir(tmp_path))
     assert len(files) == 4 and jax_pk in files

@@ -126,7 +126,7 @@ def rank_session(payload):
         torch.from_numpy(cts[me]))
     out["a2a_grad"] = x.grad
     g = graph(k)
-    dg = tEP.partition_graph(g, k)
+    dg = tEP.partition_graph(g, k, halo=True)
     for arch in FWD_ARCHS:
         model = build_model(arch)
         model.load_state_dict(torch.load(weights_path(tmp, arch)))
@@ -308,7 +308,8 @@ def test_rank_exchange_matches_jax_pallas_and_plain(session):
 def stacked_logits(model, k):
     g = graph(k)
     with torch.no_grad():
-        lc, lv = tEP.dist_apply(model, tEP.partition_graph(g, k),
+        lc, lv = tEP.dist_apply(model,
+                                tEP.partition_graph(g, k, halo=True),
                                 make_mesh(k, "cpu"))
     return lc, lv
 
@@ -362,7 +363,8 @@ def stacked_step(arch, loss, w0, k):
     model = no_dropout(build_model(arch))
     model.load_state_dict(w0)
     opt = ttrainer.make_optimizer(model.parameters(), "sgd", 1.0)
-    dgt = tEP.dist_tensors(model, tEP.partition_graph(graph(k), k),
+    dgt = tEP.dist_tensors(model,
+                           tEP.partition_graph(graph(k), k, halo=True),
                            make_mesh(k, "cpu"), input_agg=True)
     got = tEP.dist_train_step(model, opt, dgt, LOSS_REGISTRY[loss],
                               torch.Generator().manual_seed(1))

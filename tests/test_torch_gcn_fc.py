@@ -156,7 +156,7 @@ def test_dist_apply_refuses_the_rest_of_the_zoo(arch):
     tolerance, tests/test_parallel.py:43); GCNRand's are random, finite and
     of the shape."""
     g, _ = random_graph(np.random.RandomState(13))
-    dg = edge_partition.partition_graph(g, 2)
+    dg = edge_partition.partition_graph(g, 2, halo=True)
     model = build_model(arch, generator=torch.Generator().manual_seed(13))
     model.eval()
     with torch.no_grad():

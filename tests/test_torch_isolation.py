@@ -67,13 +67,16 @@ def test_every_module_imports_without_jax(tmp_path):
         loaded = [m for m, v in sys.modules.items() if v is not None and
                   m.split(".")[0] in ("jax", "jaxlib", "optax", "lp_gnn_tpu")]
         assert not loaded, loaded
-        # the sampled, graph-batched and dp paths' modules among them, and
-        # the K-step call's and the profiler's
+        # the sampled, graph-batched and dp paths' modules among them, the
+        # K-step call's and the profiler's, and the benchmark twins
         assert {"lp_gnn_tpu_torch.data.sampling",
                 "lp_gnn_tpu_torch.data.stacking",
                 "lp_gnn_tpu_torch.parallel.dp",
+                "lp_gnn_tpu_torch.parallel.dist_gen",
                 "lp_gnn_tpu_torch.train.scan",
-                "lp_gnn_tpu_torch.utils.profiling"} <= set(names), names
+                "lp_gnn_tpu_torch.utils.profiling",
+                "lp_gnn_tpu_torch.bench",
+                "lp_gnn_tpu_torch.bench_scaling"} <= set(names), names
         print(len(names))
     """, tmp_path)
     assert int(out.split()[-1]) >= 20

@@ -1089,7 +1089,7 @@ def test_halo_all_to_all_ranks_refuses_too_many_shards(cuda_device):
 
 def dist_case(device, k, gen=False):
     g = port_graph(np.random.RandomState(k), m=600, n=900, e=6000)
-    dg = tEP.partition_graph(g, k)
+    dg = tEP.partition_graph(g, k, halo=True)
     return tEP.DistGraphTensors.from_partition(dg, make_mesh(k, device),
                                                gen=gen)
 
@@ -1194,7 +1194,7 @@ def test_dist_conv_step_on_card(cuda_device):
     from lp_gnn_tpu_torch.models.gcn import build_model
     from lp_gnn_tpu_torch.train.losses import balanced
     g = port_graph(np.random.RandomState(9), m=600, n=900, e=6000)
-    dg = tEP.partition_graph(g, 4)
+    dg = tEP.partition_graph(g, 4, halo=True)
     for arch in ("GCN_FC(8,8,hids=32,depth=3,dp=0.0)",
                  "GENDeeper(8,8,hids=16,depth=3)"):
         out = {}
