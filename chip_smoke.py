@@ -233,6 +233,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    without ``--halo`` (the launches at 1, 2 and 4 shards exactly, mode
    ``one-card``, finite losses). Their JSON lines are printed.
 
+28. native: the native C++ simplex engine (``--engine native``) on the
+   flagship pipeline, through the entry points in this process. Builds
+   the engine from the port's sources with g++ (timed), then
+   ``run_prep_data --engine native`` on the pipeline phase's 40
+   mirp_bench LPs (its MPS files), ``run_train_test --engine native`` (the
+   recipe, 20 epochs, ``--warm_gate auto``), and the analysis twins:
+   ``engine_table`` (both engines, cold and warm, on the 12 val LPs),
+   ``decode_sweep`` over the run's ``mdl.pth`` (two of the three default
+   managers: top-m and the sparsity blend), ``degeneracy_probe`` (4 LPs)
+   and ``bench_partition`` (1M edges at 2 and 8 shards with ``--naive``
+   and the cache). Every cold solve Optimal with a valid basis; every log
+   native with its repair and factorize lines; the results table's
+   repair and factorize columns on every val LP; k in [5, 12]; native and
+   HiGHS objectives within 1e-6 on every val LP, no failed solve; each
+   manager's bases valid; degeneracy fractions in [0, 1]; the per-pair
+   halo width the fast one; ``spmm_csr`` launches exactly as printed
+   (the pipeline's formula and 4 a forward of each manager's predict,
+   calibration and timing passes), no other kernel. Prints the engines'
+   iterations and seconds an LP, the repair and factorize means, each
+   stage's seconds, the degeneracy summary, the partition cells, the
+   card's nvidia-smi line and the host CPU (``lscpu``).
+
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
 
@@ -1211,17 +1233,16 @@ def write_dataset(root: str, seed: int, n_lps: int,
                           var_nms=[f"x{k}" for k in range(n)]), path + ".meta")
 
 
-def run_module(module: str, argv: list[str]) -> float:
-    """Run ``python -m module argv`` in this process (runpy), so the
-    kernels' launch counts are readable after it; returns its wall time.
-    The run-dir logs it attaches (stdout and stderr teed, a root file
-    handler) are taken off again after it."""
+@contextlib.contextmanager
+def entry_point_io(module: str, argv: list[str]):
+    """``sys.argv`` as ``python -m module argv`` sets it; the run-dir logs
+    the entry point attaches (stdout and stderr teed, a root file handler)
+    are taken off again after it."""
     saved = sys.argv, sys.stdout, sys.stderr
     handlers = list(logging.getLogger().handlers)
     sys.argv = [module, *argv]
-    t0 = time.perf_counter()
     try:
-        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        yield
     finally:
         for stream in (sys.stdout, sys.stderr):
             if stream not in saved:
@@ -1232,7 +1253,28 @@ def run_module(module: str, argv: list[str]) -> float:
             if h not in handlers:
                 logging.getLogger().removeHandler(h)
                 h.close()
+
+
+def run_module(module: str, argv: list[str]) -> float:
+    """Run ``python -m module argv`` in this process (runpy), so the
+    kernels' launch counts are readable after it; returns its wall time."""
+    t0 = time.perf_counter()
+    with entry_point_io(module, argv):
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
     return time.perf_counter() - t0
+
+
+def call_main(module: str, argv: list[str]):
+    """``module.main(argv)``, what ``python -m module argv`` runs, in this
+    process as ``run_module`` runs it, its stdout kept: returns its result,
+    the JSON lines it printed and its wall seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), entry_point_io(module, argv):
+        result = importlib.import_module(module).main(argv)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    return result, lines, time.perf_counter() - t0
 
 
 def check_bases(out_dir: str, n_lps: int) -> int:
@@ -1994,8 +2036,8 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int,
     a warm log a val LP with no basis rejected; the results columns of
     every val LP; the run-dir logs; ``spmm_csr`` launched exactly as the
     design counts (SPMM_PIPELINE), no other kernel. ``keep``: a directory
-    the prepped blobs are copied into (``mirp_bench/highs-inp_tgt``) for a
-    later phase."""
+    the prepped blobs and the MPS files are copied into
+    (``mirp_bench/highs-inp_tgt``, ``mirp_bench/mps``) for later phases."""
     from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
     n_train, n_val = map(len, split_idxs_train_val(n_lps))
     workers = min(8, os.cpu_count() or 1)
@@ -2108,6 +2150,8 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int,
         if keep:
             shutil.copytree(osp.join(proc, "processed"), osp.join(
                 keep, "mirp_bench", "highs-inp_tgt", "processed"))
+            shutil.copytree(osp.join(ds, "mps"),
+                            osp.join(keep, "mirp_bench", "mps"))
     order = ("stage_generate", "stage_run_solver", "stage_cvt_to_pkl",
              "stage_process", "stage_train", "predict_and_write_bases",
              "calibrate_warm_gate", "timed_inference", "stage_warm_start",
@@ -4929,6 +4973,284 @@ def bench_phase(seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ native
+# one of the sweep's three default managers (the blend: run_train_test
+# has just run InferenceManager(0,)), and no 10M-edge partition cell, for
+# the phase's time (PERF.md, the native phase)
+NATIVE_MANAGERS = ["InferenceManager(2,mode='add',gnn_wei=0.5)"]
+N_DEGEN_LPS = 4
+# bench_partition: 1M edges at 2 and 8 shards with the per-pair width and
+# the cache
+PARTITION_RUNS = (["--edges", "1000000", "--shards", "2", "8", "--naive"],)
+ENGINE_OBJ_TOL = 1e-6   # native vs HiGHS objectives, rtol and atol
+
+
+def host_cpu() -> str:
+    """The host CPU as ``lscpu`` names it (the solves run there): its model
+    name, or where that is "unknown" its vendor, family and model
+    numbers; and the CPU count."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    f = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
+    f = {k.strip(): v.strip() for k, v in f.items()}
+    name = f.get("Model name", "unknown")
+    if name == "unknown":
+        name = (f"{f.get('Vendor ID', '?')} family {f.get('CPU family', '?')}"
+                f" model {f.get('Model', '?')}")
+    return f"{name}, {f.get('CPU(s)', '?')} CPUs"
+
+
+def native_logs(folder: str, n: int) -> dict:
+    """``n`` native logs in ``folder``, each Optimal (no rejected basis)
+    with its ``Rank_deficiency`` and ``time elapsed for factorize:``
+    lines; returns each log's (iterations, repairs, seconds)."""
+    logs = sorted(f for f in os.listdir(folder) if f.endswith(".log"))
+    out, bad = {}, []
+    for f in logs:
+        with open(osp.join(folder, f)) as fh:
+            text = fh.read()
+        rep = [ln for ln in text.splitlines() if ln.startswith("Rank_deficiency ")]
+        if "tpulp native" not in text or len(rep) != 1 or \
+                "time elapsed for factorize: " not in text or \
+                extract_time(osp.join(folder, f))[0] < 0:
+            bad.append(f)
+            continue
+        niter, secs = extract_time(osp.join(folder, f))
+        out[f[:-len(".log")]] = (niter, int(rep[0].split()[1]), secs)
+    if len(logs) != n or bad:
+        raise SmokeFailure(f"{folder}: {len(logs)} logs of {n}, not native, "
+                           f"not Optimal or without the repair and factorize "
+                           f"lines: {bad}")
+    return out
+
+
+def native_phase(seed: int, keep: str | None = None) -> dict:
+    """The native C++ simplex engine on the flagship pipeline, through the
+    entry points in this process. The library is built from the port's
+    sources (``solver/native/tpulp.cc``, g++, timed); ``run_prep_data
+    --engine native`` cold-solves the pipeline phase's 40 mirp_bench LPs
+    (its MPS files from ``keep``, generated where there are none), one
+    worker process a CPU up to 8; ``run_train_test --engine native`` trains
+    GCN_FC(8,8,hids=1024,depth=3) bf16 for PIPE_EPOCHS, calibrates the warm
+    gate (``--warm_gate auto``), warm-starts and reports; then the twins:
+    ``engine_table`` (both engines cold and warm on the val LPs),
+    ``decode_sweep`` over the run's ``mdl.pth`` with NATIVE_MANAGERS,
+    ``degeneracy_probe`` on the first N_DEGEN_LPS LPs and
+    ``bench_partition`` (PARTITION_RUNS). Holds: every cold solve Optimal
+    with a valid ``.bas``; every log native, with its repair and factorize
+    lines, and the results table's ``repair_p``, ``repair_p2`` and
+    ``fact_time`` on every val LP; k in [5, 12]; native and HiGHS objectives
+    within ENGINE_OBJ_TOL on every val LP, cold and warm, no failed solve;
+    each manager's basis folders complete and valid; the degeneracy
+    fractions in [0, 1]; the per-pair halo width the fast one; and
+    ``spmm_csr`` launched exactly as the design counts (counted from 0 just
+    before run_train_test and read after the last twin: the pipeline
+    phase's formula, then 4 a forward of each manager's prediction,
+    calibration and timing passes), no other kernel."""
+    import lp_gnn_tpu_torch
+    from lp_gnn_tpu_torch.infer.decode import parse_inference_manager
+    from lp_gnn_tpu_torch.solver import _cxx_build, native
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    t_phase = time.perf_counter()
+    n_lps, epochs = N_PIPE_LPS, PIPE_EPOCHS
+    n_train, n_val = map(len, split_idxs_train_val(n_lps))
+    workers = min(8, os.cpu_count() or 1)
+    existed = _cxx_build.output_path("libtpulp").exists()
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    if osp.dirname(lib) != osp.join(osp.dirname(lp_gnn_tpu_torch.__file__),
+                                    "_build") or not native.available():
+        raise SmokeFailure(f"native library {lib} not from the port's build")
+    stages: dict = {}
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_native_") as tmp:
+        data_prefix = osp.join(tmp, "lp-dataset")
+        ds = osp.join(data_prefix, "mirp_bench")
+        common = ["--dataset", "mirp_bench", "--data_prefix", data_prefix,
+                  "--seed", str(seed), "--engine", "native"]
+        prep_argv = [*common, "--num_workers", str(workers)]
+        kept = osp.join(keep, "mirp_bench", "mps") if keep else ""
+        if kept and osp.isdir(kept):
+            shutil.copytree(kept, osp.join(ds, "mps"))
+        else:
+            prep_argv += ["--family", "mirp_like", "--size", "bench",
+                          "--n_instances", str(n_lps)]
+        real_prep = time_stages(stages, port_prep, (
+            "stage_generate", "stage_run_solver", "stage_cvt_to_pkl",
+            "stage_process"))
+        try:
+            t_prep = run_module("lp_gnn_tpu_torch.run_prep_data", prep_argv)
+        finally:
+            for n, f in real_prep.items():
+                setattr(port_prep, n, f)
+        counts = {sub: len(os.listdir(osp.join(ds, sub))) for sub in (
+            "mps", "highs-basis", "log/highs-no-bas", "log/highs-ca-bas-m1",
+            "highs-inp_tgt/raw")}
+        if set(counts.values()) != {n_lps}:
+            raise SmokeFailure(f"native prep wrote {counts}, expected "
+                               f"{n_lps} each")
+        cold = native_logs(osp.join(ds, "log", "highs-no-bas"), n_lps)
+        crash = native_logs(osp.join(ds, "log", "highs-ca-bas-m1"), n_lps)
+        bas_dir = osp.join(ds, "highs-basis")
+        invalid = [f for f in sorted(os.listdir(bas_dir))
+                   if not valid_basis(osp.join(bas_dir, f))[0]]
+        if invalid:
+            raise SmokeFailure(f"cold bases not valid: {invalid}")
+
+        log_prefix = osp.join(tmp, "runs")
+        run = osp.join(log_prefix, "native")
+        run_argv = [*common, "--log_prefix", log_prefix, "--exp_nm",
+                    "native", "--arch", ARCH, "--fp16", "1", "--warm_gate",
+                    "auto"]
+        gates: list = []
+        real_pipe = time_stages(stages, port_pipeline, (
+            "stage_train", "calibrate_warm_gate", "stage_warm_start",
+            "stage_val", "stage_extract"))
+        timed_gate = port_pipeline.calibrate_warm_gate
+
+        def recorded_gate(*a, **kw):
+            gates.append(timed_gate(*a, **kw))
+            return gates[-1]
+
+        port_pipeline.calibrate_warm_gate = recorded_gate
+        reset_launches()
+        try:
+            t_run = run_module("lp_gnn_tpu_torch.run_train_test", [
+                *run_argv, "--loss", "balanced", "--epochs", str(epochs)])
+            run_stages = dict(stages)
+            warm = native_logs(osp.join(run, "log", "gnn-bas-0"), n_val)
+            rows = [r for r in json_load(osp.join(run, "time.json"))
+                    if r.get("split") == "val"]
+            cols = ("gnn-bas-0/repair_p", "gnn-bas-0/repair_p2",
+                    "gnn-bas-0/fact_time", "gnn-bas-0/niter",
+                    "gnn-bas-0/impr_niter", "highs-no-bas/niter")
+            missing = [(r["fn"], c) for r in rows for c in cols
+                       if r.get(c) is None or ("impr" not in c and r[c] < 0)]
+            if len(rows) != n_val or missing:
+                raise SmokeFailure(f"results table: {len(rows)} val rows, "
+                                   f"missing {missing}")
+            et, et_lines, t_et = call_main("lp_gnn_tpu_torch.engine_table", [
+                *common, "--log_prefix", log_prefix, "--exp_nm", "native"])
+            (_, sweep_summary), _, t_sweep = call_main(
+                "lp_gnn_tpu_torch.decode_sweep", [
+                    *run_argv, "--load_from", osp.join(run, "mdl.pth"),
+                    "--managers", *NATIVE_MANAGERS])
+            folders = {}
+            for i, mng in enumerate(NATIVE_MANAGERS):
+                im = parse_inference_manager(mng, "mirp_bench")
+                b = im.get_basis_folder()
+                for sub in (b, f"opt-from-{b}"):
+                    fs = sorted(f for f in os.listdir(osp.join(run, sub))
+                                if f.endswith(".bas"))
+                    bad = [f for f in fs
+                           if not valid_basis(osp.join(run, sub, f))[0]]
+                    if len(fs) != n_val or bad:
+                        raise SmokeFailure(f"{mng}: {sub} holds {len(fs)} "
+                                           f"bases of {n_val}, invalid {bad}")
+                logs = native_logs(osp.join(run, "log", im.get_log_folder()),
+                                   n_val)
+                folders[mng] = {
+                    "folder": b, "gate": {key: gates[1 + i][key]
+                                          for key in ("proceed", "k",
+                                                      "mean_impr")},
+                    "warm_niter_mean": float(np.mean(
+                        [v[0] for v in logs.values()])),
+                    "repairs_mean": float(np.mean(
+                        [v[1] for v in logs.values()]))}
+            (degen, degen_summary), _, t_degen = call_main(
+                "lp_gnn_tpu_torch.degeneracy_probe", [
+                    "--dataset", "mirp_bench", "--data_prefix", data_prefix,
+                    "--n", str(N_DEGEN_LPS)])
+            cells, t_part = [], 0.0
+            for argv in PARTITION_RUNS:
+                try:
+                    c, _, t = call_main("lp_gnn_tpu_torch.bench_partition", [
+                        *argv, "--cache_dir", osp.join(tmp, "part")])
+                except RuntimeError as ex:   # the widths disagree
+                    raise SmokeFailure(f"bench_partition {argv}: {ex}")
+                cells += c
+                t_part += t
+        finally:
+            for n, f in real_pipe.items():
+                setattr(port_pipeline, n, f)
+        launches = card_launches()
+    # the run's gate, then one a manager
+    ks = [g["k"] for g in gates]
+    want = (2 * n_train + SPMM_PER_STEP * n_train * epochs
+            + SPMM_PER_FORWARD * (n_val + ks[0] + 4 * n_val + 2 * n_val)
+            + sum(SPMM_PER_FORWARD * (n_val + k + 4 * n_val) for k in ks[1:]))
+    formula = (f"2 x {n_train} + 4 x {n_train} x {epochs} + 4 x (7 x {n_val}"
+               f" + {ks[0]}) + sum over the {len(ks) - 1} managers of 4 x "
+               f"(5 x {n_val} + k) with k = {ks[1:]}")
+    if len(ks) != 1 + len(NATIVE_MANAGERS) or launches != {
+            **no_launches(), "spmm_csr": want}:
+        raise SmokeFailure(f"native launches {launches}, expected spmm_csr "
+                           f"{want} = {formula} and no other")
+    if not all(5 <= k <= 12 for k in ks):
+        raise SmokeFailure(f"warm gates calibrated on {ks} LPs")
+    engines = et["engines"]
+    if set(engines) != {"highs", "native"} or any(
+            r.get("failed") != 0 or r.get("n") != n_val
+            for r in engines.values()):
+        raise SmokeFailure(f"engine table {json.dumps(engines)}")
+    obj_off = []
+    for h, nt in zip(et["lps"]["highs"], et["lps"]["native"]):
+        for key in ("cold_obj", "warm_obj"):
+            if not np.isclose(nt[key], h[key], rtol=ENGINE_OBJ_TOL,
+                              atol=ENGINE_OBJ_TOL):
+                obj_off.append((h["fn"], key, nt[key], h[key]))
+    if obj_off:
+        raise SmokeFailure(f"native vs HiGHS objectives: {obj_off}")
+    fracs = ("zero_rc_frac", "degen_basic_frac", "seed_disagree_frac")
+    bad = [r for r in degen if r.get("status") != "Optimal" or any(
+        not 0.0 <= r[k] <= 1.0 for k in fracs
+        if not (k == "seed_disagree_frac" and not r["seed_obj_equal"]))]
+    if len(degen) != N_DEGEN_LPS or bad:
+        raise SmokeFailure(f"degeneracy probe: {degen}")
+    if len(cells) != 2 or not all("halo_width_naive_s" in c and
+                                  "cache_load_s" in c for c in cells):
+        raise SmokeFailure(f"bench_partition cells {cells}")
+    return {
+        "engine": "native", "library": osp.basename(lib),
+        "built_here": not existed, "build_s": build_s, "cpu": host_cpu(),
+        "machine": machine_probe(), "lps": n_lps, "val_lps": n_val,
+        "workers": workers, "epochs": epochs,
+        "cold_niter": [v[0] for v in cold.values()],
+        "cold_s": [v[2] for v in cold.values()],
+        "cold_repairs": sum(v[1] for v in cold.values()),
+        "crash_niter": [v[0] for v in crash.values()],
+        "crash_s": [v[2] for v in crash.values()],
+        "gate": {key: gates[0][key] for key in (
+            "proceed", "mean_impr", "ci90", "k", "failures")},
+        "val_mean": {c: float(np.mean([r[c] for r in rows])) for c in cols},
+        "warm_repairs": [v[1] for v in warm.values()],
+        "engine_table": engines, "engine_lps": et["lps"],
+        "engine_table_line": et_lines[0],
+        "managers": folders,
+        "sweep_val_mean": {m: sweep_summary.get("val", {}).get(
+            f"{parse_inference_manager(m, 'mirp_bench').get_log_folder()}"
+            "/impr_niter") for m in NATIVE_MANAGERS},
+        "degeneracy": degen_summary, "degeneracy_lps": degen,
+        "partition": cells, "launches": launches, "spmm_expected": want,
+        "spmm_formula": formula,
+        "stage_s": {"build": build_s, "prep": t_prep,
+                    "cold_solves": stages.get("stage_run_solver"),
+                    "cvt": stages.get("stage_cvt_to_pkl"),
+                    "process": stages.get("stage_process"),
+                    "run_train_test": t_run,
+                    "train": run_stages.get("stage_train"),
+                    "calibrate": run_stages.get("calibrate_warm_gate"),
+                    "warm_start": run_stages.get("stage_warm_start"),
+                    "val": run_stages.get("stage_val"),
+                    "extract": run_stages.get("stage_extract"),
+                    "engine_table": t_et, "decode_sweep": t_sweep,
+                    "degeneracy_probe": t_degen, "bench_partition": t_part,
+                    "phase": time.perf_counter() - t_phase}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5075,6 +5397,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         benched = bench_phase(args.seed)
         emit({"phase": "bench", "nvidia_smi": smi, **benched})
+        torch.cuda.empty_cache()
+        natived = native_phase(args.seed, mirp_keep)
+        emit({"phase": "native", "nvidia_smi": smi, **natived})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -5093,7 +5418,7 @@ def main(argv=None) -> int:
              "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
              "dp_edge": dpe, "edge_ranks": ranked,
              "steps_per_call": scanned, "all_gather": gathered,
-             "bench": benched}
+             "bench": benched, "native": natived}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

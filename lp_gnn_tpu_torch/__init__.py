@@ -25,6 +25,8 @@ mesh are served by exact sampled shards and trained on fanout-sampled
 subgraphs; ``--graph_batch`` and ``--mesh_shape dp=K`` (K processes over
 ``torch.distributed``) train several graphs a step, and ``--mesh_shape
 dp=K,edge=E`` a rank's block of a batch of edge-partitioned graphs.
+``engine_table``, ``decode_sweep``, ``degeneracy_probe`` and
+``bench_partition`` are the twins of the JAX package's analysis scripts.
 ROADMAP.md lists what is still to come.
 
 Subpackages
@@ -34,7 +36,8 @@ Subpackages
 - ``data``    LP generators, scaling and features, raw -> processed blobs,
               the dataset, graph tensors on a device and their disjoint
               union, the neighbor sampler, the stack key
-- ``ops``     CSR SpMM and row gather: CUDA kernels, their plain versions
+- ``ops``     CSR SpMM and row gather: CUDA kernels, their plain versions;
+              the host SpMM over the native engine's library
 - ``parallel`` edge mesh, graph partition, halo all-to-all kernel, the
               dist step; the dp process group and the batched step; dp x
               edge
@@ -42,7 +45,8 @@ Subpackages
 - ``infer``   top-m decode, prediction, validation and timing passes
 - ``train``   losses, metrics, the trainer and its entry point
 - ``io``      MPS and ``.bas`` files
-- ``solver``  HiGHS through scipy's bindings, the crash basis
+- ``solver``  HiGHS through scipy's bindings, the native C++ simplex
+              (g++ at first use), the crash basis
 - ``reporting`` solver-log parsing, the results table and its summary
 
 Entry points run on ``cuda`` and raise when no GPU is found, unless the

@@ -70,9 +70,10 @@ class Config:
                                            # one epoch in {log_dir}/trace
     # solver / decode
     lp_method: int | str = 1               # 1=dual, 4=primal
-    engine: str = "highs"                  # highs | auto (= highs while the
-                                           # native engine is not ported)
-                                           # | native (raises)
+    engine: str = "highs"                  # highs | native (the C++
+                                           # simplex, built with g++ at
+                                           # first use) | auto (native
+                                           # where it is built, else highs)
     inference_manager: str = "InferenceManager(0,)"
     warm_gate: str = "auto"                # auto: calibrate the warm
                                            # starts' payback on train LPs

@@ -15,8 +15,10 @@ CUDA forks nothing. On-disk layout (the JAX package's)::
     {data_prefix}/{dataset}/{sv}inp_tgt[-mM]/{raw,processed}/*.pk
     {data_prefix}/{dataset}/{sv}inp_tgt[-mM]/size.json
 
-With one ``--seed`` the MPS files, cold ``.bas`` files, logs (all but the
-"run time" line) and blobs are the JAX package's, byte for byte.
+With one ``--seed`` and one ``--engine`` the MPS files, cold ``.bas``
+files, logs (all but the timed lines: "run time", and the native engine's
+"time elapsed for factorize") and blobs are the JAX package's, byte for
+byte.
 """
 from __future__ import annotations
 
@@ -56,16 +58,18 @@ def mps_files(cfg: Config) -> list[str]:
 
 def solve_backend(cfg: Config):
     """The solver engine's ``solve_mps`` (pipeline.py:58): ``highs`` (the
-    bridge over scipy's HiGHS), ``auto`` = ``highs`` while the native
-    engine is not ported (what the JAX package picks when its native
-    library is unbuilt), ``native`` raises."""
+    bridge over scipy's HiGHS); ``native`` (the C++ simplex engine, built
+    with g++ into ``_build/`` here first where it is not there; a failed
+    build raises); ``auto`` = ``native`` where its library is built, else
+    ``highs``. The library is loaded, not built, where it exists, so the
+    solver processes of a pool started after this call only load it."""
     if cfg.engine not in ENGINES:
         raise ValueError(f"--engine {cfg.engine!r}: one of {ENGINES}")
+    from .solver import native
     if cfg.engine == "native":
-        raise NotImplementedError(
-            "--engine native: the native C++ simplex engine is not ported "
-            "to lp_gnn_tpu_torch yet (ROADMAP.md, queue item 9: the native "
-            "engine); --engine highs runs HiGHS")
+        native.build()
+    if cfg.engine == "native" or (cfg.engine == "auto" and native.available()):
+        return native.solve_mps
     from .solver.highs_bridge import solve_mps
     return solve_mps
 
@@ -95,7 +99,7 @@ def stage_run_solver(cfg: Config) -> None:
     the crash-basis warm-start baseline (pipeline.py:77; reference
     scripts/run_solver.py); ``--num_workers K`` fans the LPs out over K
     processes."""
-    solve_backend(cfg)   # an engine that cannot run fails here, once
+    solve_backend(cfg)   # builds the engine, or fails, once, before the pool
     _pool_map(partial(solve_one_cold, cfg=cfg), mps_files(cfg),
               cfg.num_workers)
 

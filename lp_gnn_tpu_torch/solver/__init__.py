@@ -1,2 +1,3 @@
-"""The LP solver: HiGHS through scipy's vendored bindings, and the crash
-basis of the warm-start baseline."""
+"""The LP solver engines: HiGHS through scipy's vendored bindings and the
+native C++ simplex (``native/tpulp.cc``, built with g++ at first use), and
+the crash basis of the warm-start baseline."""

@@ -46,6 +46,10 @@ class SolveResult:
     row_status: np.ndarray      # (m,) int
     log: str
     basis_rejected: bool = False  # warm basis refused -> solve ran cold
+    # only with solve_lp(want_solution=True), for the degeneracy probe
+    # (lp_gnn_tpu_torch/degeneracy_probe.py)
+    col_value: np.ndarray | None = None
+    col_dual: np.ndarray | None = None   # reduced costs
 
 
 def _lp_to_highs(lp: LPData):
@@ -75,11 +79,13 @@ def _statuses_to_ints(stats) -> np.ndarray:
 
 
 def solve_lp(lp: LPData, method: int = 1, basis_in=None,
-             random_seed: int = 0) -> SolveResult:
+             random_seed: int = 0,
+             want_solution: bool = False) -> SolveResult:
     """Solve an LP with simplex, presolve off (reference run_solver.py:30).
 
     method: 1 = dual simplex, 4 = primal simplex (the fork's -ss flag).
     basis_in: optional (col_status, row_status) int arrays for warm start.
+    want_solution: also return the primal values and reduced costs.
     """
     if not HAVE_HIGHS:
         raise RuntimeError("scipy.optimize._highspy._core does not import: "
@@ -116,13 +122,19 @@ def solve_lp(lp: LPData, method: int = 1, basis_in=None,
     basis = h.getBasis()
     col_status = _statuses_to_ints(basis.col_status)
     row_status = _statuses_to_ints(basis.row_status)
+    col_value = col_dual = None
+    if want_solution:
+        sol = h.getSolution()
+        col_value = np.asarray(sol.col_value, dtype=np.float64)
+        col_dual = np.asarray(sol.col_dual, dtype=np.float64)
     log_status = "WarmBasisRejected (ran cold)" if rejected else status
     log = _format_log(log_status, info.simplex_iteration_count, dt,
                       info.objective_function_value)
     return SolveResult(status=status, niter=int(info.simplex_iteration_count),
                        run_time=dt, objective=float(info.objective_function_value),
                        col_status=col_status, row_status=row_status, log=log,
-                       basis_rejected=rejected)
+                       basis_rejected=rejected, col_value=col_value,
+                       col_dual=col_dual)
 
 
 def _format_log(status: str, niter: int, run_time: float, obj: float) -> str:

@@ -68,7 +68,8 @@ def test_every_module_imports_without_jax(tmp_path):
                   m.split(".")[0] in ("jax", "jaxlib", "optax", "lp_gnn_tpu")]
         assert not loaded, loaded
         # the sampled, graph-batched and dp paths' modules among them, the
-        # K-step call's and the profiler's, and the benchmark twins
+        # K-step call's and the profiler's, the benchmark twins, the native
+        # engine and the analysis twins
         assert {"lp_gnn_tpu_torch.data.sampling",
                 "lp_gnn_tpu_torch.data.stacking",
                 "lp_gnn_tpu_torch.parallel.dp",
@@ -76,7 +77,14 @@ def test_every_module_imports_without_jax(tmp_path):
                 "lp_gnn_tpu_torch.train.scan",
                 "lp_gnn_tpu_torch.utils.profiling",
                 "lp_gnn_tpu_torch.bench",
-                "lp_gnn_tpu_torch.bench_scaling"} <= set(names), names
+                "lp_gnn_tpu_torch.bench_scaling",
+                "lp_gnn_tpu_torch.solver.native",
+                "lp_gnn_tpu_torch.solver._cxx_build",
+                "lp_gnn_tpu_torch.ops.host_spmm",
+                "lp_gnn_tpu_torch.engine_table",
+                "lp_gnn_tpu_torch.decode_sweep",
+                "lp_gnn_tpu_torch.degeneracy_probe",
+                "lp_gnn_tpu_torch.bench_partition"} <= set(names), names
         print(len(names))
     """, tmp_path)
     assert int(out.split()[-1]) >= 20

@@ -180,17 +180,27 @@ def test_prep_workers_and_skip_exist(prepped, tmp_path):
         assert os.stat(p).st_mtime_ns == t, f"rewritten: {p}"
 
 
-def test_prep_errors_and_chunks(tmp_path):
+def test_prep_errors_and_chunks(tmp_path, monkeypatch):
     cfg = Config(dataset="nope", data_prefix=str(tmp_path),
                  device="cpu").finalize(make_log_dir=False)
     with pytest.raises(ValueError, match="no mps under"):
         prep.stage_run_solver(cfg)
-    for engine, err, match in (("native", NotImplementedError, "queue item 9"),
-                               ("cplex", ValueError, "one of")):
-        with pytest.raises(err, match=match):
-            prep.solve_backend(dataclasses.replace(cfg, engine=engine))
+    with pytest.raises(ValueError, match="one of"):
+        prep.solve_backend(dataclasses.replace(cfg, engine="cplex"))
+    from lp_gnn_tpu_torch.solver import _cxx_build, native
+    # native builds the engine (tests/test_torch_native.py holds it to
+    # JAX's); auto then takes it, as it takes HiGHS without a build there.
+    # The build goes to a directory of its own, so that the checkout's
+    # _build/ (which auto reads) stays as it was.
+    monkeypatch.setattr(_cxx_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_cdll", None)
+    monkeypatch.setattr(native, "_lib", None)
+    assert not native.available()
+    assert prep.solve_backend(dataclasses.replace(cfg, engine="native")) \
+        is native.solve_mps
     auto = prep.solve_backend(dataclasses.replace(cfg, engine="auto"))
-    assert auto is prep.solve_backend(cfg)   # auto = highs
+    assert auto is native.solve_mps
+    assert prep.solve_backend(cfg) is not native.solve_mps   # highs
     fns = [f"f{i}" for i in range(10)]
     assert split_out_chunk(fns, None) == fns
     assert split_out_chunk(fns, "0/3") + split_out_chunk(fns, "1/3") + \
