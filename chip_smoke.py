@@ -254,6 +254,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    iterations and seconds an LP, the repair and factorize means, each
    stage's seconds, the degeneracy summary, the partition cells, the
    card's nvidia-smi line and the host CPU (``lscpu``).
+29. big: ``lp_gnn_tpu_torch.bench_big`` at its defaults, the twin of
+   ``scripts/bench_big.py``: GCN_FC(8,8,hids=256,depth=3) bf16 trained
+   full-graph on the bench graph's draws at 10^8 edges (M=262,144,
+   N=524,288), 3 warm-up and 2 timed steps. Holds the SpMM's launches over
+   the run exactly (2 for the input cache + 4 a step, no other kernel),
+   finite losses and ``traversals_per_s`` = E x 6 / ``step_time_s``; then
+   on the graph the run built, one v2c and one c2v SpMM at D=256 bf16
+   against the plain version on 4,096 or more sampled rows (the longest
+   row, rows of the tenth with the most edges), each timed beside its
+   bound (its inputs read once) and, as a reference cost, one gathered
+   row an edge (a miss on every edge). Prints the twin's line: step time,
+   host build and upload seconds, the peak device memory the run added
+   and the host's peak.
+30. probe_spmm: ``lp_gnn_tpu_torch.probe_spmm`` at its defaults (the
+   twin of ``scripts/probe_spmm.py``, E=1M, D=256): row and window
+   gathers (``index_select`` beside the gather kernel), the transpose,
+   the one-hot contractions, the blocked traversal beside ``spmm_csr`` on
+   the same edges, the dense bmm; every probe's time > 0 and at most 1.05
+   of its bound (above that a timing fault), the kernels' launches as the
+   twin counts them.
+31. probe_gen_floor: ``lp_gnn_tpu_torch.probe_gen_floor`` at its
+   defaults (the twin of ``scripts/probe_gen_floor.py``): the stream,
+   gather, segment max and sum floors and the gather's forward and
+   backward beside one GEN direction (forward, forward + backward) and
+   ``gen_agg_fwd`` / ``gen_agg_bwd`` alone; the same holds.
 
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
@@ -271,6 +296,13 @@ plain version (GEN_FWD_TOL, GEN_DPRE_TOL), with its event ms
 forward's span and device time by kernel (phase 5's breakdown for the
 GEN arch); and a GEN training step (phase 9's). It exits 1 without a
 card or on a failed check.
+
+``python3 chip_smoke.py --host_sort`` measures only the host's part of
+``GraphTensors.from_graph``: its edge orderings on the card's host, two
+ways on the same edges (numpy's ``np.lexsort`` / stable ``np.argsort``,
+and ``data/graph.py lex_order``, one stable torch sort of a combined
+key), at bench_big's 10^8 edges and on a mirp_bench LP (``host_sort``).
+It builds no kernel and prints one JSON line.
 
 The kernels phase also holds the halo all-to-all (K1) exactly against its
 plain version at the bench graph's halo (K=4, Bh=30,056, stacked and list
@@ -5251,6 +5283,204 @@ def native_phase(seed: int, keep: str | None = None) -> dict:
                     "phase": time.perf_counter() - t_phase}}
 
 
+# ------------------------------------------------------------------ big
+BIG_SAMPLE = 4096           # destination rows the full-size SpMM is held on
+LONG_ROW = 256              # spmm.cu kLongRow: a longer row takes a whole CTA
+PROBE_SHARE_MAX = 1.05      # above it a probe's time is a timing fault
+
+
+def sample_rows(ptr: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:
+    """At least ``n`` distinct destination rows of a CSR, sorted: its
+    longest row, n/2 of the tenth of its rows with the most edges and n of
+    all its rows."""
+    deg = ptr[1:] - ptr[:-1]
+    hot = torch.topk(deg, max(deg.numel() // 10, 1)).indices
+    pick = [deg.argmax().view(1),
+            hot[torch.randperm(hot.numel(), generator=gen,
+                               device=ptr.device)[:n // 2]],
+            torch.randperm(deg.numel(), generator=gen,
+                           device=ptr.device)[:n]]
+    return torch.unique(torch.cat(pick))
+
+
+def rows_csr(ptr, idx, val, rows: torch.Tensor) -> tuple:
+    """The CSR of ``rows`` alone: their pointers from 0, their edges."""
+    start, cnt = ptr[rows].long(), (ptr[rows + 1] - ptr[rows]).long()
+    sub = torch.zeros(rows.numel() + 1, dtype=torch.int64, device=ptr.device)
+    torch.cumsum(cnt, 0, out=sub[1:])
+    eid = torch.repeat_interleave(start - sub[:-1], cnt) + \
+        torch.arange(int(sub[-1]), device=ptr.device)
+    return sub.to(torch.int32), idx[eid], val[eid]
+
+
+def big_spmm_case(case: str, ptr, idx, val, x, gen) -> dict:
+    """spmm_csr at bench_big's size against its plain version on a sample
+    of destination rows (the plain version of the whole would hold an
+    (E, D) message: 100 GB at 10^8 edges, D=256), with SPMM_TOL; its event
+    ms and device ms a launch beside its bound, every input read once (x's
+    rows that are used, once), and beside a reference cost that is no
+    bound: one gathered row an edge, what a kernel pays where every edge's
+    row misses L2. ``share_of_bound`` is the device ms's (profiled up to
+    three times; null where the profiler never saw every launch)."""
+    out = spmm_csr(ptr, idx, val, x)
+    rows = sample_rows(ptr, BIG_SAMPLE, gen)
+    sp, si, sv = rows_csr(ptr, idx, val, rows)
+    ref = spmm_csr_plain(sp, si, sv, x)
+    rtol, atol = SPMM_TOL[x.dtype]
+    err, ok = within(out[rows.long()], ref, rtol, atol)
+    if not ok:
+        raise SmokeFailure(f"big spmm_csr {case}: max |err| {err} on "
+                           f"{rows.numel()} sampled rows beyond rtol={rtol}, "
+                           f"atol={atol}")
+    del out, ref
+    deg = (ptr[1:] - ptr[:-1]).long()
+    n_dst, n_e, d, b = deg.numel(), idx.numel(), x.shape[1], x.element_size()
+    s_used = int(torch.unique(idx).numel())
+    read_once = (n_dst + 1) * 4 + n_e * 8 + s_used * d * b + n_dst * d * b
+    miss_every_edge = (n_dst + 1) * 4 + n_e * 8 + n_e * d * b + n_dst * d * b
+    long_rows = deg > LONG_ROW
+
+    def call():
+        return spmm_csr(ptr, idx, val, x)
+
+    ms, device_ms = time_ms(call, 5), None
+    for _ in range(3):
+        device_ms = kernel_device_ms(call, "spmm_csr_kernel")
+        if device_ms is not None:
+            break
+    bound_ms = read_once / HBM_BYTES_S * 1e3
+    return {
+        "case": case, "num_dst": n_dst, "num_src": x.shape[0], "nnz": n_e,
+        "D": d, "dtype": str(x.dtype).split(".")[-1],
+        "sample_rows": rows.numel(), "sample_edges": si.numel(),
+        "longest_row": int(deg.max()), "mean_row": n_e / n_dst,
+        "hot_tenth_least_row": int(torch.topk(deg, n_dst // 10).values.min()),
+        "long_rows": int(long_rows.sum()),
+        "long_row_edges": int(deg[long_rows].sum()),
+        "slab_bytes_at_8_pieces": x.shape[0] * 16 * 8,
+        "max_abs_err": err, "tol": {"rtol": rtol, "atol": atol},
+        "ms": ms, "device_ms": device_ms,
+        "bound_ms": bound_ms,
+        "miss_every_edge_ms": miss_every_edge / HBM_BYTES_S * 1e3,
+        "share_of_bound": bound_ms / device_ms if device_ms else None,
+    }
+
+
+HOST_SORT_REPEATS = {"bench_big": 1, "mirp_bench": 21}
+
+
+def host_sort(seed: int) -> dict:
+    """``from_graph``'s orderings of one graph's edges both ways, in the
+    branch it takes for that graph: bench_big's draws (in draw order: the
+    row-major and the col-major order, ``np.lexsort`` of the two keys) and
+    a mirp_bench LP (row-major, as ``LPDataset.get`` hands it out: the
+    col-major order alone, a stable ``np.argsort``). Holds the two ways'
+    permutations equal; each time is the median of HOST_SORT_REPEATS."""
+    from lp_gnn_tpu_torch import bench, bench_big
+    from lp_gnn_tpu_torch.data.graph import lex_order
+    big = bench_big.parse_args([])
+    cases = []
+    for name, make in (
+            ("bench_big", lambda: bench.make_graph(0, big.edges, big.cons,
+                                                   big.vars)),
+            ("mirp_bench", lambda: mirp_bench_graph(seed))):
+        g = make()
+        m, n = g.ncons, g.nvars
+        row, col = g.row.astype(np.int64), g.col.astype(np.int64)
+        dr = np.diff(row)
+        row_major = bool(np.all((dr > 0) | ((dr == 0) & (np.diff(col) >= 0))))
+        del g, dr
+        if row_major:
+            ways = {"numpy": lambda: (np.argsort(col, kind="stable"),),
+                    "lex_order": lambda: (lex_order(col),)}
+        else:
+            ways = {"numpy": lambda: (np.lexsort((col, row)),
+                                      np.lexsort((row, col))),
+                    "lex_order": lambda: (lex_order(row, col, n),
+                                          lex_order(col, row, m))}
+        secs, perms = {}, {}
+        for way, fn in ways.items():
+            ts = []
+            for _ in range(HOST_SORT_REPEATS[name]):
+                t0 = time.perf_counter()
+                perms[way] = fn()
+                ts.append(time.perf_counter() - t0)
+            secs[way] = float(np.median(ts))
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(perms["numpy"], perms["lex_order"])):
+            raise SmokeFailure(f"host_sort {name}: lex_order's permutation "
+                               "is not numpy's")
+        cases.append({"graph": name, "edges": int(row.size), "ncons": m,
+                      "nvars": n, "row_major": row_major,
+                      "sorts": len(perms["numpy"]),
+                      "repeats": HOST_SORT_REPEATS[name],
+                      "numpy_s": secs["numpy"],
+                      "lex_order_s": secs["lex_order"],
+                      "numpy_over_lex_order":
+                          secs["numpy"] / secs["lex_order"]})
+        del row, col, perms
+    return {"cases": cases, "cpu": host_cpu(),
+            "torch_threads": torch.get_num_threads()}
+
+
+def big_phase(seed: int) -> dict:
+    """``lp_gnn_tpu_torch.bench_big`` at its defaults (10^8 edges, GCN_FC
+    hids=256 bf16, 3 warm-up + 2 timed steps) through its ``run``, which
+    ``main`` prints: the launches over the run exactly (2 SpMMs for the
+    input cache, 4 a step), finite losses, ``traversals_per_s`` = edges x 6
+    / ``step_time_s``; then, on the graph the run built (the host build
+    paid once), one v2c and one c2v ``spmm_csr`` at D=256 bf16 held to its
+    plain version on BIG_SAMPLE or more rows (``big_spmm_case``; those
+    launches counted apart)."""
+    from lp_gnn_tpu_torch import bench_big
+    args = bench_big.parse_args([])
+    want = add_launches({"spmm_csr": 2 + SPMM_PER_STEP * (
+        bench_big.WARMUP_STEPS + args.steps)})
+    t0 = time.perf_counter()
+    reset_launches()
+    line, gt = bench_big.run(args, torch.device("cuda"))
+    launches = card_launches()
+    wall = time.perf_counter() - t0
+    emit(line)
+    tps = line["edges"] * bench_big.SPMM_PER_EDGE / line["step_time_s"]
+    if launches != want or line["edges"] != args.edges or \
+            not np.isfinite(line["losses"]).all() or \
+            abs(line["traversals_per_s"] - tps) > 1e-9 * tps:
+        raise SmokeFailure(f"bench_big: launches {launches} (expected "
+                           f"{want}), line {json.dumps(line)}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = []
+    for case, ptr, idx, val, n_src in (
+            ("v2c", gt.rowptr, gt.col, gt.val_r, gt.nvars),
+            ("c2v", gt.colptr, gt.row, gt.val_c, gt.ncons)):
+        x = torch.randn(n_src, args.hids, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        cases.append(big_spmm_case(case, ptr, idx, val, x, gen))
+        del x
+    del gt
+    return {"line": line, "launches": launches, "spmm_expected": want,
+            "spmm": cases, "wall_s": wall,
+            "phase_s": time.perf_counter() - t0}
+
+
+def probe_phase(module: str) -> dict:
+    """A probe twin (``lp_gnn_tpu_torch.probe_spmm`` or
+    ``.probe_gen_floor``) at its defaults through its entry point: every
+    probe timed (ms > 0) and within PROBE_SHARE_MAX of its bound, and the
+    port kernels launched exactly as the twin counts its calls."""
+    t0 = time.perf_counter()
+    line, launches = twin_line(module, [], {})
+    want = add_launches(line["launches"])
+    bad = [r for r in line["probes"] if not (
+        r["ms"] > 0 and r["share_of_bound"] is not None
+        and r["share_of_bound"] <= PROBE_SHARE_MAX)]
+    if bad or launches != want or line["device"] == "cpu":
+        raise SmokeFailure(f"{module}: probes off their bounds {bad}, "
+                           f"launches {launches} (expected {want})")
+    return {"line": line, "launches": launches,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5260,6 +5490,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gen_ab", action="store_true",
                     help="measure only the GEN aggregation of this "
                          "checkout (kernels, a forward, a step)")
+    ap.add_argument("--host_sort", action="store_true",
+                    help="measure only from_graph's edge orderings on the "
+                         "host, numpy's against lex_order's")
     ap.add_argument("--train_rank", metavar="REPORT",
                     help="run as one rank of the dp_edge phase: the train "
                          "entry point with the arguments after --, its "
@@ -5284,6 +5517,10 @@ def main(argv=None) -> int:
         return 0
     if args.ag_rank:
         ag_rank(args.ag_rank)
+        return 0
+    if args.host_sort:
+        emit({"phase": "host_sort", "nvidia_smi": nvidia_smi(),
+              **host_sort(args.seed)})
         return 0
     # the pipeline's prepped family, kept for the steps_per_call phase
     mirp_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_mirp_")
@@ -5400,6 +5637,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         natived = native_phase(args.seed, mirp_keep)
         emit({"phase": "native", "nvidia_smi": smi, **natived})
+        torch.cuda.empty_cache()
+        big = big_phase(args.seed)
+        emit({"phase": "big", "nvidia_smi": smi, "cpu": host_cpu(), **big})
+        torch.cuda.empty_cache()
+        probed = probe_phase("lp_gnn_tpu_torch.probe_spmm")
+        emit({"phase": "probe_spmm", "nvidia_smi": smi, **probed})
+        torch.cuda.empty_cache()
+        floors = probe_phase("lp_gnn_tpu_torch.probe_gen_floor")
+        emit({"phase": "probe_gen_floor", "nvidia_smi": smi, **floors})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -5418,7 +5664,8 @@ def main(argv=None) -> int:
              "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
              "dp_edge": dpe, "edge_ranks": ranked,
              "steps_per_call": scanned, "all_gather": gathered,
-             "bench": benched, "native": natived}
+             "bench": benched, "native": natived, "big": big,
+             "probe_spmm": probed, "probe_gen_floor": floors}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

@@ -51,6 +51,21 @@ def seed_masks(ncons: int, nvars: int, s_bs: int, t_bs: int,
     return mask(ncons, s_bs), mask(nvars, t_bs)
 
 
+def lex_order(major: np.ndarray, minor: np.ndarray | None = None,
+              n_minor: int = 1) -> np.ndarray:
+    """``np.lexsort((minor, major))`` of non-negative int64 ids, ``minor``
+    below ``n_minor`` (without ``minor``, a stable argsort of ``major``):
+    one stable sort of the key ``major * n_minor + minor``, which orders
+    as the pair does and keeps ties in their input order, so the
+    permutation is lexsort's. torch sorts int64 keys on the host with a
+    parallel radix sort, where lexsort runs one indirect merge sort a key
+    on one thread: far faster at 10^8 edges, a little slower at an LP's
+    10^4-10^5, where the sort costs a millisecond either way
+    (``chip_smoke.py --host_sort`` times both)."""
+    key = major if minor is None else major * max(n_minor, 1) + minor
+    return torch.sort(torch.from_numpy(key), stable=True).indices.numpy()
+
+
 @dataclasses.dataclass
 class GraphTensors:
     # vars -> cons (dst = constraint rows): CSR of the row-sorted ordering
@@ -112,6 +127,13 @@ class GraphTensors:
             return conv.apply_input(self, left, right)
         return conv(self, left, right)
 
+    def to(self, device: torch.device | str) -> "GraphTensors":
+        """The same graph with every tensor on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))})
+
     @classmethod
     def from_graph(cls, g: BipartiteGraph, device: torch.device | str,
                    labels: bool = False, perms: bool = False,
@@ -134,8 +156,8 @@ class GraphTensors:
             order_r = slice(None)
             order_c = np.argsort(col, kind="stable")
         else:
-            order_r = np.lexsort((col, row))
-            order_c = np.lexsort((row, col))
+            order_r = lex_order(row, col, n)
+            order_c = lex_order(col, row, m)
         eperm_r = eperm_c = None
         if perms:
             inv_c = np.empty(e, np.int64)

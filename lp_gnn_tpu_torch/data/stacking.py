@@ -9,7 +9,8 @@ depend on how the edges fall into 128-row blocks. The port pads nothing,
 but it groups the same graphs in the same order, so that
 ``rng_np.permutation(len(stacks))`` (``:664``) and every draw after it stay
 the JAX trainer's. :func:`stack_key` is that signature; the helpers are own
-copies of ``batching.py``'s.
+copies of ``batching.py``'s. :func:`block_layout` builds the layout itself,
+for the blocked traversal that ``probe_spmm`` times beside the port's SpMM.
 """
 from __future__ import annotations
 
@@ -66,6 +67,56 @@ def chunk_count(dst: np.ndarray, num_dst: int, k: int,
     nblk = _round_up(num_dst, r) // r
     counts = np.bincount(np.asarray(dst, np.int64) // r, minlength=nblk)
     return int(np.maximum((counts + k - 1) // k, 1).sum())
+
+
+def block_layout(dst: np.ndarray, src: np.ndarray, val: np.ndarray,
+                 num_dst: int, r: int = BLOCK_R, k: int = BLOCK_K):
+    """The JAX package's chunked per-destination-block edge layout
+    (batching.py:141-190), array for array: each r-row block's edges (the
+    edges sorted by ``dst``) in ceil(count / k) chunks of k slots, at
+    least one a block; padding slots hold source 0, local row r - 1 and
+    value 0. Returns (blk_src (B', k) int32, blk_dst (B', k) int32 local
+    rows, blk_val (B', k) float32, out_blk (B',) int32 block of each
+    chunk, the block count). The port's SpMM keeps its CSR; this layout
+    feeds ``probe_spmm``'s blocked traversal only."""
+    nblk = _round_up(num_dst, r) // r
+    if len(dst) == 0:
+        z = np.zeros((nblk, k), np.int32)
+        return (z, np.full((nblk, k), r - 1, np.int32),
+                np.zeros((nblk, k), np.float32),
+                np.arange(nblk, dtype=np.int32), nblk)
+    counts = np.bincount(dst // r, minlength=nblk)
+    starts = np.zeros(nblk + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    n_chunks = int(np.maximum((counts + k - 1) // k, 1).sum())
+    blk_src = np.zeros((n_chunks, k), np.int32)
+    blk_dst = np.full((n_chunks, k), r - 1, np.int32)
+    blk_val = np.zeros((n_chunks, k), np.float32)
+    out_blk = np.zeros(n_chunks, np.int32)
+    ci = 0
+    for b in range(nblk):   # contiguous slice copies, as there
+        s, e = int(starts[b]), int(starts[b + 1])
+        if s == e:
+            out_blk[ci] = b
+            ci += 1
+            continue
+        for cs in range(s, e, k):
+            ce = min(cs + k, e)
+            blk_src[ci, :ce - cs] = src[cs:ce]
+            blk_dst[ci, :ce - cs] = dst[cs:ce] - b * r
+            blk_val[ci, :ce - cs] = val[cs:ce]
+            out_blk[ci] = b
+            ci += 1
+    return blk_src, blk_dst, blk_val, out_blk, nblk
+
+
+def chunk_ptr(out_blk: np.ndarray, num_blocks: int) -> np.ndarray:
+    """Each block's chunk range from the sorted ``out_blk``
+    (batching.py:278 ``_chunk_ptr``)."""
+    ptr = np.zeros(num_blocks + 1, np.int32)
+    np.cumsum(np.bincount(np.asarray(out_blk), minlength=num_blocks),
+              out=ptr[1:])
+    return ptr
 
 
 def bucket_key(g: BipartiteGraph) -> tuple[int, int, int]:

@@ -1,1 +1,2 @@
 """Serialization and small host-side helpers."""
+from .timer import Timer, timed

@@ -69,7 +69,7 @@ def test_every_module_imports_without_jax(tmp_path):
         assert not loaded, loaded
         # the sampled, graph-batched and dp paths' modules among them, the
         # K-step call's and the profiler's, the benchmark twins, the native
-        # engine and the analysis twins
+        # engine, the analysis twins, the big-graph bench and the probes
         assert {"lp_gnn_tpu_torch.data.sampling",
                 "lp_gnn_tpu_torch.data.stacking",
                 "lp_gnn_tpu_torch.parallel.dp",
@@ -84,7 +84,11 @@ def test_every_module_imports_without_jax(tmp_path):
                 "lp_gnn_tpu_torch.engine_table",
                 "lp_gnn_tpu_torch.decode_sweep",
                 "lp_gnn_tpu_torch.degeneracy_probe",
-                "lp_gnn_tpu_torch.bench_partition"} <= set(names), names
+                "lp_gnn_tpu_torch.bench_partition",
+                "lp_gnn_tpu_torch.bench_big",
+                "lp_gnn_tpu_torch.probe_spmm",
+                "lp_gnn_tpu_torch.probe_gen_floor",
+                "lp_gnn_tpu_torch.utils.timer"} <= set(names), names
         print(len(names))
     """, tmp_path)
     assert int(out.split()[-1]) >= 20
