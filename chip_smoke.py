@@ -95,7 +95,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    GCNRand() through ``pred_basis`` on 2 bench-shape LPs each: valid bases
    and the SpMM launched exactly 6, 10 and 0 times a forward.
 16. sampled_serve: ``pred_basis`` with ``--edge_num_thresh 500000
-   --batch_size 32768`` on 2 bench-shape LPs (1M edges: the sampled route,
+   --batch_size 32768`` on 1 bench-shape LP (1M edges: the sampled route,
    6 exact shards an LP): valid bases, the SpMM launched exactly 4 times a
    shard forward, each LP's sampled bf16 logits held to its full-graph
    forward (the bf16 spread rule of phase 3); one LP's breakdown (host
@@ -150,9 +150,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    process's ``--graph_batch 2`` step on the twins (each tensor's update
    within the larger of 1e-4 and twice that step's own spread against its
    fp64 witness), both groups gloo, no rank-1 file. Then the recipe (bf16,
-   Adam, the arch's dropout, 2 epochs) through ``chip_smoke.py
-   --train_rank``, which runs the same entry point under the step trace in
-   the rank's process: each rank's launches exactly (an input cache 20
+   Adam, the arch's dropout, 2 epochs) in the same rank processes (one
+   launch of ``chip_smoke.py --grid_rank`` runs both entry points, each
+   under the step trace): each rank's launches exactly (an input cache 20
    SpMM / 1 K1 / 1 gather, a step 40 / 2 / 2), equal finite losses on both
    ranks, each rank's step spans on the card, all-reduce ms (and its wait
    for the other rank), peak memory, partition seconds and wall.
@@ -168,7 +168,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    update within the larger of 1e-4 and twice the single card's
    fp32-vs-fp64 spread), and one fp32 GENDeeper(8,8,hids=256,depth=5)
    step held to the stacked dist GEN step (each update within 1e-4);
-   ``pred_basis --mesh_shape edge=4`` on 3 bench
+   ``pred_basis --mesh_shape edge=4`` on 2 bench
    LPs, every .bas valid and equal to the stacked path's on the same data
    and checkpoint, rank 0's logits within (rtol, atol) 2^-6 of the stacked
    path's; the recipe through ``train`` (bf16, 2 train LPs and 1 val, 2
@@ -236,10 +236,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 28. native: the native C++ simplex engine (``--engine native``) on the
    flagship pipeline, through the entry points in this process. Builds
    the engine from the port's sources with g++ (timed), then
-   ``run_prep_data --engine native`` on the pipeline phase's 40
-   mirp_bench LPs (its MPS files), ``run_train_test --engine native`` (the
-   recipe, 20 epochs, ``--warm_gate auto``), and the analysis twins:
-   ``engine_table`` (both engines, cold and warm, on the 12 val LPs),
+   ``run_prep_data --engine native`` on 20 of the pipeline phase's
+   mirp_bench LPs (its first MPS files), ``run_train_test --engine
+   native`` (the recipe, 40 epochs, ``--warm_gate auto``), and the
+   analysis twins: ``engine_table`` (both engines, cold and warm, on the
+   6 val LPs),
    ``decode_sweep`` over the run's ``mdl.pth`` (two of the three default
    managers: top-m and the sparsity blend), ``degeneracy_probe`` (4 LPs)
    and ``bench_partition`` (1M edges at 2 and 8 shards with ``--naive``
@@ -279,6 +280,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    gather, segment max and sum floors and the gather's forward and
    backward beside one GEN direction (forward, forward + backward) and
    ``gen_agg_fwd`` / ``gen_agg_bwd`` alone; the same holds.
+32. dp_edge_grid: one edge shard a rank with dp across: four processes of
+   this script (``--grid_rank``) run ``train --mesh_shape dp=2,edge=2
+   --edge_num_thresh 0`` on the card (gloo), rank (d, e) shard e of twin
+   d. One fp32 SGD step held to the dp_edge phase's layout (2 ranks, each
+   both shards of its twin) by that phase's rule; the recipe (hids=1024
+   bf16, Adam, 2 epochs) with each rank's launches exact (K1's rank form
+   and the gather as a dist step makes them), equal finite losses, the
+   step spans, the gradient all-reduce's ms, peak memory; then
+   ``--mesh_shape edge=2 --graph_batch 2`` over 2 ranks, launches as
+   counted. In every run each rank's final weights equal rank 0's, byte
+   for byte.
+33. dryrun_multihost: ``python -m lp_gnn_tpu_torch.dryrun_multihost`` at
+   its defaults over 8 ranks on the card (dp=2, edge=4, one shard a
+   rank) and ``--layout rows`` over 2: rank 0's line each, the two losses
+   within 1e-5 relative, each rank's launches exact.
+34. scaling_artifact: ``python -m lp_gnn_tpu_torch.make_scaling_artifact``
+   into a temp dir at bench_scaling's defaults (1, 2, 4, 8 shards on the
+   card), the artifact read back: every step time > 0, the wire volume
+   the CPU test pins; the all-gather mode through the twin's own
+   bench_scaling subprocess, its line checked, the halo mode in this
+   process with its launches bench_phase's formula.
 
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 800 epochs (RESULTS.md:576-583).
@@ -326,14 +348,16 @@ both GEN kernels over all n_pad variable rows (l2r) and over n_pad
 sources (r2l) at D=256 bf16, and ``gen_lse_merge`` of the 4 shards'
 full-width parts of every variable row at D=256 and D=3 fp32.
 
-Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+Prints one JSON line per phase (each with ``ended_s``, the seconds since
+the script started), then the ``{"kernels": [...]}`` line, the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import filecmp
+import hashlib
 import importlib
 import io
 import json
@@ -386,6 +410,7 @@ from lp_gnn_tpu_torch.train import trainer
 from lp_gnn_tpu_torch.train.losses import LOSS_REGISTRY
 from lp_gnn_tpu_torch.utils.serialize import json_load, msgpack_dump
 
+T_START = time.perf_counter()
 # bench shape (bench.py:58-60)
 E, M, N = 1_000_000, 65_536, 131_072
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
@@ -438,6 +463,11 @@ class SmokeFailure(Exception):
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when the phase ended
+    (``ended_s``, seconds since the script started): the differences are
+    each phase's wall time, what a trim of the script reads."""
+    if "phase" in obj:
+        obj = {**obj, "ended_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2408,7 +2438,7 @@ SAMPLED_BATCH = 32_768
 SAMPLED_ARGS = ["--edge_num_thresh", str(SAMPLED_THRESH),
                 "--batch_size", str(SAMPLED_BATCH)]
 SHARDS_PER_LP = -(-(M + N) // SAMPLED_BATCH)
-N_SAMPLED_LPS = 2
+N_SAMPLED_LPS = 1            # the script's time budget
 # GCN_FC without dropout, for the batched and dp steps held to a serial
 # step: the ranks' dropout masks differ from a single process's
 ARCH_NO_DROPOUT = f"{ARCH[:-1]},dp=0.0)"
@@ -2581,6 +2611,7 @@ class StepTrace:
         self.sample_s, self.tensors_s, self.steps = [], [], []
         self.partition_s, self.dist_tensors_s = [], []
         self.backward_spmm = 0
+        self.model = None     # the model the steps updated
         self._saved = []
 
     def _patch(self, owner, name, fn):
@@ -2616,6 +2647,7 @@ class StepTrace:
                 ev[0].record()
                 out = real[name](*a, **kw)
                 ev[1].record()
+                self.model = a[0]
                 loss = out[0] if isinstance(out, tuple) else out
                 self.steps.append({
                     "kind": name, "loss": float(loss),
@@ -2861,10 +2893,17 @@ def graph_batch(seed: int) -> dict:
 
 
 def free_port() -> int:
+    return free_ports(1)[0]
+
+
+def free_ports(n: int) -> list[int]:
+    """``n`` distinct free ports (all bound at once, then released)."""
     import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for sock in socks:
+            sock.bind(("localhost", 0))
+        return [sock.getsockname()[1] for sock in socks]
 
 
 def nccl_allreduce(numel: int) -> dict:
@@ -2897,16 +2936,16 @@ def nccl_allreduce(numel: int) -> dict:
             "numel": numel, "allreduce_ms": ms}
 
 
-def run_ranks(name: str, args_of, ranks: int = DP_RANKS
+def run_ranks(name: str, args_of, ranks: int = DP_RANKS, port: int = 0
               ) -> tuple[list[str], float, list[str]]:
     """``ranks`` processes of this Python, ``args_of(rank)`` each, joined
     by the LP_GNN_DIST_* contract on the one card (over gloo: NCCL refuses
     two ranks on one device), started together and waited for; returns
     their output, the wall seconds of all and each rank's ``process
     group:`` lines. Every process is ended before it returns; a rank that
-    fails fails the phase."""
+    fails fails the phase. ``port``: rank 0's (a free one if 0)."""
     root = osp.dirname(osp.abspath(__file__))
-    port = free_port()
+    port = port or free_port()
     procs, outs = [], []
     t0 = time.perf_counter()
     try:
@@ -3331,29 +3370,35 @@ DP_EDGE_ARGS = ["--mesh_shape", f"dp={DP_RANKS},edge={K_EDGE}",
 DP_EDGE_EPOCHS = 2
 
 
-def rank_train(report: str, argv: list[str]) -> None:
-    """One rank of a dp x edge run, in this process (``--train_rank``): the
-    train entry point with ``argv`` under a ``StepTrace``, the launch
-    counts set to 0 just before and read just after; the partitions' host
-    seconds and each all-reduce's wall ms (synchronized on both sides)
-    read from wrappers that add no work on the card. Writes its launches,
-    steps, partition and tensor seconds, all-reduce ms (after a barrier:
-    the wait for the other rank, its own ms) peak memory and wall seconds
-    as JSON to ``report``."""
+def traced_run(module: str, argv: list[str]) -> dict:
+    """``python -m module argv`` in this process under a ``StepTrace``, the
+    launch counts set to 0 just before and read just after; the
+    partitions' host seconds and each gradient all-reduce's wall ms
+    (``combined.average_over_ranks`` over the dp ranks, ``grid_average``
+    over the grid: synchronized on both sides, after a barrier whose wait
+    is kept apart) read from wrappers that add no work on the card.
+    Returns its launches, steps, partition and tensor seconds, all-reduce
+    ms and waits, peak memory, wall seconds, the JSON lines it printed and
+    the digest of the stepped model's final weights (``weights_digest``;
+    None if it took no step)."""
     from lp_gnn_tpu_torch.parallel import combined
     allreduce_ms, wait_ms, partition_s = [], [], []
-    real_avg, real_part = combined.average_over_ranks, trainer.partition_batch
+    real = {n: getattr(combined, n)
+            for n in ("average_over_ranks", "grid_average")}
+    real_part = trainer.partition_batch
 
-    def avg(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.distributed.barrier()
-        t1 = time.perf_counter()
-        out = real_avg(*a, **kw)
-        torch.cuda.synchronize()
-        wait_ms.append((t1 - t0) * 1e3)
-        allreduce_ms.append((time.perf_counter() - t1) * 1e3)
-        return out
+    def timed(name):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.distributed.barrier()
+            t1 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            wait_ms.append((t1 - t0) * 1e3)
+            allreduce_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+        return call
 
     def part(*a, **kw):
         t0 = time.perf_counter()
@@ -3364,21 +3409,62 @@ def rank_train(report: str, argv: list[str]) -> None:
     for kern in KERNELS:
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    combined.average_over_ranks, trainer.partition_batch = avg, part
+    for name in real:
+        setattr(combined, name, timed(name))
+    trainer.partition_batch = part
+    buf = io.StringIO()
     try:
-        with StepTrace() as tr:
-            t = run_module("lp_gnn_tpu_torch.train", argv)
+        with StepTrace() as tr, contextlib.redirect_stdout(buf):
+            t = run_module(module, argv)
     finally:
-        combined.average_over_ranks, trainer.partition_batch = \
-            real_avg, real_part
-    with open(report, "w") as f:
-        json.dump({"launches": launch_counts(), "steps": tr.steps,
-                   "partition_s": partition_s,
-                   "dist_tensors_s": tr.dist_tensors_s,
-                   "allreduce_ms": allreduce_ms,
-                   "allreduce_wait_ms": wait_ms, "wall_s": t,
-                   "max_memory_allocated_bytes":
-                       torch.cuda.max_memory_allocated()}, f)
+        for name, fn in real.items():
+            setattr(combined, name, fn)
+        trainer.partition_batch = real_part
+    return {"launches": launch_counts(), "steps": tr.steps,
+            "partition_s": partition_s,
+            "dist_tensors_s": tr.dist_tensors_s,
+            "allreduce_ms": allreduce_ms, "allreduce_wait_ms": wait_ms,
+            "wall_s": t,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "lines": [json.loads(ln) for ln in buf.getvalue().splitlines()
+                      if ln.startswith("{")],
+            "weights_digest": weights_digest(tr.model)}
+
+
+def weights_digest(model) -> str | None:
+    """sha256 of every tensor of ``model``'s state dict, byte for byte, in
+    its order; None for no model."""
+    if model is None:
+        return None
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def grid_rank(payload_path: str) -> None:
+    """One rank of the grid phases, in this process (``--grid_rank``):
+    each of the payload's runs in turn, an entry point through
+    ``traced_run`` in a process group of its own (the run's coordinates;
+    the run's ``argv`` and a log prefix of the rank's own). Writes the
+    runs' reports, by name, into the payload's directory."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    with open(payload_path) as f:
+        p = json.load(f)
+    rank = int(os.environ["LP_GNN_DIST_PROC_ID"])
+    report = {}
+    for run in p["runs"]:
+        os.environ["LP_GNN_DIST_COORD"] = run["coord"]
+        argv = list(run["argv"])
+        if run.get("log"):
+            argv += ["--log_prefix", osp.join(p["dir"], f"{run['log']}{rank}")]
+        report[run["name"]] = traced_run(run["module"], argv)
+        torch.cuda.empty_cache()
+    with open(osp.join(p["dir"], f"{p['name']}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
 
 
 def union_step_fp64(seed: int, graphs: list, lr: float) -> dict:
@@ -3418,14 +3504,13 @@ def dp_edge(seed: int) -> dict:
     weights, each tensor's update within the larger of UPDATE_RTOL and
     DIST_UPDATE_SPREAD times that step's own spread against its fp64
     witness (``union_step_fp64``); both groups gloo, no rank-1 file.
-    Recipe: the same ranks through this script's ``--train_rank`` (the
-    entry point under a ``StepTrace``) run GCN_FC bf16, balanced CE, Adam,
-    the arch's dropout, DP_EDGE_EPOCHS epochs: each rank's launches
+    Recipe: the same ranks (one launch of this script's ``--grid_rank``,
+    each entry point under a ``StepTrace``) run GCN_FC bf16, balanced CE,
+    Adam, the arch's dropout, DP_EDGE_EPOCHS epochs: each rank's launches
     exactly one input cache (one dist conv) and a dist step's a step,
     equal finite losses on both ranks; each rank's step spans on the card,
     all-reduce ms, peak memory, partition and tensor seconds, wall."""
     lr = UPDATE_LR
-    script = osp.abspath(__file__)
     twins = twin_graphs(seed + 1200)
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dpe_") as tmp:
         data_prefix = osp.join(tmp, "data")
@@ -3434,11 +3519,18 @@ def dp_edge(seed: int) -> dict:
         data = ["--dataset", "smoke", "--data_prefix", data_prefix]
         argv = ["--arch", ARCH_NO_DROPOUT, "--opt", "sgd", "--lr", str(lr),
                 "--epochs", "1", "--seed", str(seed)]
-        _, t_parity, groups = run_ranks("dp_edge", lambda rank: [
-            "-m", "lp_gnn_tpu_torch.train", *data, "--exp_nm", "dpe", *argv,
-            *DP_EDGE_ARGS, "--log_prefix", osp.join(tmp, f"rank{rank}")])
-        if osp.exists(osp.join(tmp, "rank1")) or len(groups) != DP_RANKS \
-                or not all("gloo" in g for g in groups):
+        recipe = ["--arch", ARCH, "--fp16", "1", "--loss", "balanced",
+                  "--epochs", str(DP_EDGE_EPOCHS), "--seed", str(seed)]
+        train = "lp_gnn_tpu_torch.train"
+        reports, t_ranks, groups = rank_runs("dp_edge", DP_RANKS, tmp, [
+            {"name": "parity", "module": train, "log": "rank",
+             "argv": [*data, "--exp_nm", "dpe", *argv, *DP_EDGE_ARGS]},
+            {"name": "recipe", "module": train, "log": "recipe",
+             "argv": [*data, "--exp_nm", "dpe_recipe", *recipe,
+                      *DP_EDGE_ARGS]}])
+        if osp.exists(osp.join(tmp, "rank1")) or \
+                len(groups) != 2 * DP_RANKS or \
+                not all("gloo" in g for g in groups):
             raise SmokeFailure(f"dp_edge: groups {groups}, rank 1's files "
                                f"{osp.exists(osp.join(tmp, 'rank1'))}")
         ranks = torch.load(osp.join(tmp, "rank0", "dpe", "mdl.pth"),
@@ -3446,22 +3538,11 @@ def dp_edge(seed: int) -> dict:
         _, tr_single, _, _, log_dir = run_train(
             tmp, data_prefix, argv + ["--graph_batch", "2"], "gb")
         single = torch.load(osp.join(log_dir, "mdl.pth"), weights_only=True)
-
-        recipe = ["--arch", ARCH, "--fp16", "1", "--loss", "balanced",
-                  "--epochs", str(DP_EDGE_EPOCHS), "--seed", str(seed)]
-        reports = [osp.join(tmp, f"report{r}.json") for r in range(DP_RANKS)]
-        _, t_recipe, groups_r = run_ranks("dp_edge recipe", lambda rank: [
-            script, "--train_rank", reports[rank], "--", *data, "--exp_nm",
-            "dpe_recipe", *recipe, *DP_EDGE_ARGS, "--log_prefix",
-            osp.join(tmp, f"recipe{rank}")])
         recipe_files = [osp.exists(osp.join(tmp, f"recipe{r}", "dpe_recipe",
                                             "mdl.pth"))
                         for r in range(DP_RANKS)]
         recipe_rank1 = osp.exists(osp.join(tmp, "recipe1"))
-        per_rank = []
-        for path in reports:
-            with open(path) as f:
-                per_rank.append(json.load(f))
+        per_rank = [r["recipe"] for r in reports]
     fp64 = union_step_fp64(seed, twins, lr)
     w0 = seeded_state(ARCH_NO_DROPOUT, seed)
     rels = update_rels(w0, ranks, single, lr)
@@ -3487,14 +3568,13 @@ def dp_edge(seed: int) -> dict:
                 f"step {[st['launches'] for st in rep['steps']]} (expected "
                 f"{per_step})")
     if losses[0] != losses[1] or not np.isfinite(losses[0]).all() or \
-            recipe_files != [True, False] or recipe_rank1 or \
-            not all("gloo" in g for g in groups_r):
+            recipe_files != [True, False] or recipe_rank1:
         raise SmokeFailure(f"dp_edge recipe: losses {losses}, mdl.pth by "
-                           f"rank {recipe_files}, groups {groups_r}")
+                           f"rank {recipe_files}")
     return {"arch": bf16_arch(ARCH), "ranks": DP_RANKS, "K": K_EDGE,
             "groups": groups,
             "parity": {"arch": ARCH_NO_DROPOUT, "dtype": "float32",
-                       "lr": lr, "ranks_s": t_parity,
+                       "lr": lr,
                        "single_step_losses": [st["loss"] for st in
                                               tr_single.steps],
                        "update_rels": rels,
@@ -3521,7 +3601,7 @@ def dp_edge(seed: int) -> dict:
             "partition_s": [r["partition_s"] for r in per_rank],
             "dist_tensors_s": [r["dist_tensors_s"] for r in per_rank],
             "rank_wall_s": [r["wall_s"] for r in per_rank],
-            "recipe_ranks_s": t_recipe}
+            "ranks_s": t_ranks}
 
 
 # ------------------------------------------------ edge shards on their ranks
@@ -3536,6 +3616,7 @@ def dp_edge(seed: int) -> dict:
 # each SpMM's backward is one SpMM over its partner CSR). The stacked K1
 # launches nowhere on this path.
 EDGE_RANKS = K_EDGE
+N_RANK_LPS = 2              # LPs served over the ranks (the time budget)
 RANK_CONV = {"gather_rows": 1, "halo_all_to_all_ranks": 4, "spmm_csr": 5}
 # a GEN conv over the ranks' shards, per rank: r2l's halo gather (the send
 # rows' gather and K1), 2 gen_agg_fwd (r2l, l2r), l2r's K1 and merge; its
@@ -3831,7 +3912,7 @@ def edge_ranks(seed: int) -> dict:
     the larger of UPDATE_RTOL and DIST_UPDATE_SPREAD times the single
     card's own fp32-vs-fp64 spread (``step_states``), and one GENDeeper
     step held to the stacked dist GEN step (UPDATE_RTOL); ``pred_basis
-    --mesh_shape edge=4`` on N_DIST_LPS bench LPs with a seeded recipe
+    --mesh_shape edge=4`` on N_RANK_LPS bench LPs with a seeded recipe
     checkpoint, each .bas valid and equal to the stacked path's on the same
     data and checkpoint, rank 0's logits within RANK_LOGIT_TOL of the
     stacked path's; the recipe through ``train`` (bf16, 2 train LPs and 1
@@ -3846,7 +3927,7 @@ def edge_ranks(seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_ranks_") as tmp:
         serve_data = osp.join(tmp, "serve_data")
         write_dataset(osp.join(serve_data, "smoke", "highs-inp_tgt"), seed,
-                      N_DIST_LPS)
+                      N_RANK_LPS)
         train_data = osp.join(tmp, "train_data")
         write_dataset(osp.join(train_data, "smoke", "highs-inp_tgt"),
                       seed + 1000, N_DIST_TRAIN_LPS)
@@ -3881,14 +3962,14 @@ def edge_ranks(seed: int) -> dict:
                   for w in ("serve", "train")]
         recipe_mdl = osp.exists(osp.join(tmp, "train0", "recipe", "mdl.pth"))
         rank_dir = osp.join(tmp, "serve0", "smoke")
-        n_bas = check_bases(osp.join(rank_dir, "pred-basis"), N_DIST_LPS)
+        n_bas = check_bases(osp.join(rank_dir, "pred-basis"), N_RANK_LPS)
         inf = json_load(osp.join(rank_dir, "inf_time.json"))
         with np.load(osp.join(tmp, "rank_logits.npz")) as z:
             rank_logits = {n: z[n] for n in z.files}
         # the stacked path on the same data and checkpoint, in this process
         with CaptureLogits() as cap:
             stacked = serve_and_check(serve_data, osp.join(tmp, "stacked"),
-                                      ckpt, seed, N_DIST_LPS, "trainval",
+                                      ckpt, seed, N_RANK_LPS, "trainval",
                                       DIST_PER_FORWARD, DIST_ARGS)
         st_dir = osp.join(tmp, "stacked", "smoke", "pred-basis")
         bas = sorted(f for f in os.listdir(st_dir) if f.endswith(".bas"))
@@ -3914,7 +3995,7 @@ def edge_ranks(seed: int) -> dict:
                                    f"plain exact {c['exact_plain']})")
     # launches, a rank
     serve_want = add_launches(scaled(RANK_CONV, 2 * FORWARDS_PER_LP
-                                     * N_DIST_LPS))
+                                     * N_RANK_LPS))
     per_step = add_launches(scaled(RANK_CONV, 2))
     train_want = add_launches(scaled(RANK_CONV, n_train),
                               scaled(per_step, n_train * DIST_TRAIN_EPOCHS),
@@ -3957,7 +4038,7 @@ def edge_ranks(seed: int) -> dict:
             raise SmokeFailure(f"edge_ranks {fn}: rank logits max |err| "
                                f"{err} vs the stacked path's, beyond rtol, "
                                f"atol {RANK_LOGIT_TOL}")
-    if len(rank_logits) != N_DIST_LPS or n_bas != N_DIST_LPS or \
+    if len(rank_logits) != N_RANK_LPS or n_bas != N_RANK_LPS or \
             not all(same_bas.values()):
         raise SmokeFailure(f"edge_ranks: {n_bas} valid bases, logits of "
                            f"{sorted(rank_logits)}, .bas equal to the "
@@ -4003,7 +4084,7 @@ def edge_ranks(seed: int) -> dict:
                               "fp32_step": step_want,
                               "gen_step": gen_want["launches"]},
         "launch_formula": f"RANK_CONV {RANK_CONV} a conv: serve 2 convs x "
-                          f"{FORWARDS_PER_LP * N_DIST_LPS} forwards; train "
+                          f"{FORWARDS_PER_LP * N_RANK_LPS} forwards; train "
                           f"{n_train} input caches + 2 a step x "
                           f"{n_train * DIST_TRAIN_EPOCHS} + 2 x {n_val} val",
         "k1": [{key: c[key] for key in ("D", "ms", "device_ms",
@@ -4920,6 +5001,16 @@ def all_gather_phase(seed: int) -> dict:
 # ------------------------------------------------------------------ bench
 BENCH_STEPS = 25            # (2 warm-up + 3 timed calls) x 5 steps a call
 SCALING_ARGS = ["--devices", str(K_EDGE)]
+# the banded graph's halo wire volume by shard count, the JAX script's
+# (scripts/make_scaling_artifact.py wire_volume; tests/test_torch_scripts_
+# twins.py holds the twin and this table to it)
+SCALING_WIRE_VOLUME = {
+    "2": {"halo_rows_per_shard_layer": 96,
+          "allgather_rows_per_shard_layer": 8192, "ratio": 0.0117},
+    "4": {"halo_rows_per_shard_layer": 192,
+          "allgather_rows_per_shard_layer": 8192, "ratio": 0.0234},
+    "8": {"halo_rows_per_shard_layer": 384,
+          "allgather_rows_per_shard_layer": 8192, "ratio": 0.0469}}
 
 
 def twin_line(module: str, argv: list[str], env: dict) -> tuple[dict, dict]:
@@ -5010,6 +5101,13 @@ def bench_phase(seed: int) -> dict:
 # has just run InferenceManager(0,)), and no 10M-edge partition cell, for
 # the phase's time (PERF.md, the native phase)
 NATIVE_MANAGERS = ["InferenceManager(2,mode='add',gnn_wei=0.5)"]
+# the first half of the pipeline phase's LPs (14 train, 6 val): the
+# phase's prep and engine table are serial solves, and the script passed
+# 1000 s with all 40 (PERF.md, PR 17)
+N_NATIVE_LPS = N_PIPE_LPS // 2
+# as many steps as the pipeline phase's run (its 28 train LPs x 20
+# epochs): fewer leave the bases worse and the warm solves slow (call 3)
+NATIVE_EPOCHS = PIPE_EPOCHS * N_PIPE_LPS // N_NATIVE_LPS
 N_DEGEN_LPS = 4
 # bench_partition: 1M edges at 2 and 8 shards with the per-pair width and
 # the cache
@@ -5063,11 +5161,12 @@ def native_phase(seed: int, keep: str | None = None) -> dict:
     """The native C++ simplex engine on the flagship pipeline, through the
     entry points in this process. The library is built from the port's
     sources (``solver/native/tpulp.cc``, g++, timed); ``run_prep_data
-    --engine native`` cold-solves the pipeline phase's 40 mirp_bench LPs
-    (its MPS files from ``keep``, generated where there are none), one
-    worker process a CPU up to 8; ``run_train_test --engine native`` trains
-    GCN_FC(8,8,hids=1024,depth=3) bf16 for PIPE_EPOCHS, calibrates the warm
-    gate (``--warm_gate auto``), warm-starts and reports; then the twins:
+    --engine native`` cold-solves N_NATIVE_LPS of the pipeline phase's
+    mirp_bench LPs (the first of its MPS files in ``keep``, generated
+    where there are none), one worker process a CPU up to 8;
+    ``run_train_test --engine native`` trains GCN_FC(8,8,hids=1024,depth=3)
+    bf16 for NATIVE_EPOCHS, calibrates the warm gate (``--warm_gate
+    auto``), warm-starts and reports; then the twins:
     ``engine_table`` (both engines cold and warm on the val LPs),
     ``decode_sweep`` over the run's ``mdl.pth`` with NATIVE_MANAGERS,
     ``degeneracy_probe`` on the first N_DEGEN_LPS LPs and
@@ -5087,7 +5186,7 @@ def native_phase(seed: int, keep: str | None = None) -> dict:
     from lp_gnn_tpu_torch.solver import _cxx_build, native
     from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
     t_phase = time.perf_counter()
-    n_lps, epochs = N_PIPE_LPS, PIPE_EPOCHS
+    n_lps, epochs = N_NATIVE_LPS, NATIVE_EPOCHS
     n_train, n_val = map(len, split_idxs_train_val(n_lps))
     workers = min(8, os.cpu_count() or 1)
     existed = _cxx_build.output_path("libtpulp").exists()
@@ -5106,7 +5205,9 @@ def native_phase(seed: int, keep: str | None = None) -> dict:
         prep_argv = [*common, "--num_workers", str(workers)]
         kept = osp.join(keep, "mirp_bench", "mps") if keep else ""
         if kept and osp.isdir(kept):
-            shutil.copytree(kept, osp.join(ds, "mps"))
+            os.makedirs(osp.join(ds, "mps"))
+            for f in sorted(os.listdir(kept))[:n_lps]:
+                shutil.copy(osp.join(kept, f), osp.join(ds, "mps", f))
         else:
             prep_argv += ["--family", "mirp_like", "--size", "bench",
                           "--n_instances", str(n_lps)]
@@ -5481,6 +5582,344 @@ def probe_phase(module: str) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+# ----------------------------------------- one edge shard a rank, dp across
+# The (dp=2, edge=2) grid of GRID_RANKS processes on the one card (gloo):
+# rank (d, e) holds shard e of row d's graph. A rank's launches are those
+# of the edge_ranks phase's ranks, RANK_CONV a conv: the input cache one
+# conv, a GCN_FC step two (the hidden conv forward and backward).
+GRID_DP, GRID_EDGE = 2, 2
+GRID_RANKS = GRID_DP * GRID_EDGE
+GRID_ARGS = ["--mesh_shape", f"dp={GRID_DP},edge={GRID_EDGE}",
+             "--edge_num_thresh", "0"]
+# --graph_batch 2 over edge=2 ranks: the two small train LPs (bench shape
+# / 16, one pattern) one union a step, the twins above the threshold one
+# dist step each over the ranks
+GRID_BATCH_THRESH = 500_000
+GRID_BATCH_LPS = 6          # train positions 1, 2 (twins), 3, 5 (small)
+
+
+def rank_runs(name: str, ranks: int, tmp: str, runs: list[dict],
+              ports: list[int] | None = None):
+    """``ranks`` processes of this script (``--grid_rank``) running
+    ``runs`` in turn, each in a process group of its own (``ports``: the
+    launch's and each run's, free ones if None); returns each rank's
+    reports by run name and the ranks' wall seconds and groups."""
+    ports = ports or free_ports(1 + len(runs))
+    for run, port in zip(runs, ports[1:]):
+        run["coord"] = f"localhost:{port}"
+    payload = osp.join(tmp, f"{name}.json")
+    with open(payload, "w") as f:
+        json.dump({"name": name, "dir": tmp, "runs": runs}, f)
+    _, wall, groups = run_ranks(name, lambda rank: [
+        osp.abspath(__file__), "--grid_rank", payload], ranks, ports[0])
+    reports = []
+    for r in range(ranks):
+        with open(osp.join(tmp, f"{name}_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports, wall, groups
+
+
+def dp_edge_grid(seed: int) -> dict:
+    """One edge shard a rank with dp across: ``python -m
+    lp_gnn_tpu_torch.train --mesh_shape dp=2,edge=2 --edge_num_thresh 0``
+    over GRID_RANKS gloo ranks on the card, on the dp_edge phase's twins
+    (one grid batch: row d takes twin d, rank (d, e) its shard e).
+    Parity: one epoch of GCN_FC fp32 without dropout, SGD at UPDATE_LR;
+    rank 0's ``mdl.pth`` held to the dp_edge phase's layout (dp=2 ranks
+    each holding both shards of its twin) on the same twins and weights,
+    by that phase's rule (each tensor's update within the larger of
+    UPDATE_RTOL and DIST_UPDATE_SPREAD times that layout's spread against
+    the fp64 witness, ``union_step_fp64``). Recipe: ARCH bf16, balanced
+    CE, Adam, the arch's dropout, DP_EDGE_EPOCHS epochs: each rank's step
+    spans, launches exactly one input cache and a dist step's a step (K1's
+    rank form and the gather included, no stacked K1), equal finite
+    losses on every rank, the gradient all-reduce's ms and wait, peak
+    memory, wall; only rank 0 writes. Then ``--mesh_shape edge=2
+    --graph_batch 2`` over 2 ranks: a union step of the two small LPs and
+    a dist step of each twin, each rank's launches as counted. In every
+    run each rank's final weights equal rank 0's byte for byte."""
+    t0 = time.perf_counter()
+    lr = UPDATE_LR
+    twins = twin_graphs(seed + 1200)
+    s0, s1 = (bench_graph(seed + i, m=M // 16, n=N // 16, e=E // 16)
+              for i in (1300, 1301))
+    small = [s0, BipartiteGraph(row=s0.row, col=s0.col, val=s1.val,
+                                c_feas=s1.c_feas, v_feas=s1.v_feas,
+                                y_s=s1.y_s, y_t=s1.y_t)]   # one stack key
+    parity = ["--arch", ARCH_NO_DROPOUT, "--opt", "sgd", "--lr", str(lr),
+              "--epochs", "1", "--seed", str(seed)]
+    recipe = ["--arch", ARCH, "--fp16", "1", "--loss", "balanced",
+              "--seed", str(seed)]
+    train = "lp_gnn_tpu_torch.train"
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_grid_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), 0, 4,
+                      split_dataset(4, twins, seed))
+        data = ["--dataset", "smoke", "--data_prefix", data_prefix]
+        batch_prefix = osp.join(tmp, "batch_data")
+        write_dataset(osp.join(batch_prefix, "smoke", "highs-inp_tgt"), 0,
+                      GRID_BATCH_LPS,
+                      split_dataset(GRID_BATCH_LPS, twins + small, seed))
+        grid, t_grid, groups = rank_runs("grid", GRID_RANKS, tmp, [
+            {"name": "parity", "module": train, "log": "parity",
+             "argv": [*data, "--exp_nm", "grid", *parity, *GRID_ARGS]},
+            {"name": "recipe", "module": train, "log": "recipe",
+             "argv": [*data, "--exp_nm", "grid_recipe", *recipe, "--epochs",
+                      str(DP_EDGE_EPOCHS), *GRID_ARGS]}])
+        rows, t_rows, groups_rows = rank_runs("rows", GRID_DP, tmp, [
+            {"name": "parity", "module": train, "log": "rows",
+             "argv": [*data, "--exp_nm", "rows", *parity, "--mesh_shape",
+                      f"dp={GRID_DP},edge={GRID_EDGE}", "--edge_num_thresh",
+                      "0"]},
+            {"name": "batched", "module": train, "log": "batched",
+             "argv": ["--dataset", "smoke", "--data_prefix", batch_prefix,
+                      "--exp_nm", "batched", *recipe, "--epochs", "1",
+                      "--mesh_shape",
+                      f"edge={GRID_EDGE}", "--graph_batch", "2",
+                      "--edge_num_thresh", str(GRID_BATCH_THRESH)]}])
+        files = {run: [osp.exists(osp.join(tmp, f"{run}{r}"))
+                       for r in range(n)]
+                 for run, n in (("parity", GRID_RANKS),
+                                ("recipe", GRID_RANKS), ("rows", GRID_DP),
+                                ("batched", GRID_DP))}
+        got = torch.load(osp.join(tmp, "parity0", "grid", "mdl.pth"),
+                         weights_only=True)
+        layout = torch.load(osp.join(tmp, "rows0", "rows", "mdl.pth"),
+                            weights_only=True)
+    if any(f != [True] + [False] * (len(f) - 1) for f in files.values()) \
+            or not all("gloo" in g for g in groups + groups_rows) or \
+            len(groups) != 2 * GRID_RANKS:
+        raise SmokeFailure(f"dp_edge_grid: files by rank {files}, groups "
+                           f"{groups} / {groups_rows}")
+    # only rank 0 writes mdl.pth: every rank's final weights must be its
+    digests = {f"{name}_{run}": [r[run]["weights_digest"] for r in reports]
+               for name, reports, runs in (
+                   ("grid", grid, ("parity", "recipe")),
+                   ("rows", rows, ("parity", "batched")))
+               for run in runs}
+    if any(d[0] is None or len(set(d)) != 1 for d in digests.values()):
+        raise SmokeFailure(f"dp_edge_grid: the ranks' final weights differ: "
+                           f"{digests}")
+    fp64 = union_step_fp64(seed, twins, lr)
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    rels = update_rels(w0, got, layout, lr)
+    spread = update_rels(w0, layout, fp64, lr)
+    limits = {k: max(UPDATE_RTOL, DIST_UPDATE_SPREAD * spread[k])
+              for k in rels}
+    worst = max(rels, key=lambda k: rels[k] / limits[k])
+    if rels[worst] > limits[worst]:
+        raise SmokeFailure(f"dp_edge_grid vs dp_edge's layout: update rel "
+                           f"diff {rels[worst]} in {worst} > "
+                           f"{limits[worst]}: {json.dumps(rels)}")
+    per_step = add_launches(scaled(RANK_CONV, 2))
+    want = add_launches(RANK_CONV, scaled(per_step, DP_EDGE_EPOCHS))
+    recipe_r = [r["recipe"] for r in grid]
+    losses = [[st["loss"] for st in r["steps"]] for r in recipe_r]
+    for r, rep in enumerate(recipe_r):
+        kinds = {st["kind"] for st in rep["steps"]}
+        if rep["launches"] != want or kinds != {"dp_edge_train_step"} or \
+                len(rep["steps"]) != DP_EDGE_EPOCHS or \
+                any(st["launches"] != per_step for st in rep["steps"]):
+            raise SmokeFailure(
+                f"dp_edge_grid recipe rank {r}: {len(rep['steps'])} steps "
+                f"{kinds}, launches {rep['launches']} (expected {want}), a "
+                f"step {[st['launches'] for st in rep['steps']]} (expected "
+                f"{per_step})")
+    if any(x != losses[0] for x in losses) or \
+            not np.isfinite(losses[0]).all():
+        raise SmokeFailure(f"dp_edge_grid recipe: losses {losses}")
+    batch_r = [r["batched"] for r in rows]
+    # a rank: the union of the two small LPs (2 SpMMs a graph's cache, 4
+    # the step), each twin's cache and dist step (3 convs over the ranks)
+    want_b = add_launches({"spmm_csr": 2 * 2 + SPMM_PER_STEP},
+                          scaled(RANK_CONV, 2 * 3))
+    for r, rep in enumerate(batch_r):
+        kinds = sorted(st["kind"] for st in rep["steps"])
+        if rep["launches"] != want_b or \
+                kinds != ["dist_train_step"] * 2 + ["dp_train_step"] or \
+                not np.isfinite([st["loss"] for st in rep["steps"]]).all():
+            raise SmokeFailure(
+                f"dp_edge_grid --graph_batch 2 rank {r}: steps {kinds}, "
+                f"launches {rep['launches']} (expected {want_b})")
+    if [st["loss"] for st in batch_r[0]["steps"]] != \
+            [st["loss"] for st in batch_r[1]["steps"]]:
+        raise SmokeFailure("dp_edge_grid --graph_batch 2: the ranks' losses "
+                           "differ")
+    return {"arch": bf16_arch(ARCH), "grid": [GRID_DP, GRID_EDGE],
+            "ranks": GRID_RANKS, "groups": groups,
+            "weights_digest": {k: d[0] for k, d in digests.items()},
+            "parity": {"arch": ARCH_NO_DROPOUT, "dtype": "float32",
+                       "lr": lr, "held_to": "dp_edge's layout: dp=2 ranks, "
+                       "each both shards of its twin",
+                       "step_losses": [st["loss"] for st in
+                                       grid[0]["parity"]["steps"]],
+                       "layout_step_losses": [st["loss"] for st in
+                                              rows[0]["parity"]["steps"]],
+                       "update_rels": rels,
+                       "layout_vs_fp64_update_rels": spread,
+                       "grid_vs_fp64_update_rels": update_rels(
+                           w0, got, fp64, lr),
+                       "spread_factor": DIST_UPDATE_SPREAD,
+                       "nearest_limit": {"tensor": worst,
+                                         "update_diff": rels[worst],
+                                         "limit": limits[worst]}},
+            "epochs": DP_EDGE_EPOCHS,
+            "launches": add_launches(*(r["launches"] for r in recipe_r),
+                                     *(r["launches"] for r in batch_r)),
+            "launches_per_rank": want, "launches_per_step": per_step,
+            "launch_formula": f"a grid rank: one conv's (RANK_CONV "
+                              f"{RANK_CONV}) input cache + 2 convs a step x "
+                              f"{DP_EDGE_EPOCHS} steps; a --graph_batch 2 "
+                              f"rank {want_b}",
+            "step_losses": losses[0],
+            "step_device_ms": [[st["device_ms"] for st in r["steps"]]
+                               for r in recipe_r],
+            "allreduce_ms": [r["allreduce_ms"] for r in recipe_r],
+            "allreduce_wait_ms": [r["allreduce_wait_ms"] for r in recipe_r],
+            "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                           for r in recipe_r],
+            "partition_s": [r["partition_s"] for r in recipe_r],
+            "rank_wall_s": [r["wall_s"] for r in recipe_r],
+            "graph_batch": {
+                "steps": [[st["kind"], st["loss"], st["device_ms"]]
+                          for st in batch_r[0]["steps"]],
+                "launches_per_rank": want_b,
+                "rank_wall_s": [r["wall_s"] for r in batch_r]},
+            "grid_ranks_s": t_grid, "rows_ranks_s": t_rows,
+            "phase_s": time.perf_counter() - t0}
+
+
+# the dry-run twin: one step a launch, GCN_FC(8,8,hids=16,depth=3) over the
+# all-gather layout without the input cache, a rank's SpMMs: 2 a conv
+# forward (2 convs), the hidden conv's 2 backward (AG_RANK_CONV a conv);
+# in the rows layout each rank holds all shards of its graph (AG_CONV)
+DRYRUN_MESH = {"dp": 2, "edge": 4}
+DRYRUN_RANKS = {"grid": DRYRUN_MESH["dp"] * DRYRUN_MESH["edge"],
+                "rows": DRYRUN_MESH["dp"]}
+DRYRUN_RTOL = 1e-5
+
+
+def dryrun_phase(seed: int) -> dict:
+    """``python -m lp_gnn_tpu_torch.dryrun_multihost`` at its defaults
+    (dp=2, edge=4: 8 ranks on the card, one shard a rank) and, at the same
+    time, ``--layout rows`` over 2 ranks (each all 4 shards of its graph):
+    rank 0 of each prints the script's line, the other ranks nothing; the two
+    losses agree within DRYRUN_RTOL (the same step on the same weights);
+    each rank's launches exactly 3 convs' (AG_RANK_CONV, or AG_CONV in the
+    rows layout)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    out, launches = {}, []
+    ports = free_ports(2 * len(DRYRUN_RANKS))
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dryrun_") as tmp, \
+            ThreadPoolExecutor(len(DRYRUN_RANKS)) as pool:
+        # both launches at once: each is mostly its processes' start
+        running = {layout: pool.submit(
+            rank_runs, f"dryrun_{layout}", ranks, tmp, [
+                {"name": "dryrun",
+                 "module": "lp_gnn_tpu_torch.dryrun_multihost",
+                 "argv": ["--layout", layout]}], ports[2 * i:2 * i + 2])
+            for i, (layout, ranks) in enumerate(DRYRUN_RANKS.items())}
+        for layout, ranks in DRYRUN_RANKS.items():
+            reports, wall, groups = running[layout].result()
+            reps = [r["dryrun"] for r in reports]
+            per_conv = AG_RANK_CONV if layout == "grid" else AG_CONV
+            want = add_launches(scaled(per_conv, 3))
+            lines = [r["lines"] for r in reps]
+            if [len(x) for x in lines] != [1] + [0] * (ranks - 1) or \
+                    any(r["launches"] != want for r in reps) or \
+                    len(groups) != ranks:
+                raise SmokeFailure(f"dryrun_multihost {layout}: lines "
+                                   f"{lines}, launches "
+                                   f"{[r['launches'] for r in reps]} "
+                                   f"(expected {want}), groups {groups}")
+            line = lines[0][0]
+            emit(line)
+            if line["mesh"] != DRYRUN_MESH or line["num_processes"] != \
+                    ranks or not line["ok"] or not line["distributed"]:
+                raise SmokeFailure(f"dryrun_multihost {layout}: {line}")
+            out[layout] = {"line": line, "ranks_s": wall,
+                           "groups": groups, "launches_per_rank": want}
+            launches += [r["launches"] for r in reps]
+    a, b = out["grid"]["line"]["loss"], out["rows"]["line"]["loss"]
+    if abs(a - b) > DRYRUN_RTOL * abs(b):
+        raise SmokeFailure(f"dryrun_multihost: grid loss {a} vs rows {b}")
+    return {**out, "loss_rel_diff": abs(a - b) / abs(b),
+            "rtol": DRYRUN_RTOL, "launches": add_launches(*launches),
+            "phase_s": time.perf_counter() - t0}
+
+
+SCALING_ROUND = 17
+SCALING_DEVICES = [1, 2, 4, 8]   # make_scaling_artifact's --devices 8
+
+
+def scaling_artifact_phase(seed: int) -> dict:
+    """``python -m lp_gnn_tpu_torch.make_scaling_artifact`` at its and
+    bench_scaling's defaults into a temp dir, the artifact read back: a
+    step time > 0 at every width of both modes, labelled one card, the
+    wire volume SCALING_WIRE_VOLUME. The all-gather mode runs as a user
+    runs it, through the twin's own ``run_mode`` (a ``bench_scaling``
+    subprocess, no LP_GNN_DIST_* variables, from the package's parent),
+    its line checked; the halo mode's bench_scaling runs in this process
+    (``twin_line``), so that its launches, which cover every kernel of
+    the path, are read: exactly bench_phase's formula at 1, 2, 4 and 8
+    shards."""
+    from lp_gnn_tpu_torch import make_scaling_artifact as msa
+    t0 = time.perf_counter()
+    runs = []
+    real = msa.run_mode
+
+    def halo_in_process(devices, halo, device, edges=None):
+        if not halo:
+            line = real(devices, halo, device, edges)
+            runs.append({"halo": halo, "line": line})
+            return line
+        line, launches = twin_line(
+            "lp_gnn_tpu_torch.bench_scaling",
+            ["--devices", str(devices), "--device", device, "--halo"], {})
+        runs.append({"halo": halo, "launches": launches})
+        return line
+
+    steps = 4   # bench_scaling: 1 warm-up + 3 timed
+    ds = SCALING_DEVICES
+    want = add_launches({"spmm_csr": sum(5 * d + steps * 10 * d for d in ds),
+                         "halo_all_to_all": len(ds) * (1 + 2 * steps),
+                         "gather_rows": len(ds) * (1 + 2 * steps)})
+    msa.run_mode = halo_in_process
+    try:
+        with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_scal_") as tmp:
+            call_main("lp_gnn_tpu_torch.make_scaling_artifact",
+                      ["--round", str(SCALING_ROUND), "--out_dir", tmp])
+            names = os.listdir(tmp)
+            with open(osp.join(tmp, f"SCALING_torch_r{SCALING_ROUND}.json")
+                      ) as f:
+                art = json.load(f)
+    finally:
+        msa.run_mode = real
+    times = art["step_time_s"]
+    sub = runs[0]["line"]
+    if names != [f"SCALING_torch_r{SCALING_ROUND}.json"] or \
+            set(times) != {"all-gather", "halo"} or \
+            any(set(t) != {str(d) for d in ds} or
+                not all(v > 0 for v in t.values()) for t in times.values()) \
+            or not art["mode"].startswith("one card (") or \
+            art["wire_volume_banded_mirp_like"]["by_shards"] != \
+            SCALING_WIRE_VOLUME or [r["halo"] for r in runs] != \
+            [False, True] or sub["collectives"] != "all-gather" or \
+            sub["mode"] != "one-card" or sub["multihost"] or \
+            sub["device"] == "cpu" or \
+            sub["step_time_s"] != times["all-gather"] or \
+            not np.isfinite(list(sub["losses"].values())).all() or \
+            runs[1]["launches"] != want:
+        raise SmokeFailure(f"scaling_artifact: files {names}, artifact "
+                           f"{json.dumps(art)}, the subprocess's line "
+                           f"{json.dumps(sub)}, halo launches "
+                           f"{runs[1].get('launches')} (expected {want})")
+    return {"artifact": art, "launches": runs[1]["launches"],
+            "subprocess_line": sub,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5493,30 +5932,29 @@ def main(argv=None) -> int:
     ap.add_argument("--host_sort", action="store_true",
                     help="measure only from_graph's edge orderings on the "
                          "host, numpy's against lex_order's")
-    ap.add_argument("--train_rank", metavar="REPORT",
-                    help="run as one rank of the dp_edge phase: the train "
-                         "entry point with the arguments after --, its "
-                         "measures written to REPORT")
     ap.add_argument("--edge_rank", metavar="PAYLOAD",
                     help="run as one rank of the edge_ranks phase, with the "
                          "phase's PAYLOAD (a JSON file)")
     ap.add_argument("--ag_rank", metavar="PAYLOAD",
                     help="run as one rank of the all_gather phase's ranks, "
                          "with the phase's PAYLOAD (a JSON file)")
-    ap.add_argument("train_argv", nargs="*", help=argparse.SUPPRESS)
+    ap.add_argument("--grid_rank", metavar="PAYLOAD",
+                    help="run as one rank of the dp_edge, dp_edge_grid or "
+                         "dryrun_multihost phases, with the phase's PAYLOAD "
+                         "(a JSON file)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    if args.train_rank:
-        rank_train(args.train_rank, args.train_argv)
-        return 0
     if args.edge_rank:
         edge_rank(args.edge_rank)
         return 0
     if args.ag_rank:
         ag_rank(args.ag_rank)
+        return 0
+    if args.grid_rank:
+        grid_rank(args.grid_rank)
         return 0
     if args.host_sort:
         emit({"phase": "host_sort", "nvidia_smi": nvidia_smi(),
@@ -5646,6 +6084,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         floors = probe_phase("lp_gnn_tpu_torch.probe_gen_floor")
         emit({"phase": "probe_gen_floor", "nvidia_smi": smi, **floors})
+        torch.cuda.empty_cache()
+        gridded = dp_edge_grid(args.seed)
+        emit({"phase": "dp_edge_grid", "nvidia_smi": smi, **gridded})
+        torch.cuda.empty_cache()
+        dried = dryrun_phase(args.seed)
+        emit({"phase": "dryrun_multihost", "nvidia_smi": smi, **dried})
+        torch.cuda.empty_cache()
+        scaled_art = scaling_artifact_phase(args.seed)
+        emit({"phase": "scaling_artifact", "nvidia_smi": smi, **scaled_art})
     except SmokeFailure as ex:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
@@ -5665,7 +6112,9 @@ def main(argv=None) -> int:
              "dp_edge": dpe, "edge_ranks": ranked,
              "steps_per_call": scanned, "all_gather": gathered,
              "bench": benched, "native": natived, "big": big,
-             "probe_spmm": probed, "probe_gen_floor": floors}
+             "probe_spmm": probed, "probe_gen_floor": floors,
+             "dp_edge_grid": gridded, "dryrun_multihost": dried,
+             "scaling_artifact": scaled_art}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

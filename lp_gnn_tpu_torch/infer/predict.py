@@ -33,8 +33,8 @@ from ..data.graph import GraphTensors
 from ..data.sampling import sample_subgraphs
 from ..io.bas import read_bas, write_bas_highs
 from ..parallel import edge_partition
-from ..parallel.mesh import (EdgeMesh, is_primary, make_mesh,
-                             parse_mesh_shape, world_and_rank)
+from ..parallel.mesh import (EdgeMesh, grid_from_shape, is_primary,
+                             make_mesh, parse_mesh_shape, world_and_rank)
 from ..train.metrics import accuracy
 from ..utils.serialize import json_dump, json_load, table_dump
 from .decode import inference_gnn, parse_inference_manager
@@ -44,13 +44,19 @@ def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
     """The edge mesh ``--mesh_shape edge=K`` asks for (K > 1), or None
     (predict.py:35): over the ranks of the process group, one shard a rank,
     where the group has ranks and ``dp`` names none of them (K must then be
-    the group's size); else with every shard on ``device`` (one process,
-    or a rank of dp x edge, ``parallel/combined.py``)."""
+    the group's size); over this rank's row of the (dp, edge) grid where
+    ``dp=D,edge=K`` names D*K ranks (``mesh.grid_from_shape``: JAX serves
+    over the edge axis alone, :35-50, so row 0 serves and the other rows
+    skip, ``runs_here``); else with every shard on ``device`` (one
+    process, or a rank of dp x edge over D ranks, ``parallel/combined.py``)."""
     spec = parse_mesh_shape(cfg.mesh_shape)
     edge = spec.get("edge", 1)
     if edge <= 1:
         return None
     world, _ = world_and_rank()
+    grid = grid_from_shape(spec)
+    if grid is not None:
+        return make_mesh(edge, device, grid.row, row=grid.d)
     if world > 1 and spec.get("dp", 1) == 1:
         if edge != world:
             raise ValueError(
@@ -71,7 +77,10 @@ def runs_here(g: BipartiteGraph, edge_num_thresh,
               mesh: EdgeMesh | None) -> bool:
     """Whether this process runs ``g``'s forward: always, but on a rank
     other than 0 of an edge mesh over ranks only the partitioned graphs,
-    whose forwards every rank takes part in (rank 0 runs the rest)."""
+    whose forwards every rank of the mesh takes part in (rank 0 runs the
+    rest), and on a grid row other than 0 none."""
+    if mesh is not None and mesh.row != 0:
+        return False
     return mesh is None or mesh.group is None or is_primary() or \
         _uses_dist_path(g, edge_num_thresh, mesh)
 

@@ -1,7 +1,7 @@
-"""dp x edge training: a batch of same-bucket graphs over the ranks of the
-``dp`` process group, each graph edge-partitioned over the ``edge`` axis
-(counterpart of ``lp_gnn_tpu/parallel/combined.py``, the JAX package's
-full multi-chip configuration).
+"""dp x edge training: a batch of same-bucket graphs over the ``dp`` axis,
+each graph edge-partitioned over the ``edge`` axis (counterpart of
+``lp_gnn_tpu/parallel/combined.py``, the JAX package's full multi-chip
+configuration).
 
 The JAX package stacks a batch's partitions into one pytree of (B, D, ...)
 leaves and shards it over a (dp, edge) device grid, so every leaf must have
@@ -12,8 +12,19 @@ shard's edge pad, the blocked layouts' chunk counts) with no-op fills
 forwards one after another, each over CSRs of its graph's own edges, so
 the fills have no counterpart; what carries over is the shared ``ms``,
 ``ns`` and Bh, which give every node and halo field of the batch one shape,
-as there. All K edge shards of a rank's graphs sit on the rank's device
-(``mesh.EdgeMesh``); the ranks run one process each (``mesh.py``).
+as there.
+
+Two layouts of the ranks (``mesh.py``):
+
+- D ranks (``--mesh_shape dp=D,edge=E`` over D ranks): rank d holds block
+  d of the batch with all E shards of each graph on its device
+  (``mesh.EdgeMesh`` without a group); the gradients are averaged over the
+  ranks;
+- the (dp, edge) grid of D*E ranks, JAX's own layout (``mesh.RankGrid``):
+  rank (d, e) holds shard e of each graph of block d. The E ranks of row d
+  run each graph's dist forward together over the row's edge group (K1's
+  rank form, the losses' psum), and the gradients are reduced over the
+  whole grid (:func:`grid_average`).
 """
 from __future__ import annotations
 
@@ -21,10 +32,11 @@ import torch
 
 from ..data.dataset import BipartiteGraph
 from ..data.stacking import bucket_key
-from .dp import average_over_ranks
+from .dp import _all_reduce_grads, average_over_ranks
 from .edge_partition import (DistGraphTensors, PartitionedGraph,
                              _shard_sizes, compute_halo_width, dist_forward,
-                             partition_graph)
+                             partition_graph, psum_over)
+from .mesh import RankGrid
 
 
 def dist_stack_groups(ds, size: int, edge_num_thresh: float):
@@ -67,26 +79,51 @@ def partition_batch(graphs: list[BipartiteGraph], n_edge: int,
             for i in (range(len(graphs)) if own is None else own)]
 
 
+def grid_average(model, loss: torch.Tensor, grid: RankGrid) -> torch.Tensor:
+    """JAX's ``pmean(psum(g, edge), dp)`` (:142-143) on the grid, after
+    each rank's backward: the sum of every rank's gradient (its shard's
+    part of its row's) over all D*E ranks, divided by D, written back in
+    place; returns the mean of the rows' losses (each row's ``loss`` is
+    the same on its E ranks, so it enters the sum as ``loss / E``). One
+    all-reduce over the world, not a row sum and then a column mean: the
+    same sum, one collective in place of two."""
+    return _all_reduce_grads(model, loss / grid.edge,
+                             divide=grid.dp)[-1]
+
+
 def dp_edge_train_step(model, optimizer: torch.optim.Optimizer,
                        dgs: list[DistGraphTensors], loss_fn,
-                       generator: torch.Generator | None = None):
+                       generator: torch.Generator | None = None,
+                       grid: RankGrid | None = None):
     """One dp x edge step on this rank's block ``dgs`` of a batch
     (``make_dp_edge_train_step`` :108): the dist forward of each graph in
-    training mode, the mean of their dist losses, one backward; the
-    gradients and the loss averaged over the ranks (``dp.py
+    training mode, the mean of their dist losses, one backward, then one
+    optimizer step, every rank's weights equal after it. Returns the mean
+    loss over every rank's graphs, a 0-d tensor on the device (before the
+    update).
+
+    Without ``grid`` (D ranks, each holding all E shards) the gradients
+    and the loss are averaged over the ranks (``dp.py
     average_over_ranks``: with blocks of equal size, the mean of the
-    ranks' means is JAX's ``pmean(mean(losses))``), then one optimizer
-    step. JAX's ``loss / n_edge`` and ``loss * n_edge`` (:136, :146) undo
-    the transpose of the edge axis' psum; with every shard on one device
-    there is no psum (``dist_train_step``). Returns the mean loss over
-    every rank's graphs, a 0-d tensor on the device (before the update)."""
+    ranks' means is JAX's ``pmean(mean(losses))``); with every shard on one
+    device there is no psum, so JAX's ``loss / n_edge`` and ``loss *
+    n_edge`` (:135, :144), which undo the transpose of the edge axis'
+    psum, have no counterpart. On the ``grid`` the psum happens: each
+    graph's loss sums over the row's edge group (``psum_over``, whose
+    backward passes the cotangent on as it is, so each rank's gradient is
+    its shard's part with no 1/E to undo) and :func:`grid_average` reduces
+    the gradients over the grid."""
     model.train()
+    kw = {} if grid is None else {"psum": psum_over(grid.row)}
     loss = torch.stack([
         loss_fn(*dist_forward(model, dg, generator), dg.y_s, dg.y_t,
-                dg.cons_mask, dg.vars_mask) for dg in dgs]).mean()
+                dg.cons_mask, dg.vars_mask, **kw) for dg in dgs]).mean()
     optimizer.zero_grad(set_to_none=True)
     if loss.requires_grad:   # GCNRand's logits depend on no parameter
         loss.backward()
-    loss = average_over_ranks(model, loss.detach())
+    if grid is not None:
+        loss = grid_average(model, loss.detach(), grid)
+    else:
+        loss = average_over_ranks(model, loss.detach())
     optimizer.step()
     return loss

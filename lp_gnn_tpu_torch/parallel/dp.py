@@ -11,7 +11,14 @@ graph's step does, whatever the number of graphs. Under ``--mesh_shape
 dp=K`` every rank builds the same stacks of K*B graphs and takes the
 contiguous block ``[r*B, (r+1)*B)`` of each (as ``P("dp")`` splits the
 leading axis); after its backward the ranks average their gradients by
-one all-reduce and step the same optimizer, so they stay equal.
+one all-reduce and step the same optimizer, so they stay equal. On a
+(dp, edge) grid of ranks (``mesh.RankGrid``) the dp axis is a column:
+row d takes block d, and every rank of a row runs the same union (the
+edge axis replicated, as JAX's dp step on its combined grid); with edge
+shards on their own ranks every rank runs the same union. Either way the
+average is over every rank of the process group: the mean over the
+column of the rows' gradients, with no rank's weights left to depend on
+its row's kernels being bitwise deterministic.
 """
 from __future__ import annotations
 
@@ -69,9 +76,12 @@ def member_losses(lc, lv, g: GraphTensors, loss_fn) -> torch.Tensor:
 def step_generator(gen: torch.Generator | None,
                    rank: int) -> torch.Generator | None:
     """A dropout generator for one batched step on this rank: seeded from
-    one draw of the run's ``gen`` (the same draw on every rank) plus the
-    rank, so that the ranks' masks differ but their run generators stay
-    equal, whatever the size of each rank's graphs."""
+    one draw of the run's ``gen`` (the same draw on every rank) plus
+    ``rank``, this rank's place on the axis whose cells must draw other
+    masks, so that their masks differ but the run generators stay equal,
+    whatever the size of each rank's graphs. On a (dp, edge) grid the
+    trainer passes the row d and the dist forward folds the shard e into
+    this generator the same way (``edge_partition.module_forward``)."""
     if gen is None:
         return None
     seed = int(torch.randint(2 ** 62, (1,), generator=gen,

@@ -68,7 +68,9 @@ the JAX losses are sums over the stacked shards: the single-card losses of
 the dist losses (:1066-1171). Over ranks the losses' sums are all-reduced
 over the group (``psum``) and so are the parameters' gradients
 (:1255-1257), which gives every rank the single-graph loss and gradient.
-Several cards in one process wait for ROADMAP.md queue item 7c; dp x edge,
+The group is the mesh's: the world for edge shards on their ranks, a row's
+edge group on the (dp, edge) grid of ranks (``mesh.RankGrid``). Several
+cards in one process wait for ROADMAP.md queue item 7c's rest; dp x edge,
 a rank's block of a batch of partitions, is ``parallel/combined.py``.
 
 The arch forwards are the modules' own (``models/gcn.py``):

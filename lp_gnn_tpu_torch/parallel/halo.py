@@ -30,8 +30,11 @@ mesh says which runs, there is no switch and no fallback between them:
   to the largest exchange. On CPU tensors it runs
   :func:`halo_all_to_all_ranks_plain`,
   ``all_to_all_single`` over the group (gloo). :class:`HaloAllToAllRanks`
-  gives it a gradient, the same exchange. Shards on several devices of one
-  process are not ported (ROADMAP.md, queue item 7c).
+  gives it a gradient, the same exchange. Under a (dp, edge) grid of ranks
+  (``mesh.RankGrid``) each row's edge group exchanges over a window of its
+  own: a rank belongs to one row, and its window is keyed by that group.
+  Shards on several devices of one process are not ported (ROADMAP.md,
+  queue item 7c's rest).
 """
 from __future__ import annotations
 
@@ -111,10 +114,9 @@ def _check(bufs: Sequence[torch.Tensor]) -> None:
         devs = {b.device for b in bufs}
         raise NotImplementedError(
             f"halo buffers on distinct devices {sorted(map(str, devs))} in "
-            "one process: shards on several cards of one process (peer "
-            "pointers in K1's table) are not ported yet (ROADMAP.md, queue "
-            "item 7c: edge shards on several devices); one shard a rank "
-            "is halo_all_to_all_ranks")
+            "one process: several cards in one process (peer pointers in "
+            "K1's table) are not ported yet (ROADMAP.md, queue item 7c's "
+            "rest); one shard a rank is halo_all_to_all_ranks")
     if any(b.shape != shape for b in bufs):
         raise ValueError("halo buffers of one exchange must share one shape, got "
                          f"{sorted({tuple(b.shape) for b in bufs})}")

@@ -1,5 +1,5 @@
-"""The ``edge`` mesh and the ``dp`` process group (counterpart of
-``lp_gnn_tpu/parallel/mesh.py``).
+"""The ``edge`` mesh, the ``dp`` process group and the (dp, edge) grid of
+ranks (counterpart of ``lp_gnn_tpu/parallel/mesh.py``).
 
 The JAX package builds a ``jax.sharding.Mesh`` over its devices
 (``make_mesh`` :72) and its tests run the edge axis on a virtual 8-device
@@ -15,8 +15,16 @@ CPU mesh. The port's :class:`EdgeMesh` says where the K shards of the
   or have a card each; K1 between them is the rank form of
   ``parallel/halo.py``.
 
+With ``--mesh_shape dp=D,edge=E`` over D*E ranks the ranks form JAX's
+(dp, edge) device grid (:class:`RankGrid`, :func:`make_grid`): rank r is
+cell (d, e) = (r // E, r % E), the order in which ``make_mesh`` reshapes
+the global device list, row-major. The E ranks of row d are the row's
+edge group (an :class:`EdgeMesh` over them holds shard e on rank (d, e));
+the D ranks of column e are a dp group. Over D ranks instead, each rank
+holds all E shards of its graphs (``parallel/combined.py``).
+
 Several devices in one process (peer pointers in K1's table) are ROADMAP.md
-queue item 7c's last part: a placement that names two distinct devices
+queue item 7c's rest: a placement that names two distinct devices
 raises.
 
 The ``dp`` axis is one process a rank, joined by ``torch.distributed``
@@ -55,9 +63,12 @@ class EdgeMesh:
     """The K shards of the ``edge`` axis as this process holds them:
     ``devices``, the device of each shard held here, and ``group``, the
     process group whose rank k holds shard k (then one shard is held here),
-    or None (every shard is held here)."""
+    or None (every shard is held here). ``row``: the grid row whose edge
+    group ``group`` is (:class:`RankGrid`; 0 outside a grid). Row 0 serves:
+    the other rows skip the val and predict passes."""
     devices: tuple[torch.device, ...]
     group: object = None
+    row: int = 0
 
     def __post_init__(self):
         if not self.devices:
@@ -66,10 +77,9 @@ class EdgeMesh:
         if len(devs) > 1:
             raise NotImplementedError(
                 f"edge shards on distinct devices {devs} in one process: "
-                "shards on several cards of one process (peer pointers in "
-                "K1's table) are not ported yet (ROADMAP.md, queue item 7c: "
-                "edge shards on several devices); one shard a rank is "
-                "make_mesh(K, device, group)")
+                "several cards in one process (peer pointers in K1's table) "
+                "are not ported yet (ROADMAP.md, queue item 7c's rest); one "
+                "shard a rank is make_mesh(K, device, group)")
         if self.group is not None and len(self.devices) != 1:
             raise ValueError("an edge mesh over ranks holds one shard a rank")
 
@@ -94,10 +104,11 @@ class EdgeMesh:
 
 
 def make_mesh(n_shards: int, device: torch.device | str,
-              group=None) -> EdgeMesh:
+              group=None, row: int = 0) -> EdgeMesh:
     """K shards on ``device`` (counterpart of ``make_mesh`` :72, which takes
     K distinct devices), or, given ``group``, shard k on its rank k, this
-    rank's on ``device``; K must then be the group's size."""
+    rank's on ``device``; K must then be the group's size (``row``: the
+    grid row of ``group``)."""
     if n_shards < 1:
         raise ValueError(f"edge mesh of {n_shards} shards")
     if group is None:
@@ -106,7 +117,66 @@ def make_mesh(n_shards: int, device: torch.device | str,
     if world != n_shards:
         raise ValueError(f"an edge mesh of {n_shards} shards over a group of "
                          f"{world} ranks: one shard a rank")
-    return EdgeMesh((torch.device(device),), group)
+    return EdgeMesh((torch.device(device),), group, row)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankGrid:
+    """This rank's cell of the (dp, edge) grid of D*E ranks: (d, e), its
+    row's edge group ``row`` (the E ranks of row d; shard e of the row's
+    graphs lives here) and its column's dp group ``col`` (the D ranks of
+    column e)."""
+    dp: int
+    edge: int
+    d: int
+    e: int
+    row: object
+    col: object
+
+
+def grid_ranks(dp: int, edge: int) -> tuple[list[list[int]], list[list[int]]]:
+    """The global ranks of every row and every column of a (dp, edge) grid:
+    rank r is cell (r // edge, r % edge), the device order of JAX's
+    ``make_mesh`` (a row-major reshape of the device list, :81-83)."""
+    rows = [[d * edge + e for e in range(edge)] for d in range(dp)]
+    return rows, [list(c) for c in zip(*rows)]
+
+
+# (dp, edge) -> (the default group it was made under, the grid): a grid's
+# groups are made once a process group, by every rank together
+_GRIDS: dict = {}
+
+
+def make_grid(dp: int, edge: int) -> RankGrid:
+    """This rank's cell of the (dp, edge) grid over the process group's
+    D*E ranks. Every rank makes every row group and every column group
+    (``dist.new_group`` is collective: each rank in the same order,
+    groups it is not in included); the grid is kept and returned again
+    while the process group lives."""
+    world, rank = world_and_rank()
+    if dp * edge != world or dp < 1 or edge < 1:
+        raise ValueError(f"a (dp={dp}, edge={edge}) grid over {world} ranks")
+    cached = _GRIDS.get((dp, edge))
+    if cached is not None and cached[0] is dist.group.WORLD:
+        return cached[1]
+    rows, cols = grid_ranks(dp, edge)
+    row_groups = [dist.new_group(r) for r in rows]
+    col_groups = [dist.new_group(c) for c in cols]
+    d, e = divmod(rank, edge)
+    grid = RankGrid(dp, edge, d, e, row_groups[d], col_groups[e])
+    _GRIDS[(dp, edge)] = (dist.group.WORLD, grid)
+    return grid
+
+
+def grid_from_shape(spec: dict[str, int]) -> RankGrid | None:
+    """The grid that ``--mesh_shape dp=D,edge=E`` (parsed) names over a
+    process group of exactly D*E ranks, both axes above 1; else None (one
+    process, dp ranks each holding all E shards, or edge ranks alone)."""
+    dp, edge = int(spec.get("dp", 1)), int(spec.get("edge", 1))
+    world, _ = world_and_rank()
+    if world > 1 and dp > 1 and edge > 1 and dp * edge == world:
+        return make_grid(dp, edge)
+    return None
 
 
 class DistEnv(NamedTuple):
@@ -168,8 +238,10 @@ def world_and_rank() -> tuple[int, int]:
 def leave_distributed(created: bool) -> None:
     """The end of a run under the contract: the rank form's receive windows
     released (``parallel/halo.py release_windows``), then the process group
-    destroyed where ``created`` (``init_distributed``'s second result)."""
+    destroyed, with the grids made over it, where ``created``
+    (``init_distributed``'s second result)."""
     from .halo import release_windows
     release_windows()
     if created:
+        _GRIDS.clear()
         dist.destroy_process_group()

@@ -121,7 +121,8 @@ def calibrate_warm_gate(model, train_ds: LPDataset, cfg: Config, inf_mng,
     ``failures``. Only training data is used (no val leakage). Over an edge
     mesh of ranks rank 0 decides, LP by LP, and tells the others, which
     take part in the forwards of the partitioned LPs; rank 0 alone solves,
-    writes, and returns the gate (the others None)."""
+    writes, and returns the gate (the others None). On a (dp, edge) grid
+    of ranks row 0 does so, and the other rows return None at once."""
     solve_mps = solve_backend(cfg)
     method = cfg.normalized_lp_method()
     sfx = cfg.get_method_sfx()
@@ -132,6 +133,8 @@ def calibrate_warm_gate(model, train_ds: LPDataset, cfg: Config, inf_mng,
         mkdir_p(calib_bas_dir), mkdir_p(calib_log_dir)
     # the same inference configuration as the val predictions it gates
     mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
+    if mesh is not None and mesh.row != 0:
+        return None   # a grid row other than 0 serves nothing
     ranks = mesh is not None and mesh.group is not None
     primary = is_primary()
     dist_cache: dict = {}

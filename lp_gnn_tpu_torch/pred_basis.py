@@ -11,7 +11,9 @@ Graphs above ``--edge_num_thresh`` are served by exact sampled shards of
 all K shards on the one device, or, as K processes, one a rank, each given
 ``LP_GNN_DIST_COORD`` (host:port of rank 0), ``LP_GNN_DIST_NPROCS`` (K)
 and ``LP_GNN_DIST_PROC_ID`` (its rank), shard k on rank k; rank 0 writes
-the bases.
+the bases. Under ``--mesh_shape dp=D,edge=K`` over D*K ranks (the grid a
+training run of those flags takes) row 0's K ranks serve that way and the
+other rows run nothing.
 """
 from __future__ import annotations
 

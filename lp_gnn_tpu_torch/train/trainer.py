@@ -1,6 +1,7 @@
 """Training engine (counterpart of ``lp_gnn_tpu/train/trainer.py``; reference
-train.py:55-172): ``run_exp`` on one device or over the ranks of a dp
-process group, on full graphs, sampled subgraphs and graph-batched unions.
+train.py:55-172): ``run_exp`` on one device or over the ranks of a process
+group (dp, edge shards a rank, or both on a grid), on full graphs, sampled
+subgraphs and graph-batched unions.
 
 - Optimizer: ``torch.optim.Adam(weight_decay=5e-4)``, the coupled L2 decay
   the JAX package builds as optax ``add_decayed_weights`` +
@@ -54,8 +55,10 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
   in its rank form, the losses' sums and the gradients are summed over
   the ranks (``dist_train_step``), the smaller graphs' steps run the same
   on every rank, and the val pass gathers the logits to rank 0, which
-  alone writes. ``--graph_batch`` above 1 is refused there (ROADMAP.md,
-  queue item 7f).
+  alone writes. ``--graph_batch B`` there stacks the smaller graphs into
+  B-graph unions that every rank runs alike (``dp_step`` with
+  ``dp_mesh={"dp": 1}``, trainer.py:482-490); the oversize graphs keep
+  the single-graph dist step.
 - ``--mesh_shape dp=K,edge=E`` (trainer.py:356-387, 570-671): the graphs
   above ``edge_num_thresh`` are grouped by bucket into batches of
   K*graph_batch (``parallel/combined.py dist_stack_groups``), built once;
@@ -64,9 +67,18 @@ process group, on full graphs, sampled subgraphs and graph-batched unions.
   tensors; each batch is one ``dp_edge_train_step``, the batches in the
   order ``rng_np.permutation`` draws before the dp stacks'. An oversize
   graph left over takes ``dist_train_step`` on every rank; the rest is the
-  dp path above. With fewer than K ranks the dp axis is dropped with a
-  warning (trainer.py:350-353) and the run is edge-only. A group of
-  dp*E ranks (one shard a rank and dp across) is refused (queue item 7f).
+  dp path above. Over K ranks each rank holds all E shards of its graphs;
+  over K*E ranks the ranks are JAX's (dp, edge) grid (trainer.py:371-387,
+  ``parallel/mesh.py RankGrid``): row d takes block d of each batch, rank
+  (d, e) shard e of each of its graphs, over the row's edge group, and
+  the gradients are reduced over the grid (``combined.grid_average``); an
+  oversize graph left over runs over each row's edge group, every row the
+  same graph (dp replicated); the dp stacks of smaller graphs run over
+  each column, every rank of a row the same union (edge replicated), their
+  gradients averaged over every rank (``dp_train_step``). The
+  val pass runs on row 0's edge group, and rank 0 scores and writes. With
+  fewer than K ranks the dp axis is dropped with a warning
+  (trainer.py:350-353) and the run is edge-only.
 - ``--cache_in_agg 0`` (config.py:116) builds no input aggregation cache:
   the input conv aggregates in every step.
 
@@ -115,7 +127,7 @@ from ..parallel.dp import (dp_train_step, rank_block, stack_groups,
 from ..parallel.edge_partition import (DIST_HALO_ARCHS, DistGraphTensors,
                                        cached_partition_graph,
                                        dist_tensors, dist_train_step)
-from ..parallel.mesh import (init_distributed, is_primary,
+from ..parallel.mesh import (grid_from_shape, init_distributed, is_primary,
                              leave_distributed, parse_mesh_shape,
                              world_and_rank)
 from ..utils.misc import AverageMeter
@@ -363,7 +375,8 @@ def quick_val(model, val_ds: LPDataset, cfg: Config) -> float | None:
     graphs above ``edge_num_thresh`` take the dist forward, as
     ``model_inference`` does given a mesh. Over an edge mesh of ranks,
     rank 0 scores (the others take part in the dist forwards and return
-    None)."""
+    None); on a (dp, edge) grid, row 0's ranks run the forwards and the
+    other rows nothing (``runs_here``)."""
     model.eval()
     mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
     thresh = cfg.edge_num_thresh if mesh is not None else np.inf
@@ -387,22 +400,22 @@ def quick_val(model, val_ds: LPDataset, cfg: Config) -> float | None:
 
 def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
     """(dp, graph_batch) of the run: ``--mesh_shape dp=K`` over K ranks
-    of the process group, or, with fewer ranks, single-graph steps with a
-    warning, graph_batch dropped too (trainer.py:477-481); under dp x edge
-    with fewer ranks, the dp axis alone is dropped with a warning
-    (trainer.py:350-353), and the run is edge-only."""
+    of the process group, or ``dp=K,edge=E`` over K (each rank holding all
+    E shards) or K*E ranks (the grid); with fewer ranks, single-graph
+    steps with a warning, graph_batch dropped too (trainer.py:477-481);
+    under dp x edge with fewer ranks, the dp axis alone is dropped with a
+    warning (trainer.py:350-353), and the run is edge-only. With edge
+    shards on their own ranks (``edge=K`` over K ranks) dp is 1 and
+    ``--graph_batch`` stacks the smaller graphs alike on every rank."""
     mesh = parse_mesh_shape(cfg.mesh_shape or "")
     dp_size = int(mesh.get("dp", 1))
     graph_batch = max(int(cfg.graph_batch), 1)
     edge_size = int(mesh.get("edge", 1))
     if world > 1 and dp_size == 1 and edge_size == world:
-        # one shard a rank: every step is the whole group's
-        if graph_batch > 1:
-            raise NotImplementedError(
-                f"--graph_batch {graph_batch} with edge shards on their own "
-                f"ranks (edge={edge_size} over {world} ranks) is not ported "
-                "yet (ROADMAP.md, queue item 7f)")
-        return 1, 1
+        return 1, graph_batch   # one shard a rank: no dp axis
+    if world > 1 and dp_size > 1 and edge_size > 1 and \
+            dp_size * edge_size == world:
+        return dp_size, graph_batch   # the (dp, edge) grid
     if dp_size > 1 and edge_size > 1 and dp_size > world:
         logging.warning("mesh_shape dp=%d,edge=%d exceeds %d rank(s) — "
                         "dropping the dp axis", dp_size, edge_size, world)
@@ -413,17 +426,11 @@ def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
                         " (graph_batch dropped too)" if graph_batch > 1
                         else "")
         return 1, 1
-    if world > 1 and dp_size > 1 and edge_size > 1 and \
-            dp_size * edge_size == world:
-        raise NotImplementedError(
-            f"--mesh_shape dp={dp_size},edge={edge_size} over {world} ranks "
-            "(one edge shard a rank, dp across) is not ported yet "
-            "(ROADMAP.md, queue item 7f); dp x edge takes dp ranks, each "
-            "holding its graphs' shards")
     if world > 1 and dp_size != world:
         raise ValueError(f"the process group has {world} ranks: "
-                         f"--mesh_shape dp={dp_size} must name them all, or "
-                         f"edge={world} one shard each")
+                         f"--mesh_shape dp={dp_size} must name them all, "
+                         f"edge={world} one shard each, or dp=D,edge=E "
+                         "with D*E of them")
     return dp_size, graph_batch
 
 
@@ -446,6 +453,10 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     world, rank = world_and_rank()
     dp_size, graph_batch = batch_shape(cfg, world)
     stack_size = dp_size * graph_batch
+    # this rank's place on the dp axis: its grid row, its rank for dp
+    # ranks, 0 for one process or edge ranks alone
+    grid = grid_from_shape(parse_mesh_shape(cfg.mesh_shape or ""))
+    dp_rank = grid.d if grid is not None else rank if dp_size > 1 else 0
     primary = rank == 0
     log_dir = cfg.log_dir
     writer = MetricsWriter(log_dir) if primary else NullWriter()
@@ -501,7 +512,11 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
                      cfg.edge_num_thresh,
                      "halo" if dist_halo else "all-gather")
     combined = mesh is not None and dp_size > 1
-    if combined:
+    if grid is not None:
+        logging.info("combined dp x edge training: a grid of %d x %d ranks, "
+                     "this rank's cell (%d, %d)", grid.dp, grid.edge,
+                     grid.d, grid.e)
+    elif combined:
         logging.info("combined dp x edge training: %d rank(s) x %d shards",
                      dp_size, mesh.n_shards)
 
@@ -539,9 +554,9 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         """The union of this rank's block of a stack, built once."""
         key = ("stack", *stack)
         if key not in graphs:
-            graphs[key] = union([train_graph(model, train_ds[i], device,
-                                             input_agg=input_agg)
-                                 for i in rank_block(stack, world, rank)])
+            graphs[key] = union([
+                train_graph(model, train_ds[i], device, input_agg=input_agg)
+                for i in rank_block(stack, dp_size, dp_rank)])
         return graphs[key]
 
     def dist_block_for(batch: list) -> list[DistGraphTensors]:
@@ -549,7 +564,7 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         at the batch's shared sizes, on the device, built once."""
         key = ("dist_stack", *batch)
         if key not in graphs:
-            own = rank_block(list(range(len(batch))), world, rank)
+            own = rank_block(list(range(len(batch))), dp_size, dp_rank)
             parts = partition_batch([train_ds[i] for i in batch],
                                     mesh.n_shards, halo=dist_halo, own=own)
             graphs[key] = [dist_tensors(model, dg, mesh, input_agg=input_agg)
@@ -620,13 +635,13 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
                         glstep += 1
                         loss = dp_edge_train_step(
                             model, optimizer, dgs, loss_fn,
-                            step_generator(gen, rank))
+                            step_generator(gen, dp_rank), grid)
                         log_step(0, float(loss), None)
                 for bi in rng_np.permutation(len(stacks)):
                     gt = union_for(stacks[int(bi)])
                     glstep += 1
                     loss = dp_train_step(model, optimizer, gt, loss_fn,
-                                         step_generator(gen, rank))
+                                         step_generator(gen, dp_rank))
                     log_step(0, float(loss), None)
                 for gi in [*singles,
                            *(i for i in sampled if i not in covered)]:

@@ -436,18 +436,19 @@ def test_rank_launch_failure_raises_on_every_rank(session):
 
 
 def test_refusals_in_one_process():
-    """Two devices in one process (an edge mesh, K1's list form), and a
-    world of dp*E ranks or --graph_batch over edge ranks (queue item 7f),
-    raise and name their ROADMAP items."""
-    with pytest.raises(NotImplementedError, match="queue item 7c"):
+    """Two devices in one process (an edge mesh, K1's list form) raise and
+    name their ROADMAP item (7c's rest); a world of dp*E ranks (the grid)
+    and --graph_batch over edge ranks, once refused as queue item 7f, take
+    their batch shapes (tests/test_torch_grid.py runs them)."""
+    with pytest.raises(NotImplementedError, match="queue item 7c's rest"):
         EdgeMesh((torch.device("cpu"), torch.device("meta")))
-    with pytest.raises(NotImplementedError, match="queue item 7c"):
+    with pytest.raises(NotImplementedError, match="queue item 7c's rest"):
         thalo.halo_all_to_all([torch.zeros(4, 4),
                                torch.zeros(4, 4, device="meta")])
-    with pytest.raises(NotImplementedError, match="queue item 7f"):
-        ttrainer.batch_shape(Config(mesh_shape="dp=2,edge=2"), 4)
-    with pytest.raises(NotImplementedError, match="queue item 7f"):
-        ttrainer.batch_shape(Config(mesh_shape="edge=2", graph_batch=2), 2)
+    assert ttrainer.batch_shape(Config(mesh_shape="dp=2,edge=2"), 4) == \
+        (2, 1)
+    assert ttrainer.batch_shape(Config(mesh_shape="edge=2", graph_batch=2),
+                                2) == (1, 2)
     assert ttrainer.batch_shape(Config(mesh_shape="edge=2"), 2) == (1, 1)
 
 

@@ -1045,19 +1045,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ranks", [2, 4])
-def test_halo_all_to_all_ranks_on_card(cuda_device, ranks):
-    """The rank form of K1 between ``ranks`` processes of the LP_GNN_DIST_*
-    contract sharing the card (gloo for the barriers and the handles): each
-    rank's result equals the plain version's, bit for bit, each exchange
-    is two rank-form launches (the write and the copy-out) and no stacked
-    one, and the group keeps one window, of the largest exchange."""
+def run_rank_workers(worker: str, ranks: int) -> None:
+    """``ranks`` processes of ``python -c worker`` joined by the
+    LP_GNN_DIST_* contract on the card; each exit code 0 asserted."""
     _build.build_all(["halo_a2a"])
     port = free_port()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK_WORKER], cwd=root,
+        [sys.executable, "-c", worker], cwd=root,
         env=dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
                  LP_GNN_DIST_NPROCS=str(ranks), LP_GNN_DIST_PROC_ID=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -1071,6 +1066,56 @@ def test_halo_all_to_all_ranks_on_card(cuda_device, ranks):
             p.wait()
     assert [p.returncode for p in procs] == [0] * ranks, \
         "\n".join(o[-3000:] for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_halo_all_to_all_ranks_on_card(cuda_device, ranks):
+    """The rank form of K1 between ``ranks`` processes of the LP_GNN_DIST_*
+    contract sharing the card (gloo for the barriers and the handles): each
+    rank's result equals the plain version's, bit for bit, each exchange
+    is two rank-form launches (the write and the copy-out) and no stacked
+    one, and the group keeps one window, of the largest exchange."""
+    run_rank_workers(RANK_WORKER, ranks)
+
+
+# one rank of test_halo_all_to_all_ranks_grid_on_card: the (dp=2, edge=2)
+# grid of 4 ranks; each row exchanges buffers of its own seed over its edge
+# group, held to the row-local plain version (all_to_all_single over gloo
+# on host copies) bit for bit; the rank keeps one window, its row's
+GRID_RANK_WORKER = r"""
+import torch
+from lp_gnn_tpu_torch.parallel import halo
+from lp_gnn_tpu_torch.parallel.mesh import (init_distributed,
+                                            leave_distributed, make_grid)
+
+dev, _ = init_distributed(torch.device("cuda"))
+grid = make_grid(2, 2)
+gen = torch.Generator(device="cpu").manual_seed(11 + grid.d)
+cases = [(37, 8, torch.bfloat16), (37, 1024, torch.bfloat16),
+         (21, 8, torch.float32)]
+for bh, f, dt in cases:
+    bufs = [torch.randn(2 * bh, f, generator=gen).to(dt) for _ in range(2)]
+    want = halo.halo_all_to_all_ranks_plain(bufs[grid.e], grid.row)
+    assert torch.equal(want, halo.halo_all_to_all_plain(bufs)[grid.e])
+    got = halo.halo_all_to_all_ranks(bufs[grid.e].to(dev), grid.row)
+    assert torch.equal(got.cpu(), want), (grid.d, grid.e, bh, f, dt)
+assert list(halo._WINDOWS) == [(grid.row, dev.index)]
+assert halo.halo_all_to_all_ranks.launches == 2 * len(cases)
+assert halo.halo_all_to_all.launches == 0
+leave_distributed(True)
+print("cell", grid.d, grid.e, "ok")
+"""
+
+
+@pytest.mark.cuda
+def test_halo_all_to_all_ranks_grid_on_card(cuda_device):
+    """The rank form of K1 on the (dp=2, edge=2) grid of 4 processes
+    sharing the card: each row's edge group exchanges its own buffers,
+    every rank's result equal to the row-local plain all_to_all_single,
+    bit for bit, two launches an exchange, and each rank's one window that
+    of its row group."""
+    run_rank_workers(GRID_RANK_WORKER, 4)
 
 
 @pytest.mark.cuda
