@@ -163,7 +163,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    K1's rank form at the bench graph's Bh, D=1024 and D=8 bf16, bit for
    bit against its plain version on every rank (the exchange's two
    launches timed one rank at a time, device ms, the exchange with its
-   barriers, the gloo plain version); one fp32 step (SGD at lr 1, no dropout) held to the
+   synchronisation on the card, the gloo plain version); 64 exchanges
+   back to back with the host's collectives and synchronises made to
+   raise, two shapes, rank 0 held back, bit for bit; one rank's launch
+   refused, every rank raising and naming it; one fp32 step (SGD at lr 1, no dropout) held to the
    one-process stacked dist step on the same partition (each tensor's
    update within the larger of 1e-4 and twice the single card's
    fp32-vs-fp64 spread), and one fp32 GENDeeper(8,8,hids=256,depth=5)
@@ -387,6 +390,7 @@ from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
 from lp_gnn_tpu_torch.models.gcn import build_model
 from lp_gnn_tpu_torch.ops import _build
+from lp_gnn_tpu_torch.ops._build import launch_on
 from lp_gnn_tpu_torch.ops import gen_agg as gen_agg_mod
 from lp_gnn_tpu_torch.ops import spmm as spmm_mod
 from lp_gnn_tpu_torch.ops.gather import gather_rows, gather_rows_plain
@@ -3605,8 +3609,9 @@ def dp_edge(seed: int) -> dict:
 
 
 # ------------------------------------------------ edge shards on their ranks
-# EDGE_RANKS ranks time-share the one card (gloo for the barriers, the IPC
-# handles and the gradients), shard k on rank k. A conv over the ranks'
+# EDGE_RANKS ranks time-share the one card (gloo for the IPC handles, the
+# windows' set-up and the gradients; K1's exchanges ordered by flags on
+# the card), shard k on rank k. A conv over the ranks'
 # shards launches, on each rank: one gather of the send rows, K1's rank
 # form twice (the gather direction, then the reduce direction), each
 # exchange two launches of its kernel (the write into the ranks' windows
@@ -3657,16 +3662,17 @@ class CaptureLogits:
 
 class WindowPeak:
     """``parallel/halo.py _make_window`` wrapped to keep the most bytes
-    this process's receive windows held at once: cudaMalloc'ed outside
-    torch's caching allocator, they stand beside
-    ``max_memory_allocated``."""
+    this process's receive windows (each pair's two windows) held at
+    once: cudaMalloc'ed outside torch's caching allocator, they stand
+    beside ``max_memory_allocated``."""
 
     def __enter__(self):
         self.real, self.peak = halo_mod._make_window, halo_mod.window_bytes()
 
         def make(nbytes, group, dev):
             w = self.real(nbytes, group, dev)
-            self.peak = max(self.peak, halo_mod.window_bytes() + w.nbytes)
+            self.peak = max(self.peak,
+                            halo_mod.window_bytes() + w.alloc_bytes)
             return w
         halo_mod._make_window = make
         return self
@@ -3675,18 +3681,141 @@ class WindowPeak:
         halo_mod._make_window = self.real
 
 
-def rank_k1_cases(seed: int, bh: int) -> list[dict]:
+# back-to-back exchanges of the rank form's stress check, and the sleep
+# (cycles) that holds one rank's card back before every other write
+RANK_STRESS = 64
+RANK_HOLD_CYCLES = 2_000_000
+
+
+class NoHostSync:
+    """The host's collectives and synchronises made to raise while the
+    rank form's exchanges run: an exchange must make none of them."""
+    SYNCS = [(torch.distributed, n) for n in ("barrier", "all_gather",
+                                              "all_gather_object")] + [
+        (torch.cuda.Stream, "synchronize"), (torch.cuda, "synchronize")]
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.SYNCS]
+        for m, n in self.SYNCS:
+            def refuse(*a, _name=f"{m.__name__}.{n}", **kw):
+                raise SmokeFailure(f"{_name} during the rank form's "
+                                   "exchanges")
+            setattr(m, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def rank_kernels_alone(buf: torch.Tensor, out: torch.Tensor):
+    """One exchange's two kernels without its flags, as the path launches
+    them (``parallel/halo.py _kernels``): the write into window 0 of every
+    rank's pair, the copy-out of this rank's (comparison launches: not
+    counted). Run while no other rank exchanges."""
+    win = halo_mod._window(buf.nbytes, None, buf.device)
+    calls = halo_mod._kernels(win, buf, out, 0)
+
+    def launch():
+        rcs = [launch_on(buf.device, halo_mod._rank_lib(name), *args)
+               for name, args in calls]
+        if any(rcs):
+            raise SmokeFailure(f"K1's rank kernels alone: CUDA errors {rcs}")
+    return launch
+
+
+def rank_stress(seed: int, bh: int) -> dict:
+    """RANK_STRESS exchanges of the rank form back to back, two shapes in
+    turn within the windows (Bh x 8 and Bh/8 x 64 bf16), rank 0's card held
+    back by ``torch.cuda._sleep`` before every other write, no collective
+    and no synchronise of the host among them (``NoHostSync``); each result
+    against the stacked plain version, bit for bit. The host's wall from
+    the first exchange enqueued to the card's end."""
+    k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    shapes = [(bh, 8), (bh // 8, 64)]
+    ins, wants = [], []
+    for i in range(RANK_STRESS):
+        rows, d = shapes[i % 2]
+        bufs = torch.randn(k, k * rows, d, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        wants.append(halo_all_to_all_plain(bufs)[me].clone())
+        ins.append(bufs[me].clone())
+        del bufs
+    halo_all_to_all_ranks(ins[0])   # the windows exist (grown if need be)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    before = halo_all_to_all_ranks.launches
+    t0 = time.perf_counter()
+    with NoHostSync():
+        outs = []
+        for i, x in enumerate(ins):
+            if me == 0 and i % 2:
+                torch.cuda._sleep(RANK_HOLD_CYCLES)
+            outs.append(halo_all_to_all_ranks(x))
+        enqueued = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [i for i in range(RANK_STRESS) if not torch.equal(outs[i],
+                                                            wants[i])]
+    return {"exchanges": RANK_STRESS, "exact": not bad, "differ": bad,
+            "launches": halo_all_to_all_ranks.launches - before,
+            "enqueue_ms": (enqueued - t0) * 1e3, "wall_ms": wall * 1e3,
+            "ms_per_exchange": wall * 1e3 / RANK_STRESS,
+            "shapes": [list(sh) for sh in shapes]}
+
+
+def rank_abort(seed: int) -> dict:
+    """One rank's launch refused at the C entry: after a good exchange, the
+    last rank's buffer is 2 bytes off 16 (cudaErrorInvalidValue), with no
+    collective or synchronise of the host among the exchanges. Each rank's
+    error (it must raise within three exchanges, naming that rank and its
+    error) and seconds; then the windows released and made anew, and an
+    exchange exact again."""
+    k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    bufs = torch.randn(k, k * 40, 64, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    want = halo_all_to_all_plain(bufs)[me].clone()
+    x = bufs[me].clone()
+    bad = x
+    if me == k - 1:
+        flat = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+        bad = flat[1:1 + x.numel()].view(x.shape)
+        bad.copy_(x)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    err, tries, t0 = None, 0, time.perf_counter()
+    with NoHostSync():
+        halo_all_to_all_ranks(x)
+        for tries in range(1, 4):
+            try:
+                halo_all_to_all_ranks(bad)
+            except RuntimeError as ex:
+                err = str(ex)
+                break
+    took = time.perf_counter() - t0
+    halo_mod.release_windows()
+    again = halo_all_to_all_ranks(x)
+    torch.cuda.synchronize()
+    return {"error": err, "exchanges_to_raise": tries, "raise_s": took,
+            "deadline_s": halo_mod.DEADLINE_S,
+            "exact_after": torch.equal(again, want)}
+
+
+def rank_k1_cases(seed: int, bh: int) -> dict:
     """K1's rank form on this rank, bench shape (K=EDGE_RANKS, the bench
     graph's Bh) at D=1024 and D=8 bf16: every rank makes all K buffers from
-    one seed and holds its result (twice: the window reused) and the plain
+    one seed and holds its result (twice: the windows reused) and the plain
     version's (gloo, host copies) to the stacked plain version's, bit for
-    bit. Times: the exchange's two launches alone, the write into the
+    bit. Times: the exchange's two kernels alone, the write into the
     windows and the copy-out of the own (CUDA events over back-to-back
     pairs and the profiler's device time, one rank at a time while the
-    others wait); the whole exchange with its barriers and synchronises
-    (CUDA events, every rank at once); the plain version (one call, host
-    clock). Bytes: each launch reads and writes K*Bh*D*b, 4*K*Bh*D*b the
-    pair."""
+    others wait); the whole exchange with its synchronisation on the card
+    (``with_sync_ms``: CUDA events over back-to-back exchanges, every rank
+    at once); the plain version (one call, host clock). Bytes: each kernel
+    reads and writes K*Bh*D*b, 4*K*Bh*D*b the pair. Then the stress and
+    abort checks (``rank_stress``, ``rank_abort``)."""
     k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
     rows = []
     for d in (1024, 8):
@@ -3709,13 +3838,8 @@ def rank_k1_cases(seed: int, bh: int) -> list[dict]:
         plain_ms = (time.perf_counter() - t0) * 1e3
         exact_plain = torch.equal(plain, want.cpu())
         del host, plain, want
-        win = halo_mod._window(buf.nbytes, None, buf.device)
         out = torch.empty_like(buf)
-
-        def launch():
-            halo_mod._rank_write(buf, win.table, me, k)
-            halo_mod._copy_out(win, out)
-
+        launch = rank_kernels_alone(buf, out)
         ms = device_ms = None
         for r in range(k):
             torch.distributed.barrier()
@@ -3725,23 +3849,26 @@ def rank_k1_cases(seed: int, bh: int) -> list[dict]:
                 torch.cuda.synchronize()
                 iters = 5
                 seen, complete = profile_kernels(
-                    launch, iters, {"halo_a2a_kernel": 2 * iters})
+                    launch, iters, {"halo_a2a_kernel": iters,
+                                    "halo_copy_out_kernel": iters})
                 if complete:
                     device_ms = sum(t for name, (t, _) in seen.items()
-                                    if "halo_a2a_kernel" in name) / iters
+                                    if "halo_a2a_kernel" in name or
+                                    "halo_copy_out_kernel" in name) / iters
             torch.cuda.synchronize()
         del out
         torch.distributed.barrier()
-        with_barriers_ms = time_ms(lambda: halo_all_to_all_ranks(buf), 10)
+        with_sync_ms = time_ms(lambda: halo_all_to_all_ranks(buf), 10)
         n_bytes = 4.0 * k * bh * d * buf.element_size()
         rows.append({"D": d, "exact": exact, "exact_plain": exact_plain,
                      "max_abs_err": diff, "ms": ms, "device_ms": device_ms,
-                     "with_barriers_ms": with_barriers_ms,
+                     "with_sync_ms": with_sync_ms,
                      "plain_ms": plain_ms, "bytes": n_bytes,
                      "window_bytes": halo_mod.window_bytes()})
         del buf
         torch.cuda.empty_cache()
-    return rows
+    return {"rows": rows, "stress": rank_stress(seed, bh),
+            "abort": rank_abort(seed)}
 
 
 def rank_step(seed: int, out_path: str, arch: str, g: BipartiteGraph,
@@ -3872,9 +3999,9 @@ def k1_rank_rows(per_rank: list[dict], k: int, bh: int,
     """The kernels line's rows of K1's rank form, one a width: rank 0's
     times, each rank's beside them."""
     rows = []
-    for i, r0 in enumerate(per_rank[0]["k1"]):
+    for i, r0 in enumerate(per_rank[0]["k1"]["rows"]):
         d = r0["D"]
-        cases = [r["k1"][i] for r in per_rank]
+        cases = [r["k1"]["rows"][i] for r in per_rank]
         bound_ms, bound_by = bound(r0["bytes"], 0.0)
         rows.append({
             "name": "halo_all_to_all_ranks", "route": "cuda",
@@ -3885,9 +4012,9 @@ def k1_rank_rows(per_rank: list[dict], k: int, bh: int,
             "ms": r0["ms"], "device_ms": r0["device_ms"],
             "plain_ms": r0["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "with_barriers_ms": r0["with_barriers_ms"],
+            "with_sync_ms": r0["with_sync_ms"],
             "by_rank": {key: [c[key] for c in cases] for key in (
-                "ms", "device_ms", "with_barriers_ms", "plain_ms")},
+                "ms", "device_ms", "with_sync_ms", "plain_ms")},
             "case": f"rank form K={k} Bh={bh} D={d} bfloat16, one rank's "
                     "exchange: the write and the copy-out",
             "K": k, "Bh": bh, "D": d, "tol": "exact",
@@ -3987,12 +4114,26 @@ def edge_ranks(seed: int) -> dict:
                            f"1-{k - 1} {others}, rank 0's mdl.pth "
                            f"{recipe_mdl}")
     for r, rep in enumerate(per_rank):
-        for c in rep["k1"]:
+        for c in rep["k1"]["rows"]:
             if not (c["exact"] and c["exact_plain"]):
                 raise SmokeFailure(f"edge_ranks rank {r}: K1's rank form at "
                                    f"D={c['D']} differs from the plain "
                                    f"version (max |err| {c['max_abs_err']}, "
                                    f"plain exact {c['exact_plain']})")
+        st, ab = rep["k1"]["stress"], rep["k1"]["abort"]
+        if not st["exact"] or st["launches"] != 2 * RANK_STRESS:
+            raise SmokeFailure(f"edge_ranks rank {r}: K1's stress run: "
+                               f"exchanges {st['differ']} differ from the "
+                               f"plain version, {st['launches']} launches "
+                               f"(expected {2 * RANK_STRESS})")
+        named = f"rank {k - 1}'s launch failed: CUDA error 1"
+        if ab["error"] is None or named not in ab["error"] or \
+                ab["raise_s"] >= ab["deadline_s"] or not ab["exact_after"]:
+            raise SmokeFailure(f"edge_ranks rank {r}: K1's abort check: "
+                               f"raised {ab['error']!r} (must name "
+                               f"{named!r}) in {ab['raise_s']} s, exact "
+                               f"after the windows' renewal "
+                               f"{ab['exact_after']}")
     # launches, a rank
     serve_want = add_launches(scaled(RANK_CONV, 2 * FORWARDS_PER_LP
                                      * N_RANK_LPS))
@@ -4088,10 +4229,14 @@ def edge_ranks(seed: int) -> dict:
                           f"{n_train} input caches + 2 a step x "
                           f"{n_train * DIST_TRAIN_EPOCHS} + 2 x {n_val} val",
         "k1": [{key: c[key] for key in ("D", "ms", "device_ms",
-                                        "with_barriers_ms", "plain_ms",
+                                        "with_sync_ms", "plain_ms",
                                         "window_bytes")}
                | {"rank": r} for r, rep in enumerate(per_rank)
-               for c in rep["k1"]],
+               for c in rep["k1"]["rows"]],
+        "k1_stress": [{key: rep["k1"]["stress"][key] for key in (
+            "exchanges", "exact", "launches", "enqueue_ms", "wall_ms",
+            "ms_per_exchange")} for rep in per_rank],
+        "k1_abort": [rep["k1"]["abort"] for rep in per_rank],
         "serve": {"bas_valid": n_bas, "bas_equal_stacked": same_bas,
                   "sort_equal_stacked": same_sort,
                   "logits_max_abs_err_vs_stacked": worst,

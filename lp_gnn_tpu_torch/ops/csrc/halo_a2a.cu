@@ -24,12 +24,71 @@
 // opened here with cudaIpcOpenMemHandle) for make_async_remote_copy into
 // peer p's slot `me` (pallas_halo.py:54-62). Peers that share this card are
 // written in its memory; peers on other cards of the host over NVLink, by
-// the same stores. The TPU kernel's semaphores are the caller's: a barrier
-// over the ranks before the launch (no rank still reads its window), a
-// stream synchronise and a swap of the ranks' error codes after it (every
-// write landed); then the caller copies its own window out with the list
-// form (K=1). The window entries below allocate, export, open, close and
-// free the windows; the caller swaps the 64-byte handles between the ranks.
+// the same stores. A second kernel (lp_halo_copy_out) copies the rank's own
+// window out into the result, which escapes into autograd.
+//
+// The semaphores. The TPU kernel waits on send_sem / recv_sem / copy_sem,
+// ordered across devices by collective_id (pallas_halo.py:78-80). Here they
+// are flag words that the card waits on and writes, ordered on each rank's
+// stream, so an exchange makes no host collective and no synchronise. Each
+// rank's allocation holds two windows (exchange e uses window e mod 2), and
+// each rank a header of 64-bit flags: for each window w, arrival[w][p] (the
+// epoch of the last blocks rank p wrote here) and done[w][p] (the epoch rank
+// p last finished reading its own window w, as this rank sees it). Exchange
+// e on rank me, on its stream:
+//   wait own done[w][p] >= e-2 for every peer p   (no peer still reads what
+//                                                   exchange e overwrites)
+//   lp_halo_a2a_rank: the K blocks into the K windows w
+//   write arrival[w][me] = e into every peer's header        (send_sem)
+//   wait own arrival[w][p] >= e for every peer p            (recv_sem)
+//   lp_halo_copy_out: own window w into the result
+//   write done[w][me] = e into every peer's header
+// The epochs are host counters (every rank makes the same exchanges in the
+// same order), passed by value to each wait and write, so a CUDA graph that
+// captured an exchange would replay its epochs; keeping them in device
+// memory would take a kernel a step, and no rank-form step is captured.
+//
+// Where the flags live. A header is a page of host memory that the ranks
+// share (POSIX shared memory, named by its rank and opened by the others),
+// registered in every rank's process as mapped pinned memory
+// (lp_halo_flags_register), so that each card reaches every header and the
+// host its own with plain loads and stores. A host store must be able to end
+// a wait: a rank whose peer died ends its own stream's waits by writing an
+// abort word into its header, from a watchdog thread, while its main thread
+// may be held inside the driver (a synchronise, or a lazy module load, which
+// waits for the context's streams to drain). There no CUDA call of the
+// watchdog's returns, cudaStreamCreate and cudaStreamQuery included, and no
+// write it enqueues runs, where a store to host memory ends the wait (an H100
+// with four ranks on it; PERF.md, PR 18). Flags in the windows' device
+// allocation could be written only through the card.
+//
+// How the card waits (the choice; its cost on an H100 in PERF.md, the row
+// "K1, remote half"):
+// stream memory operations, cuStreamWaitValue64 (GEQ) and
+// cuStreamWriteValue64, reached through cudaGetDriverEntryPoint so that no
+// library here links libcuda. A wait holds no SM: the stream's front end
+// polls the word, and the ranks that time-share the card without MPS lose
+// no time slice to a spinning kernel, which flags inside the kernels (a
+// release store by the write's last CTA, an acquire spin in the copy-out)
+// would cost. The default write carries a memory barrier before the flag
+// (__threadfence_system's semantics, scoped to the stream), so the blocks
+// the preceding kernel stored, here or over NVLink, land before the flag
+// that announces them. Every wait is on this rank's own header; every write
+// goes to a peer's.
+//
+// Errors. A rank whose launch or stream operation fails writes an abort
+// word (bit 62 set, its rank in bits 32-61, the CUDA error below) into
+// every peer's arrival and done words of both windows, on its stream, which
+// releases every GEQ wait on it (the wait compares cyclically,
+// (int64_t)(*word - value) >= 0, so the word stays below 2^63 to count as
+// above every epoch), stores it into its own header, and raises. A copy-out
+// that finds an abort word among its arrival words records it in a status
+// word of pinned, mapped host memory, which the host reads without a
+// synchronise at its next exchange and raises on. A rank that releases its
+// windows on an error outside the exchanges stores its abort word into the
+// peers' headers first. The window entries below allocate, export, open,
+// close and free the windows; the caller swaps the 64-byte handles between
+// the ranks.
 //
 // Types: each block is Bh rows of F elements, contiguous, so a block is one
 // contiguous run of Bh*F*b bytes in its source and in its destination. The
@@ -48,8 +107,11 @@
 // before its stores. The grid is (row pieces, source block p, destination
 // shard q): blockIdx.y and blockIdx.z pick one block pair, blockIdx.x
 // strides over its pieces. No shared memory, no synchronisation. The rank
-// form runs the same kernel over a grid of one source: (pieces, 1, K).
+// form runs the same kernel over a grid of one source: (pieces, 1, K); its
+// copy-out is the same loop over one block, plus one thread's look at K
+// flag words.
 
+#include <cuda.h>  // types and flags of the stream memory operations only
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -60,18 +122,17 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 constexpr int kMaxShards = 64;
 constexpr long long kMaxBlocks = 132LL * 32;  // 32 blocks of 256 an SM, 2 waves
+constexpr unsigned long long kAbort = 1ULL << 62;  // halo.py ABORT
 
 struct Table {
   const uint4* src[kMaxShards];  // src[p]: shard p's (K*Bh, F) buffer
   uint4* dst[kMaxShards];        // dst[q]: shard q's (K*Bh, F) buffer
 };
 
-__global__ void __launch_bounds__(kThreads)
-halo_a2a_kernel(const __grid_constant__ Table t, long long n16) {
-  const int p = blockIdx.y;
-  const int q = blockIdx.z;
-  const uint4* __restrict__ s = t.src[p] + static_cast<long long>(q) * n16;
-  uint4* __restrict__ d = t.dst[q] + static_cast<long long>(p) * n16;
+// This block's share of one contiguous copy of n16 16-byte pieces: 4 loads
+// in flight a thread before its stores, the grid's x dimension striding.
+__device__ __forceinline__ void copy_pieces(const uint4* __restrict__ s, uint4* __restrict__ d,
+                                            long long n16) {
   const long long tile = static_cast<long long>(kThreads) * kUnroll;
   const long long stride = static_cast<long long>(gridDim.x) * tile;
   for (long long base = static_cast<long long>(blockIdx.x) * tile + threadIdx.x; base < n16;
@@ -90,15 +151,48 @@ halo_a2a_kernel(const __grid_constant__ Table t, long long n16) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+halo_a2a_kernel(const __grid_constant__ Table t, long long n16) {
+  const int p = blockIdx.y;
+  const int q = blockIdx.z;
+  copy_pieces(t.src[p] + static_cast<long long>(q) * n16,
+              t.dst[q] + static_cast<long long>(p) * n16, n16);
+}
+
+// The rank form's copy-out: own window -> result. The stream waited for
+// every peer's arrival word before it; thread 0 of block 0 looks for an
+// abort word among them and records the first in *status (host memory),
+// unless one is there already. The copy runs either way.
+__global__ void __launch_bounds__(kThreads)
+halo_copy_out_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst, long long n16,
+                     const unsigned long long* arrival, int K, unsigned long long* status) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    for (int p = 0; p < K; ++p) {
+      const unsigned long long v = *static_cast<const volatile unsigned long long*>(arrival + p);
+      if (v & kAbort) {
+        volatile unsigned long long* st = status;
+        if (*st == 0) *st = v;
+        __threadfence_system();
+        break;
+      }
+    }
+  }
+  copy_pieces(src, dst, n16);
+}
+
+long long grid_x(long long n16, long long pairs) {
+  const long long tile = static_cast<long long>(kThreads) * kUnroll;
+  long long gx = (n16 + tile - 1) / tile;
+  const long long cap = kMaxBlocks / pairs;
+  if (gx > cap) gx = cap > 0 ? cap : 1;
+  return gx;
+}
+
 // One launch over the (source p < P, destination q < K) block pairs of the
 // shards in `t`: P = K for the stacked and list forms, 1 for the rank form.
 int launch(const Table& t, int P, int K, long long block_bytes, cudaStream_t stream) {
   const long long n16 = block_bytes / 16;
-  const long long tile = static_cast<long long>(kThreads) * kUnroll;
-  long long gx = (n16 + tile - 1) / tile;
-  const long long cap = kMaxBlocks / (static_cast<long long>(P) * K);
-  if (gx > cap) gx = cap > 0 ? cap : 1;
-  const dim3 grid(static_cast<unsigned>(gx), P, K);
+  const dim3 grid(static_cast<unsigned>(grid_x(n16, static_cast<long long>(P) * K)), P, K);
   halo_a2a_kernel<<<grid, kThreads, 0, stream>>>(t, n16);
   return cudaGetLastError();
 }
@@ -109,6 +203,64 @@ bool takes(int K, long long block_bytes) {
 
 bool aligned(const void* a, const void* b) {
   return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 == 0;
+}
+
+// cuStreamWaitValue64 / cuStreamWriteValue64, found once through the
+// runtime (their CUDA 12.0 ABI), so no library here links libcuda.
+typedef CUresult (*StreamValueFn)(CUstream, CUdeviceptr, cuuint64_t, unsigned int);
+
+struct StreamOps {
+  StreamValueFn wait = nullptr;
+  StreamValueFn write = nullptr;
+  int error = 0;  // why they could not be found (0: found)
+};
+
+const StreamOps& stream_ops() {
+  static const StreamOps ops = [] {
+    StreamOps o;
+    const char* names[2] = {"cuStreamWaitValue64", "cuStreamWriteValue64"};
+    StreamValueFn* fns[2] = {&o.wait, &o.write};
+    for (int i = 0; i < 2; ++i) {
+      void* fn = nullptr;
+      cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+      const cudaError_t e =
+          cudaGetDriverEntryPointByVersion(names[i], &fn, 12000, cudaEnableDefault, &found);
+#else
+      const cudaError_t e = cudaGetDriverEntryPoint(names[i], &fn, cudaEnableDefault, &found);
+#endif
+      if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr) {
+        o.error = e != cudaSuccess ? e : cudaErrorSymbolNotFound;
+        return o;
+      }
+      *fns[i] = reinterpret_cast<StreamValueFn>(fn);
+    }
+    return o;
+  }();
+  return ops;
+}
+
+// n stream operations of `fn` (a wait for >= value, or a write of value)
+// on the words at `words`, each 8-byte aligned. Returns the first error.
+int stream_values(StreamValueFn StreamOps::*which, unsigned flags, void* const* words, int n,
+                  unsigned long long value, cudaStream_t stream) {
+  const StreamOps& ops = stream_ops();
+  if (ops.error) return ops.error;
+  // A driver call needs a current context, which the runtime binds to a
+  // thread only at its first call that needs one: a thread that so far
+  // only launched kernels (PyTorch's autograd worker) may have none.
+  // cudaSetDevice binds the device's primary context.
+  int device;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  for (int i = 0; i < n; ++i) {
+    if (reinterpret_cast<uintptr_t>(words[i]) % 8) return cudaErrorInvalidValue;
+    const CUresult r = (ops.*which)(reinterpret_cast<CUstream>(stream),
+                                    reinterpret_cast<CUdeviceptr>(words[i]), value, flags);
+    if (r != CUDA_SUCCESS) return r;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -165,9 +317,65 @@ extern "C" int lp_halo_a2a_rank(const void* src, void* const* dst, int me, int K
   return launch(t, 1, K, block_bytes, static_cast<cudaStream_t>(stream));
 }
 
+// The rank form's copy-out: the first nbytes of this rank's own window
+// (src) into dst, on the stream, after looking for an abort word among the
+// K arrival words at `arrival` (recorded in *status, host-mapped memory as
+// the device reaches it).
+extern "C" int lp_halo_copy_out(const void* src, void* dst, long long nbytes, const void* arrival,
+                                int K, void* status, void* stream) {
+  if (!takes(K, nbytes) || !aligned(src, dst) || reinterpret_cast<uintptr_t>(arrival) % 8 ||
+      status == nullptr)
+    return cudaErrorInvalidValue;
+  const long long n16 = nbytes / 16;
+  halo_copy_out_kernel<<<static_cast<unsigned>(grid_x(n16, 1)), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(src), static_cast<uint4*>(dst), n16,
+      static_cast<const unsigned long long*>(arrival), K,
+      static_cast<unsigned long long*>(status));
+  return cudaGetLastError();
+}
+
+// Flag words. `words` holds n device addresses, 8-byte aligned, of words in
+// the registered flag headers (lp_halo_flags_register). Each returns the
+// CUDA error (runtime or driver; the codes agree for the common ones).
+
+// The stream waits, before its later work, until each word is >= value.
+extern "C" int lp_halo_flags_wait(void* const* words, int n, unsigned long long value,
+                                  void* stream) {
+  return stream_values(&StreamOps::wait, CU_STREAM_WAIT_VALUE_GEQ, words, n, value,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The stream writes value into each word, after its earlier work and a
+// memory barrier (its earlier stores land first).
+extern "C" int lp_halo_flags_write(void* const* words, int n, unsigned long long value,
+                                   void* stream) {
+  return stream_values(&StreamOps::write, CU_STREAM_WRITE_VALUE_DEFAULT, words, n, value,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// A flag header: `bytes` of page-aligned host memory at `host` (this
+// process's mapping of a rank's shared page) registered as mapped pinned
+// memory, its device address in *dev. Portable: every context of the
+// process reaches it.
+extern "C" int lp_halo_flags_register(void* host, long long bytes, void** dev) {
+  *dev = nullptr;
+  cudaError_t e = cudaHostRegister(host, bytes, cudaHostRegisterMapped | cudaHostRegisterPortable);
+  if (e != cudaSuccess) return e;
+  e = cudaHostGetDevicePointer(dev, host, 0);
+  if (e != cudaSuccess) {
+    cudaHostUnregister(host);
+    *dev = nullptr;
+  }
+  return e;
+}
+
+extern "C" int lp_halo_flags_unregister(void* host) { return cudaHostUnregister(host); }
+
 // Receive windows for the rank form. Each returns the CUDA error (0 = done).
-// A window is a whole cudaMalloc allocation, since an IPC handle names the
-// base of one; handles are opaque bytes (lp_halo_ipc_handle_bytes of them).
+// A window pair is a whole cudaMalloc allocation, since an IPC handle names
+// the base of one; handles are opaque bytes (lp_halo_ipc_handle_bytes of
+// them).
 
 extern "C" int lp_halo_ipc_handle_bytes() { return sizeof(cudaIpcMemHandle_t); }
 
@@ -199,3 +407,20 @@ extern "C" int lp_halo_window_open(const void* handle, void** ptr) {
 extern "C" int lp_halo_window_close(void* ptr) { return cudaIpcCloseMemHandle(ptr); }
 
 extern "C" int lp_halo_window_free(void* ptr) { return cudaFree(ptr); }
+
+// The status word: 8 zeroed bytes of pinned host memory mapped into the
+// device, at *host for the host and *dev for the kernels.
+extern "C" int lp_halo_status_alloc(void** host, void** dev) {
+  *host = *dev = nullptr;
+  cudaError_t e = cudaHostAlloc(host, sizeof(unsigned long long), cudaHostAllocMapped);
+  if (e != cudaSuccess) return e;
+  *static_cast<volatile unsigned long long*>(*host) = 0;
+  e = cudaHostGetDevicePointer(dev, *host, 0);
+  if (e != cudaSuccess) {
+    cudaFreeHost(*host);
+    *host = *dev = nullptr;
+  }
+  return e;
+}
+
+extern "C" int lp_halo_status_free(void* host) { return cudaFreeHost(host); }

@@ -23,16 +23,21 @@ mesh says which runs, there is no switch and no fallback between them:
   TPU kernel's remote copy: each rank writes its K blocks straight into the
   ranks' receive windows, cudaMalloc'ed by each rank and mapped into the
   others through CUDA IPC (the same stores reach a window on this card or
-  on a peer card over NVLink), with a barrier before the launch and a
-  stream synchronise and a swap of the ranks' error codes after it in
-  place of the TPU kernel's semaphores; a second launch of the kernel
-  copies the rank's own window out. One window a group and device, grown
-  to the largest exchange. On CPU tensors it runs
+  on a peer card over NVLink); a second kernel copies the rank's own window
+  out. The TPU kernel's semaphores are flag words in a header of each
+  rank, a page of host memory that the ranks share, waited on and written
+  by the ranks' streams (CUDA stream memory operations) and stored into by
+  a host that must end a wait, so an exchange makes no host collective and
+  no synchronise: two windows a group and device, used in turn and grown
+  together to the largest exchange, so that a rank may write exchange e
+  while a slower one still reads e - 1. An error aborts the exchange on
+  every rank through the same flags, and a watchdog thread bounds how long
+  a rank that died leaves the others waiting. On CPU tensors it runs
   :func:`halo_all_to_all_ranks_plain`,
   ``all_to_all_single`` over the group (gloo). :class:`HaloAllToAllRanks`
   gives it a gradient, the same exchange. Under a (dp, edge) grid of ranks
-  (``mesh.RankGrid``) each row's edge group exchanges over a window of its
-  own: a rank belongs to one row, and its window is keyed by that group.
+  (``mesh.RankGrid``) each row's edge group exchanges over windows of its
+  own: a rank belongs to one row, and its windows are keyed by that group.
   Shards on several devices of one process are not ported (ROADMAP.md,
   queue item 7c's rest).
 """
@@ -41,6 +46,13 @@ from __future__ import annotations
 import atexit
 import ctypes
 import dataclasses
+import datetime
+import logging
+import mmap
+import sys
+import threading
+import time
+from multiprocessing import resource_tracker, shared_memory
 from typing import Sequence
 
 import torch
@@ -234,63 +246,220 @@ def _rank_lib(name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
         vp, pp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+        i32, i64, u64 = ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
         fn.argtypes = {
-            "lp_halo_a2a_rank": [vp, pp, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_longlong, vp],
+            "lp_halo_a2a_rank": [vp, pp, i32, i32, i64, vp],
+            "lp_halo_copy_out": [vp, vp, i64, vp, i32, vp, vp],
+            "lp_halo_flags_wait": [pp, i32, u64, vp],
+            "lp_halo_flags_write": [pp, i32, u64, vp],
+            "lp_halo_flags_register": [vp, i64, pp],
+            "lp_halo_flags_unregister": [vp],
             "lp_halo_ipc_handle_bytes": [],
-            "lp_halo_window_alloc": [ctypes.c_longlong, pp, vp],
+            "lp_halo_window_alloc": [i64, pp, vp],
             "lp_halo_window_open": [vp, pp],
             "lp_halo_window_close": [vp],
-            "lp_halo_window_free": [vp]}[name]
+            "lp_halo_window_free": [vp],
+            "lp_halo_status_alloc": [pp, pp],
+            "lp_halo_status_free": [vp]}[name]
         fn.restype = ctypes.c_int
     return fn
 
 
+# Each rank's flag header (csrc/halo_a2a.cu): a page of POSIX shared
+# memory that every rank of the group maps and registers with its card, so
+# that a host store ends a wait; for window w of 2, arrival[w][p] then
+# done[w][p], MAX_SHARDS 64-bit words each.
+FLAG_BYTES = 8
+HEADER_BYTES = 2 * 2 * MAX_SHARDS * FLAG_BYTES
+HEADER_MAP_BYTES = -(-HEADER_BYTES // mmap.PAGESIZE) * mmap.PAGESIZE
+# an abort word: this bit, the rank in bits 32-61, its CUDA error below
+# (DEADLINE_CODE: the rank waited past DEADLINE_S; LEFT_CODE: it released
+# its windows on an error outside the exchanges). The card's GEQ wait
+# compares cyclically, (int64)(word - value) >= 0, so the word must stay
+# below 2^63 to count as above every epoch: then it ends every wait on the
+# word it lands in.
+ABORT = 1 << 62
+DEADLINE_CODE = 0xFFFFFFFF
+LEFT_CODE = 0xFFFFFFFE
+# how long an exchange may stay unfinished on the card: the host waits for
+# exchange e - 2 to complete before it enqueues exchange e, and the
+# watchdog ends the waits of a copy-out enqueued longer ago (``_watch``).
+# It bounds how far a host runs ahead of its card and how long a rank that
+# died or stopped leaves the others waiting, a synchronise of theirs too.
+DEADLINE_S = 300.0
+WATCH_S = 1.0   # how often the watchdog looks
+
+
+def _arrival(base: int, w: int, p: int) -> int:
+    return base + (2 * w * MAX_SHARDS + p) * FLAG_BYTES
+
+
+def _done(base: int, w: int, p: int) -> int:
+    return base + ((2 * w + 1) * MAX_SHARDS + p) * FLAG_BYTES
+
+
+def _words(addrs: list[int]):
+    return (ctypes.c_void_p * max(len(addrs), 1))(*addrs)
+
+
+def _store(addrs: list[int], word: int) -> None:
+    """Store ``word`` into each flag at the host addresses ``addrs``."""
+    for a in addrs:
+        ctypes.c_uint64.from_address(a).value = word
+
+
+class _Header:
+    """A rank's flag header as this process maps it: the shared page
+    (made here where ``name`` is None, else opened by its name), its host
+    address and, once registered with the card, its device address."""
+
+    def __init__(self, name: str | None = None):
+        self.shm = shared_memory.SharedMemory(
+            name=name, create=name is None,
+            size=HEADER_MAP_BYTES if name is None else 0)
+        if name is not None:   # its maker unlinks it, not this process
+            resource_tracker.unregister(self.shm._name, "shared_memory")
+        self.view = ctypes.c_char.from_buffer(self.shm.buf)
+        self.host = ctypes.addressof(self.view)
+        self.dev = 0
+
+    def register(self) -> int:
+        dev = ctypes.c_void_p()
+        rc = _rank_lib("lp_halo_flags_register")(self.host, HEADER_MAP_BYTES,
+                                                 ctypes.byref(dev))
+        self.dev = dev.value or 0
+        return rc
+
+    def close(self) -> None:
+        if self.dev:
+            _rank_lib("lp_halo_flags_unregister")(self.host)
+            self.dev = 0
+        del self.view
+        self.shm.close()
+
+
 @dataclasses.dataclass
 class _Window:
-    """The receive window of every rank of a group, ``nbytes`` each, as
-    this rank reaches them: ``ptrs[p]`` rank p's (``ptrs[me]`` its own
-    allocation, the others IPC mappings), ``table`` the same as the
-    kernel's pointer array."""
+    """The two receive windows of every rank of a group, ``nbytes`` each,
+    as this rank reaches them: ``ptrs[p]`` the base of rank p's allocation
+    (window 0, then window 1; ``ptrs[me]`` this rank's own, the others IPC
+    mappings), ``tables[w]`` window w's data of every rank as a pointer
+    array; ``flags[p]`` rank p's flag header as this rank's card reaches
+    it, ``host[p]`` as its host does (``headers`` keeps the mappings,
+    ``_Header``s). ``status`` is the host address of the status word
+    (pinned, mapped; ``status_dev`` the kernels'), ``epoch`` the count of
+    exchanges enqueued over the pair, ``events[w]`` the completion of
+    window w's last copy-out, ``enqueued_at`` when the newest was enqueued
+    (the host's
+    monotonic clock), ``broken`` the error an exchange raised (the pair is
+    then dropped and made anew at the next), ``poisoned`` whether the
+    watchdog ended its waits."""
     me: int
     nbytes: int
     ptrs: list[int]
-    table: object
     group: object
+    flags: list[int]
+    host: list[int]
+    status: int = 0
+    status_dev: int = 0
+    epoch: int = 0
+    events: list = dataclasses.field(default_factory=lambda: [None, None])
+    enqueued_at: float = 0.0
+    broken: str = ""
+    poisoned: bool = False
+    headers: list = dataclasses.field(default_factory=list)
+
+    @property
+    def alloc_bytes(self) -> int:
+        """The bytes of this rank's allocation on the card: two windows."""
+        return 2 * self.nbytes
+
+    def data(self, p: int, w: int) -> int:
+        return self.ptrs[p] + w * self.nbytes
+
+    def __post_init__(self):
+        k, me = len(self.ptrs), self.me
+        peers = [p for p in range(k) if p != me]
+        own, own_host = self.flags[me], self.host[me]
+        # per window: the data table, the words this rank waits on (its
+        # own header) and those it writes (the peers')
+        self.tables = [(ctypes.c_void_p * k)(*(self.data(p, w)
+                                               for p in range(k)))
+                       for w in range(2)]
+        self.wait_done = [_words([_done(own, w, p) for p in peers])
+                          for w in range(2)]
+        self.wait_arrival = [_words([_arrival(own, w, p) for p in peers])
+                             for w in range(2)]
+        self.signal_arrival = [_words([_arrival(self.flags[p], w, me)
+                                       for p in peers]) for w in range(2)]
+        self.signal_done = [_words([_done(self.flags[p], w, me)
+                                    for p in peers]) for w in range(2)]
+        # this rank's abort words in the peers' headers (as the card
+        # reaches them, and as the host does), and every word of its own
+        # header (as the host does)
+        self.abort_words = [a for p in peers for w in range(2) for a in (
+            _arrival(self.flags[p], w, me), _done(self.flags[p], w, me))]
+        self.abort_host = [a for p in peers for w in range(2) for a in (
+            _arrival(self.host[p], w, me), _done(self.host[p], w, me))]
+        self.own_host = [a for w in range(2) for p in range(k) for a in (
+            _arrival(own_host, w, p), _done(own_host, w, p))]
+        self.n_peers = len(peers)
 
 
-# (group, device index) -> the one window of the group's ranks on that
-# device. Every exchange of up to its bytes uses it (from its start); a
-# larger one replaces it by a window of its own size, made by all ranks
-# together (the same exchanges in the same order on every rank), so the
-# windows hold the largest exchange so far, not one window a graph size.
+# (group, device index) -> the window pair of the group's ranks on that
+# device. Every exchange of up to its bytes uses it (from the start of a
+# window); a larger one replaces it by a pair of its own size, made by all
+# ranks together (the same exchanges in the same order on every rank), so
+# the windows hold the largest exchange so far, not one pair a graph size.
 _WINDOWS: dict[tuple, _Window] = {}
+# held by the watchdog while it looks at and poisons a pair, and by
+# whoever takes a pair out of _WINDOWS to free it
+_LOCK = threading.Lock()
+_WATCHDOG: list[threading.Thread] = []
 
 
 def window_bytes() -> int:
-    """The bytes of this process's own receive windows: cudaMalloc'ed
-    outside torch's caching allocator, so ``torch.cuda.memory_allocated``
-    leaves them out."""
-    return sum(w.nbytes for w in _WINDOWS.values())
+    """The bytes of this process's own window allocations (both windows of
+    each pair; the flag headers are a page of host memory each):
+    cudaMalloc'ed outside torch's caching allocator, so
+    ``torch.cuda.memory_allocated`` leaves them out."""
+    return sum(w.alloc_bytes for w in _WINDOWS.values())
 
 
 def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
-    """Allocate this rank's window, swap the IPC handles over the group and
-    open the peers' windows. Every rank learns whether every rank
-    succeeded, so a failure raises on all of them (none waits at the next
-    barrier)."""
+    """Allocate this rank's window pair, its flag header (zeroed) and
+    status word, swap the IPC handles and the headers' names over the
+    group and open the peers' pairs and headers; then the own header's
+    name goes (every rank has opened it; the page stays while it is
+    mapped). Every rank learns whether every rank succeeded, so a failure
+    raises on all of them (none waits at the next barrier)."""
     k, me = _group_shape(group)
     nh = _rank_lib("lp_halo_ipc_handle_bytes")()
     own, handle = ctypes.c_void_p(), ctypes.create_string_buffer(nh)
+    host, mapped = ctypes.c_void_p(), ctypes.c_void_p()
+    headers: list = [None] * k
+    try:
+        headers[me] = header = _Header()
+    except OSError:   # every rank must still reach the collectives
+        header = None
     with torch.cuda.device(dev):
-        rc = _rank_lib("lp_halo_window_alloc")(nbytes, ctypes.byref(own),
+        rc = _rank_lib("lp_halo_window_alloc")(2 * nbytes, ctypes.byref(own),
                                                handle)
+        if rc == 0:
+            rc = _rank_lib("lp_halo_status_alloc")(ctypes.byref(host),
+                                                   ctypes.byref(mapped))
+        if rc == 0:
+            rc = header.register() if header else -1
         handles: list = [None] * k
-        dist.all_gather_object(handles, (rc, handle.raw), group=group)
+        dist.all_gather_object(
+            handles, (rc, handle.raw, header and header.shm.name),
+            group=group)
         ptrs, err = [0] * k, ""
-        if any(r != 0 for r, _ in handles):
-            err = ("cudaMalloc / cudaIpcGetMemHandle failed: CUDA errors by "
-                   f"rank {[r for r, _ in handles]}")
+        if any(h[0] != 0 for h in handles):
+            err = ("cudaMalloc / cudaIpcGetMemHandle / cudaHostAlloc / "
+                   "cudaHostRegister failed (-1: no shared page for the "
+                   f"flag header): CUDA errors by rank "
+                   f"{[h[0] for h in handles]}")
         else:
             ptrs[me] = own.value
             for p in range(k):
@@ -304,99 +473,282 @@ def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
                            f"failed: CUDA error {rc}")
                     break
                 ptrs[p] = peer.value
+                try:
+                    headers[p] = _Header(handles[p][2])
+                except OSError as e:
+                    err = f"rank {p}'s flag header: {e}"
+                    break
+                rc = headers[p].register()
+                if rc != 0:
+                    err = (f"cudaHostRegister of rank {p}'s flag header "
+                           f"failed: CUDA error {rc}")
+                    break
         errs: list = [None] * k
         dist.all_gather_object(errs, err, group=group)
+        if header:
+            header.shm.unlink()
         if any(errs):
             for p, a in enumerate(ptrs):
                 if a and p != me:
                     _rank_lib("lp_halo_window_close")(a)
+            for h in headers:
+                if h is not None:
+                    h.close()
             if own.value:
                 _rank_lib("lp_halo_window_free")(own.value)
+            if host.value:
+                _rank_lib("lp_halo_status_free")(host.value)
             raise RuntimeError(
                 "halo_all_to_all_ranks: the receive windows could not be "
-                f"set up ({nbytes} bytes a rank): " + "; ".join(
+                f"set up ({nbytes} bytes a window): " + "; ".join(
                     f"rank {p}: {e}" for p, e in enumerate(errs) if e))
-    return _Window(me, nbytes, ptrs, (ctypes.c_void_p * k)(*ptrs), group)
+    return _Window(me, nbytes, ptrs, group, [h.dev for h in headers],
+                   [h.host for h in headers], host.value, mapped.value,
+                   headers=headers)
 
 
-def _drop_window(key: tuple) -> None:
-    """Unmap the peers' windows of ``key``, wait for every rank of its
-    group to have done so (while the group lives), and free this rank's
-    own."""
-    w = _WINDOWS.pop(key)
+def _status(w: _Window) -> int:
+    """The status word: 0, or the first abort word a copy-out saw."""
+    return ctypes.c_uint64.from_address(w.status).value if w.status else 0
+
+
+def _completes(ev, t0: float) -> bool:
+    """Whether ``ev`` (None: nothing recorded) completes before DEADLINE_S
+    has passed since ``t0``, polled."""
+    while ev is not None and not ev.query():
+        if time.monotonic() - t0 > DEADLINE_S:
+            return False
+        time.sleep(1e-4)
+    return True
+
+
+def _barrier(group, bounded: bool) -> None:
+    """A barrier over ``group``. Over gloo it is ``monitored_barrier``
+    whether bounded or not, so that ranks that disagree on ``bounded``
+    still meet; bounded, it raises past DEADLINE_S (a rank that died or
+    stopped never comes), else past the group's own timeout."""
+    if dist.get_backend(group) == "gloo":
+        dist.monitored_barrier(group=group, timeout=datetime.timedelta(
+            seconds=DEADLINE_S) if bounded else None)
+    else:
+        dist.barrier(group=group)
+
+
+def _drop_window(key: tuple, failing: bool = False) -> None:
+    """Wait for this rank's card (for its last copy-outs until DEADLINE_S,
+    past which its own flags are poisoned so that its waits end), unmap the
+    peers' windows of ``key``, wait for every rank of its group to have
+    done so (while the group lives: then no stream of the group reads or
+    writes a window or flag of it), and free this rank's own. ``failing``
+    (an error on its way out of the caller) or a late copy-out first
+    publishes an abort word into the peers' flags, which ends a peer's wait
+    for an exchange this rank will not make; the barrier is then bounded by
+    DEADLINE_S, and past it this rank's allocation is kept, unfreed, since
+    a peer may still write it. Raises where a copy-out had recorded an
+    abort that no exchange raised, or the deadline passed."""
+    with _LOCK:
+        w = _WINDOWS.pop(key)
     with torch.cuda.device(key[1]):
+        t0 = time.monotonic()
+        late = not all(_completes(ev, t0) for ev in w.events)
+        word = ABORT | w.me << 32 | (DEADLINE_CODE if late else LEFT_CODE)
+        if late:
+            _store(w.own_host, word)
         torch.cuda.synchronize()
+        seen = _status(w)
+        if (failing or late) and not w.broken:
+            _store(w.abort_host, word)   # no write of its stream follows
         for p, a in enumerate(w.ptrs):
             if p != w.me:
                 _rank_lib("lp_halo_window_close")(a)
+        for h in w.headers:
+            h.close()
         if dist.is_initialized():
-            dist.barrier(group=w.group)
+            _barrier(w.group, bool(failing or late or seen or w.broken))
         _rank_lib("lp_halo_window_free")(w.ptrs[w.me])
+        if w.status:
+            _rank_lib("lp_halo_status_free")(w.status)
+    if late and not w.broken:
+        raise RuntimeError(f"halo_all_to_all_ranks on rank {w.me}: the last "
+                           f"exchanges did not complete within "
+                           f"{DEADLINE_S} s of the windows' release")
+    if seen and not w.broken:
+        raise RuntimeError(_abort_text(seen, w.me))
 
 
 def _window(nbytes: int, group, dev: torch.device) -> _Window:
-    """The window of ``group`` on ``dev``, grown to ``nbytes`` where it is
-    smaller (by every rank at once)."""
+    """The window pair of ``group`` on ``dev``, grown to ``nbytes`` a
+    window where it is smaller, or made anew after an exchange over it
+    raised (by every rank at once)."""
     key = (dist.group.WORLD if group is None else group, dev.index)
     w = _WINDOWS.get(key)
-    if w is None or w.nbytes < nbytes:
+    if w is None or w.broken or w.nbytes < nbytes:
         if w is not None:
             _drop_window(key)
         w = _WINDOWS[key] = _make_window(nbytes, group, dev)
+        if dev.type == "cuda":
+            _watch_start()
     return w
 
 
-def release_windows() -> None:
-    """Drop every window: called before the group is destroyed, and at
-    exit."""
+def release_windows(failing: bool = False) -> None:
+    """Drop every window pair: called before the group is destroyed, and
+    at exit. Where ``failing``, or on an error's way out (inside a
+    ``finally`` or ``except`` as it propagates), each pair first publishes
+    this rank's leaving to its peers (``_drop_window``)."""
+    failing = failing or sys.exc_info()[0] is not None
     for key in list(_WINDOWS):
-        _drop_window(key)
+        _drop_window(key, failing)
 
 
-atexit.register(release_windows)
+def _release_at_exit() -> None:
+    """``release_windows`` at exit, failing after an uncaught error (the
+    interpreter keeps it as ``sys.last_value``)."""
+    release_windows(getattr(sys, "last_value", None) is not None)
 
 
-def _rank_write(buf: torch.Tensor, table, me: int, k: int) -> int:
-    """The rank form's launch: block p of ``buf`` to block ``me`` of the
-    window at ``table[p]``, on the current stream, counted where it
-    launched. Returns the CUDA error (0: launched)."""
-    block_bytes = buf.nbytes // k
-    _check_launch(k, block_bytes, buf.data_ptr() % 16 == 0)
-    rc = launch_on(buf.device, _rank_lib("lp_halo_a2a_rank"), buf.data_ptr(),
-                   table, me, k, block_bytes)
-    if rc == 0:
-        halo_all_to_all_ranks.launches += 1
-    return rc
+atexit.register(_release_at_exit)
 
 
-def _copy_out(win: _Window, out: torch.Tensor) -> int:
-    """The exchange's second launch: the first ``out.nbytes`` of this
-    rank's own window into ``out``, by the same kernel (the list form, one
-    block of K*Bh rows), counted where it launched. Returns the CUDA
-    error."""
-    one = ctypes.c_void_p * 1
-    rc = launch_on(out.device, _lib(), one(win.ptrs[win.me]),
-                   one(out.data_ptr()), 1, out.nbytes)
-    if rc == 0:
-        halo_all_to_all_ranks.launches += 1
-    return rc
+def _watch_once() -> None:
+    """One look of the watchdog: a pair whose newest copy-out is still
+    unfinished DEADLINE_S after it was enqueued has a wait that a peer
+    does not end (a peer died, stopped, or raised outside the exchanges
+    before it could say so). Its own flags get this rank's DEADLINE_CODE
+    word, once, by host stores (no CUDA call, which could wait for this
+    thread's caller inside the driver): its stream's waits end, the
+    copy-out records the abort, a synchronise of the caller's returns, and
+    the next exchange or the release raises."""
+    now = time.monotonic()
+    with _LOCK:
+        for win in list(_WINDOWS.values()):
+            ev = win.events[win.epoch % 2]
+            if win.poisoned or ev is None or \
+                    now - win.enqueued_at <= DEADLINE_S or ev.query():
+                continue
+            _store(win.own_host, ABORT | win.me << 32 | DEADLINE_CODE)
+            win.poisoned = True
 
 
-def _agree(rc: int, group, dev: torch.device) -> None:
-    """Every rank's error code to every rank, over the group: it waits for
-    all of them as a barrier does, and raises on every rank where any is
-    not 0, so that no rank waits for one that failed."""
+def _watch() -> None:
+    while True:
+        time.sleep(WATCH_S)
+        try:
+            _watch_once()
+        except Exception:   # the watchdog must outlive one failed look
+            logging.exception("halo_all_to_all_ranks: the watchdog's look "
+                              "failed")
+
+
+def _watch_start() -> None:
+    """Start the watchdog (a daemon thread, one a process) once."""
+    if not _WATCHDOG:
+        _WATCHDOG.append(threading.Thread(target=_watch, daemon=True,
+                                          name="halo-watchdog"))
+        _WATCHDOG[0].start()
+
+
+def _abort_text(word: int, me: int) -> str:
+    rank, code = (word >> 32) & 0x3FFFFFFF, word & 0xFFFFFFFF
+    what = {DEADLINE_CODE: f" waited past the {DEADLINE_S} s deadline for "
+                           "an exchange",
+            LEFT_CODE: " left the exchanges on an error outside them"}.get(
+        code, f"'s launch failed: CUDA error {code}")
+    return (f"halo_all_to_all_ranks on rank {me}: the exchange was aborted: "
+            f"rank {rank}{what}")
+
+
+def _fail(dev: torch.device, win: _Window, word: int, text: str):
+    """Publish ``word`` into every peer's flags of both windows, on this
+    rank's stream (after its earlier writes, which it must not follow),
+    and into this rank's own by host stores (its own waits end), mark the
+    pair broken and raise ``text``."""
+    win.broken = text
+    launch_on(dev, _rank_lib("lp_halo_flags_write"),
+              _words(win.abort_words), len(win.abort_words), word)
+    _store(win.own_host, word)
+    raise RuntimeError(text)
+
+
+def _check_flags(dev: torch.device, win: _Window, e: int) -> None:
+    """Before exchange ``e``: no copy-out recorded an abort, and exchange
+    e - 2's copy-out (the last over this window) completed, polled until
+    DEADLINE_S."""
+    me = win.me
+    seen = _status(win)
+    if not seen:
+        if not _completes(win.events[e % 2], time.monotonic()):
+            _fail(dev, win, ABORT | me << 32 | DEADLINE_CODE,
+                  f"halo_all_to_all_ranks on rank {me}: exchange {e - 2} of "
+                  f"the group did not complete within {DEADLINE_S} s")
+        seen = _status(win)
+    if seen:
+        _fail(dev, win, seen, _abort_text(seen, me))
+
+
+def _enqueue(dev, win: _Window, fn_name: str, *args) -> None:
+    """One launch or stream operation of exchange ``win.epoch``; on an
+    error, the abort (every rank raises)."""
+    rc = launch_on(dev, _rank_lib(fn_name), *args)
+    if rc != 0:
+        word = ABORT | win.me << 32 | (rc & 0xFFFFFFFF)
+        _fail(dev, win, word, f"{_abort_text(word, win.me)} ({fn_name}, "
+                              f"exchange {win.epoch})")
+
+
+def _record(dev: torch.device, win: _Window, w: int) -> None:
+    """Mark the end of window ``w``'s copy-out on this rank's stream."""
+    if win.events[w] is None:
+        win.events[w] = torch.cuda.Event()
+    win.events[w].record(torch.cuda.current_stream(dev))
+
+
+def _kernels(win: _Window, buf: torch.Tensor, out: torch.Tensor,
+             w: int) -> tuple:
+    """The exchange's two launches over window ``w``, each (C entry,
+    arguments): the write of ``buf``'s K blocks into every rank's window
+    w, and the copy-out of this rank's into ``out``, which first looks for
+    an abort word among its arrival words. ``_exchange`` puts the flags
+    between them; without the flags they are the exchange's kernels
+    alone."""
+    k, me = len(win.ptrs), win.me
+    return (("lp_halo_a2a_rank", (buf.data_ptr(), win.tables[w], me, k,
+                                  buf.nbytes // k)),
+            ("lp_halo_copy_out", (win.data(me, w), out.data_ptr(), out.nbytes,
+                                  _arrival(win.flags[me], w, 0), k,
+                                  win.status_dev)))
+
+
+def _exchange(buf: torch.Tensor, group) -> torch.Tensor:
+    """The rank form on the card: exchange e = ``epoch + 1`` over window
+    e mod 2, ordered by the flags alone (``csrc/halo_a2a.cu``): no host
+    collective and no synchronise once the windows exist."""
     k, _ = _group_shape(group)
-    on = dev if dist.get_backend(group) == "nccl" else torch.device("cpu")
-    # an all-gather, not an all-reduce: gloo's ring all-reduce takes twice
-    # its rounds
-    rcs = [torch.zeros(1, dtype=torch.int32, device=on) for _ in range(k)]
-    dist.all_gather(rcs, torch.tensor([rc], dtype=torch.int32, device=on),
-                    group=group)
-    codes = [int(r) for r in rcs]
-    if any(codes):
-        raise RuntimeError("halo_all_to_all_ranks kernel launch failed: "
-                           f"CUDA errors by rank {codes}")
+    dev = buf.device
+    block_bytes = buf.nbytes // k
+    # what the ranks share; an address the kernel does not take is refused
+    # at its entry, which aborts the exchange on every rank
+    _check_launch(k, block_bytes, True)
+    win = _window(buf.nbytes, group, dev)
+    e = win.epoch + 1
+    w = e % 2
+    _check_flags(dev, win, e)
+    win.epoch = e
+    n = win.n_peers
+    out = torch.empty_like(buf)
+    (write, write_args), (copy, copy_args) = _kernels(win, buf, out, w)
+    if e > 2:
+        _enqueue(dev, win, "lp_halo_flags_wait", win.wait_done[w], n, e - 2)
+    _enqueue(dev, win, write, *write_args)
+    halo_all_to_all_ranks.launches += 1
+    _enqueue(dev, win, "lp_halo_flags_write", win.signal_arrival[w], n, e)
+    _enqueue(dev, win, "lp_halo_flags_wait", win.wait_arrival[w], n, e)
+    _enqueue(dev, win, copy, *copy_args)
+    halo_all_to_all_ranks.launches += 1
+    _enqueue(dev, win, "lp_halo_flags_write", win.signal_done[w], n, e)
+    _record(dev, win, w)
+    win.enqueued_at = time.monotonic()
+    return out
 
 
 def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
@@ -404,18 +756,26 @@ def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
     if None): this rank's (K*Bh, F) buffer, block p for rank p, in; a new
     (K*Bh, F) buffer, block p from rank p, out. fp32 or bf16.
 
-    On CUDA tensors two launches of one kernel, both counted: a stream
-    synchronise and a barrier over the group (no rank still reads its
-    window: each read is the copy out of an earlier exchange, on its rank's
-    stream), ``lp_halo_a2a_rank`` writing this rank's K blocks into the K
-    windows, a stream synchronise, the ranks' error codes swapped over the
-    group (every rank's writes landed, or every rank raises), then the own
-    window copied into the result, which later work on the stream reads in
-    order. The group's window grows to the exchange, by every rank at
-    once, where it is smaller. It raises where the kernel or the windows
-    fail; on CPU tensors it runs :func:`halo_all_to_all_ranks_plain`. Every
-    rank of the group must make the same exchanges, of the same shapes, in
-    the same order."""
+    On CUDA tensors two launches, both counted, ordered against the peers
+    by flag words on the card and not by the host (``_exchange``): the
+    stream waits until every peer has read window e mod 2 of exchange
+    e - 2, ``lp_halo_a2a_rank`` writes this rank's K blocks into the K
+    windows and announces them in the peers' flags, the stream waits for
+    every peer's blocks, and ``lp_halo_copy_out`` copies the own window
+    into the result, which later work on the stream reads in order; then
+    the peers learn that the window is read. The host waits for nothing
+    unless it runs two exchanges ahead of its card (then for at most
+    DEADLINE_S). The group's windows grow to the exchange, by every rank
+    at once, where they are smaller. A launch that fails aborts the
+    exchange on every rank: this rank raises at once, each other at one of
+    its next two exchanges or when the windows are released, naming the
+    rank and its CUDA error. A rank that releases its windows on an error
+    outside the exchanges aborts them so too; where a peer died instead, a
+    watchdog thread ends the waits of a copy-out still unfinished
+    DEADLINE_S after it was enqueued, so that a synchronise of the
+    caller's returns and the next exchange raises. On CPU tensors it runs
+    :func:`halo_all_to_all_ranks_plain`. Every rank of the group must make
+    the same exchanges, of the same shapes, in the same order."""
     k, me = _group_shape(group)
     if buf.dim() != 2:
         raise ValueError("the rank form takes this rank's (K*Bh, F) buffer, "
@@ -427,26 +787,9 @@ def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
         return halo_all_to_all_ranks_plain(buf, group)
     if dev.type != "cuda":
         raise ValueError(f"halo_all_to_all_ranks runs on cuda or cpu, not {dev}")
-    out = torch.empty_like(buf)
     if buf.nbytes == 0:
-        return out
-    _check_launch(k, buf.nbytes // k, buf.data_ptr() % 16 == 0)
-    stream = torch.cuda.current_stream(dev)
-    stream.synchronize()
-    win = _window(buf.nbytes, group, dev)
-    dist.barrier(group=group)
-    rc = _rank_write(buf, win.table, me, k)
-    if rc == 0:
-        try:
-            stream.synchronize()
-        except RuntimeError:   # an error of the launch, raised on the peers too
-            rc = -1
-    _agree(rc, group, dev)
-    rc = _copy_out(win, out)
-    if rc != 0:
-        raise RuntimeError(
-            f"halo_all_to_all_ranks copy-out launch failed: CUDA error {rc}")
-    return out
+        return torch.empty_like(buf)
+    return _exchange(buf, group)
 
 
 # the rank form's launches since the last reset: two an exchange (the write

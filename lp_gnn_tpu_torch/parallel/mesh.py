@@ -237,8 +237,12 @@ def world_and_rank() -> tuple[int, int]:
 
 def leave_distributed(created: bool) -> None:
     """The end of a run under the contract: the rank form's receive windows
-    released (``parallel/halo.py release_windows``), then the process group
-    destroyed, with the grids made over it, where ``created``
+    released (``parallel/halo.py release_windows``: each rank's card
+    drained, then a barrier, so that no stream of the group still waits on
+    or writes a flag or window when one is freed; on an error's way out it
+    first tells the peers, whose waits for this rank then end; it raises
+    where a copy-out recorded an abort that no exchange raised), then the process
+    group destroyed, with the grids made over it, where ``created``
     (``init_distributed``'s second result)."""
     from .halo import release_windows
     release_windows()

@@ -30,6 +30,7 @@ Tolerances, stated where they are used:
   loss rtol 1e-5, the final params atol RUN_ATOL, val/acc equal; the
   bases that pred_basis writes equal, byte for byte.
 """
+import ctypes
 import filecmp
 import json
 import logging
@@ -37,6 +38,7 @@ import os
 import os.path as osp
 import subprocess
 import sys
+import time
 import types
 import zlib
 
@@ -76,6 +78,8 @@ STEPS = {2: [(ARCH, loss) for loss in LOSS_REGISTRY]
          + [(a, "balanced") for a in (*ZOO, GEN, "GCNRand()")],
          4: [(ARCH, "balanced"), (GEN, "balanced")]}
 A2A = dict(bh=6, f=5)
+# exchanges of the host-card run, two shapes in turn
+EXCHANGES = 16
 
 
 def graph(k):
@@ -108,6 +112,174 @@ def no_dropout(model):
     if hasattr(model, "dp"):
         model.dp = 0.0
     return model
+
+
+# -------------------------------------- K1's flags, with the card on the host
+def u64(addr):
+    return ctypes.c_uint64.from_address(addr)
+
+
+class HostCard:
+    """The C entries of the rank form's transport (``ops/csrc/halo_a2a.cu``)
+    on the host, for ``halo._exchange`` over CPU tensors in rank processes:
+    each rank's window pair a ``multiprocessing.shared_memory`` block (its
+    name the IPC handle), the status word a host word, the kernels
+    ``memmove``s and the stream operations done at once (a wait polls the
+    word). The protocol (epochs, windows, the flags, the abort) is the
+    wrapper's own; what the card adds, the order of its streams, is not
+    here. ``hold`` sleeps that many seconds inside every copy-out, so that
+    the peers run ahead of this rank. Use as a context: it patches
+    ``halo`` and ``torch.cuda`` of this process and restores them."""
+
+    def __init__(self, hold=0.0):
+        self.hold, self.shm, self.keep = hold, {}, {}
+
+    # the entries, called as halo calls the loaded library's
+    def a2a_rank(self, src, table, me, k, block_bytes, stream):
+        if src % 16:
+            return 1   # cudaErrorInvalidValue, as the entry refuses it
+        for q in range(k):
+            ctypes.memmove(table[q] + me * block_bytes, src + q * block_bytes,
+                           block_bytes)
+        return 0
+
+    def copy_out(self, src, dst, nbytes, arrival, k, status, stream):
+        time.sleep(self.hold * np.random.rand())
+        for p in range(k):
+            v = u64(arrival + 8 * p).value
+            if v & thalo.ABORT:
+                if not u64(status).value:
+                    u64(status).value = v
+                break
+        ctypes.memmove(dst, src, nbytes)
+        return 0
+
+    def wait(self, words, n, value, stream):
+        """Until each word is at least ``value`` as the card compares:
+        cyclically, (int64)(word - value) >= 0."""
+        t0 = time.monotonic()
+        for i in range(n):
+            while (u64(words[i]).value - value) % 2 ** 64 >= 2 ** 63:
+                assert time.monotonic() - t0 < 60, "a flag wait hung"
+                time.sleep(1e-4)
+        return 0
+
+    def write(self, words, n, value, stream=None):
+        for i in range(n):
+            u64(words[i]).value = value
+        return 0
+
+    def alloc(self, nbytes, ptr, handle):
+        from multiprocessing import shared_memory
+        shm = shared_memory.SharedMemory(create=True, size=nbytes)
+        view = ctypes.c_char.from_buffer(shm.buf)
+        ptr._obj.value = ctypes.addressof(view)
+        self.shm[ptr._obj.value] = (shm, view, True)
+        handle.raw = shm.name.encode().ljust(len(handle.raw), b"\0")
+        return 0
+
+    def open(self, handle, ptr):
+        from multiprocessing import shared_memory
+        from multiprocessing import resource_tracker
+        shm = shared_memory.SharedMemory(name=handle.rstrip(b"\0").decode())
+        # the owner unlinks it; this process's tracker must not
+        resource_tracker.unregister(shm._name, "shared_memory")
+        view = ctypes.c_char.from_buffer(shm.buf)
+        ptr._obj.value = ctypes.addressof(view)
+        self.shm[ptr._obj.value] = (shm, view, False)
+        return 0
+
+    def release(self, addr):
+        shm, view, own = self.shm.pop(addr)
+        del view
+        shm.close()
+        if own:
+            shm.unlink()
+        return 0
+
+    def register(self, host, nbytes, dev):
+        """A flag header reaches the host's card at its host address."""
+        dev._obj.value = host
+        return 0
+
+    def status_alloc(self, host, dev):
+        word = ctypes.c_uint64(0)
+        self.keep[ctypes.addressof(word)] = word
+        host._obj.value = dev._obj.value = ctypes.addressof(word)
+        return 0
+
+    def lib(self, name):
+        return {"lp_halo_a2a_rank": self.a2a_rank,
+                "lp_halo_copy_out": self.copy_out,
+                "lp_halo_flags_wait": self.wait,
+                "lp_halo_flags_write": self.write,
+                "lp_halo_flags_register": self.register,
+                "lp_halo_flags_unregister": lambda host: 0,
+                "lp_halo_ipc_handle_bytes": lambda: 64,
+                "lp_halo_window_alloc": self.alloc,
+                "lp_halo_window_open": self.open,
+                "lp_halo_window_close": self.release,
+                "lp_halo_window_free": self.release,
+                "lp_halo_status_alloc": self.status_alloc,
+                "lp_halo_status_free": self.status_free}[name]
+
+    def status_free(self, addr):
+        del self.keep[addr]
+        return 0
+
+    def __enter__(self):
+        import contextlib
+        self.saved = [(thalo, n, getattr(thalo, n)) for n in (
+            "_rank_lib", "launch_on", "_record")] + [
+            (torch.cuda, n, getattr(torch.cuda, n)) for n in (
+                "device", "synchronize")]
+        thalo._rank_lib = self.lib
+        thalo.launch_on = lambda dev, fn, *a: fn(*a, 0)
+        thalo._record = lambda dev, win, w: None
+        torch.cuda.device = lambda dev: contextlib.nullcontext()
+        torch.cuda.synchronize = lambda *a: None
+        return self
+
+    def __exit__(self, *exc):
+        thalo.release_windows()
+        for mod, name, v in self.saved:
+            setattr(mod, name, v)
+
+
+def host_exchanges(k, me):
+    """K1's rank form through ``halo._exchange`` on a ``HostCard``: (1)
+    EXCHANGES exchanges of two alternating shapes, rank 0 held back in its
+    copy-outs, each result against the stacked plain version; (2) rank
+    k-1's buffer misaligned (its launch refused at the entry) at the
+    first exchange of a new pair: the error each rank raises within three
+    exchanges."""
+    rng = np.random.RandomState(70 + k)
+    shapes = [(7, 8), (3, 4)]
+    bufs = [torch.from_numpy(rng.randn(k, k * bh, f).astype(np.float32))
+            for bh, f in shapes for _ in range(EXCHANGES // 2)]
+    order = [bufs[i // 2 + (i % 2) * (EXCHANGES // 2)]
+             for i in range(EXCHANGES)]
+    got = {"exact": [], "epochs": []}
+    with HostCard(hold=0.01 if me == 0 else 0.0):
+        for x in order:
+            out = thalo._exchange(x[me].clone(), None)
+            got["exact"].append(torch.equal(
+                out, thalo.halo_all_to_all_plain(x)[me]))
+        got["epochs"] = [w.epoch for w in thalo._WINDOWS.values()]
+    errors = []
+    with HostCard():
+        x = order[0][me].clone()
+        if me == k - 1:
+            flat = torch.zeros(x.numel() + 1)
+            x = flat[1:].view(x.shape).copy_(x)   # 4 bytes off 16
+        for _ in range(3):
+            try:
+                thalo._exchange(x, None)
+            except RuntimeError as e:
+                errors.append(str(e))
+                break
+    got["abort"] = errors
+    return got
 
 
 # ------------------------------------------------------------ the rank side
@@ -149,14 +321,7 @@ def rank_session(payload):
     except ValueError as e:
         refused["edge_vs_world"] = str(e)
     out["refused"] = refused
-    agreed = {}
-    for name, rc in (("all_ok", 0), ("last_failed", int(me == k - 1) * 700)):
-        try:
-            thalo._agree(rc, None, torch.device("cpu"))
-            agreed[name] = "ok"
-        except RuntimeError as e:
-            agreed[name] = str(e)
-    out["agree"] = agreed
+    out["host_card"] = host_exchanges(k, me)
     out["launches"] = thalo.halo_all_to_all.launches
     torch.save(out, osp.join(tmp, f"rank{me}.pt"))
 
@@ -425,14 +590,22 @@ def test_refusals_over_ranks(session):
 
 
 def test_rank_launch_failure_raises_on_every_rank(session):
-    """The rank form swaps the ranks' error codes after its launch: where
-    one rank's launch failed, every rank raises and names it (none waits
-    for the one that failed); where none did, none raises."""
+    """K1's rank form ordered by flags alone (halo._exchange over the
+    HostCard, the card's entries on the host): EXCHANGES exchanges of two
+    shapes in turn, one rank held back, each result bit for bit the
+    plain version's, the window pair's epoch counting them; then one
+    rank's launch refused at the entry (a misaligned buffer,
+    cudaErrorInvalidValue): every rank raises within three exchanges and
+    names that rank and its CUDA error (none waits for the one that
+    failed)."""
     k, _, ranks = session
-    codes = [0] * (k - 1) + [700]
     for r in ranks:
-        assert r["agree"]["all_ok"] == "ok"
-        assert f"CUDA errors by rank {codes}" in r["agree"]["last_failed"]
+        got = r["host_card"]
+        assert got["exact"] == [True] * EXCHANGES
+        assert got["epochs"] == [EXCHANGES]
+        assert len(got["abort"]) == 1
+        assert f"rank {k - 1}'s launch failed: CUDA error 1" in \
+            got["abort"][0]
 
 
 def test_refusals_in_one_process():
@@ -453,18 +626,19 @@ def test_refusals_in_one_process():
 
 
 def test_rank_windows_grow_and_stay_one(monkeypatch):
-    """The rank form's receive windows: one a (group, device), grown to
-    the largest exchange so far and never kept beside a smaller one, so a
-    run over many graph sizes holds one window of the largest. The CUDA
-    allocation and the peers' mapping are stubbed; their order is what is
-    held (the old window dropped before the new one is made)."""
+    """The rank form's receive windows: one pair a (group, device), the two
+    windows grown together to the largest exchange so far and never kept
+    beside a smaller pair, so a run over many graph sizes holds one pair
+    of the largest (its flag header and two windows). The CUDA allocation
+    and the peers' mapping are stubbed; their order is what is held (the
+    old pair dropped before the new one is made)."""
     calls = []
 
     def make(nbytes, group, dev):
         calls.append(("make", nbytes))
-        return thalo._Window(0, nbytes, [1], None, group)
+        return thalo._Window(0, nbytes, [1], group, [2], [3])
 
-    def drop(key):
+    def drop(key, failing=False):
         calls.append(("drop", thalo._WINDOWS.pop(key).nbytes))
 
     monkeypatch.setattr(thalo, "_WINDOWS", {})
@@ -472,14 +646,284 @@ def test_rank_windows_grow_and_stay_one(monkeypatch):
     monkeypatch.setattr(thalo, "_drop_window", drop)
     dev, other = torch.device("cuda", 0), torch.device("cuda", 1)
     for nbytes in (4096, 1024, 8192, 4096, 8192, 2048):
-        assert thalo._window(nbytes, None, dev).nbytes >= nbytes
-        assert len(thalo._WINDOWS) == 1
+        w = thalo._window(nbytes, None, dev)
+        assert w.nbytes >= nbytes and len(thalo._WINDOWS) == 1
+        assert w.data(0, 1) - w.data(0, 0) == w.nbytes
     assert calls == [("make", 4096), ("drop", 4096), ("make", 8192)]
-    assert thalo.window_bytes() == 8192
-    thalo._window(64, None, other)   # another device: a window of its own
-    assert thalo.window_bytes() == 8192 + 64
+    assert thalo.window_bytes() == 2 * 8192
+    thalo._window(64, None, other)   # another device: a pair of its own
+    assert thalo.window_bytes() == 2 * (8192 + 64)
     thalo.release_windows()
     assert thalo._WINDOWS == {} and thalo.window_bytes() == 0
+
+
+REAL_DROP = thalo._drop_window
+
+
+class FakeEvent:
+    """A CUDA event whose completion the test sets."""
+
+    def __init__(self, done=True):
+        self.done = done
+
+    def query(self):
+        return self.done
+
+
+@pytest.fixture
+def flag_calls(monkeypatch):
+    """halo._exchange as rank 0 of 2 on stand-in entries that record each
+    call (name, the words' addresses or the window's table, the value)
+    and do nothing; the pair's two allocations and flag headers, as the
+    card reaches them, at 1 MiB and 2 MiB, the headers as the host does
+    two host arrays, its status word a host word; each window's event a
+    FakeEvent, all done unless the test says otherwise. Returns (calls,
+    status word, pair maker's count, events made)."""
+    calls, made, events, keep = [], [], [], []
+    status = ctypes.c_uint64(0)
+
+    def lib(name):
+        def fn(*a):
+            if name in ("lp_halo_flags_wait", "lp_halo_flags_write",
+                        "lp_halo_flags_poison"):
+                words, n, value = a[:3]
+                calls.append((name, [words[i] for i in range(n)], value))
+            elif name == "lp_halo_a2a_rank":
+                calls.append((name, list(a[1]), None))
+            else:
+                calls.append((name, a[0], None))
+            return 0
+        return fn
+
+    def make(nbytes, group, dev):
+        made.append(nbytes)
+        keep[:] = [(ctypes.c_uint64 * (thalo.HEADER_BYTES // 8))()
+                   for _ in range(2)]
+        return thalo._Window(0, nbytes, [1 << 20, 2 << 20], group,
+                             [1 << 20, 2 << 20],
+                             [ctypes.addressof(h) for h in keep],
+                             ctypes.addressof(status),
+                             ctypes.addressof(status))
+
+    def record(dev, win, w):
+        win.events[w] = FakeEvent()
+        events.append(win.events[w])
+
+    monkeypatch.setattr(thalo, "_WINDOWS", {})
+    monkeypatch.setattr(thalo, "_rank_lib", lib)
+    monkeypatch.setattr(thalo, "launch_on", lambda dev, fn, *a: fn(*a, 0))
+    monkeypatch.setattr(thalo, "_group_shape", lambda group: (2, 0))
+    monkeypatch.setattr(thalo, "_make_window", make)
+    monkeypatch.setattr(thalo, "_drop_window",
+                        lambda key, failing=False: thalo._WINDOWS.pop(key))
+    monkeypatch.setattr(thalo, "_record", record)
+    monkeypatch.setattr(thalo.dist, "group",
+                        types.SimpleNamespace(WORLD="world"))
+    return calls, status, made, events
+
+
+def test_rank_exchange_epochs_and_windows_follow_the_order(flag_calls):
+    """Exchange e of a pair runs over window e mod 2: the stream waits
+    for the peer's done word of that window at e - 2 (from e = 3), writes
+    its blocks into the window's table, announces arrival e in the peer's
+    header, waits for the peer's arrival e in its own, copies its window
+    out and writes done e into the peer's header. Two counted launches an
+    exchange; a larger exchange makes a new pair, whose epochs start at 1
+    again."""
+    calls, _, made, _ = flag_calls
+    before = thalo.halo_all_to_all_ranks.launches
+    small, big = torch.zeros(2 * 4, 8), torch.zeros(2 * 8, 8)
+    own, peer = 1 << 20, 2 << 20
+    for e in range(1, 6):
+        del calls[:]
+        thalo._exchange(small, None)
+        win = thalo._WINDOWS[("world", None)]
+        w = e % 2
+        want = [("lp_halo_flags_wait", [thalo._done(own, w, 1)], e - 2)] \
+            if e > 2 else []
+        want += [
+            ("lp_halo_a2a_rank", [win.data(0, w), win.data(1, w)], None),
+            ("lp_halo_flags_write", [thalo._arrival(peer, w, 0)], e),
+            ("lp_halo_flags_wait", [thalo._arrival(own, w, 1)], e),
+            ("lp_halo_copy_out", win.data(0, w), None),
+            ("lp_halo_flags_write", [thalo._done(peer, w, 0)], e)]
+        assert calls == want, e
+        assert win.epoch == e
+    assert thalo.halo_all_to_all_ranks.launches == before + 10
+    thalo._exchange(big, None)
+    assert made == [small.nbytes, big.nbytes]
+    assert thalo._WINDOWS[("world", None)].epoch == 1
+    assert thalo._arrival(own, 0, 0) == own
+    assert thalo._arrival(own, 1, 0) - own == thalo.HEADER_BYTES // 2
+    assert thalo._done(own, 1, 63) + 8 - own == thalo.HEADER_BYTES
+
+
+def test_rank_exchange_deadline_raises(flag_calls, monkeypatch):
+    """Before exchange e the host polls exchange e - 2's copy-out; past
+    DEADLINE_S it aborts (its abort word, DEADLINE_CODE, into the peer's
+    flags of both windows on its stream, and into its own header by host
+    stores) and raises, naming the exchange."""
+    calls, _, _, events = flag_calls
+    monkeypatch.setattr(thalo, "DEADLINE_S", 0.05)
+    x = torch.zeros(2 * 4, 8)
+    thalo._exchange(x, None)
+    thalo._exchange(x, None)
+    events[0].done = False
+    del calls[:]
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="exchange 1 of the group did "
+                                           "not complete within 0.05 s"):
+        thalo._exchange(x, None)
+    assert 0.05 <= time.monotonic() - t0 < 5
+    word = thalo.ABORT | thalo.DEADLINE_CODE
+    peer = 2 << 20
+    assert calls == [("lp_halo_flags_write", [
+        a for w in (0, 1) for a in (thalo._arrival(peer, w, 0),
+                                    thalo._done(peer, w, 0))], word)]
+    # nothing of exchange 3 issued; the own header holds the word
+    win = thalo._WINDOWS[("world", None)]
+    assert [u64(a).value for a in win.own_host] == [word] * 8
+    assert win.broken
+    events[0].done = True
+    thalo._exchange(x, None)   # a broken pair is made anew
+    assert thalo._WINDOWS[("world", None)].epoch == 1
+
+
+def test_rank_exchange_abort_in_status_raises(flag_calls):
+    """An abort word that a copy-out recorded in the status word makes the
+    next exchange raise, naming the rank and its CUDA error, after it
+    passed the word on to the peer."""
+    calls, status, _, _ = flag_calls
+    x = torch.zeros(2 * 4, 8)
+    thalo._exchange(x, None)
+    word = thalo.ABORT | 3 << 32 | 700
+    status.value = word
+    del calls[:]
+    with pytest.raises(RuntimeError, match="on rank 0: the exchange was "
+                       "aborted: rank 3's launch failed: CUDA error 700"):
+        thalo._exchange(x, None)
+    assert [c[0] for c in calls] == ["lp_halo_flags_write"]
+    assert calls[0][2] == word
+    win = thalo._WINDOWS[("world", None)]
+    assert [u64(a).value for a in win.own_host] == [word] * 8
+
+
+@pytest.fixture
+def real_release(flag_calls, monkeypatch):
+    """flag_calls with the real ``_drop_window``, the card's device and
+    synchronise stubbed, no process group."""
+    import contextlib
+    monkeypatch.setattr(thalo, "_drop_window", REAL_DROP)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(thalo.dist, "is_initialized", lambda: False)
+    return flag_calls
+
+
+FREED = ["lp_halo_window_close", "lp_halo_window_free", "lp_halo_status_free"]
+
+
+def test_rank_windows_release_waits_until_the_deadline(real_release,
+                                                      monkeypatch):
+    """Releasing a pair waits for its last copy-outs until DEADLINE_S; past
+    it (a peer that died leaves this rank's stream waiting) it stores its
+    abort word into its own flags, so that its stream's waits end, and
+    into the peers', frees the pair and raises; a pair whose copy-outs
+    completed is freed without a word."""
+    calls, _, _, events = real_release
+    monkeypatch.setattr(thalo, "DEADLINE_S", 0.05)
+    x = torch.zeros(2 * 4, 8)
+    thalo._exchange(x, None)
+    del calls[:]
+    thalo.release_windows()
+    assert [c[0] for c in calls] == FREED
+    thalo._exchange(x, None)
+    win = thalo._WINDOWS[("world", None)]
+    events[-1].done = False
+    del calls[:]
+    with pytest.raises(RuntimeError, match="the last exchanges did not "
+                       "complete within 0.05 s of the windows' release"):
+        thalo.release_windows()
+    word = thalo.ABORT | thalo.DEADLINE_CODE
+    assert [u64(a).value for a in win.own_host] == [word] * 8
+    assert [u64(a).value for a in win.abort_host] == [word] * 4
+    assert [c[0] for c in calls] == FREED
+    assert thalo._WINDOWS == {}
+
+
+def test_rank_windows_release_on_an_error_tells_the_peers(real_release):
+    """Releasing the pairs while an error is on its way out (inside a
+    ``finally`` as it propagates: a step raised outside the exchanges)
+    first writes this rank's abort word, LEFT_CODE, into the peers' flags,
+    which ends a peer's wait for an exchange this rank will not make; the
+    peer's next exchange names it. Released with no error, or after an
+    exchange of its own raised (the peers were told then), it writes
+    nothing."""
+    calls, status, _, _ = real_release
+    x = torch.zeros(2 * 4, 8)
+    thalo._exchange(x, None)
+    win = thalo._WINDOWS[("world", None)]
+    del calls[:]
+    with pytest.raises(MemoryError):
+        try:
+            raise MemoryError("a step outside the exchanges")
+        finally:
+            thalo.release_windows()
+    word = thalo.ABORT | thalo.LEFT_CODE
+    assert [u64(a).value for a in win.abort_host] == [word] * 4
+    assert [c[0] for c in calls] == FREED
+    thalo._exchange(x, None)
+    status.value = thalo.ABORT | 1 << 32 | thalo.LEFT_CODE
+    with pytest.raises(RuntimeError, match="on rank 0: the exchange was "
+                       "aborted: rank 1 left the exchanges on an error "
+                       "outside them"):
+        thalo._exchange(x, None)
+    win = thalo._WINDOWS[("world", None)]
+    told = [u64(a).value for a in win.abort_host]
+    del calls[:]
+    with pytest.raises(MemoryError):
+        try:
+            raise MemoryError("after the exchange's own error")
+        finally:
+            thalo.release_windows()
+    assert [c[0] for c in calls] == FREED
+    assert [u64(a).value for a in win.abort_host] == told
+
+
+def test_rank_watchdog_ends_a_wait_past_the_deadline(real_release,
+                                                    monkeypatch):
+    """The watchdog's look (``halo._watch_once``): a pair whose newest
+    copy-out is still unfinished DEADLINE_S after it was enqueued (a peer
+    died between exchanges, and a synchronise of this rank's would wait
+    for it) gets this rank's deadline word in its own flags, once, by
+    host stores alone; the next exchange raises and names it. A copy-out
+    that completed, or that is younger than the deadline, is left
+    alone."""
+    calls, status, _, events = real_release
+    monkeypatch.setattr(thalo, "DEADLINE_S", 30.0)
+    x = torch.zeros(2 * 4, 8)
+    thalo._exchange(x, None)
+    win = thalo._WINDOWS[("world", None)]
+    del calls[:]
+    thalo._watch_once()   # done
+    events[-1].done = False
+    thalo._watch_once()   # not done, but enqueued just now
+    assert calls == [] and not win.poisoned
+    win.enqueued_at -= 31.0
+    thalo._watch_once()
+    word = thalo.ABORT | thalo.DEADLINE_CODE
+    assert calls == []   # host stores alone
+    assert [u64(a).value for a in win.own_host] == [word] * 8
+    assert win.poisoned
+    u64(win.own_host[0]).value = 0
+    thalo._watch_once()
+    assert u64(win.own_host[0]).value == 0   # once
+    status.value = word   # what the released copy-out records
+    events[-1].done = True
+    with pytest.raises(RuntimeError, match="rank 0 waited past the 30.0 s "
+                                           "deadline for an exchange"):
+        thalo._exchange(x, None)
 
 
 # ---------------------------------------------------------- whole entries

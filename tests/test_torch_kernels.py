@@ -9,6 +9,7 @@ are not installed, such as the machine with the card::
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 """
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -1007,8 +1008,9 @@ def test_halo_all_to_all_backward_on_card(cuda_device, d):
 # one rank of test_halo_all_to_all_ranks_on_card: every rank makes all K
 # buffers from one seed and holds its own result to the stacked plain
 # version's, bit for bit (a copy), through three shapes, a repeat of the
-# first (the window reused) and HaloAllToAllRanks' backward; the group
-# keeps one window, of the largest exchange; two launches an exchange
+# first (the windows reused) and HaloAllToAllRanks' backward; the group
+# keeps one pair of windows, of the largest exchange (two windows on the
+# card; the flag header is a page of host memory); two launches an exchange
 RANK_WORKER = r"""
 import sys
 import torch
@@ -1033,9 +1035,199 @@ assert torch.equal(xr.grad.cpu(), halo.halo_all_to_all_plain(cts)[me])
 assert halo.halo_all_to_all_ranks.launches == 2 * (len(cases) + 2)
 assert halo.halo_all_to_all.launches == 0
 assert len(halo._WINDOWS) == 1
-assert halo.window_bytes() == k * 37 * 1024 * 2
+assert halo.window_bytes() == 2 * k * 37 * 1024 * 2
 leave_distributed(True)
 print("rank", me, "ok")
+"""
+
+# Patches that make the host's collectives and synchronises raise while a
+# worker's exchanges run (once its windows exist): the exchanges must make
+# none of them.
+NO_HOST_SYNC = r"""
+import torch
+
+
+class HostSync(AssertionError):
+    pass
+
+
+def refuse(name):
+    def fn(*a, **kw):
+        raise HostSync(f"{name} during the exchanges")
+    return fn
+
+
+SYNCS = [(torch.distributed, n) for n in ("barrier", "all_gather",
+                                          "all_gather_object")] + [
+    (torch.cuda.Stream, "synchronize"), (torch.cuda, "synchronize")]
+
+
+def no_host_sync():
+    saved = [(m, n, getattr(m, n)) for m, n in SYNCS]
+    for m, n in SYNCS:
+        setattr(m, n, refuse(f"{m.__name__}.{n}"))
+    return saved
+
+
+def restore(saved):
+    for m, n, fn in saved:
+        setattr(m, n, fn)
+"""
+
+# one rank of test_halo_all_to_all_ranks_stress_on_card: STRESS exchanges
+# back to back, two shapes in turn within the windows, rank 0's card held
+# back by torch.cuda._sleep before its write on every other exchange, no
+# collective and no synchronise of the host among them (they raise); then
+# every result against the stacked plain version, bit for bit
+STRESS_WORKER = NO_HOST_SYNC + r"""
+from lp_gnn_tpu_torch.parallel import halo
+from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
+
+STRESS = 64
+dev, _ = init_distributed(torch.device("cuda"))
+k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+gen = torch.Generator(device="cpu").manual_seed(13)
+shapes = [(37, 256, torch.bfloat16), (13, 24, torch.float32)]
+ins, wants = [], []
+for i in range(STRESS):
+    bh, f, dt = shapes[i % 2]
+    bufs = torch.randn(k, k * bh, f, generator=gen).to(dt).to(dev)
+    wants.append(halo.halo_all_to_all_plain(bufs)[me].clone())
+    ins.append(bufs[me].clone())
+    del bufs
+halo.halo_all_to_all_ranks(ins[0])   # the windows, made with collectives
+torch.cuda.synchronize()
+before = halo.halo_all_to_all_ranks.launches
+saved = no_host_sync()
+try:
+    outs = []
+    for i, x in enumerate(ins):
+        if me == 0 and i % 2:
+            torch.cuda._sleep(2_000_000)
+        outs.append(halo.halo_all_to_all_ranks(x))
+finally:
+    restore(saved)
+torch.cuda.synchronize()
+bad = [i for i in range(STRESS) if not torch.equal(outs[i], wants[i])]
+assert not bad, f"rank {me}: exchanges {bad} differ from the plain version"
+assert halo.halo_all_to_all_ranks.launches - before == 2 * STRESS
+assert halo.halo_all_to_all.launches == 0
+assert [w.epoch for w in halo._WINDOWS.values()] == [STRESS + 1]
+leave_distributed(True)
+print("rank", me, "ok")
+"""
+
+# one rank of test_halo_all_to_all_ranks_abort_on_card: after two good
+# exchanges, the last rank's buffer is misaligned (its launch refused at the
+# C entry, cudaErrorInvalidValue); every rank must raise within three
+# exchanges and DEADLINE_S, naming that rank and its error, with no
+# collective or synchronise of the host in the exchanges; the windows are
+# then released and made anew, and an exchange is exact again
+ABORT_WORKER = NO_HOST_SYNC + r"""
+import time
+from lp_gnn_tpu_torch.parallel import halo
+from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
+
+dev, _ = init_distributed(torch.device("cuda"))
+k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+gen = torch.Generator(device="cpu").manual_seed(17)
+bufs = torch.randn(k, k * 40, 64, generator=gen).to(torch.bfloat16).to(dev)
+want = halo.halo_all_to_all_plain(bufs)[me]
+x = bufs[me].clone()
+assert torch.equal(halo.halo_all_to_all_ranks(x), want)
+bad = x
+if me == k - 1:
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=dev)
+    bad = flat[1:1 + x.numel()].view(x.shape)   # 2 bytes off 16
+    bad.copy_(x)
+torch.cuda.synchronize()
+saved = no_host_sync()
+err, t0 = None, time.monotonic()
+try:
+    halo.halo_all_to_all_ranks(x)
+    for _ in range(3):
+        try:
+            halo.halo_all_to_all_ranks(bad)
+        except RuntimeError as e:
+            err = str(e)
+            break
+finally:
+    restore(saved)
+took = time.monotonic() - t0
+assert err is not None, f"rank {me} did not raise within three exchanges"
+assert f"rank {k - 1}'s launch failed: CUDA error 1" in err, err
+assert took < halo.DEADLINE_S, took
+halo.release_windows()
+assert torch.equal(halo.halo_all_to_all_ranks(x), want)
+leave_distributed(True)
+print("rank", me, "raised", repr(err), "after", took, "s")
+"""
+
+# one rank of test_halo_all_to_all_ranks_peer_leaves_on_card: after two good
+# exchanges the last rank leaves between exchanges, on an error outside
+# them whose way out releases its windows ("raise"), or killed ("kill"),
+# while every other rank enqueues the next exchange and synchronises on its
+# result (.item()). The synchronise must end within the deadline (5 s here;
+# the watchdog's look included), and the next exchange must raise, naming
+# the rank that left ("raise") or this rank's wait past the deadline
+# ("kill": the dead rank's window stays mapped in its peers, and their
+# writes into it land). A rank killed leaves gloo's teardown to its peers'
+# exits, so they end with os._exit once they have printed.
+LEAVE_WORKER = r"""
+import os
+import signal
+import sys
+import time
+import torch
+from lp_gnn_tpu_torch.parallel import halo
+from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
+
+mode = sys.argv[1]
+halo.DEADLINE_S = 5.0
+dev, _ = init_distributed(torch.device("cuda"))
+k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+gen = torch.Generator(device="cpu").manual_seed(19)
+bufs = torch.randn(k, k * 40, 64, generator=gen).to(torch.bfloat16).to(dev)
+want = halo.halo_all_to_all_plain(bufs)[me]
+x = bufs[me].clone()
+for _ in range(2):
+    assert torch.equal(halo.halo_all_to_all_ranks(x), want)
+torch.distributed.barrier()
+if me == k - 1:
+    if mode == "kill":
+        os.kill(os.getpid(), signal.SIGKILL)
+    try:
+        try:
+            raise MemoryError("a step's error outside the exchanges")
+        finally:
+            leave_distributed(True)
+    except MemoryError:
+        print("rank", me, "left")
+    sys.exit(0)
+t0 = time.monotonic()
+out = halo.halo_all_to_all_ranks(x)
+try:
+    out.float().sum().item()
+    synced = "returned"
+except RuntimeError as e:
+    synced = f"raised {e}"
+took = time.monotonic() - t0
+assert took < halo.DEADLINE_S + 10, (synced, took)
+err = None
+try:
+    halo.halo_all_to_all_ranks(x)
+except RuntimeError as e:
+    err = str(e)
+assert err is not None, f"rank {me}: the next exchange did not raise"
+if mode == "raise":
+    assert f"rank {k - 1} left the exchanges" in err, err
+    leave_distributed(True)
+else:
+    assert f"rank {me} waited past the 5.0 s deadline" in err, err
+print("rank", me, "synchronise", synced, "after", took, "s; raised", repr(err))
+if mode == "kill":
+    sys.stdout.flush()
+    os._exit(0)
 """
 
 
@@ -1045,14 +1237,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_rank_workers(worker: str, ranks: int) -> None:
-    """``ranks`` processes of ``python -c worker`` joined by the
-    LP_GNN_DIST_* contract on the card; each exit code 0 asserted."""
+def run_rank_workers(worker: str, ranks: int, args=(), codes=None) -> None:
+    """``ranks`` processes of ``python -c worker *args`` joined by the
+    LP_GNN_DIST_* contract on the card; their exit codes asserted to be
+    ``codes`` (every one 0 by default)."""
     _build.build_all(["halo_a2a"])
     port = free_port()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = [subprocess.Popen(
-        [sys.executable, "-c", worker], cwd=root,
+        [sys.executable, "-c", worker, *args], cwd=root,
         env=dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
                  LP_GNN_DIST_NPROCS=str(ranks), LP_GNN_DIST_PROC_ID=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -1064,19 +1257,56 @@ def run_rank_workers(worker: str, ranks: int) -> None:
         finally:
             p.kill()
             p.wait()
-    assert [p.returncode for p in procs] == [0] * ranks, \
+    assert [p.returncode for p in procs] == (codes or [0] * ranks), \
         "\n".join(o[-3000:] for o in outs)
+    for o in outs:   # what each rank printed last (pytest -rA shows it)
+        print(o[-1000:])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ranks", [2, 4])
 def test_halo_all_to_all_ranks_on_card(cuda_device, ranks):
     """The rank form of K1 between ``ranks`` processes of the LP_GNN_DIST_*
-    contract sharing the card (gloo for the barriers and the handles): each
-    rank's result equals the plain version's, bit for bit, each exchange
-    is two rank-form launches (the write and the copy-out) and no stacked
-    one, and the group keeps one window, of the largest exchange."""
+    contract sharing the card (gloo for the windows' handles): each rank's
+    result equals the plain version's, bit for bit, each exchange is two
+    rank-form launches (the write and the copy-out) and no stacked one,
+    and the group keeps one pair of windows, of the largest exchange."""
     run_rank_workers(RANK_WORKER, ranks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_halo_all_to_all_ranks_stress_on_card(cuda_device, ranks):
+    """64 exchanges of the rank form back to back over ``ranks`` processes,
+    two shapes in turn, one rank's card held back on every other exchange,
+    with the host's collectives and synchronises made to raise: every
+    result bit for bit the plain version's, two launches an exchange."""
+    run_rank_workers(STRESS_WORKER, ranks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_halo_all_to_all_ranks_abort_on_card(cuda_device, ranks):
+    """One rank's launch refused at the C entry (a misaligned buffer): every
+    rank raises within three exchanges and the deadline, naming that rank
+    and its CUDA error, with no host collective or synchronise in the
+    exchanges and no process left waiting; the windows made anew after,
+    the exchange exact again."""
+    run_rank_workers(ABORT_WORKER, ranks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["raise", "kill"])
+def test_halo_all_to_all_ranks_peer_leaves_on_card(cuda_device, mode):
+    """Four ranks; the last leaves between exchanges while the others wait
+    on the card for its blocks and synchronise: on an error outside the
+    exchanges (its release of the windows tells the peers) or killed (the
+    peers' watchdogs end their waits past the deadline). No process waits
+    without end: each other rank's synchronise returns within the deadline
+    and its next exchange raises, naming the rank that left or the
+    deadline."""
+    codes = [0, 0, 0, -signal.SIGKILL if mode == "kill" else 0]
+    run_rank_workers(LEAVE_WORKER, 4, (mode,), codes)
 
 
 # one rank of test_halo_all_to_all_ranks_grid_on_card: the (dp=2, edge=2)
@@ -1125,7 +1355,7 @@ def test_halo_all_to_all_ranks_refuses_too_many_shards(cuda_device):
     x = torch.zeros(65 * 2, 8, device=cuda_device)
     table = (thalo.ctypes.c_void_p * 65)(*[x.data_ptr()] * 65)
     with pytest.raises(ValueError, match="at most 64"):
-        thalo._rank_write(x, table, 0, 65)
+        thalo._check_launch(65, 2 * 8 * 4, True)
     rc = thalo._rank_lib("lp_halo_a2a_rank")(
         x.data_ptr(), table, 0, 65, 2 * 8 * 4,
         torch._C._cuda_getCurrentRawStream(x.device.index))
