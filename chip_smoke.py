@@ -58,15 +58,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against no remat (bench shape, bf16).
 11. pipeline: the flagship recipe end to end through the entry points (in
    this process, through runpy). ``python -m lp_gnn_tpu_torch.run_prep_data``
-   generates the recipe's family (``mirp_like --size bench``, 40 instances
-   from ``--seed``), cold-solves it with HiGHS (and the crash baseline), one
+   generates the recipe's family (``mirp_like --size bench``, 30 of the
+   recipe's 40 instances for the script's time, from ``--seed``), cold-solves it with HiGHS (and the crash baseline), one
    worker process a CPU, and writes the blobs; ``python -m
    lp_gnn_tpu_torch.run_train_test`` trains GCN_FC(8,8,hids=1024,depth=3)
-   in bf16 with balanced CE for 20 epochs, predicts the 12 val LPs,
+   in bf16 with balanced CE for 20 epochs, predicts the 9 val LPs,
    calibrates the warm gate on train LPs, warm-starts, validates and
    reports. Fails on a broken pipeline, not on a weak model: every prep
    artifact and every cold solve Optimal, finite losses, the gate's k in
-   [5, 12], 12 valid bases, 12 warm logs with no basis rejected, the
+   [5, 12], 9 valid bases, 9 warm logs with no basis rejected, the
    results columns of every val LP, the run-dir logs, and ``spmm_csr``
    launched exactly as the design counts (the formula is printed). Prints
    the machine's solver stack (scipy, its HiGHS, pandas, pytables, g++),
@@ -239,11 +239,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 28. native: the native C++ simplex engine (``--engine native``) on the
    flagship pipeline, through the entry points in this process. Builds
    the engine from the port's sources with g++ (timed), then
-   ``run_prep_data --engine native`` on 20 of the pipeline phase's
+   ``run_prep_data --engine native`` on 15 of the pipeline phase's
    mirp_bench LPs (its first MPS files), ``run_train_test --engine
    native`` (the recipe, 40 epochs, ``--warm_gate auto``), and the
    analysis twins: ``engine_table`` (both engines, cold and warm, on the
-   6 val LPs),
+   5 val LPs),
    ``decode_sweep`` over the run's ``mdl.pth`` (two of the three default
    managers: top-m and the sparsity blend), ``degeneracy_probe`` (4 LPs)
    and ``bench_partition`` (1M edges at 2 and 8 shards with ``--naive``
@@ -265,7 +265,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the run exactly (2 for the input cache + 4 a step, no other kernel),
    finite losses and ``traversals_per_s`` = E x 6 / ``step_time_s``; then
    on the graph the run built, one v2c and one c2v SpMM at D=256 bf16
-   against the plain version on 4,096 or more sampled rows (the longest
+   against the plain version summed in fp64 (``exact_rows``: the fp32
+   atomics' order moves a 1000-edge row's bf16 result by up to 2 ulps) on
+   4,096 or more sampled rows (the longest
    row, rows of the tenth with the most edges), each timed beside its
    bound (its inputs read once) and, as a reference cost, one gathered
    row an edge (a miss on every edge). Prints the twin's line: step time,
@@ -305,8 +307,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bench_scaling subprocess, its line checked, the halo mode in this
    process with its launches bench_phase's formula.
 
+35. edge_devices (run right after edge_ranks, on its LPs): edge shards on
+   several devices of one process, K=4 shards with shard k on
+   cuda:(k mod the cards), one thread and stream a shard (the layout
+   the entry points take with 4 cards visible, named for the phase; on one
+   card the 4 streams share it; every other phase names the stacked
+   layout). Prints the distinct devices and the peer access it turned on
+   (or none). K1's device form (one launch a source over the
+   destinations' pointers) at the bench graph's Bh, D=1024 and D=8 bf16:
+   bit for bit against the stacked form and its plain version, 4 launches
+   an exchange, timed (``ms``; ``device_ms`` only where the profiler saw
+   all 20 launches, on the shard streams and, on one card, on one stream)
+   beside its plain version, the same exchange as 16 ``Tensor.copy_`` of
+   the blocks (``library_ms``) and its bound (the stacked form's bytes;
+   across cards the NVLink bytes, not measured here). ``pred_basis
+   --mesh_shape edge=4`` on edge_ranks' 2 LPs and checkpoint (the stacked
+   serve they share), its launches counted from 0 exactly
+   (a conv 4 send-row gathers, 2 exchanges of 4 device-form launches, 20
+   SpMMs; no stacked K1), every .bas valid and equal to the stacked
+   path's, the logits within 2^-6 of it, ``inf_time`` beside the stacked
+   path's; one fp32 GCN_FC(8,8,hids=1024,depth=3) step (each tensor's
+   update within 1e-5 of its largest) and one fp32
+   GENDeeper(8,8,hids=256,depth=5) step (1e-4) against the stacked dist
+   step, launches exact; GCNRand's forward over the all-gather partition
+   equal to the stacked path's; the recipe's steady bf16 steps (Adam) and
+   forwards, 5 each after one, host and wall ms, beside the stacked
+   layout's, and each card's busy ms and idle share in one profiled step.
+   ``python3 chip_smoke.py --edge_devices`` runs only this phase (on a
+   machine with 4 cards, shard k on cuda:k), its stacked serve its own.
+
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
-11, with the recipe's 800 epochs (RESULTS.md:576-583).
+11, with the recipe's 40 LPs and 800 epochs (RESULTS.md:576-583).
 
 ``python3 chip_smoke.py --gen_ab`` measures only the GEN aggregation of
 the checkout that holds the script, for comparing two checkouts on one
@@ -385,6 +416,7 @@ from lp_gnn_tpu_torch.data.generator import SIZES, generate_instance
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.data.sampling import sample_subgraphs
 from lp_gnn_tpu_torch.data.stacking import stack_key
+from lp_gnn_tpu_torch.infer import predict as predict_mod
 from lp_gnn_tpu_torch.infer.decode import inference_gnn
 from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
@@ -403,6 +435,7 @@ from lp_gnn_tpu_torch.ops.spmm import (attach_input_agg, spmm_cons_to_vars,
 from lp_gnn_tpu_torch.parallel import edge_partition
 from lp_gnn_tpu_torch.parallel import halo as halo_mod
 from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
+                                            halo_all_to_all_devices,
                                             halo_all_to_all_plain,
                                             halo_all_to_all_ranks,
                                             halo_all_to_all_ranks_plain)
@@ -432,7 +465,7 @@ N_DIST_LPS = 3              # LPs served edge-partitioned
 DIST_PER_FORWARD = {"halo_all_to_all": 2, "gather_rows": 2,
                     "spmm_csr": 2 * K_EDGE * 5}
 KERNELS = (spmm_csr, gather_rows, halo_all_to_all, gen_agg_fwd, gen_agg_bwd,
-           gen_lse_merge, halo_all_to_all_ranks)
+           gen_lse_merge, halo_all_to_all_ranks, halo_all_to_all_devices)
 N_TRAIN_LPS = 4             # LPs written for training: 2 train, 2 val
 TRAIN_EPOCHS = 5            # one val pass, after the last epoch
 # spmm_csr launches of the train phase: 2 a train graph once (the input
@@ -440,9 +473,11 @@ TRAIN_EPOCHS = 5            # one val pass, after the last epoch
 # conv1 reads the cache and its inputs take no gradient), 4 a val forward
 SPMM_PER_STEP = 4
 # the pipeline phase: the recipe's family (RESULTS.md:576-579, mirp_like at
-# --size bench, 40 instances: 28 train, 12 val), 20 epochs; --flagship
-# runs the recipe's 800
-N_PIPE_LPS = 40
+# --size bench, 40 instances: 28 train, 12 val), cut to 30 (21 train, 9
+# val) and 20 epochs for the script's time; --flagship runs the recipe's
+# 40 for its 800
+N_PIPE_LPS = 30
+FLAGSHIP_LPS = 40
 PIPE_EPOCHS = 20
 FLAGSHIP_EPOCHS = 800
 # the GEN phases: the JAX package's GENDeeper bench arch (bench.py:61-73,
@@ -1507,7 +1542,7 @@ def dist_serve(seed: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dist_") as tmp:
         res = run_pred_basis(
             tmp, seed, N_DIST_LPS, DIST_PER_FORWARD,
-            ["--mesh_shape", f"edge={K_EDGE}", "--edge_num_thresh", "0"])
+            DIST_ARGS)
         proc = osp.join(res.pop("data_prefix"), "smoke", "highs-inp_tgt")
         if len(res["part_time_s"]) != N_DIST_LPS:
             raise SmokeFailure(f"inf_time.json: part_time {res['part_time_s']}")
@@ -2531,6 +2566,21 @@ def sampled_breakdown(seed: int, g: BipartiteGraph) -> dict:
         "to_host_s": t4 - t3, "decode_s": t5 - t4, "total_s": t5 - t0}
 
 
+def first_subgraph(g: BipartiteGraph, rng, fanout, batch_size: int,
+                   exact: bool = False) -> BipartiteGraph:
+    """The first subgraph ``sample_subgraphs`` draws (exact: its seeds in
+    index order; else shuffled), without drawing the batches after it,
+    which cost seconds of the host's time and are not used."""
+    from lp_gnn_tpu_torch.data.sampling import _BipartiteCSR, sample_one_batch
+    nodes = np.arange(g.ncons + g.nvars)
+    if not exact:
+        nodes = rng.permutation(nodes)
+    chunk = nodes[:min(batch_size, len(nodes))]
+    return sample_one_batch(g, _BipartiteCSR(g), chunk[chunk < g.ncons],
+                            chunk[chunk >= g.ncons] - g.ncons,
+                            [-1] * len(fanout) if exact else fanout, rng).g
+
+
 def spmm_sequence(g: BipartiteGraph, seed: int) -> list[dict]:
     """The SpMM on graphs of falling, then rising size, as the sampled
     paths launch it (each launch's grid and workspace sized anew): the
@@ -2538,10 +2588,9 @@ def spmm_sequence(g: BipartiteGraph, seed: int) -> list[dict]:
     without an edge, then back; each direction at D=1024 bf16 against its
     plain version (SPMM_TOL)."""
     rng = np.random.RandomState(seed)
-    subs = [sample_subgraphs(g, rng, [-1, -1], SAMPLED_BATCH,
-                             shuffle=False, exact=True)[0].g,
-            sample_subgraphs(g, rng, [6, 6], SAMPLED_BATCH)[0].g,
-            sample_subgraphs(g, rng, [6, 6], 1024)[0].g]
+    subs = [first_subgraph(g, rng, [-1, -1], SAMPLED_BATCH, exact=True),
+            first_subgraph(g, rng, [6, 6], SAMPLED_BATCH),
+            first_subgraph(g, rng, [6, 6], 1024)]
     empty = BipartiteGraph(
         row=np.zeros(0, np.int32), col=np.zeros(0, np.int32),
         val=np.zeros(0, np.float32), c_feas=g.c_feas[:300],
@@ -3103,7 +3152,7 @@ def dist_forward_launches(arch: str, halo: bool = True) -> dict:
 
 
 def step_states(arch: str, w0: dict, g: BipartiteGraph, ways,
-                halo: bool = True) -> dict:
+                halo: bool = True, mesh=None) -> dict:
     """One step of ``arch`` from the weights ``w0`` on ``g`` each way of
     ``ways``: ``single`` (the single card's, fp32), ``dist`` (K_EDGE
     shards on the card over the halo or the all-gather layout, the
@@ -3111,11 +3160,12 @@ def step_states(arch: str, w0: dict, g: BipartiteGraph, ways,
     ``fp64`` (the single card's with its convs and SpMM sums in fp64);
     dropout 0, SGD at UPDATE_LR, balanced CE. Returns each way's weights on
     the host, loss, launches, span on the card (CUDA events) and peak
-    memory."""
+    memory. ``mesh``: the dist way's (K_EDGE shards stacked on the card by
+    default)."""
     lr = UPDATE_LR
     loss_fn = LOSS_REGISTRY["balanced"]
     dg = edge_partition.partition_graph(g, K_EDGE, halo=halo)
-    mesh = make_mesh(K_EDGE, "cuda")
+    mesh = mesh or make_mesh(K_EDGE, "cuda")
     out = {}
     for way in ways:
         model = build_model(arch)
@@ -4030,7 +4080,42 @@ def k1_rank_rows(per_rank: list[dict], k: int, bh: int,
     return rows
 
 
-def edge_ranks(seed: int) -> dict:
+@contextlib.contextmanager
+def edge_layout(per_device: bool):
+    """The layout that ``--mesh_shape edge=K`` takes in one process without
+    dp, whatever the cards visible: one shard a device (the K shards'
+    streams sharing a card where there are fewer cards) or every shard on
+    the run's card. The entry points take JAX's rule
+    (``infer/predict.py one_shard_a_device``: one a device with K cards
+    visible); the phases name their layout, so that a machine with K_EDGE
+    cards runs them as one with a card."""
+    real = predict_mod.one_shard_a_device
+    predict_mod.one_shard_a_device = lambda device, edge: per_device
+    try:
+        yield
+    finally:
+        predict_mod.one_shard_a_device = real
+
+
+def stacked_serve_reference(seed: int, root: str) -> dict:
+    """The edge-partitioned serve that ``edge_ranks`` and ``edge_devices``
+    hold their own against, in ``root``: N_RANK_LPS bench LPs
+    (``serve_data``), the seeded recipe checkpoint (``mdl.pth``) and the
+    stacked path's ``pred_basis`` of them (``stacked/smoke/pred-basis``,
+    the logits in ``stacked_logits.npz``). Returns the serve's record."""
+    serve_data = osp.join(root, "serve_data")
+    write_dataset(osp.join(serve_data, "smoke", "highs-inp_tgt"), seed,
+                  N_RANK_LPS)
+    ckpt = save_seeded(ARCH, seed, osp.join(root, "mdl.pth"))
+    with CaptureLogits() as cap, edge_layout(False):
+        stacked = serve_and_check(serve_data, osp.join(root, "stacked"),
+                                  ckpt, seed, N_RANK_LPS, "trainval",
+                                  DIST_PER_FORWARD, DIST_ARGS)
+    np.savez(osp.join(root, "stacked_logits.npz"), **cap.logits)
+    return stacked
+
+
+def edge_ranks(seed: int, keep: str | None = None) -> dict:
     """Edge shards on their own ranks: EDGE_RANKS processes of this script
     (``--edge_rank``) time-share the card under the LP_GNN_DIST_* contract,
     shard k on rank k. K1's rank form against its plain version, bit for
@@ -4045,20 +4130,27 @@ def edge_ranks(seed: int) -> dict:
     stacked path's; the recipe through ``train`` (bf16, 2 train LPs and 1
     val, DIST_TRAIN_EPOCHS epochs), finite losses equal on every rank,
     rank 0 alone writing. Each rank's launches exact: RANK_CONV a conv, no
-    stacked K1."""
+    stacked K1. With ``keep`` (a directory) the phase works there and
+    leaves the served LPs (``serve_data``), the checkpoint (``mdl.pth``),
+    the stacked path's bases (``stacked/smoke/pred-basis``) and logits
+    (``stacked_logits.npz``) for ``edge_devices``."""
     from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
     k = EDGE_RANKS
     script = osp.abspath(__file__)
     n_train, n_val = map(len, split_idxs_train_val(N_DIST_TRAIN_LPS))
     bh = edge_partition.compute_halo_width(bench_graph(seed), k)
-    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_ranks_") as tmp:
-        serve_data = osp.join(tmp, "serve_data")
-        write_dataset(osp.join(serve_data, "smoke", "highs-inp_tgt"), seed,
-                      N_RANK_LPS)
+    with (contextlib.nullcontext(keep) if keep else
+          tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_ranks_")) as tmp:
+        # the served LPs, the checkpoint and the stacked path's serve of
+        # them in this process, then the ranks on the same data
+        stacked = stacked_serve_reference(seed, tmp)
+        torch.cuda.empty_cache()
+        serve_data, ckpt = osp.join(tmp, "serve_data"), osp.join(tmp, "mdl.pth")
+        with np.load(osp.join(tmp, "stacked_logits.npz")) as z:
+            st_logits = {n: z[n] for n in z.files}
         train_data = osp.join(tmp, "train_data")
         write_dataset(osp.join(train_data, "smoke", "highs-inp_tgt"),
                       seed + 1000, N_DIST_TRAIN_LPS)
-        ckpt = save_seeded(ARCH, seed, osp.join(tmp, "mdl.pth"))
         serve_argv = ["--dataset", "smoke", "--data_prefix", serve_data,
                       "--exp_nm", "smoke", "--arch", ARCH, "--fp16", "1",
                       "--load_from", ckpt, "--split", "trainval",
@@ -4093,11 +4185,6 @@ def edge_ranks(seed: int) -> dict:
         inf = json_load(osp.join(rank_dir, "inf_time.json"))
         with np.load(osp.join(tmp, "rank_logits.npz")) as z:
             rank_logits = {n: z[n] for n in z.files}
-        # the stacked path on the same data and checkpoint, in this process
-        with CaptureLogits() as cap:
-            stacked = serve_and_check(serve_data, osp.join(tmp, "stacked"),
-                                      ckpt, seed, N_RANK_LPS, "trainval",
-                                      DIST_PER_FORWARD, DIST_ARGS)
         st_dir = osp.join(tmp, "stacked", "smoke", "pred-basis")
         bas = sorted(f for f in os.listdir(st_dir) if f.endswith(".bas"))
         same_bas = {f: filecmp.cmp(osp.join(st_dir, f),
@@ -4171,7 +4258,7 @@ def edge_ranks(seed: int) -> dict:
     # the bases and logits against the stacked path's
     worst = {}
     for fn, got in rank_logits.items():
-        want = cap.logits[fn]
+        want = st_logits[fn]
         err, ok = within(torch.from_numpy(got), torch.from_numpy(want),
                          *RANK_LOGIT_TOL)
         worst[fn] = err
@@ -4306,6 +4393,375 @@ def edge_ranks(seed: int) -> dict:
         "rank_wall_s": [rep["wall_s"] for rep in per_rank],
         "kernels": k1_rank_rows(per_rank, k, bh, total[
             "halo_all_to_all_ranks"]),
+    }
+
+
+# ------------------------------------------------- one edge shard a device
+
+
+def on_devices(rank: dict) -> dict:
+    """One rank's launches (its one shard) as all K shards' with one shard
+    a device: every count K times, and the rank form's two launches an
+    exchange (the write and the copy-out) as the device form's K (one a
+    source)."""
+    out = {n: v * K_EDGE for n, v in rank.items()
+           if n != "halo_all_to_all_ranks"}
+    out["halo_all_to_all_devices"] = \
+        rank.get("halo_all_to_all_ranks", 0) // 2 * K_EDGE
+    return add_launches(out)
+
+
+# a conv over all K shards, one a device: a send-row gather a shard, two
+# exchanges of K1's device form (the gather and the reduce direction), 5
+# SpMMs a shard
+DEV_CONV = on_devices(RANK_CONV)
+DEV_LOGIT_TOL = (2 ** -6, 2 ** -6)   # rtol, atol against the stacked path
+DEV_UPDATE_RTOL = 1e-5      # an fp32 step's update against the stacked one
+NVLINK_BYTES_S = 450e9      # H100 NVLink, one direction a card
+
+
+def k1_device_ms(exchange, k: int, tries: int = 5) -> tuple:
+    """(device ms, launches seen): the device time of the K kernels of one
+    exchange of K1's device form, summed, from ``torch.profiler`` over 5
+    calls of ``exchange`` (the mean an exchange), or None where the profiler
+    did not see all 5*K launches in any of ``tries`` runs; and how many
+    launches its last run saw."""
+    exchange()
+    torch.cuda.synchronize()
+    seen, complete = profile_kernels(exchange, 5, {"halo_a2a_kernel": 5 * k},
+                                     tries=tries)
+    hits = [tn for name, tn in seen.items() if "halo_a2a_kernel" in name]
+    n_seen = sum(n for _, n in hits)
+    return (sum(t for t, _ in hits) / 5 if complete else None), n_seen
+
+
+def device_k1_case(devs: list, streams: list, bh: int, d: int, gen) -> dict:
+    """K1's device form at (K, Bh, D) bf16 over ``devs`` with a stream a
+    shard, bit for bit against the stacked form on the same blocks; timed
+    (CUDA events around back-to-back exchanges, each shard stream first
+    waiting for the timing stream and the timing stream for every shard
+    stream after), its kernels' device time from the profiler (K launches
+    an exchange, summed; None where it missed one, ``k1_device_ms``) on the
+    shard streams and, where the devices are one card, on one stream, its
+    plain version, and as the library yardstick
+    the same exchange as K*K ``Tensor.copy_`` of the blocks, each on its
+    destination's stream, into buffers made once."""
+    k = len(devs)
+    stacked_in = torch.randn(k, k * bh, d, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+    bufs = []
+    for dv, s in zip(devs, streams):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.device(dv), torch.cuda.stream(s):
+            bufs.append(stacked_in[len(bufs)].to(dv, copy=True))
+    want = halo_all_to_all(stacked_in)
+    cur = torch.cuda.current_stream()
+
+    def exchange():
+        for s in streams:
+            s.wait_stream(cur)
+        out = halo_all_to_all_devices(bufs, streams)
+        for s in streams:
+            cur.wait_stream(s)
+        return out
+
+    before = halo_all_to_all_devices.launches
+    out = exchange()
+    torch.cuda.synchronize()
+    launches = halo_all_to_all_devices.launches - before
+    exact = all(torch.equal(o.to("cuda"), want[q]) for q, o in enumerate(out))
+    plain = halo_all_to_all_plain(bufs)
+    exact_plain = all(torch.equal(a, b) for a, b in zip(out, plain))
+    if not (exact and exact_plain) or launches != k:
+        raise SmokeFailure(f"edge_devices K1 device form D={d}: exact vs the "
+                           f"stacked form {exact}, vs the plain version "
+                           f"{exact_plain}, {launches} launches (expected "
+                           f"{k})")
+    del out, plain
+    outs = [torch.empty_like(b) for b in bufs]
+
+    def library():
+        for q, (o, s) in enumerate(zip(outs, streams)):
+            s.wait_stream(cur)
+            with torch.cuda.device(o.device), torch.cuda.stream(s):
+                for p, b in enumerate(bufs):
+                    o[p * bh:(p + 1) * bh].copy_(b[q * bh:(q + 1) * bh],
+                                                 non_blocking=True)
+            cur.wait_stream(s)
+
+    def plain():
+        out = halo_all_to_all_plain(bufs)   # on each device's current stream
+        for dv in set(devs):
+            cur.wait_stream(torch.cuda.current_stream(dv))
+        return out
+
+    iters = kernel_iters(d)
+    ms = time_ms(exchange, iters)
+    # the K kernels' device time an exchange, summed, only where the
+    # profiler saw every one of the 5*K launches (None else, beside the
+    # count it saw): on the shard streams, as the path runs them, and with
+    # the K launches one after another on one stream where the devices
+    # are one card (no overlap between the sources)
+    device_ms, n_dev = k1_device_ms(exchange, k)
+    one = None
+    if len(set(devs)) == 1:
+        with torch.cuda.device(devs[0]):
+            one = k1_device_ms(lambda: halo_all_to_all_devices(
+                bufs, [cur] * k), k)
+    n_bytes = 2.0 * k * k * bh * d * 2
+    bound_ms, bound_by = bound(n_bytes, 0.0)
+    nvlink_bytes = (k - 1) * bh * d * 2.0
+    row = {
+        "name": "halo_all_to_all_devices", "route": "cuda",
+        "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
+        "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
+        "launches": None, "max_abs_err": 0.0, "ms": ms,
+        "device_ms": device_ms,
+        "device_ms_one_stream": one[0] if one else None,
+        "device_launches_seen_one_stream": one[1] if one else None,
+        "plain_ms": time_ms(plain, 10),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": time_ms(library, iters),
+        "case": f"device form K={k} Bh={bh} D={d} bfloat16 over "
+                f"{[str(x) for x in devs]}, a stream a shard: K launches "
+                "an exchange",
+        "K": k, "Bh": bh, "D": d, "tol": "exact", "bytes": n_bytes,
+        "launches_per_exchange": launches, "device_launches_seen": n_dev,
+        "device_launches_profiled": 5 * k,
+        "nvlink_bytes_per_card": nvlink_bytes,
+        "bound_nvlink_ms": nvlink_bytes / NVLINK_BYTES_S * 1e3,
+        "distinct_devices": len(set(devs)),
+        "path": "edge_devices", "on_path": "edge_devices",
+        "also_replaces": ["lp_gnn_tpu/parallel/pallas_halo.py:54",
+                          "lp_gnn_tpu/parallel/pallas_halo.py:69"],
+        "library": "K*K Tensor.copy_ of the blocks on the destinations' "
+                   "streams into buffers made once",
+        "note": "bound_ms: the stacked form's bytes over the card's memory "
+                "rate (one card); across cards the NVLink bytes a card "
+                "(bound_nvlink_ms), not measured on one card"}
+    del bufs, outs, want, stacked_in
+    torch.cuda.empty_cache()
+    return row
+
+
+
+
+STEADY_REPS = 5    # timed steps and forwards of each layout, after one untimed
+
+
+def busy_by_card(prof) -> dict:
+    """Each card's busy ms in a profiled span: the union of the spans of
+    the work the profiler saw on it (kernels, copies, sets)."""
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith("ProfilerStep"):
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    out = {}
+    for dev, iv in spans.items():
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out[f"cuda:{dev}"] = busy / 1e3
+    return out
+
+
+def steady_layout(seed: int, mesh) -> dict:
+    """The recipe's model in a steady state on ``mesh``: GCN_FC hids=1024
+    bf16 (dropout 0, Adam at the trainer's lr) on one bench graph with the
+    trainer's tensors and input cache, one untimed dist step then
+    STEADY_REPS, and one untimed dist forward under ``torch.no_grad`` then
+    STEADY_REPS. Each call's ``wall_ms`` (host clock, to the synchronise
+    after it) and ``host_ms`` (until the call returned: the host queueing
+    the work; with one shard a device, the K shards' threads taking turns
+    at the GIL), their medians; then one more step under the profiler:
+    each card's busy ms (the union of its work's spans) and idle share of
+    that step's wall, where the profiler saw every K1 launch of the step
+    (else None, ``profile_complete``)."""
+    model = build_model(bf16_arch(ARCH_NO_DROPOUT),
+                        generator=torch.Generator().manual_seed(seed))
+    model = model.to("cuda")
+    opt = trainer.make_optimizer(model.parameters(), "adam", 1e-3)
+    dg = edge_partition.partition_graph(bench_graph(seed + 1100), K_EDGE,
+                                        halo=True)
+    data = edge_partition.dist_tensors(model, dg, mesh, input_agg=True)
+    loss_fn = LOSS_REGISTRY["balanced"]
+    k1 = halo_all_to_all_devices if mesh.per_device else halo_all_to_all
+
+    def timed(fn) -> tuple[float, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    def step():
+        edge_partition.dist_train_step(model, opt, data, loss_fn)
+
+    def forward():
+        with torch.no_grad():
+            model.eval()
+            edge_partition.dist_forward(model, data)
+
+    out = {}
+    for name, fn in (("step", step), ("forward", forward)):
+        fn()
+        runs = [timed(fn) for _ in range(STEADY_REPS)]
+        out[name] = {"host_ms": [h for h, _ in runs],
+                     "wall_ms": [w for _, w in runs],
+                     "host_ms_median": float(np.median([h for h, _ in runs])),
+                     "wall_ms_median": float(np.median([w for _, w in runs]))}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    before = k1.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = timed(step)
+    launched = k1.launches - before
+    seen = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "halo_a2a_kernel" in e.name)
+    busy = busy_by_card(prof) if seen == launched else None
+    out["profiled_step"] = {
+        "wall_ms": wall, "k1_launches": launched, "k1_seen": seen,
+        "profile_complete": seen == launched, "busy_ms_by_card": busy,
+        "idle_share_by_card": {c: 1 - b / wall for c, b in busy.items()}
+        if busy else None}
+    del model, opt, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def edge_devices(seed: int, ranks_dir: str, stacked_inf: dict | None = None
+                 ) -> dict:
+    """Edge shards on several devices of one process: K_EDGE shards, shard
+    k on cuda:(k mod the cards), one thread and stream a shard (on one
+    card its K streams share it; ``edge_layout(True)``). K1's device form at
+    the bench graph's Bh, D=1024 and D=8 bf16, bit for bit against the
+    stacked form (``device_k1_case``); ``pred_basis --mesh_shape edge=4`` on
+    the N_RANK_LPS bench LPs and the seeded recipe checkpoint of
+    ``stacked_serve_reference`` in ``ranks_dir`` (``edge_ranks``' where it
+    ran there, else made here), its launches from 0 exact (DEV_CONV a conv,
+    no stacked K1), every .bas valid and equal to the stacked path's there,
+    the logits within DEV_LOGIT_TOL of the stacked path's, ``inf_time``
+    beside the stacked path's (``stacked_inf``, that serve's); one fp32
+    GCN_FC step against the stacked dist step (each tensor's update within
+    DEV_UPDATE_RTOL of its largest), one fp32 GENDeeper step (UPDATE_RTOL)
+    and GCNRand's forward over the all-gather partition (equal); the
+    recipe's steady steps and forwards beside the stacked layout's on
+    cuda:0 (``steady_layout``)."""
+    from lp_gnn_tpu_torch.infer.predict import shard_devices
+    k, n = K_EDGE, torch.cuda.device_count()
+    devs = shard_devices(torch.device("cuda", 0), k)
+    mesh = make_mesh(k, devs)
+    t0 = time.perf_counter()
+    peer_new = halo_mod.enable_peer_access(sorted({d.index for d in devs}))
+    peer_s = time.perf_counter() - t0
+    bh = edge_partition.compute_halo_width(bench_graph(seed), k)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = [device_k1_case(devs, mesh.threads.streams, bh, d, gen)
+            for d in (1024, 8)]
+    per_forward = add_launches(scaled(DEV_CONV, 2))
+    if not osp.exists(osp.join(ranks_dir, "stacked_logits.npz")):
+        stacked_inf = stacked_serve_reference(seed, ranks_dir)["inf_time_s"]
+        torch.cuda.empty_cache()
+    with np.load(osp.join(ranks_dir, "stacked_logits.npz")) as z:
+        st_logits = {n: z[n] for n in z.files}
+    with CaptureLogits() as cap_dev, edge_layout(True):
+        served = serve_and_check(osp.join(ranks_dir, "serve_data"),
+                                 osp.join(ranks_dir, "devices"),
+                                 osp.join(ranks_dir, "mdl.pth"), seed,
+                                 N_RANK_LPS, "trainval", per_forward,
+                                 DIST_ARGS)
+    dirs = [osp.join(ranks_dir, w, "smoke", "pred-basis")
+            for w in ("stacked", "devices")]
+    bas = sorted(os.listdir(dirs[0]))
+    same_bas = {f: filecmp.cmp(osp.join(dirs[0], f), osp.join(dirs[1], f),
+                               shallow=False) for f in bas}
+    worst = {}
+    for fn, got in cap_dev.logits.items():
+        err, ok = within(torch.from_numpy(got),
+                         torch.from_numpy(st_logits[fn]), *DEV_LOGIT_TOL)
+        worst[fn] = err
+        if not ok:
+            raise SmokeFailure(f"edge_devices {fn}: logits max |err| {err} "
+                               f"vs the stacked path's, beyond {DEV_LOGIT_TOL}")
+    if len(worst) != N_RANK_LPS or not all(same_bas.values()):
+        raise SmokeFailure(f"edge_devices: logits of {sorted(worst)}, files "
+                           f"equal to the stacked path's {same_bas}")
+    # an fp32 step of each kind against the stacked dist step
+    steps = {}
+    for arch, g_seed, rtol in ((ARCH_NO_DROPOUT, 1100, DEV_UPDATE_RTOL),
+                               (DIST_GEN_ARCH, 1400, UPDATE_RTOL)):
+        w0 = seeded_state(arch, seed)
+        g = bench_graph(seed + g_seed)
+        ref = step_states(arch, w0, g, ("dist",))["dist"]
+        got = step_states(arch, w0, g, ("dist",), mesh=mesh)["dist"]
+        rels = update_rels(w0, got["state"], ref["state"], UPDATE_LR)
+        near = max(rels, key=rels.get)
+        want_l = on_devices(add_launches(*[
+            RANK_GEN_CONV, RANK_GEN_CONV_BWD] * DIST_ZOO[DIST_GEN_ARCH])) \
+            if arch == DIST_GEN_ARCH else on_devices(add_launches(
+                scaled(RANK_CONV, 2)))
+        if rels[near] > rtol or got["launches"] != want_l or \
+                abs(got["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+            raise SmokeFailure(f"edge_devices {arch} step vs the stacked "
+                               f"dist step: loss {got['loss']} vs "
+                               f"{ref['loss']}, update rel diff {rels[near]} "
+                               f"in {near} > {rtol}, launches "
+                               f"{got['launches']} (expected {want_l})")
+        steps[arch.split("(")[0]] = {
+            "arch": arch, "dtype": "float32", "lr": UPDATE_LR,
+            "loss": got["loss"], "loss_stacked": ref["loss"],
+            "update_rel_max_vs_stacked": rels[near], "tensor": near,
+            "update_rtol": rtol, "launches": got["launches"],
+            "step_device_ms": got["step_device_ms"],
+            "stacked_step_device_ms": ref["step_device_ms"],
+            "max_memory_allocated_bytes": got["max_memory_allocated_bytes"],
+            "stacked_max_memory_allocated_bytes":
+                ref["max_memory_allocated_bytes"]}
+    # GCNRand over the all-gather partition: the lead draws every row
+    rand = build_model("GCNRand()").to("cuda").eval()
+    dg_ag = edge_partition.partition_graph(bench_graph(seed), k, halo=False)
+    with torch.no_grad():
+        r_dev = edge_partition.dist_apply(rand, dg_ag, mesh)
+        r_st = edge_partition.dist_apply(rand, dg_ag, make_mesh(k, "cuda"))
+    if not all(torch.equal(a, b) for a, b in zip(r_dev, r_st)):
+        raise SmokeFailure("edge_devices: GCNRand's logits differ from the "
+                           "stacked path's")
+    rand_rows = [int(r_dev[0].shape[0]), int(r_dev[1].shape[0])]
+    del r_dev, r_st, dg_ag
+    torch.cuda.empty_cache()
+    steady = {"devices": steady_layout(seed, mesh),
+              "stacked": steady_layout(seed, make_mesh(k, "cuda"))}
+    return {
+        "K": k, "devices": [str(d) for d in devs], "cards": n,
+        "distinct_devices": len(set(devs)),
+        "peer_access": [list(p) for p in peer_new] or "none",
+        "peer_access_s": peer_s,
+        "note": f"{k} shards, {len(set(devs))} distinct device(s): a stream "
+                "a shard; with one card the shards' streams share it, and "
+                "no figure here is a several-card figure",
+        "Bh": bh, "launches": served["launches"],
+        "launches_per_forward": per_forward,
+        "serve": {"bas_valid": served["bas_valid"],
+                  "bas_equal_stacked": same_bas,
+                  "logits_max_abs_err_vs_stacked": worst,
+                  "logit_tol": {"rtol": DEV_LOGIT_TOL[0],
+                                "atol": DEV_LOGIT_TOL[1]},
+                  "inf_time_s": served["inf_time_s"],
+                  "stacked_inf_time_s": stacked_inf,
+                  "part_time_s": served["part_time_s"],
+                  "pred_basis_s": served["pred_basis_s"]},
+        "steps": steps,
+        "steady": {"arch": bf16_arch(ARCH_NO_DROPOUT), "reps": STEADY_REPS,
+                   **steady},
+        "gcn_rand_all_gather": {"equal_stacked": True,
+                                "rows": rand_rows},
+        "kernels": rows,
     }
 
 
@@ -4676,7 +5132,7 @@ def trace_read(path: str) -> dict:
 
 def mirp_train_turns(seed: int, data_prefix: str) -> dict:
     """The train stage (``python -m lp_gnn_tpu_torch.train``) on the
-    pipeline's mirp_bench family (28 train LPs), the recipe's arch in bf16,
+    pipeline's mirp_bench family (21 train LPs), the recipe's arch in bf16,
     PIPE_EPOCHS epochs, with --steps_per_call SCAN_K and 1 in turns (K, 1,
     1, K), the counts set to 0 just before each run and read just after:
     each run's stacks and singles, epoch wall seconds, last logged loss,
@@ -5246,11 +5702,11 @@ def bench_phase(seed: int) -> dict:
 # has just run InferenceManager(0,)), and no 10M-edge partition cell, for
 # the phase's time (PERF.md, the native phase)
 NATIVE_MANAGERS = ["InferenceManager(2,mode='add',gnn_wei=0.5)"]
-# the first half of the pipeline phase's LPs (14 train, 6 val): the
+# the first half of the pipeline phase's LPs (10 train, 5 val): the
 # phase's prep and engine table are serial solves, and the script passed
 # 1000 s with all 40 (PERF.md, PR 17)
 N_NATIVE_LPS = N_PIPE_LPS // 2
-# as many steps as the pipeline phase's run (its 28 train LPs x 20
+# about as many steps as the pipeline phase's run (its 21 train LPs x 20
 # epochs): fewer leave the bases worse and the warm solves slow (call 3)
 NATIVE_EPOCHS = PIPE_EPOCHS * N_PIPE_LPS // N_NATIVE_LPS
 N_DEGEN_LPS = 4
@@ -5559,10 +6015,20 @@ def rows_csr(ptr, idx, val, rows: torch.Tensor) -> tuple:
     return sub.to(torch.int32), idx[eid], val[eid]
 
 
+def exact_rows(ptr, idx, val, x) -> torch.Tensor:
+    """The SpMM of a CSR, in ``x``'s dtype, from its sums in fp64. The
+    plain version sums in fp32 in the order its atomics add (on the card a
+    new order each call); over rows of about 1000 edges two orders can
+    round to bf16 values 2 ulps apart, past SPMM_TOL, where the fp64 sums
+    round the same whatever the order."""
+    return spmm_csr_plain(ptr, idx, val.double(), x.double()).to(x.dtype)
+
+
 def big_spmm_case(case: str, ptr, idx, val, x, gen) -> dict:
     """spmm_csr at bench_big's size against its plain version on a sample
     of destination rows (the plain version of the whole would hold an
-    (E, D) message: 100 GB at 10^8 edges, D=256), with SPMM_TOL; its event
+    (E, D) message: 100 GB at 10^8 edges, D=256), its sums in fp64
+    (``exact_rows``), with SPMM_TOL; its event
     ms and device ms a launch beside its bound, every input read once (x's
     rows that are used, once), and beside a reference cost that is no
     bound: one gathered row an edge, what a kernel pays where every edge's
@@ -5571,7 +6037,7 @@ def big_spmm_case(case: str, ptr, idx, val, x, gen) -> dict:
     out = spmm_csr(ptr, idx, val, x)
     rows = sample_rows(ptr, BIG_SAMPLE, gen)
     sp, si, sv = rows_csr(ptr, idx, val, rows)
-    ref = spmm_csr_plain(sp, si, sv, x)
+    ref = exact_rows(sp, si, sv, x)
     rtol, atol = SPMM_TOL[x.dtype]
     err, ok = within(out[rows.long()], ref, rtol, atol)
     if not ok:
@@ -6077,6 +6543,9 @@ def main(argv=None) -> int:
     ap.add_argument("--host_sort", action="store_true",
                     help="measure only from_graph's edge orderings on the "
                          "host, numpy's against lex_order's")
+    ap.add_argument("--edge_devices", action="store_true",
+                    help="run only the edge_devices phase (one edge shard "
+                         "a card where the cards are as many as the shards)")
     ap.add_argument("--edge_rank", metavar="PAYLOAD",
                     help="run as one rank of the edge_ranks phase, with the "
                          "phase's PAYLOAD (a JSON file)")
@@ -6105,8 +6574,28 @@ def main(argv=None) -> int:
         emit({"phase": "host_sort", "nvidia_smi": nvidia_smi(),
               **host_sort(args.seed)})
         return 0
+    if args.edge_devices:
+        _build.build_all(["spmm", "gather", "halo_a2a", "gen_agg",
+                          "gen_lse_merge"])
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory(
+                    prefix="lp_gnn_smoke_devices_") as tmp:
+                devd = edge_devices(args.seed, tmp)
+        except SmokeFailure as ex:
+            print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
+            return 1
+        emit({"phase": "edge_devices", "nvidia_smi": nvidia_smi(),
+              "phase_s": time.perf_counter() - t0, **devd})
+        return 0
     # the pipeline's prepped family, kept for the steps_per_call phase
     mirp_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_mirp_")
+    # edge_ranks' LPs, checkpoint and stacked serve, for edge_devices
+    ranks_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_ranks_")
+    # every phase but edge_devices keeps the edge shards of one process
+    # stacked on cuda:0, also where K_EDGE cards are visible
+    layout = contextlib.ExitStack()
+    layout.enter_context(edge_layout(False))
     try:
         smi = nvidia_smi()
         t0 = time.perf_counter()
@@ -6124,7 +6613,7 @@ def main(argv=None) -> int:
             return 0
         if args.flagship:
             emit({"phase": "pipeline", **pipeline_phase(
-                args.seed, FLAGSHIP_EPOCHS, N_PIPE_LPS)})
+                args.seed, FLAGSHIP_EPOCHS, FLAGSHIP_LPS)})
             print(smi, flush=True)
             emit({"ok": True, "device": {
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6205,9 +6694,14 @@ def main(argv=None) -> int:
         dpe = dp_edge(args.seed)
         emit({"phase": "dp_edge", **dpe})
         torch.cuda.empty_cache()
-        ranked = edge_ranks(args.seed)
+        ranked = edge_ranks(args.seed, ranks_keep)
         kernels += ranked.pop("kernels")
         emit({"phase": "edge_ranks", **ranked})
+        torch.cuda.empty_cache()
+        devd = edge_devices(args.seed, ranks_keep,
+                            ranked["serve"]["stacked_inf_time_s"])
+        kernels += devd.pop("kernels")
+        emit({"phase": "edge_devices", **devd})
         torch.cuda.empty_cache()
         scanned = steps_per_call(args.seed, mirp_keep)
         emit({"phase": "steps_per_call", "nvidia_smi": smi, **scanned})
@@ -6242,7 +6736,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
         return 1
     finally:
+        layout.close()
         shutil.rmtree(mirp_keep, ignore_errors=True)
+        shutil.rmtree(ranks_keep, ignore_errors=True)
     # launches: the SpMM, the gather and K1 on the edge-partitioned path,
     # the one path that runs all three; the GEN kernels on the GEN training
     # path, which runs both; a case at the dist GEN layer's shapes (and the
@@ -6254,7 +6750,7 @@ def main(argv=None) -> int:
              "sampled_train": strained, "graph_batch": batched,
              "dp_graph_batch": dp, "dist_train": dtrained,
              "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
-             "dp_edge": dpe, "edge_ranks": ranked,
+             "dp_edge": dpe, "edge_ranks": ranked, "edge_devices": devd,
              "steps_per_call": scanned, "all_gather": gathered,
              "bench": benched, "native": natived, "big": big,
              "probe_spmm": probed, "probe_gen_floor": floors,
@@ -6264,7 +6760,7 @@ def main(argv=None) -> int:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist
         k["launches"] = main_path["launches"][k["name"]]
-        k["launches_by_path"] = {p: r["launches"][k["name"]]
+        k["launches_by_path"] = {p: r["launches"].get(k["name"], 0)
                                  for p, r in paths.items()}
         k["card"] = smi
     emit({"kernels": kernels})

@@ -84,8 +84,10 @@ class Config:
     warm_gate_kmax: int = 12               # calibration budget
     # parallelism
     mesh_shape: str = ""                   # edge=K: edge-partitioned forward
-                                           # of graphs above edge_num_thresh,
-                                           # K shards on the one device;
+                                           # of graphs above edge_num_thresh
+                                           # over K shards (shard k on
+                                           # cuda:k with K cards visible,
+                                           # else all K on the one device);
                                            # dp=K: training over K ranks
                                            # (the LP_GNN_DIST_* contract);
                                            # both: dp x edge training

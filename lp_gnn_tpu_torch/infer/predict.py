@@ -4,10 +4,11 @@
 ``model_inference`` (:116) runs one LP's full-graph forward on the model's
 device, or, under ``--mesh_shape edge=K`` for graphs above
 ``edge_num_thresh``, its edge-partitioned forward (:133-137) over K shards
-with the halo exchange. The JAX package builds no mesh when K exceeds its
-device count (``mesh_from_cfg`` :35-48); the port places all K shards on
-the model's one device instead (``parallel/mesh.py``), so the path runs on
-one GPU, or, under the ``LP_GNN_DIST_*`` contract with K ranks, shard k on
+with the halo exchange. As the JAX package, one process with K cards
+visible puts shard k on card k (``mesh_from_cfg`` :35-48). It builds no
+mesh when K exceeds its device count; the port places all K shards on the
+model's one device instead (``parallel/mesh.py``), so the path runs on one
+GPU, or, under the ``LP_GNN_DIST_*`` contract with K ranks, shard k on
 rank k: each rank runs its shard's forward, the logits go to rank 0 (a
 gather), and rank 0 alone decodes and writes; the other ranks take part in
 the forwards of the partitioned graphs only. Graphs above
@@ -47,8 +48,11 @@ def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
     the group's size); over this rank's row of the (dp, edge) grid where
     ``dp=D,edge=K`` names D*K ranks (``mesh.grid_from_shape``: JAX serves
     over the edge axis alone, :35-50, so row 0 serves and the other rows
-    skip, ``runs_here``); else with every shard on ``device`` (one
-    process, or a rank of dp x edge over D ranks, ``parallel/combined.py``)."""
+    skip, ``runs_here``); else, in one process without dp and with at
+    least K cards visible, one shard a device (:func:`one_shard_a_device`),
+    shard k on cuda:k as JAX's ``make_mesh`` lays out its devices (:47);
+    else with every shard on ``device`` (one process, or a rank of dp x
+    edge over D ranks, ``parallel/combined.py``)."""
     spec = parse_mesh_shape(cfg.mesh_shape)
     edge = spec.get("edge", 1)
     if edge <= 1:
@@ -63,7 +67,27 @@ def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
                 f"--mesh_shape edge={edge} over a process group of {world} "
                 f"ranks: one shard a rank needs edge={world}")
         return make_mesh(edge, device, dist.group.WORLD)
+    if spec.get("dp", 1) == 1 and one_shard_a_device(device, edge):
+        return make_mesh(edge, shard_devices(device, edge))
     return make_mesh(edge, device)
+
+
+def one_shard_a_device(device: torch.device, edge: int) -> bool:
+    """Whether each of the ``edge`` shards goes on a device of its own in
+    this process, JAX's rule (predict.py:47): where ``device`` is a card
+    and at least ``edge`` cards are visible."""
+    return device.type == "cuda" and torch.cuda.device_count() >= edge
+
+
+def shard_devices(device: torch.device, edge: int) -> list[torch.device]:
+    """The device of each shard, one a device: on the card, ``device``'s
+    card and the next ones, cuda:(i + k) mod the cards visible (cuda:k
+    from cuda:0; fewer cards than shards repeat them); on the CPU, the CPU
+    ``edge`` times."""
+    if device.type != "cuda":
+        return [device] * edge
+    n, i = torch.cuda.device_count(), device.index or 0
+    return [torch.device("cuda", (i + k) % n) for k in range(edge)]
 
 
 def _uses_dist_path(g: BipartiteGraph, edge_num_thresh,

@@ -18,6 +18,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -28,6 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# held while a library is built and loaded, and while a launch is counted
+# (with one edge shard a device the shards' threads launch at once)
+_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -99,10 +104,19 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``ops/csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _LIBS[name] = lib
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build_all([name])
+                lib = _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
     return lib
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """``wrapper.launches += n``, under a lock, so that launches from
+    several threads at once are all counted."""
+    with _COUNT_LOCK:
+        wrapper.launches += n
 
 
 def check_out(out: torch.Tensor, shape: tuple, like: torch.Tensor,

@@ -15,6 +15,14 @@
 // forward, all shards on one card), and the list form, from K addresses
 // each.
 //
+// The device form is the same entry as the rank form, one launch a source:
+// with every shard in one process and shard d on device d, the launch of
+// source d runs on device d's stream and writes its K blocks straight into
+// the K destination buffers, each on its own device (its own card, over
+// NVLink, or this card), through peer pointers. That needs peer access from
+// every source card to every destination card, which lp_halo_peer_enable
+// turns on for one ordered pair.
+//
 // The rank form (lp_halo_a2a_rank) is the TPU kernel's own shape: this
 // process holds shard `me` of K, one process a shard, and writes its K
 // blocks straight into the K receive windows, block p at slot `me` of shard
@@ -424,3 +432,29 @@ extern "C" int lp_halo_status_alloc(void** host, void** dev) {
 }
 
 extern "C" int lp_halo_status_free(void* host) { return cudaFreeHost(host); }
+
+// Peer access for the device form: kernels on device `dev` may then store
+// into memory of device `peer`. Returns 0 where it is on (this call or an
+// earlier one: cudaErrorPeerAccessAlreadyEnabled, which PyTorch's own
+// copies between cards leave behind, counts as success and is cleared from
+// the thread's last error), -1 where cudaDeviceCanAccessPeer says the pair
+// cannot, else the CUDA error. The current device is restored.
+extern "C" int lp_halo_peer_enable(int dev, int peer) {
+  int can = 0;
+  cudaError_t e = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (e != cudaSuccess) return e;
+  if (!can) return -1;
+  int prev;
+  e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return e;
+  e = cudaSetDevice(dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      e = cudaSuccess;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return e != cudaSuccess ? e : back;
+}

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import check_out, launch_on
+from ._build import check_out, count_launch, launch_on
 
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -87,7 +87,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                    0 if schedule is None else schedule.shape[0])
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
-    gather_rows.launches += 1
+    count_launch(gather_rows)
     return out
 
 

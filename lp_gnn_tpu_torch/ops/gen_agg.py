@@ -39,7 +39,7 @@ import torch
 
 from . import _build
 from . import spmm as _spmm
-from ._build import launch_on, launch_with_workspace
+from ._build import count_launch, launch_on, launch_with_workspace
 
 EPS = 1e-7   # gen.py:36
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -248,7 +248,7 @@ def gen_agg_fwd(ptr, src, a, x, w, b, t, need_lse: bool = True):
         num_dst, src.shape[0], d, _DTYPE_CODE[x.dtype], buffers=2)
     if rc != 0:
         raise RuntimeError(f"gen_agg_fwd kernel launch failed: CUDA error {rc}")
-    gen_agg_fwd.launches += 1
+    count_launch(gen_agg_fwd)
     return aggr, lse
 
 
@@ -289,7 +289,7 @@ def gen_agg_bwd(ptr, src, a, x, w, b, t, g, aggr, lse):
         _DTYPE_CODE[x.dtype])
     if rc != 0:
         raise RuntimeError(f"gen_agg_bwd kernel launch failed: CUDA error {rc}")
-    gen_agg_bwd.launches += 1
+    count_launch(gen_agg_bwd)
     return dpre, out[:d], out[d:2 * d], out[2 * d]
 
 
@@ -383,7 +383,7 @@ def gen_lse_merge(local_edges, loc_aggr, loc_lse, ptr, idx, parts):
                    aggr.data_ptr(), lse.data_ptr())
     if rc != 0:
         raise RuntimeError(f"gen_lse_merge kernel launch failed: CUDA error {rc}")
-    gen_lse_merge.launches += 1
+    count_launch(gen_lse_merge)
     return aggr, lse
 
 

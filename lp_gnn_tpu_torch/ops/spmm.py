@@ -3,7 +3,7 @@
 Counterpart of ``lp_gnn_tpu/ops/spmm.py`` (``segment_spmm`` :34 and its
 VJP :61, ``blocked_spmm`` :77 and its VJP :172, ``spmm_cons_to_vars`` :203,
 ``spmm_vars_to_cons`` :216, ``bidir_spmm`` :226, ``attach_input_agg``
-:231). One kernel serves both directions:
+:231, ``sddmm`` :289). One kernel serves both directions:
 ``out[d] = sum over e in [ptr[d], ptr[d+1]) of val[e] * x[idx[e]]``, run
 over the CSR (vars -> cons) or the CSC (cons -> vars) of
 :class:`~lp_gnn_tpu_torch.data.graph.GraphTensors`.
@@ -24,7 +24,7 @@ import dataclasses
 import torch
 
 from . import _build
-from ._build import check_out, launch_with_workspace
+from ._build import check_out, count_launch, launch_with_workspace
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_PIECES = 256   # 16-byte pieces a row (csrc/spmm.cu kMaxPieces)
@@ -138,7 +138,7 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
         _DTYPE_CODE[x.dtype], buffers=2)
     if rc != 0:
         raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {rc}")
-    spmm_csr.launches += 1
+    count_launch(spmm_csr)
     return out
 
 
@@ -201,3 +201,14 @@ def attach_input_agg(g, dtype: torch.dtype):
         agg_v = spmm_cons_to_vars(g, g.c_feas.to(dtype))
         agg_c = spmm_vars_to_cons(g, g.v_feas.to(dtype))
     return dataclasses.replace(g, in_agg_c=agg_c, in_agg_v=agg_v)
+
+
+def sddmm(row: torch.Tensor, col: torch.Tensor, x_cons: torch.Tensor,
+          x_vars: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense product: each edge's ``<x_cons[row],
+    x_vars[col]>``, (E,) (counterpart of ``lp_gnn_tpu/ops/spmm.py:289
+    sddmm``, the gradient of an SpMM's edge values: ``dval = sddmm(row,
+    col, grad_out, x_src)``). Plain PyTorch on any device: no model and no
+    path of either package calls it, so it has no kernel of its own yet
+    (ROADMAP.md §2 item 6: with the first model that learns edge values)."""
+    return (x_cons[row.long()] * x_vars[col.long()]).sum(-1)

@@ -60,7 +60,12 @@ the partition cache does not hold them. The per-shard loops run over the
 shards held here: all K in one process, or, with shard k on rank k, this
 rank's one, whose owner-side merge takes the parts its exchange brings
 from every rank; the parameters' gradients are then this rank's part,
-summed over the ranks by ``dist_train_step``.
+summed over the ranks by ``dist_train_step``. With one shard a device each
+shard's thread runs the one-shard layer, and l2r is one autograd node over
+the K shards (:class:`_L2ROp` under ``shard_threads.Joint``): each shard's
+parts on its device, K1's device form (halo) or the copies of the blocks
+between devices (all-gather), each owner's merge; its backward the same
+exchanges of the statistics and each shard's ``gen_agg_bwd``.
 """
 from __future__ import annotations
 
@@ -72,8 +77,10 @@ import torch
 from ..ops.gen_agg import (gather_backward, gen_agg_bwd, gen_agg_fwd,
                            gen_lse_merge, gen_softmax_agg, padded_width)
 from .edge_partition import (CSR, AllGatherVars, HaloGather, _a2a,
-                             all_gather_vars, exchange_var_blocks,
-                             halo_gather)
+                             _a2a_devices, _all_gather_devices, _block_rows,
+                             _collective, _gather_devices, all_gather_vars,
+                             exchange_var_blocks, halo_gather)
+from .shard_threads import Member, joint
 
 
 def _coo(m: CSR):
@@ -203,49 +210,86 @@ class DistGenL2R(torch.autograd.Function):
     def backward(ctx, grad):
         x, w, b, t, aggr, lse = ctx.saved_tensors
         dg = ctx.dg
-        gen, k, ms, ns = dg.gen, dg.n_local, dg.ms, dg.ns
-        d = x.shape[1]
         # each owner's (g, aggr, lse) where every shard's rows read them
         if dg.halo:
-            table = aggr.new_empty((k * ns, padded_width(3 * d, aggr.dtype)))
-            for j, v in enumerate((grad, aggr, lse)):
-                table[:, j * d:(j + 1) * d] = v
-            slots = halo_gather(table, dg.halo_src, dg.halo_sched, dg.group)
-
-            def stats(s):
-                own = table[s * ns:(s + 1) * ns]
-                return [torch.cat([own[:, j * d:(j + 1) * d],
-                                   slots[s, :, j * d:(j + 1) * d]])
-                        for j in range(3)]
+            table = _stat_table(grad, aggr, lse)
+            stats = _halo_stats(dg, table, halo_gather(
+                table, dg.halo_src, dg.halo_sched, dg.group), x.shape[1])
         else:
             if dg.group is None:
                 full = [grad.contiguous(), aggr, lse]
             else:
-                table = all_gather_vars(torch.cat([grad, aggr, lse], 1),
-                                        dg.group)
-                full = [table[:, j * d:(j + 1) * d].contiguous()
-                        for j in range(3)]
+                full = _split_stats(all_gather_vars(
+                    torch.cat([grad, aggr, lse], 1), dg.group))
 
             def stats(s):
                 return full
-        xs = x.split(ms)
-        dxs, sums = [], None
-        for s in range(k):
-            g, a, lse_s = stats(s)
-            dpre, *part = gen_agg_bwd(*gen.l2r[s], xs[s], w, b, t, g, a, lse_s)
-            sums = part if sums is None else \
-                [u + v for u, v in zip(sums, part)]
-            if ctx.needs_input_grad[0]:
-                dxs.append(gather_backward(gen.r2l[s].ptr, gen.eperm_l2r[s],
-                                           dpre, d))
-        dw, db, dt = sums
-        return (torch.cat(dxs) if dxs else None, dw.to(w.dtype),
-                db.to(b.dtype), dt.to(t.dtype), None)
+        return (*_l2r_grads(dg, x, w, b, t, stats, ctx.needs_input_grad[0]),
+                None)
+
+
+def _stat_table(grad, aggr, lse) -> torch.Tensor:
+    """(g, aggr, lse) of the variable rows held here side by side, each D
+    wide, in rows padded to whole 16-byte pieces (for the halo gather)."""
+    d = aggr.shape[1]
+    table = aggr.new_empty((aggr.shape[0], padded_width(3 * d, aggr.dtype)))
+    for j, v in enumerate((grad, aggr, lse)):
+        table[:, j * d:(j + 1) * d] = v
+    return table
+
+
+def _halo_stats(dg, table, slots, d: int):
+    """``stats(s)``: shard s's (g, aggr, lse) over its compact rows, each D
+    wide, its own rows' from ``table`` and its halo slots' from
+    ``slots``."""
+    ns = dg.ns
+
+    def stats(s):
+        own = table[s * ns:(s + 1) * ns]
+        return [torch.cat([own[:, j * d:(j + 1) * d],
+                           slots[s, :, j * d:(j + 1) * d]]) for j in range(3)]
+    return stats
+
+
+def _split_stats(table) -> list:
+    """(g, aggr, lse) of a (n, 3D) table, each contiguous."""
+    d = table.shape[1] // 3
+    return [table[:, j * d:(j + 1) * d].contiguous() for j in range(3)]
+
+
+def _l2r_grads(dg, x, w, b, t, stats, need_x: bool) -> tuple:
+    """l2r's backward over the shards held here, each shard's compact (or
+    global) rows' statistics from ``stats(s)``: ``gen_agg_bwd`` a shard,
+    and for x the SpMM over the transpose ordering. Returns (dx or None,
+    dw, db, dt)."""
+    gen, k, ms = dg.gen, dg.n_local, dg.ms
+    d = x.shape[1]
+    xs = x.split(ms)
+    dxs, sums = [], None
+    for s in range(k):
+        g, a, lse_s = stats(s)
+        dpre, *part = gen_agg_bwd(*gen.l2r[s], xs[s], w, b, t, g, a, lse_s)
+        sums = part if sums is None else \
+            [u + v for u, v in zip(sums, part)]
+        if need_x:
+            dxs.append(gather_backward(gen.r2l[s].ptr, gen.eperm_l2r[s],
+                                       dpre, d))
+    dw, db, dt = sums
+    return (torch.cat(dxs) if dxs else None, dw.to(w.dtype),
+            db.to(b.dtype), dt.to(t.dtype))
 
 
 def _l2r_halo(dg, xs, w, b, t):
     """The halo layout's l2r forward: the parts of every compact row, the
     slot rows' sent to their owners (K1), merged there."""
+    loc_aggr, loc_lse, send = _l2r_halo_parts(dg, xs, w, b, t)
+    return _l2r_halo_merge(dg, loc_aggr, loc_lse, _a2a(send, dg.group))
+
+
+def _l2r_halo_parts(dg, xs, w, b, t):
+    """``gen_agg_fwd`` a shard over its compact rows: the local rows'
+    (aggr, lse) stacked, and the slot rows' side by side in the (L, nh, W)
+    buffer K1 sends to their owners."""
     gen, k, ns, nh = dg.gen, dg.n_local, dg.ns, dg.nh
     d = xs[0].shape[1]
     parts = [gen_agg_fwd(*gen.l2r[s], xs[s], w, b, t) for s in range(k)]
@@ -257,18 +301,31 @@ def _l2r_halo(dg, xs, w, b, t):
     for s, (a, lse) in enumerate(parts):
         send[s, :, :d] = a[ns:]
         send[s, :, d:2 * d] = lse[ns:]
-    del parts
-    back = _a2a(send, dg.group)
+    return loc_aggr, loc_lse, send
+
+
+def _l2r_halo_merge(dg, loc_aggr, loc_lse, back):
+    """The owners' merge of their local parts with the slot parts K1
+    brought (``back``, (L, nh, W))."""
+    gen = dg.gen
     return gen_lse_merge(gen.local_edges, loc_aggr, loc_lse, gen.merge_ptr,
-                         gen.merge_idx, back.view(k * nh, back.shape[2]))
+                         gen.merge_idx, back.reshape(-1, back.shape[2]))
 
 
 def _l2r_full(dg, xs, w, b, t):
     """The all-gather layout's l2r forward: each shard's part of every
     variable row, (aggr, lse) side by side in one (L, n_pad, 2D) buffer;
     over ranks each rank's blocks go to their owners; one merge of the K
-    parts of each row held here. No row has a local part, so the merge's
-    local operands are an unread buffer of their shape."""
+    parts of each row held here."""
+    parts = _l2r_full_parts(dg, xs, w, b, t)
+    if dg.group is not None:
+        parts = exchange_var_blocks(parts, dg.group)
+    return _l2r_full_merge(dg, parts)
+
+
+def _l2r_full_parts(dg, xs, w, b, t):
+    """``gen_agg_fwd`` a shard over all n_pad variable rows: (L*n_pad, 2D),
+    each row's (aggr, lse)."""
     gen, k, n_pad = dg.gen, dg.n_local, dg.n_pad
     d = xs[0].shape[1]
     parts = None
@@ -279,12 +336,66 @@ def _l2r_full(dg, xs, w, b, t):
         parts[s, :, :d] = a
         parts[s, :, d:] = lse
         del a, lse
-    parts = parts.view(k * n_pad, 2 * d)
-    if dg.group is not None:
-        parts = exchange_var_blocks(parts, dg.group)
-    unread = parts.new_empty((gen.local_edges.shape[0], d))
+    return parts.view(k * n_pad, 2 * d)
+
+
+def _l2r_full_merge(dg, parts):
+    """One merge of the K parts of each row held here. No row has a local
+    part, so the merge's local operands are an unread buffer of their
+    shape."""
+    gen = dg.gen
+    unread = parts.new_empty((gen.local_edges.shape[0], parts.shape[1] // 2))
     return gen_lse_merge(gen.local_edges, unread, unread, gen.merge_ptr,
                          gen.merge_idx, parts)
+
+
+class _L2ROp:
+    """:class:`DistGenL2R` with one shard a device: each shard's (x, w, b,
+    t) in, its aggr out."""
+
+    @staticmethod
+    def forward(threads, dgs, ins):
+        def xs(k):
+            return ins[k][0].split(dgs[k].ms)
+
+        if dgs[0].halo:
+            parts = threads.each(lambda k: _l2r_halo_parts(
+                dgs[k], xs(k), *ins[k][1:]))
+            back = _a2a_devices([p[2][0] for p in parts], threads)
+            res = threads.each(lambda k: _l2r_halo_merge(
+                dgs[k], parts[k][0], parts[k][1], back[k][None]))
+        else:
+            parts = threads.each(lambda k: _l2r_full_parts(
+                dgs[k], xs(k), *ins[k][1:]))
+            got = threads.each(lambda q: torch.cat(
+                _block_rows(threads, parts, q)))
+            res = threads.each(lambda k: _l2r_full_merge(dgs[k], got[k]))
+        return [a for a, _ in res], [(*ins[k], *res[k])
+                                     for k in range(threads.size)]
+
+    @staticmethod
+    def backward(threads, dgs, saved, grads, needs):
+        d = saved[0][0].shape[1]
+        if dgs[0].halo:
+            tables = threads.each(lambda k: _stat_table(grads[k], *saved[k][4:]))
+            slots = _gather_devices(threads, dgs, tables)
+            stats = [_halo_stats(dgs[k], tables[k], slots[k], d)
+                     for k in range(threads.size)]
+        else:
+            full = _all_gather_devices(threads, threads.each(
+                lambda k: torch.cat([grads[k], *saved[k][4:]], 1)))
+            splits = [_split_stats(f) for f in full]
+            stats = [(lambda s, v=v: v) for v in splits]
+        return threads.each(lambda k: _l2r_grads(
+            dgs[k], *saved[k][:4], stats[k], needs[k][0]))
+
+
+def _l2r(x, w, b, t, dg):
+    """``DistGenL2R.apply(x, w, b, t, dg)``; with one shard a device the
+    shards' calls meet and one node over all K runs :class:`_L2ROp`."""
+    if isinstance(dg.group, Member):
+        return joint(_L2ROp, dg.group, "DistGenL2R", (x, w, b, t), dg)
+    return DistGenL2R.apply(x, w, b, t, dg)
 
 
 def dist_gen_bidir_conv(conv, dg, left, right):
@@ -299,16 +410,16 @@ def dist_gen_bidir_conv(conv, dg, left, right):
     r_src, x_dst_l = r2l.project(right, left)
     w, b, t = r2l.encoder(r_src.dtype)
     if dg.halo:
-        hbuf = HaloGather.apply(r_src, dg)
+        hbuf = _collective(HaloGather, r_src, dg)
         rs = r_src.split(ns)
         srcs = [torch.cat([rs[s], hbuf[s]]) for s in range(k)]
     else:
-        srcs = [AllGatherVars.apply(r_src, dg)] * k
+        srcs = [_collective(AllGatherVars, r_src, dg)] * k
     aggr_c = torch.cat([
         gen_softmax_agg(*gen.r2l[s], srcs[s], w, b, t, gen.l2r[s].ptr,
                         gen.eperm_r2l[s]) for s in range(k)])
     left_new = r2l.update(aggr_c, x_dst_l)
     # l2r: dst = variables, the parts merged at the owners
     l_src, x_dst_r = l2r.project(left, right)
-    aggr_v = DistGenL2R.apply(l_src, *l2r.encoder(l_src.dtype), dg)
+    aggr_v = _l2r(l_src, *l2r.encoder(l_src.dtype), dg)
     return left_new, l2r.update(aggr_v, x_dst_r)

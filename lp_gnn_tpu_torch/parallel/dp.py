@@ -84,9 +84,15 @@ def step_generator(gen: torch.Generator | None,
     this generator the same way (``edge_partition.module_forward``)."""
     if gen is None:
         return None
-    seed = int(torch.randint(2 ** 62, (1,), generator=gen,
-                             device=gen.device))
-    return torch.Generator(device=gen.device).manual_seed(seed + rank)
+    return torch.Generator(device=gen.device).manual_seed(step_seed(gen)
+                                                          + rank)
+
+
+def step_seed(gen: torch.Generator) -> int:
+    """One draw of the run's ``gen``: the seed :func:`step_generator` adds
+    a rank to (with one edge shard a device, each shard's generator adds
+    its shard index, ``edge_partition._forward_on_devices``)."""
+    return int(torch.randint(2 ** 62, (1,), generator=gen, device=gen.device))
 
 
 def _all_reduce_grads(model, extra: torch.Tensor | None = None,

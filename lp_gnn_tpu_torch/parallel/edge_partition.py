@@ -58,20 +58,33 @@ when the device tensors are made (``DistGraphTensors.from_partition(...,
 gen=True)``).
 
 The shards held here (``mesh.EdgeMesh``): all K on one device, run one
-after another on one stream, or, over ranks, this rank's one. The per-shard
-loops run over the shards held here, stacked shard after shard, and the
-exchanges take the transport of the layout: for the halo, the stacked K1
-or its rank form over the mesh's group (``_a2a``); for the all-gather
-pair, none, or the group's collectives. With every shard here the psums of
-the JAX losses are sums over the stacked shards: the single-card losses of
-``train/losses.py`` on the stacked logits with the partition's masks are
-the dist losses (:1066-1171). Over ranks the losses' sums are all-reduced
-over the group (``psum``) and so are the parameters' gradients
-(:1255-1257), which gives every rank the single-graph loss and gradient.
-The group is the mesh's: the world for edge shards on their ranks, a row's
-edge group on the (dp, edge) grid of ranks (``mesh.RankGrid``). Several
-cards in one process wait for ROADMAP.md queue item 7c's rest; dp x edge,
-a rank's block of a batch of partitions, is ``parallel/combined.py``.
+after another on one stream; over ranks, this rank's one; or all K, one a
+device. The per-shard loops run over the shards held here, stacked shard
+after shard, and the exchanges take the transport of the layout: for the
+halo, the stacked K1 or its rank form over the mesh's group (``_a2a``);
+for the all-gather pair, none, or the group's collectives. With every
+shard here the psums of the JAX losses are sums over the stacked shards:
+the single-card losses of ``train/losses.py`` on the stacked logits with
+the partition's masks are the dist losses (:1066-1171). Over ranks the
+losses' sums are all-reduced over the group (``psum``) and so are the
+parameters' gradients (:1255-1257), which gives every rank the
+single-graph loss and gradient. The group is the mesh's: the world for
+edge shards on their ranks, a row's edge group on the (dp, edge) grid of
+ranks (``mesh.RankGrid``). dp x edge, a rank's block of a batch of
+partitions, is ``parallel/combined.py``.
+
+With one shard a device (``EdgeMesh.threads``) the :class:`DistGraphTensors`
+of the partition holds the stacked labels, masks and node features on the
+lead device and, in ``parts``, each shard's own one-shard tensors on its
+device, as a rank would hold them. Each shard's forward runs the rank
+path's one-shard forward in a thread of its own (``shard_threads``) over a
+replica of the model whose parameters are broadcast from the lead; each
+collective is one autograd node over the K shards (``shard_threads.Joint``
+with the device ops below: the halo pair's send-row gathers, K1's device
+form and the owners' sums; the all-gather pair's copies between devices
+and sums in shard order). The logits are concatenated on the lead, where
+the stacked path's loss takes them; one ``backward()`` sums the K
+replicas' gradients onto the master parameters in shard order.
 
 The arch forwards are the modules' own (``models/gcn.py``):
 :class:`DistGraphTensors` applies each conv over the shards
@@ -96,10 +109,12 @@ from ..models.layers import add_knowledge
 from ..ops.gather import gather_rows, gather_rows_plain
 from ..ops.gen_agg import padded_width
 from ..ops.spmm import spmm_csr, spmm_csr_plain
-from .halo import (halo_all_to_all, halo_all_to_all_plain,
-                   halo_all_to_all_ranks, halo_all_to_all_ranks_plain)
-from .dp import step_generator, sum_over_ranks
+from .halo import (halo_all_to_all, halo_all_to_all_devices,
+                   halo_all_to_all_plain, halo_all_to_all_ranks,
+                   halo_all_to_all_ranks_plain)
+from .dp import step_generator, step_seed, sum_over_ranks
 from .mesh import EdgeMesh
+from .shard_threads import Member, joint, replicas
 
 CSR_KINDS = ("local_v2c", "local_c2v", "halo_v2c", "halo_c2v")
 FULL_KINDS = ("full_v2c", "full_c2v")   # the all-gather layout's
@@ -458,7 +473,10 @@ class DistGraphTensors:
     the partition's layout (the halo layout's four, with the gather index
     of the halo exchange and the owner-side reduce CSRs; or the all-gather
     layout's two), and what its users attach: the input conv's aggregations
-    (``attach_dist_input_agg``) and GEN's CSRs (``gen``)."""
+    (``attach_dist_input_agg``) and GEN's CSRs (``gen``). With one shard a
+    device (``mesh.per_device``) the stacked node tensors lie on the lead
+    device and ``parts`` holds each shard's own tensors, on its device,
+    over its one-shard mesh (``EdgeMesh.member``)."""
     ms: int
     ns: int
     # L shards held here (K, or 1 over ranks), stacked
@@ -485,6 +503,7 @@ class DistGraphTensors:
     in_agg_v: torch.Tensor | None = None   # (L*ns, 8)
     gen: object | None = None              # dist_gen.DistGenTensors
     mesh: EdgeMesh | None = None           # where the shards live
+    parts: list = dataclasses.field(default_factory=list)  # one a device
 
     #: JAX's dist forward takes no remat (edge_partition.py:1007-1034)
     remat = False
@@ -493,6 +512,8 @@ class DistGraphTensors:
     def halo(self) -> bool:
         """Whether the shards carry the halo layout (else the all-gather
         layout's)."""
+        if self.parts:
+            return self.parts[0].halo
         return self.halo_src is not None
 
     @property
@@ -551,6 +572,8 @@ class DistGraphTensors:
             raise ValueError(f"a partition of {dg.n_shards} shards on a mesh "
                              f"of {mesh.n_shards}")
         dev, own = mesh.device, list(mesh.shards)
+        parts = [cls.from_partition(dg, mesh.member(k), gen)
+                 for k in own] if mesh.per_device else []
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -568,6 +591,8 @@ class DistGraphTensors:
                     y_t=nodes(dg.y_t, np.int64),
                     cons_mask=nodes(dg.cons_mask),
                     vars_mask=nodes(dg.vars_mask), mesh=mesh)
+        if parts:
+            return cls(**base, parts=parts)
         if not dg.halo:
             out = cls(**base, **csrs(FULL_KINDS))
             if gen:
@@ -605,6 +630,14 @@ def _gather(table: torch.Tensor, idx: torch.Tensor,
     if plain_fp64(table):
         return gather_rows_plain(table, idx)
     return gather_rows(table, idx, schedule=schedule)
+
+
+def _a2a_devices(bufs: list[torch.Tensor], threads) -> list:
+    """K1's device form of the K (K*bh, F) buffers of one shard a device,
+    on the shards' streams."""
+    if plain_fp64(bufs[0]):
+        return halo_all_to_all_plain(bufs)
+    return halo_all_to_all_devices(bufs, threads.streams)
 
 
 def _a2a(bufs: torch.Tensor, group=None) -> torch.Tensor:
@@ -647,11 +680,18 @@ def halo_gather(right: torch.Tensor, halo_src: torch.Tensor,
     that a row several receivers need is read from device memory once; a
     table L2 holds whole is read once in any order, and there the
     schedule's short ranges would only leave lanes idle."""
-    k = halo_src.shape[0]
-    out = _gather(right, halo_src.view(-1),
-                  pick_halo_schedule(right, halo_sched)).view(
-        k, halo_src.shape[1], right.shape[1])
+    out = _send_rows(right, halo_src, halo_sched)
     return out if group is None else _a2a(out, group)
+
+
+def _send_rows(right: torch.Tensor, halo_src: torch.Tensor,
+               halo_sched: torch.Tensor) -> torch.Tensor:
+    """The gather of :func:`halo_gather`: (L, K*bh, F) rows of ``right``
+    at ``halo_src``."""
+    k = halo_src.shape[0]
+    return _gather(right, halo_src.view(-1),
+                   pick_halo_schedule(right, halo_sched)).view(
+        k, halo_src.shape[1], right.shape[1])
 
 
 def pick_halo_schedule(right: torch.Tensor,
@@ -669,13 +709,22 @@ def _halo_reduce_stacked(parts: torch.Tensor, halo_red: list[CSR],
     """(L*ns, F). Rows narrower than whole 16-byte pieces (GEN's conv_out
     aggregates 3 channels) are zero-padded for K1 and the SpMM, which move
     16-byte pieces, and the result is the first F columns."""
+    return _owner_sums(_a2a(_padded(parts), group), halo_red, parts.shape[2])
+
+
+def _padded(parts: torch.Tensor) -> torch.Tensor:
+    """``parts`` (L, K*bh, F) with its rows zero-padded to whole 16-byte
+    pieces."""
     f = parts.shape[2]
     width = padded_width(f, parts.dtype)
-    if width != f:
-        parts = F.pad(parts, (0, width - f))
-    back = _a2a(parts, group)
+    return F.pad(parts, (0, width - f)) if width != f else parts
+
+
+def _owner_sums(back: torch.Tensor, halo_red: list[CSR], f: int):
+    """The owners' segment sums over K1's output ``back`` (L, K*bh, width):
+    (L*ns, f)."""
     ns = halo_red[0].ptr.shape[0] - 1
-    out = parts.new_empty((len(halo_red) * ns, width))
+    out = back.new_empty((len(halo_red) * ns, back.shape[2]))
     for d, (r, b) in enumerate(zip(halo_red, back)):
         _spmm(r, b, out=out[d * ns:(d + 1) * ns])
     return out[:, :f]
@@ -736,6 +785,108 @@ class HaloReduce(torch.autograd.Function):
         dg = ctx.dg
         return halo_gather(grad.contiguous(), dg.halo_src, dg.halo_sched,
                            dg.group), None
+
+
+# ------------------------------------------- the pairs, one shard a device
+# Each runs every shard's part on its own device and stream
+# (``threads.each``): the shards' tensors in, each shard's result out. They
+# are the device ops of the joint nodes (``shard_threads.Joint``) that
+# stand for the halo pair and the all-gather pair with one shard a device.
+def _gather_devices(threads, dgs, xs) -> list:
+    """:func:`halo_gather` of each shard's (ns, F) rows: its send rows, then
+    K1's device form; (1, K*bh, F) a shard."""
+    sends = threads.each(lambda k: _send_rows(
+        xs[k].contiguous(), dgs[k].halo_src, dgs[k].halo_sched)[0])
+    return [b[None] for b in _a2a_devices(sends, threads)]
+
+
+def _reduce_devices(threads, dgs, parts) -> list:
+    """:func:`halo_reduce` of each shard's (1, K*bh, F) slot partials: K1's
+    device form, then the owner's sums; (ns, F) a shard."""
+    f = parts[0].shape[2]
+    back = _a2a_devices(threads.each(
+        lambda k: _padded(parts[k].contiguous())[0]), threads)
+    return threads.each(
+        lambda k: _owner_sums(back[k][None], dgs[k].halo_red, f))
+
+
+def _all_gather_devices(threads, xs) -> list:
+    """Each shard's (K*ns, F): every shard's (ns, F) rows, block p from
+    shard p (a copy between devices)."""
+    return threads.each(lambda q: torch.cat(
+        [threads.move(x, p, q) for p, x in enumerate(xs)]))
+
+
+def _block_rows(threads, xs, q: int) -> list:
+    """Block q of each shard's (K*n, F) rows, as shard q reads them."""
+    n = xs[0].shape[0] // threads.size
+    return [threads.move(x[q * n:(q + 1) * n], p, q) for p, x in enumerate(xs)]
+
+
+def _reduce_scatter_devices(threads, xs) -> list:
+    """Each shard q's (ns, F): the sum over the shards p of block q of
+    p's (K*ns, F) partials, in shard order (``_sum_in_order``, the adds of
+    the stacked route)."""
+    return threads.each(lambda q: _sum_in_order(_block_rows(threads, xs, q)))
+
+
+class _HaloGatherOp:
+    """:class:`HaloGather` with one shard a device."""
+
+    @staticmethod
+    def forward(threads, dgs, ins):
+        return _gather_devices(threads, dgs, [x for x, in ins]), ()
+
+    @staticmethod
+    def backward(threads, dgs, saved, grads, needs):
+        return [(g,) for g in _reduce_devices(threads, dgs, grads)]
+
+
+class _HaloReduceOp:
+    """:class:`HaloReduce` with one shard a device."""
+
+    @staticmethod
+    def forward(threads, dgs, ins):
+        return _reduce_devices(threads, dgs, [x for x, in ins]), ()
+
+    @staticmethod
+    def backward(threads, dgs, saved, grads, needs):
+        return [(g,) for g in _gather_devices(threads, dgs, grads)]
+
+
+class _AllGatherOp:
+    """:class:`AllGatherVars` with one shard a device."""
+
+    @staticmethod
+    def forward(threads, dgs, ins):
+        return _all_gather_devices(threads, [x for x, in ins]), ()
+
+    @staticmethod
+    def backward(threads, dgs, saved, grads, needs):
+        return [(g,) for g in _reduce_scatter_devices(threads, grads)]
+
+
+class _ReduceScatterOp:
+    """:class:`ReduceScatterVars` with one shard a device: each shard's
+    (1, K*ns, F) partials in, its (ns, F) rows out."""
+
+    @staticmethod
+    def forward(threads, dgs, ins):
+        return _reduce_scatter_devices(threads, [x[0] for x, in ins]), ()
+
+    @staticmethod
+    def backward(threads, dgs, saved, grads, needs):
+        return [(f.expand(1, *f.shape),)
+                for f in _all_gather_devices(threads, grads)]
+
+
+def _collective(fn, x: torch.Tensor, dg: "DistGraphTensors"):
+    """``fn.apply(x, dg)`` for one of the pairs' autograd functions; with
+    one shard a device (``dg.group`` a ``shard_threads.Member``) the
+    shards' calls meet and one node over all K runs its device op."""
+    if isinstance(dg.group, Member):
+        return joint(_DEVICE_OPS[fn], dg.group, fn.__name__, (x,), dg)
+    return fn.apply(x, dg)
 
 
 # ---------------------------------------------------------------- forward
@@ -925,6 +1076,10 @@ class ShardPartials(torch.autograd.Function):
             None, None
 
 
+_DEVICE_OPS = {HaloGather: _HaloGatherOp, HaloReduce: _HaloReduceOp,
+               AllGatherVars: _AllGatherOp, ReduceScatterVars: _ReduceScatterOp}
+
+
 def _dist_aggs(dg: DistGraphTensors, left: torch.Tensor, right: torch.Tensor):
     """Both aggregations of one two-direction conv over the partition's
     layout (edge_partition.py:655), differentiable in ``left`` (L*ms, F)
@@ -936,9 +1091,9 @@ def _dist_aggs(dg: DistGraphTensors, left: torch.Tensor, right: torch.Tensor):
     if not dg.halo:
         return _dist_aggs_full(dg, left, right)
     k, nh = dg.n_local, dg.nh
-    h = HaloGather.apply(right, dg).view(k * nh, right.shape[1])
+    h = _collective(HaloGather, right, dg).view(k * nh, right.shape[1])
     part = ShardSpmm.apply(left, dg.halo_c2v, dg.halo_v2c)
-    red = HaloReduce.apply(part.view(k, nh, left.shape[1]), dg)
+    red = _collective(HaloReduce, part.view(k, nh, left.shape[1]), dg)
     agg_c = ShardSpmm.apply(right, dg.local_v2c, dg.local_c2v) + \
         ShardSpmm.apply(h, dg.halo_v2c, dg.halo_c2v)
     agg_v = ShardSpmm.apply(left, dg.local_c2v, dg.local_v2c) + red
@@ -952,10 +1107,10 @@ def _dist_aggs_full(dg: DistGraphTensors, left: torch.Tensor,
     (:class:`AllGatherVars`), ``agg_v`` the reduce-scatter
     (:class:`ReduceScatterVars`) of one SpMM a shard over full c2v. 2L
     launches a conv and 2L in its backward, no exchange kernel."""
-    full = AllGatherVars.apply(right, dg)
+    full = _collective(AllGatherVars, right, dg)
     agg_c = SpmmFromFull.apply(full, dg.full_v2c, dg.full_c2v)
     parts = ShardPartials.apply(left, dg.full_c2v, dg.full_v2c)
-    return agg_c, ReduceScatterVars.apply(parts, dg)
+    return agg_c, _collective(ReduceScatterVars, parts, dg)
 
 
 def attach_dist_input_agg(dg: DistGraphTensors,
@@ -965,7 +1120,11 @@ def attach_dist_input_agg(dg: DistGraphTensors,
     ``ops/spmm.py attach_input_agg``): the raw features are constants of the
     graph and every kernel is deterministic, so the input conv of every
     later step reads the same bits it would compute, and skips a gather, a
-    K1 and 5 SpMMs a shard each forward, and as many in its backward."""
+    K1 and 5 SpMMs a shard each forward, and as many in its backward. With
+    one shard a device each shard's run in its thread."""
+    if dg.parts:
+        return dataclasses.replace(dg, parts=dg.mesh.threads.run(
+            lambda k: attach_dist_input_agg(dg.parts[k], dtype)))
     with torch.no_grad():
         agg_c, agg_v = _dist_aggs(dg, dg.c_feas.to(dtype), dg.v_feas.to(dtype))
     return dataclasses.replace(dg, in_agg_c=agg_c, in_agg_v=agg_v)
@@ -991,7 +1150,8 @@ def dist_gcn_rand_apply(model, dg: DistGraphTensors,
     U[0, 1) logits for the stacked rows of all K shards through the
     knowledge mask, no exchange; from one generator seeded 0 when none is
     given, as the single-card model. Over ranks each rank draws them all
-    and keeps its shard's rows, the stacked path's."""
+    and keeps its shard's rows, the stacked path's; with one shard a device
+    the lead draws them, as the stacked path."""
     if generator is None:
         generator = torch.Generator(device=dg.device).manual_seed(0)
     k, d0 = dg.n_shards, dg.shards[0]
@@ -1009,16 +1169,47 @@ def module_forward(model, dg: DistGraphTensors,
     :791, :1007): ``dg.apply_conv`` runs each conv over the shards, with
     the module's weights, and dropout (training mode) draws its masks from
     ``generator`` over the stacked rows. Returns the stacked (L*ms, 3) and
-    (L*ns, 3) fp32 logits."""
-    if model.softmax_aggregation and dg.gen is None:
+    (L*ns, 3) fp32 logits. With one shard a device, each shard's forward
+    in its thread (:func:`_forward_on_devices`)."""
+    if model.softmax_aggregation and (dg.parts or [dg])[0].gen is None:
         raise ValueError(f"a dist {model.name} forward needs GEN's compact "
                          "CSRs: DistGraphTensors.from_partition(..., "
                          "gen=True)")
+    if dg.parts:
+        return _forward_on_devices(model, dg, generator)
     if dg.group is not None and model.training:
         # over ranks the shards' masks differ, as JAX folds the shard index
         # into its key (edge_partition.py:771-774)
         generator = step_generator(generator, dg.shards[0])
     return model(dg, generator=generator)
+
+
+def _forward_on_devices(model, dg: DistGraphTensors,
+                        generator: torch.Generator | None = None):
+    """The forward with one shard a device: shard k's thread runs a replica
+    of ``model`` (its parameters broadcast from the lead,
+    ``shard_threads.replicas``) over shard k's tensors, the rank path's
+    one-shard forward; in training mode its dropout draws from a generator
+    on its device seeded with one draw of ``generator`` plus k, as the
+    rank path folds the shard index in (``dp.step_generator``). The K
+    shards' logits are concatenated on the lead, in shard order: the
+    stacked logits."""
+    threads = dg.mesh.threads
+    reps = replicas(model, threads)
+    gens = [None] * threads.size
+    if model.training and generator is not None:
+        seed = step_seed(generator)
+        gens = [torch.Generator(device=d).manual_seed(seed + k)
+                for k, d in enumerate(threads.devices)]
+    outs = threads.run(lambda k: reps[k](dg.parts[k], generator=gens[k]))
+    lead = dg.device
+    logits = []
+    for xs in zip(*outs):
+        for x in xs:
+            if x.is_cuda:   # read on this thread's stream below
+                x.record_stream(torch.cuda.current_stream(x.device))
+        logits.append(torch.cat([x.to(lead) for x in xs]))
+    return tuple(logits)
 
 
 #: arch name -> distributed forward (edge_partition.py:1043)
@@ -1121,7 +1312,8 @@ def gather_logits(lc: torch.Tensor, lv: torch.Tensor, mesh: EdgeMesh):
     """The stacked fp32 logits of all K shards on the group's rank 0, from
     each rank's (ms, 3) and (ns, 3) (a gather: of host copies over gloo, of
     the card's over NCCL), and (None, None) on the other ranks; the logits
-    as they are where every shard is here."""
+    as they are where every shard is here (with one shard a device, the
+    forward concatenated them on the lead)."""
     if mesh.group is None:
         return lc, lv
     root = dist.get_global_rank(mesh.group, 0)

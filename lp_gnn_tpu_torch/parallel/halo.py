@@ -38,8 +38,18 @@ mesh says which runs, there is no switch and no fallback between them:
   gives it a gradient, the same exchange. Under a (dp, edge) grid of ranks
   (``mesh.RankGrid``) each row's edge group exchanges over windows of its
   own: a rank belongs to one row, and its windows are keyed by that group.
-  Shards on several devices of one process are not ported (ROADMAP.md,
-  queue item 7c's rest).
+- Every shard in one process, shard d on device d (``mesh.EdgeMesh`` with
+  one shard a device; the devices may repeat):
+  :func:`halo_all_to_all_devices`, the device form, the rank form's write
+  with peer pointers for windows: each source's launch, on its own device
+  and stream, writes its K blocks straight into the K destination buffers,
+  ordered by events between the shards' streams. The list form over
+  buffers on distinct devices takes it. Across cards it needs peer access
+  between every pair (:func:`enable_peer_access`), and raises where the
+  cards have none: there is no route through host copies. On CPU tensors
+  it runs :func:`halo_all_to_all_plain`. The edge-partitioned path gives it
+  a gradient in its joint nodes (``edge_partition``), where the exchange of
+  the cotangent is the same call.
 """
 from __future__ import annotations
 
@@ -59,7 +69,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import _build
-from ..ops._build import launch_on
+from ..ops._build import count_launch, launch_on
 
 MAX_SHARDS = 64   # the kernel's pointer table (csrc/halo_a2a.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -121,14 +131,7 @@ def _check(bufs: Sequence[torch.Tensor]) -> None:
     if not bufs:
         raise ValueError("halo_all_to_all needs one buffer per shard")
     b0 = bufs[0]
-    dev, shape, dtype = b0.device, b0.shape, b0.dtype
-    if any(b.device != dev for b in bufs):
-        devs = {b.device for b in bufs}
-        raise NotImplementedError(
-            f"halo buffers on distinct devices {sorted(map(str, devs))} in "
-            "one process: several cards in one process (peer pointers in "
-            "K1's table) are not ported yet (ROADMAP.md, queue item 7c's "
-            "rest); one shard a rank is halo_all_to_all_ranks")
+    shape, dtype = b0.shape, b0.dtype
     if any(b.shape != shape for b in bufs):
         raise ValueError("halo buffers of one exchange must share one shape, got "
                          f"{sorted({tuple(b.shape) for b in bufs})}")
@@ -155,7 +158,7 @@ def _launch(dev, k, block_bytes, src_aligned, fn, *args) -> None:
     rc = launch_on(dev, fn, *args)
     if rc != 0:
         raise RuntimeError(f"halo_all_to_all kernel launch failed: CUDA error {rc}")
-    halo_all_to_all.launches += 1
+    count_launch(halo_all_to_all)
 
 
 def halo_all_to_all(bufs: Halo) -> Halo:
@@ -165,10 +168,14 @@ def halo_all_to_all(bufs: Halo) -> Halo:
     Two forms, one kernel. Stacked: ``bufs`` is one contiguous (K, K*Bh, F)
     tensor and the result is another; the checks look at that one tensor
     and the kernel builds its pointer table itself. List: ``bufs`` is K
-    buffers and the result K views of one new (K, K*Bh, F) tensor. On the
-    card K is at most 64, every buffer 16-byte aligned and a block (Bh*F
-    elements) a multiple of 16 bytes; the wrapper raises otherwise."""
+    buffers and the result K views of one new (K, K*Bh, F) tensor; K
+    buffers on distinct devices take the device form,
+    :func:`halo_all_to_all_devices`. On the card K is at most 64, every
+    buffer 16-byte aligned and a block (Bh*F elements) a multiple of 16
+    bytes; the wrapper raises otherwise."""
     stacked = isinstance(bufs, torch.Tensor)
+    if not stacked and bufs and len({b.device for b in bufs}) > 1:
+        return halo_all_to_all_devices(bufs)
     if stacked:
         if bufs.dim() != 3:
             raise ValueError("a stacked halo exchange takes one (K, K*Bh, F) "
@@ -221,6 +228,111 @@ class HaloAllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return halo_all_to_all(grad.contiguous())
+
+
+# ---------------------------------------------------------- the device form
+# the ordered (device, peer) index pairs whose peer access this process
+# turned on (or found on) for the device form
+PEER_PAIRS: set[tuple[int, int]] = set()
+
+
+def enable_peer_access(indices) -> list[tuple[int, int]]:
+    """Peer access for every ordered pair of the distinct CUDA device
+    ``indices`` (``lp_halo_peer_enable``), once a pair and process: kernels
+    on one card may then store into the other's memory. Raises naming a
+    pair whose cards cannot reach each other (``cudaDeviceCanAccessPeer``):
+    the device form has no route through host copies. Returns the pairs
+    this call turned on."""
+    fn = _build.load("halo_a2a").lp_halo_peer_enable
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    new = []
+    for a in indices:
+        for b in indices:
+            if a == b or (a, b) in PEER_PAIRS:
+                continue
+            rc = fn(a, b)
+            if rc == -1:
+                raise RuntimeError(
+                    f"halo_all_to_all_devices: cuda:{a} cannot access the "
+                    f"memory of cuda:{b} (cudaDeviceCanAccessPeer): the "
+                    "device form writes its blocks through peer pointers "
+                    "and has no route through the host")
+            if rc != 0:
+                raise RuntimeError(f"halo_all_to_all_devices: peer access "
+                                   f"cuda:{a} -> cuda:{b} failed: CUDA "
+                                   f"error {rc}")
+            PEER_PAIRS.add((a, b))
+            new.append((a, b))
+    return new
+
+
+def halo_all_to_all_devices(bufs: Sequence[torch.Tensor],
+                            streams=None) -> list[torch.Tensor]:
+    """K1's device form: K (K*Bh, F) buffers, buffer d on shard d's device
+    (the devices may repeat), in; K new buffers, each on its buffer's
+    device, out, with ``out[q][p*Bh:(p+1)*Bh] = bufs[p][q*Bh:(q+1)*Bh]``.
+    fp32 or bf16.
+
+    On CUDA tensors one launch a source (``lp_halo_a2a_rank`` with ``me =
+    d``: block p of buffer d into block d of out p, through a table of the
+    K destinations' pointers), on ``streams[d]`` (the current stream of
+    each buffer's device if None; buffer d must be ready there) under its
+    device, counted in ``halo_all_to_all_devices.launches``. Every writer's
+    stream first waits for an event that each destination's stream records
+    after its buffer was made; each destination's stream then waits for
+    every writer's event, so work queued after the call on ``streams[q]``
+    reads out q complete; each out is recorded on every writer's stream,
+    so the caching allocator does not hand its memory out again while a
+    writer may still store into it. Buffers on distinct cards need peer
+    access between them, turned on here (:func:`enable_peer_access`). On
+    CPU tensors it runs :func:`halo_all_to_all_plain`."""
+    _check(bufs)
+    k = len(bufs)
+    devs = [b.device for b in bufs]
+    if all(d.type == "cpu" for d in devs):
+        return halo_all_to_all_plain(list(bufs))
+    if any(d.type != "cuda" for d in devs):
+        raise ValueError("halo_all_to_all_devices runs on cuda or cpu "
+                         f"buffers, not {sorted({str(d) for d in devs})}")
+    streams = [torch.cuda.current_stream(d) for d in devs] \
+        if streams is None else list(streams)
+    if len(streams) != k or any(s.device != d for s, d in zip(streams, devs)):
+        raise ValueError("halo_all_to_all_devices takes one stream a buffer, "
+                         "on the buffer's device")
+    enable_peer_access(sorted({d.index for d in devs}))
+    outs, made = [], []
+    for d, s, b in zip(devs, streams, bufs):
+        with torch.cuda.device(d), torch.cuda.stream(s):
+            outs.append(torch.empty_like(b))
+            made.append(s.record_event())
+    block_bytes = bufs[0].nbytes // k
+    if not block_bytes:
+        return outs
+    _check_launch(k, block_bytes, not any(
+        t.data_ptr() % 16 for t in (*bufs, *outs)))
+    table = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
+    write = _rank_lib("lp_halo_a2a_rank")
+    written = []
+    for me, (d, s, b) in enumerate(zip(devs, streams, bufs)):
+        for ev in made:
+            s.wait_event(ev)
+        for o in (b, *outs):
+            o.record_stream(s)
+        with torch.cuda.device(d):
+            rc = write(b.data_ptr(), table, me, k, block_bytes, s.cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"halo_all_to_all_devices: the launch of "
+                               f"source {me} on {d} failed: CUDA error {rc}")
+        count_launch(halo_all_to_all_devices)
+        written.append(s.record_event())
+    for s in streams:
+        for ev in written:
+            s.wait_event(ev)
+    return outs
+
+
+# the device form's launches since the last reset: K an exchange
+halo_all_to_all_devices.launches = 0
 
 
 # ------------------------------------------------------------ the rank form
@@ -740,11 +852,11 @@ def _exchange(buf: torch.Tensor, group) -> torch.Tensor:
     if e > 2:
         _enqueue(dev, win, "lp_halo_flags_wait", win.wait_done[w], n, e - 2)
     _enqueue(dev, win, write, *write_args)
-    halo_all_to_all_ranks.launches += 1
+    count_launch(halo_all_to_all_ranks)
     _enqueue(dev, win, "lp_halo_flags_write", win.signal_arrival[w], n, e)
     _enqueue(dev, win, "lp_halo_flags_wait", win.wait_arrival[w], n, e)
     _enqueue(dev, win, copy, *copy_args)
-    halo_all_to_all_ranks.launches += 1
+    count_launch(halo_all_to_all_ranks)
     _enqueue(dev, win, "lp_halo_flags_write", win.signal_done[w], n, e)
     _record(dev, win, w)
     win.enqueued_at = time.monotonic()

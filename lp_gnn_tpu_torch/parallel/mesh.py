@@ -4,10 +4,18 @@ ranks (counterpart of ``lp_gnn_tpu/parallel/mesh.py``).
 The JAX package builds a ``jax.sharding.Mesh`` over its devices
 (``make_mesh`` :72) and its tests run the edge axis on a virtual 8-device
 CPU mesh. The port's :class:`EdgeMesh` says where the K shards of the
-``edge`` axis live, in one of two layouts:
+``edge`` axis live, in one of three layouts:
 
 - every shard in this process, on one device (the card of the run, or the
   CPU when asked): the stacked path, which runs on one GPU;
+- every shard in this process, one shard a device: shard k on
+  ``devices[k]``, the JAX package's own layout of ``--mesh_shape edge=K``
+  over K devices of one process (``train/trainer.py:346-387``,
+  ``infer/predict.py:35-50``). Each shard's forward runs in a thread of
+  its own, on its device and stream (``shard_threads.ShardThreads``), and
+  K1 between them is the device form of ``parallel/halo.py``. The device
+  list may repeat a device: the CPU tests and a run on one card take this
+  layout so, with a stream a shard;
 - one shard a process: under the contract below with K ranks and
   ``--mesh_shape edge=K``, rank k holds shard k (``group`` names the
   ranks), as the JAX package's edge axis spans ``jax.devices()`` across
@@ -22,10 +30,6 @@ the global device list, row-major. The E ranks of row d are the row's
 edge group (an :class:`EdgeMesh` over them holds shard e on rank (d, e));
 the D ranks of column e are a dp group. Over D ranks instead, each rank
 holds all E shards of its graphs (``parallel/combined.py``).
-
-Several devices in one process (peer pointers in K1's table) are ROADMAP.md
-queue item 7c's rest: a placement that names two distinct devices
-raises.
 
 The ``dp`` axis is one process a rank, joined by ``torch.distributed``
 from the JAX package's environment contract (``maybe_init_distributed``
@@ -46,6 +50,8 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from .shard_threads import Member, ShardThreads
+
 
 def parse_mesh_shape(spec: str) -> dict[str, int]:
     """Parse "dp=2,edge=4" -> {"dp": 2, "edge": 4} (mesh.py:61)."""
@@ -65,52 +71,88 @@ class EdgeMesh:
     process group whose rank k holds shard k (then one shard is held here),
     or None (every shard is held here). ``row``: the grid row whose edge
     group ``group`` is (:class:`RankGrid`; 0 outside a grid). Row 0 serves:
-    the other rows skip the val and predict passes."""
+    the other rows skip the val and predict passes. ``threads``: with every
+    shard here, one a device, their threads and streams (the devices may
+    repeat); None for the stacked layout, whose one device is repeated K
+    times. Inside shard k's thread its one-shard mesh has ``devices[k]``
+    alone and the group ``threads.member(k)`` (:meth:`member`)."""
     devices: tuple[torch.device, ...]
     group: object = None
     row: int = 0
+    threads: ShardThreads | None = dataclasses.field(default=None,
+                                                     compare=False)
 
     def __post_init__(self):
         if not self.devices:
             raise ValueError("an edge mesh needs at least one shard")
-        devs = sorted(map(str, set(self.devices)))
-        if len(devs) > 1:
-            raise NotImplementedError(
-                f"edge shards on distinct devices {devs} in one process: "
-                "several cards in one process (peer pointers in K1's table) "
-                "are not ported yet (ROADMAP.md, queue item 7c's rest); one "
-                "shard a rank is make_mesh(K, device, group)")
+        if self.threads is not None:
+            if self.group is not None or \
+                    self.threads.devices != tuple(self.devices):
+                raise ValueError("an edge mesh with one shard a device holds "
+                                 "every shard in this process, shard k on "
+                                 "devices[k]")
+        elif len(set(self.devices)) > 1:
+            raise ValueError(
+                f"edge shards on distinct devices "
+                f"{sorted(map(str, set(self.devices)))} without their "
+                "threads: make_mesh(K, [device of each shard])")
         if self.group is not None and len(self.devices) != 1:
             raise ValueError("an edge mesh over ranks holds one shard a rank")
+
+    @property
+    def per_device(self) -> bool:
+        """Whether every shard is held here, one a device (``threads``)."""
+        return self.threads is not None
 
     @property
     def n_shards(self) -> int:
         """K, the shards of the axis (not only those held here)."""
         if self.group is None:
             return len(self.devices)
+        if isinstance(self.group, Member):
+            return self.group.size
         return dist.get_world_size(self.group)
 
     @property
     def shards(self) -> tuple[int, ...]:
-        """The shards held here: all K, or this rank's one."""
+        """The shards held here: all K, or this rank's (or thread's) one."""
         if self.group is None:
             return tuple(range(len(self.devices)))
+        if isinstance(self.group, Member):
+            return (self.group.rank,)
         return (dist.get_rank(self.group),)
 
     @property
     def device(self) -> torch.device:
-        """The one device that holds this process's shards."""
+        """The device that holds this process's shards, or with one shard a
+        device the lead, shard 0's: it holds the master parameters and the
+        stacked logits and labels."""
         return self.devices[0]
 
+    def member(self, k: int) -> "EdgeMesh":
+        """Shard k's one-shard mesh, with one shard a device."""
+        return EdgeMesh((self.devices[k],), self.threads.member(k), self.row)
 
-def make_mesh(n_shards: int, device: torch.device | str,
-              group=None, row: int = 0) -> EdgeMesh:
-    """K shards on ``device`` (counterpart of ``make_mesh`` :72, which takes
-    K distinct devices), or, given ``group``, shard k on its rank k, this
-    rank's on ``device``; K must then be the group's size (``row``: the
-    grid row of ``group``)."""
+
+def make_mesh(n_shards: int, device, group=None, row: int = 0) -> EdgeMesh:
+    """K shards on ``device`` (the stacked layout), or, given a list of K
+    devices, shard k on ``device[k]``, every shard in this process, one
+    thread and stream a shard (counterpart of ``make_mesh`` :72, which
+    takes K distinct devices; here the list may repeat one), or, given
+    ``group``, shard k on its rank k, this rank's on ``device``; K must
+    then be the group's size (``row``: the grid row of ``group``)."""
     if n_shards < 1:
         raise ValueError(f"edge mesh of {n_shards} shards")
+    if isinstance(device, (list, tuple)):
+        devs = tuple(torch.device(d) for d in device)
+        if len(devs) != n_shards or group is not None:
+            raise ValueError(f"an edge mesh of {n_shards} shards, one a "
+                             f"device, over {len(devs)} devices"
+                             + (" and a group" if group is not None else ""))
+        if len({d.type for d in devs}) > 1:
+            raise ValueError("edge shards on devices of two kinds: "
+                             f"{[str(d) for d in devs]}")
+        return EdgeMesh(devs, threads=ShardThreads(devs))
     if group is None:
         return EdgeMesh((torch.device(device),) * n_shards)
     world = dist.get_world_size(group)

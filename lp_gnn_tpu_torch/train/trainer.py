@@ -46,7 +46,9 @@ subgraphs and graph-batched unions.
   ``partitions/`` cache; with the halo lists for every arch in
   ``DIST_HALO_ARCHS``, the all-gather layout for GCNRand, trainer.py:368),
   their K shards' tensors built on the run's
-  device with the input conv's aggregations (not for GEN) and kept, and
+  device (or, one process with K cards visible and no dp, shard k on
+  cuda:k as trainer.py:346-387 lays out its devices)
+  with the input conv's aggregations (not for GEN) and kept, and
   each takes one ``dist_train_step`` a visit, without per-step accuracy;
   smaller graphs keep the full-graph step. The val pass sends graphs above
   the threshold through the dist forward. Under the contract with K ranks
@@ -507,8 +509,9 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     if mesh is not None:
         logging.info("edge-partitioned training: %d shards on %s, graphs "
                      "above %g edges, %s", mesh.n_shards,
-                     device if mesh.group is None else
-                     f"their own ranks (this rank's on {device})",
+                     f"their own devices {[str(d) for d in mesh.devices]}"
+                     if mesh.per_device else device if mesh.group is None
+                     else f"their own ranks (this rank's on {device})",
                      cfg.edge_num_thresh,
                      "halo" if dist_halo else "all-gather")
     combined = mesh is not None and dp_size > 1

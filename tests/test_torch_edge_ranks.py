@@ -609,13 +609,18 @@ def test_rank_launch_failure_raises_on_every_rank(session):
 
 
 def test_refusals_in_one_process():
-    """Two devices in one process (an edge mesh, K1's list form) raise and
-    name their ROADMAP item (7c's rest); a world of dp*E ranks (the grid)
-    and --graph_batch over edge ranks, once refused as queue item 7f, take
-    their batch shapes (tests/test_torch_grid.py runs them)."""
-    with pytest.raises(NotImplementedError, match="queue item 7c's rest"):
-        EdgeMesh((torch.device("cpu"), torch.device("meta")))
-    with pytest.raises(NotImplementedError, match="queue item 7c's rest"):
+    """Several devices in one process, once refused as queue item 7c's
+    rest: an edge mesh over a device list builds, one shard a device, and
+    K1's list form over buffers on distinct devices takes the device form
+    (which names itself refusing a device neither cuda nor cpu;
+    tests/test_torch_edge_devices.py runs the layout); a world of dp*E
+    ranks (the grid) and --graph_batch over edge ranks, once refused as
+    queue item 7f, take their batch shapes (tests/test_torch_grid.py runs
+    them)."""
+    mesh = make_mesh(2, [torch.device("cpu")] * 2)
+    assert isinstance(mesh, EdgeMesh) and mesh.per_device and \
+        mesh.shards == (0, 1)
+    with pytest.raises(ValueError, match="halo_all_to_all_devices runs on"):
         thalo.halo_all_to_all([torch.zeros(4, 4),
                                torch.zeros(4, 4, device="meta")])
     assert ttrainer.batch_shape(Config(mesh_shape="dp=2,edge=2"), 4) == \

@@ -146,6 +146,30 @@ def test_gather_rows_refuses_out(bad):
         gather_rows(table, idx, out=out, schedule=schedule)
 
 
+def test_big_sample_reference_is_order_free():
+    """chip_smoke.py's big phase holds the SpMM on sampled rows of about
+    1000 edges. The plain version's fp32 sums depend on the order the
+    edges are added in (on the card index_add_'s atomics take a new order
+    each call), and in bf16 two orders land apart; the check's reference
+    (``exact_rows``) sums in fp64, which no order moves."""
+    import chip_smoke
+    g = torch.Generator().manual_seed(5)
+    n_rows, deg, d, n_src = 64, 1000, 32, 5000
+    ptr = torch.arange(0, (n_rows + 1) * deg, deg, dtype=torch.int32)
+    idx = torch.randint(0, n_src, (n_rows * deg,), generator=g,
+                        dtype=torch.int32)
+    val = torch.randn(n_rows * deg, generator=g)
+    x = torch.randn(n_src, d, generator=g).to(torch.bfloat16)
+    perm = torch.cat([torch.randperm(deg, generator=g) + r * deg
+                      for r in range(n_rows)])
+    assert not torch.equal(tspmm.spmm_csr_plain(ptr, idx, val, x),
+                           tspmm.spmm_csr_plain(ptr, idx[perm], val[perm], x))
+    want = chip_smoke.exact_rows(ptr, idx, val, x)
+    assert want.dtype == torch.bfloat16
+    assert torch.equal(want, chip_smoke.exact_rows(ptr, idx[perm],
+                                                   val[perm], x))
+
+
 def test_spmm_csr_out():
     g = port_graph(np.random.RandomState(9))
     gt = GraphTensors.from_graph(g, "cpu")
@@ -259,7 +283,9 @@ def test_halo_all_to_all_checks():
         halo_all_to_all([torch.randn(8, 8).t() for _ in range(2)])
     with pytest.raises(NotImplementedError, match="forward-only"):
         halo_all_to_all([b.clone().requires_grad_() for b in bufs])
-    with pytest.raises(NotImplementedError, match="queue item 7"):
+    # buffers on distinct devices take the device form, which refuses a
+    # device neither cuda nor cpu
+    with pytest.raises(ValueError, match="halo_all_to_all_devices runs on"):
         halo_all_to_all([bufs[0], torch.empty(8, 8, device="meta")])
     with pytest.raises(ValueError, match="cuda or cpu"):
         halo_all_to_all([torch.empty(8, 8, device="meta")] * 2)
@@ -286,10 +312,16 @@ def test_halo_all_to_all_stacked_checks():
 
 
 def test_edge_mesh_one_device_only():
+    """The stacked layout holds its K shards on one device; shards on
+    distinct devices take the layout with one shard a device (its threads,
+    from make_mesh over a device list), never the stacked one."""
     mesh = make_mesh(4, "cpu")
     assert mesh.n_shards == 4 and mesh.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="queue item 7"):
+    assert not mesh.per_device and mesh.threads is None
+    with pytest.raises(ValueError, match="without their threads"):
         EdgeMesh((torch.device("cuda", 0), torch.device("cuda", 1)))
+    devs = make_mesh(2, [torch.device("cuda", 0), torch.device("cuda", 1)])
+    assert devs.per_device and devs.device == torch.device("cuda", 0)
 
 
 @pytest.fixture
@@ -1487,3 +1519,106 @@ def test_dist_conv_step_on_card(cuda_device):
             scale = b_.abs().max().clamp(min=1e-30)
             torch.testing.assert_close(a / scale, b_ / scale, rtol=1e-4,
                                        atol=1e-5, msg=arch)
+
+
+# ---------------------------------------------- K1's device form on the card
+BENCH_BH = 30_056   # the bench graph's halo width at K=4 (chip_smoke.py)
+
+
+def sync_all(devs) -> None:
+    """Wait for every device in ``devs`` (``torch.cuda.synchronize()``
+    waits for the current one only)."""
+    for dv in set(devs):
+        torch.cuda.synchronize(dv)
+
+
+def card_devices(k: int, distinct: bool) -> list[torch.device]:
+    """K devices: cuda:0 repeated, or K distinct cards (skipped with fewer
+    cards visible)."""
+    if not distinct:
+        return [torch.device("cuda", 0)] * k
+    have = torch.cuda.device_count()
+    if have < k:
+        pytest.skip(f"needs {k} cards for {k} distinct devices, has {have}")
+    return [torch.device("cuda", i) for i in range(k)]
+
+
+def device_form_case(devs, bh, d, dtype, seed):
+    """K buffers of (K*bh, d), buffer k made on shard k's stream on its
+    device, the streams and the stacked tensor they copy (on cuda:0)."""
+    k = len(devs)
+    stacked, _ = stacked_halo(k, bh, d, dtype, devs[0], seed=seed)
+    streams = [torch.cuda.Stream(device=dv) for dv in devs]
+    bufs = []
+    for q, (dv, s) in enumerate(zip(devs, streams)):
+        s.wait_stream(torch.cuda.current_stream(devs[0]))
+        with torch.cuda.device(dv), torch.cuda.stream(s):
+            bufs.append(stacked[q].to(dv, copy=True))
+    return stacked, bufs, streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["repeated", "distinct"])
+@pytest.mark.parametrize("d", [8, 1024])
+@pytest.mark.parametrize("k", [2, 4])
+def test_halo_all_to_all_devices_on_card(cuda_device, k, d, distinct):
+    """K1's device form at the bench graph's halo (Bh = 30,056, bf16), one
+    stream a shard, on cuda:0 repeated K times or on K distinct cards: bit
+    for bit the stacked form's exchange of the same blocks, K launches an
+    exchange, each output on its buffer's device; its backward is the same
+    exchange."""
+    devs = card_devices(k, distinct)
+    stacked, bufs, streams = device_form_case(devs, BENCH_BH, d,
+                                              torch.bfloat16, seed=k + d)
+    want = halo_all_to_all(stacked)
+    before = thalo.halo_all_to_all_devices.launches
+    out = thalo.halo_all_to_all_devices(bufs, streams)
+    assert thalo.halo_all_to_all_devices.launches == before + k
+    for s in streams:
+        torch.cuda.current_stream(s.device).wait_stream(s)
+    sync_all(devs)
+    for q, o in enumerate(out):
+        assert o.device == devs[q]
+        assert torch.equal(o.to(devs[0]), want[q])
+    if distinct:
+        assert {(a, b) for a in range(k) for b in range(k) if a != b} <= \
+            thalo.PEER_PAIRS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["repeated", "distinct"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_halo_all_to_all_devices_stress_on_card(cuda_device, k, distinct):
+    """64 device-form exchanges back to back, two shapes in turn, every
+    input made anew on its shard's stream and every output dropped after
+    a check on its own stream, with torch.cuda._sleep holding back every
+    other shard's stream before its write: each result bit for bit the
+    plain exchange's (mismatches counted on the card, read once at the
+    end). An output handed out again by the caching allocator while a
+    delayed writer still stores into it would show here."""
+    devs = card_devices(k, distinct)
+    shapes = [(257, 64), (96, 200)]
+    cases = [device_form_case(devs, bh, d, torch.float32, seed=i)
+             for i, (bh, d) in enumerate(shapes)]
+    wants = [[w.to(devs[q]) for q, w in enumerate(halo_all_to_all_plain(
+        list(stacked.unbind(0))))] for stacked, _, _ in cases]
+    streams = cases[0][2]
+    bad = [torch.zeros((), dtype=torch.int64, device=dv) for dv in devs]
+    sync_all(devs)
+    for i in range(64):
+        _, srcs, _ = cases[i % 2]
+        bufs = []
+        for q, (dv, s) in enumerate(zip(devs, streams)):
+            with torch.cuda.device(dv), torch.cuda.stream(s):
+                if q % 2 == i % 2:
+                    torch.cuda._sleep(1_000_000)
+                bufs.append(srcs[q].clone())
+        out = thalo.halo_all_to_all_devices(bufs, streams)
+        for q, (dv, s) in enumerate(zip(devs, streams)):
+            with torch.cuda.device(dv), torch.cuda.stream(s):
+                bad[q] += (out[q] != wants[i % 2][q]).sum()
+        del out, bufs
+    sync_all(devs)
+    assert [int(b) for b in bad] == [0] * k
