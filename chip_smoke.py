@@ -21,9 +21,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``SpmmCSR``: the kernel over the transpose ordering) at D=1024 bf16 in
    both directions, against the gradient through the plain version, one
    launch a backward, bit-identical over two calls. The SpMM also at the
-   pipeline's shapes: a mirp_bench LP's structure, D=8 and D=1024 bf16.
+   pipeline's shapes: a mirp_bench LP's structure, D=8 and D=1024 bf16;
+   and at widths the kernel runs through padded copies or column slabs
+   (v2c, D=3 and 1028 fp32, 100, 2056 and 4104 bf16; a launch a slab).
 3. reference: GCN_FC(8,8,hids=1024,depth=3) logits on the card against the
-   same weights on the CPU, on a small graph, in fp32 and bf16.
+   same weights on the CPU, on a small graph, in fp32 and bf16; and a bf16
+   GCN_FC(8,8,hids=100,depth=3) on one bench LP (``hids100_bf16``).
 4. serve: writes 6 processed LPs of the bench shape (reference blob
    format, with ``.meta``), saves a seeded
    GCN_FC(8,8,hids=1024,depth=3,dtype='bfloat16') as ``mdl.pth`` and runs
@@ -313,14 +316,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the entry points take with 4 cards visible, named for the phase; on one
    card the 4 streams share it; every other phase names the stacked
    layout). Prints the distinct devices and the peer access it turned on
-   (or none). K1's device form (one launch a source over the
-   destinations' pointers) at the bench graph's Bh, D=1024 and D=8 bf16:
-   bit for bit against the stacked form and its plain version, 4 launches
-   an exchange, timed (``ms``; ``device_ms`` only where the profiler saw
-   all 20 launches, on the shard streams and, on one card, on one stream)
-   beside its plain version, the same exchange as 16 ``Tensor.copy_`` of
-   the blocks (``library_ms``) and its bound (the stacked form's bytes;
-   across cards the NVLink bytes, not measured here). ``pred_basis
+   (or none). K1's device form (one launch a source over its block
+   pairs, the remote destinations staggered) at the bench graph's Bh,
+   D=1024 and D=8 bf16: bit for bit against the stacked form and its plain
+   version, 4 launches an exchange, timed (``ms``; ``device_ms`` the four
+   launches' CUDA-event times summed, ``device_span_ms`` first start to
+   last end on one card; the profiler's sum beside them where it saw all
+   20 launches; on one card also on one stream) beside its plain version,
+   the same exchange as 16 ``Tensor.copy_`` of the blocks
+   (``library_ms``) and its bound (the stacked form's bytes; across cards
+   the NVLink bytes). With 4 cards (``--edge_devices`` on 4 chips) also
+   ``links``, the NVLink probe (each pair alone, a source's three remote
+   pairs, all twelve, each source's exchange launch), and
+   ``card_ranks``: K1's rank form with a rank a card (4 processes of
+   ``--k1_rank``, NCCL), bit for bit, the stress and abort checks, NCCL's
+   ``all_to_all_single`` of the same blocks as its library time; on one
+   card both say skipped. ``pred_basis
    --mesh_shape edge=4`` on edge_ranks' 2 LPs and checkpoint (the stacked
    serve they share), its launches counted from 0 exactly
    (a conv 4 send-row gathers, 2 exchanges of 4 device-form launches, 20
@@ -390,6 +401,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import filecmp
 import hashlib
 import importlib
@@ -597,14 +609,15 @@ def profile_kernels(fn, calls: int, want: dict[str, int],
     return seen, complete
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 5) -> float | None:
-    """The kernel's own CUDA time a launch over ``iters`` calls of ``fn``
-    (None where the profiler did not see every launch). Beside the
-    event-timed ``ms`` it shows what the kernel itself takes where
-    back-to-back calls are bound by the host."""
+def kernel_device_ms(fn, kernel: str, iters: int = 5,
+                     per_call: int = 1) -> float | None:
+    """The kernel's own CUDA time a call of ``fn`` (``per_call`` launches
+    each) over ``iters`` calls (None where the profiler did not see every
+    launch). Beside the event-timed ``ms`` it shows what the kernel itself
+    takes where back-to-back calls are bound by the host."""
     fn()
     torch.cuda.synchronize()
-    seen, complete = profile_kernels(fn, iters, {kernel: iters})
+    seen, complete = profile_kernels(fn, iters, {kernel: iters * per_call})
     if not complete:
         return None
     return sum(t for k, (t, _) in seen.items() if kernel in k) / iters
@@ -647,6 +660,7 @@ def spmm_case(case: str, ptr, idx, val, x, on_path) -> dict:
                            "must be deterministic)")
     del out, again, ref
     b = x.element_size()
+    plan = spmm_mod.width_plan(d, b)
     s_used = int(torch.unique(idx).numel())
     n_bytes = (n_dst + 1) * 4 + n_e * 8 + s_used * d * b + n_dst * d * b
     bound_ms, bound_by = bound(n_bytes, 2.0 * n_e * d)
@@ -660,7 +674,8 @@ def spmm_case(case: str, ptr, idx, val, x, on_path) -> dict:
         "launches": None, "max_abs_err": err,
         "ms": time_ms(lambda: spmm_csr(ptr, idx, val, x), kernel_iters(d)),
         "device_ms": kernel_device_ms(lambda: spmm_csr(ptr, idx, val, x),
-                                      "spmm_csr_kernel"),
+                                      "spmm_csr_kernel",
+                                      per_call=len(plan.slabs)),
         "plain_ms": time_ms(lambda: spmm_csr_plain(ptr, idx, val, x), 5),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(lambda: torch.sparse.mm(a, x), kernel_iters(d) // 2),
@@ -669,6 +684,7 @@ def spmm_case(case: str, ptr, idx, val, x, on_path) -> dict:
         "tol": {"rtol": rtol, "atol": atol},
         "bound_noreuse_ms": noreuse / HBM_BYTES_S * 1e3,
         "library": "torch.sparse.mm on a sparse CSR tensor",
+        "launches_per_call": len(plan.slabs), "padded_width": plan.padded,
     }
 
 
@@ -687,6 +703,26 @@ def check_spmm(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
                 rows.append(spmm_case(
                     f"{dname} D={d} {str(dt).split('.')[-1]}", ptr, idx, val,
                     x32.to(dt), "serve" if dt == torch.bfloat16 else False))
+    return rows
+
+
+# widths JAX's blocked_spmm takes that the kernel once refused: ragged
+# (through padded copies) and above 256 16-byte pieces (column slabs)
+SPMM_WIDTHS = ((3, torch.float32), (1028, torch.float32),
+               (100, torch.bfloat16), (2056, torch.bfloat16),
+               (4104, torch.bfloat16))
+
+
+def check_spmm_widths(gt: GraphTensors, gen: torch.Generator) -> list[dict]:
+    """The SpMM at SPMM_WIDTHS on the bench graph's v2c, each against its
+    plain version (SPMM_TOL), bit-identical over two calls, a launch a
+    256-piece column slab."""
+    rows = []
+    for d, dt in SPMM_WIDTHS:
+        x = torch.randn(gt.nvars, d, generator=gen, device=gt.device).to(dt)
+        rows.append(spmm_case(f"width v2c D={d} {str(dt).split('.')[-1]}",
+                              gt.rowptr, gt.col, gt.val_r, x, False))
+        del x
     return rows
 
 
@@ -1311,7 +1347,49 @@ def check_reference(seed: int) -> dict:
             "bfloat16": {"card_mean_abs_err": float(card16.mean()),
                          "cpu_mean_abs_err": float(cpu16.mean()),
                          "card_max_abs_err": float(card16.max()),
-                         "cpu_max_abs_err": float(cpu16.max())}}
+                         "cpu_max_abs_err": float(cpu16.max())},
+            "hids100_bf16": ragged_width_reference(seed)}
+
+
+RAGGED_ARCH = "GCN_FC(8,8,hids=100,depth=3)"   # no whole number of bf16 pieces
+
+
+def ragged_width_reference(seed: int) -> dict:
+    """A bf16 GCN_FC at hids=100 (a width the SpMM kernel runs through
+    padded copies) served on the card on one bench LP, held to the CPU by
+    check_reference's bf16 rule: the card's mean |err| against the CPU's
+    fp32 logits at most twice the CPU bf16 logits' own; its SpMM
+    launches, one a call (4 a forward)."""
+    g = bench_graph(seed + 1200)
+    sd = build_model(RAGGED_ARCH, generator=torch.Generator().manual_seed(
+        seed)).state_dict()
+    logits = {}
+    for dtype, dev in (("float32", "cpu"), ("bfloat16", "cpu"),
+                       ("bfloat16", "cuda")):
+        model = build_model(f"{RAGGED_ARCH[:-1]},dtype='{dtype}')")
+        model.load_state_dict(sd)
+        before = spmm_csr.launches
+        t0 = time.perf_counter()
+        got = np.concatenate(model_inference(model.eval().to(dev), g))
+        logits[dtype, dev] = got, spmm_csr.launches - before, \
+            time.perf_counter() - t0
+        if not (np.isfinite(got).all() and got.shape == (M + N, 3)):
+            raise SmokeFailure(f"{RAGGED_ARCH} {dtype} on {dev}: bad logits")
+    ref = logits["float32", "cpu"][0]
+    card16 = np.abs(logits["bfloat16", "cuda"][0] - ref)
+    cpu16 = np.abs(logits["bfloat16", "cpu"][0] - ref)
+    launches = logits["bfloat16", "cuda"][1]
+    if card16.mean() > 2 * cpu16.mean() or launches != SPMM_PER_FORWARD:
+        raise SmokeFailure(f"{RAGGED_ARCH} bf16 on the card: mean |err| "
+                           f"{card16.mean()} vs 2 x the CPU's "
+                           f"{cpu16.mean()}, {launches} SpMM launches "
+                           f"(expected {SPMM_PER_FORWARD})")
+    return {"arch": RAGGED_ARCH, "dtype": "bfloat16", "graph": "bench LP",
+            "card_mean_abs_err": float(card16.mean()),
+            "cpu_mean_abs_err": float(cpu16.mean()),
+            "card_max_abs_err": float(card16.max()),
+            "spmm_launches": launches,
+            "card_s": logits["bfloat16", "cuda"][2]}
 
 
 # -------------------------------------------------------------------- serve
@@ -3853,7 +3931,8 @@ def rank_abort(seed: int) -> dict:
             "exact_after": torch.equal(again, want)}
 
 
-def rank_k1_cases(seed: int, bh: int) -> dict:
+def rank_k1_cases(seed: int, bh: int, plain_group=None,
+                  nccl: bool = False) -> dict:
     """K1's rank form on this rank, bench shape (K=EDGE_RANKS, the bench
     graph's Bh) at D=1024 and D=8 bf16: every rank makes all K buffers from
     one seed and holds its result (twice: the windows reused) and the plain
@@ -3865,7 +3944,11 @@ def rank_k1_cases(seed: int, bh: int) -> dict:
     (``with_sync_ms``: CUDA events over back-to-back exchanges, every rank
     at once); the plain version (one call, host clock). Bytes: each kernel
     reads and writes K*Bh*D*b, 4*K*Bh*D*b the pair. Then the stress and
-    abort checks (``rank_stress``, ``rank_abort``)."""
+    abort checks (``rank_stress``, ``rank_abort``). ``plain_group``: the
+    gloo group of the plain version where the ranks' group is NCCL's;
+    ``nccl``: also NCCL's ``all_to_all_single`` of the same blocks on the
+    card (``library_ms``: CUDA events over back-to-back calls, every rank
+    at once)."""
     k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
     rows = []
     for d in (1024, 8):
@@ -3884,7 +3967,7 @@ def rank_k1_cases(seed: int, bh: int) -> dict:
         host = buf.cpu()
         torch.distributed.barrier()
         t0 = time.perf_counter()
-        plain = halo_all_to_all_ranks_plain(host)
+        plain = halo_all_to_all_ranks_plain(host, plain_group)
         plain_ms = (time.perf_counter() - t0) * 1e3
         exact_plain = torch.equal(plain, want.cpu())
         del host, plain, want
@@ -3899,20 +3982,30 @@ def rank_k1_cases(seed: int, bh: int) -> dict:
                 torch.cuda.synchronize()
                 iters = 5
                 seen, complete = profile_kernels(
-                    launch, iters, {"halo_a2a_kernel": iters,
+                    launch, iters, {"halo_pairs_kernel": iters,
                                     "halo_copy_out_kernel": iters})
                 if complete:
                     device_ms = sum(t for name, (t, _) in seen.items()
-                                    if "halo_a2a_kernel" in name or
+                                    if "halo_pairs_kernel" in name or
                                     "halo_copy_out_kernel" in name) / iters
             torch.cuda.synchronize()
         del out
         torch.distributed.barrier()
         with_sync_ms = time_ms(lambda: halo_all_to_all_ranks(buf), 10)
+        library_ms = None
+        if nccl:
+            recv = torch.empty_like(buf)
+            torch.distributed.barrier()
+            library_ms = time_ms(lambda: torch.distributed.all_to_all_single(
+                recv, buf), 10)
+            if not torch.equal(recv, halo_all_to_all_ranks(buf)):
+                raise SmokeFailure("NCCL's all_to_all_single differs from "
+                                   "K1's rank form")
+            del recv
         n_bytes = 4.0 * k * bh * d * buf.element_size()
         rows.append({"D": d, "exact": exact, "exact_plain": exact_plain,
                      "max_abs_err": diff, "ms": ms, "device_ms": device_ms,
-                     "with_sync_ms": with_sync_ms,
+                     "with_sync_ms": with_sync_ms, "library_ms": library_ms,
                      "plain_ms": plain_ms, "bytes": n_bytes,
                      "window_bytes": halo_mod.window_bytes()})
         del buf
@@ -4061,10 +4154,11 @@ def k1_rank_rows(per_rank: list[dict], k: int, bh: int,
                 c["max_abs_err"] for c in cases),
             "ms": r0["ms"], "device_ms": r0["device_ms"],
             "plain_ms": r0["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "bound_by": bound_by, "library_ms": r0.get("library_ms"),
             "with_sync_ms": r0["with_sync_ms"],
-            "by_rank": {key: [c[key] for c in cases] for key in (
-                "ms", "device_ms", "with_sync_ms", "plain_ms")},
+            "by_rank": {key: [c.get(key) for c in cases] for key in (
+                "ms", "device_ms", "with_sync_ms", "plain_ms", "library_ms",
+                "exact", "exact_plain")},
             "case": f"rank form K={k} Bh={bh} D={d} bfloat16, one rank's "
                     "exchange: the write and the copy-out",
             "K": k, "Bh": bh, "D": d, "tol": "exact",
@@ -4420,6 +4514,35 @@ DEV_UPDATE_RTOL = 1e-5      # an fp32 step's update against the stacked one
 NVLINK_BYTES_S = 450e9      # H100 NVLink, one direction a card
 
 
+K1_TIMED = 10    # timed exchanges of the device form (CUDA events a launch)
+
+
+def k1_launch_times(exchange, bufs, streams) -> dict:
+    """Each source's launch of K1's device form timed by CUDA events on its
+    own stream (``parallel/halo.py DEVICE_TIMING``) over K1_TIMED exchanges,
+    one at a time: per exchange the launches' sum and the span from the
+    first start to the last end (one card only: events of distinct cards
+    share no clock), their means, and each source's mean."""
+    sums, spans, per = [], [], []
+    halo_mod.DEVICE_TIMING = True
+    try:
+        exchange()
+        for _ in range(K1_TIMED):
+            exchange()
+            t = halo_mod.device_form_times(bufs, streams)
+            sums.append(t["sum_ms"])
+            spans.append(t["span_ms"])
+            per.append(t["per_source_ms"])
+    finally:
+        halo_mod.DEVICE_TIMING = False
+    torch.cuda.synchronize()
+    return {"sum_ms": float(np.mean(sums)),
+            "span_ms": None if None in spans else float(np.mean(spans)),
+            "per_source_ms": [float(v) for v in np.mean(per, axis=0)],
+            "sum_ms_range": [float(min(sums)), float(max(sums))],
+            "exchanges": K1_TIMED}
+
+
 def k1_device_ms(exchange, k: int, tries: int = 5) -> tuple:
     """(device ms, launches seen): the device time of the K kernels of one
     exchange of K1's device form, summed, from ``torch.profiler`` over 5
@@ -4428,9 +4551,10 @@ def k1_device_ms(exchange, k: int, tries: int = 5) -> tuple:
     launches its last run saw."""
     exchange()
     torch.cuda.synchronize()
-    seen, complete = profile_kernels(exchange, 5, {"halo_a2a_kernel": 5 * k},
+    seen, complete = profile_kernels(exchange, 5,
+                                     {"halo_pairs_kernel": 5 * k},
                                      tries=tries)
-    hits = [tn for name, tn in seen.items() if "halo_a2a_kernel" in name]
+    hits = [tn for name, tn in seen.items() if "halo_pairs_kernel" in name]
     n_seen = sum(n for _, n in hits)
     return (sum(t for t, _ in hits) / 5 if complete else None), n_seen
 
@@ -4497,17 +4621,21 @@ def device_k1_case(devs: list, streams: list, bh: int, d: int, gen) -> dict:
 
     iters = kernel_iters(d)
     ms = time_ms(exchange, iters)
-    # the K kernels' device time an exchange, summed, only where the
-    # profiler saw every one of the 5*K launches (None else, beside the
-    # count it saw): on the shard streams, as the path runs them, and with
-    # the K launches one after another on one stream where the devices
-    # are one card (no overlap between the sources)
-    device_ms, n_dev = k1_device_ms(exchange, k)
-    one = None
+    # the K kernels' device time an exchange: CUDA events around each
+    # source's launch on its own stream, summed and as a span; the
+    # profiler's sum beside it as a cross-check, only where it saw every
+    # one of the 5*K launches (None else, beside the count it saw); on
+    # one card also with the K launches one after another on one stream
+    # (no overlap between the sources)
+    events = k1_launch_times(exchange, bufs, streams)
+    prof_ms, n_dev = k1_device_ms(exchange, k)
+    one = one_events = None
     if len(set(devs)) == 1:
         with torch.cuda.device(devs[0]):
-            one = k1_device_ms(lambda: halo_all_to_all_devices(
-                bufs, [cur] * k), k)
+            def one_stream():
+                return halo_all_to_all_devices(bufs, [cur] * k)
+            one = k1_device_ms(one_stream, k)
+            one_events = k1_launch_times(one_stream, bufs, [cur] * k)
     n_bytes = 2.0 * k * k * bh * d * 2
     bound_ms, bound_by = bound(n_bytes, 0.0)
     nvlink_bytes = (k - 1) * bh * d * 2.0
@@ -4516,15 +4644,18 @@ def device_k1_case(devs: list, streams: list, bh: int, d: int, gen) -> dict:
         "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
         "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
         "launches": None, "max_abs_err": 0.0, "ms": ms,
-        "device_ms": device_ms,
-        "device_ms_one_stream": one[0] if one else None,
+        "device_ms": events["sum_ms"], "device_span_ms": events["span_ms"],
+        "device_events": events, "device_ms_profiler": prof_ms,
+        "device_ms_one_stream": one_events["sum_ms"] if one else None,
+        "device_ms_one_stream_profiler": one[0] if one else None,
         "device_launches_seen_one_stream": one[1] if one else None,
         "plain_ms": time_ms(plain, 10),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": time_ms(library, iters),
         "case": f"device form K={k} Bh={bh} D={d} bfloat16 over "
                 f"{[str(x) for x in devs]}, a stream a shard: K launches "
-                "an exchange",
+                "an exchange (device_ms: the K launches' CUDA-event times "
+                "summed, device_span_ms first start to last end)",
         "K": k, "Bh": bh, "D": d, "tol": "exact", "bytes": n_bytes,
         "launches_per_exchange": launches, "device_launches_seen": n_dev,
         "device_launches_profiled": 5 * k,
@@ -4544,6 +4675,153 @@ def device_k1_case(devs: list, streams: list, bh: int, d: int, gen) -> dict:
     return row
 
 
+
+
+LINK_REPS = 10     # back-to-back launches a set of the link probe
+
+
+def k1_link_probe(devs: list, bh: int, d: int) -> dict:
+    """The links under K1's device form, K distinct cards, blocks of Bh x D
+    bf16 (the bench halo's, 61.5 MB at D=1024), through its kernel
+    (``lp_halo_pairs``, a whole wave a launch): each (source, destination)
+    pair alone, the K-1 remote pairs of one source in one launch, every
+    source's remote pairs at once (all K(K-1) links), and each source's
+    whole exchange launch at once (its own block too, as the exchange runs
+    it). A single source's sets are timed by CUDA events on its stream over
+    LINK_REPS back-to-back launches; the sets of every source at once by the
+    host's clock from a synchronise of every card to the next, LINK_REPS
+    launches a stream. Rates are the bytes a source sends over its links
+    (its remote blocks) a second. The exchange's exactness is checked
+    apart."""
+    k = len(devs)
+    block = bh * d * 2
+    srcs = [torch.randn(k * bh, d, device=dv).to(torch.bfloat16)
+            for dv in devs]
+    dsts = [torch.zeros(k * bh, d, dtype=torch.bfloat16, device=dv)
+            for dv in devs]
+    streams = [torch.cuda.Stream(device=dv) for dv in devs]
+    pairs_fn = halo_mod._rank_lib("lp_halo_pairs")
+    vp = ctypes.c_void_p
+
+    def launch(p: int, qs: list[int]):
+        n = len(qs)
+        src = (vp * n)(*(srcs[p].data_ptr() + q * block for q in qs))
+        dst = (vp * n)(*(dsts[q].data_ptr() + p * block for q in qs))
+        # the remote pairs round robin, a source's own block after them
+        n_inter = sum(q != p for q in qs)
+        with torch.cuda.device(devs[p]):
+            rc = pairs_fn(src, dst, n_inter, n, block, 1,
+                          streams[p].cuda_stream)
+        if rc != 0:
+            raise SmokeFailure(f"k1 link probe: CUDA error {rc}")
+
+    def on_stream(p, qs) -> float:
+        s = streams[p]
+        for _ in range(2):
+            launch(p, qs)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record(s)
+        for _ in range(LINK_REPS):
+            launch(p, qs)
+        t1.record(s)
+        t1.synchronize()
+        return t0.elapsed_time(t1) / LINK_REPS
+
+    def all_at_once(sets) -> float:
+        for p, qs in sets:
+            launch(p, qs)
+        for dv in devs:
+            torch.cuda.synchronize(dv)
+        t0 = time.perf_counter()
+        for _ in range(LINK_REPS):
+            for p, qs in sets:
+                launch(p, qs)
+        for dv in devs:
+            torch.cuda.synchronize(dv)
+        return (time.perf_counter() - t0) * 1e3 / LINK_REPS
+
+    def gbs(n_blocks, ms):
+        return n_blocks * block / (ms * 1e-3) / 1e9
+
+    orders = halo_mod.device_orders(k)
+    pairs = {f"{p}->{q}": on_stream(p, [q])
+             for p in range(k) for q in range(k) if q != p}
+    sources = {str(p): on_stream(p, orders[p][:-1]) for p in range(k)}
+    links = all_at_once([(p, orders[p][:-1]) for p in range(k)])
+    whole = all_at_once([(p, orders[p]) for p in range(k)])
+    del srcs, dsts
+    torch.cuda.empty_cache()
+    return {"block_bytes": block, "Bh": bh, "D": d, "reps": LINK_REPS,
+            "pair_ms": pairs,
+            "pair_gb_s": {n: gbs(1, t) for n, t in pairs.items()},
+            "source_remote_ms": sources,
+            "source_remote_gb_s": {n: gbs(k - 1, t)
+                                   for n, t in sources.items()},
+            "all_links_ms": links, "all_links_gb_s_a_card": gbs(k - 1, links),
+            "exchange_launches_ms": whole,
+            "exchange_launches_gb_s_a_card": gbs(k - 1, whole)}
+
+
+def k1_card_rank(payload_path: str) -> None:
+    """One rank of the card-ranks sub-phase of edge_devices, in this
+    process (``--k1_rank``): with a card of its own (the LP_GNN_DIST_*
+    contract over K ranks and K cards: NCCL, ``mesh.init_distributed``),
+    K1's rank form as ``rank_k1_cases`` runs it (bit for bit, timed, the
+    stress and the abort), its plain version over a gloo group, and NCCL's
+    ``all_to_all_single`` on the same blocks as the library yardstick;
+    writes its report into the payload's directory."""
+    from lp_gnn_tpu_torch.parallel import mesh as mesh_mod
+    with open(payload_path) as f:
+        p = json.load(f)
+    rank = int(os.environ["LP_GNN_DIST_PROC_ID"])
+    device, created = mesh_mod.init_distributed(torch.device("cuda"))
+    report = {"device": str(device),
+              "backend": torch.distributed.get_backend()}
+    try:
+        gloo = torch.distributed.new_group(backend="gloo")
+        report["k1"] = rank_k1_cases(p["seed"], p["bh"], plain_group=gloo,
+                                     nccl=True)
+    finally:
+        mesh_mod.leave_distributed(created)
+    with open(osp.join(p["dir"], f"report{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def k1_card_ranks(seed: int, bh: int) -> dict:
+    """K1's rank form with a card a rank: K_EDGE processes of this script
+    (``--k1_rank``), rank k on cuda:k, over NCCL; the rows of the kernels
+    line as ``k1_rank_rows`` makes them, with NCCL's all_to_all_single as
+    library_ms. Needs K_EDGE cards (None else, with the reason)."""
+    if torch.cuda.device_count() < K_EDGE:
+        return {"skipped": f"needs {K_EDGE} cards, "
+                           f"{torch.cuda.device_count()} visible"}
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_k1ranks_") as tmp:
+        path = osp.join(tmp, "payload.json")
+        with open(path, "w") as f:
+            json.dump({"dir": tmp, "seed": seed, "bh": bh}, f)
+        _, wall, groups = run_ranks("k1_card_ranks", lambda rank: [
+            osp.abspath(__file__), "--k1_rank", path], ranks=K_EDGE)
+        per_rank = []
+        for r in range(K_EDGE):
+            with open(osp.join(tmp, f"report{r}.json")) as f:
+                per_rank.append(json.load(f))
+    rows = k1_rank_rows(per_rank, K_EDGE, bh, None)
+    for row in rows:
+        row["note"] = f"{K_EDGE} ranks, a card each (NCCL)"
+        row["library"] = "NCCL all_to_all_single on the same blocks"
+        row["path"] = row["on_path"] = "edge_devices"
+    bad = [(r["D"], key) for r in rows for key in ("exact", "exact_plain")
+           if not all(r["by_rank"][key])]
+    stress = [rep["k1"]["stress"]["exact"] for rep in per_rank]
+    if bad or not all(stress):
+        raise SmokeFailure(f"k1 card ranks: inexact {bad}, stress {stress}")
+    return {"ranks_s": wall, "groups": groups,
+            "devices": [rep["device"] for rep in per_rank],
+            "backends": [rep["backend"] for rep in per_rank],
+            "abort": [rep["k1"]["abort"] for rep in per_rank],
+            "stress": [rep["k1"]["stress"] for rep in per_rank],
+            "kernels": rows}
 
 
 STEADY_REPS = 5    # timed steps and forwards of each layout, after one untimed
@@ -4621,9 +4899,10 @@ def steady_layout(seed: int, mesh) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         _, wall = timed(step)
     launched = k1.launches - before
+    k1_kernel = "halo_pairs_kernel" if mesh.per_device else "halo_a2a_kernel"
     seen = sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and "halo_a2a_kernel" in e.name)
+               and k1_kernel in e.name)
     busy = busy_by_card(prof) if seen == launched else None
     out["profiled_step"] = {
         "wall_ms": wall, "k1_launches": launched, "k1_seen": seen,
@@ -4664,6 +4943,10 @@ def edge_devices(seed: int, ranks_dir: str, stacked_inf: dict | None = None
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = [device_k1_case(devs, mesh.threads.streams, bh, d, gen)
             for d in (1024, 8)]
+    distinct = len(set(devs)) == k
+    links = k1_link_probe(devs, bh, 1024) if distinct else {
+        "skipped": f"needs {k} distinct cards"}
+    card_ranks = k1_card_ranks(seed, bh)
     per_forward = add_launches(scaled(DEV_CONV, 2))
     if not osp.exists(osp.join(ranks_dir, "stacked_logits.npz")):
         stacked_inf = stacked_serve_reference(seed, ranks_dir)["inf_time_s"]
@@ -4761,6 +5044,7 @@ def edge_devices(seed: int, ranks_dir: str, stacked_inf: dict | None = None
                    **steady},
         "gcn_rand_all_gather": {"equal_stacked": True,
                                 "rows": rand_rows},
+        "links": links, "card_ranks": card_ranks,
         "kernels": rows,
     }
 
@@ -6549,6 +6833,9 @@ def main(argv=None) -> int:
     ap.add_argument("--edge_rank", metavar="PAYLOAD",
                     help="run as one rank of the edge_ranks phase, with the "
                          "phase's PAYLOAD (a JSON file)")
+    ap.add_argument("--k1_rank", metavar="PAYLOAD",
+                    help="run as one rank of edge_devices' card ranks (K1's "
+                         "rank form, a card a rank), with the PAYLOAD")
     ap.add_argument("--ag_rank", metavar="PAYLOAD",
                     help="run as one rank of the all_gather phase's ranks, "
                          "with the phase's PAYLOAD (a JSON file)")
@@ -6563,6 +6850,9 @@ def main(argv=None) -> int:
         return 1
     if args.edge_rank:
         edge_rank(args.edge_rank)
+        return 0
+    if args.k1_rank:
+        k1_card_rank(args.k1_rank)
         return 0
     if args.ag_rank:
         ag_rank(args.ag_rank)
@@ -6625,6 +6915,7 @@ def main(argv=None) -> int:
         g = bench_graph(args.seed)
         gt = GraphTensors.from_graph(g, "cuda")
         kernels = (check_spmm(gt, gen) + check_spmm_backward(gt, gen)
+                   + check_spmm_widths(gt, gen)
                    + check_spmm_shapes(gen, rng)
                    + check_spmm_pipeline(args.seed, gen)
                    + check_gather(gt, gen, rng))

@@ -15,14 +15,48 @@
 // forward, all shards on one card), and the list form, from K addresses
 // each.
 //
-// The device form is the same entry as the rank form, one launch a source:
-// with every shard in one process and shard d on device d, the launch of
+// The device form (lp_halo_devices_exchange) is the TPU kernel's remote
+// copy (pallas_halo.py:54 make_async_remote_copy in :39 _a2a_kernel, via
+// :69) with every shard in one process, shard d on device d: the launch of
 // source d runs on device d's stream and writes its K blocks straight into
 // the K destination buffers, each on its own device (its own card, over
-// NVLink, or this card), through peer pointers. That needs peer access from
-// every source card to every destination card, which lp_halo_peer_enable
-// turns on for one ordered pair.
-//
+// NVLink, or this card), through peer pointers, which needs peer access
+// from every source card to every destination card (lp_halo_peer_enable,
+// one ordered pair). Its bound across cards is the NVLink bytes, 3 blocks a
+// card out and 3 in at K=4 (about 450 GB/s one way on an H100 SXM); on one
+// card it is the stacked form's bytes over the memory rate. What the design
+// does about them:
+// - Staggered destinations, as the TPU kernel posts its remote copies
+//   (pallas_halo.py:47-62: at offset s, device me sends to (me + s) mod K,
+//   "so the ICI links run concurrently"). A launch's CTAs take the remote
+//   pairs round robin, the destination the fastest-varying part of the
+//   block index, in the order (me + 1, ..., me + K - 1) mod K: every wave
+//   of every source stores to all K - 1 peers at once, and each card
+//   receives from every source at once, where a grid (pieces, 1, K), the
+//   destination the slowest-varying part, sends a source's blocks to one
+//   destination after another, every source to the same one at the same
+//   time (PERF.md: 248 against 341 GB/s a card over 4 H100s). The local pair (no link) has
+//   CTAs of its own after the remote ones, so it takes no share of the
+//   first wave's dispatch.
+// - A grid sized for what shares the card: a launch takes one wave of
+//   resident CTAs divided by the streams that launch at once on its card
+//   (the caller's `share`), so K launches on one card fill one wave
+//   together rather than queueing K waves, and a source with a card of its
+//   own keeps a whole wave. Each pair takes an equal part of the launch's CTAs (at least
+//   one, at most its tiles).
+// - 16-byte loads and stores, 4 loads in flight a thread before its stores
+//   (8 measured no faster over 4 H100s: PERF.md).
+// - One host call an exchange: the plan (devices, shares, destination
+//   orders and the events) is made once, and lp_halo_devices_exchange
+//   records, waits and launches the K sources back to back: each
+//   destination stream records that its buffer exists, each writer waits
+//   for the destinations' records and launches, each destination stream
+//   waits for every writer. Per-launch CUDA events time each source's
+//   kernel where asked (lp_halo_devices_times).
+// The rank form's write (lp_halo_a2a_rank, below) is the same launch over
+// its K windows, a whole wave (ranks that share a card time-share it: their
+// launches do not run at once).
+
 // The rank form (lp_halo_a2a_rank) is the TPU kernel's own shape: this
 // process holds shard `me` of K, one process a shard, and writes its K
 // blocks straight into the K receive windows, block p at slot `me` of shard
@@ -115,14 +149,17 @@
 // before its stores. The grid is (row pieces, source block p, destination
 // shard q): blockIdx.y and blockIdx.z pick one block pair, blockIdx.x
 // strides over its pieces. No shared memory, no synchronisation. The rank
-// form runs the same kernel over a grid of one source: (pieces, 1, K); its
-// copy-out is the same loop over one block, plus one thread's look at K
-// flag words.
+// form's copy-out is the same loop over one block, plus one thread's look
+// at K flag words. The device form's and the rank form's write
+// (halo_pairs_kernel) is the same copy over a list of block pairs on a
+// one-dimensional grid, as above.
 
 #include <cuda.h>  // types and flags of the stream memory operations only
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -167,6 +204,52 @@ halo_a2a_kernel(const __grid_constant__ Table t, long long n16) {
               t.dst[q] + static_cast<long long>(p) * n16, n16);
 }
 
+// The device form's block pairs: src[j] -> dst[j], n16 pieces each.
+struct Pairs {
+  const uint4* src[kMaxShards];
+  uint4* dst[kMaxShards];
+};
+
+// Chunks c0, c0 + stride, ... of one pair's copy, a chunk kThreads * kUnroll
+// pieces: kUnroll loads in flight a thread before its stores.
+__device__ __forceinline__ void copy_chunks(const uint4* __restrict__ s, uint4* __restrict__ d,
+                                            long long n16, long long c0, long long stride) {
+  const long long tile = static_cast<long long>(kThreads) * kUnroll;
+  for (long long base = c0 * tile + threadIdx.x; base < n16; base += stride * tile) {
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + static_cast<long long>(u) * kThreads;
+      if (i < n16) v[u] = __ldg(s + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + static_cast<long long>(u) * kThreads;
+      if (i < n16) d[i] = v[u];
+    }
+  }
+}
+
+// per_pair CTAs a pair: the first n_inter pairs take blocks round robin
+// (block b: pair b mod n_inter, its chunk b / n_inter), the rest after them
+// in the same way among themselves.
+__global__ void __launch_bounds__(kThreads)
+halo_pairs_kernel(const __grid_constant__ Pairs t, int n_inter, int n_pairs, long long n16,
+                  int per_pair) {
+  const int b = blockIdx.x;
+  const int head = n_inter * per_pair;
+  int j, c;
+  if (b < head) {
+    j = b % n_inter;
+    c = b / n_inter;
+  } else {
+    const int rest = n_pairs - n_inter;
+    j = n_inter + (b - head) % rest;
+    c = (b - head) / rest;
+  }
+  copy_chunks(t.src[j], t.dst[j], n16, c, per_pair);
+}
+
 // The rank form's copy-out: own window -> result. The stream waited for
 // every peer's arrival word before it; thread 0 of block 0 looks for an
 // abort word among them and records the first in *status (host memory),
@@ -197,12 +280,83 @@ long long grid_x(long long n16, long long pairs) {
 }
 
 // One launch over the (source p < P, destination q < K) block pairs of the
-// shards in `t`: P = K for the stacked and list forms, 1 for the rank form.
+// shards in `t`: P = K, the stacked and list forms.
 int launch(const Table& t, int P, int K, long long block_bytes, cudaStream_t stream) {
   const long long n16 = block_bytes / 16;
   const dim3 grid(static_cast<unsigned>(grid_x(n16, static_cast<long long>(P) * K)), P, K);
   halo_a2a_kernel<<<grid, kThreads, 0, stream>>>(t, n16);
   return cudaGetLastError();
+}
+
+// Resident CTAs of one wave of halo_pairs_kernel on the current device,
+// read once a device.
+constexpr int kMaxDevices = 64;
+int g_wave[kMaxDevices];
+
+cudaError_t pairs_wave(int* wave) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& w = g_wave[dev];
+  if (w == 0) {
+    int sms = 0, ctas = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, halo_pairs_kernel, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    w = sms * (ctas > 0 ? ctas : 1);
+  }
+  *wave = w;
+  return cudaSuccess;
+}
+
+// One launch of halo_pairs_kernel over n_pairs pairs of n16 pieces on the
+// current device: a wave of CTAs over `share` (the launches that share the
+// card), an equal part a pair.
+int launch_pairs(const Pairs& t, int n_inter, int n_pairs, long long n16, int share,
+                 cudaStream_t stream) {
+  if (n_pairs < 1 || n_inter < 0 || n_inter > n_pairs || share < 1)
+    return cudaErrorInvalidValue;
+  if (n_inter == 0) n_inter = n_pairs;
+  int wave = 0;
+  const cudaError_t e = pairs_wave(&wave);
+  if (e != cudaSuccess) return e;
+  const long long tile = static_cast<long long>(kThreads) * kUnroll;
+  const long long tiles = (n16 + tile - 1) / tile;
+  long long per_pair = wave / share / n_pairs;
+  if (per_pair > tiles) per_pair = tiles;
+  if (per_pair < 1) per_pair = 1;
+  const unsigned grid = static_cast<unsigned>(per_pair * n_pairs);
+  halo_pairs_kernel<<<grid, kThreads, 0, stream>>>(t, n_inter, n_pairs, n16,
+                                                   static_cast<int>(per_pair));
+  return cudaGetLastError();
+}
+
+// The device form's plan: K sources, source p on device dev[p] with
+// share[p] sources on its card, its destinations in order[p] (the remote
+// ones first, its own last), and the events of an exchange, each made on
+// its source's device: made[q] (destination q's stream reached the
+// exchange), written[p] (source p's launch), t0[p] / t1[p] (around it,
+// with timing, recorded where asked).
+struct DevicePlan {
+  int K;
+  int dev[kMaxShards];
+  int share[kMaxShards];
+  int order[kMaxShards][kMaxShards];
+  cudaEvent_t made[kMaxShards];
+  cudaEvent_t written[kMaxShards];
+  cudaEvent_t t0[kMaxShards];
+  cudaEvent_t t1[kMaxShards];
+};
+
+void free_plan(DevicePlan* pl) {
+  for (int p = 0; p < pl->K; ++p) {
+    if (cudaSetDevice(pl->dev[p]) != cudaSuccess) continue;
+    for (cudaEvent_t ev : {pl->made[p], pl->written[p], pl->t0[p], pl->t1[p]})
+      if (ev) cudaEventDestroy(ev);
+  }
+  delete pl;
 }
 
 bool takes(int K, long long block_bytes) {
@@ -312,17 +466,154 @@ extern "C" int lp_halo_a2a_stacked(const void* src_base, void* dst_base, int K,
 // The rank form: src is this shard's (K*Bh, F) buffer, dst[p] shard p's
 // receive window as this process reaches it (dst[me] its own, the others
 // IPC mappings); block p of src lands at block `me` of dst[p]. One launch
-// over K blocks, grid (pieces, 1, K).
+// of halo_pairs_kernel over the K pairs, the peers in the TPU kernel's
+// order (me + 1, ..., me + K - 1) mod K round robin, its own block after
+// them, a whole wave.
 extern "C" int lp_halo_a2a_rank(const void* src, void* const* dst, int me, int K,
                                 long long block_bytes, void* stream) {
   if (!takes(K, block_bytes) || me < 0 || me >= K) return cudaErrorInvalidValue;
-  Table t = {};
-  t.src[0] = static_cast<const uint4*>(src);
-  for (int q = 0; q < K; ++q) {
+  Pairs t = {};
+  for (int j = 0; j < K; ++j) {
+    const int q = (me + 1 + j) % K;  // j = K - 1: q = me, its own, last
     if (!aligned(src, dst[q])) return cudaErrorInvalidValue;
-    t.dst[q] = reinterpret_cast<uint4*>(static_cast<char*>(dst[q]) + me * block_bytes);
+    t.src[j] = reinterpret_cast<const uint4*>(static_cast<const char*>(src) + q * block_bytes);
+    t.dst[j] = reinterpret_cast<uint4*>(static_cast<char*>(dst[q]) + me * block_bytes);
   }
-  return launch(t, 1, K, block_bytes, static_cast<cudaStream_t>(stream));
+  return launch_pairs(t, K > 1 ? K - 1 : 1, K, block_bytes / 16, 1,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// One launch of the device form's kernel on the current device: n pairs,
+// src[j] -> dst[j] of pair_bytes each, the first n_inter (0: all) round
+// robin, the rest after; a wave of CTAs over `share`. The device form's
+// exchange launches it once a source; alone it measures a set of pairs
+// (a link, a source's links, every link).
+extern "C" int lp_halo_pairs(const void* const* src, void* const* dst, int n_inter, int n,
+                             long long pair_bytes, int share, void* stream) {
+  if (!takes(n, pair_bytes)) return cudaErrorInvalidValue;
+  Pairs t = {};
+  for (int j = 0; j < n; ++j) {
+    if (!aligned(src[j], dst[j])) return cudaErrorInvalidValue;
+    t.src[j] = static_cast<const uint4*>(src[j]);
+    t.dst[j] = static_cast<uint4*>(dst[j]);
+  }
+  return launch_pairs(t, n_inter, n, pair_bytes / 16, share,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The device form's plan for K sources (see DevicePlan): dev, share (K
+// each) and order (K x K, row p source p's destinations, its own last).
+// Writes the plan's handle into *plan; a plan lives as long as the
+// process. Returns the CUDA error (0 = made).
+extern "C" int lp_halo_devices_plan(int K, const int* dev, const int* share, const int* order,
+                                    void** plan) {
+  *plan = nullptr;
+  if (K < 1 || K > kMaxShards) return cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return e;
+  DevicePlan* pl = new DevicePlan();
+  pl->K = K;
+  for (int p = 0; p < K && e == cudaSuccess; ++p) {
+    pl->dev[p] = dev[p];
+    pl->share[p] = share[p];
+    for (int j = 0; j < K; ++j) pl->order[p][j] = order[p * K + j];
+    if (share[p] < 1 || order[p * K + K - 1] != p) e = cudaErrorInvalidValue;
+    if (e == cudaSuccess) e = cudaSetDevice(dev[p]);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&pl->made[p], cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&pl->written[p], cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaEventCreate(&pl->t0[p]);
+    if (e == cudaSuccess) e = cudaEventCreate(&pl->t1[p]);
+  }
+  if (e != cudaSuccess) {
+    free_plan(pl);
+    cudaSetDevice(prev);
+    return e;
+  }
+  *plan = pl;
+  return cudaSetDevice(prev);
+}
+
+// One exchange of the device form: src[p] source p's (K*Bh, F) buffer, dst[q]
+// destination q's, streams[p] source p's stream (on dev[p]; streams may
+// repeat), blocks of block_bytes. Block q of src[p] lands at block p of
+// dst[q]. On each stream, in this order: every destination's stream records
+// made[q]; each source's stream waits for the other streams' made events,
+// launches (between t0[p] and t1[p] where `timed`) and records written[p];
+// every destination's stream waits for the other streams' written events.
+// The current device is restored. Returns the first CUDA error (0 = done).
+extern "C" int lp_halo_devices_exchange(void* plan, const void* const* src, void* const* dst,
+                                        void* const* streams, long long block_bytes, int timed) {
+  DevicePlan* pl = static_cast<DevicePlan*>(plan);
+  const int K = pl->K;
+  if (!takes(K, block_bytes)) return cudaErrorInvalidValue;
+  for (int p = 0; p < K; ++p)
+    if (!aligned(src[p], dst[p])) return cudaErrorInvalidValue;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return e;
+  auto st = [&](int p) { return static_cast<cudaStream_t>(streams[p]); };
+  for (int q = 0; q < K && e == cudaSuccess; ++q) {
+    e = cudaSetDevice(pl->dev[q]);
+    if (e == cudaSuccess) e = cudaEventRecord(pl->made[q], st(q));
+  }
+  for (int p = 0; p < K && e == cudaSuccess; ++p) {
+    e = cudaSetDevice(pl->dev[p]);
+    for (int q = 0; q < K && e == cudaSuccess; ++q)
+      if (st(q) != st(p)) e = cudaStreamWaitEvent(st(p), pl->made[q], 0);
+    if (e != cudaSuccess) break;
+    Pairs t = {};
+    for (int j = 0; j < K; ++j) {
+      const int q = pl->order[p][j];
+      t.src[j] = reinterpret_cast<const uint4*>(static_cast<const char*>(src[p]) + q * block_bytes);
+      t.dst[j] = reinterpret_cast<uint4*>(static_cast<char*>(dst[q]) + p * block_bytes);
+    }
+    if (timed) e = cudaEventRecord(pl->t0[p], st(p));
+    if (e == cudaSuccess)
+      e = static_cast<cudaError_t>(
+          launch_pairs(t, K > 1 ? K - 1 : 1, K, block_bytes / 16, pl->share[p], st(p)));
+    if (e == cudaSuccess && timed) e = cudaEventRecord(pl->t1[p], st(p));
+    if (e == cudaSuccess) e = cudaEventRecord(pl->written[p], st(p));
+  }
+  for (int q = 0; q < K && e == cudaSuccess; ++q) {
+    e = cudaSetDevice(pl->dev[q]);
+    for (int p = 0; p < K && e == cudaSuccess; ++p)
+      if (st(p) != st(q)) e = cudaStreamWaitEvent(st(q), pl->written[p], 0);
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return e != cudaSuccess ? e : back;
+}
+
+// The device times of the last timed exchange on the plan, after waiting
+// for it: ms[p] source p's launch (t0[p] to t1[p]) for p < K, then ms[K]
+// the span from the first start to the last end, or -1 where the events
+// lie on distinct devices (no common clock for cudaEventElapsedTime).
+extern "C" int lp_halo_devices_times(void* plan, float* ms) {
+  DevicePlan* pl = static_cast<DevicePlan*>(plan);
+  const int K = pl->K;
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  bool one_device = true;
+  for (int p = 0; p < K && e == cudaSuccess; ++p) {
+    one_device = one_device && pl->dev[p] == pl->dev[0];
+    e = cudaSetDevice(pl->dev[p]);
+    if (e == cudaSuccess) e = cudaEventSynchronize(pl->t1[p]);
+    if (e == cudaSuccess) e = cudaEventElapsedTime(&ms[p], pl->t0[p], pl->t1[p]);
+  }
+  ms[K] = -1.f;
+  if (e == cudaSuccess && one_device) {
+    float lo = 0.f, hi = 0.f;
+    for (int p = 0; p < K && e == cudaSuccess; ++p) {
+      float a = 0.f, b = 0.f;
+      e = cudaEventElapsedTime(&a, pl->t0[0], pl->t0[p]);
+      if (e == cudaSuccess) e = cudaEventElapsedTime(&b, pl->t0[0], pl->t1[p]);
+      lo = a < lo ? a : lo;
+      hi = b > hi ? b : hi;
+    }
+    if (e == cudaSuccess) ms[K] = hi - lo;
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return e != cudaSuccess ? e : back;
 }
 
 // The rank form's copy-out: the first nbytes of this rank's own window

@@ -12,10 +12,18 @@
 // the CSC of the col-sorted ordering for cons -> vars
 // (lp_gnn_tpu_torch/data/graph.py).
 //
-// Types: x and out are fp32 or bf16, (S, D) and (num_dst, D), contiguous
-// and 16-byte aligned, with D a multiple of one 16-byte piece (4 fp32, 8
-// bf16) and at most 256 pieces (1024 fp32, 2048 bf16). val is fp32; ptr
-// and idx are int32. Each product and sum is taken in fp32 (fmaf) and
+// Types: x and out are fp32 or bf16, (S, D) and (num_dst, D) column slabs
+// of row-major arrays whose rows lie ldx and ldo elements apart, 16-byte
+// aligned, with D, ldx and ldo multiples of one 16-byte piece (4 fp32, 8
+// bf16) and D at most 256 pieces (1024 fp32, 2048 bf16) a launch. The
+// wrapper (ops/spmm.py spmm_csr) takes any width: a wider row is summed in
+// slabs of 256 pieces, one launch each over the same arrays (ldx, ldo the
+// full rows, the slab's first column 4096-byte aligned, nothing copied),
+// and a width that is no whole number of pieces is summed over a copy of
+// x padded to whole pieces into a padded output. A row stride of no whole
+// number of 128-byte lines spreads each row's slab piece over one more
+// line, so x's slab takes more of the L2 (D=1028 fp32 ran 1.29x D=1024's
+// time on an H100: PERF.md). val is fp32; ptr and idx are int32. Each product and sum is taken in fp32 (fmaf) and
 // rounded once to x's type, as blocked_spmm returns (ops/spmm.py:111-115).
 // A row with no edges gives zeros. Every row is summed in an order fixed by
 // the inputs' shapes: deterministic, no atomics.
@@ -84,7 +92,7 @@ constexpr int kStage = 4096;        // edges a CTA stages in shared memory (32 K
 constexpr int kLongRow = 256;       // a longer row is summed by the whole CTA
 constexpr int kUnroll = 4;          // gathers in flight a lane
 constexpr int kMaxSlab = 32;        // pieces of a slab: one a lane
-constexpr int kMaxPieces = 256;     // pieces of a row (1024 fp32, 2048 bf16)
+constexpr int kMaxPieces = 256;     // pieces a launch sums (1024 fp32, 2048 bf16)
 constexpr int kMinUnits = 64;       // least merge-path units worth a CTA
 constexpr int kL2Share = 3;         // quarters of the L2 a slab of x may fill
 
@@ -192,7 +200,9 @@ __device__ int2 merge_path_row(const int* __restrict__ ptr, int n, long long t, 
 
 struct Plan {
   int num_dst;
-  int pieces;    // 16-byte pieces of a row
+  int pieces;    // 16-byte pieces of a row's columns summed here
+  long long ldx; // elements from one row of x to the next
+  long long ldo; // elements from one row of out to the next
   int slab;      // pieces of a slab (<= kMaxSlab)
   int n_slabs;
   int g_log;     // log2 G: lanes on one edge's slab piece (G >= slab)
@@ -334,7 +344,7 @@ spmm_csr_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (on && src[u] >= 0) v[u] = ld_x(x + static_cast<size_t>(src[u]) * D + col, last);
+        if (on && src[u] >= 0) v[u] = ld_x(x + static_cast<size_t>(src[u]) * p.ldx + col, last);
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         if (on && src[u] >= 0) Vec<T>::fma(acc, v[u], w[u]);
@@ -396,7 +406,7 @@ spmm_csr_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u)
-          if (on && src[u] >= 0) v[u] = ld_x(x + static_cast<size_t>(src[u]) * D + col, last);
+          if (on && src[u] >= 0) v[u] = ld_x(x + static_cast<size_t>(src[u]) * p.ldx + col, last);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u)
           if (on && src[u] >= 0) Vec<T>::fma(acc, v[u], w[u]);
@@ -406,7 +416,7 @@ spmm_csr_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
         for (int off = G; off < (G << p.r_log); off <<= 1)
           acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
       if (write && grp == 0 && on)
-        __stcs(reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * D + col),
+        __stcs(reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * p.ldo + col),
                Vec<T>::pack(acc));
     }
 
@@ -424,7 +434,7 @@ spmm_csr_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
           if (own_split_end && r == re - 1)
             cta_sum(r0, own_end, on, col, nullptr, sp.part + static_cast<size_t>(2 * cta + 1) * D);
           else
-            cta_sum(r0, __ldg(ptr + r + 1), on, col, out + static_cast<size_t>(r) * D, nullptr);
+            cta_sum(r0, __ldg(ptr + r + 1), on, col, out + static_cast<size_t>(r) * p.ldo, nullptr);
         }
       }
     }
@@ -443,7 +453,7 @@ spmm_csr_kernel(const int* __restrict__ ptr, const int* __restrict__ idx,
     for (int k = threadIdx.x; k < D; k += kThreads) {
       float sum = __ldcg(sp.part + static_cast<size_t>(2 * c0 + 1) * D + k);
       for (int c = c0 + 1; c < c_end; ++c) sum += __ldcg(sp.part + static_cast<size_t>(2 * c) * D + k);
-      out[static_cast<size_t>(row) * D + k] = Vec<T>::one(sum);
+      out[static_cast<size_t>(row) * p.ldo + k] = Vec<T>::one(sum);
     }
     if (threadIdx.x == 0) sp.count[c0] = 0;
   };
@@ -487,11 +497,13 @@ cudaError_t device_info(int kind, DeviceInfo** out) {
 
 template <typename T>
 int launch(const int* ptr, const int* idx, const float* val, const void* x, void* out,
-           int num_dst, int num_src, long long nnz, int D, int kind, void* count,
-           long long count_bytes, void* ws, long long ws_bytes, cudaStream_t stream) {
+           int num_dst, int num_src, long long nnz, int D, long long ldx, long long ldo,
+           int kind, void* count, long long count_bytes, void* ws, long long ws_bytes,
+           cudaStream_t stream) {
   constexpr int VEC = Vec<T>::kN;
   const int pieces = D / VEC;
-  if (D % VEC != 0 || pieces > kMaxPieces || num_src < 0 || nnz < 0 ||
+  if (D % VEC != 0 || pieces > kMaxPieces || ldx < D || ldo < D || ldx % VEC != 0 ||
+      ldo % VEC != 0 || num_src < 0 || nnz < 0 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
        reinterpret_cast<uintptr_t>(ws)) % 16 != 0)
     return cudaErrorInvalidValue;
@@ -530,7 +542,8 @@ int launch(const int* ptr, const int* idx, const float* val, const void* x, void
   int r_log = 0;
   while (g_log + r_log < 5 && (rows_per_cta << (r_log + 1)) <= (kThreads >> g_log)) ++r_log;
 
-  const Plan plan = {num_dst, pieces, slab, (pieces + slab - 1) / slab, g_log, r_log, units};
+  const Plan plan = {num_dst, pieces, ldx, ldo, slab, (pieces + slab - 1) / slab,
+                     g_log, r_log, units};
   const Split split = {static_cast<float*>(ws), static_cast<int*>(count)};
   spmm_csr_kernel<T><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
       ptr, idx, val, static_cast<const T*>(x), static_cast<T*>(out), plan, split);
@@ -540,7 +553,9 @@ int launch(const int* ptr, const int* idx, const float* val, const void* x, void
 }  // namespace
 
 // dtype: 0 = fp32 (D a multiple of 4, at most 1024), 1 = bf16 (D a multiple
-// of 8, at most 2048); x (num_src, D), out (num_dst, D) and ws 16-byte
+// of 8, at most 2048): the D columns of x (num_src rows, ldx elements apart)
+// summed into the D columns of out (num_dst rows, ldo apart), ldx and ldo
+// multiples of 4 (fp32) or 8 (bf16) and at least D; x, out and ws 16-byte
 // aligned; ptr a CSR over nnz = len(idx) = ptr[num_dst] edges (ptr[0] = 0,
 // non-decreasing). count (count_bytes) holds the arrival counts of split
 // rows: zeroed when first allocated and then left to the kernel, which
@@ -551,18 +566,19 @@ int launch(const int* ptr, const int* idx, const float* val, const void* x, void
 // n KiB; the caller raises on anything but 0 and -n.
 extern "C" int lp_spmm_csr(const void* ptr, const void* idx, const void* val,
                            const void* x, void* out, int num_dst, int num_src,
-                           long long nnz, int D, int dtype, void* count, long long count_bytes,
-                           void* ws, long long ws_bytes, void* stream) {
+                           long long nnz, int D, long long ldx, long long ldo, int dtype,
+                           void* count, long long count_bytes, void* ws, long long ws_bytes,
+                           void* stream) {
   if (num_dst <= 0 || D <= 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(ptr);
   const int* i = static_cast<const int*>(idx);
   const float* v = static_cast<const float*>(val);
   if (dtype == 0)
-    return launch<float>(p, i, v, x, out, num_dst, num_src, nnz, D, 0, count, count_bytes, ws,
-                         ws_bytes, st);
+    return launch<float>(p, i, v, x, out, num_dst, num_src, nnz, D, ldx, ldo, 0, count,
+                         count_bytes, ws, ws_bytes, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(p, i, v, x, out, num_dst, num_src, nnz, D, 1, count,
+    return launch<__nv_bfloat16>(p, i, v, x, out, num_dst, num_src, nnz, D, ldx, ldo, 1, count,
                                  count_bytes, ws, ws_bytes, st);
   return cudaErrorInvalidValue;
 }

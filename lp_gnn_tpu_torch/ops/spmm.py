@@ -10,7 +10,10 @@ over the CSR (vars -> cons) or the CSC (cons -> vars) of
 
 On a CUDA tensor :func:`spmm_csr` launches the hand-written kernel
 (``csrc/spmm.cu``) or raises; on a CPU tensor it runs the plain version,
-:func:`spmm_csr_plain`. :func:`spmm_csr` itself is forward-only;
+:func:`spmm_csr_plain`. The kernel takes any width D, as ``blocked_spmm``
+does (:func:`width_plan`): one launch up to 256 16-byte pieces a row,
+column slabs of 256 pieces above, and a width of no whole number of pieces
+through a copy padded to whole pieces. :func:`spmm_csr` itself is forward-only;
 :class:`SpmmCSR` makes it differentiable in ``x``: its backward is the same
 kernel over the other ordering of the same edges (the transpose), so no
 atomics are needed and the gradient is deterministic. The two directions
@@ -27,7 +30,36 @@ from . import _build
 from ._build import check_out, count_launch, launch_with_workspace
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_PIECES = 256   # 16-byte pieces a row (csrc/spmm.cu kMaxPieces)
+MAX_PIECES = 256   # 16-byte pieces a launch sums (csrc/spmm.cu kMaxPieces)
+
+
+@dataclasses.dataclass(frozen=True)
+class WidthPlan:
+    """How the kernel sums rows of ``width`` elements of ``itemsize``
+    bytes: over rows of ``padded`` elements (the width rounded up to whole
+    16-byte pieces; a wider copy of x and a wider output where they
+    differ), in column ``slabs`` of (first column, columns), one launch
+    each, every slab at most MAX_PIECES pieces and starting on a whole
+    number of slabs (a multiple of 4096 bytes into the row)."""
+    width: int
+    itemsize: int
+    padded: int
+    slabs: tuple[tuple[int, int], ...]
+
+    @property
+    def copies(self) -> bool:
+        """Whether x and the output go through padded copies."""
+        return self.padded != self.width
+
+
+def width_plan(width: int, itemsize: int) -> WidthPlan:
+    """The kernel's plan for rows of ``width`` elements (>= 1) of
+    ``itemsize`` bytes (4: fp32, 2: bf16)."""
+    vec = 16 // itemsize
+    padded = -(-width // vec) * vec
+    step = MAX_PIECES * vec
+    return WidthPlan(width, itemsize, padded, tuple(
+        (c, min(step, padded - c)) for c in range(0, padded, step)))
 
 
 def segment_ids(ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
@@ -55,8 +87,9 @@ def _lib():
     fn = _build.load("spmm").lp_spmm_csr
     if fn.argtypes is None:   # without argtypes ctypes would cut pointers to int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + \
-            [ctypes.c_longlong] + [ctypes.c_int] * 2 + \
-            [ctypes.c_void_p, ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+            [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 2 + \
+            [ctypes.c_int] + [ctypes.c_void_p, ctypes.c_longlong] * 2 + \
+            [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -85,20 +118,6 @@ def _check(ptr, idx, val, x):
     return dev
 
 
-def _check_kernel_width(x):
-    """The kernel reads and writes rows in 16-byte pieces, at most 256 a
-    row (csrc/spmm.cu)."""
-    vec = 16 // x.element_size()
-    d = x.shape[1]
-    if d % vec or d > _MAX_PIECES * vec:
-        raise ValueError(
-            f"spmm_csr kernel takes {x.dtype} widths D that are multiples of "
-            f"{vec} up to {_MAX_PIECES * vec}, got D={d}")
-    if x.data_ptr() % 16:
-        raise ValueError("spmm_csr kernel needs x 16-byte aligned "
-                         "(a contiguous tensor at a storage offset may not be)")
-
-
 def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
              x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """``out[d] = sum_{e in [ptr[d], ptr[d+1])} val[e] * x[idx[e]]``.
@@ -108,9 +127,13 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     in fp32: ``out`` if given (a contiguous (num_dst, D) tensor of x's
     dtype and device, 16-byte aligned on the card), else a new tensor.
     Indices are not checked on the device: ``GraphTensors`` checks them on
-    the host when it builds the graph. On the card D must be a multiple of
-    4 (fp32) or 8 (bf16), at most 1024 (fp32) or 2048 (bf16), and x 16-byte
-    aligned; the wrapper raises otherwise.
+    the host when it builds the graph. On the card any D >= 1 runs
+    (:func:`width_plan`): up to 1024 (fp32) or 2048 (bf16) in one launch,
+    wider in one launch a 256-piece column slab of the same tensors; a D
+    that is no multiple of 4 (fp32) or 8 (bf16) goes through a copy of x
+    padded to whole 16-byte pieces and a padded output, whose first D
+    columns are copied into ``out``; an x that is not 16-byte aligned is
+    copied.
     """
     if x.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
@@ -131,18 +154,30 @@ def spmm_csr(ptr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
         out = torch.empty((num_dst, d), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    _check_kernel_width(x)
-    rc = launch_with_workspace(
-        "spmm", dev, _lib(), ptr.data_ptr(), idx.data_ptr(), val.data_ptr(),
-        x.data_ptr(), out.data_ptr(), num_dst, x.shape[0], idx.shape[0], d,
-        _DTYPE_CODE[x.dtype], buffers=2)
-    if rc != 0:
-        raise RuntimeError(f"spmm_csr kernel launch failed: CUDA error {rc}")
-    count_launch(spmm_csr)
+    b = x.element_size()
+    plan = width_plan(d, b)
+    if plan.copies:
+        x = torch.nn.functional.pad(x, (0, plan.padded - d))
+    elif x.data_ptr() % 16:
+        x = x.clone()
+    dst = torch.empty((num_dst, plan.padded), dtype=x.dtype, device=dev) \
+        if plan.copies else out
+    for col, cols in plan.slabs:
+        rc = launch_with_workspace(
+            "spmm", dev, _lib(), ptr.data_ptr(), idx.data_ptr(),
+            val.data_ptr(), x.data_ptr() + col * b, dst.data_ptr() + col * b,
+            num_dst, x.shape[0], idx.shape[0], cols, plan.padded,
+            plan.padded, _DTYPE_CODE[x.dtype], buffers=2)
+        if rc != 0:
+            raise RuntimeError(
+                f"spmm_csr kernel launch failed: CUDA error {rc}")
+        count_launch(spmm_csr)
+    if plan.copies:
+        out.copy_(dst[:, :d])
     return out
 
 
-spmm_csr.launches = 0   # kernel launches since the last reset
+spmm_csr.launches = 0   # kernel launches since the last reset (one a slab)
 
 
 class SpmmCSR(torch.autograd.Function):
@@ -162,12 +197,8 @@ class SpmmCSR(torch.autograd.Function):
     def backward(ctx, grad_out):
         if not ctx.needs_input_grad[3]:
             return (None,) * 7
-        # the kernel takes contiguous, 16-byte aligned rows: a gradient that
-        # is neither is copied into a fresh (aligned) tensor first
-        g = grad_out.contiguous()
-        if g.data_ptr() % 16:
-            g = g.clone()
-        dx = spmm_csr(*ctx.transpose, g)
+        # spmm_csr takes contiguous rows (and copies a misaligned one)
+        dx = spmm_csr(*ctx.transpose, grad_out.contiguous())
         return None, None, None, dx, None, None, None
 
 

@@ -40,16 +40,19 @@ mesh says which runs, there is no switch and no fallback between them:
   own: a rank belongs to one row, and its windows are keyed by that group.
 - Every shard in one process, shard d on device d (``mesh.EdgeMesh`` with
   one shard a device; the devices may repeat):
-  :func:`halo_all_to_all_devices`, the device form, the rank form's write
-  with peer pointers for windows: each source's launch, on its own device
-  and stream, writes its K blocks straight into the K destination buffers,
-  ordered by events between the shards' streams. The list form over
-  buffers on distinct devices takes it. Across cards it needs peer access
-  between every pair (:func:`enable_peer_access`), and raises where the
-  cards have none: there is no route through host copies. On CPU tensors
-  it runs :func:`halo_all_to_all_plain`. The edge-partitioned path gives it
-  a gradient in its joint nodes (``edge_partition``), where the exchange of
-  the cotangent is the same call.
+  :func:`halo_all_to_all_devices`, the device form: each source's launch,
+  on its own device and stream, writes its K blocks straight into the K
+  destination buffers through peer pointers, its remote destinations
+  staggered in the TPU kernel's order and its grid sized for the streams
+  that launch at once on its card, the K launches and the events that
+  order them between the shards' streams enqueued by one host call. The
+  list form over buffers on distinct devices takes it. Across cards it
+  needs peer access between every pair (:func:`enable_peer_access`), and
+  raises where the cards have none: there is no route through host
+  copies. On CPU tensors it runs :func:`halo_all_to_all_plain`. The
+  edge-partitioned path gives it a gradient in its joint nodes
+  (``edge_partition``), where the exchange of the cotangent is the same
+  call.
 """
 from __future__ import annotations
 
@@ -266,6 +269,99 @@ def enable_peer_access(indices) -> list[tuple[int, int]]:
     return new
 
 
+def device_orders(k: int) -> list[list[int]]:
+    """Each source's destinations in the order its launch takes them: the
+    TPU kernel's remote copies (``pallas_halo.py:48-52``: at offset s =
+    1, ..., K-1, device me sends to (me + s) mod K), then its own block
+    (the TPU kernel's local copy, no link), last."""
+    return [[(me + s) % k for s in range(1, k)] + [me] for me in range(k)]
+
+
+def device_shares(indices: Sequence[int],
+                  streams: Sequence | None = None) -> list[int]:
+    """For each source (its device index, and its stream where given), the
+    streams that launch at once on its card: its launch takes one wave of
+    CTAs over that many, so that the K launches of one card on K streams
+    fill one wave together, and a source with a card (or the K sources
+    with one stream, one launch after another) of its own takes a whole
+    wave."""
+    streams = list(range(len(indices))) if streams is None else list(streams)
+    on = {}
+    for d, s in zip(indices, streams):
+        on.setdefault(d, set()).add(s)
+    return [len(on[d]) for d in indices]
+
+
+class _DevicePlan:
+    """The device form's plan for one (devices, streams): the C plan
+    (shares, destination orders, the exchange's events; made once, peer
+    access turned on first), the stream handles, and a lock, since an
+    exchange reuses the plan's events."""
+
+    def __init__(self, indices: list[int], streams: list):
+        k = len(indices)
+        enable_peer_access(sorted(set(indices)))
+        ints = ctypes.c_int * k
+        order = [q for row in device_orders(k) for q in row]
+        handle = ctypes.c_void_p()
+        handles = [s.cuda_stream for s in streams]
+        rc = _rank_lib("lp_halo_devices_plan")(
+            k, ints(*indices), ints(*device_shares(indices, handles)),
+            (ctypes.c_int * (k * k))(*order), ctypes.byref(handle))
+        if rc != 0:
+            raise RuntimeError("halo_all_to_all_devices: its plan (events "
+                               f"on {indices}) failed: CUDA error {rc}")
+        self.k, self.handle = k, handle.value
+        self.streams = (ctypes.c_void_p * k)(*handles)
+        self.lock = threading.Lock()
+        self.timed = False
+
+
+# (device indices, stream handles) -> its _DevicePlan, made at its first
+# exchange and kept for the process's life (a few per run)
+_DEVICE_PLANS: dict[tuple, _DevicePlan] = {}
+_PLAN_LOCK = threading.Lock()
+# whether the device form's exchanges record CUDA events around each
+# source's launch (device_form_times reads the last exchange's)
+DEVICE_TIMING = False
+
+
+def _device_plan(devs, streams) -> _DevicePlan:
+    key = (tuple(d.index for d in devs), tuple(s.cuda_stream for s in streams))
+    plan = _DEVICE_PLANS.get(key)
+    if plan is None:
+        with _PLAN_LOCK:
+            plan = _DEVICE_PLANS.get(key)
+            if plan is None:
+                plan = _DEVICE_PLANS[key] = _DevicePlan(list(key[0]),
+                                                        list(streams))
+    return plan
+
+
+def device_form_times(bufs: Sequence[torch.Tensor], streams=None) -> dict:
+    """The device times of the last exchange over ``bufs``' devices and
+    ``streams`` made while DEVICE_TIMING was on (it waits for it): each
+    source's launch (ms, CUDA events on its own stream around it), their
+    sum, and the span from the first start to the last end (None where the
+    sources lie on distinct cards, whose events share no clock)."""
+    devs = [b.device for b in bufs]
+    streams = [torch.cuda.current_stream(d) for d in devs] \
+        if streams is None else list(streams)
+    plan = _device_plan(devs, streams)
+    if not plan.timed:
+        raise RuntimeError("device_form_times: no timed exchange on these "
+                           "devices and streams (set DEVICE_TIMING)")
+    ms = (ctypes.c_float * (plan.k + 1))()
+    fn = _rank_lib("lp_halo_devices_times")
+    with plan.lock:
+        rc = fn(plan.handle, ms)
+    if rc != 0:
+        raise RuntimeError(f"device_form_times: CUDA error {rc}")
+    per = [float(v) for v in ms[:plan.k]]
+    return {"per_source_ms": per, "sum_ms": sum(per),
+            "span_ms": float(ms[plan.k]) if ms[plan.k] >= 0 else None}
+
+
 def halo_all_to_all_devices(bufs: Sequence[torch.Tensor],
                             streams=None) -> list[torch.Tensor]:
     """K1's device form: K (K*Bh, F) buffers, buffer d on shard d's device
@@ -273,19 +369,24 @@ def halo_all_to_all_devices(bufs: Sequence[torch.Tensor],
     device, out, with ``out[q][p*Bh:(p+1)*Bh] = bufs[p][q*Bh:(q+1)*Bh]``.
     fp32 or bf16.
 
-    On CUDA tensors one launch a source (``lp_halo_a2a_rank`` with ``me =
-    d``: block p of buffer d into block d of out p, through a table of the
-    K destinations' pointers), on ``streams[d]`` (the current stream of
-    each buffer's device if None; buffer d must be ready there) under its
-    device, counted in ``halo_all_to_all_devices.launches``. Every writer's
-    stream first waits for an event that each destination's stream records
-    after its buffer was made; each destination's stream then waits for
-    every writer's event, so work queued after the call on ``streams[q]``
-    reads out q complete; each out is recorded on every writer's stream,
-    so the caching allocator does not hand its memory out again while a
-    writer may still store into it. Buffers on distinct cards need peer
-    access between them, turned on here (:func:`enable_peer_access`). On
-    CPU tensors it runs :func:`halo_all_to_all_plain`."""
+    On CUDA tensors one launch a source (``lp_halo_devices_exchange``: the
+    kernel over source d's K block pairs, its remote destinations in the
+    TPU kernel's order, :func:`device_orders`, its grid one wave over the
+    streams launching on its card, :func:`device_shares`), on
+    ``streams[d]`` (the current stream of each buffer's device if None;
+    buffer d must be ready there), counted in
+    ``halo_all_to_all_devices.launches``, all K enqueued by one host call.
+    Out q is made on ``streams[q]``; every writer's stream first waits for
+    an event each other destination's stream records after its buffer was
+    made, and each destination's stream then waits for every writer's
+    event, so work queued after the call on ``streams[q]`` reads out q
+    complete. That wait also keeps out q's
+    memory safe: the caching allocator hands it out again only to work on
+    ``streams[q]``, queued after the wait, so no output is recorded on the
+    writers' streams; each input is recorded on its reader's stream.
+    Buffers on distinct cards need peer access between them, turned on
+    with the plan (:func:`enable_peer_access`). On CPU tensors it runs
+    :func:`halo_all_to_all_plain`."""
     _check(bufs)
     k = len(bufs)
     devs = [b.device for b in bufs]
@@ -299,35 +400,29 @@ def halo_all_to_all_devices(bufs: Sequence[torch.Tensor],
     if len(streams) != k or any(s.device != d for s, d in zip(streams, devs)):
         raise ValueError("halo_all_to_all_devices takes one stream a buffer, "
                          "on the buffer's device")
-    enable_peer_access(sorted({d.index for d in devs}))
-    outs, made = [], []
-    for d, s, b in zip(devs, streams, bufs):
-        with torch.cuda.device(d), torch.cuda.stream(s):
+    outs = []
+    for s, b in zip(streams, bufs):
+        with torch.cuda.stream(s):
             outs.append(torch.empty_like(b))
-            made.append(s.record_event())
     block_bytes = bufs[0].nbytes // k
     if not block_bytes:
         return outs
     _check_launch(k, block_bytes, not any(
         t.data_ptr() % 16 for t in (*bufs, *outs)))
-    table = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
-    write = _rank_lib("lp_halo_a2a_rank")
-    written = []
-    for me, (d, s, b) in enumerate(zip(devs, streams, bufs)):
-        for ev in made:
-            s.wait_event(ev)
-        for o in (b, *outs):
-            o.record_stream(s)
-        with torch.cuda.device(d):
-            rc = write(b.data_ptr(), table, me, k, block_bytes, s.cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"halo_all_to_all_devices: the launch of "
-                               f"source {me} on {d} failed: CUDA error {rc}")
-        count_launch(halo_all_to_all_devices)
-        written.append(s.record_event())
-    for s in streams:
-        for ev in written:
-            s.wait_event(ev)
+    plan = _device_plan(devs, streams)
+    for s, b in zip(streams, bufs):
+        b.record_stream(s)
+    ptrs = ctypes.c_void_p * k
+    with plan.lock:
+        plan.timed = DEVICE_TIMING
+        rc = _rank_lib("lp_halo_devices_exchange")(
+            plan.handle, ptrs(*(b.data_ptr() for b in bufs)),
+            ptrs(*(o.data_ptr() for o in outs)), plan.streams, block_bytes,
+            int(DEVICE_TIMING))
+    if rc != 0:
+        raise RuntimeError(f"halo_all_to_all_devices: the exchange over "
+                           f"{[str(d) for d in devs]} failed: CUDA error {rc}")
+    count_launch(halo_all_to_all_devices, k)
     return outs
 
 
@@ -361,6 +456,12 @@ def _rank_lib(name: str):
         i32, i64, u64 = ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
         fn.argtypes = {
             "lp_halo_a2a_rank": [vp, pp, i32, i32, i64, vp],
+            "lp_halo_pairs": [pp, pp, i32, i32, i64, i32, vp],
+            "lp_halo_devices_plan": [i32, ctypes.POINTER(i32),
+                                     ctypes.POINTER(i32),
+                                     ctypes.POINTER(i32), pp],
+            "lp_halo_devices_exchange": [vp, pp, pp, pp, i64, i32],
+            "lp_halo_devices_times": [vp, ctypes.POINTER(ctypes.c_float)],
             "lp_halo_copy_out": [vp, vp, i64, vp, i32, vp, vp],
             "lp_halo_flags_wait": [pp, i32, u64, vp],
             "lp_halo_flags_write": [pp, i32, u64, vp],

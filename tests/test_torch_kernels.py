@@ -8,6 +8,7 @@ are not installed, such as the machine with the card::
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 """
+import ctypes
 import os
 import signal
 import socket
@@ -354,23 +355,78 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, d):
     assert torch.equal(got, gather_rows_plain(x, gt.col))
 
 
+WIDTHS = [(torch.float32, 3), (torch.float32, 6), (torch.bfloat16, 12),
+          (torch.bfloat16, 100), (torch.float32, 1028),
+          (torch.bfloat16, 2056), (torch.bfloat16, 4104),
+          (torch.float32, 4101)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 6), (torch.bfloat16, 12),
-                                     (torch.float32, 1028),
-                                     (torch.bfloat16, 2056)])
+@pytest.mark.parametrize("dtype,d", WIDTHS)
 def test_spmm_kernel_rejects_widths_it_does_not_take(cuda_device, dtype, d):
-    g = port_graph(np.random.RandomState(7), m=30, n=50, e=200)
+    """The kernel once refused these widths (a ragged D, or one above 256
+    16-byte pieces) where JAX's blocked_spmm computes them; now it takes
+    every width and refuses only what no route takes (a dtype other than
+    fp32 / bf16, a non-contiguous x). At each width: the kernel against its
+    plain version (the tolerances of test_kernels_match_plain_on_card), one
+    launch a 256-piece column slab (ops/spmm.py width_plan), bit-identical
+    over two calls, ``out=`` honoured; an x at a storage offset that breaks
+    16-byte alignment is copied, not refused, and gives the same bits."""
+    g = port_graph(np.random.RandomState(7), m=300, n=500, e=4000)
     gt = GraphTensors.from_graph(g, cuda_device)
-    x = torch.zeros(g.nvars, d, device=cuda_device, dtype=dtype)
+    args = (gt.rowptr, gt.col, gt.val_r)
+    x = torch.randn(g.nvars, d, device=cuda_device).to(dtype)
+    plan = tspmm.width_plan(d, x.element_size())
     before = tspmm.spmm_csr.launches
-    with pytest.raises(ValueError, match="widths"):
-        tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
-    # a contiguous view at a storage offset that breaks 16-byte alignment
-    x = torch.zeros(g.nvars * 8 + 1, device=cuda_device,
-                    dtype=dtype)[1:].view(g.nvars, 8)
-    with pytest.raises(ValueError, match="aligned"):
-        tspmm.spmm_csr(gt.rowptr, gt.col, gt.val_r, x)
-    assert tspmm.spmm_csr.launches == before
+    out = tspmm.spmm_csr(*args, x)
+    assert tspmm.spmm_csr.launches == before + len(plan.slabs)
+    ref = tspmm.spmm_csr_plain(*args, x)
+    into = torch.full_like(out, float("nan"))
+    assert tspmm.spmm_csr(*args, x, out=into) is into
+    flat = torch.empty(x.numel() + 8, device=cuda_device, dtype=dtype)
+    x_off = flat[1:1 + x.numel()].view(x.shape)
+    x_off.copy_(x)
+    odd = tspmm.spmm_csr(*args, x_off)
+    torch.cuda.synchronize()
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for again in (into, odd):
+        assert torch.equal(again.view(bits), out.view(bits))
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tspmm.spmm_csr(*args, x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tspmm.spmm_csr(*args, torch.empty(d, g.nvars, device=cuda_device,
+                                          dtype=dtype).t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 3),
+                                     (torch.bfloat16, 100),
+                                     (torch.bfloat16, 4104)])
+def test_spmm_backward_at_any_width_on_card(cuda_device, dtype, d):
+    """SpmmCSR's backward at a ragged and a wide width: the kernel over the
+    transpose ordering (a launch a slab) against the fp32 gradient of the
+    plain version rounded once, as test_spmm_backward_matches_plain_on_card
+    holds it at the paths' widths."""
+    g = port_graph(np.random.RandomState(d + 2), m=300, n=500, e=4000)
+    gt = GraphTensors.from_graph(g, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn(g.nvars, d, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn(g.ncons, d, generator=gen, device=cuda_device).to(dtype)
+    x.requires_grad_()
+    out = tspmm.spmm_vars_to_cons(gt, x)
+    before = tspmm.spmm_csr.launches
+    got, = torch.autograd.grad(out, x, w)
+    assert tspmm.spmm_csr.launches == before + len(
+        tspmm.width_plan(d, x.element_size()).slabs)
+    xp = x.detach().float().requires_grad_()
+    want, = torch.autograd.grad(tspmm.spmm_csr_plain(
+        gt.rowptr, gt.col, gt.val_r, xp), xp, w.float())
+    torch.cuda.synchronize()
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+    torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda
@@ -1206,6 +1262,7 @@ print("rank", me, "raised", repr(err), "after", took, "s")
 # writes into it land). A rank killed leaves gloo's teardown to its peers'
 # exits, so they end with os._exit once they have printed.
 LEAVE_WORKER = r"""
+import ctypes
 import os
 import signal
 import sys
@@ -1622,3 +1679,44 @@ def test_halo_all_to_all_devices_stress_on_card(cuda_device, k, distinct):
         del out, bufs
     sync_all(devs)
     assert [int(b) for b in bad] == [0] * k
+
+
+@pytest.mark.cuda
+def test_device_form_redesign_exact_on_card(cuda_device, monkeypatch):
+    """K1's device form on one card (cuda:0 four times, a stream a shard,
+    then one stream for all four): bit for bit the stacked form's exchange
+    at the bench halo (D=8) and at a block of no whole number of kernel
+    tiles, K launches an exchange, one plan for the (devices, streams)
+    whatever the shapes; with DEVICE_TIMING each source's launch timed
+    (positive, the span on one card at least the longest launch); and the
+    kernel's pair entry (lp_halo_pairs, what the link probe of
+    chip_smoke.py launches) copying any list of blocks exactly."""
+    monkeypatch.setattr(thalo, "DEVICE_TIMING", True)
+    devs = [torch.device("cuda", 0)] * 4
+    for bh, d in ((BENCH_BH, 8), (1001, 40)):
+        stacked, bufs, streams = device_form_case(devs, bh, d,
+                                                  torch.bfloat16, seed=d)
+        want = halo_all_to_all(stacked)
+        for ss in (streams, [torch.cuda.current_stream()] * 4):
+            plans = len(thalo._DEVICE_PLANS)
+            before = thalo.halo_all_to_all_devices.launches
+            out = thalo.halo_all_to_all_devices(bufs, ss)
+            assert thalo.halo_all_to_all_devices.launches == before + 4
+            times = thalo.device_form_times(bufs, ss)
+            for s in ss:
+                torch.cuda.current_stream().wait_stream(s)
+            torch.cuda.synchronize()
+            assert all(torch.equal(o, want[q]) for q, o in enumerate(out))
+            assert thalo.halo_all_to_all_devices(bufs, ss) is not None
+            assert len(thalo._DEVICE_PLANS) <= plans + 1
+            assert min(times["per_source_ms"]) > 0
+            assert times["span_ms"] >= max(times["per_source_ms"]) - 1e-3
+    # three pairs of one source, the first two round robin, as the probe
+    src = torch.randn(3, 4096, 24, device=cuda_device).to(torch.bfloat16)
+    dst = torch.zeros_like(src)
+    vp = ctypes.c_void_p * 3
+    rc = thalo._rank_lib("lp_halo_pairs")(
+        vp(*(s.data_ptr() for s in src)), vp(*(t.data_ptr() for t in dst)),
+        2, 3, src[0].nbytes, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(dst, src)
