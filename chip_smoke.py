@@ -450,7 +450,8 @@ from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
                                             halo_all_to_all_devices,
                                             halo_all_to_all_plain,
                                             halo_all_to_all_ranks,
-                                            halo_all_to_all_ranks_plain)
+                                            halo_all_to_all_ranks_plain,
+                                            halo_rank_signalled)
 from lp_gnn_tpu_torch.parallel.mesh import make_mesh
 from lp_gnn_tpu_torch.reporting.extract import extract_time
 from lp_gnn_tpu_torch.solver import highs_bridge
@@ -477,7 +478,8 @@ N_DIST_LPS = 3              # LPs served edge-partitioned
 DIST_PER_FORWARD = {"halo_all_to_all": 2, "gather_rows": 2,
                     "spmm_csr": 2 * K_EDGE * 5}
 KERNELS = (spmm_csr, gather_rows, halo_all_to_all, gen_agg_fwd, gen_agg_bwd,
-           gen_lse_merge, halo_all_to_all_ranks, halo_all_to_all_devices)
+           gen_lse_merge, halo_all_to_all_ranks, halo_all_to_all_devices,
+           halo_rank_signalled)
 N_TRAIN_LPS = 4             # LPs written for training: 2 train, 2 val
 TRAIN_EPOCHS = 5            # one val pass, after the last epoch
 # spmm_csr launches of the train phase: 2 a train graph once (the input
@@ -3836,6 +3838,122 @@ class NoHostSync:
             setattr(m, n, fn)
 
 
+def rank_launches() -> int:
+    """The rank form's launches so far, of either form (one of the two
+    counts moves in a group)."""
+    return halo_all_to_all_ranks.launches + halo_rank_signalled.launches
+
+
+def rank_form() -> str:
+    """The form of this rank's one window pair (``parallel/halo.py
+    rank_form``: the group's layout picked it)."""
+    (win,) = halo_mod._WINDOWS.values()
+    return win.form
+
+
+class ExchangeMarks:
+    """CUDA events on this rank's stream after each operation of the flags
+    form's exchanges (``parallel/halo.py _enqueue`` wrapped), and one before
+    each exchange (``start``): the exchange's parts, with a card a rank
+    (ROADMAP B5)."""
+    PARTS = ("wait_done", "write", "signal_arrival", "wait_arrival",
+             "copy_out", "signal_done")
+
+    def __enter__(self):
+        self.real, self.marks = halo_mod._enqueue, []
+
+        def enqueue(dev, win, fn_name, *args):
+            self.real(dev, win, fn_name, *args)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks[-1].append(ev)
+        halo_mod._enqueue = enqueue
+        return self
+
+    def start(self) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append([ev])
+
+    def __exit__(self, *exc):
+        halo_mod._enqueue = self.real
+
+    def parts_ms(self) -> dict:
+        """Each part's mean ms over the exchanges marked (each from e = 3
+        on: all six operations), and the whole exchange's."""
+        torch.cuda.synchronize()
+        rows = [[a.elapsed_time(b) for a, b in zip(m, m[1:])]
+                for m in self.marks if len(m) == 1 + len(self.PARTS)]
+        out = {p: float(np.mean([r[i] for r in rows]))
+               for i, p in enumerate(self.PARTS)}
+        out["exchange_ms"] = float(np.mean([sum(r) for r in rows]))
+        out["exchanges"] = len(rows)
+        return out
+
+
+# exchanges the parts of an exchange are averaged over, after 2 untimed
+SPLIT_EXCHANGES = 10
+
+
+def flags_form_split(buf: torch.Tensor) -> dict:
+    """The flags form's exchange with a card a rank, split into its parts
+    by CUDA events on this rank's stream (``ExchangeMarks``): the group
+    made to take the flags form (``parallel/halo.py rank_form`` patched for
+    this measurement, the windows made anew), SPLIT_EXCHANGES exchanges
+    back to back on every rank at once after 2 untimed, each exact, then
+    the windows released again so the layout's form is made anew."""
+    real = halo_mod.rank_form
+    halo_mod.release_windows()
+    halo_mod.rank_form = lambda *a: halo_mod.FLAGS
+    try:
+        want = halo_all_to_all_ranks(buf)
+        again = halo_all_to_all_ranks(buf)
+        torch.cuda.synchronize()
+        form = rank_form()
+        torch.distributed.barrier()
+        with ExchangeMarks() as marks:
+            outs = []
+            for _ in range(SPLIT_EXCHANGES):
+                marks.start()
+                outs.append(halo_all_to_all_ranks(buf))
+            parts = marks.parts_ms()
+        exact = torch.equal(want, again) and all(torch.equal(o, want)
+                                                 for o in outs)
+        del outs, want, again
+        halo_mod.release_windows()
+    finally:
+        halo_mod.rank_form = real
+    return {"form": form, "exact_repeat": exact, **parts}
+
+
+def signalled_span(buf: torch.Tensor) -> dict:
+    """The signalled form's one kernel an exchange, CUDA events on this
+    rank's stream around it, over SPLIT_EXCHANGES back-to-back exchanges on
+    every rank at once after 2 untimed: its mean and median span a rank,
+    and the host's ms an exchange to enqueue them (the span includes any
+    wait for a peer whose host is slower)."""
+    halo_all_to_all_ranks(buf)
+    halo_all_to_all_ranks(buf)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    ev = []
+    t0 = time.perf_counter()
+    for _ in range(SPLIT_EXCHANGES):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        halo_all_to_all_ranks(buf)
+        pair[1].record()
+        ev.append(pair)
+    host_ms = (time.perf_counter() - t0) * 1e3 / SPLIT_EXCHANGES
+    torch.cuda.synchronize()
+    spans = [a.elapsed_time(b) for a, b in ev]
+    return {"form": rank_form(), "exchange_ms": float(np.mean(spans)),
+            "exchange_ms_median": float(np.median(spans)),
+            "exchange_ms_range": [float(min(spans)), float(max(spans))],
+            "host_enqueue_ms": host_ms, "exchanges": SPLIT_EXCHANGES}
+
+
 def rank_kernels_alone(buf: torch.Tensor, out: torch.Tensor):
     """One exchange's two kernels without its flags, as the path launches
     them (``parallel/halo.py _kernels``): the write into window 0 of every
@@ -3873,7 +3991,7 @@ def rank_stress(seed: int, bh: int) -> dict:
     halo_all_to_all_ranks(ins[0])   # the windows exist (grown if need be)
     torch.cuda.synchronize()
     torch.distributed.barrier()
-    before = halo_all_to_all_ranks.launches
+    before = rank_launches()
     t0 = time.perf_counter()
     with NoHostSync():
         outs = []
@@ -3887,7 +4005,7 @@ def rank_stress(seed: int, bh: int) -> dict:
     bad = [i for i in range(RANK_STRESS) if not torch.equal(outs[i],
                                                             wants[i])]
     return {"exchanges": RANK_STRESS, "exact": not bad, "differ": bad,
-            "launches": halo_all_to_all_ranks.launches - before,
+            "launches": rank_launches() - before, "form": rank_form(),
             "enqueue_ms": (enqueued - t0) * 1e3, "wall_ms": wall * 1e3,
             "ms_per_exchange": wall * 1e3 / RANK_STRESS,
             "shapes": [list(sh) for sh in shapes]}
@@ -3934,21 +4052,29 @@ def rank_abort(seed: int) -> dict:
 def rank_k1_cases(seed: int, bh: int, plain_group=None,
                   nccl: bool = False) -> dict:
     """K1's rank form on this rank, bench shape (K=EDGE_RANKS, the bench
-    graph's Bh) at D=1024 and D=8 bf16: every rank makes all K buffers from
-    one seed and holds its result (twice: the windows reused) and the plain
-    version's (gloo, host copies) to the stacked plain version's, bit for
-    bit. Times: the exchange's two kernels alone, the write into the
-    windows and the copy-out of the own (CUDA events over back-to-back
-    pairs and the profiler's device time, one rank at a time while the
-    others wait); the whole exchange with its synchronisation on the card
-    (``with_sync_ms``: CUDA events over back-to-back exchanges, every rank
-    at once); the plain version (one call, host clock). Bytes: each kernel
-    reads and writes K*Bh*D*b, 4*K*Bh*D*b the pair. Then the stress and
-    abort checks (``rank_stress``, ``rank_abort``). ``plain_group``: the
-    gloo group of the plain version where the ranks' group is NCCL's;
-    ``nccl``: also NCCL's ``all_to_all_single`` of the same blocks on the
-    card (``library_ms``: CUDA events over back-to-back calls, every rank
-    at once)."""
+    graph's Bh) at D=1024 and D=8 bf16, in the form the group's layout
+    takes (the flags form where the ranks share a card, the signalled form
+    with a card a rank): every rank makes all K buffers from one seed and
+    holds its result (twice: the windows reused) and the plain version's
+    (gloo, host copies) to the stacked plain version's, bit for bit.
+    Times: the flags form's two kernels alone, the write into the windows
+    and the copy-out of the own (CUDA events over back-to-back pairs and
+    the profiler's device time, one rank at a time while the others
+    wait); the signalled form's kernel cannot run alone (it waits for its
+    peers): its back-to-back exchanges (``ms``, every rank at once), its
+    launch by CUDA events on the rank's stream (``device_ms``) and the
+    profiler's. Either form: the whole exchange with its synchronisation
+    on the card (``with_sync_ms``: CUDA events over back-to-back
+    exchanges, every rank at once); the plain version (one call, host
+    clock). Bytes: each flags-form kernel reads and writes K*Bh*D*b,
+    4*K*Bh*D*b the pair. Then the stress and abort checks
+    (``rank_stress``, ``rank_abort``). ``plain_group``: the gloo group of
+    the plain version where the ranks' group is NCCL's; ``nccl``: also
+    NCCL's ``all_to_all_single`` of the same blocks on the card
+    (``library_ms``: CUDA events over back-to-back calls, every rank at
+    once) and, the ranks having a card each, the flags form's exchange
+    split into its parts (``flags_form_split``) beside the signalled
+    form's span (``signalled_span``)."""
     k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
     rows = []
     for d in (1024, 8):
@@ -3958,9 +4084,11 @@ def rank_k1_cases(seed: int, bh: int, plain_group=None,
         want = halo_all_to_all_plain(bufs)[me].clone()
         buf = bufs[me].clone()
         del bufs
+        split = flags_form_split(buf) if nccl else None
         got = halo_all_to_all_ranks(buf)
         again = halo_all_to_all_ranks(buf)
         torch.cuda.synchronize()
+        form = rank_form()
         diff = float((got.float() - want.float()).abs().max())
         exact = torch.equal(got, want) and torch.equal(again, want)
         del got, again
@@ -3971,25 +4099,40 @@ def rank_k1_cases(seed: int, bh: int, plain_group=None,
         plain_ms = (time.perf_counter() - t0) * 1e3
         exact_plain = torch.equal(plain, want.cpu())
         del host, plain, want
-        out = torch.empty_like(buf)
-        launch = rank_kernels_alone(buf, out)
-        ms = device_ms = None
-        for r in range(k):
-            torch.distributed.barrier()
-            if r == me:
-                ms = time_ms(launch, kernel_iters(d))
-                launch()
+        ms = device_ms = device_ms_profiler = span = None
+        if form == halo_mod.FLAGS:
+            out = torch.empty_like(buf)
+            launch = rank_kernels_alone(buf, out)
+            for r in range(k):
+                torch.distributed.barrier()
+                if r == me:
+                    ms = time_ms(launch, kernel_iters(d))
+                    launch()
+                    torch.cuda.synchronize()
+                    iters = 5
+                    seen, complete = profile_kernels(
+                        launch, iters, {"halo_pairs_kernel": iters,
+                                        "halo_copy_out_kernel": iters})
+                    if complete:
+                        device_ms = sum(t for name, (t, _) in seen.items()
+                                        if "halo_pairs_kernel" in name or
+                                        "halo_copy_out_kernel" in name) / iters
                 torch.cuda.synchronize()
-                iters = 5
-                seen, complete = profile_kernels(
-                    launch, iters, {"halo_pairs_kernel": iters,
-                                    "halo_copy_out_kernel": iters})
-                if complete:
-                    device_ms = sum(t for name, (t, _) in seen.items()
-                                    if "halo_pairs_kernel" in name or
-                                    "halo_copy_out_kernel" in name) / iters
-            torch.cuda.synchronize()
-        del out
+            del out
+        else:
+            torch.distributed.barrier()
+            ms = time_ms(lambda: halo_all_to_all_ranks(buf), kernel_iters(d))
+            span = signalled_span(buf)
+            device_ms = span["exchange_ms"]
+            torch.distributed.barrier()
+            # every rank the same calls: one profiled run, no retry
+            seen, complete = profile_kernels(
+                lambda: halo_all_to_all_ranks(buf), 5,
+                {"halo_rank_signalled_kernel": 5}, tries=1)
+            if complete:
+                device_ms_profiler = sum(
+                    t for name, (t, _) in seen.items()
+                    if "halo_rank_signalled_kernel" in name) / 5
         torch.distributed.barrier()
         with_sync_ms = time_ms(lambda: halo_all_to_all_ranks(buf), 10)
         library_ms = None
@@ -4003,10 +4146,14 @@ def rank_k1_cases(seed: int, bh: int, plain_group=None,
                                    "K1's rank form")
             del recv
         n_bytes = 4.0 * k * bh * d * buf.element_size()
-        rows.append({"D": d, "exact": exact, "exact_plain": exact_plain,
+        rows.append({"D": d, "form": form, "exact": exact,
+                     "exact_plain": exact_plain,
                      "max_abs_err": diff, "ms": ms, "device_ms": device_ms,
+                     "device_ms_profiler": device_ms_profiler,
                      "with_sync_ms": with_sync_ms, "library_ms": library_ms,
                      "plain_ms": plain_ms, "bytes": n_bytes,
+                     "nvlink_bytes": (k - 1) * bh * d * buf.element_size(),
+                     "flags_split": split, "signalled_span": span,
                      "window_bytes": halo_mod.window_bytes()})
         del buf
         torch.cuda.empty_cache()
@@ -4139,15 +4286,19 @@ def edge_rank(payload_path: str) -> None:
 
 def k1_rank_rows(per_rank: list[dict], k: int, bh: int,
                  launches: int) -> list[dict]:
-    """The kernels line's rows of K1's rank form, one a width: rank 0's
-    times, each rank's beside them."""
+    """The kernels line's rows of K1's rank form, one a width, under the
+    name of the form the group took (``halo_all_to_all_ranks``, the flags
+    form; ``halo_rank_signalled``): rank 0's times, each rank's beside
+    them."""
     rows = []
     for i, r0 in enumerate(per_rank[0]["k1"]["rows"]):
         d = r0["D"]
         cases = [r["k1"]["rows"][i] for r in per_rank]
         bound_ms, bound_by = bound(r0["bytes"], 0.0)
+        signalled = r0["form"] == halo_mod.SIGNALLED
         rows.append({
-            "name": "halo_all_to_all_ranks", "route": "cuda",
+            "name": "halo_rank_signalled" if signalled
+            else "halo_all_to_all_ranks", "route": "cuda",
             "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
             "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
             "launches": launches, "max_abs_err": max(
@@ -4157,10 +4308,15 @@ def k1_rank_rows(per_rank: list[dict], k: int, bh: int,
             "bound_by": bound_by, "library_ms": r0.get("library_ms"),
             "with_sync_ms": r0["with_sync_ms"],
             "by_rank": {key: [c.get(key) for c in cases] for key in (
-                "ms", "device_ms", "with_sync_ms", "plain_ms", "library_ms",
-                "exact", "exact_plain")},
+                "ms", "device_ms", "device_ms_profiler", "with_sync_ms",
+                "plain_ms", "library_ms", "exact", "exact_plain", "form",
+                "flags_split", "signalled_span")},
             "case": f"rank form K={k} Bh={bh} D={d} bfloat16, one rank's "
-                    "exchange: the write and the copy-out",
+                    + ("exchange: one signalled kernel (ms: back-to-back "
+                       "exchanges, device_ms its launch by CUDA events)"
+                       if signalled else
+                       "exchange: the write and the copy-out"),
+            "form": r0["form"], "nvlink_bytes": r0.get("nvlink_bytes"),
             "K": k, "Bh": bh, "D": d, "tol": "exact",
             "bytes": r0["bytes"], "bound_ms_all_ranks": k * bound_ms,
             "path": "edge_ranks", "on_path": "edge_ranks",
@@ -4675,6 +4831,154 @@ def device_k1_case(devs: list, streams: list, bh: int, d: int, gen) -> dict:
     return row
 
 
+# exchanges of the one-card check of the signalled form: each width's
+# exact ones (both windows, then the first again), and the stress's
+SIGNALLED_EXACT = 3
+SIGNALLED_STRESS = 16
+
+
+def signalled_launch_times(ranks, bufs, streams, n: int = K1_TIMED) -> dict:
+    """Each rank's launch of the signalled form timed by CUDA events on its
+    own stream around it, over ``n`` exchanges one at a time (``ranks`` a
+    ``halo.StreamRanks``: the K ranks' streams on one card, one clock):
+    each launch's mean, their mean, and the span from the first start to
+    the last end."""
+    cur = torch.cuda.current_stream()
+    per, spans = [], []
+    for _ in range(n):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in streams]
+        for (a, _), s in zip(ev, streams):
+            s.wait_stream(cur)
+            a.record(s)
+        ranks.exchange(bufs)
+        for (_, b), s in zip(ev, streams):
+            b.record(s)
+            cur.wait_stream(s)
+        torch.cuda.synchronize()
+        per.append([a.elapsed_time(b) for a, b in ev])
+        t0 = ev[0][0]
+        spans.append(max(t0.elapsed_time(b) for _, b in ev)
+                     - min(t0.elapsed_time(a) for a, _ in ev))
+    means = [float(v) for v in np.mean(per, axis=0)]
+    return {"per_rank_ms": means, "launch_ms": float(np.mean(means)),
+            "span_ms": float(np.mean(spans)),
+            "launch_ms_range": [float(np.min(per)), float(np.max(per))],
+            "exchanges": n}
+
+
+def check_signalled_streams(g: BipartiteGraph, gen: torch.Generator
+                            ) -> tuple[list[dict], dict]:
+    """K1's signalled rank form on one card: the K_EDGE ranks' kernels as
+    K_EDGE streams of this process on cuda:0 (``halo.StreamRanks``, a
+    quarter wave a launch), at the bench graph's Bh, D=1024 and D=8 bf16.
+    The path (launches counted from 0 just before it, read just after):
+    SIGNALLED_EXACT exchanges a width, each bit for bit the plain version
+    on the same blocks, then SIGNALLED_STRESS exchanges of two shapes in
+    turn with one stream held back before every other, each exact too, and
+    no abort recorded. Then each width timed: back-to-back exchanges
+    (``ms``), each launch by CUDA events on its stream (``device_ms``, and
+    the span of the K), the profiler's device time a launch, the plain
+    version and, as the library yardstick, the stacked transpose of the
+    same blocks. Returns the kernels line's rows and the path's record."""
+    k = K_EDGE
+    bh = edge_partition.compute_halo_width(g, k)
+    streams = [torch.cuda.Stream() for _ in range(k)]
+    cur = torch.cuda.current_stream()
+    cases = {d: torch.randn(k, k * bh, d, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+             for d in (1024, 8)}
+    ranks = halo_mod.StreamRanks(cases[1024].device, k, cases[1024][0].nbytes,
+                                 streams)
+
+    def exchange(bufs, hold=None):
+        for q, s in enumerate(streams):
+            s.wait_stream(cur)
+            if q == hold:
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(RANK_HOLD_CYCLES)
+        out = ranks.exchange(bufs)
+        for s in streams:
+            cur.wait_stream(s)
+        return out
+
+    halo_rank_signalled.launches = 0
+    bad = []
+    for d, stacked in cases.items():
+        want = halo_all_to_all_plain(stacked)
+        for i in range(SIGNALLED_EXACT):
+            out = exchange(list(stacked.unbind(0)))
+            if not all(torch.equal(o, want[q]) for q, o in enumerate(out)):
+                bad.append((d, i))
+        del want, out
+    shapes = [(bh, 8), (bh // 8, 64)]
+    stress_in = [torch.randn(k, k * rows, d, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for rows, d in shapes]
+    stress_want = [halo_all_to_all_plain(x) for x in stress_in]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stress_out = [exchange(list(stress_in[i % 2].unbind(0)),
+                           hold=(i // 2) % k if i % 2 else None)
+                  for i in range(SIGNALLED_STRESS)]
+    torch.cuda.synchronize()
+    stress_wall = time.perf_counter() - t0
+    stress_bad = [i for i, out in enumerate(stress_out)
+                  if not all(torch.equal(o, stress_want[i % 2][q])
+                             for q, o in enumerate(out))]
+    launches = {"halo_rank_signalled": halo_rank_signalled.launches}
+    want_n = k * (len(cases) * SIGNALLED_EXACT + SIGNALLED_STRESS)
+    if bad or stress_bad or ranks.status() or \
+            launches["halo_rank_signalled"] != want_n:
+        raise SmokeFailure(f"K1's signalled form on {k} streams: inexact "
+                           f"(D, exchange) {bad}, stress {stress_bad}, "
+                           f"status {ranks.status():#x}, launches "
+                           f"{launches} (expected {want_n})")
+    del stress_in, stress_want, stress_out
+    rows = []
+    for d, stacked in cases.items():
+        bufs = list(stacked.unbind(0))
+        iters = kernel_iters(d)
+        events = signalled_launch_times(ranks, bufs, streams)
+        seen, complete = profile_kernels(
+            lambda: exchange(bufs), 5, {"halo_rank_signalled_kernel": 5 * k})
+        prof = sum(t for name, (t, _) in seen.items()
+                   if "halo_rank_signalled_kernel" in name)
+        n_bytes = 2.0 * k * k * bh * d * stacked.element_size()
+        bound_ms, bound_by = bound(n_bytes, 0.0)
+        rows.append({
+            "name": "halo_rank_signalled", "route": "cuda",
+            "source": "lp_gnn_tpu_torch/ops/csrc/halo_a2a.cu",
+            "replaces": "lp_gnn_tpu/parallel/pallas_halo.py:39",
+            "launches": None, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: exchange(bufs), iters),
+            "device_ms": events["launch_ms"],
+            "device_span_ms": events["span_ms"], "device_events": events,
+            "device_ms_profiler": prof / (5 * k) if complete else None,
+            "plain_ms": time_ms(lambda: halo_all_to_all_plain(stacked), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: stacked.view(k, k, bh, d)
+                                  .transpose(0, 1).contiguous(), iters),
+            "case": f"signalled rank form K={k} Bh={bh} D={d} bfloat16, "
+                    f"the {k} ranks' kernels on {k} streams of one process "
+                    "on one card (a quarter wave each): ms an exchange, "
+                    "device_ms a rank's launch (CUDA events on its stream)",
+            "K": k, "Bh": bh, "D": d, "tol": "exact", "bytes": n_bytes,
+            "path": "k1_streams", "on_path": "k1_streams",
+            "stress": {"exchanges": SIGNALLED_STRESS, "exact": True,
+                       "wall_ms": stress_wall * 1e3,
+                       "shapes": [list(sh) for sh in shapes]},
+            "also_replaces": ["lp_gnn_tpu/parallel/pallas_halo.py:54",
+                              "lp_gnn_tpu/parallel/pallas_halo.py:69"],
+            "library": "stacked.view(K,K,Bh,D).transpose(0,1).contiguous() "
+                       "of the same blocks",
+            "note": "one card: the ranks' route takes this kernel only with "
+                    "a card a rank (chip_smoke.py --edge_devices on 4 "
+                    "cards); bound_ms the stacked form's bytes over the "
+                    "card's memory rate"})
+    del ranks, cases
+    torch.cuda.empty_cache()
+    return rows, {"launches": launches, "Bh": bh, "streams": k}
 
 
 LINK_REPS = 10     # back-to-back launches a set of the link probe
@@ -4763,14 +5067,117 @@ def k1_link_probe(devs: list, bh: int, d: int) -> dict:
             "exchange_launches_gb_s_a_card": gbs(k - 1, whole)}
 
 
+# a recipe conv over the ranks' shards with a card each, per rank: the send
+# rows' gather, two exchanges of the signalled form (one launch each), the
+# SpMMs (RANK_CONV with K1 one launch an exchange)
+SIGNALLED_CONV = {"gather_rows": 1, "halo_rank_signalled": 2, "spmm_csr": 5}
+RECIPE_ARCH = bf16_arch(ARCH_NO_DROPOUT)
+
+
+class K1Share:
+    """CUDA events on the rank's stream around each call of K1's rank form
+    on the edge-partitioned path (``edge_partition.halo_all_to_all_ranks``
+    wrapped): the device ms of its exchanges, summed."""
+
+    def __enter__(self):
+        self.real, self.events = edge_partition.halo_all_to_all_ranks, []
+
+        def timed(buf, group=None):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = self.real(buf, group)
+            pair[1].record()
+            self.events.append(pair)
+            return out
+        edge_partition.halo_all_to_all_ranks = timed
+        return self
+
+    def __exit__(self, *exc):
+        edge_partition.halo_all_to_all_ranks = self.real
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def rank_recipe(seed: int, out_dir: str) -> dict:
+    """The recipe (RECIPE_ARCH, GCN_FC hids=1024 bf16, dropout 0, seeded
+    weights) over this rank's shard of a bench LP through the rank route:
+    one forward (eval, after an untimed one; the logits gathered to rank
+    0) and one training step from the seeded weights (the input cache
+    built first, SGD at UPDATE_LR, balanced CE), each with its launches
+    counted from 0 just before it and read just after; the forward's span
+    on the card (CUDA events) and K1's share of it (``K1Share``), and so a
+    second step's (the first pays for its first-use set-up). Rank 0 writes
+    the gathered logits and the first step's weights into ``out_dir``."""
+    k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    dg = edge_partition.partition_graph(bench_graph(seed + 1100), k,
+                                        halo=True)
+    mesh = make_mesh(k, "cuda", torch.distributed.group.WORLD)
+    model = build_model(RECIPE_ARCH)
+    model.load_state_dict(seeded_state(RECIPE_ARCH, seed))
+    model.dp = 0.0
+    model = model.to("cuda").eval()
+    out = {}
+    with torch.no_grad():
+        dgt = edge_partition.dist_tensors(model, dg, mesh)
+        edge_partition.dist_forward(model, dgt)   # the windows, untimed
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with K1Share() as k1:
+            ev[0].record()
+            lc, lv = edge_partition.dist_forward(model, dgt)
+            ev[1].record()
+            k1_ms = k1.ms()
+        out["form"] = rank_form()
+        out["forward"] = {"launches": launch_counts(),
+                          "span_ms": ev[0].elapsed_time(ev[1]),
+                          "k1_ms": k1_ms, "k1_exchanges": len(k1.events)}
+        lc, lv = edge_partition.gather_logits(lc, lv, mesh)
+    if me == 0:
+        np.savez(osp.join(out_dir, "recipe_logits.npz"),
+                 lc=lc.cpu().numpy(), lv=lv.cpu().numpy())
+    del dgt
+    model.train()
+    opt = trainer.make_optimizer(model.parameters(), "sgd", UPDATE_LR)
+    dgt = edge_partition.dist_tensors(model, dg, mesh, input_agg=True)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_launches()
+    loss = edge_partition.dist_train_step(model, opt, dgt,
+                                          LOSS_REGISTRY["balanced"])
+    out["step"] = {"launches": launch_counts(), "loss": float(loss)}
+    if me == 0:
+        torch.save({n: v.detach().cpu() for n, v in
+                    model.state_dict().items()},
+                   osp.join(out_dir, "recipe_step.pth"))
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with K1Share() as k1:
+        ev[0].record()
+        edge_partition.dist_train_step(model, opt, dgt,
+                                       LOSS_REGISTRY["balanced"])
+        ev[1].record()
+        k1_ms = k1.ms()
+    out["step"].update({"span_ms": ev[0].elapsed_time(ev[1]), "k1_ms": k1_ms,
+                        "k1_exchanges": len(k1.events)})
+    return out
+
+
 def k1_card_rank(payload_path: str) -> None:
     """One rank of the card-ranks sub-phase of edge_devices, in this
     process (``--k1_rank``): with a card of its own (the LP_GNN_DIST_*
     contract over K ranks and K cards: NCCL, ``mesh.init_distributed``),
-    K1's rank form as ``rank_k1_cases`` runs it (bit for bit, timed, the
-    stress and the abort), its plain version over a gloo group, and NCCL's
-    ``all_to_all_single`` on the same blocks as the library yardstick;
-    writes its report into the payload's directory."""
+    K1's rank form as ``rank_k1_cases`` runs it (the signalled form the
+    layout takes, bit for bit, timed, the flags form's parts, the stress
+    and the abort), its plain version over a gloo group, and NCCL's
+    ``all_to_all_single`` on the same blocks as the library yardstick; then
+    the recipe's forward and step through the rank route
+    (``rank_recipe``); writes its report into the payload's directory."""
     from lp_gnn_tpu_torch.parallel import mesh as mesh_mod
     with open(payload_path) as f:
         p = json.load(f)
@@ -4782,17 +5189,83 @@ def k1_card_rank(payload_path: str) -> None:
         gloo = torch.distributed.new_group(backend="gloo")
         report["k1"] = rank_k1_cases(p["seed"], p["bh"], plain_group=gloo,
                                      nccl=True)
+        torch.cuda.empty_cache()
+        report["recipe"] = rank_recipe(p["seed"], p["dir"])
     finally:
         mesh_mod.leave_distributed(created)
     with open(osp.join(p["dir"], f"report{rank}.json"), "w") as f:
         json.dump(report, f)
 
 
+def recipe_vs_stacked(seed: int, tmp: str, per_rank: list[dict]) -> dict:
+    """The ranks' recipe forward and step (``rank_recipe``) against the
+    stacked path's on cuda:0 (K_EDGE shards stacked, the same partition,
+    weights and step): rank 0's logits within RANK_LOGIT_TOL of the stacked
+    forward's; the step's loss within RANK_LOGIT_TOL and each tensor's
+    update within RANK_LOGIT_TOL's rtol of its largest; each rank's
+    launches SIGNALLED_CONV a conv (RANK_CONV in the flags form), 2 a
+    forward and 2 a step."""
+    g = bench_graph(seed + 1100)
+    w0 = seeded_state(RECIPE_ARCH, seed)
+    model = build_model(RECIPE_ARCH)
+    model.load_state_dict(w0)
+    model.dp = 0.0
+    model = model.to("cuda").eval()
+    dg = edge_partition.partition_graph(g, K_EDGE, halo=True)
+    with torch.no_grad():
+        st_lc, st_lv = edge_partition.dist_apply(model, dg,
+                                                 make_mesh(K_EDGE, "cuda"))
+    del model
+    with np.load(osp.join(tmp, "recipe_logits.npz")) as z:
+        got = np.concatenate([z["lc"], z["lv"]])
+    ref = torch.cat([st_lc, st_lv]).float().cpu()
+    err, ok = within(torch.from_numpy(got), ref, *RANK_LOGIT_TOL)
+    step = step_states(RECIPE_ARCH, w0, g, ("dist",))["dist"]
+    state = torch.load(osp.join(tmp, "recipe_step.pth"), weights_only=True)
+    rels = update_rels(w0, state, step["state"], UPDATE_LR)
+    near = max(rels, key=rels.get)
+    loss = per_rank[0]["recipe"]["step"]["loss"]
+    loss_ok = abs(loss - step["loss"]) <= RANK_LOGIT_TOL[1] + \
+        RANK_LOGIT_TOL[0] * abs(step["loss"])
+    form = per_rank[0]["recipe"]["form"]
+    want = add_launches(scaled(SIGNALLED_CONV if form == halo_mod.SIGNALLED
+                               else RANK_CONV, 2))
+    launches = [[rep["recipe"][w]["launches"] for w in ("forward", "step")]
+                for rep in per_rank]
+    if not ok or not loss_ok or rels[near] > RANK_LOGIT_TOL[0] or \
+            any(n != want for pair in launches for n in pair):
+        raise SmokeFailure(f"card ranks' recipe vs the stacked path: logits "
+                           f"max |err| {err} (tol {RANK_LOGIT_TOL}), loss "
+                           f"{loss} vs {step['loss']}, update rel diff "
+                           f"{rels[near]} in {near}, launches {launches} "
+                           f"(each {want})")
+    spans = {w: [rep["recipe"][w]["span_ms"] for rep in per_rank]
+             for w in ("forward", "step")}
+    k1 = {w: [rep["recipe"][w]["k1_ms"] for rep in per_rank]
+          for w in ("forward", "step")}
+    return {"arch": RECIPE_ARCH, "form": form,
+            "logits_max_abs_err_vs_stacked": err,
+            "logit_tol": {"rtol": RANK_LOGIT_TOL[0],
+                          "atol": RANK_LOGIT_TOL[1]},
+            "loss": loss, "loss_stacked": step["loss"],
+            "update_rel_max_vs_stacked": rels[near], "tensor": near,
+            "launches_per_rank": want, "span_ms": spans, "k1_ms": k1,
+            "k1_share": {w: [a / b for a, b in zip(k1[w], spans[w])]
+                         for w in spans},
+            "k1_exchanges": [rep["recipe"]["step"]["k1_exchanges"]
+                             for rep in per_rank],
+            "stacked_step_device_ms": step["step_device_ms"]}
+
+
 def k1_card_ranks(seed: int, bh: int) -> dict:
     """K1's rank form with a card a rank: K_EDGE processes of this script
-    (``--k1_rank``), rank k on cuda:k, over NCCL; the rows of the kernels
-    line as ``k1_rank_rows`` makes them, with NCCL's all_to_all_single as
-    library_ms. Needs K_EDGE cards (None else, with the reason)."""
+    (``--k1_rank``), rank k on cuda:k, over NCCL, where the group takes the
+    signalled form; the rows of the kernels line as ``k1_rank_rows`` makes
+    them, with NCCL's all_to_all_single as library_ms and the NVLink bytes
+    a card as the bound, the flags form's parts beside them; the stress
+    and abort checks; the recipe's forward and step against the stacked
+    path (``recipe_vs_stacked``). Needs K_EDGE cards (skipped else, with
+    the reason)."""
     if torch.cuda.device_count() < K_EDGE:
         return {"skipped": f"needs {K_EDGE} cards, "
                            f"{torch.cuda.device_count()} visible"}
@@ -4806,21 +5279,43 @@ def k1_card_ranks(seed: int, bh: int) -> dict:
         for r in range(K_EDGE):
             with open(osp.join(tmp, f"report{r}.json")) as f:
                 per_rank.append(json.load(f))
-    rows = k1_rank_rows(per_rank, K_EDGE, bh, None)
+        recipe = recipe_vs_stacked(seed, tmp, per_rank)
+    launches = sum(n for rep in per_rank for w in ("forward", "step")
+                   for n in [rep["recipe"][w]["launches"][
+                       "halo_rank_signalled"]])
+    rows = k1_rank_rows(per_rank, K_EDGE, bh, launches)
     for row in rows:
         row["note"] = f"{K_EDGE} ranks, a card each (NCCL)"
         row["library"] = "NCCL all_to_all_single on the same blocks"
         row["path"] = row["on_path"] = "edge_devices"
+        row["bound_ms"] = row["nvlink_bytes"] / NVLINK_BYTES_S * 1e3
+        row["bound_by"] = "bytes"
+        row["bound_note"] = ("the NVLink bytes a card sends, (K-1)*Bh*D*b, "
+                             "at 450 GB/s one way")
+    forms = {c["form"] for rep in per_rank for c in rep["k1"]["rows"]}
     bad = [(r["D"], key) for r in rows for key in ("exact", "exact_plain")
            if not all(r["by_rank"][key])]
-    stress = [rep["k1"]["stress"]["exact"] for rep in per_rank]
-    if bad or not all(stress):
-        raise SmokeFailure(f"k1 card ranks: inexact {bad}, stress {stress}")
+    splits = [c["flags_split"] for rep in per_rank
+              for c in rep["k1"]["rows"]]
+    stress = [rep["k1"]["stress"] for rep in per_rank]
+    named = f"rank {K_EDGE - 1}'s launch failed: CUDA error 1"
+    aborts = [rep["k1"]["abort"] for rep in per_rank]
+    if bad or forms != {halo_mod.SIGNALLED} or \
+            not all(sp["form"] == halo_mod.FLAGS and sp["exact_repeat"]
+                    for sp in splits) or \
+            not all(st["exact"] and st["launches"] == RANK_STRESS
+                    for st in stress) or \
+            not all(ab["error"] and named in ab["error"] and
+                    ab["exact_after"] for ab in aborts):
+        raise SmokeFailure(f"k1 card ranks: inexact {bad}, forms {forms}, "
+                           f"split forms {[sp['form'] for sp in splits]}, "
+                           f"stress {[(st['exact'], st['launches']) for st in stress]}, "
+                           f"aborts {aborts}")
     return {"ranks_s": wall, "groups": groups,
             "devices": [rep["device"] for rep in per_rank],
             "backends": [rep["backend"] for rep in per_rank],
-            "abort": [rep["k1"]["abort"] for rep in per_rank],
-            "stress": [rep["k1"]["stress"] for rep in per_rank],
+            "abort": aborts, "stress": stress, "recipe": recipe,
+            "launches": {"halo_rank_signalled": launches},
             "kernels": rows}
 
 
@@ -6927,8 +7422,12 @@ def main(argv=None) -> int:
         kernels += check_dist_gen_kernels(g, gen)
         torch.cuda.empty_cache()
         kernels += check_all_gather_kernels(g, gen)
+        torch.cuda.empty_cache()
+        signalled_rows, k1_streams = check_signalled_streams(g, gen)
+        kernels += signalled_rows
         emit({"phase": "kernels", "cases": len(kernels), "ok": True,
-              "gather_floor": gather_floor(kernels)})
+              "gather_floor": gather_floor(kernels),
+              "k1_streams": k1_streams})
         torch.cuda.empty_cache()
 
         emit({"phase": "reference", **check_reference(args.seed)})
@@ -7046,7 +7545,7 @@ def main(argv=None) -> int:
              "bench": benched, "native": natived, "big": big,
              "probe_spmm": probed, "probe_gen_floor": floors,
              "dp_edge_grid": gridded, "dryrun_multihost": dried,
-             "scaling_artifact": scaled_art}
+             "scaling_artifact": scaled_art, "k1_streams": k1_streams}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \
             gen_trained if k["name"].startswith("gen_agg") else dist

@@ -69,8 +69,24 @@
 // the same stores. A second kernel (lp_halo_copy_out) copies the rank's own
 // window out into the result, which escapes into autograd.
 //
-// The semaphores. The TPU kernel waits on send_sem / recv_sem / copy_sem,
-// ordered across devices by collective_id (pallas_halo.py:78-80). Here they
+// Two forms of the rank form, one a layout; the group's ranks choose at window
+// setup from their cards' UUIDs (halo.py rank_form), never after a failure:
+// - Ranks that time-share a card (more ranks of the world than cards): the
+//   flags form, below: the write (lp_halo_a2a_rank) and the copy-out
+//   (lp_halo_copy_out), ordered by flag words in host memory that each
+//   rank's stream waits on and writes. No rank may spin on a time-shared
+//   card: a spinning kernel holds its time slice while the peer it waits for
+//   cannot run.
+// - Ranks with a card each: the signalled form (lp_halo_rank_signalled), one
+//   kernel an exchange whose signals are counters in the windows' own device
+//   allocations, reached over NVLink, and whose copy-out of a peer's block
+//   starts as soon as that block is whole. There no flag crosses PCIe and no
+//   stream's front end polls host memory between two kernels; a spin costs
+//   only the SMs it holds, on a card no other rank needs.
+//
+// The flags form's semaphores. The TPU kernel waits on send_sem / recv_sem /
+// copy_sem, ordered across devices by collective_id (pallas_halo.py:78-80).
+// Here they
 // are flag words that the card waits on and writes, ordered on each rank's
 // stream, so an exchange makes no host collective and no synchronise. Each
 // rank's allocation holds two windows (exchange e uses window e mod 2), and
@@ -131,6 +147,55 @@
 // peers' headers first. The window entries below allocate, export, open,
 // close and free the windows; the caller swaps the 64-byte handles between
 // the ranks.
+//
+// The signalled form (halo_rank_signalled_kernel, one launch an exchange
+// over window w = e mod 2). Each rank's allocation holds its two windows
+// and, after them, 64-bit counters in the flag header's layout: for window
+// w, arrival[w][p] (the chunks rank p stored into this rank's window w,
+// summed over every exchange so far) and done[w][p] (the chunks rank p has
+// copied out of its window w that this rank wrote). A chunk is kChunk
+// 16-byte pieces (16 KiB) of one block; a block of n16 pieces has
+// ceil(n16 / kChunk) of them. The host keeps each window's running sum of
+// chunks (the same on every rank: the same exchanges in the same order)
+// and passes two targets by value: done_target, the sum before this
+// exchange (every use of window w so far, exchange e - 2's included), and
+// arrival_target = done_target + this exchange's chunks. Counters only grow,
+// so there is no reset and no word reused (no ABA). Every CTA b of the grid
+// (G CTAs) takes chunks b, b + G, ... of every block and goes through the
+// TPU kernel's steps (pallas_halo.py:48-52, at offset s device me sends to
+// (me + s) mod K):
+//   for s = 1, ..., K - 1, destination q = (me + s) mod K:
+//     wait until its own done[w][q] reaches done_target (rank q has read
+//     what exchange e - 2 wrote there); store its chunks of block q into
+//     slot me of q's window w over NVLink; publish them: the CTA's
+//     barrier, then thread 0's fence and release add of its chunk count
+//     into q's arrival[w][me] (fence.acq_rel.sys, red.release.sys, in q's
+//     allocation);
+//     then, while step s's blocks are on the links, copy out what step
+//     s - 1 brought: an acquire spin on its own arrival[w][p] until
+//     arrival_target, p = (me - s + 1) mod K (local memory), the copy of
+//     slot p into the result, and the chunks read published into p's
+//     done[w][me]; after step 1, its own block instead, straight from buf
+//     into the result (no hop through the window, no wait);
+//   last, the copy-out of step K - 1's source, (me + 1) mod K.
+// At each step the K ranks' sends form a permutation (each card sends to
+// one peer and receives from one), which a source's egress bounds as it
+// bounds all K - 1 at once (PERF.md, PR 20: about 365 GB/s to one peer
+// or three); so the copy-outs, but the last, overlap the links instead of
+// following them. Each CTA stores before it waits, a wait only ever waits
+// for stores of an earlier step, and the grid is at most one wave of
+// resident CTAs over the streams that launch at once on the card
+// (`share`), so no spin waits for a CTA that is not resident. The spins
+// also look out for this rank's K abort words (its flag header's
+// arrival[w][*] in host memory, where a peer's abort and the watchdog's
+// deadline word land, as in the flags form): one spinning CTA reads them
+// a slot of the global timer and passes what it finds to the others
+// through a word of the rank's own allocation (wait_for); a CTA that sees
+// an abort word records it in *status and leaves the kernel (its later
+// work too).
+// Bound: the NVLink bytes a card sends, (K - 1) blocks (about 450 GB/s one
+// way on an H100 SXM); the local bytes (K blocks read and written, K - 1
+// received) overlap them.
 //
 // Types: each block is Bh rows of F elements, contiguous, so a block is one
 // contiguous run of Bh*F*b bytes in its source and in its destination. The
@@ -211,7 +276,11 @@ struct Pairs {
 };
 
 // Chunks c0, c0 + stride, ... of one pair's copy, a chunk kThreads * kUnroll
-// pieces: kUnroll loads in flight a thread before its stores.
+// pieces: kUnroll loads in flight a thread before its stores. kNc: the
+// source does not change while the kernel runs (read through the
+// non-coherent path); else plain loads, for a window that peers write
+// during the kernel (read after an acquire).
+template <bool kNc = true>
 __device__ __forceinline__ void copy_chunks(const uint4* __restrict__ s, uint4* __restrict__ d,
                                             long long n16, long long c0, long long stride) {
   const long long tile = static_cast<long long>(kThreads) * kUnroll;
@@ -220,7 +289,7 @@ __device__ __forceinline__ void copy_chunks(const uint4* __restrict__ s, uint4* 
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long i = base + static_cast<long long>(u) * kThreads;
-      if (i < n16) v[u] = __ldg(s + i);
+      if (i < n16) v[u] = kNc ? __ldg(s + i) : s[i];
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -271,6 +340,160 @@ halo_copy_out_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst, lon
   copy_pieces(src, dst, n16);
 }
 
+// ------------------------------------------------------ the signalled form
+constexpr long long kChunk = static_cast<long long>(kThreads) * kUnroll;  // pieces a chunk
+constexpr int kSlotShift = 16;        // a slot of the abort look-out: 2^16 ns (65.5 us)
+constexpr unsigned kMaxBackoff = 1024;  // ns between polls of a counter, at most
+
+struct RankArgs {
+  const uint4* src;         // this rank's (K*Bh, F) buffer
+  uint4* out;               // its result
+  char* base[kMaxShards];   // rank p's allocation as this rank reaches it
+  long long window_bytes;   // a window; the counters follow the two windows
+  long long n16;            // pieces a block
+  const unsigned long long* aborts;  // this rank's K abort words (host-mapped)
+  unsigned long long* status;        // where an abort word seen is recorded
+  unsigned long long arrival_target, done_target;
+  int me, K, w;
+};
+
+__device__ __forceinline__ uint4* window_of(char* base, long long window_bytes, int w) {
+  return reinterpret_cast<uint4*>(base + w * window_bytes);
+}
+
+// arrival[w][p] and done[w][p] of the allocation at `base`
+__device__ __forceinline__ unsigned long long* counter(char* base, long long window_bytes, int w,
+                                                       int done, int p) {
+  return reinterpret_cast<unsigned long long*>(base + 2 * window_bytes) +
+         (2 * w + done) * kMaxShards + p;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned long long load_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The CTA's chunks (stored into a peer's window, or read out of this rank's)
+// published as n more on `word`: the CTA's barrier orders every thread's
+// accesses before thread 0's, whose fence and release add at system scope
+// are cumulative over them.
+__device__ __forceinline__ void publish(unsigned long long* word, unsigned long long n) {
+  __syncthreads();
+  if (threadIdx.x == 0 && n > 0)
+    asm volatile("fence.acq_rel.sys;\n\tred.release.sys.global.add.u64 [%0], %1;" ::"l"(word),
+                 "l"(n)
+                 : "memory");
+}
+
+// Thread 0 spins until *word >= target, with a backoff from 32 to
+// kMaxBackoff ns between polls. The host's abort words lie in host memory,
+// and reads of it from every spinning CTA slowed the exchange about
+// fivefold over 4 H100s (PERF.md, PR 21): so in each slot of 2^kSlotShift
+// ns of the global timer only CTA (slot mod G) reads them, if it spins
+// then, and passes an abort word it finds to the others through `local`,
+// a word of this rank's own allocation that every poll reads (its own
+// arrival counter of itself, which no rank signals). On an abort word
+// thread 0 records it in *status (unless one is there) and in *seen.
+// Returns, to every thread of the CTA, whether the CTA goes on (no abort
+// seen, now or before).
+__device__ bool wait_for(const unsigned long long* word, unsigned long long target,
+                         const RankArgs& a, unsigned long long* seen) {
+  if (threadIdx.x == 0 && *seen == 0) {
+    volatile unsigned long long* local =
+        counter(a.base[a.me], a.window_bytes, a.w, 0, a.me);
+    unsigned long long last = ~0ULL;
+    for (unsigned pause = 32; load_acquire_sys(word) < target;) {
+      unsigned long long v = *local;
+      const unsigned long long slot = global_ns() >> kSlotShift;
+      if (v == 0 && slot != last && slot % gridDim.x == blockIdx.x) {
+        last = slot;
+        for (int p = 0; p < a.K && v == 0; ++p) {
+          const unsigned long long h =
+              *static_cast<const volatile unsigned long long*>(a.aborts + p);
+          if (h & kAbort) v = h;
+        }
+        if (v) *local = v;
+      }
+      if (v) {
+        *seen = v;
+        volatile unsigned long long* st = a.status;
+        if (*st == 0) *st = v;
+        __threadfence_system();
+        break;
+      }
+      __nanosleep(pause);
+      if (pause < kMaxBackoff) pause *= 2;
+    }
+  }
+  __syncthreads();
+  const bool go = *seen == 0;
+  __syncthreads();  // every thread read *seen before thread 0 may write it again
+  return go;
+}
+
+// Chunks b, b + G, ... of one block (G the grid): what CTA b copies of
+// every block, and their count.
+__device__ __forceinline__ unsigned long long chunks_of_cta(long long b, long long G,
+                                                            long long chunks) {
+  return b < chunks ? static_cast<unsigned long long>((chunks - b + G - 1) / G) : 0;
+}
+
+// Slot p of this rank's window w into block p of the result, once p's
+// arrival counter reads whole; then the chunks read are published into p's
+// done counter. False where the CTA left on an abort word.
+__device__ bool copy_out_slot(const RankArgs& a, int p, unsigned long long* seen) {
+  char* own = a.base[a.me];
+  const long long b = blockIdx.x, G = gridDim.x, n16 = a.n16;
+  if (!wait_for(counter(own, a.window_bytes, a.w, 0, p), a.arrival_target, a, seen))
+    return false;
+  copy_chunks<false>(window_of(own, a.window_bytes, a.w) + p * n16, a.out + p * n16, n16, b, G);
+  publish(counter(a.base[p], a.window_bytes, a.w, 1, a.me),
+          chunks_of_cta(b, G, (n16 + kChunk - 1) / kChunk));
+  return true;
+}
+
+// Rank me's exchange. Every CTA takes chunks b, b + G, ... of every block,
+// and goes through the TPU kernel's steps (pallas_halo.py:48-52): at step
+// s = 1, ..., K-1 it stores into destination (me + s) mod K (so at each
+// step the K ranks' sends form a permutation: each card sends to one peer
+// and receives from one), after the destination's done counter says it
+// has read exchange e - 2's, and publishes them; then it copies what step
+// s - 1 brought, from source (me - s + 1) mod K, while step s's blocks are
+// on the links (after step 1, its own block, which waits for nothing);
+// last, the slot of step K - 1's source.
+__global__ void __launch_bounds__(kThreads)
+halo_rank_signalled_kernel(const __grid_constant__ RankArgs a) {
+  __shared__ unsigned long long seen;
+  if (threadIdx.x == 0) seen = 0;
+  __syncthreads();
+  const long long G = gridDim.x, b = blockIdx.x, n16 = a.n16;
+  const long long chunks = (n16 + kChunk - 1) / kChunk;
+  if (b >= chunks) return;
+  const int K = a.K, me = a.me, w = a.w;
+  char* own = a.base[me];
+  for (int s = 1; s < K; ++s) {
+    const int q = (me + s) % K;
+    if (!wait_for(counter(own, a.window_bytes, w, 1, q), a.done_target, a, &seen)) return;
+    copy_chunks(a.src + q * n16, window_of(a.base[q], a.window_bytes, w) + me * n16, n16, b, G);
+    publish(counter(a.base[q], a.window_bytes, w, 0, me), chunks_of_cta(b, G, chunks));
+    if (s == 1)
+      copy_chunks(a.src + me * n16, a.out + me * n16, n16, b, G);
+    else if (!copy_out_slot(a, (me - s + 1 + K) % K, &seen))
+      return;
+  }
+  if (K == 1)
+    copy_chunks(a.src, a.out, n16, b, G);
+  else
+    copy_out_slot(a, (me + 1) % K, &seen);
+}
+
 long long grid_x(long long n16, long long pairs) {
   const long long tile = static_cast<long long>(kThreads) * kUnroll;
   long long gx = (n16 + tile - 1) / tile;
@@ -292,24 +515,28 @@ int launch(const Table& t, int P, int K, long long block_bytes, cudaStream_t str
 // read once a device.
 constexpr int kMaxDevices = 64;
 int g_wave[kMaxDevices];
+int g_signalled_wave[kMaxDevices];
 
-cudaError_t pairs_wave(int* wave) {
+template <typename Kernel>
+cudaError_t wave_of(Kernel kernel, int* cache, int* wave) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& w = g_wave[dev];
+  int& w = cache[dev];
   if (w == 0) {
     int sms = 0, ctas = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, halo_pairs_kernel, kThreads, 0);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, 0);
     if (e != cudaSuccess) return e;
     w = sms * (ctas > 0 ? ctas : 1);
   }
   *wave = w;
   return cudaSuccess;
 }
+
+cudaError_t pairs_wave(int* wave) { return wave_of(halo_pairs_kernel, g_wave, wave); }
 
 // One launch of halo_pairs_kernel over n_pairs pairs of n16 pieces on the
 // current device: a wave of CTAs over `share` (the launches that share the
@@ -634,6 +861,66 @@ extern "C" int lp_halo_copy_out(const void* src, void* dst, long long nbytes, co
   return cudaGetLastError();
 }
 
+// One exchange of the signalled form for rank `me` of K over window w (0 or
+// 1) of every rank's allocation: src this rank's (K*Bh, F) buffer, out its
+// result, bases[p] rank p's allocation as this process reaches it (two
+// windows of window_bytes, then the counters), blocks of block_bytes;
+// aborts this rank's K abort words and status the word an abort seen is
+// recorded in (both as the device reaches them, 8-byte aligned);
+// arrival_target must be done_target plus this exchange's chunks. The grid
+// is one wave of resident CTAs of the kernel over `share` (the streams that
+// launch at once on the card), at most a block's chunks, at least one.
+extern "C" int lp_halo_rank_signalled(const void* src, void* out, void* const* bases,
+                                      long long window_bytes, int w, int me, int K,
+                                      long long block_bytes, const void* aborts, void* status,
+                                      unsigned long long arrival_target,
+                                      unsigned long long done_target, int share, void* stream) {
+  if (!takes(K, block_bytes) || me < 0 || me >= K || (w != 0 && w != 1) || share < 1 ||
+      window_bytes < K * block_bytes || window_bytes % 16 || !aligned(src, out) ||
+      reinterpret_cast<uintptr_t>(aborts) % 8 || reinterpret_cast<uintptr_t>(status) % 8 ||
+      status == nullptr)
+    return cudaErrorInvalidValue;
+  const long long n16 = block_bytes / 16;
+  const long long chunks = (n16 + kChunk - 1) / kChunk;
+  if (arrival_target != done_target + static_cast<unsigned long long>(chunks))
+    return cudaErrorInvalidValue;
+  RankArgs a = {};
+  for (int p = 0; p < K; ++p) {
+    if (!aligned(bases[p], bases[p])) return cudaErrorInvalidValue;
+    a.base[p] = static_cast<char*>(bases[p]);
+  }
+  a.src = static_cast<const uint4*>(src);
+  a.out = static_cast<uint4*>(out);
+  a.window_bytes = window_bytes;
+  a.n16 = n16;
+  a.aborts = static_cast<const unsigned long long*>(aborts);
+  a.status = static_cast<unsigned long long*>(status);
+  a.arrival_target = arrival_target;
+  a.done_target = done_target;
+  a.me = me;
+  a.K = K;
+  a.w = w;
+  int wave = 0;
+  const cudaError_t e = wave_of(halo_rank_signalled_kernel, g_signalled_wave, &wave);
+  if (e != cudaSuccess) return e;
+  long long grid = wave / share;
+  if (grid > chunks) grid = chunks;
+  if (grid < 1) grid = 1;
+  halo_rank_signalled_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+// The UUID of CUDA device `dev` (16 bytes into uuid): the rank form's
+// ranks swap it to learn whether any two of them share a card.
+extern "C" int lp_halo_device_uuid(int dev, unsigned char* uuid) {
+  cudaDeviceProp prop;
+  const cudaError_t e = cudaGetDeviceProperties(&prop, dev);
+  if (e != cudaSuccess) return e;
+  memcpy(uuid, prop.uuid.bytes, sizeof prop.uuid.bytes);
+  return cudaSuccess;
+}
+
 // Flag words. `words` holds n device addresses, 8-byte aligned, of words in
 // the registered flag headers (lp_halo_flags_register). Each returns the
 // CUDA error (runtime or driver; the codes agree for the common ones).
@@ -678,13 +965,17 @@ extern "C" int lp_halo_flags_unregister(void* host) { return cudaHostUnregister(
 
 extern "C" int lp_halo_ipc_handle_bytes() { return sizeof(cudaIpcMemHandle_t); }
 
-// Allocate `bytes` on the current device into *ptr and write its handle.
+// Allocate `bytes` on the current device into *ptr, zeroed (the signalled
+// form's counters start at 0) before the call returns, and write its
+// handle.
 extern "C" int lp_halo_window_alloc(long long bytes, void** ptr, void* handle) {
   *ptr = nullptr;
   cudaError_t e = cudaMalloc(ptr, bytes);
   if (e != cudaSuccess) return e;
+  e = cudaMemset(*ptr, 0, bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
   cudaIpcMemHandle_t h;
-  e = cudaIpcGetMemHandle(&h, *ptr);
+  if (e == cudaSuccess) e = cudaIpcGetMemHandle(&h, *ptr);
   if (e != cudaSuccess) {
     cudaFree(*ptr);
     *ptr = nullptr;

@@ -23,16 +23,23 @@ mesh says which runs, there is no switch and no fallback between them:
   TPU kernel's remote copy: each rank writes its K blocks straight into the
   ranks' receive windows, cudaMalloc'ed by each rank and mapped into the
   others through CUDA IPC (the same stores reach a window on this card or
-  on a peer card over NVLink); a second kernel copies the rank's own window
-  out. The TPU kernel's semaphores are flag words in a header of each
-  rank, a page of host memory that the ranks share, waited on and written
-  by the ranks' streams (CUDA stream memory operations) and stored into by
-  a host that must end a wait, so an exchange makes no host collective and
-  no synchronise: two windows a group and device, used in turn and grown
-  together to the largest exchange, so that a rank may write exchange e
-  while a slower one still reads e - 1. An error aborts the exchange on
-  every rank through the same flags, and a watchdog thread bounds how long
-  a rank that died leaves the others waiting. On CPU tensors it runs
+  on a peer card over NVLink), two windows a group and device, used in
+  turn and grown together to the largest exchange, so that a rank may
+  write exchange e while a slower one still reads e - 1. The group's
+  layout picks one of two forms when its windows are made
+  (:func:`rank_form`, from the ranks' card UUIDs). Ranks with a card each
+  take the signalled form: one kernel an exchange
+  (:func:`halo_rank_signalled`) whose signals are counters in the windows'
+  own allocations, over NVLink, and whose copy-out of a peer's block runs
+  as soon as that block is whole. Ranks that time-share a card take the
+  flags form, where no kernel spins: a write and a copy-out kernel, and the
+  TPU kernel's semaphores as flag words in a header of each rank, a page of
+  host memory that the ranks share, waited on and written by the ranks'
+  streams (CUDA stream memory operations). Either way an exchange makes no
+  host collective and no synchronise, and a host that must end a wait
+  stores into the header: an error aborts the exchange on every rank
+  through it, and a watchdog thread bounds how long a rank that died leaves
+  the others waiting. On CPU tensors it runs
   :func:`halo_all_to_all_ranks_plain`,
   ``all_to_all_single`` over the group (gloo). :class:`HaloAllToAllRanks`
   gives it a gradient, the same exchange. Under a (dp, edge) grid of ranks
@@ -463,6 +470,9 @@ def _rank_lib(name: str):
             "lp_halo_devices_exchange": [vp, pp, pp, pp, i64, i32],
             "lp_halo_devices_times": [vp, ctypes.POINTER(ctypes.c_float)],
             "lp_halo_copy_out": [vp, vp, i64, vp, i32, vp, vp],
+            "lp_halo_rank_signalled": [vp, vp, pp, i64, i32, i32, i32, i64,
+                                       vp, vp, u64, u64, i32, vp],
+            "lp_halo_device_uuid": [i32, vp],
             "lp_halo_flags_wait": [pp, i32, u64, vp],
             "lp_halo_flags_write": [pp, i32, u64, vp],
             "lp_halo_flags_register": [vp, i64, pp],
@@ -501,6 +511,77 @@ LEFT_CODE = 0xFFFFFFFE
 # died or stopped leaves the others waiting, a synchronise of theirs too.
 DEADLINE_S = 300.0
 WATCH_S = 1.0   # how often the watchdog looks
+SPIN_S = 0.002  # how long a host with a card a rank polls without a pause
+# The signalled form's counters, after the two windows of each rank's
+# allocation, in the header's layout: for window w, arrival[w][p] then
+# done[w][p], MAX_SHARDS 64-bit words each (csrc/halo_a2a.cu). They count
+# chunks of CHUNK_BYTES (the kernel's kChunk pieces of 16 bytes).
+COUNTER_BYTES = HEADER_BYTES
+CHUNK_BYTES = 16 * 256 * 4
+# the two forms of the rank form (rank_form)
+FLAGS, SIGNALLED = "flags", "signalled"
+
+
+def rank_form(cards: Sequence, ranks: int, host_cards: int) -> str:
+    """The rank form a group takes, from each of its ranks' card (its UUID;
+    None where a rank has none): SIGNALLED where every rank of the group
+    has a card no other rank of it uses and the ``ranks`` processes of the
+    world fit the host's ``host_cards`` cards, so that no card is
+    time-shared (a spinning kernel costs only its own card's SMs); FLAGS
+    else, where no kernel may spin. The same on every rank: each passes the
+    group's gathered cards."""
+    if ranks > host_cards or any(c is None for c in cards) or \
+            len(set(cards)) < len(cards):
+        return FLAGS
+    return SIGNALLED
+
+
+def rank_chunks(block_bytes: int) -> int:
+    """The chunks of one block in the signalled form's counters."""
+    return -(-block_bytes // CHUNK_BYTES)
+
+
+def next_targets(sent: list, w: int, block_bytes: int) -> tuple[int, int]:
+    """The signalled form's (arrival, done) targets of the next exchange
+    over window ``w`` of ``block_bytes`` blocks, where ``sent[w]`` chunks
+    a source went into window w so far: done is that sum (exchange e - 2's
+    included), arrival that plus this exchange's chunks; ``sent[w]`` moves
+    on to arrival. The targets of a window only grow."""
+    done = sent[w]
+    sent[w] = done + rank_chunks(block_bytes)
+    return sent[w], done
+
+
+def signal_grid(wave: int, share: int, chunks: int) -> int:
+    """The signalled kernel's grid (``lp_halo_rank_signalled``): one wave
+    of its resident CTAs over ``share``, at most a block's chunks, at least
+    one."""
+    return max(1, min(wave // share, chunks))
+
+
+def signal_plan(k: int, me: int, chunks: int, grid: int) -> list[list]:
+    """The signalled kernel's steps for rank ``me`` of ``k``
+    (``halo_rank_signalled_kernel``, in Python): CTA b of ``grid`` takes
+    chunks b, b + grid, ... of every block. Returns, for each CTA, its
+    operations in order: ("store", q, chunks) into destination q's window,
+    published into q's arrival counter; ("own", chunks) of the own block;
+    ("copy", p, chunks) of source p's slot after its arrival counter reads
+    whole, published into p's done counter. At step s = 1, ..., K-1 it
+    stores to (me + s) mod K, then copies what step s - 1 brought (after
+    step 1 its own block); last, the slot of step K-1's source."""
+    plan = []
+    for b in range(grid):
+        mine = list(range(b, chunks, grid))
+        ops = []
+        if mine:
+            for s in range(1, k):
+                ops.append(("store", (me + s) % k, mine))
+                ops.append(("own", mine) if s == 1 else
+                           ("copy", (me - s + 1) % k, mine))
+            ops.append(("own", mine) if k == 1 else
+                       ("copy", (me + 1) % k, mine))
+        plan.append(ops)
+    return plan
 
 
 def _arrival(base: int, w: int, p: int) -> int:
@@ -566,7 +647,12 @@ class _Window:
     (the host's
     monotonic clock), ``broken`` the error an exchange raised (the pair is
     then dropped and made anew at the next), ``poisoned`` whether the
-    watchdog ended its waits."""
+    watchdog ended its waits. ``form`` is the group's (``rank_form``);
+    ``counter_bytes`` the signalled form's counters after the two windows
+    of each allocation (``_make_window`` makes them for either form),
+    ``sent[w]`` the chunks each rank has sent into window w so far, the
+    base of its counters' targets, and ``bases`` every rank's allocation
+    as a pointer array."""
     me: int
     nbytes: int
     ptrs: list[int]
@@ -581,19 +667,29 @@ class _Window:
     broken: str = ""
     poisoned: bool = False
     headers: list = dataclasses.field(default_factory=list)
+    form: str = FLAGS
+    counter_bytes: int = 0
+    sent: list = dataclasses.field(default_factory=lambda: [0, 0])
 
     @property
     def alloc_bytes(self) -> int:
-        """The bytes of this rank's allocation on the card: two windows."""
-        return 2 * self.nbytes
+        """The bytes of this rank's allocation on the card: two windows and
+        the counters after them."""
+        return 2 * self.nbytes + self.counter_bytes
 
     def data(self, p: int, w: int) -> int:
         return self.ptrs[p] + w * self.nbytes
+
+    def targets(self, w: int, block_bytes: int) -> tuple[int, int]:
+        """The signalled form's counter targets of the next exchange over
+        window ``w`` (``next_targets``)."""
+        return next_targets(self.sent, w, block_bytes)
 
     def __post_init__(self):
         k, me = len(self.ptrs), self.me
         peers = [p for p in range(k) if p != me]
         own, own_host = self.flags[me], self.host[me]
+        self.bases = (ctypes.c_void_p * k)(*self.ptrs)
         # per window: the data table, the words this rank waits on (its
         # own header) and those it writes (the peers')
         self.tables = [(ctypes.c_void_p * k)(*(self.data(p, w)
@@ -633,19 +729,23 @@ _WATCHDOG: list[threading.Thread] = []
 
 def window_bytes() -> int:
     """The bytes of this process's own window allocations (both windows of
-    each pair; the flag headers are a page of host memory each):
+    each pair and the signalled form's counters after them; the flag
+    headers are a page of host memory each):
     cudaMalloc'ed outside torch's caching allocator, so
     ``torch.cuda.memory_allocated`` leaves them out."""
     return sum(w.alloc_bytes for w in _WINDOWS.values())
 
 
 def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
-    """Allocate this rank's window pair, its flag header (zeroed) and
-    status word, swap the IPC handles and the headers' names over the
-    group and open the peers' pairs and headers; then the own header's
-    name goes (every rank has opened it; the page stays while it is
-    mapped). Every rank learns whether every rank succeeded, so a failure
-    raises on all of them (none waits at the next barrier)."""
+    """Allocate this rank's window pair with its counters (zeroed), its
+    flag header (zeroed) and status word, swap the IPC handles, the
+    headers' names and the ranks' card UUIDs over the group and open the
+    peers' pairs and headers; then the own header's name goes (every rank
+    has opened it; the page stays while it is mapped). The cards give the
+    group's form (``rank_form``; a rank off the card, as the tests' host
+    stand-in, has none). Every rank learns whether every rank succeeded,
+    so a failure raises on all of them (none waits at the next
+    barrier)."""
     k, me = _group_shape(group)
     nh = _rank_lib("lp_halo_ipc_handle_bytes")()
     own, handle = ctypes.c_void_p(), ctypes.create_string_buffer(nh)
@@ -655,23 +755,28 @@ def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
         headers[me] = header = _Header()
     except OSError:   # every rank must still reach the collectives
         header = None
+    card = None
     with torch.cuda.device(dev):
-        rc = _rank_lib("lp_halo_window_alloc")(2 * nbytes, ctypes.byref(own),
-                                               handle)
+        rc = _rank_lib("lp_halo_window_alloc")(
+            2 * nbytes + COUNTER_BYTES, ctypes.byref(own), handle)
         if rc == 0:
             rc = _rank_lib("lp_halo_status_alloc")(ctypes.byref(host),
                                                    ctypes.byref(mapped))
         if rc == 0:
             rc = header.register() if header else -1
+        if rc == 0 and dev.type == "cuda":
+            uuid = ctypes.create_string_buffer(16)
+            rc = _rank_lib("lp_halo_device_uuid")(dev.index, uuid)
+            card = uuid.raw.hex()
         handles: list = [None] * k
         dist.all_gather_object(
-            handles, (rc, handle.raw, header and header.shm.name),
+            handles, (rc, handle.raw, header and header.shm.name, card),
             group=group)
         ptrs, err = [0] * k, ""
         if any(h[0] != 0 for h in handles):
             err = ("cudaMalloc / cudaIpcGetMemHandle / cudaHostAlloc / "
-                   "cudaHostRegister failed (-1: no shared page for the "
-                   f"flag header): CUDA errors by rank "
+                   "cudaHostRegister / cudaGetDeviceProperties failed (-1: "
+                   f"no shared page for the flag header): CUDA errors by rank "
                    f"{[h[0] for h in handles]}")
         else:
             ptrs[me] = own.value
@@ -715,9 +820,11 @@ def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
                 "halo_all_to_all_ranks: the receive windows could not be "
                 f"set up ({nbytes} bytes a window): " + "; ".join(
                     f"rank {p}: {e}" for p, e in enumerate(errs) if e))
+    form = rank_form([h[3] for h in handles], dist.get_world_size(),
+                     torch.cuda.device_count() if dev.type == "cuda" else 0)
     return _Window(me, nbytes, ptrs, group, [h.dev for h in headers],
                    [h.host for h in headers], host.value, mapped.value,
-                   headers=headers)
+                   headers=headers, form=form, counter_bytes=COUNTER_BYTES)
 
 
 def _status(w: _Window) -> int:
@@ -725,13 +832,16 @@ def _status(w: _Window) -> int:
     return ctypes.c_uint64.from_address(w.status).value if w.status else 0
 
 
-def _completes(ev, t0: float) -> bool:
+def _completes(ev, t0: float, spin: float = 0.0) -> bool:
     """Whether ``ev`` (None: nothing recorded) completes before DEADLINE_S
-    has passed since ``t0``, polled."""
+    has passed since ``t0``, polled: without a pause for ``spin`` seconds,
+    then every 0.1 ms."""
     while ev is not None and not ev.query():
-        if time.monotonic() - t0 > DEADLINE_S:
+        waited = time.monotonic() - t0
+        if waited > DEADLINE_S:
             return False
-        time.sleep(1e-4)
+        if waited > spin:
+            time.sleep(1e-4)
     return True
 
 
@@ -890,7 +1000,12 @@ def _check_flags(dev: torch.device, win: _Window, e: int) -> None:
     me = win.me
     seen = _status(win)
     if not seen:
-        if not _completes(win.events[e % 2], time.monotonic()):
+        # with a card a rank a host two exchanges ahead of its card waits
+        # less than an exchange, and the OS's pause would hold every rank
+        # back: it polls without one for SPIN_S; ranks sharing a card keep
+        # the pauses
+        spin = SPIN_S if win.form == SIGNALLED else 0.0
+        if not _completes(win.events[e % 2], time.monotonic(), spin):
             _fail(dev, win, ABORT | me << 32 | DEADLINE_CODE,
                   f"halo_all_to_all_ranks on rank {me}: exchange {e - 2} of "
                   f"the group did not complete within {DEADLINE_S} s")
@@ -902,7 +1017,12 @@ def _check_flags(dev: torch.device, win: _Window, e: int) -> None:
 def _enqueue(dev, win: _Window, fn_name: str, *args) -> None:
     """One launch or stream operation of exchange ``win.epoch``; on an
     error, the abort (every rank raises)."""
-    rc = launch_on(dev, _rank_lib(fn_name), *args)
+    _refused(dev, win, launch_on(dev, _rank_lib(fn_name), *args), fn_name)
+
+
+def _refused(dev, win: _Window, rc: int, fn_name: str) -> None:
+    """Where ``rc`` (of ``fn_name`` in exchange ``win.epoch``) is a CUDA
+    error: the abort, published to every rank, and raise."""
     if rc != 0:
         word = ABORT | win.me << 32 | (rc & 0xFFFFFFFF)
         _fail(dev, win, word, f"{_abort_text(word, win.me)} ({fn_name}, "
@@ -932,10 +1052,101 @@ def _kernels(win: _Window, buf: torch.Tensor, out: torch.Tensor,
                                   win.status_dev)))
 
 
+def halo_rank_signalled(buf: torch.Tensor, out: torch.Tensor, bases,
+                        window: int, w: int, me: int, aborts: int,
+                        status: int, targets: tuple[int, int],
+                        share: int = 1) -> int:
+    """One launch of K1's signalled rank form (``lp_halo_rank_signalled``)
+    for rank ``me`` of K = len(``bases``), on the current stream of
+    ``buf``'s CUDA device: this rank's (K*Bh, F) ``buf`` in, ``out`` its
+    result, over window ``w`` of every rank's allocation (``bases``, a
+    pointer array; ``window`` bytes a window, the counters after the two);
+    ``aborts`` the device address of this rank's K abort words, ``status``
+    of the word an abort seen is recorded in; ``targets`` (arrival, done)
+    of its counters (``_Window.targets``); ``share`` the streams launching
+    at once on the card. Counted in ``halo_rank_signalled.launches`` where
+    it launched. Returns the CUDA error (0: launched)."""
+    k = len(bases)
+    rc = launch_on(buf.device, _rank_lib("lp_halo_rank_signalled"),
+                   buf.data_ptr(), out.data_ptr(), bases, window, w, me, k,
+                   buf.nbytes // k, aborts, status, *targets, share)
+    if rc == 0:
+        count_launch(halo_rank_signalled)
+    return rc
+
+
+# the signalled form's launches since the last reset: one an exchange
+halo_rank_signalled.launches = 0
+
+
+class StreamRanks:
+    """K ranks of the signalled form as K streams of one process on one
+    card: how one card launches and checks the kernel that the rank route
+    runs only with a card a rank. Rank q's allocation (two windows of
+    ``nbytes``, the counters after them) comes from torch's allocator,
+    zeroed; the ranks share K abort words and a status word on the card
+    (no watchdog or peer writes them here). :meth:`exchange` launches rank
+    q's kernel on ``streams[q]`` with a K-th of a wave (``share`` K), so
+    the K kernels are resident together. On the CPU the exchange is
+    :func:`halo_all_to_all_plain`."""
+
+    def __init__(self, dev: torch.device, k: int, nbytes: int,
+                 streams: Sequence):
+        self.dev, self.k, self.nbytes = dev, k, nbytes
+        self.streams, self.sent, self.epoch = list(streams), [0, 0], 0
+        if dev.type == "cpu":
+            return
+        self.allocs = [torch.zeros(2 * nbytes + COUNTER_BYTES,
+                                   dtype=torch.uint8, device=dev)
+                       for _ in range(k)]
+        self.bases = (ctypes.c_void_p * k)(*(a.data_ptr()
+                                             for a in self.allocs))
+        self.words = torch.zeros(k + 1, dtype=torch.int64, device=dev)
+        for s in self.streams:   # freed only after the streams' work
+            for a in (*self.allocs, self.words):
+                a.record_stream(s)
+
+    def status(self) -> int:
+        """The status word: 0, or an abort word a kernel saw."""
+        return int(self.words[self.k]) if self.dev.type != "cpu" else 0
+
+    def exchange(self, bufs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """K1 of the K ranks' (K*Bh, F) buffers, buffer q ready on
+        ``streams[q]``: out q made and written on ``streams[q]``."""
+        _check(bufs)
+        if self.dev.type == "cpu":
+            return halo_all_to_all_plain(list(bufs))
+        k = self.k
+        if len(bufs) != k or bufs[0].nbytes > self.nbytes:
+            raise ValueError(f"StreamRanks takes {k} buffers of at most "
+                             f"{self.nbytes} bytes")
+        block_bytes = bufs[0].nbytes // k
+        _check_launch(k, block_bytes, not any(b.data_ptr() % 16 for b in bufs))
+        self.epoch += 1
+        w = self.epoch % 2
+        targets = next_targets(self.sent, w, block_bytes)
+        aborts = self.words.data_ptr()
+        outs = []
+        for me, (s, b) in enumerate(zip(self.streams, bufs)):
+            with torch.cuda.stream(s):
+                out = torch.empty_like(b)
+                rc = halo_rank_signalled(b, out, self.bases, self.nbytes, w,
+                                         me, aborts, aborts + 8 * k, targets,
+                                         share=k)
+            if rc != 0:   # the ranks launched before it leave their spins
+                self.words[0].fill_(ABORT | me << 32 | (rc & 0xFFFFFFFF))
+                raise RuntimeError(f"halo_rank_signalled: rank {me}'s launch "
+                                   f"failed: CUDA error {rc}")
+            b.record_stream(s)
+            outs.append(out)
+        return outs
+
+
 def _exchange(buf: torch.Tensor, group) -> torch.Tensor:
     """The rank form on the card: exchange e = ``epoch + 1`` over window
-    e mod 2, ordered by the flags alone (``csrc/halo_a2a.cu``): no host
-    collective and no synchronise once the windows exist."""
+    e mod 2, ordered by the group's signals alone (``csrc/halo_a2a.cu``: the
+    counters of the signalled form, or the flags): no host collective and
+    no synchronise once the windows exist."""
     k, _ = _group_shape(group)
     dev = buf.device
     block_bytes = buf.nbytes // k
@@ -947,8 +1158,26 @@ def _exchange(buf: torch.Tensor, group) -> torch.Tensor:
     w = e % 2
     _check_flags(dev, win, e)
     win.epoch = e
-    n = win.n_peers
     out = torch.empty_like(buf)
+    if win.form == SIGNALLED:
+        me = win.me
+        _refused(dev, win, halo_rank_signalled(
+            buf, out, win.bases, win.nbytes, w, me,
+            _arrival(win.flags[me], w, 0), win.status_dev,
+            win.targets(w, block_bytes)), "lp_halo_rank_signalled")
+    else:
+        _flags_exchange(dev, win, buf, out, e)
+    _record(dev, win, w)
+    win.enqueued_at = time.monotonic()
+    return out
+
+
+def _flags_exchange(dev, win: _Window, buf: torch.Tensor, out: torch.Tensor,
+                    e: int) -> None:
+    """The flags form's exchange ``e`` (``csrc/halo_a2a.cu``): the wait for
+    the peers' reads of exchange e - 2, the write, the arrival flags and
+    their wait, the copy-out and the done flags, on this rank's stream."""
+    w, n = e % 2, win.n_peers
     (write, write_args), (copy, copy_args) = _kernels(win, buf, out, w)
     if e > 2:
         _enqueue(dev, win, "lp_halo_flags_wait", win.wait_done[w], n, e - 2)
@@ -959,9 +1188,6 @@ def _exchange(buf: torch.Tensor, group) -> torch.Tensor:
     _enqueue(dev, win, copy, *copy_args)
     count_launch(halo_all_to_all_ranks)
     _enqueue(dev, win, "lp_halo_flags_write", win.signal_done[w], n, e)
-    _record(dev, win, w)
-    win.enqueued_at = time.monotonic()
-    return out
 
 
 def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
@@ -969,26 +1195,45 @@ def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
     if None): this rank's (K*Bh, F) buffer, block p for rank p, in; a new
     (K*Bh, F) buffer, block p from rank p, out. fp32 or bf16.
 
-    On CUDA tensors two launches, both counted, ordered against the peers
-    by flag words on the card and not by the host (``_exchange``): the
-    stream waits until every peer has read window e mod 2 of exchange
-    e - 2, ``lp_halo_a2a_rank`` writes this rank's K blocks into the K
-    windows and announces them in the peers' flags, the stream waits for
-    every peer's blocks, and ``lp_halo_copy_out`` copies the own window
-    into the result, which later work on the stream reads in order; then
-    the peers learn that the window is read. The host waits for nothing
-    unless it runs two exchanges ahead of its card (then for at most
-    DEADLINE_S). The group's windows grow to the exchange, by every rank
-    at once, where they are smaller. A launch that fails aborts the
+    On CUDA tensors the group's form, picked by its layout when its windows
+    are made (:func:`rank_form`) and never after a failure, orders the
+    exchange against the peers on the card and not by the host:
+
+    - Ranks with a card each (no card time-shared): the signalled form, one
+      launch (:func:`halo_rank_signalled`, counted there). Its CTAs store
+      this rank's K - 1 remote blocks into the peers' windows e mod 2 over
+      NVLink, each after the peer's counter says it has read exchange
+      e - 2's, and announce them by release adds into the peers' counters
+      in device memory; the own block goes straight into the result, and
+      each peer's block is copied out of the own window as soon as its
+      counter reads whole, while the others still arrive. No flag crosses
+      PCIe: host-memory flags between cards of their own would cost a
+      stream's front end polling over it twice an exchange.
+    - Ranks that time-share a card: the flags form, two launches
+      (``lp_halo_a2a_rank`` and ``lp_halo_copy_out``, both counted here):
+      the stream waits until every peer has read window e mod 2 of exchange
+      e - 2, the write stores this rank's K blocks into the K windows and
+      announces them in the peers' flags, the stream waits for every peer's
+      blocks, and the copy-out copies the own window into the result; then
+      the peers learn that the window is read. The flags are words in host
+      memory that the streams wait on: no kernel spins, since a spinning
+      kernel would hold the card while the peer it waits for cannot run.
+
+    Later work on the stream reads the result in order. The host waits for
+    nothing unless it runs two exchanges ahead of its card (then for at
+    most DEADLINE_S). The group's windows grow to the exchange, by every
+    rank at once, where they are smaller. A launch that fails aborts the
     exchange on every rank: this rank raises at once, each other at one of
     its next two exchanges or when the windows are released, naming the
-    rank and its CUDA error. A rank that releases its windows on an error
-    outside the exchanges aborts them so too; where a peer died instead, a
-    watchdog thread ends the waits of a copy-out still unfinished
-    DEADLINE_S after it was enqueued, so that a synchronise of the
-    caller's returns and the next exchange raises. On CPU tensors it runs
-    :func:`halo_all_to_all_ranks_plain`. Every rank of the group must make
-    the same exchanges, of the same shapes, in the same order."""
+    rank and its CUDA error (a kernel of the signalled form leaves its
+    spins on the abort word in its flag header). A rank that releases its
+    windows on an error outside the exchanges aborts them so too; where a
+    peer died instead, a watchdog thread ends the waits of an exchange
+    still unfinished DEADLINE_S after it was enqueued, so that a
+    synchronise of the caller's returns and the next exchange raises. On
+    CPU tensors it runs :func:`halo_all_to_all_ranks_plain`. Every rank of
+    the group must make the same exchanges, of the same shapes, in the same
+    order."""
     k, me = _group_shape(group)
     if buf.dim() != 2:
         raise ValueError("the rank form takes this rank's (K*Bh, F) buffer, "
@@ -1005,8 +1250,8 @@ def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
     return _exchange(buf, group)
 
 
-# the rank form's launches since the last reset: two an exchange (the write
-# and the copy-out)
+# the flags form's launches since the last reset: two an exchange (the
+# write and the copy-out)
 halo_all_to_all_ranks.launches = 0
 
 

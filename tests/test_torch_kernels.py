@@ -1093,16 +1093,41 @@ def test_halo_all_to_all_backward_on_card(cuda_device, d):
     assert torch.equal(x.grad, halo_all_to_all_plain(ct))
 
 
+# What every rank worker checks of its group's form: the signalled form
+# where the world's ranks each have a card of their own (as many cards as
+# ranks: init_distributed puts rank r on cuda:r), else the flags form; and
+# that ``exchanges`` exchanges launched that form's kernels alone (one
+# launch an exchange, or two).
+FORM_CHECK = r"""
+import torch
+from lp_gnn_tpu_torch.parallel import halo
+
+
+def check_form(exchanges, before=(0, 0)):
+    own = torch.cuda.device_count() >= torch.distributed.get_world_size()
+    want = halo.SIGNALLED if own else halo.FLAGS
+    forms = {w.form for w in halo._WINDOWS.values()}
+    assert forms == {want}, (forms, want)
+    got = (halo.halo_rank_signalled.launches - before[0],
+           halo.halo_all_to_all_ranks.launches - before[1])
+    assert got == ((exchanges, 0) if own else (0, 2 * exchanges)), got
+    return want
+
+
+def launches():
+    return (halo.halo_rank_signalled.launches,
+            halo.halo_all_to_all_ranks.launches)
+"""
+
 # one rank of test_halo_all_to_all_ranks_on_card: every rank makes all K
 # buffers from one seed and holds its own result to the stacked plain
 # version's, bit for bit (a copy), through three shapes, a repeat of the
 # first (the windows reused) and HaloAllToAllRanks' backward; the group
-# keeps one pair of windows, of the largest exchange (two windows on the
-# card; the flag header is a page of host memory); two launches an exchange
-RANK_WORKER = r"""
+# keeps one pair of windows, of the largest exchange (two windows and the
+# counters on the card; the flag header is a page of host memory); the
+# form of its layout, its launches alone
+RANK_WORKER = FORM_CHECK + r"""
 import sys
-import torch
-from lp_gnn_tpu_torch.parallel import halo
 from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
 
 dev, _ = init_distributed(torch.device("cuda"))
@@ -1120,12 +1145,12 @@ cts = [torch.randn(k * 16, 64, generator=gen) for _ in range(k)]
 xr = x.to(dev).requires_grad_()
 halo.HaloAllToAllRanks.apply(xr, None).backward(cts[me].to(dev))
 assert torch.equal(xr.grad.cpu(), halo.halo_all_to_all_plain(cts)[me])
-assert halo.halo_all_to_all_ranks.launches == 2 * (len(cases) + 2)
+form = check_form(len(cases) + 2)
 assert halo.halo_all_to_all.launches == 0
 assert len(halo._WINDOWS) == 1
-assert halo.window_bytes() == 2 * k * 37 * 1024 * 2
+assert halo.window_bytes() == 2 * k * 37 * 1024 * 2 + halo.COUNTER_BYTES
 leave_distributed(True)
-print("rank", me, "ok")
+print("rank", me, form, "ok")
 """
 
 # Patches that make the host's collectives and synchronises raise while a
@@ -1167,8 +1192,7 @@ def restore(saved):
 # back by torch.cuda._sleep before its write on every other exchange, no
 # collective and no synchronise of the host among them (they raise); then
 # every result against the stacked plain version, bit for bit
-STRESS_WORKER = NO_HOST_SYNC + r"""
-from lp_gnn_tpu_torch.parallel import halo
+STRESS_WORKER = NO_HOST_SYNC + FORM_CHECK + r"""
 from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
 
 STRESS = 64
@@ -1185,7 +1209,7 @@ for i in range(STRESS):
     del bufs
 halo.halo_all_to_all_ranks(ins[0])   # the windows, made with collectives
 torch.cuda.synchronize()
-before = halo.halo_all_to_all_ranks.launches
+before = launches()
 saved = no_host_sync()
 try:
     outs = []
@@ -1198,11 +1222,11 @@ finally:
 torch.cuda.synchronize()
 bad = [i for i in range(STRESS) if not torch.equal(outs[i], wants[i])]
 assert not bad, f"rank {me}: exchanges {bad} differ from the plain version"
-assert halo.halo_all_to_all_ranks.launches - before == 2 * STRESS
+form = check_form(STRESS, before)
 assert halo.halo_all_to_all.launches == 0
 assert [w.epoch for w in halo._WINDOWS.values()] == [STRESS + 1]
 leave_distributed(True)
-print("rank", me, "ok")
+print("rank", me, form, "ok")
 """
 
 # one rank of test_halo_all_to_all_ranks_abort_on_card: after two good
@@ -1211,9 +1235,8 @@ print("rank", me, "ok")
 # exchanges and DEADLINE_S, naming that rank and its error, with no
 # collective or synchronise of the host in the exchanges; the windows are
 # then released and made anew, and an exchange is exact again
-ABORT_WORKER = NO_HOST_SYNC + r"""
+ABORT_WORKER = NO_HOST_SYNC + FORM_CHECK + r"""
 import time
-from lp_gnn_tpu_torch.parallel import halo
 from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
 
 dev, _ = init_distributed(torch.device("cuda"))
@@ -1223,6 +1246,7 @@ bufs = torch.randn(k, k * 40, 64, generator=gen).to(torch.bfloat16).to(dev)
 want = halo.halo_all_to_all_plain(bufs)[me]
 x = bufs[me].clone()
 assert torch.equal(halo.halo_all_to_all_ranks(x), want)
+form = check_form(1)
 bad = x
 if me == k - 1:
     flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=dev)
@@ -1248,7 +1272,7 @@ assert took < halo.DEADLINE_S, took
 halo.release_windows()
 assert torch.equal(halo.halo_all_to_all_ranks(x), want)
 leave_distributed(True)
-print("rank", me, "raised", repr(err), "after", took, "s")
+print("rank", me, form, "raised", repr(err), "after", took, "s")
 """
 
 # one rank of test_halo_all_to_all_ranks_peer_leaves_on_card: after two good
@@ -1261,14 +1285,12 @@ print("rank", me, "raised", repr(err), "after", took, "s")
 # ("kill": the dead rank's window stays mapped in its peers, and their
 # writes into it land). A rank killed leaves gloo's teardown to its peers'
 # exits, so they end with os._exit once they have printed.
-LEAVE_WORKER = r"""
+LEAVE_WORKER = FORM_CHECK + r"""
 import ctypes
 import os
 import signal
 import sys
 import time
-import torch
-from lp_gnn_tpu_torch.parallel import halo
 from lp_gnn_tpu_torch.parallel.mesh import init_distributed, leave_distributed
 
 mode = sys.argv[1]
@@ -1281,6 +1303,7 @@ want = halo.halo_all_to_all_plain(bufs)[me]
 x = bufs[me].clone()
 for _ in range(2):
     assert torch.equal(halo.halo_all_to_all_ranks(x), want)
+form = check_form(2)
 torch.distributed.barrier()
 if me == k - 1:
     if mode == "kill":
@@ -1313,7 +1336,8 @@ if mode == "raise":
     leave_distributed(True)
 else:
     assert f"rank {me} waited past the 5.0 s deadline" in err, err
-print("rank", me, "synchronise", synced, "after", took, "s; raised", repr(err))
+print("rank", me, form, "synchronise", synced, "after", took, "s; raised",
+      repr(err))
 if mode == "kill":
     sys.stdout.flush()
     os._exit(0)
@@ -1356,10 +1380,12 @@ def run_rank_workers(worker: str, ranks: int, args=(), codes=None) -> None:
 @pytest.mark.parametrize("ranks", [2, 4])
 def test_halo_all_to_all_ranks_on_card(cuda_device, ranks):
     """The rank form of K1 between ``ranks`` processes of the LP_GNN_DIST_*
-    contract sharing the card (gloo for the windows' handles): each rank's
-    result equals the plain version's, bit for bit, each exchange is two
-    rank-form launches (the write and the copy-out) and no stacked one,
-    and the group keeps one pair of windows, of the largest exchange."""
+    contract, sharing one card (gloo) or a card each (NCCL, as many cards
+    as ranks): each rank's result equals the plain version's, bit for bit,
+    each exchange is the launches of its layout's form (the flags form's
+    write and copy-out, or the signalled form's one kernel) and no stacked
+    one, and the group keeps one pair of windows, of the largest
+    exchange."""
     run_rank_workers(RANK_WORKER, ranks)
 
 
@@ -1400,11 +1426,11 @@ def test_halo_all_to_all_ranks_peer_leaves_on_card(cuda_device, mode):
 
 # one rank of test_halo_all_to_all_ranks_grid_on_card: the (dp=2, edge=2)
 # grid of 4 ranks; each row exchanges buffers of its own seed over its edge
-# group, held to the row-local plain version (all_to_all_single over gloo
-# on host copies) bit for bit; the rank keeps one window, its row's
-GRID_RANK_WORKER = r"""
-import torch
-from lp_gnn_tpu_torch.parallel import halo
+# group, held bit for bit to the stacked plain version of the row's two
+# buffers, which every rank of the row makes from the seed on its own host
+# (no collective: over NCCL, a row group of cards cannot run gloo's host
+# copies); the rank keeps one window, its row's, of its layout's form
+GRID_RANK_WORKER = FORM_CHECK + r"""
 from lp_gnn_tpu_torch.parallel.mesh import (init_distributed,
                                             leave_distributed, make_grid)
 
@@ -1415,26 +1441,83 @@ cases = [(37, 8, torch.bfloat16), (37, 1024, torch.bfloat16),
          (21, 8, torch.float32)]
 for bh, f, dt in cases:
     bufs = [torch.randn(2 * bh, f, generator=gen).to(dt) for _ in range(2)]
-    want = halo.halo_all_to_all_ranks_plain(bufs[grid.e], grid.row)
-    assert torch.equal(want, halo.halo_all_to_all_plain(bufs)[grid.e])
+    want = halo.halo_all_to_all_plain(bufs)[grid.e]
     got = halo.halo_all_to_all_ranks(bufs[grid.e].to(dev), grid.row)
     assert torch.equal(got.cpu(), want), (grid.d, grid.e, bh, f, dt)
 assert list(halo._WINDOWS) == [(grid.row, dev.index)]
-assert halo.halo_all_to_all_ranks.launches == 2 * len(cases)
+form = check_form(len(cases))
 assert halo.halo_all_to_all.launches == 0
 leave_distributed(True)
-print("cell", grid.d, grid.e, "ok")
+print("cell", grid.d, grid.e, form, "ok")
 """
 
 
 @pytest.mark.cuda
 def test_halo_all_to_all_ranks_grid_on_card(cuda_device):
-    """The rank form of K1 on the (dp=2, edge=2) grid of 4 processes
-    sharing the card: each row's edge group exchanges its own buffers,
-    every rank's result equal to the row-local plain all_to_all_single,
-    bit for bit, two launches an exchange, and each rank's one window that
-    of its row group."""
+    """The rank form of K1 on the (dp=2, edge=2) grid of 4 processes, on
+    one card or on a card each: each row's edge group exchanges its own
+    buffers, every rank's result equal to the stacked plain version of
+    its row's buffers, bit for bit, the launches of its layout's form, and
+    each rank's one window that of its row group."""
     run_rank_workers(GRID_RANK_WORKER, 4)
+
+
+def four_cards() -> None:
+    have = torch.cuda.device_count()
+    if have < 4:
+        pytest.skip(f"needs 4 cards for 4 ranks with a card each, has {have}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check", ["exact", "stress", "abort", "raise",
+                                   "kill"])
+def test_halo_rank_signalled_on_four_cards(cuda_device, check):
+    """K1's rank form over 4 ranks with a card each, where the group takes
+    the signalled form (each worker checks its form and its launches, one
+    an exchange): exact through shapes and the backward, 64 exchanges back
+    to back with one rank held back, an abort from a refused launch, and a
+    peer that leaves on an error or is killed."""
+    four_cards()
+    if check in ("raise", "kill"):
+        codes = [0, 0, 0, -signal.SIGKILL if check == "kill" else 0]
+        run_rank_workers(LEAVE_WORKER, 4, (check,), codes)
+    else:
+        run_rank_workers({"exact": RANK_WORKER, "stress": STRESS_WORKER,
+                          "abort": ABORT_WORKER}[check], 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh, d", [(37, 8), (37, 1024), (30_056, 8),
+                                   (30_056, 1024)])   # and the bench halo
+def test_halo_rank_signalled_streams_on_card(cuda_device, bh, d, dtype):
+    """The signalled kernel of 4 ranks as 4 streams of one process on one
+    card (``halo.StreamRanks``, a quarter wave a launch): three exchanges
+    over the two windows, the second with one stream held back before its
+    launch, each bit for bit the stacked plain version's; one launch a
+    rank an exchange, no abort recorded."""
+    k = 4
+    gen = torch.Generator(device="cpu").manual_seed(bh + d)
+    stacked = torch.randn(k, k * bh, d, generator=gen).to(dtype).to(
+        cuda_device)
+    want = halo_all_to_all_plain(stacked)
+    streams = [torch.cuda.Stream() for _ in range(k)]
+    ranks = thalo.StreamRanks(stacked.device, k, stacked[0].nbytes, streams)
+    cur = torch.cuda.current_stream()
+    before = thalo.halo_rank_signalled.launches
+    for i in range(3):
+        for q, s in enumerate(streams):
+            s.wait_stream(cur)
+            if i == 1 and q == 2:
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(2_000_000)
+        out = ranks.exchange(list(stacked.unbind(0)))
+        for s in streams:
+            cur.wait_stream(s)
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want[q]) for q, o in enumerate(out)), i
+    assert thalo.halo_rank_signalled.launches == before + 3 * k
+    assert ranks.status() == 0
 
 
 @pytest.mark.cuda
