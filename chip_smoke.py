@@ -346,6 +346,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    layout's, and each card's busy ms and idle share in one profiled step.
    ``python3 chip_smoke.py --edge_devices`` runs only this phase (on a
    machine with 4 cards, shard k on cuda:k), its stacked serve its own.
+36. grid_devices (run right after edge_devices, on dp_edge's twins): dp
+   and the (dp, edge) grid over the devices of one process, JAX's layout
+   of ``--mesh_shape dp=2,edge=2`` with 4 cards visible (cell (d, e) on
+   cuda:(2d + e mod the cards), a thread and stream a cell; on one card
+   every cell on cuda:0; named for the phase as edge_devices names its
+   layout). One fp32 dp=2 step on devices against ``--graph_batch 2``'s
+   union step (each tensor's update within 1e-5 of its largest) and one
+   fp32 grid step against the stacked layout's dp x edge step (dp_edge's
+   bound), each twice from one state, bit for bit, launches exact; the
+   recipe through ``train --mesh_shape dp=2,edge=2 --edge_num_thresh 0``
+   (2 epochs, Adam, bf16), its launches from 0 exact (the input cache one
+   row conv a graph, a step 40 SpMMs, 8 gathers, 16 device-form K1
+   launches; no stacked K1, no rank form), finite losses, each card's peak
+   memory; the steady bf16 grid step (5 after one) beside the stacked
+   layout's, host and wall ms, each card's busy ms and idle share in one
+   profiled step; ``pred_basis --mesh_shape dp=2,edge=2`` on the twins
+   (served over the first 2 cells' cards), its launches exact, its .bas
+   equal to the stacked serve's byte for byte, its logits within 2^-6.
+   ``python3 chip_smoke.py --grid_devices`` runs only this phase; with 4
+   cards also dp=4 alone (one step's parity against ``--graph_batch 4``,
+   its launches and times).
 
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 40 LPs and 800 epochs (RESULTS.md:576-583).
@@ -428,7 +449,6 @@ from lp_gnn_tpu_torch.data.generator import SIZES, generate_instance
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.data.sampling import sample_subgraphs
 from lp_gnn_tpu_torch.data.stacking import stack_key
-from lp_gnn_tpu_torch.infer import predict as predict_mod
 from lp_gnn_tpu_torch.infer.decode import inference_gnn
 from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
@@ -452,7 +472,9 @@ from lp_gnn_tpu_torch.parallel.halo import (halo_all_to_all,
                                             halo_all_to_all_ranks,
                                             halo_all_to_all_ranks_plain,
                                             halo_rank_signalled)
-from lp_gnn_tpu_torch.parallel.mesh import make_mesh
+from lp_gnn_tpu_torch.parallel import mesh as mesh_mod
+from lp_gnn_tpu_torch.parallel.mesh import (make_device_grid, make_mesh,
+                                            shard_devices)
 from lp_gnn_tpu_torch.reporting.extract import extract_time
 from lp_gnn_tpu_torch.solver import highs_bridge
 from lp_gnn_tpu_torch.train import scan as scan_mod
@@ -4336,15 +4358,18 @@ def edge_layout(per_device: bool):
     dp, whatever the cards visible: one shard a device (the K shards'
     streams sharing a card where there are fewer cards) or every shard on
     the run's card. The entry points take JAX's rule
-    (``infer/predict.py one_shard_a_device``: one a device with K cards
+    (``parallel/mesh.py one_shard_a_device``: one a device with K cards
     visible); the phases name their layout, so that a machine with K_EDGE
-    cards runs them as one with a card."""
-    real = predict_mod.one_shard_a_device
-    predict_mod.one_shard_a_device = lambda device, edge: per_device
+    cards runs them as one with a card. The same rule lays ``dp=D[,edge=E]``
+    of one process over its devices (``parallel/mesh.py DeviceGrid``):
+    ``per_device`` names that layout too (``grid_devices``), and without
+    it dp falls back as with one card."""
+    real = mesh_mod.one_shard_a_device
+    mesh_mod.one_shard_a_device = lambda device, n: per_device
     try:
         yield
     finally:
-        predict_mod.one_shard_a_device = real
+        mesh_mod.one_shard_a_device = real
 
 
 def stacked_serve_reference(seed: int, root: str) -> dict:
@@ -4649,15 +4674,15 @@ def edge_ranks(seed: int, keep: str | None = None) -> dict:
 # ------------------------------------------------- one edge shard a device
 
 
-def on_devices(rank: dict) -> dict:
-    """One rank's launches (its one shard) as all K shards' with one shard
-    a device: every count K times, and the rank form's two launches an
-    exchange (the write and the copy-out) as the device form's K (one a
+def on_devices(rank: dict, k: int = K_EDGE) -> dict:
+    """One rank's launches (its one shard) as all k shards' with one shard
+    a device: every count k times, and the rank form's two launches an
+    exchange (the write and the copy-out) as the device form's k (one a
     source)."""
-    out = {n: v * K_EDGE for n, v in rank.items()
+    out = {n: v * k for n, v in rank.items()
            if n != "halo_all_to_all_ranks"}
     out["halo_all_to_all_devices"] = \
-        rank.get("halo_all_to_all_ranks", 0) // 2 * K_EDGE
+        rank.get("halo_all_to_all_ranks", 0) // 2 * k
     return add_launches(out)
 
 
@@ -5348,12 +5373,10 @@ def steady_layout(seed: int, mesh) -> dict:
     trainer's tensors and input cache, one untimed dist step then
     STEADY_REPS, and one untimed dist forward under ``torch.no_grad`` then
     STEADY_REPS. Each call's ``wall_ms`` (host clock, to the synchronise
-    after it) and ``host_ms`` (until the call returned: the host queueing
-    the work; with one shard a device, the K shards' threads taking turns
-    at the GIL), their medians; then one more step under the profiler:
-    each card's busy ms (the union of its work's spans) and idle share of
-    that step's wall, where the profiler saw every K1 launch of the step
-    (else None, ``profile_complete``)."""
+    of every card after it) and ``host_ms`` (until the call returned: the
+    host queueing the work; with one shard a device, the K shards' threads
+    taking turns at the GIL), their medians; then one more step under the
+    profiler (``profiled_step``)."""
     model = build_model(bf16_arch(ARCH_NO_DROPOUT),
                         generator=torch.Generator().manual_seed(seed))
     model = model.to("cuda")
@@ -5362,15 +5385,6 @@ def steady_layout(seed: int, mesh) -> dict:
                                         halo=True)
     data = edge_partition.dist_tensors(model, dg, mesh, input_agg=True)
     loss_fn = LOSS_REGISTRY["balanced"]
-    k1 = halo_all_to_all_devices if mesh.per_device else halo_all_to_all
-
-    def timed(fn) -> tuple[float, float]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
 
     def step():
         edge_partition.dist_train_step(model, opt, data, loss_fn)
@@ -5380,33 +5394,62 @@ def steady_layout(seed: int, mesh) -> dict:
             model.eval()
             edge_partition.dist_forward(model, data)
 
-    out = {}
-    for name, fn in (("step", step), ("forward", forward)):
-        fn()
-        runs = [timed(fn) for _ in range(STEADY_REPS)]
-        out[name] = {"host_ms": [h for h, _ in runs],
-                     "wall_ms": [w for _, w in runs],
-                     "host_ms_median": float(np.median([h for h, _ in runs])),
-                     "wall_ms_median": float(np.median([w for _, w in runs]))}
+    out = {name: timed_reps(fn, STEADY_REPS)
+           for name, fn in (("step", step), ("forward", forward))}
+    out["profiled_step"] = profiled_step(step, mesh.per_device)
+    del model, opt, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def timed_call(fn) -> tuple[float, float, object]:
+    """(host ms until ``fn`` returned, wall ms to the synchronise of every
+    card after it, its result)."""
+    sync_cards()
+    t0 = time.perf_counter()
+    out = fn()
+    t1 = time.perf_counter()
+    sync_cards()
+    return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3, out
+
+
+def timed_reps(fn, reps: int) -> dict:
+    """One untimed call of ``fn``, then ``reps`` timed: host and wall ms
+    each and their medians."""
+    fn()
+    runs = [timed_call(fn)[:2] for _ in range(reps)]
+    return {"host_ms": [h for h, _ in runs], "wall_ms": [w for _, w in runs],
+            "host_ms_median": float(np.median([h for h, _ in runs])),
+            "wall_ms_median": float(np.median([w for _, w in runs]))}
+
+
+def profiled_step(step, per_device: bool) -> dict:
+    """One ``step`` under the profiler: its wall ms, K1's launches in it
+    (the device form's with one shard a device, else the stacked form's)
+    and those the profiler saw, and, where it saw them all, each card's
+    busy ms (the union of its work's spans) and idle share of the wall
+    (else None, ``profile_complete``)."""
+    k1 = halo_all_to_all_devices if per_device else halo_all_to_all
+    k1_kernel = "halo_pairs_kernel" if per_device else "halo_a2a_kernel"
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     before = k1.launches
     with torch.profiler.profile(activities=acts) as prof:
-        _, wall = timed(step)
+        _, wall, _ = timed_call(step)
     launched = k1.launches - before
-    k1_kernel = "halo_pairs_kernel" if mesh.per_device else "halo_a2a_kernel"
     seen = sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and k1_kernel in e.name)
     busy = busy_by_card(prof) if seen == launched else None
-    out["profiled_step"] = {
-        "wall_ms": wall, "k1_launches": launched, "k1_seen": seen,
-        "profile_complete": seen == launched, "busy_ms_by_card": busy,
-        "idle_share_by_card": {c: 1 - b / wall for c, b in busy.items()}
-        if busy else None}
-    del model, opt, data
-    torch.cuda.empty_cache()
-    return out
+    return {"wall_ms": wall, "k1_launches": launched, "k1_seen": seen,
+            "profile_complete": seen == launched, "busy_ms_by_card": busy,
+            "idle_share_by_card": {c: 1 - b / wall for c, b in busy.items()}
+            if busy else None}
 
 
 def edge_devices(seed: int, ranks_dir: str, stacked_inf: dict | None = None
@@ -5427,7 +5470,6 @@ def edge_devices(seed: int, ranks_dir: str, stacked_inf: dict | None = None
     and GCNRand's forward over the all-gather partition (equal); the
     recipe's steady steps and forwards beside the stacked layout's on
     cuda:0 (``steady_layout``)."""
-    from lp_gnn_tpu_torch.infer.predict import shard_devices
     k, n = K_EDGE, torch.cuda.device_count()
     devs = shard_devices(torch.device("cuda", 0), k)
     mesh = make_mesh(k, devs)
@@ -5541,6 +5583,339 @@ def edge_devices(seed: int, ranks_dir: str, stacked_inf: dict | None = None
                                 "rows": rand_rows},
         "links": links, "card_ranks": card_ranks,
         "kernels": rows,
+    }
+
+
+# ------------------------------------ dp and the (dp, edge) grid of devices
+# JAX's layout of --mesh_shape dp=D[,edge=E] in one process: cell (d, e) on
+# cuda:(d*E + e) mod the cards, a thread and stream a cell (on one card
+# every cell on cuda:0). A row's conv over its E shards, one a device:
+# on_devices(RANK_CONV, E); a grid step a row's two convs (the hidden
+# conv's forward and backward) on every row; the input cache one conv a
+# graph
+GRID_DEV = {"dp": 2, "edge": 2}
+GRID_DEV_ARGS = ["--mesh_shape",
+                 f"dp={GRID_DEV['dp']},edge={GRID_DEV['edge']}",
+                 "--edge_num_thresh", "0"]
+GRID_DEV_EPOCHS = 2
+GRID_DEV_CONV = on_devices(RANK_CONV, GRID_DEV["edge"])
+GRID_DEV_STEP = scaled(GRID_DEV_CONV, 2 * GRID_DEV["dp"])
+# the stacked layout's conv at E shards (DIST_CONV at K = E)
+GRID_STACKED_CONV = {"halo_all_to_all": 1, "gather_rows": 1,
+                     "spmm_csr": 5 * GRID_DEV["edge"]}
+# a dp step on devices against --graph_batch's union step on one card, an
+# fp32 SGD step's update per tensor: the same sums, one graph a replica
+DP_DEV_UPDATE_RTOL = 1e-5
+GRID_DEV_REPS = 3           # timed steps of each way, after one untimed
+
+
+def card_peaks(devs) -> dict:
+    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i)
+            for i in sorted({d.index for d in devs})}
+
+
+def reset_card_peaks(devs) -> None:
+    for i in {d.index for d in devs}:
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def dp_devices_case(graphs: list, w0: dict, d: int) -> dict:
+    """One fp32 SGD step (ARCH_NO_DROPOUT, UPDATE_LR) of dp=d on d devices
+    (block c of ``graphs`` one union on cell c's device, its replica in a
+    thread of its own) against ``--graph_batch len(graphs)``'s step on one
+    card over the same stack: each tensor's update within
+    DP_DEV_UPDATE_RTOL of its largest; the devices' step twice from w0,
+    bit for bit; each way's launches and host and wall ms (GRID_DEV_REPS
+    timed after one)."""
+    from lp_gnn_tpu_torch.data.graph import union
+    from lp_gnn_tpu_torch.parallel.dp import dp_train_step, rank_block
+    grid = make_device_grid(d, 1, shard_devices(torch.device("cuda", 0), d))
+    loss_fn = LOSS_REGISTRY["balanced"]
+    out = {}
+    for way in ("devices", "devices_again", "one_card"):
+        model = build_model(ARCH_NO_DROPOUT)
+        model.load_state_dict(w0)
+        model = model.to("cuda").train()
+        opt = trainer.make_optimizer(model.parameters(), "sgd", UPDATE_LR)
+        if way == "one_card":
+            g = union([trainer.train_graph(model, x, "cuda") for x in graphs])
+            threads = None
+        else:
+            g = [union([trainer.train_graph(model, x, dev)
+                        for x in rank_block(graphs, d, c)])
+                 for c, dev in enumerate(grid.col.devices)]
+            threads = grid.col
+        before = launch_counts()
+        host, wall, loss = timed_call(lambda: dp_train_step(
+            model, opt, g, loss_fn, None, threads))
+        out[way] = {"state": {k: v.detach().to("cpu", copy=True) for k, v in
+                              model.state_dict().items()},
+                    "loss": float(loss), "launches": launches_since(before),
+                    "first_host_ms": host, "first_wall_ms": wall}
+        if way != "devices_again":
+            out[way]["timing"] = timed_reps(lambda: dp_train_step(
+                model, opt, g, loss_fn, None, threads), GRID_DEV_REPS)
+        del model, opt, g
+        torch.cuda.empty_cache()
+    dev, again, one = out["devices"], out["devices_again"], out["one_card"]
+    rels = update_rels(w0, dev["state"], one["state"], UPDATE_LR)
+    near = max(rels, key=rels.get)
+    same = dev["loss"] == again["loss"] and all(
+        torch.equal(v, again["state"][k]) for k, v in dev["state"].items())
+    want = scaled({"spmm_csr": SPMM_PER_STEP}, d)
+    if rels[near] > DP_DEV_UPDATE_RTOL or not same or \
+            dev["launches"] != add_launches(want) or \
+            abs(dev["loss"] - one["loss"]) > 1e-5 * abs(one["loss"]):
+        raise SmokeFailure(
+            f"grid_devices dp={d}: loss {dev['loss']} vs --graph_batch's "
+            f"{one['loss']}, update rel diff {rels[near]} in {near} > "
+            f"{DP_DEV_UPDATE_RTOL}, repeat bit for bit {same}, launches "
+            f"{dev['launches']} (expected {want})")
+    return {"dp": d, "devices": [str(x) for x in grid.col.devices],
+            "arch": ARCH_NO_DROPOUT, "dtype": "float32", "lr": UPDATE_LR,
+            "loss": dev["loss"], "loss_graph_batch": one["loss"],
+            "update_rel_max_vs_graph_batch": rels[near], "tensor": near,
+            "update_rtol": DP_DEV_UPDATE_RTOL, "repeat_bit_equal": same,
+            "launches": dev["launches"], "launches_graph_batch":
+                one["launches"],
+            "devices_timing": dev["timing"],
+            "graph_batch_timing": one["timing"]}
+
+
+def batch_tensors(model, parts: list, grid):
+    """The trainer's tensors of a batch's partitions, with the input cache:
+    on ``grid`` each row's block on the row's edge mesh, or with None the
+    whole batch on the stacked layout (the E shards on cuda:0)."""
+    from lp_gnn_tpu_torch.parallel.dp import rank_block
+    if grid is None:
+        mesh = make_mesh(GRID_DEV["edge"], "cuda")
+        return [edge_partition.dist_tensors(model, p, mesh, input_agg=True)
+                for p in parts]
+    return [[edge_partition.dist_tensors(model, parts[i], row,
+                                         input_agg=True)
+             for i in rank_block(list(range(len(parts))), grid.dp, d)]
+            for d, row in enumerate(grid.rows)]
+
+
+def grid_step_case(seed: int, twins: list, parts: list, w0: dict,
+                   grid) -> dict:
+    """One fp32 SGD step (ARCH_NO_DROPOUT, UPDATE_LR) of dp x edge on the
+    device ``grid`` (row d block d of the twins' partitions, on its edge
+    mesh) against ``dp_edge_train_step`` over the whole batch on the
+    stacked layout (the E shards on cuda:0): each tensor's update within
+    the bound the dp_edge phase holds its layout to (the larger of
+    UPDATE_RTOL and DIST_UPDATE_SPREAD times the stacked step's own spread
+    against its fp64 witness, ``union_step_fp64``); the grid step twice
+    from w0, bit for bit; launches exact."""
+    from lp_gnn_tpu_torch.parallel.combined import dp_edge_train_step
+    loss_fn = LOSS_REGISTRY["balanced"]
+    out = {}
+    for way in ("grid", "grid_again", "stacked"):
+        model = build_model(ARCH_NO_DROPOUT)
+        model.load_state_dict(w0)
+        model = model.to("cuda").train()
+        opt = trainer.make_optimizer(model.parameters(), "sgd", UPDATE_LR)
+        on = None if way == "stacked" else grid
+        dgs = batch_tensors(model, parts, on)
+        before = launch_counts()
+        host, wall, loss = timed_call(lambda: dp_edge_train_step(
+            model, opt, dgs, loss_fn, None, on))
+        out[way] = {"state": {k: v.detach().cpu() for k, v in
+                              model.state_dict().items()},
+                    "loss": float(loss), "launches": launches_since(before),
+                    "host_ms": host, "wall_ms": wall}
+        del model, opt, dgs
+        torch.cuda.empty_cache()
+    fp64 = union_step_fp64(seed, twins, UPDATE_LR)
+    got, again, st = out["grid"], out["grid_again"], out["stacked"]
+    rels = update_rels(w0, got["state"], st["state"], UPDATE_LR)
+    spread = update_rels(w0, st["state"], fp64, UPDATE_LR)
+    limits = {k: max(UPDATE_RTOL, DIST_UPDATE_SPREAD * spread[k])
+              for k in rels}
+    worst = max(rels, key=lambda k: rels[k] / limits[k])
+    same = got["loss"] == again["loss"] and all(
+        torch.equal(v, again["state"][k]) for k, v in got["state"].items())
+    want = add_launches(GRID_DEV_STEP)
+    if rels[worst] > limits[worst] or not same or \
+            got["launches"] != want or \
+            abs(got["loss"] - st["loss"]) > 1e-5 * abs(st["loss"]):
+        raise SmokeFailure(
+            f"grid_devices grid step: loss {got['loss']} vs the stacked "
+            f"{st['loss']}, update rel diff {rels[worst]} in {worst} > "
+            f"{limits[worst]}, repeat bit for bit {same}, launches "
+            f"{got['launches']} (expected {want})")
+    return {"arch": ARCH_NO_DROPOUT, "dtype": "float32", "lr": UPDATE_LR,
+            "loss": got["loss"], "loss_stacked": st["loss"],
+            "update_rels_vs_stacked": rels,
+            "stacked_vs_fp64_update_rels": spread,
+            "spread_factor": DIST_UPDATE_SPREAD,
+            "nearest_limit": {"tensor": worst, "update_diff": rels[worst],
+                              "limit": limits[worst]},
+            "repeat_bit_equal": same, "launches": got["launches"],
+            "launches_stacked": st["launches"],
+            "first_step_host_ms": got["host_ms"],
+            "first_step_wall_ms": got["wall_ms"],
+            "stacked_first_step_wall_ms": st["wall_ms"]}
+
+
+def steady_grid(seed: int, parts: list, grid) -> dict:
+    """The recipe's model (GCN_FC hids=1024 bf16, dropout 0, Adam at the
+    trainer's lr) in a steady state: one untimed step then STEADY_REPS, on
+    the device grid and on the stacked layout (the whole batch, E shards
+    on cuda:0): host and wall ms, their medians, peak memory a card; then
+    one grid step under the profiler (``profiled_step``)."""
+    from lp_gnn_tpu_torch.parallel.combined import dp_edge_train_step
+    loss_fn = LOSS_REGISTRY["balanced"]
+    out = {}
+    for way in ("grid", "stacked"):
+        model = build_model(bf16_arch(ARCH_NO_DROPOUT),
+                            generator=torch.Generator().manual_seed(seed))
+        model = model.to("cuda").train()
+        opt = trainer.make_optimizer(model.parameters(), "adam", 1e-3)
+        on = None if way == "stacked" else grid
+        dgs = batch_tensors(model, parts, on)
+        reset_card_peaks(grid.devices)
+
+        def step():
+            dp_edge_train_step(model, opt, dgs, loss_fn, None, on)
+
+        out[way] = timed_reps(step, STEADY_REPS)
+        out[way]["max_memory_allocated_bytes"] = card_peaks(grid.devices)
+        if on is not None:
+            out["profiled_step"] = profiled_step(step, True)
+        del model, opt, dgs
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_devices(seed: int) -> dict:
+    """dp and the (dp, edge) grid over the devices of one process
+    (``parallel/mesh.py DeviceGrid``, JAX's layout of ``--mesh_shape
+    dp=D[,edge=E]`` with D*E cards visible): cell (d, e) on
+    cuda:(d*E + e mod the cards), a thread and stream a cell (on one card
+    every cell on cuda:0), on the dp_edge phase's twins. Checks: a dp=2
+    step against --graph_batch 2 (``dp_devices_case``) and a dp=2,edge=2
+    grid step against the stacked layout's (``grid_step_case``), each
+    bit for bit when repeated; the recipe through ``python -m
+    lp_gnn_tpu_torch.train --mesh_shape dp=2,edge=2 --edge_num_thresh 0``
+    (GRID_DEV_EPOCHS epochs, Adam, bf16) with its launches counted from 0
+    exactly (the input cache one row conv a graph, a step GRID_DEV_STEP;
+    no stacked K1, no rank form), finite losses and each card's peak
+    memory; its steady steps beside the stacked layout's with each card's
+    busy ms and idle share (``steady_grid``); ``pred_basis --mesh_shape
+    dp=2,edge=2`` on the twins (served over the first E cards, one shard a
+    device): valid .bas equal to the stacked serve's, byte for byte, the
+    logits within DEV_LOGIT_TOL. With 4 cards also dp=4 alone
+    (``dp_devices_case`` on 4 LPs of the twins' pattern)."""
+    dp, e = GRID_DEV["dp"], GRID_DEV["edge"]
+    cards = torch.cuda.device_count()
+    devs = shard_devices(torch.device("cuda", 0), dp * e)
+    grid = make_device_grid(dp, e, devs)
+    from lp_gnn_tpu_torch.parallel.combined import partition_batch
+    twins = twin_graphs(seed + 1200)
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    dp_case = dp_devices_case(twins, w0, dp)
+    t0 = time.perf_counter()
+    parts = partition_batch(twins, e, halo=True)
+    partition_s = time.perf_counter() - t0
+    step_case = grid_step_case(seed, twins, parts, w0, grid)
+    steady = steady_grid(seed, parts, grid)
+    del parts
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_gdev_") as tmp:
+        data_prefix = osp.join(tmp, "data")
+        write_dataset(osp.join(data_prefix, "smoke", "highs-inp_tgt"), 0, 4,
+                      split_dataset(4, twins, seed))
+        recipe = ["--arch", ARCH, "--fp16", "1", "--loss", "balanced",
+                  "--epochs", str(GRID_DEV_EPOCHS), "--seed", str(seed),
+                  *GRID_DEV_ARGS]
+        reset_card_peaks(devs)
+        with edge_layout(True):
+            launches, tr, t_train, _, _ = run_train(tmp, data_prefix, recipe,
+                                                    "grid_recipe")
+        peaks = card_peaks(devs)
+        want = add_launches(scaled(GRID_DEV_CONV, dp),
+                            scaled(GRID_DEV_STEP, GRID_DEV_EPOCHS))
+        kinds = [st["kind"] for st in tr.steps]
+        if launches != want or kinds != ["dp_edge_train_step"] * \
+                GRID_DEV_EPOCHS or any(st["launches"] != add_launches(
+                    GRID_DEV_STEP) for st in tr.steps):
+            raise SmokeFailure(
+                f"grid_devices recipe: steps {kinds}, launches {launches} "
+                f"(expected {want}), a step "
+                f"{[st['launches'] for st in tr.steps]} (expected "
+                f"{GRID_DEV_STEP})")
+        # the twins alone (check_bases holds bench-shape LPs)
+        serve_data = osp.join(tmp, "serve_data")
+        write_dataset(osp.join(serve_data, "smoke", "highs-inp_tgt"), 0, 2,
+                      twins)
+        ckpt = save_seeded(ARCH, seed, osp.join(tmp, "mdl.pth"))
+        served = {}
+        logits = {}
+        for layout, per_fwd in (("stacked", scaled(GRID_STACKED_CONV, 2)),
+                                ("devices", scaled(GRID_DEV_CONV, 2))):
+            with CaptureLogits() as cap, edge_layout(layout == "devices"):
+                served[layout] = serve_and_check(
+                    serve_data, osp.join(tmp, layout), ckpt, seed, 2,
+                    "trainval", per_fwd, GRID_DEV_ARGS)
+            logits[layout] = cap.logits
+        dirs = [osp.join(tmp, w, "smoke", "pred-basis")
+                for w in ("stacked", "devices")]
+        # the bases byte for byte; their .sort files hold the logits, held
+        # to DEV_LOGIT_TOL below
+        bas = sorted(f for f in os.listdir(dirs[0]) if f.endswith(".bas"))
+        same_bas = {f: filecmp.cmp(osp.join(dirs[0], f),
+                                   osp.join(dirs[1], f), shallow=False)
+                    for f in bas}
+    worst = {}
+    for fn, got in logits["devices"].items():
+        err, ok = within(torch.from_numpy(got),
+                         torch.from_numpy(logits["stacked"][fn]),
+                         *DEV_LOGIT_TOL)
+        worst[fn] = err
+        if not ok:
+            raise SmokeFailure(f"grid_devices serve {fn}: logits max |err| "
+                               f"{err} vs the stacked serve's, beyond "
+                               f"{DEV_LOGIT_TOL}")
+    if len(worst) != 2 or not all(same_bas.values()):
+        raise SmokeFailure(f"grid_devices serve: logits of {sorted(worst)}, "
+                           f"files equal to the stacked serve's {same_bas}")
+    dp4 = dp_devices_case(pattern_twins(seed + 1300, 4),
+                          w0, 4) if cards >= 4 else {
+        "skipped": f"needs 4 cards, has {cards}"}
+    return {
+        "cards": cards, "dp": dp, "edge": e,
+        "cells": {f"({i // e}, {i % e})": str(d) for i, d in enumerate(devs)},
+        "distinct_devices": len(set(devs)),
+        "note": f"{dp * e} cells on {len(set(devs))} distinct device(s), a "
+                "thread and stream a cell; with one card every cell on "
+                "cuda:0, and no figure here is a several-card figure",
+        "launches": add_launches(launches, served["devices"]["launches"]),
+        "dp_step": dp_case, "grid_step": step_case,
+        "partition_s": partition_s,
+        "recipe": {"arch": bf16_arch(ARCH), "epochs": GRID_DEV_EPOCHS,
+                   "launches": launches, "launches_per_step": GRID_DEV_STEP,
+                   "launch_formula": "the input cache one row conv a graph "
+                                     f"(GRID_DEV_CONV {GRID_DEV_CONV}) x "
+                                     f"{dp} + a grid step x "
+                                     f"{GRID_DEV_EPOCHS}",
+                   "step_losses": [st["loss"] for st in tr.steps],
+                   "step_device_ms": [st["device_ms"] for st in tr.steps],
+                   "partition_s": tr.partition_s,
+                   "dist_tensors_s": tr.dist_tensors_s,
+                   "max_memory_allocated_bytes": peaks,
+                   "train_s": t_train},
+        "steady": {"arch": bf16_arch(ARCH_NO_DROPOUT), "reps": STEADY_REPS,
+                   **steady},
+        "serve": {"bas_valid": served["devices"]["bas_valid"],
+                  "bas_equal_stacked": same_bas,
+                  "logits_max_abs_err_vs_stacked": worst,
+                  "logit_tol": {"rtol": DEV_LOGIT_TOL[0],
+                                "atol": DEV_LOGIT_TOL[1]},
+                  "launches": served["devices"]["launches"],
+                  "inf_time_s": served["devices"]["inf_time_s"],
+                  "stacked_inf_time_s": served["stacked"]["inf_time_s"]},
+        "dp4": dp4,
     }
 
 
@@ -7325,6 +7700,10 @@ def main(argv=None) -> int:
     ap.add_argument("--edge_devices", action="store_true",
                     help="run only the edge_devices phase (one edge shard "
                          "a card where the cards are as many as the shards)")
+    ap.add_argument("--grid_devices", action="store_true",
+                    help="run only the grid_devices phase (dp and the (dp, "
+                         "edge) grid over the cards of this process, a card "
+                         "a cell where there are as many)")
     ap.add_argument("--edge_rank", metavar="PAYLOAD",
                     help="run as one rank of the edge_ranks phase, with the "
                          "phase's PAYLOAD (a JSON file)")
@@ -7372,6 +7751,17 @@ def main(argv=None) -> int:
             return 1
         emit({"phase": "edge_devices", "nvidia_smi": nvidia_smi(),
               "phase_s": time.perf_counter() - t0, **devd})
+        return 0
+    if args.grid_devices:
+        _build.build_all(["spmm", "gather", "halo_a2a"])
+        t0 = time.perf_counter()
+        try:
+            gdev = grid_devices(args.seed)
+        except SmokeFailure as ex:
+            print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
+            return 1
+        emit({"phase": "grid_devices", "nvidia_smi": nvidia_smi(),
+              "phase_s": time.perf_counter() - t0, **gdev})
         return 0
     # the pipeline's prepped family, kept for the steps_per_call phase
     mirp_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_mirp_")
@@ -7493,6 +7883,9 @@ def main(argv=None) -> int:
         kernels += devd.pop("kernels")
         emit({"phase": "edge_devices", **devd})
         torch.cuda.empty_cache()
+        gdev = grid_devices(args.seed)
+        emit({"phase": "grid_devices", **gdev})
+        torch.cuda.empty_cache()
         scanned = steps_per_call(args.seed, mirp_keep)
         emit({"phase": "steps_per_call", "nvidia_smi": smi, **scanned})
         torch.cuda.empty_cache()
@@ -7541,6 +7934,7 @@ def main(argv=None) -> int:
              "dp_graph_batch": dp, "dist_train": dtrained,
              "dist_zoo_serve": dzoo, "dist_gen_train": dgen,
              "dp_edge": dpe, "edge_ranks": ranked, "edge_devices": devd,
+             "grid_devices": gdev,
              "steps_per_call": scanned, "all_gather": gathered,
              "bench": benched, "native": natived, "big": big,
              "probe_spmm": probed, "probe_gen_floor": floors,

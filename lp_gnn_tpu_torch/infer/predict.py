@@ -5,7 +5,8 @@
 device, or, under ``--mesh_shape edge=K`` for graphs above
 ``edge_num_thresh``, its edge-partitioned forward (:133-137) over K shards
 with the halo exchange. As the JAX package, one process with K cards
-visible puts shard k on card k (``mesh_from_cfg`` :35-48). It builds no
+visible puts shard k on card k (``mesh_from_cfg`` :35-48), whatever
+``dp`` says. It builds no
 mesh when K exceeds its device count; the port places all K shards on the
 model's one device instead (``parallel/mesh.py``), so the path runs on one
 GPU, or, under the ``LP_GNN_DIST_*`` contract with K ranks, shard k on
@@ -34,6 +35,7 @@ from ..data.graph import GraphTensors
 from ..data.sampling import sample_subgraphs
 from ..io.bas import read_bas, write_bas_highs
 from ..parallel import edge_partition
+from ..parallel import mesh as pmesh
 from ..parallel.mesh import (EdgeMesh, grid_from_shape, is_primary,
                              make_mesh, parse_mesh_shape, world_and_rank)
 from ..train.metrics import accuracy
@@ -48,9 +50,10 @@ def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
     the group's size); over this rank's row of the (dp, edge) grid where
     ``dp=D,edge=K`` names D*K ranks (``mesh.grid_from_shape``: JAX serves
     over the edge axis alone, :35-50, so row 0 serves and the other rows
-    skip, ``runs_here``); else, in one process without dp and with at
-    least K cards visible, one shard a device (:func:`one_shard_a_device`),
-    shard k on cuda:k as JAX's ``make_mesh`` lays out its devices (:47);
+    skip, ``runs_here``); else, in one process with at least K cards
+    visible, one shard a device (``mesh.one_shard_a_device``), shard k on
+    cuda:k as JAX's ``make_mesh`` lays out its devices (:47), also under
+    ``dp=D``, which JAX's serving ignores (:45-48: the first K devices);
     else with every shard on ``device`` (one process, or a rank of dp x
     edge over D ranks, ``parallel/combined.py``)."""
     spec = parse_mesh_shape(cfg.mesh_shape)
@@ -67,27 +70,9 @@ def mesh_from_cfg(cfg, device: torch.device) -> EdgeMesh | None:
                 f"--mesh_shape edge={edge} over a process group of {world} "
                 f"ranks: one shard a rank needs edge={world}")
         return make_mesh(edge, device, dist.group.WORLD)
-    if spec.get("dp", 1) == 1 and one_shard_a_device(device, edge):
-        return make_mesh(edge, shard_devices(device, edge))
+    if world == 1 and pmesh.one_shard_a_device(device, edge):
+        return make_mesh(edge, pmesh.shard_devices(device, edge))
     return make_mesh(edge, device)
-
-
-def one_shard_a_device(device: torch.device, edge: int) -> bool:
-    """Whether each of the ``edge`` shards goes on a device of its own in
-    this process, JAX's rule (predict.py:47): where ``device`` is a card
-    and at least ``edge`` cards are visible."""
-    return device.type == "cuda" and torch.cuda.device_count() >= edge
-
-
-def shard_devices(device: torch.device, edge: int) -> list[torch.device]:
-    """The device of each shard, one a device: on the card, ``device``'s
-    card and the next ones, cuda:(i + k) mod the cards visible (cuda:k
-    from cuda:0; fewer cards than shards repeat them); on the CPU, the CPU
-    ``edge`` times."""
-    if device.type != "cuda":
-        return [device] * edge
-    n, i = torch.cuda.device_count(), device.index or 0
-    return [torch.device("cuda", (i + k) % n) for k in range(edge)]
 
 
 def _uses_dist_path(g: BipartiteGraph, edge_num_thresh,

@@ -14,7 +14,7 @@ the fills have no counterpart; what carries over is the shared ``ms``,
 ``ns`` and Bh, which give every node and halo field of the batch one shape,
 as there.
 
-Two layouts of the ranks (``mesh.py``):
+Three layouts (``mesh.py``):
 
 - D ranks (``--mesh_shape dp=D,edge=E`` over D ranks): rank d holds block
   d of the batch with all E shards of each graph on its device
@@ -24,7 +24,17 @@ Two layouts of the ranks (``mesh.py``):
   rank (d, e) holds shard e of each graph of block d. The E ranks of row d
   run each graph's dist forward together over the row's edge group (K1's
   rank form, the losses' psum), and the gradients are reduced over the
-  whole grid (:func:`grid_average`).
+  whole grid (:func:`grid_average`);
+- the (dp, edge) grid of D*E devices of one process, JAX's layout on one
+  host (``mesh.DeviceGrid``): row d takes block d, each graph's shards on
+  row d's edge mesh, shard e on cell (d, e) in a thread of its own. The
+  rows run one after another from the calling thread, the kernels they
+  queue on their devices at once. The loss is the mean over the rows of
+  each row's mean of dist losses: JAX's ``pmean(psum(g, edge), dp)``, where
+  the psum within a row is the sum of its joint and broadcast nodes (every
+  shard is here, as on the stacked path: no ``psum_over``) and the mean
+  over the rows is the pmean. One broadcast of the parameters over every
+  cell a step sums the D*E gradients on the lead in (d, e) order.
 """
 from __future__ import annotations
 
@@ -32,11 +42,12 @@ import torch
 
 from ..data.dataset import BipartiteGraph
 from ..data.stacking import bucket_key
-from .dp import _all_reduce_grads, average_over_ranks
-from .edge_partition import (DistGraphTensors, PartitionedGraph,
-                             _shard_sizes, compute_halo_width, dist_forward,
+from .dp import _all_reduce_grads, average_over_ranks, cell_generators
+from .edge_partition import (PartitionedGraph, _shard_sizes,
+                             compute_halo_width, dist_forward,
                              partition_graph, psum_over)
-from .mesh import RankGrid
+from .mesh import DeviceGrid, RankGrid
+from .shard_threads import numbered_afresh, replicas
 
 
 def dist_stack_groups(ds, size: int, edge_num_thresh: float):
@@ -92,9 +103,9 @@ def grid_average(model, loss: torch.Tensor, grid: RankGrid) -> torch.Tensor:
 
 
 def dp_edge_train_step(model, optimizer: torch.optim.Optimizer,
-                       dgs: list[DistGraphTensors], loss_fn,
+                       dgs: list, loss_fn,
                        generator: torch.Generator | None = None,
-                       grid: RankGrid | None = None):
+                       grid: RankGrid | DeviceGrid | None = None):
     """One dp x edge step on this rank's block ``dgs`` of a batch
     (``make_dp_edge_train_step`` :108): the dist forward of each graph in
     training mode, the mean of their dist losses, one backward, then one
@@ -112,7 +123,15 @@ def dp_edge_train_step(model, optimizer: torch.optim.Optimizer,
     graph's loss sums over the row's edge group (``psum_over``, whose
     backward passes the cotangent on as it is, so each rank's gradient is
     its shard's part with no 1/E to undo) and :func:`grid_average` reduces
-    the gradients over the grid."""
+    the gradients over the grid.
+
+    On a :class:`mesh.DeviceGrid` ``dgs`` lists the D rows' blocks (each
+    graph's tensors on its row's edge mesh) and ``generator`` is the run's:
+    row d draws from :func:`dp.cell_generators`' d-th, what rank (d, e) of
+    the grid of ranks is given before it folds in its shard."""
+    if isinstance(grid, DeviceGrid):
+        return _grid_step_on_devices(model, optimizer, dgs, loss_fn,
+                                     generator, grid)
     model.train()
     kw = {} if grid is None else {"psum": psum_over(grid.row)}
     loss = torch.stack([
@@ -127,3 +146,34 @@ def dp_edge_train_step(model, optimizer: torch.optim.Optimizer,
         loss = average_over_ranks(model, loss.detach())
     optimizer.step()
     return loss
+
+
+def _grid_step_on_devices(model, optimizer, blocks: list, loss_fn,
+                          generator, grid: DeviceGrid):
+    """The dp x edge step on the device grid: one broadcast of the
+    parameters to every cell, each row's dist forwards over its cells'
+    replicas and its mean of dist losses, the rows' means averaged on the
+    lead, one backward, one optimizer step on the lead."""
+    if len(blocks) != grid.dp:
+        raise ValueError(f"{len(blocks)} blocks for a grid of {grid.dp} rows")
+    model.train()
+
+    def forward():
+        reps = replicas(model, grid.threads)
+        gens = cell_generators(generator, [row.device for row in grid.rows])
+        e = grid.edge
+        means = []
+        for d, dgs in enumerate(blocks):
+            row_reps = reps[d * e:(d + 1) * e]
+            means.append(torch.stack([
+                loss_fn(*dist_forward(model, dg, gens[d], row_reps),
+                        dg.y_s, dg.y_t, dg.cons_mask, dg.vars_mask)
+                for dg in dgs]).mean().to(grid.device))
+        return torch.stack(means).mean()
+
+    loss = numbered_afresh(forward)
+    optimizer.zero_grad(set_to_none=True)
+    if loss.requires_grad:   # GCNRand's logits depend on no parameter
+        loss.backward()
+    optimizer.step()
+    return loss.detach()

@@ -19,6 +19,14 @@ shards on their own ranks every rank runs the same union. Either way the
 average is over every rank of the process group: the mean over the
 column of the rows' gradients, with no rank's weights left to depend on
 its row's kernels being bitwise deterministic.
+
+In one process with D cards (``mesh.DeviceGrid``, JAX's own layout of
+``dp=D``) block d of a stack is one union built on device d; replica d of
+the model (its parameters broadcast from the lead,
+``shard_threads.replicas``) runs the forward and the per-graph losses in
+thread d, on device d's stream; the D block means are averaged on the lead
+and one ``backward()`` sums the D gradients there in order: JAX's ``pmean``
+of the per-shard means, the ranks' arithmetic without a process group.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch.distributed as dist
 from ..data.graph import GraphTensors, seed_masks
 from ..data.stacking import stack_key
 from .mesh import world_and_rank
+from .shard_threads import ShardThreads, numbered_afresh, replicas
 
 
 def stack_groups(ds, size: int, edge_num_thresh: float):
@@ -95,6 +104,17 @@ def step_seed(gen: torch.Generator) -> int:
     return int(torch.randint(2 ** 62, (1,), generator=gen, device=gen.device))
 
 
+def cell_generators(gen: torch.Generator | None, devices) -> list:
+    """A dropout generator for each cell of an axis held in this process,
+    cell c on ``devices[c]``: seeded with one draw of ``gen`` plus c, what
+    :func:`step_generator` gives rank c (None each without ``gen``)."""
+    if gen is None:
+        return [None] * len(devices)
+    seed = step_seed(gen)
+    return [torch.Generator(device=d).manual_seed(seed + c)
+            for c, d in enumerate(devices)]
+
+
 def _all_reduce_grads(model, extra: torch.Tensor | None = None,
                       group=None, divide: int = 1) -> torch.Tensor:
     """Every gradient of ``model`` (and ``extra``, a 0-d tensor) summed over
@@ -134,13 +154,22 @@ def sum_over_ranks(model, group) -> None:
 
 
 def dp_train_step(model, optimizer: torch.optim.Optimizer, g: GraphTensors,
-                  loss_fn, generator: torch.Generator | None = None):
+                  loss_fn, generator: torch.Generator | None = None,
+                  threads: ShardThreads | None = None):
     """One step on a union of graphs (``make_dp_train_step`` :46): one
     forward in training mode, the mean of the per-graph losses, one
     backward; across the ranks of a process group the gradients are
     averaged (``average_over_ranks``), then the optimizer steps. Returns
     the mean loss over every rank's graphs, a 0-d tensor on the device
-    (before the update)."""
+    (before the update).
+
+    With ``threads`` (the dp devices of this process, the column of a
+    ``mesh.DeviceGrid``) ``g`` lists the D blocks' unions, union d on
+    device d, and ``generator`` is the run's: replica d draws its dropout
+    from :func:`cell_generators`' d-th, as rank d does."""
+    if threads is not None:
+        return _dp_step_on_devices(model, optimizer, g, loss_fn, generator,
+                                   threads)
     model.train()
     lc, lv = model(g, generator=generator)
     loss = member_losses(lc, lv, g, loss_fn).mean()
@@ -150,3 +179,36 @@ def dp_train_step(model, optimizer: torch.optim.Optimizer, g: GraphTensors,
     loss = average_over_ranks(model, loss.detach())
     optimizer.step()
     return loss
+
+
+def _dp_step_on_devices(model, optimizer, unions: list, loss_fn,
+                        generator, threads: ShardThreads):
+    """The dp step over D devices of one process: each replica's forward
+    and block mean in its thread, the D means averaged on the lead, one
+    backward (one broadcast node sums the D gradients on the lead, in
+    order), one optimizer step on the lead."""
+    if len(unions) != threads.size:
+        raise ValueError(f"{len(unions)} unions for {threads.size} dp "
+                         "devices")
+    model.train()
+
+    def forward():
+        reps = replicas(model, threads)
+        gens = cell_generators(generator, threads.devices)
+
+        def block_mean(d):
+            lc, lv = reps[d](unions[d], generator=gens[d])
+            return member_losses(lc, lv, unions[d], loss_fn).mean()
+
+        means = threads.run(block_mean)
+        for m in means:
+            if m.is_cuda:   # read on this thread's stream below
+                m.record_stream(torch.cuda.current_stream(m.device))
+        return torch.stack([m.to(threads.devices[0]) for m in means]).mean()
+
+    loss = numbered_afresh(forward)
+    optimizer.zero_grad(set_to_none=True)
+    if loss.requires_grad:   # GCNRand's logits depend on no parameter
+        loss.backward()
+    optimizer.step()
+    return loss.detach()

@@ -112,9 +112,9 @@ from ..ops.spmm import spmm_csr, spmm_csr_plain
 from .halo import (halo_all_to_all, halo_all_to_all_devices,
                    halo_all_to_all_plain, halo_all_to_all_ranks,
                    halo_all_to_all_ranks_plain)
-from .dp import step_generator, step_seed, sum_over_ranks
+from .dp import cell_generators, step_generator, sum_over_ranks
 from .mesh import EdgeMesh
-from .shard_threads import Member, joint, replicas
+from .shard_threads import Member, joint, numbered_afresh, replicas
 
 CSR_KINDS = ("local_v2c", "local_c2v", "halo_v2c", "halo_c2v")
 FULL_KINDS = ("full_v2c", "full_c2v")   # the all-gather layout's
@@ -1145,13 +1145,14 @@ def _dist_bidir_conv(conv, dg: DistGraphTensors, left, right,
 
 
 def dist_gcn_rand_apply(model, dg: DistGraphTensors,
-                        generator: torch.Generator | None = None):
+                        generator: torch.Generator | None = None, reps=None):
     """The random-logit control over a partition (edge_partition.py:816):
     U[0, 1) logits for the stacked rows of all K shards through the
     knowledge mask, no exchange; from one generator seeded 0 when none is
     given, as the single-card model. Over ranks each rank draws them all
     and keeps its shard's rows, the stacked path's; with one shard a device
-    the lead draws them, as the stacked path."""
+    the lead draws them, as the stacked path (``reps``, the replicas of a
+    forward with one shard a device, are not read: no parameter is)."""
     if generator is None:
         generator = torch.Generator(device=dg.device).manual_seed(0)
     k, d0 = dg.n_shards, dg.shards[0]
@@ -1164,19 +1165,20 @@ def dist_gcn_rand_apply(model, dg: DistGraphTensors,
 
 
 def module_forward(model, dg: DistGraphTensors,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None, reps=None):
     """The arch's own forward over a partition (edge_partition.py:757,
     :791, :1007): ``dg.apply_conv`` runs each conv over the shards, with
     the module's weights, and dropout (training mode) draws its masks from
     ``generator`` over the stacked rows. Returns the stacked (L*ms, 3) and
     (L*ns, 3) fp32 logits. With one shard a device, each shard's forward
-    in its thread (:func:`_forward_on_devices`)."""
+    in its thread (:func:`_forward_on_devices`), over ``reps`` where
+    given."""
     if model.softmax_aggregation and (dg.parts or [dg])[0].gen is None:
         raise ValueError(f"a dist {model.name} forward needs GEN's compact "
                          "CSRs: DistGraphTensors.from_partition(..., "
                          "gen=True)")
     if dg.parts:
-        return _forward_on_devices(model, dg, generator)
+        return _forward_on_devices(model, dg, generator, reps)
     if dg.group is not None and model.training:
         # over ranks the shards' masks differ, as JAX folds the shard index
         # into its key (edge_partition.py:771-774)
@@ -1185,22 +1187,21 @@ def module_forward(model, dg: DistGraphTensors,
 
 
 def _forward_on_devices(model, dg: DistGraphTensors,
-                        generator: torch.Generator | None = None):
+                        generator: torch.Generator | None = None, reps=None):
     """The forward with one shard a device: shard k's thread runs a replica
     of ``model`` (its parameters broadcast from the lead,
-    ``shard_threads.replicas``) over shard k's tensors, the rank path's
-    one-shard forward; in training mode its dropout draws from a generator
-    on its device seeded with one draw of ``generator`` plus k, as the
-    rank path folds the shard index in (``dp.step_generator``). The K
-    shards' logits are concatenated on the lead, in shard order: the
-    stacked logits."""
+    ``shard_threads.replicas``; ``reps``, one a shard, where the caller
+    made them, as a device grid's step does for all its rows at once) over
+    shard k's tensors, the rank path's one-shard forward; in training mode
+    its dropout draws from a generator on its device seeded with one draw
+    of ``generator`` plus k, as the rank path folds the shard index in
+    (``dp.cell_generators``). The K shards' logits are concatenated on the
+    lead, in shard order: the stacked logits."""
     threads = dg.mesh.threads
-    reps = replicas(model, threads)
-    gens = [None] * threads.size
-    if model.training and generator is not None:
-        seed = step_seed(generator)
-        gens = [torch.Generator(device=d).manual_seed(seed + k)
-                for k, d in enumerate(threads.devices)]
+    if reps is None:
+        reps = replicas(model, threads)
+    gens = cell_generators(generator if model.training else None,
+                           threads.devices)
     outs = threads.run(lambda k: reps[k](dg.parts[k], generator=gens[k]))
     lead = dg.device
     logits = []
@@ -1242,11 +1243,12 @@ def dist_tensors(model, dg: PartitionedGraph, mesh: EdgeMesh,
 
 
 def dist_forward(model, dgt: DistGraphTensors,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, reps=None):
     """The arch's distributed forward over device tensors: the stacked
     logits of the shards held here ((L*ms, 3), (L*ns, 3)); with all K here,
-    global row i is row i, padding rows last."""
-    return DIST_MODELS[model.name](model, dgt, generator)
+    global row i is row i, padding rows last. ``reps``: with one shard a
+    device, the shards' replicas of ``model`` (made anew by default)."""
+    return DIST_MODELS[model.name](model, dgt, generator, reps)
 
 
 def dist_apply(model, dg: PartitionedGraph, mesh: EdgeMesh,
@@ -1274,9 +1276,16 @@ def dist_train_step(model, optimizer, dg: DistGraphTensors, loss_fn,
     trainer, no per-step accuracy. Returns the loss before the update, a
     0-d tensor on the device (the whole graph's on every rank)."""
     model.train()
-    lc, lv = dist_forward(model, dg, generator)
     kw = {} if dg.group is None else {"psum": psum_over(dg.group)}
-    loss = loss_fn(lc, lv, dg.y_s, dg.y_t, dg.cons_mask, dg.vars_mask, **kw)
+
+    def forward():
+        lc, lv = dist_forward(model, dg, generator)
+        return loss_fn(lc, lv, dg.y_s, dg.y_t, dg.cons_mask, dg.vars_mask,
+                       **kw)
+
+    # with one shard a device, in a thread of its own, so that the
+    # backward sums in one order (shard_threads.numbered_afresh)
+    loss = numbered_afresh(forward) if dg.parts else forward()
     optimizer.zero_grad(set_to_none=True)
     if loss.requires_grad:   # GCNRand's logits depend on no parameter
         loss.backward()

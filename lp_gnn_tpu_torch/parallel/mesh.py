@@ -1,5 +1,5 @@
-"""The ``edge`` mesh, the ``dp`` process group and the (dp, edge) grid of
-ranks (counterpart of ``lp_gnn_tpu/parallel/mesh.py``).
+"""The ``edge`` mesh, the ``dp`` process group and the (dp, edge) grids of
+devices and of ranks (counterpart of ``lp_gnn_tpu/parallel/mesh.py``).
 
 The JAX package builds a ``jax.sharding.Mesh`` over its devices
 (``make_mesh`` :72) and its tests run the edge axis on a virtual 8-device
@@ -22,6 +22,17 @@ CPU mesh. The port's :class:`EdgeMesh` says where the K shards of the
   processes (``train/trainer.py:356-391``). The ranks may share one card
   or have a card each; K1 between them is the rank form of
   ``parallel/halo.py``.
+
+In one process that sees at least D*E cards and joins no process group,
+``--mesh_shape dp=D`` and ``dp=D,edge=E`` take JAX's own layout, a fourth
+one: the (dp, edge) grid of devices (:class:`DeviceGrid`,
+``make_mesh({"dp": D, "edge": E})`` :72, ``train/trainer.py:346-387,
+476-490``). Cell (d, e) lives on ``cuda:(i + d*E + e) mod n`` from the
+run's card i, the row-major reshape of the device list; each cell runs in
+a thread and on a CUDA stream of its own; row d is an edge mesh with one
+shard a device over its E cells, and column 0 holds the dp devices. The
+entry points take it under one rule, :func:`one_shard_a_device`, which
+also gives ``--mesh_shape edge=K`` its one shard a device.
 
 With ``--mesh_shape dp=D,edge=E`` over D*E ranks the ranks form JAX's
 (dp, edge) device grid (:class:`RankGrid`, :func:`make_grid`): rank r is
@@ -160,6 +171,72 @@ def make_mesh(n_shards: int, device, group=None, row: int = 0) -> EdgeMesh:
         raise ValueError(f"an edge mesh of {n_shards} shards over a group of "
                          f"{world} ranks: one shard a rank")
     return EdgeMesh((torch.device(device),), group, row)
+
+
+def one_shard_a_device(device: torch.device, n: int) -> bool:
+    """The entry points' one rule for a mesh of ``n`` cells in one process:
+    a device of its own a cell where no process group is joined,
+    ``device`` is a card and at least ``n`` cards are visible. JAX lays a
+    mesh over the first ``n`` of ``jax.devices()`` where it has that many
+    (``make_mesh`` :72; ``infer/predict.py:47``, ``train/trainer.py:350-353,
+    476-481``); the port asks with n = K for ``--mesh_shape edge=K`` and n =
+    D*E for ``dp=D[,edge=E]`` (E = 1 for dp alone)."""
+    world, _ = world_and_rank()
+    return world == 1 and device.type == "cuda" and \
+        torch.cuda.device_count() >= n
+
+
+def shard_devices(device: torch.device, n: int) -> list[torch.device]:
+    """The device of each of ``n`` cells, one a device: on the card,
+    ``device``'s card and the next ones, cuda:(i + k) mod the cards
+    visible (cuda:k from cuda:0; fewer cards than cells repeat them); on
+    the CPU, the CPU ``n`` times."""
+    if device.type != "cuda":
+        return [device] * n
+    cards, i = torch.cuda.device_count(), device.index or 0
+    return [torch.device("cuda", (i + k) % cards) for k in range(n)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGrid:
+    """JAX's (dp, edge) device grid in one process: cell (d, e) on
+    ``devices[d*E + e]`` (the devices may repeat: one card, or the CPU in
+    tests), a thread and stream a cell. ``threads``: every cell's, in (d, e)
+    order (the parameters' one broadcast a step). ``rows[d]``: row d's edge
+    mesh, one shard a device over its E cells, shard e on cell (d, e)'s
+    device and stream. ``col``: the threads of column 0, the dp devices, on
+    the same streams."""
+    dp: int
+    edge: int
+    devices: tuple[torch.device, ...]
+    threads: ShardThreads = dataclasses.field(compare=False)
+    rows: tuple[EdgeMesh, ...] = dataclasses.field(compare=False)
+    col: ShardThreads = dataclasses.field(compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        """The lead, cell (0, 0)'s: it holds the master parameters."""
+        return self.devices[0]
+
+
+def make_device_grid(dp: int, edge: int, devices) -> DeviceGrid:
+    """The (dp, edge) grid over ``devices``, D*E of them in (d, e) order
+    (``shard_devices(device, D*E)`` for JAX's layout from the run's
+    card)."""
+    devs = tuple(torch.device(d) for d in devices)
+    if dp < 1 or edge < 1 or len(devs) != dp * edge:
+        raise ValueError(f"a (dp={dp}, edge={edge}) grid over {len(devs)} "
+                         "devices")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"a grid over devices of two kinds: "
+                         f"{[str(d) for d in devs]}")
+    threads = ShardThreads(devs)
+    rows = tuple(
+        EdgeMesh(devs[d * edge:(d + 1) * edge], row=d,
+                 threads=threads.part(range(d * edge, (d + 1) * edge)))
+        for d in range(dp))
+    return DeviceGrid(dp, edge, devs, threads, rows,
+                      threads.part(range(0, dp * edge, edge)))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,11 @@ The parameters have one master copy, on the lead device (shard 0's).
 :func:`replicas` gives each shard a shallow copy of the model whose
 parameters are the outputs of one :class:`Broadcast` node, so that each
 shard reads them on its device and the backward sums the K gradients on
-the lead, in shard order.
+the lead, in shard order. On a grid of devices (``mesh.DeviceGrid``) one
+:class:`Broadcast` a step covers all D*E cells and each row's forwards
+read their cells' replicas from it: one node sums the D*E gradients on the
+lead in (d, e) order, so a step does not depend on the order in which the
+devices' backward threads finish.
 
 The shards' threads take turns: one runs from a collective to the next
 while the others wait on a lock, so the interpreter is not handed between
@@ -73,10 +77,13 @@ class ShardThreads:
     the CPU none), the rendezvous of their collectives and the thread
     runner."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, streams_of=None):
         self.devices = tuple(torch.device(d) for d in devices)
         self.size = len(self.devices)
         self._streams = None
+        # where the streams come from when another group owns them
+        # (:meth:`part`)
+        self._streams_of = streams_of
         self._cv = threading.Condition()
         # the turn: of the shards' threads only its holder runs, from one
         # collective to the next (``run``, ``meet``)
@@ -102,12 +109,23 @@ class ShardThreads:
     def streams(self) -> list:
         """One CUDA stream a shard, on its device (None each on the CPU)."""
         if self._streams is None:
-            self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
-                             else None for d in self.devices]
+            self._streams = self._streams_of() if self._streams_of else [
+                torch.cuda.Stream(device=d) if d.type == "cuda" else None
+                for d in self.devices]
         return self._streams
 
     def member(self, k: int) -> Member:
         return Member(self, k)
+
+    def part(self, ks) -> "ShardThreads":
+        """The threads of shards ``ks`` alone (a row or a column of a device
+        grid, ``mesh.DeviceGrid``): a group of its own, with its own
+        rendezvous and turn, whose shard i runs on shard ``ks[i]``'s device
+        and stream, so that a tensor recorded on a stream here is recorded
+        on the stream that reads it there."""
+        ks = list(ks)
+        return ShardThreads([self.devices[k] for k in ks],
+                            lambda: [self.streams[k] for k in ks])
 
     @contextlib.contextmanager
     def on(self, k: int):
@@ -344,6 +362,46 @@ class ShardThreads:
             raise next((e for e in failed if not isinstance(e, ShardAborted)),
                        failed[0])
         return results
+
+
+def numbered_afresh(fn):
+    """``fn()`` run in a thread of its own and waited for, with the
+    caller's grad and inference modes and its current device and streams;
+    its error is raised here. The autograd engine takes the nodes that are
+    ready in the order of their sequence numbers, which each thread counts
+    on its own from 0: the shards' threads start from 0 at every run, the
+    calling thread from wherever the process has brought it, and where the
+    two ranges interleave the engine adds a tensor's gradients in another
+    order. A step whose forward and loss run here sums its gradients in
+    one order whatever the process ran before it (its first step too)."""
+    grad = torch.is_grad_enabled()
+    inference = torch.is_inference_mode_enabled()
+    streams = [torch.cuda.current_stream(i)
+               for i in range(torch.cuda.device_count())] \
+        if torch.cuda.is_initialized() else []
+    device = torch.cuda.current_device() if streams else None
+    out: list = []
+    err: list = []
+
+    def work():
+        try:
+            with contextlib.ExitStack() as stack:
+                for s in streams:
+                    stack.enter_context(torch.cuda.stream(s))
+                if device is not None:
+                    stack.enter_context(torch.cuda.device(device))
+                stack.enter_context(torch.inference_mode(inference))
+                stack.enter_context(torch.set_grad_enabled(grad))
+                out.append(fn())
+        except BaseException as e:   # every error reaches the caller
+            err.append(e)
+
+    t = threading.Thread(target=work, daemon=True, name="step-forward")
+    t.start()
+    t.join()
+    if err:
+        raise err[0]
+    return out[0]
 
 
 class Joint(torch.autograd.Function):

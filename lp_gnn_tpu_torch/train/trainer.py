@@ -36,9 +36,12 @@ subgraphs and graph-batched unions.
   K*B graphs one step over the disjoint union of this rank's B
   (``dp_train_step``), in the order ``rng_np.permutation(len(stacks))``
   draws; then the graphs left single, then the sampled ones. ``dp=K``
-  runs K ranks of the ``LP_GNN_DIST_*`` contract (``parallel/mesh.py``);
-  with fewer ranks it falls back to single-graph steps with a warning, as
-  trainer.py:477-481 does. Only rank 0 writes files.
+  runs K ranks of the ``LP_GNN_DIST_*`` contract (``parallel/mesh.py``),
+  or, in one process that sees K cards, JAX's own layout: block d of each
+  stack one union on card d, its replica's forward in a thread of its own
+  (``parallel/mesh.py DeviceGrid``, column 0; ``dp_train_step`` with
+  ``threads``). With neither it falls back to single-graph steps with a
+  warning, as trainer.py:477-481 does. Only rank 0 writes files.
 
 - ``--mesh_shape edge=K`` (trainer.py:356-391, 445-461, 611-620): the
   graphs above ``edge_num_thresh`` are partitioned once
@@ -46,7 +49,7 @@ subgraphs and graph-batched unions.
   ``partitions/`` cache; with the halo lists for every arch in
   ``DIST_HALO_ARCHS``, the all-gather layout for GCNRand, trainer.py:368),
   their K shards' tensors built on the run's
-  device (or, one process with K cards visible and no dp, shard k on
+  device (or, one process with K cards visible, shard k on
   cuda:k as trainer.py:346-387 lays out its devices)
   with the input conv's aggregations (not for GEN) and kept, and
   each takes one ``dist_train_step`` a visit, without per-step accuracy;
@@ -78,9 +81,16 @@ subgraphs and graph-batched unions.
   same graph (dp replicated); the dp stacks of smaller graphs run over
   each column, every rank of a row the same union (edge replicated), their
   gradients averaged over every rank (``dp_train_step``). The
-  val pass runs on row 0's edge group, and rank 0 scores and writes. With
-  fewer than K ranks the dp axis is dropped with a warning
-  (trainer.py:350-353) and the run is edge-only.
+  val pass runs on row 0's edge group, and rank 0 scores and writes. In
+  one process that sees K*E cards the grid is one of devices
+  (``parallel/mesh.py DeviceGrid``, trainer.py:346-387): row d takes block
+  d of each batch on its edge mesh of one shard a device, one step over
+  every row (``dp_edge_train_step`` with the grid); a leftover oversize
+  graph takes ``dist_train_step`` once, over row 0's devices (JAX
+  replicates it over dp with equal keys, so every row computes the same
+  gradient); the dp stacks run over column 0's devices; the val pass over
+  row 0. With neither the ranks nor the cards the dp axis is dropped with
+  a warning (trainer.py:350-353) and the run is edge-only.
 - ``--cache_in_agg 0`` (config.py:116) builds no input aggregation cache:
   the input conv aggregates in every step.
 
@@ -126,12 +136,13 @@ from ..parallel.combined import (dist_stack_groups, dp_edge_train_step,
                                  partition_batch)
 from ..parallel.dp import (dp_train_step, rank_block, stack_groups,
                            step_generator)
+from ..parallel import mesh as pmesh
 from ..parallel.edge_partition import (DIST_HALO_ARCHS, DistGraphTensors,
                                        cached_partition_graph,
                                        dist_tensors, dist_train_step)
 from ..parallel.mesh import (grid_from_shape, init_distributed, is_primary,
-                             leave_distributed, parse_mesh_shape,
-                             world_and_rank)
+                             leave_distributed, make_device_grid,
+                             parse_mesh_shape, world_and_rank)
 from ..utils.misc import AverageMeter
 from ..utils.profiling import show_resource, trace
 from ..utils.serialize import json_dump
@@ -371,16 +382,16 @@ def _restore_rng(state: dict, rng_np: np.random.RandomState,
 
 
 # -------------------------------------------------------------------- run_exp
-def quick_val(model, val_ds: LPDataset, cfg: Config) -> float | None:
+def quick_val(model, val_ds: LPDataset, cfg: Config, mesh) -> float | None:
     """Mean decode accuracy over the val split, one full-graph forward a
     graph (trainer.py:711 _quick_val); under ``--mesh_shape edge=K`` the
-    graphs above ``edge_num_thresh`` take the dist forward, as
-    ``model_inference`` does given a mesh. Over an edge mesh of ranks,
-    rank 0 scores (the others take part in the dist forwards and return
-    None); on a (dp, edge) grid, row 0's ranks run the forwards and the
-    other rows nothing (``runs_here``)."""
+    graphs above ``edge_num_thresh`` take the dist forward over ``mesh``
+    (the run's edge mesh, or None), as ``model_inference`` does given a
+    mesh. Over an edge mesh of ranks, rank 0 scores (the others take part
+    in the dist forwards and return None); on a (dp, edge) grid of ranks,
+    row 0's ranks run the forwards and the other rows nothing
+    (``runs_here``); on a grid of devices, row 0's edge mesh serves."""
     model.eval()
-    mesh = mesh_from_cfg(cfg, next(model.parameters()).device)
     thresh = cfg.edge_num_thresh if mesh is not None else np.inf
     total = 0.0
     for i in range(len(val_ds)):
@@ -400,15 +411,19 @@ def quick_val(model, val_ds: LPDataset, cfg: Config) -> float | None:
     return total / max(len(val_ds), 1)
 
 
-def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
+def batch_shape(cfg: Config, world: int,
+                device: torch.device | None = None) -> tuple[int, int]:
     """(dp, graph_batch) of the run: ``--mesh_shape dp=K`` over K ranks
     of the process group, or ``dp=K,edge=E`` over K (each rank holding all
-    E shards) or K*E ranks (the grid); with fewer ranks, single-graph
-    steps with a warning, graph_batch dropped too (trainer.py:477-481);
-    under dp x edge with fewer ranks, the dp axis alone is dropped with a
-    warning (trainer.py:350-353), and the run is edge-only. With edge
-    shards on their own ranks (``edge=K`` over K ranks) dp is 1 and
-    ``--graph_batch`` stacks the smaller graphs alike on every rank."""
+    E shards) or K*E ranks (the grid); in one process on ``device``, over
+    the devices of the process where ``parallel/mesh.py
+    one_shard_a_device`` grants K (or K*E) of them (the grid of devices);
+    with neither, single-graph steps with a warning, graph_batch dropped
+    too (trainer.py:477-481); under dp x edge, the dp axis alone is
+    dropped with a warning (trainer.py:350-353), and the run is
+    edge-only. With edge shards on their own ranks (``edge=K`` over K
+    ranks) dp is 1 and ``--graph_batch`` stacks the smaller graphs alike on
+    every rank."""
     mesh = parse_mesh_shape(cfg.mesh_shape or "")
     dp_size = int(mesh.get("dp", 1))
     graph_batch = max(int(cfg.graph_batch), 1)
@@ -418,13 +433,22 @@ def batch_shape(cfg: Config, world: int) -> tuple[int, int]:
     if world > 1 and dp_size > 1 and edge_size > 1 and \
             dp_size * edge_size == world:
         return dp_size, graph_batch   # the (dp, edge) grid
+    if world == 1 and dp_size > 1 and device is not None and \
+            pmesh.one_shard_a_device(device, dp_size * edge_size):
+        return dp_size, graph_batch   # the grid of devices
+    # JAX's fallbacks, over what the run lays its mesh on: the ranks, or in
+    # one process on a card the cards
+    have, what = world, "rank(s)"
+    if world == 1 and device is not None and device.type == "cuda":
+        have, what = torch.cuda.device_count(), "card(s)"
     if dp_size > 1 and edge_size > 1 and dp_size > world:
-        logging.warning("mesh_shape dp=%d,edge=%d exceeds %d rank(s) — "
-                        "dropping the dp axis", dp_size, edge_size, world)
+        logging.warning("mesh_shape dp=%d,edge=%d exceeds %d %s — "
+                        "dropping the dp axis", dp_size, edge_size, have,
+                        what)
         dp_size = 1
     if dp_size > world:
-        logging.warning("mesh_shape dp=%d exceeds %d rank(s) — falling back "
-                        "to single-device steps%s", dp_size, world,
+        logging.warning("mesh_shape dp=%d exceeds %d %s — falling back "
+                        "to single-device steps%s", dp_size, have, what,
                         " (graph_batch dropped too)" if graph_batch > 1
                         else "")
         return 1, 1
@@ -453,12 +477,19 @@ def run_exp(cfg: Config, dataset: LPDataset | None = None) -> str:
 
 def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     world, rank = world_and_rank()
-    dp_size, graph_batch = batch_shape(cfg, world)
+    dp_size, graph_batch = batch_shape(cfg, world, device)
     stack_size = dp_size * graph_batch
+    spec = parse_mesh_shape(cfg.mesh_shape or "")
     # this rank's place on the dp axis: its grid row, its rank for dp
     # ranks, 0 for one process or edge ranks alone
-    grid = grid_from_shape(parse_mesh_shape(cfg.mesh_shape or ""))
+    grid = grid_from_shape(spec)
     dp_rank = grid.d if grid is not None else rank if dp_size > 1 else 0
+    # dp in one process: JAX's (dp, edge) grid over the cards from this one
+    cells = None
+    if world == 1 and dp_size > 1:
+        edge_size = max(int(spec.get("edge", 1)), 1)
+        cells = make_device_grid(dp_size, edge_size, pmesh.shard_devices(
+            device, dp_size * edge_size))
     primary = rank == 0
     log_dir = cfg.log_dir
     writer = MetricsWriter(log_dir) if primary else NullWriter()
@@ -491,8 +522,9 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         logging.info("resumed from %s at epoch %d", cfg.load_from,
                      start_epoch)
     if stack_size > 1:
-        logging.info("batched training: %d rank(s) x %d graphs a step",
-                     dp_size, graph_batch)
+        logging.info("batched training: %d %s x %d graphs a step", dp_size,
+                     "rank(s)" if cells is None else "device(s)",
+                     graph_batch)
     scan = None
     if use_scan:
         scan = make_scan_train_step(model, cfg.loss, optimizer, stacked=True,
@@ -502,10 +534,18 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
     graphs: dict = {}   # tensors kept across epochs: graphs and unions
     hops = max(cfg.arch_depth() - 1, 1)
     input_agg = bool(cfg.cache_in_agg)
-    mesh = mesh_from_cfg(cfg, device)
+    # on a grid of devices the leftover oversize graphs' steps and the val
+    # pass run over row 0 (trainer.py:336-338)
+    mesh = cells.rows[0] if cells is not None and cells.edge > 1 else \
+        mesh_from_cfg(cfg, device)
     # the halo exchange for the archs that exchange anything, the
     # all-gather partition for GCNRand (trainer.py:368)
     dist_halo = model.name in DIST_HALO_ARCHS
+    if cells is not None:
+        logging.info("device grid: dp=%d x edge=%d cells in this process, "
+                     "cell (d, e) on %s", cells.dp, cells.edge, ", ".join(
+                         f"({i // cells.edge}, {i % cells.edge}) {dev}"
+                         for i, dev in enumerate(cells.devices)))
     if mesh is not None:
         logging.info("edge-partitioned training: %d shards on %s, graphs "
                      "above %g edges, %s", mesh.n_shards,
@@ -519,6 +559,9 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
         logging.info("combined dp x edge training: a grid of %d x %d ranks, "
                      "this rank's cell (%d, %d)", grid.dp, grid.edge,
                      grid.d, grid.e)
+    elif combined and cells is not None:
+        logging.info("combined dp x edge training: a grid of %d x %d "
+                     "devices of this process", cells.dp, cells.edge)
     elif combined:
         logging.info("combined dp x edge training: %d rank(s) x %d shards",
                      dp_size, mesh.n_shards)
@@ -553,26 +596,47 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
             yield train_graph(model, sub.g, device, sub.s_bs, sub.t_bs,
                               input_agg=input_agg)
 
-    def union_for(stack: list) -> GraphTensors:
-        """The union of this rank's block of a stack, built once."""
+    def block_union(stack: list, d: int, dev) -> GraphTensors:
+        return union([
+            train_graph(model, train_ds[i], dev, input_agg=input_agg)
+            for i in rank_block(stack, dp_size, d)])
+
+    def union_for(stack: list):
+        """The union of this rank's block of a stack, built once; on a grid
+        of devices, each block's on its dp device."""
         key = ("stack", *stack)
         if key not in graphs:
-            graphs[key] = union([
-                train_graph(model, train_ds[i], device, input_agg=input_agg)
-                for i in rank_block(stack, dp_size, dp_rank)])
+            graphs[key] = block_union(stack, dp_rank, device) \
+                if cells is None else [block_union(stack, d, dev) for d, dev
+                                       in enumerate(cells.col.devices)]
         return graphs[key]
 
-    def dist_block_for(batch: list) -> list[DistGraphTensors]:
+    def dist_block_for(batch: list) -> list:
         """This rank's block of a dp x edge batch: its graphs' partitions
-        at the batch's shared sizes, on the device, built once."""
+        at the batch's shared sizes, on the device, built once; on a grid
+        of devices, each row's block on the row's edge mesh."""
         key = ("dist_stack", *batch)
         if key not in graphs:
-            own = rank_block(list(range(len(batch))), dp_size, dp_rank)
+            blocks = [rank_block(list(range(len(batch))), dp_size, d)
+                      for d in range(dp_size)]
+            own = blocks[dp_rank] if cells is None else None
             parts = partition_batch([train_ds[i] for i in batch],
                                     mesh.n_shards, halo=dist_halo, own=own)
-            graphs[key] = [dist_tensors(model, dg, mesh, input_agg=input_agg)
-                           for dg in parts]
+            if cells is None:
+                graphs[key] = [dist_tensors(model, dg, mesh,
+                                            input_agg=input_agg)
+                               for dg in parts]
+            else:
+                graphs[key] = [[dist_tensors(model, parts[i], row,
+                                             input_agg=input_agg)
+                                for i in blocks[d]]
+                               for d, row in enumerate(cells.rows)]
         return graphs[key]
+
+    def step_gen() -> torch.Generator:
+        """A batched step's dropout generator: this rank's, or on a grid of
+        devices the run's, into which the step folds each row itself."""
+        return gen if cells is not None else step_generator(gen, dp_rank)
 
     loss_meter, acc_meter = AverageMeter(), AverageMeter()
     n_train = len(train_ds)
@@ -637,14 +701,15 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
                         dgs = dist_block_for(dist_batches[int(bi)])
                         glstep += 1
                         loss = dp_edge_train_step(
-                            model, optimizer, dgs, loss_fn,
-                            step_generator(gen, dp_rank), grid)
+                            model, optimizer, dgs, loss_fn, step_gen(),
+                            grid or cells)
                         log_step(0, float(loss), None)
                 for bi in rng_np.permutation(len(stacks)):
                     gt = union_for(stacks[int(bi)])
                     glstep += 1
-                    loss = dp_train_step(model, optimizer, gt, loss_fn,
-                                         step_generator(gen, dp_rank))
+                    loss = dp_train_step(
+                        model, optimizer, gt, loss_fn, step_gen(),
+                        cells.col if cells is not None else None)
                     log_step(0, float(loss), None)
                 for gi in [*singles,
                            *(i for i in sampled if i not in covered)]:
@@ -682,7 +747,7 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
                             _rng_state(rng_np, gen, glstep))
         if cfg.eval_every and (epoch + 1) % cfg.eval_every == 0 and \
                 len(val_ds):
-            va = quick_val(model, val_ds, cfg)
+            va = quick_val(model, val_ds, cfg, mesh)
             if va is not None:
                 writer.scalar("val/acc", va, glstep)
                 logging.info("epoch %d val acc %.4f", epoch, va)

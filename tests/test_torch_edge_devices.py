@@ -41,15 +41,16 @@ import pytest
 import torch
 
 from lp_gnn_tpu_torch.config import Config, parse_args
-from lp_gnn_tpu_torch.infer import predict
-from lp_gnn_tpu_torch.infer.predict import mesh_from_cfg, one_shard_a_device
+from lp_gnn_tpu_torch.infer.predict import mesh_from_cfg
 from lp_gnn_tpu_torch.models.convert import load_checkpoint
 from lp_gnn_tpu_torch.models.gcn import build_model
 from lp_gnn_tpu_torch.ops.spmm import sddmm
 from lp_gnn_tpu_torch.parallel import edge_partition as tEP
 from lp_gnn_tpu_torch.parallel import halo as thalo
+from lp_gnn_tpu_torch.parallel import mesh as tmesh
 from lp_gnn_tpu_torch.parallel import shard_threads
-from lp_gnn_tpu_torch.parallel.mesh import EdgeMesh, make_mesh
+from lp_gnn_tpu_torch.parallel.mesh import (EdgeMesh, make_mesh,
+                                            one_shard_a_device)
 from lp_gnn_tpu_torch.train import trainer as ttrainer
 from lp_gnn_tpu_torch.train.losses import LOSS_REGISTRY
 from tests.test_torch_edge_ranks import (ARCH, FWD_ARCHS, GEN, a2a_inputs,
@@ -109,9 +110,9 @@ def logits(model, k, mesh, halo):
 def test_mesh_layouts_and_the_entry_points_choice(monkeypatch):
     """make_mesh over a device list holds every shard here, one a device
     (the list may repeat one), the lead first; the entry points take that
-    layout in one process without dp where K cards are visible (JAX's
-    rule; none here, so the rule is patched in), and dp=D,edge=E keeps the
-    stacked one."""
+    layout in one process where K cards are visible (JAX's rule; none
+    here, so the rule is patched in), also under dp=D,edge=E, whose
+    serving JAX lays over the first K devices whatever dp says."""
     mesh = devices_mesh(3)
     assert mesh.per_device and mesh.group is None and mesh.n_shards == 3
     assert mesh.shards == (0, 1, 2) and mesh.device == torch.device("cpu")
@@ -128,11 +129,11 @@ def test_mesh_layouts_and_the_entry_points_choice(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     assert one_shard_a_device(card, 2) and not one_shard_a_device(card, 4)
     assert not one_shard_a_device(cpu, 2)
-    monkeypatch.setattr(predict, "one_shard_a_device", lambda d, k: True)
+    monkeypatch.setattr(tmesh, "one_shard_a_device", lambda d, k: True)
     got = mesh_from_cfg(Config(mesh_shape="edge=2"), cpu)
     assert got.per_device and got.devices == (cpu, cpu)
-    assert not mesh_from_cfg(Config(mesh_shape="dp=2,edge=2"),
-                             cpu).per_device
+    got = mesh_from_cfg(Config(mesh_shape="dp=2,edge=2"), cpu)
+    assert got.per_device and got.devices == (cpu, cpu)
 
 
 class _Exchange:
@@ -445,7 +446,7 @@ def test_train_and_pred_basis_equal_the_stacked_layout(family, tmp_path,  # noqa
               "--edge_num_thresh", "0"]
     runs, preds = {}, {}
     for layout in ("devices", "stacked"):
-        monkeypatch.setattr(predict, "one_shard_a_device",
+        monkeypatch.setattr(tmesh, "one_shard_a_device",
                             lambda d, k, on=layout == "devices": on)
         cfg = parse_args([*common, "--exp_nm", "run", "--epochs", "2",
                           "--eval_every", "2", "--seed", "3",

@@ -1803,3 +1803,59 @@ def test_device_form_redesign_exact_on_card(cuda_device, monkeypatch):
         2, 3, src[0].nbytes, 1, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0 and torch.equal(dst, src)
+
+
+# ------------------------------------------- the (dp, edge) grid of devices
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["GCN_FC(8,8,hids=32,depth=3,dp=0.0)",
+                                  "GENDeeper(8,8,hids=16,depth=3)"])
+def test_grid_step_on_card(cuda_device, arch):
+    """One dp x edge step on the (dp=2, edge=2) grid of devices, cell (d, e)
+    on cuda:(2d + e) mod the cards visible, a thread and stream a cell
+    (fp32, SGD at lr 1, dropout 0), against the stacked layout's step over
+    the whole batch on cuda:0: the loss rtol 1e-5, each tensor's update
+    within 1e-4 of its largest; and bit for bit the same step when taken
+    again from the same state on a fresh grid."""
+    from lp_gnn_tpu_torch.models.gcn import build_model
+    from lp_gnn_tpu_torch.parallel import combined
+    from lp_gnn_tpu_torch.parallel.dp import rank_block
+    from lp_gnn_tpu_torch.parallel.mesh import (make_device_grid,
+                                                shard_devices)
+    from lp_gnn_tpu_torch.train import trainer
+    from lp_gnn_tpu_torch.train.losses import balanced
+    graphs = [port_graph(np.random.RandomState(20 + i), m=600, n=900,
+                         e=6000) for i in range(2)]
+    parts = combined.partition_batch(graphs, 2, halo=True)
+    w0 = build_model(arch, generator=torch.Generator().manual_seed(3)
+                     ).state_dict()
+    devs = shard_devices(torch.device("cuda", 0), 4)
+
+    def step(grid):
+        model = build_model(arch)
+        model.load_state_dict(w0)
+        model.dp = 0.0
+        model = model.to(cuda_device)
+        opt = trainer.make_optimizer(model.parameters(), "sgd", 1.0)
+        if grid is None:
+            dgs = [tEP.dist_tensors(model, p, make_mesh(2, cuda_device),
+                                    input_agg=True) for p in parts]
+        else:
+            dgs = [[tEP.dist_tensors(model, parts[i], row, input_agg=True)
+                    for i in rank_block([0, 1], 2, d)]
+                   for d, row in enumerate(grid.rows)]
+        loss = combined.dp_edge_train_step(
+            model, opt, dgs, balanced,
+            torch.Generator(device=cuda_device).manual_seed(1), grid)
+        sync_all(devs)
+        return float(loss), {k: v.detach().cpu()
+                             for k, v in model.state_dict().items()}
+
+    la, a = step(make_device_grid(2, 2, devs))
+    lb, b = step(make_device_grid(2, 2, devs))
+    ls, s = step(None)
+    assert la == lb and all(torch.equal(a[k], b[k]) for k in a)
+    np.testing.assert_allclose(la, ls, rtol=1e-5)
+    for k, v in w0.items():
+        ua, us = v.double() - a[k].double(), v.double() - s[k].double()
+        assert float((ua - us).abs().max()) <= \
+            1e-4 * float(us.abs().max()), k
