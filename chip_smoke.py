@@ -295,14 +295,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
    both shards of its twin) by that phase's rule; the recipe (hids=1024
    bf16, Adam, 2 epochs) with each rank's launches exact (K1's rank form
    and the gather as a dist step makes them), equal finite losses, the
-   step spans, the gradient all-reduce's ms, peak memory; then
-   ``--mesh_shape edge=2 --graph_batch 2`` over 2 ranks, launches as
-   counted. In every run each rank's final weights equal rank 0's, byte
-   for byte.
-33. dryrun_multihost: ``python -m lp_gnn_tpu_torch.dryrun_multihost`` at
-   its defaults over 8 ranks on the card (dp=2, edge=4, one shard a
-   rank) and ``--layout rows`` over 2: rank 0's line each, the two losses
-   within 1e-5 relative, each rank's launches exact.
+   step spans, the gradient all-reduce's ms, peak memory; at the same
+   time (a second launch) the 2-rank layout and ``--mesh_shape edge=2
+   --graph_batch 2`` over 2 ranks, launches as counted. In every run each
+   rank's final weights equal rank 0's, byte for byte.
+32b. edge_hosts (its ranks started with dp_edge_grid's, its checks run
+   right after that phase's): edge shards and the (dp, edge) grid over
+   ranks on two hosts. Four processes of this script
+   (``--host_rank``), ranks 0-1 reporting host A and 2-3 host B (each
+   replaces ``mesh.host_key`` before it joins; the machine is one host,
+   so the cross-host route runs over its NVLink or host copies, not a
+   network). On one card the ranks share it (gloo); with 4 cards rank k
+   is on card k (each host sees its own two), over NCCL; the bench shape
+   either way.
+   The route table (edge=4 over both hosts COLLECTIVE, a row a host the
+   signalled form with 4 cards or the flags form on one, no window for
+   the COLLECTIVE group); the COLLECTIVE exchange (NCCL's or gloo's
+   all_to_all_single) at the bench halo, D=1024 and D=8 bf16, bit for bit
+   against the stacked form's plain version, timed (with 4 cards beside
+   the signalled form over the same cards as one host); the recipe's
+   forward and fp32 step over edge=4 against the stacked path, launches
+   exact (a conv the gather and 5 SpMMs, no K1 launch, 2 COLLECTIVE
+   exchanges); one fp32 dp=2,edge=2 step, a row a host, against the
+   stacked layout's step (dp_edge_grid's bound), bit for bit when
+   repeated, launches exact; ``pred_basis --mesh_shape edge=4`` over both
+   hosts on 2 LPs, its .bas equal to the stacked serve's byte for byte,
+   its logits within 2^-6. ``python3 chip_smoke.py --edge_hosts`` runs
+   only this phase.
+33. dryrun_multihost (its ranks started with dp_edge_grid's): ``python -m
+   lp_gnn_tpu_torch.dryrun_multihost`` at its defaults over 8 ranks on
+   the card (dp=2, edge=4, one shard a rank) and ``--layout rows`` over
+   2: rank 0's line each, the two losses within 1e-5 relative, each
+   rank's launches exact.
 34. scaling_artifact: ``python -m lp_gnn_tpu_torch.make_scaling_artifact``
    into a temp dir at bench_scaling's defaults (1, 2, 4, 8 shards on the
    card), the artifact read back: every step time > 0, the wire volume
@@ -392,6 +416,14 @@ and ``data/graph.py lex_order``, one stable torch sort of a combined
 key), at bench_big's 10^8 edges and on a mirp_bench LP (``host_sort``).
 It builds no kernel and prints one JSON line.
 
+``python3 chip_smoke.py --layout_gemms`` measures only why a rank's
+shard and the same shard among the stacked shards can round apart
+(``layout_gemms``): the recipe's bf16 forward, stacked on the card, on a
+mirp_bench LP and a bench LP, each GEMM once over the stacked rows and
+once a shard, with cuBLAS's bf16 split-K partials summed in bf16
+(PyTorch's default) and in fp32 (the port's), and the logits of every
+Linear over all rows against the port's. It prints one JSON line.
+
 The kernels phase also holds the halo all-to-all (K1) exactly against its
 plain version at the bench graph's halo (K=4, Bh=30,056, stacked and list
 forms; K=8 at its own Bh), holds the composed halo gather exactly against
@@ -437,6 +469,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy
@@ -543,7 +576,8 @@ def emit(obj) -> None:
     each phase's wall time, what a trim of the script reads."""
     if "phase" in obj:
         obj = {**obj, "ended_s": time.perf_counter() - T_START}
-    print(json.dumps(obj), flush=True)
+    sys.stdout.write(json.dumps(obj) + "\n")   # one write: threads emit too
+    sys.stdout.flush()
 
 
 def nvidia_smi() -> str:
@@ -1480,9 +1514,11 @@ def call_main(module: str, argv: list[str]):
     return result, lines, time.perf_counter() - t0
 
 
-def check_bases(out_dir: str, n_lps: int) -> int:
+def check_bases(out_dir: str, n_lps: int, shapes=((M, N),)) -> int:
     """Every ``.bas`` in ``out_dir`` (and its ``.sort``) is a valid basis of
-    a bench-shape LP: M basic, #basic structurals = #nonbasic rows."""
+    an LP of one of ``shapes`` ((rows, columns); the bench shape by
+    default): as many basic as rows, #basic structurals = #nonbasic
+    rows."""
     bas = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas"))
     sort = sorted(f for f in os.listdir(out_dir) if f.endswith(".bas.sort"))
     if len(bas) != n_lps or len(sort) != n_lps:
@@ -1491,8 +1527,9 @@ def check_bases(out_dir: str, n_lps: int) -> int:
     for f in bas:
         con, var = read_bas_highs(osp.join(out_dir, f))
         n_basic = int((con == 1).sum() + (var == 1).sum())
-        if (len(con), len(var)) != (M, N) or n_basic != M:
-            raise SmokeFailure(f"{f}: {n_basic} basic of {M} rows")
+        if (len(con), len(var)) not in shapes or n_basic != len(con):
+            raise SmokeFailure(f"{f}: {n_basic} basic of {len(con)} rows, "
+                               f"{len(var)} columns (shapes {shapes})")
         if int((var == 1).sum()) != int(((con == 0) | (con == 2)).sum()):
             raise SmokeFailure(f"{f}: #basic structurals != #nonbasic rows")
     return len(bas)
@@ -1500,11 +1537,13 @@ def check_bases(out_dir: str, n_lps: int) -> int:
 
 def serve_and_check(data_prefix: str, log_prefix: str, ckpt: str,
                     seed: int, n_lps: int, split: str, per_forward: dict,
-                    extra: list[str], arch: str = ARCH) -> dict:
+                    extra: list[str], arch: str = ARCH,
+                    shapes=((M, N),)) -> dict:
     """Run the entry point ``python -m lp_gnn_tpu_torch.pred_basis`` on
     the dataset ``smoke`` under ``data_prefix`` with ``arch`` in bf16 and
     the weights ``ckpt``, the kernels' launch counts set to 0 just before
-    and read just after, and check its output: ``n_lps`` valid bases,
+    and read just after, and check its output: ``n_lps`` valid bases (of
+    LPs of ``shapes``, ``check_bases``),
     ``per_forward`` launches of each kernel in every forward (0 of the
     others), finite per-LP times."""
     argv = ["--dataset", "smoke", "--data_prefix", data_prefix,
@@ -1517,7 +1556,7 @@ def serve_and_check(data_prefix: str, log_prefix: str, ckpt: str,
     t_serve = run_module("lp_gnn_tpu_torch.pred_basis", argv)
     launches = {kern.__name__: kern.launches for kern in KERNELS}
     log_dir = osp.join(log_prefix, "smoke")
-    n_bas = check_bases(osp.join(log_dir, "pred-basis"), n_lps)
+    n_bas = check_bases(osp.join(log_dir, "pred-basis"), n_lps, shapes)
     forwards = FORWARDS_PER_LP * n_lps
     for name, n in launches.items():
         want = per_forward.get(name, 0) * forwards
@@ -3091,14 +3130,15 @@ def nccl_allreduce(numel: int) -> dict:
             "numel": numel, "allreduce_ms": ms}
 
 
-def run_ranks(name: str, args_of, ranks: int = DP_RANKS, port: int = 0
-              ) -> tuple[list[str], float, list[str]]:
-    """``ranks`` processes of this Python, ``args_of(rank)`` each, joined
-    by the LP_GNN_DIST_* contract on the one card (over gloo: NCCL refuses
-    two ranks on one device), started together and waited for; returns
-    their output, the wall seconds of all and each rank's ``process
-    group:`` lines. Every process is ended before it returns; a rank that
-    fails fails the phase. ``port``: rank 0's (a free one if 0)."""
+def run_ranks(name: str, args_of, ranks: int = DP_RANKS, port: int = 0,
+              env_of=lambda rank: {}) -> tuple[list[str], float, list[str]]:
+    """``ranks`` processes of this Python, ``args_of(rank)`` each (and
+    ``env_of(rank)`` in its environment), joined by the LP_GNN_DIST_*
+    contract on the one card (over gloo: NCCL refuses two ranks on one
+    device), started together and waited for; returns their output, the
+    wall seconds of all and each rank's ``process group:`` lines. Every
+    process is ended before it returns; a rank that fails fails the phase.
+    ``port``: rank 0's (a free one if 0)."""
     root = osp.dirname(osp.abspath(__file__))
     port = port or free_port()
     procs, outs = [], []
@@ -3107,7 +3147,7 @@ def run_ranks(name: str, args_of, ranks: int = DP_RANKS, port: int = 0
         for rank in range(ranks):
             env = dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
                        LP_GNN_DIST_NPROCS=str(ranks),
-                       LP_GNN_DIST_PROC_ID=str(rank))
+                       LP_GNN_DIST_PROC_ID=str(rank), **env_of(rank))
             procs.append(subprocess.Popen(
                 [sys.executable, *args_of(rank)], cwd=root, env=env,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -3920,13 +3960,14 @@ SPLIT_EXCHANGES = 10
 def flags_form_split(buf: torch.Tensor) -> dict:
     """The flags form's exchange with a card a rank, split into its parts
     by CUDA events on this rank's stream (``ExchangeMarks``): the group
-    made to take the flags form (``parallel/halo.py rank_form`` patched for
-    this measurement, the windows made anew), SPLIT_EXCHANGES exchanges
+    made to take the flags form (``parallel/mesh.py rank_form`` patched for
+    this measurement, the windows and routes made anew), SPLIT_EXCHANGES exchanges
     back to back on every rank at once after 2 untimed, each exact, then
     the windows released again so the layout's form is made anew."""
-    real = halo_mod.rank_form
+    real = mesh_mod.rank_form
     halo_mod.release_windows()
-    halo_mod.rank_form = lambda *a: halo_mod.FLAGS
+    mesh_mod.forget_routes()
+    mesh_mod.rank_form = lambda *a: mesh_mod.FLAGS
     try:
         want = halo_all_to_all_ranks(buf)
         again = halo_all_to_all_ranks(buf)
@@ -3944,7 +3985,8 @@ def flags_form_split(buf: torch.Tensor) -> dict:
         del outs, want, again
         halo_mod.release_windows()
     finally:
-        halo_mod.rank_form = real
+        mesh_mod.rank_form = real
+        mesh_mod.forget_routes()
     return {"form": form, "exact_repeat": exact, **parts}
 
 
@@ -4372,20 +4414,37 @@ def edge_layout(per_device: bool):
         mesh_mod.one_shard_a_device = real
 
 
-def stacked_serve_reference(seed: int, root: str) -> dict:
-    """The edge-partitioned serve that ``edge_ranks`` and ``edge_devices``
-    hold their own against, in ``root``: N_RANK_LPS bench LPs
-    (``serve_data``), the seeded recipe checkpoint (``mdl.pth``) and the
+def serve_inputs(seed: int, root: str, graphs: list | None = None) -> None:
+    """The serve's inputs in ``root``: N_RANK_LPS bench LPs (or ``graphs``)
+    in ``serve_data`` and the seeded recipe checkpoint ``mdl.pth``."""
+    write_dataset(osp.join(root, "serve_data", "smoke", "highs-inp_tgt"),
+                  seed, N_RANK_LPS, graphs)
+    save_seeded(ARCH, seed, osp.join(root, "mdl.pth"))
+
+
+def mirp_serve_graphs(seed: int) -> list[BipartiteGraph]:
+    """N_RANK_LPS LPs of the pipeline's structure (``mirp_bench_graph``)."""
+    return [mirp_bench_graph(seed + 1200 + i) for i in range(N_RANK_LPS)]
+
+
+def stacked_serve_reference(seed: int, root: str, graphs: list | None = None,
+                            write: bool = True) -> dict:
+    """The edge-partitioned serve that ``edge_ranks``, ``edge_devices`` and
+    ``edge_hosts`` hold their own against, in ``root``: its inputs
+    (``serve_inputs``: N_RANK_LPS bench LPs, or ``graphs``, and the seeded
+    recipe checkpoint; written first unless ``write`` is False) and the
     stacked path's ``pred_basis`` of them (``stacked/smoke/pred-basis``,
     the logits in ``stacked_logits.npz``). Returns the serve's record."""
-    serve_data = osp.join(root, "serve_data")
-    write_dataset(osp.join(serve_data, "smoke", "highs-inp_tgt"), seed,
-                  N_RANK_LPS)
-    ckpt = save_seeded(ARCH, seed, osp.join(root, "mdl.pth"))
+    if write:
+        serve_inputs(seed, root, graphs)
+    shapes = ((M, N),) if graphs is None else \
+        tuple({(g.ncons, g.nvars) for g in graphs})
     with CaptureLogits() as cap, edge_layout(False):
-        stacked = serve_and_check(serve_data, osp.join(root, "stacked"),
-                                  ckpt, seed, N_RANK_LPS, "trainval",
-                                  DIST_PER_FORWARD, DIST_ARGS)
+        stacked = serve_and_check(osp.join(root, "serve_data"),
+                                  osp.join(root, "stacked"),
+                                  osp.join(root, "mdl.pth"), seed, N_RANK_LPS,
+                                  "trainval", DIST_PER_FORWARD, DIST_ARGS,
+                                  shapes=shapes)
     np.savez(osp.join(root, "stacked_logits.npz"), **cap.logits)
     return stacked
 
@@ -5096,6 +5155,13 @@ def k1_link_probe(devs: list, bh: int, d: int) -> dict:
 # rows' gather, two exchanges of the signalled form (one launch each), the
 # SpMMs (RANK_CONV with K1 one launch an exchange)
 SIGNALLED_CONV = {"gather_rows": 1, "halo_rank_signalled": 2, "spmm_csr": 5}
+# a conv over the COLLECTIVE route of a group over several hosts, per rank:
+# the send rows' gather and 5 SpMMs, its 2 exchanges the backend's
+# all-to-all (no launch of K1)
+HOST_CONV = {"gather_rows": 1, "spmm_csr": 5}
+HOST_EXCHANGES_A_CONV = 2
+ROUTE_CONV = {halo_mod.SIGNALLED: SIGNALLED_CONV, halo_mod.FLAGS: RANK_CONV,
+              halo_mod.COLLECTIVE: HOST_CONV}
 RECIPE_ARCH = bf16_arch(ARCH_NO_DROPOUT)
 
 
@@ -5126,9 +5192,17 @@ class K1Share:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def rank_recipe(seed: int, out_dir: str) -> dict:
+def recipe_graph(seed: int, mirp: bool = False) -> BipartiteGraph:
+    """The LP the ranks' recipe runs on: a bench LP, or with ``mirp`` one of
+    the pipeline's structure (``mirp_bench_graph``)."""
+    return mirp_bench_graph(seed + 1100) if mirp else bench_graph(seed + 1100)
+
+
+def rank_recipe(seed: int, out_dir: str, mirp: bool = False) -> dict:
     """The recipe (RECIPE_ARCH, GCN_FC hids=1024 bf16, dropout 0, seeded
-    weights) over this rank's shard of a bench LP through the rank route:
+    weights) over this rank's shard of ``recipe_graph(seed, mirp)`` through
+    the group's route
+    (``out["form"]``; COLLECTIVE's exchanges counted beside the launches):
     one forward (eval, after an untimed one; the logits gathered to rank
     0) and one training step from the seeded weights (the input cache
     built first, SGD at UPDATE_LR, balanced CE), each with its launches
@@ -5137,7 +5211,7 @@ def rank_recipe(seed: int, out_dir: str) -> dict:
     second step's (the first pays for its first-use set-up). Rank 0 writes
     the gathered logits and the first step's weights into ``out_dir``."""
     k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
-    dg = edge_partition.partition_graph(bench_graph(seed + 1100), k,
+    dg = edge_partition.partition_graph(recipe_graph(seed, mirp), k,
                                         halo=True)
     mesh = make_mesh(k, "cuda", torch.distributed.group.WORLD)
     model = build_model(RECIPE_ARCH)
@@ -5157,8 +5231,10 @@ def rank_recipe(seed: int, out_dir: str) -> dict:
             lc, lv = edge_partition.dist_forward(model, dgt)
             ev[1].record()
             k1_ms = k1.ms()
-        out["form"] = rank_form()
+        out["form"] = mesh_mod.ROUTES[tuple(range(k))]
         out["forward"] = {"launches": launch_counts(),
+                          "collective_exchanges":
+                              halo_all_to_all_ranks.collective_exchanges,
                           "span_ms": ev[0].elapsed_time(ev[1]),
                           "k1_ms": k1_ms, "k1_exchanges": len(k1.events)}
         lc, lv = edge_partition.gather_logits(lc, lv, mesh)
@@ -5174,7 +5250,9 @@ def rank_recipe(seed: int, out_dir: str) -> dict:
     reset_launches()
     loss = edge_partition.dist_train_step(model, opt, dgt,
                                           LOSS_REGISTRY["balanced"])
-    out["step"] = {"launches": launch_counts(), "loss": float(loss)}
+    out["step"] = {"launches": launch_counts(), "loss": float(loss),
+                   "collective_exchanges":
+                       halo_all_to_all_ranks.collective_exchanges}
     if me == 0:
         torch.save({n: v.detach().cpu() for n, v in
                     model.state_dict().items()},
@@ -5222,15 +5300,17 @@ def k1_card_rank(payload_path: str) -> None:
         json.dump(report, f)
 
 
-def recipe_vs_stacked(seed: int, tmp: str, per_rank: list[dict]) -> dict:
-    """The ranks' recipe forward and step (``rank_recipe``) against the
-    stacked path's on cuda:0 (K_EDGE shards stacked, the same partition,
-    weights and step): rank 0's logits within RANK_LOGIT_TOL of the stacked
+def recipe_vs_stacked(seed: int, tmp: str, per_rank: list[dict],
+                      mirp: bool = False) -> dict:
+    """The ranks' recipe forward and step (``rank_recipe`` on
+    ``recipe_graph(seed, mirp)``) against the stacked path's on cuda:0
+    (K_EDGE shards stacked, the same partition, weights and step): rank 0's logits within RANK_LOGIT_TOL of the stacked
     forward's; the step's loss within RANK_LOGIT_TOL and each tensor's
     update within RANK_LOGIT_TOL's rtol of its largest; each rank's
-    launches SIGNALLED_CONV a conv (RANK_CONV in the flags form), 2 a
-    forward and 2 a step."""
-    g = bench_graph(seed + 1100)
+    launches those of its route a conv
+    (ROUTE_CONV), 2 a forward and 2 a step, and the COLLECTIVE route's
+    HOST_EXCHANGES_A_CONV exchanges a conv (none on the others)."""
+    g = recipe_graph(seed, mirp)
     w0 = seeded_state(RECIPE_ARCH, seed)
     model = build_model(RECIPE_ARCH)
     model.load_state_dict(w0)
@@ -5253,28 +5333,37 @@ def recipe_vs_stacked(seed: int, tmp: str, per_rank: list[dict]) -> dict:
     loss_ok = abs(loss - step["loss"]) <= RANK_LOGIT_TOL[1] + \
         RANK_LOGIT_TOL[0] * abs(step["loss"])
     form = per_rank[0]["recipe"]["form"]
-    want = add_launches(scaled(SIGNALLED_CONV if form == halo_mod.SIGNALLED
-                               else RANK_CONV, 2))
+    want = add_launches(scaled(ROUTE_CONV[form], 2))
+    want_x = 2 * HOST_EXCHANGES_A_CONV if form == halo_mod.COLLECTIVE else 0
     launches = [[rep["recipe"][w]["launches"] for w in ("forward", "step")]
                 for rep in per_rank]
+    exchanges = [[rep["recipe"][w]["collective_exchanges"]
+                  for w in ("forward", "step")] for rep in per_rank]
     if not ok or not loss_ok or rels[near] > RANK_LOGIT_TOL[0] or \
-            any(n != want for pair in launches for n in pair):
-        raise SmokeFailure(f"card ranks' recipe vs the stacked path: logits "
+            any(n != want for pair in launches for n in pair) or \
+            any(x != want_x for pair in exchanges for x in pair) or \
+            any(rep["recipe"]["form"] != form for rep in per_rank):
+        raise SmokeFailure(f"ranks' recipe vs the stacked path: logits "
                            f"max |err| {err} (tol {RANK_LOGIT_TOL}), loss "
                            f"{loss} vs {step['loss']}, update rel diff "
                            f"{rels[near]} in {near}, launches {launches} "
-                           f"(each {want})")
+                           f"(each {want}), collective exchanges "
+                           f"{exchanges} (each {want_x}), forms "
+                           f"{[rep['recipe']['form'] for rep in per_rank]}")
     spans = {w: [rep["recipe"][w]["span_ms"] for rep in per_rank]
              for w in ("forward", "step")}
     k1 = {w: [rep["recipe"][w]["k1_ms"] for rep in per_rank]
           for w in ("forward", "step")}
     return {"arch": RECIPE_ARCH, "form": form,
+            "lp": "mirp_bench" if mirp else "bench",
             "logits_max_abs_err_vs_stacked": err,
             "logit_tol": {"rtol": RANK_LOGIT_TOL[0],
                           "atol": RANK_LOGIT_TOL[1]},
             "loss": loss, "loss_stacked": step["loss"],
             "update_rel_max_vs_stacked": rels[near], "tensor": near,
-            "launches_per_rank": want, "span_ms": spans, "k1_ms": k1,
+            "launches_per_rank": want,
+            "collective_exchanges_per_rank": want_x,
+            "span_ms": spans, "k1_ms": k1,
             "k1_share": {w: [a / b for a, b in zip(k1[w], spans[w])]
                          for w in spans},
             "k1_exchanges": [rep["recipe"]["step"]["k1_exchanges"]
@@ -6066,10 +6155,11 @@ SCAN_TRACE_EPOCHS = 2       # --trace 1 traces the second
 
 
 def reset_launches() -> None:
-    """Every wrapper's count and the K-step call's capture and replay
-    counts set to 0."""
+    """Every wrapper's count, the COLLECTIVE route's exchanges and the
+    K-step call's capture and replay counts set to 0."""
     for kern in KERNELS:
         kern.launches = 0
+    halo_all_to_all_ranks.collective_exchanges = 0
     scan_mod.reset_counts()
 
 
@@ -6856,10 +6946,10 @@ def bench_phase(seed: int) -> dict:
 # has just run InferenceManager(0,)), and no 10M-edge partition cell, for
 # the phase's time (PERF.md, the native phase)
 NATIVE_MANAGERS = ["InferenceManager(2,mode='add',gnn_wei=0.5)"]
-# the first half of the pipeline phase's LPs (10 train, 5 val): the
+# the first third of the pipeline phase's LPs (7 train, 3 val): the
 # phase's prep and engine table are serial solves, and the script passed
-# 1000 s with all 40 (PERF.md, PR 17)
-N_NATIVE_LPS = N_PIPE_LPS // 2
+# 1000 s with all 40, and again with 15 once edge_hosts came (PERF.md)
+N_NATIVE_LPS = N_PIPE_LPS // 3
 # about as many steps as the pipeline phase's run (its 21 train LPs x 20
 # epochs): fewer leave the bases worse and the warm solves slow (call 3)
 NATIVE_EPOCHS = PIPE_EPOCHS * N_PIPE_LPS // N_NATIVE_LPS
@@ -7232,6 +7322,73 @@ def big_spmm_case(case: str, ptr, idx, val, x, gen) -> dict:
     }
 
 
+def layout_gemms(seed: int) -> dict:
+    """The recipe's forward (RECIPE_ARCH, seeded, eval) over K_EDGE shards
+    stacked on cuda:0, on ``recipe_graph(seed, mirp)`` for both LPs, with
+    cuBLAS's bf16 split-K partials summed in bf16 and in fp32
+    (``allow_bf16_reduced_precision_reduction`` True, False): each of its
+    GEMMs (``F.linear``) with every Linear over all stacked rows, against
+    the same GEMM a shard's rows at a time (where they differ: the shape and
+    how many outputs), and those logits against the port's forward, whose
+    narrow Linears run a GEMM a shard (``models/layers.py shard_rows``) as
+    a rank does: max |diff| and the rows past RANK_LOGIT_TOL."""
+    from lp_gnn_tpu_torch.models import layers
+    fl, matmul = torch.nn.functional.linear, torch.backends.cuda.matmul
+    port_partials, narrow = matmul.allow_bf16_reduced_precision_reduction, \
+        layers.NARROW
+    seen = []
+
+    def linear(x, w, b=None):
+        out = fl(x, w, b)
+        if x.dim() == 2 and x.shape[0] % K_EDGE == 0:
+            shards = torch.cat([fl(c, w, b) for c in x.chunk(K_EDGE)])
+            seen.append({"M": x.shape[0], "K": x.shape[1], "N": w.shape[0],
+                         "differ": int((out != shards).sum()),
+                         "of": out.numel()})
+        return out
+
+    def forward(g):
+        model = build_model(RECIPE_ARCH)
+        model.load_state_dict(seeded_state(RECIPE_ARCH, seed))
+        model.dp = 0.0
+        model = model.to("cuda").eval()
+        with torch.no_grad():
+            lc, lv = edge_partition.dist_apply(
+                model, edge_partition.partition_graph(g, K_EDGE, halo=True),
+                make_mesh(K_EDGE, "cuda"))
+        return torch.cat([lc, lv]).float()
+
+    out = {}
+    try:
+        for lp, mirp in (("mirp_bench", True), ("bench", False)):
+            g = recipe_graph(seed, mirp)
+            for partials in ("bf16", "fp32"):
+                matmul.allow_bf16_reduced_precision_reduction = \
+                    partials == "bf16"
+                port = forward(g)
+                seen.clear()
+                layers.NARROW = 0
+                torch.nn.functional.linear = linear
+                try:
+                    all_rows = forward(g)
+                finally:
+                    torch.nn.functional.linear = fl
+                    layers.NARROW = narrow
+                d = (all_rows - port).abs()
+                past = (d > RANK_LOGIT_TOL[1]
+                        + RANK_LOGIT_TOL[0] * port.abs()).any(1)
+                out[f"{lp} {partials} partials"] = {
+                    "gemms": len(seen),
+                    "gemms_differing": [c for c in seen if c["differ"]],
+                    "logits_all_rows_vs_port_max_abs": float(d.max()),
+                    "rows_past_logit_tol": int(past.sum()),
+                    "rows": port.shape[0]}
+                torch.cuda.empty_cache()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = port_partials
+    return out
+
+
 HOST_SORT_REPEATS = {"bench_big": 1, "mirp_bench": 21}
 
 
@@ -7384,7 +7541,7 @@ def rank_runs(name: str, ranks: int, tmp: str, runs: list[dict],
     return reports, wall, groups
 
 
-def dp_edge_grid(seed: int) -> dict:
+def dp_edge_grid(seed: int, ports: list[int] | None = None) -> dict:
     """One edge shard a rank with dp across: ``python -m
     lp_gnn_tpu_torch.train --mesh_shape dp=2,edge=2 --edge_num_thresh 0``
     over GRID_RANKS gloo ranks on the card, on the dp_edge phase's twins
@@ -7399,10 +7556,13 @@ def dp_edge_grid(seed: int) -> dict:
     spans, launches exactly one input cache and a dist step's a step (K1's
     rank form and the gather included, no stacked K1), equal finite
     losses on every rank, the gradient all-reduce's ms and wait, peak
-    memory, wall; only rank 0 writes. Then ``--mesh_shape edge=2
-    --graph_batch 2`` over 2 ranks: a union step of the two small LPs and
-    a dist step of each twin, each rank's launches as counted. In every
-    run each rank's final weights equal rank 0's byte for byte."""
+    memory, wall; only rank 0 writes. At the same time (a launch of 2
+    ranks beside the 4: each launch is mostly its processes' start, and
+    the figures above are taken beside it) the layout and ``--mesh_shape
+    edge=2 --graph_batch 2`` over 2 ranks: a union step of the two small
+    LPs and a dist step of each twin, each rank's launches as counted. In
+    every run each rank's final weights equal rank 0's byte for byte.
+    ``ports``: the two launches' and their runs' (6), free ones if None."""
     t0 = time.perf_counter()
     lr = UPDATE_LR
     twins = twin_graphs(seed + 1200)
@@ -7425,23 +7585,30 @@ def dp_edge_grid(seed: int) -> dict:
         write_dataset(osp.join(batch_prefix, "smoke", "highs-inp_tgt"), 0,
                       GRID_BATCH_LPS,
                       split_dataset(GRID_BATCH_LPS, twins + small, seed))
-        grid, t_grid, groups = rank_runs("grid", GRID_RANKS, tmp, [
-            {"name": "parity", "module": train, "log": "parity",
-             "argv": [*data, "--exp_nm", "grid", *parity, *GRID_ARGS]},
-            {"name": "recipe", "module": train, "log": "recipe",
-             "argv": [*data, "--exp_nm", "grid_recipe", *recipe, "--epochs",
-                      str(DP_EDGE_EPOCHS), *GRID_ARGS]}])
-        rows, t_rows, groups_rows = rank_runs("rows", GRID_DP, tmp, [
-            {"name": "parity", "module": train, "log": "rows",
-             "argv": [*data, "--exp_nm", "rows", *parity, "--mesh_shape",
-                      f"dp={GRID_DP},edge={GRID_EDGE}", "--edge_num_thresh",
-                      "0"]},
-            {"name": "batched", "module": train, "log": "batched",
-             "argv": ["--dataset", "smoke", "--data_prefix", batch_prefix,
-                      "--exp_nm", "batched", *recipe, "--epochs", "1",
-                      "--mesh_shape",
-                      f"edge={GRID_EDGE}", "--graph_batch", "2",
-                      "--edge_num_thresh", str(GRID_BATCH_THRESH)]}])
+        # both launches at once: each is mostly its processes' start
+        ports = ports or free_ports(6)
+        with ThreadPoolExecutor(2) as pool:
+            grid_run = pool.submit(rank_runs, "grid", GRID_RANKS, tmp, [
+                {"name": "parity", "module": train, "log": "parity",
+                 "argv": [*data, "--exp_nm", "grid", *parity, *GRID_ARGS]},
+                {"name": "recipe", "module": train, "log": "recipe",
+                 "argv": [*data, "--exp_nm", "grid_recipe", *recipe,
+                          "--epochs", str(DP_EDGE_EPOCHS), *GRID_ARGS]}],
+                ports[:3])
+            rows_run = pool.submit(rank_runs, "rows", GRID_DP, tmp, [
+                {"name": "parity", "module": train, "log": "rows",
+                 "argv": [*data, "--exp_nm", "rows", *parity, "--mesh_shape",
+                          f"dp={GRID_DP},edge={GRID_EDGE}",
+                          "--edge_num_thresh", "0"]},
+                {"name": "batched", "module": train, "log": "batched",
+                 "argv": ["--dataset", "smoke", "--data_prefix",
+                          batch_prefix, "--exp_nm", "batched", *recipe,
+                          "--epochs", "1", "--mesh_shape",
+                          f"edge={GRID_EDGE}", "--graph_batch", "2",
+                          "--edge_num_thresh", str(GRID_BATCH_THRESH)]}],
+                ports[3:])
+            grid, t_grid, groups = grid_run.result()
+            rows, t_rows, groups_rows = rows_run.result()
         files = {run: [osp.exists(osp.join(tmp, f"{run}{r}"))
                        for r in range(n)]
                  for run, n in (("parity", GRID_RANKS),
@@ -7554,6 +7721,481 @@ def dp_edge_grid(seed: int) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+# ----------------------------------------------------------------- edge_hosts
+# the host each rank of the phase reports (``mesh.host_key`` replaced in the
+# rank before it joins): ranks 0-1 host A, 2-3 host B, a host a grid row
+HOSTS = "AABB"
+HOST_REPS = 3       # timed COLLECTIVE exchanges a width, after one untimed
+HOST_WIDTHS = (1024, 8)
+
+
+def forced_host_cards(rank: int) -> dict:
+    """The environment of rank ``rank`` of the phase with a card a rank:
+    each host sees its own two of the first four visible cards, as two
+    hosts of two cards would (rank k on card k)."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+    cards = vis.split(",") if vis else \
+        [str(i) for i in range(torch.cuda.device_count())]
+    host = HOSTS.index(HOSTS[rank])
+    return {"CUDA_VISIBLE_DEVICES": ",".join(cards[host:host + 2])}
+
+
+def host_exchanges(seed: int, bh: int, dev: torch.device) -> list[dict]:
+    """K1 over the world's group at the bench halo (K=4, Bh ``bh``) at
+    D=1024 and D=8 bf16, through the route the placement gives it: every
+    rank makes all K buffers on its card from one seed and holds its
+    result to the stacked form's plain version, bit for bit; then
+    HOST_REPS exchanges after a barrier, each synchronised (``ms``: the
+    host's clock, which includes gloo's host copies) and between CUDA
+    events on the stream (``device_ms``)."""
+    k, me = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    rows = []
+    for d in HOST_WIDTHS:
+        gen = torch.Generator(device=dev).manual_seed(seed + d)
+        bufs = torch.randn(k, k * bh, d, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+        want = halo_all_to_all_plain(bufs)[me]
+        before = halo_all_to_all_ranks.collective_exchanges
+        got = halo_all_to_all_ranks(bufs[me].contiguous())
+        exact = torch.equal(got, want)
+        ms, dev_ms = [], []
+        for _ in range(HOST_REPS):
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            got = halo_all_to_all_ranks(bufs[me].contiguous())
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+            exact = exact and torch.equal(got, want)
+        rows.append({"D": d, "Bh": bh, "K": k, "exact": exact,
+                     "ms": ms, "device_ms": dev_ms,
+                     "bytes_a_rank": bufs[me].nbytes,
+                     "bytes_sent_a_rank": bufs[me].nbytes * (k - 1) // k,
+                     "collective_exchanges":
+                         halo_all_to_all_ranks.collective_exchanges - before,
+                     "rank_launches": rank_launches()})
+        del bufs, want, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def host_grid_graphs(seed: int) -> list[BipartiteGraph]:
+    """The grid step's batch: two LPs of the bench shape / 16, a dp row
+    each."""
+    return [bench_graph(seed + 1500 + i, m=M // 16, n=N // 16, e=E // 16)
+            for i in range(2)]
+
+
+def host_grid_step(seed: int, out_dir: str) -> dict:
+    """One fp32 dp=2,edge=2 step on this rank's cell (ARCH_NO_DROPOUT from
+    the seeded weights, SGD at UPDATE_LR, balanced CE, the input cache
+    built first), twice from the same weights: each step's loss, launches
+    and COLLECTIVE exchanges counted from 0 just before it, and the
+    weights' digest; rank 0 writes the first step's weights."""
+    from lp_gnn_tpu_torch.parallel import combined
+    from lp_gnn_tpu_torch.parallel.dp import rank_block
+    grid = mesh_mod.make_grid(2, 2)
+    row = make_mesh(2, "cuda", grid.row, row=grid.d)
+    parts = combined.partition_batch(host_grid_graphs(seed), 2, halo=True,
+                                     own=rank_block([0, 1], 2, grid.d))
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    runs = []
+    for again in range(2):
+        model = build_model(ARCH_NO_DROPOUT)
+        model.load_state_dict(w0)
+        model.dp = 0.0
+        model = model.to("cuda").train()
+        opt = trainer.make_optimizer(model.parameters(), "sgd", UPDATE_LR)
+        dgs = [edge_partition.dist_tensors(model, dg, row, input_agg=True)
+               for dg in parts]
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        reset_launches()
+        loss = combined.dp_edge_train_step(model, opt, dgs,
+                                           LOSS_REGISTRY["balanced"], None,
+                                           grid)
+        torch.cuda.synchronize()
+        runs.append({"loss": float(loss), "launches": launch_counts(),
+                     "collective_exchanges":
+                         halo_all_to_all_ranks.collective_exchanges,
+                     "weights_digest": weights_digest(model)})
+        if again == 0 and torch.distributed.get_rank() == 0:
+            torch.save({n: v.detach().cpu() for n, v in
+                        model.state_dict().items()},
+                       osp.join(out_dir, "host_grid_step.pth"))
+        del model, opt, dgs
+    ranks = torch.distributed.get_process_group_ranks(grid.row)
+    return {"runs": runs, "route": mesh_mod.ROUTES[tuple(ranks)],
+            "row": ranks}
+
+
+def host_rank(payload_path: str) -> None:
+    """One rank of the edge_hosts phase, in this process (``--host_rank``):
+    it reports the payload's host for its rank (``mesh.host_key``
+    replaced before every join) and runs, in a group of its own, the
+    placement and the routes it gives, the COLLECTIVE exchange
+    (``host_exchanges``), the recipe over edge=4 (``rank_recipe``) and the
+    dp=2,edge=2 step (``host_grid_step``); then the pred_basis entry point
+    (a group of its own), the launch counts and exchanges set to 0 just
+    before it and read just after. With the payload's mode ``signalled``
+    (every rank on one host) the exchange alone. Writes its report (and
+    rank 0 its logits) into the payload's directory."""
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    with open(payload_path) as f:
+        p = json.load(f)
+    rank = int(os.environ["LP_GNN_DIST_PROC_ID"])
+    mesh_mod.host_key = lambda: p["hosts"][rank]
+    report = {}
+    os.environ["LP_GNN_DIST_COORD"] = p["coords"][0]
+    dev, created = mesh_mod.init_distributed(torch.device("cuda"))
+    try:
+        pl = mesh_mod.placement()
+        rows = mesh_mod.grid_ranks(2, 2)[0]
+        report["placement"] = {
+            "backend": torch.distributed.get_backend(), "device": str(dev),
+            "hosts": pl.hosts, "local": pl.local, "cards": pl.cards,
+            "routes": {"edge=4": mesh_mod.rank_form(pl, range(len(pl.hosts))),
+                       "rows": [mesh_mod.rank_form(pl, r) for r in rows]}}
+        report["exchange"] = host_exchanges(p["seed"], p["bh"], dev)
+        if p["mode"] == "hosts":
+            torch.cuda.empty_cache()
+            report["recipe"] = rank_recipe(p["seed"], p["dir"], p["mirp"])
+            report["window_bytes"] = halo_mod.window_bytes()
+            torch.cuda.empty_cache()
+            report["grid"] = host_grid_step(p["seed"], p["dir"])
+        report["routes_seen"] = [[list(r), v]
+                                 for r, v in mesh_mod.ROUTES.items()]
+    finally:
+        mesh_mod.leave_distributed(created)
+    if p["mode"] == "hosts":
+        torch.cuda.empty_cache()
+        os.environ["LP_GNN_DIST_COORD"] = p["coords"][1]
+        reset_launches()
+        with CaptureLogits() as cap, WindowPeak() as win:
+            t = run_module("lp_gnn_tpu_torch.pred_basis",
+                           [*p["serve"], "--log_prefix",
+                            osp.join(p["dir"], f"serve{rank}")])
+        report["serve"] = {"launches": launch_counts(), "wall_s": t,
+                           "collective_exchanges":
+                               halo_all_to_all_ranks.collective_exchanges,
+                           "window_bytes": win.peak}
+        if cap.logits:
+            np.savez(osp.join(p["dir"], "host_logits.npz"), **cap.logits)
+    with open(osp.join(p["dir"], f"{p['mode']}{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def host_runs(mode: str, tmp: str, payload: dict, env_of,
+              ports: list[int] | None = None) -> tuple:
+    """The phase's ranks in ``mode`` (``--host_rank``; ``ports``: the
+    launch's and its two groups', free ones if None): their reports and
+    wall seconds and their ``process group:`` lines."""
+    ports = ports or free_ports(3)
+    payload = dict(payload, mode=mode,
+                   coords=[f"localhost:{q}" for q in ports[1:]])
+    path = osp.join(tmp, f"{mode}.json")
+    with open(path, "w") as f:
+        json.dump(payload, f)
+    _, wall, groups = run_ranks(f"edge_hosts {mode}", lambda rank: [
+        osp.abspath(__file__), "--host_rank", path], len(payload["hosts"]),
+        ports[0], env_of)
+    reports = []
+    for r in range(len(payload["hosts"])):
+        with open(osp.join(tmp, f"{mode}{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports, wall, groups
+
+
+def host_grid_reference(seed: int) -> tuple[float, dict]:
+    """The stacked layout's dp x edge step in this process on the grid
+    step's batch (both LPs, each edge=2 shards stacked on cuda:0, the same
+    weights and step): its loss and weights."""
+    from lp_gnn_tpu_torch.parallel import combined
+    model = build_model(ARCH_NO_DROPOUT)
+    model.load_state_dict(seeded_state(ARCH_NO_DROPOUT, seed))
+    model.dp = 0.0
+    model = model.to("cuda").train()
+    opt = trainer.make_optimizer(model.parameters(), "sgd", UPDATE_LR)
+    dgs = [edge_partition.dist_tensors(model, dg, make_mesh(2, "cuda"),
+                                       input_agg=True)
+           for dg in combined.partition_batch(host_grid_graphs(seed), 2,
+                                              halo=True)]
+    loss = combined.dp_edge_train_step(model, opt, dgs,
+                                       LOSS_REGISTRY["balanced"])
+    return float(loss), {n: v.detach().cpu()
+                         for n, v in model.state_dict().items()}
+
+
+def edge_hosts_launch(seed: int, tmp: str, ranks_dir: str,
+                      ports: list[int] | None = None) -> dict:
+    """The ranks of ``edge_hosts`` in ``tmp`` (``ports``: the launch's and
+    its groups', free ones if None); with 4 cards then the same cards as
+    one host. With 4 cards the recipe runs on a bench LP and the serve on
+    the bench LPs and checkpoint of ``stacked_serve_reference`` in
+    ``ranks_dir``; on one card both on LPs of the pipeline's structure
+    (``recipe_graph(seed, True)``, ``mirp_serve_graphs``), the serve's
+    inputs written into ``tmp`` first (``serve_root``). Nothing else in
+    this process: the full run starts it beside other phases' launches.
+    Returns the reports, where the ranks wrote them, the launch's wall
+    seconds and its ``process group:`` lines."""
+    four = torch.cuda.device_count() >= 4
+    mirp = not four
+    serve_root = tmp if mirp else ranks_dir
+    if mirp:
+        serve_inputs(seed, serve_root, mirp_serve_graphs(seed))
+    serve_argv = ["--dataset", "smoke", "--data_prefix",
+                  osp.join(serve_root, "serve_data"), "--exp_nm", "smoke",
+                  "--arch", ARCH, "--fp16", "1", "--load_from",
+                  osp.join(serve_root, "mdl.pth"), "--split", "trainval",
+                  "--warm_gate", "off", "--seed", str(seed), *RANK_ARGS]
+    payload = {"dir": tmp, "seed": seed, "hosts": HOSTS, "serve": serve_argv,
+               "mirp": mirp,
+               "bh": edge_partition.compute_halo_width(bench_graph(seed), 4)}
+    per_rank, wall, groups = host_runs(
+        "hosts", tmp, payload, forced_host_cards if four else
+        lambda rank: {}, ports)
+    signalled = None
+    if four:   # the same cards as one host: K1's signalled form
+        signalled, _, _ = host_runs("signalled", tmp,
+                                    dict(payload, hosts="HHHH"),
+                                    lambda rank: {})
+    return {"dir": tmp, "bh": payload["bh"], "per_rank": per_rank,
+            "signalled": signalled, "wall": wall, "groups": groups,
+            "mirp": mirp, "serve_root": serve_root}
+
+
+def edge_hosts(seed: int, ranks_dir: str | None = None,
+               stacked_inf: dict | None = None,
+               launched: dict | None = None) -> dict:
+    """Edge shards and the (dp, edge) grid over ranks on two hosts: four
+    processes of this script (``--host_rank``), ranks 0-1 reporting host
+    A and 2-3 host B (``mesh.host_key`` replaced in each rank: this machine
+    is one host, so the cross-host route runs over its NVLink or its host
+    copies, never over a network). With 4 cards rank k on card k (each
+    host sees its own two), over NCCL, and the recipe and serve on bench
+    LPs; on one card the ranks share it (gloo), and the recipe and serve
+    run on LPs of the pipeline's structure (mirp_bench, at full width: a
+    cut of the LPs' size, since gloo stages every cross-host exchange
+    through host copies). Holds: the route table (edge=4
+    over both hosts COLLECTIVE, a row a host the signalled form with 4
+    cards or the flags form on one, the same on every rank, and no window
+    for the COLLECTIVE group); the COLLECTIVE exchange at the bench halo
+    (D=1024, D=8 bf16) bit for bit against the stacked form's plain
+    version, timed beside, with 4 cards, the signalled form over the same
+    cards as one host (a second launch of the ranks); the recipe's
+    forward and fp32 step over edge=4 against the stacked path
+    (``recipe_vs_stacked``: launches HOST_CONV a conv, no launch of K1,
+    HOST_EXCHANGES_A_CONV exchanges a conv); one fp32 dp=2,edge=2 step,
+    a row a host, against the stacked layout's step within dp_edge_grid's
+    bound, bit for bit when repeated, launches exact (its rows' form of
+    K1, no COLLECTIVE exchange); ``pred_basis --mesh_shape edge=4`` over
+    both hosts on 2 LPs, its .bas equal to the stacked serve's byte for
+    byte, its logits within RANK_LOGIT_TOL, its launches and exchanges
+    exact. With 4 cards the serve's LPs, checkpoint and stacked serve are
+    ``stacked_serve_reference``'s in ``ranks_dir`` (``edge_ranks``' where
+    it kept them, ``stacked_inf`` their ``inf_time``), made here without
+    it; on one card the launch writes the mirp_bench LPs and checkpoint and
+    the stacked serve runs here after the ranks; ``launched``: ``edge_hosts_launch``'s result where the ranks ran
+    already (its directory the caller's), else they run here."""
+    t0 = time.perf_counter()
+    four = torch.cuda.device_count() >= 4
+    rows_form = halo_mod.SIGNALLED if four else halo_mod.FLAGS
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_hosts_") as tmp:
+        ranks_dir = ranks_dir or tmp
+        if four and not osp.exists(osp.join(ranks_dir, "stacked_logits.npz")):
+            stacked_inf = stacked_serve_reference(seed, ranks_dir)[
+                "inf_time_s"]
+            torch.cuda.empty_cache()
+        run = launched or edge_hosts_launch(seed, tmp, ranks_dir)
+        mirp, serve_root = run["mirp"], run["serve_root"]
+        shapes = ((M, N),)
+        if mirp:   # the stacked serve of the LPs the ranks served
+            graphs = mirp_serve_graphs(seed)
+            shapes = tuple({(g.ncons, g.nvars) for g in graphs})
+            stacked_inf = stacked_serve_reference(
+                seed, serve_root, graphs, write=False)["inf_time_s"]
+            torch.cuda.empty_cache()
+        with np.load(osp.join(serve_root, "stacked_logits.npz")) as z:
+            st_logits = {n: z[n] for n in z.files}
+        per_rank, signalled = run["per_rank"], run["signalled"]
+        wall, groups, bh, out_dir = (run["wall"], run["groups"], run["bh"],
+                                     run["dir"])
+        # the placement and the routes, the same on every rank
+        backend = "nccl" if four else "gloo"
+        table = {"edge=4": halo_mod.COLLECTIVE, "rows": [rows_form] * 2}
+        world = list(range(len(HOSTS)))
+        for r, rep in enumerate(per_rank):
+            pl, seen = rep["placement"], dict(
+                (tuple(k), v) for k, v in rep["routes_seen"])
+            row = [0, 1] if r < 2 else [2, 3]
+            bad = [pl["backend"] != backend, pl["routes"] != table,
+                   list(pl["hosts"]) != list(HOSTS),
+                   list(pl["local"]) != [0, 1, 0, 1],
+                   seen != {tuple(world): halo_mod.COLLECTIVE,
+                            tuple(row): rows_form},
+                   rep["grid"]["route"] != rows_form,
+                   rep["window_bytes"] != 0]
+            if any(bad):
+                raise SmokeFailure(f"edge_hosts rank {r}: placement {pl}, "
+                                   f"routes taken {seen} (expected {table}, "
+                                   f"backend {backend})")
+        # the COLLECTIVE exchange
+        for r, rep in enumerate(per_rank):
+            for c in rep["exchange"]:
+                n = c["collective_exchanges"]
+                if not c["exact"] or n != 1 + HOST_REPS or \
+                        c["rank_launches"] != 0:
+                    raise SmokeFailure(f"edge_hosts rank {r}: the COLLECTIVE "
+                                       f"exchange at D={c['D']}: exact "
+                                       f"{c['exact']}, {n} exchanges, K1 "
+                                       f"launches {c['rank_launches']}")
+        if signalled is not None and not all(
+                c["exact"] and rep["placement"]["routes"]["edge=4"] ==
+                halo_mod.SIGNALLED
+                for rep in signalled for c in rep["exchange"]):
+            raise SmokeFailure(f"edge_hosts: the one-host signalled exchange "
+                               f"{[rep['exchange'] for rep in signalled]}")
+        recipe = recipe_vs_stacked(seed, out_dir, per_rank, mirp)
+        rank_dir = osp.join(out_dir, "serve0", "smoke")
+        n_bas = check_bases(osp.join(rank_dir, "pred-basis"), N_RANK_LPS,
+                            shapes)
+        inf = json_load(osp.join(rank_dir, "inf_time.json"))
+        with np.load(osp.join(out_dir, "host_logits.npz")) as z:
+            rank_logits = {n: z[n] for n in z.files}
+        st_dir = osp.join(serve_root, "stacked", "smoke", "pred-basis")
+        bas = sorted(f for f in os.listdir(st_dir) if f.endswith(".bas"))
+        same_bas = {f: filecmp.cmp(osp.join(st_dir, f),
+                                   osp.join(rank_dir, "pred-basis", f),
+                                   shallow=False) for f in bas}
+        others = [osp.exists(osp.join(out_dir, f"serve{r}"))
+                  for r in range(1, len(HOSTS))]
+        grid_state = torch.load(osp.join(out_dir, "host_grid_step.pth"),
+                                weights_only=True)
+    # the grid step against the stacked layout's, dp_edge_grid's bound
+    lr = UPDATE_LR
+    w0 = seeded_state(ARCH_NO_DROPOUT, seed)
+    s_loss, s_state = host_grid_reference(seed)
+    fp64 = union_step_fp64(seed, host_grid_graphs(seed), lr)
+    rels = update_rels(w0, grid_state, s_state, lr)
+    spread = update_rels(w0, s_state, fp64, lr)
+    limits = {n: max(UPDATE_RTOL, DIST_UPDATE_SPREAD * spread[n])
+              for n in rels}
+    near = max(rels, key=lambda n: rels[n] / limits[n])
+    step_want = add_launches(scaled(ROUTE_CONV[rows_form], 2))
+    runs = [run for rep in per_rank for run in rep["grid"]["runs"]]
+    g_loss = runs[0]["loss"]
+    if rels[near] > limits[near] or \
+            abs(g_loss - s_loss) > 1e-5 * abs(s_loss) or \
+            any(run["launches"] != step_want or
+                run["collective_exchanges"] != 0 for run in runs) or \
+            len({run["weights_digest"] for run in runs}) != 1 or \
+            len({run["loss"] for run in runs}) != 1:
+        raise SmokeFailure(f"edge_hosts grid step vs the stacked layout: "
+                           f"loss {g_loss} vs {s_loss}, update rel diff "
+                           f"{rels[near]} in {near} > {limits[near]}, "
+                           f"launches {[run['launches'] for run in runs]} "
+                           f"(each {step_want}), exchanges "
+                           f"{[run['collective_exchanges'] for run in runs]},"
+                           f" digests "
+                           f"{[run['weights_digest'] for run in runs]}")
+    # the serve over both hosts
+    serve_want = add_launches(scaled(HOST_CONV, 2 * FORWARDS_PER_LP
+                                     * N_RANK_LPS))
+    serve_x = 2 * HOST_EXCHANGES_A_CONV * FORWARDS_PER_LP * N_RANK_LPS
+    worst = {}
+    for fn, got in rank_logits.items():
+        err, ok = within(torch.from_numpy(got),
+                         torch.from_numpy(st_logits[fn]), *RANK_LOGIT_TOL)
+        worst[fn] = err
+        if not ok:
+            raise SmokeFailure(f"edge_hosts {fn}: rank logits max |err| "
+                               f"{err} vs the stacked path's, beyond rtol, "
+                               f"atol {RANK_LOGIT_TOL}")
+    if len(rank_logits) != N_RANK_LPS or n_bas != N_RANK_LPS or \
+            not all(same_bas.values()) or any(others) or \
+            any(rep["serve"]["launches"] != serve_want or
+                rep["serve"]["collective_exchanges"] != serve_x or
+                rep["serve"]["window_bytes"] != 0 for rep in per_rank):
+        raise SmokeFailure(
+            f"edge_hosts serve: {n_bas} valid bases, logits of "
+            f"{sorted(rank_logits)}, .bas equal to the stacked path's "
+            f"{same_bas}, files of ranks 1-3 {others}, launches "
+            f"{[rep['serve']['launches'] for rep in per_rank]} (each "
+            f"{serve_want}), exchanges "
+            f"{[rep['serve']['collective_exchanges'] for rep in per_rank]} "
+            f"(each {serve_x}), windows "
+            f"{[rep['serve']['window_bytes'] for rep in per_rank]}")
+    launches = add_launches(
+        *(rep["recipe"][w]["launches"] for rep in per_rank
+          for w in ("forward", "step")),
+        *(run["launches"] for run in runs),
+        *(rep["serve"]["launches"] for rep in per_rank))
+    exchanges = {
+        f"D={c['D']}": {
+            "route": halo_mod.COLLECTIVE, "backend": backend,
+            "bytes_a_rank": c["bytes_a_rank"],
+            "bytes_sent_a_rank": c["bytes_sent_a_rank"],
+            "ms_by_rank": [rep["exchange"][i]["ms"] for rep in per_rank],
+            "device_ms_by_rank": [rep["exchange"][i]["device_ms"]
+                                  for rep in per_rank],
+            "signalled_ms_by_rank": None if signalled is None else
+            [rep["exchange"][i]["ms"] for rep in signalled],
+            "signalled_device_ms_by_rank": None if signalled is None else
+            [rep["exchange"][i]["device_ms"] for rep in signalled]}
+        for i, c in enumerate(per_rank[0]["exchange"])}
+    return {
+        "ranks": len(HOSTS), "hosts": HOSTS, "cards": 4 if four else 1,
+        "note": "two hosts reported by the ranks of one machine: the "
+                "COLLECTIVE route runs over " + ("NVLink (NCCL)" if four
+                                                 else "host copies (gloo)")
+                + ", not over a network between hosts",
+        "groups": groups, "backend": backend, "route_table": table,
+        "devices": [rep["placement"]["device"] for rep in per_rank],
+        "exchange": exchanges, "Bh": bh,
+        "recipe": recipe,
+        "grid": {"form": rows_form, "loss": g_loss, "loss_stacked": s_loss,
+                 "update_rels": rels, "layout_vs_fp64_update_rels": spread,
+                 "nearest_limit": {"tensor": near, "update_diff": rels[near],
+                                   "limit": limits[near]},
+                 "launches_per_rank": step_want,
+                 "weights_digest": runs[0]["weights_digest"]},
+        "serve": {"lps": N_RANK_LPS, "bas_equal": same_bas,
+                  "lp": "mirp_bench" if mirp else "bench",
+                  "logits_max_abs_err": worst,
+                  "launches_per_rank": serve_want,
+                  "collective_exchanges_per_rank": serve_x,
+                  "wall_s": [rep["serve"]["wall_s"] for rep in per_rank],
+                  "inf_time_s": inf["inf_time"],
+                  "stacked_inf_time_s": stacked_inf},
+        "launches": launches, "ranks_s": wall,
+        "phase_s": time.perf_counter() - t0}
+
+
+# the full run starts the rank launches of these phases together (main):
+# each phase's fields below were timed beside the others' processes on the
+# same card and host CPUs, and compare with no run of the phase alone
+CONTENDED = {
+    "dp_edge_grid": ["step_device_ms", "allreduce_ms", "allreduce_wait_ms",
+                     "partition_s", "rank_wall_s", "graph_batch.steps",
+                     "graph_batch.rank_wall_s", "grid_ranks_s",
+                     "rows_ranks_s", "phase_s"],
+    "edge_hosts": ["exchange", "recipe.span_ms", "recipe.k1_ms",
+                   "recipe.k1_share", "serve.wall_s", "serve.inf_time_s",
+                   "serve.stacked_inf_time_s", "ranks_s", "phase_s"],
+    "dryrun_multihost": ["grid.ranks_s", "rows.ranks_s", "phase_s"]}
+
+
+def contended(phase: str) -> dict:
+    """What ``phase``'s record says of its timings in the full run."""
+    return {"beside": [p for p in CONTENDED if p != phase],
+            "fields": CONTENDED[phase]}
+
+
 # the dry-run twin: one step a launch, GCN_FC(8,8,hids=16,depth=3) over the
 # all-gather layout without the input cache, a rank's SpMMs: 2 a conv
 # forward (2 convs), the hidden conv's 2 backward (AG_RANK_CONV a conv);
@@ -7564,18 +8206,18 @@ DRYRUN_RANKS = {"grid": DRYRUN_MESH["dp"] * DRYRUN_MESH["edge"],
 DRYRUN_RTOL = 1e-5
 
 
-def dryrun_phase(seed: int) -> dict:
+def dryrun_phase(seed: int, ports: list[int] | None = None) -> dict:
     """``python -m lp_gnn_tpu_torch.dryrun_multihost`` at its defaults
     (dp=2, edge=4: 8 ranks on the card, one shard a rank) and, at the same
     time, ``--layout rows`` over 2 ranks (each all 4 shards of its graph):
     rank 0 of each prints the script's line, the other ranks nothing; the two
     losses agree within DRYRUN_RTOL (the same step on the same weights);
     each rank's launches exactly 3 convs' (AG_RANK_CONV, or AG_CONV in the
-    rows layout)."""
-    from concurrent.futures import ThreadPoolExecutor
+    rows layout). ``ports``: the two launches' and their runs' (4), free
+    ones if None."""
     t0 = time.perf_counter()
     out, launches = {}, []
-    ports = free_ports(2 * len(DRYRUN_RANKS))
+    ports = ports or free_ports(2 * len(DRYRUN_RANKS))
     with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_dryrun_") as tmp, \
             ThreadPoolExecutor(len(DRYRUN_RANKS)) as pool:
         # both launches at once: each is mostly its processes' start
@@ -7697,6 +8339,9 @@ def main(argv=None) -> int:
     ap.add_argument("--host_sort", action="store_true",
                     help="measure only from_graph's edge orderings on the "
                          "host, numpy's against lex_order's")
+    ap.add_argument("--layout_gemms", action="store_true",
+                    help="measure only the recipe's GEMMs over the stacked "
+                         "shards against a shard at a time")
     ap.add_argument("--edge_devices", action="store_true",
                     help="run only the edge_devices phase (one edge shard "
                          "a card where the cards are as many as the shards)")
@@ -7713,6 +8358,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ag_rank", metavar="PAYLOAD",
                     help="run as one rank of the all_gather phase's ranks, "
                          "with the phase's PAYLOAD (a JSON file)")
+    ap.add_argument("--edge_hosts", action="store_true",
+                    help="run only the edge_hosts phase (ranks reported as "
+                         "two hosts; a card a rank where 4 are visible)")
+    ap.add_argument("--host_rank", metavar="PAYLOAD",
+                    help="run as one rank of the edge_hosts phase, with the "
+                         "phase's PAYLOAD (a JSON file)")
     ap.add_argument("--grid_rank", metavar="PAYLOAD",
                     help="run as one rank of the dp_edge, dp_edge_grid or "
                          "dryrun_multihost phases, with the phase's PAYLOAD "
@@ -7734,9 +8385,17 @@ def main(argv=None) -> int:
     if args.grid_rank:
         grid_rank(args.grid_rank)
         return 0
+    if args.host_rank:
+        host_rank(args.host_rank)
+        return 0
     if args.host_sort:
         emit({"phase": "host_sort", "nvidia_smi": nvidia_smi(),
               **host_sort(args.seed)})
+        return 0
+    if args.layout_gemms:
+        _build.build_all(["spmm", "gather", "halo_a2a"])
+        emit({"phase": "layout_gemms", "nvidia_smi": nvidia_smi(),
+              **layout_gemms(args.seed)})
         return 0
     if args.edge_devices:
         _build.build_all(["spmm", "gather", "halo_a2a", "gen_agg",
@@ -7752,6 +8411,17 @@ def main(argv=None) -> int:
         emit({"phase": "edge_devices", "nvidia_smi": nvidia_smi(),
               "phase_s": time.perf_counter() - t0, **devd})
         return 0
+    if args.edge_hosts:
+        _build.build_all(["spmm", "gather", "halo_a2a"])
+        t0 = time.perf_counter()
+        try:
+            hosted = edge_hosts(args.seed)
+        except SmokeFailure as ex:
+            print(f"chip_smoke: FAIL: {ex}", file=sys.stderr)
+            return 1
+        emit({"phase": "edge_hosts", "nvidia_smi": nvidia_smi(),
+              "phase_s": time.perf_counter() - t0, **hosted})
+        return 0
     if args.grid_devices:
         _build.build_all(["spmm", "gather", "halo_a2a"])
         t0 = time.perf_counter()
@@ -7765,8 +8435,10 @@ def main(argv=None) -> int:
         return 0
     # the pipeline's prepped family, kept for the steps_per_call phase
     mirp_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_mirp_")
-    # edge_ranks' LPs, checkpoint and stacked serve, for edge_devices
+    # edge_ranks' LPs, checkpoint and stacked serve, for edge_devices and
+    # edge_hosts; the directory of edge_hosts' ranks
     ranks_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_ranks_")
+    hosts_keep = tempfile.mkdtemp(prefix="lp_gnn_smoke_hosts_")
     # every phase but edge_devices keeps the edge shards of one process
     # stacked on cuda:0, also where K_EDGE cards are visible
     layout = contextlib.ExitStack()
@@ -7907,11 +8579,28 @@ def main(argv=None) -> int:
         floors = probe_phase("lp_gnn_tpu_torch.probe_gen_floor")
         emit({"phase": "probe_gen_floor", "nvidia_smi": smi, **floors})
         torch.cuda.empty_cache()
-        gridded = dp_edge_grid(args.seed)
-        emit({"phase": "dp_edge_grid", "nvidia_smi": smi, **gridded})
-        torch.cuda.empty_cache()
-        dried = dryrun_phase(args.seed)
-        emit({"phase": "dryrun_multihost", "nvidia_smi": smi, **dried})
+        # the last rank launches start together, each mostly its
+        # processes' start: edge_hosts' and the dry run's (threads that
+        # only launch and wait) beside dp_edge_grid's; the phases' checks
+        # then run in their order in this thread
+        ports = free_ports(13)
+        with ThreadPoolExecutor(2) as pool:
+            hosts_run = pool.submit(edge_hosts_launch, args.seed, hosts_keep,
+                                    ranks_keep, ports[6:9])
+            dry_run = pool.submit(dryrun_phase, args.seed, ports[9:])
+            gridded = dp_edge_grid(args.seed, ports[:6])
+            emit({"phase": "dp_edge_grid", "nvidia_smi": smi,
+                  "contended": contended("dp_edge_grid"), **gridded})
+            torch.cuda.empty_cache()
+            hosted = edge_hosts(args.seed, ranks_keep,
+                                ranked["serve"]["stacked_inf_time_s"],
+                                hosts_run.result())
+            emit({"phase": "edge_hosts", "nvidia_smi": smi,
+                  "contended": contended("edge_hosts"), **hosted})
+            torch.cuda.empty_cache()
+            dried = dry_run.result()
+        emit({"phase": "dryrun_multihost", "nvidia_smi": smi,
+              "contended": contended("dryrun_multihost"), **dried})
         torch.cuda.empty_cache()
         scaled_art = scaling_artifact_phase(args.seed)
         emit({"phase": "scaling_artifact", "nvidia_smi": smi, **scaled_art})
@@ -7922,6 +8611,7 @@ def main(argv=None) -> int:
         layout.close()
         shutil.rmtree(mirp_keep, ignore_errors=True)
         shutil.rmtree(ranks_keep, ignore_errors=True)
+        shutil.rmtree(hosts_keep, ignore_errors=True)
     # launches: the SpMM, the gather and K1 on the edge-partitioned path,
     # the one path that runs all three; the GEN kernels on the GEN training
     # path, which runs both; a case at the dist GEN layer's shapes (and the
@@ -7938,7 +8628,8 @@ def main(argv=None) -> int:
              "steps_per_call": scanned, "all_gather": gathered,
              "bench": benched, "native": natived, "big": big,
              "probe_spmm": probed, "probe_gen_floor": floors,
-             "dp_edge_grid": gridded, "dryrun_multihost": dried,
+             "dp_edge_grid": gridded, "edge_hosts": hosted,
+             "dryrun_multihost": dried,
              "scaling_artifact": scaled_art, "k1_streams": k1_streams}
     for k in kernels:
         main_path = paths[k["path"]] if "path" in k else \

@@ -28,7 +28,10 @@ prints the script's one JSON line: ``ok``, ``distributed`` (the contract
 is set), ``num_processes``, ``global_devices`` (the distinct devices the
 ranks compute on, by host: ranks that share one card count it once, where
 the JAX script counts every device of the global mesh), ``mesh`` and
-``loss`` (before the update, rounded to 6 places).
+``loss`` (before the update, rounded to 6 places). The ranks may run on
+several hosts; ``global_devices`` counts the distinct (host, card) pairs
+of the placement the group was made with (``parallel/mesh.py
+Placement``).
 
 The script's ``--local_devices`` (virtual CPU devices a process) has no
 counterpart: a rank computes on one device, its card or the CPU.
@@ -38,7 +41,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import socket
 
 import numpy as np
 import torch
@@ -52,7 +54,7 @@ from .parallel.dp import rank_block
 from .parallel.edge_partition import dist_tensors
 from .parallel.mesh import (dist_env, init_distributed, leave_distributed,
                             make_grid, make_mesh, parse_mesh_shape,
-                            world_and_rank)
+                            placement, world_and_rank)
 from .train.losses import LOSS_REGISTRY
 from .train.trainer import make_optimizer
 
@@ -105,14 +107,14 @@ def step(shape: dict[str, int], layout: str, edges: int,
                                     LOSS_REGISTRY["balanced"], grid=grid))
 
 
-def global_devices(device: torch.device) -> int:
-    """The distinct (host, device) pairs the ranks compute on."""
-    here = (socket.gethostname(), str(device))
-    if not dist.is_initialized():
+def global_devices() -> int:
+    """The distinct (host, card) pairs the ranks compute on, from the
+    placement the process group was made with (ranks off the card count
+    one a host); 1 without a group."""
+    pl = placement()
+    if pl is None or not dist.is_initialized():
         return 1
-    seen: list = [None] * dist.get_world_size()
-    dist.all_gather_object(seen, here)
-    return len(set(seen))
+    return len(set(zip(pl.hosts, pl.cards)))
 
 
 def main(argv=None) -> int:
@@ -129,7 +131,7 @@ def main(argv=None) -> int:
     device, created = init_distributed(resolve_device(args.device))
     try:
         loss = step(shape, args.layout, args.edges, device)
-        n_dev = global_devices(device)
+        n_dev = global_devices()
         world, rank = world_and_rank()
     finally:
         if dist.is_initialized():

@@ -5,17 +5,55 @@ Counterpart of ``lp_gnn_tpu/models/layers.py`` (reference arch.py:51-141),
 as ``nn.Module``s named after the reference's state_dict keys
 (``left2right.lin_rel.weight`` ...), so a reference ``mdl.pth`` loads as it
 is. Parameters stay fp32; compute runs in the dtype of the inputs, and the
-knowledge mask always in fp32.
+knowledge mask always in fp32. A bf16 GEMM on the card sums its products
+in fp32 and rounds once, as the TPU's matrix unit does for the reference
+and as the port's SpMM does: importing this module turns off cuBLAS's
+reduced-precision reduction of bf16 split-K partials
+(``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``),
+which otherwise rounds each partial to bf16.
+
+cuBLAS picks its kernel, and how it splits a GEMM's sum, by the GEMM's
+rows, and a narrow GEMM (the 3-wide heads) rounds differently at
+different row counts: on an H100 a mirp_bench LP's bf16 logits on a
+rank's shard of 512 constraint rows and on the same rows among 4 stacked
+shards fell further apart than 2^-6 (``chip_smoke.py --layout_gemms``,
+PERF.md), and its decoded bases differed. So while the stacked shards'
+forward runs (:func:`shard_rows`, set by
+``parallel/edge_partition.py module_forward``), a Linear of at most
+NARROW outputs runs one GEMM a shard's rows, as a rank and JAX's
+``shard_map`` run it, and the layouts agree bit for bit; a wide one runs
+one GEMM over all rows (cuBLAS gave the same bits there at every row
+count measured, and a concatenation of wide outputs would cost a copy).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.spmm import spmm_cons_to_vars, spmm_vars_to_cons
+
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+NARROW = 8   # outputs of a Linear that runs one GEMM a shard (shard_rows)
+_SHARDS = threading.local()
+
+
+@contextlib.contextmanager
+def shard_rows(k: int):
+    """Within it, in this thread, the rows of a Linear's input are k equal
+    blocks, one a stacked edge shard: a narrow Linear runs one GEMM a
+    block, whose rows a rank holding that shard would hold."""
+    prev = getattr(_SHARDS, "k", 1)
+    _SHARDS.k = k
+    try:
+        yield
+    finally:
+        _SHARDS.k = prev
 
 
 class Linear(nn.Module):
@@ -35,7 +73,12 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.linear(x, self.weight.to(x.dtype), b)
+        w = self.weight.to(x.dtype)
+        k = getattr(_SHARDS, "k", 1)
+        if k > 1 and w.shape[0] <= NARROW and x.dim() == 2 and \
+                x.shape[0] % k == 0:
+            return torch.cat([F.linear(c, w, b) for c in x.chunk(k)])
+        return F.linear(x, w, b)
 
 
 class LayerNorm(nn.Module):

@@ -69,8 +69,9 @@
 // the same stores. A second kernel (lp_halo_copy_out) copies the rank's own
 // window out into the result, which escapes into autograd.
 //
-// Two forms of the rank form, one a layout; the group's ranks choose at window
-// setup from their cards' UUIDs (halo.py rank_form), never after a failure:
+// Two forms of the rank form, one a layout of ranks on one host; the ranks
+// choose from their placement (mesh.py rank_form), never after a failure (a
+// group over several hosts takes no form of this file: NCCL's all-to-all):
 // - Ranks that time-share a card (more ranks of the world than cards): the
 //   flags form, below: the write (lp_halo_a2a_rank) and the copy-out
 //   (lp_halo_copy_out), ordered by flag words in host memory that each
@@ -909,16 +910,6 @@ extern "C" int lp_halo_rank_signalled(const void* src, void* out, void* const* b
   halo_rank_signalled_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
-}
-
-// The UUID of CUDA device `dev` (16 bytes into uuid): the rank form's
-// ranks swap it to learn whether any two of them share a card.
-extern "C" int lp_halo_device_uuid(int dev, unsigned char* uuid) {
-  cudaDeviceProp prop;
-  const cudaError_t e = cudaGetDeviceProperties(&prop, dev);
-  if (e != cudaSuccess) return e;
-  memcpy(uuid, prop.uuid.bytes, sizeof prop.uuid.bytes);
-  return cudaSuccess;
 }
 
 // Flag words. `words` holds n device addresses, 8-byte aligned, of words in

@@ -95,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import tempfile
 import zlib
 from typing import NamedTuple
 
@@ -105,7 +106,7 @@ import torch.nn.functional as F
 
 from ..data.dataset import BipartiteGraph
 from ..models.gen import BidirGENConv
-from ..models.layers import add_knowledge
+from ..models.layers import add_knowledge, shard_rows
 from ..ops.gather import gather_rows, gather_rows_plain
 from ..ops.gen_agg import padded_width
 from ..ops.spmm import spmm_csr, spmm_csr_plain
@@ -354,8 +355,11 @@ def _graph_fingerprint(g: BipartiteGraph) -> str:
 
 
 def _store_partition(path: str, dg: PartitionedGraph) -> None:
-    """``np.savez`` of every field (atomic rename); a halo list that is
-    None and a CSR list that is empty store nothing."""
+    """``np.savez`` of every field into a temporary file of its own beside
+    ``path``, then renamed over it (``os.replace``): the ranks of one host,
+    or of several over a shared file system, may write one partition at
+    once, and a reader sees a whole file or none. A halo list that is None
+    and a CSR list that is empty store nothing."""
     arrays = {"version": np.int64(_CACHE_VERSION)}
     arrays.update({k: np.int64(getattr(dg, k)) for k in _CACHE_INTS})
     arrays.update({k: getattr(dg, k) for k in _CACHE_ARRAYS + _CACHE_HALO
@@ -364,10 +368,33 @@ def _store_partition(path: str, dg: PartitionedGraph) -> None:
         for d, m in enumerate(getattr(dg, kind)):
             for field, a in m._asdict().items():
                 arrays[f"{kind}.{field}.{d}"] = a
-    tmp = f"{path}.tmp{os.getpid()}"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               prefix=os.path.basename(path), suffix=".tmp")
+    try:
+        # mkstemp's file is private (0600); the cache takes the mode that
+        # open() would give it, so other users of the dataset can read it
+        os.fchmod(fd, 0o666 & ~_umask())
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def _umask() -> int:
+    """This process's umask, read where the system shows it (``os.umask``
+    sets it to read it, which the process's other threads would see)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("Umask:"):
+                    return int(line.split()[1], 8)
+    except OSError:
+        pass
+    mask = os.umask(0o022)
+    os.umask(mask)
+    return mask
 
 
 def _load_partition(path: str) -> PartitionedGraph | None:
@@ -1169,10 +1196,11 @@ def module_forward(model, dg: DistGraphTensors,
     """The arch's own forward over a partition (edge_partition.py:757,
     :791, :1007): ``dg.apply_conv`` runs each conv over the shards, with
     the module's weights, and dropout (training mode) draws its masks from
-    ``generator`` over the stacked rows. Returns the stacked (L*ms, 3) and
-    (L*ns, 3) fp32 logits. With one shard a device, each shard's forward
-    in its thread (:func:`_forward_on_devices`), over ``reps`` where
-    given."""
+    ``generator`` over the stacked rows; a narrow Linear (the heads) runs
+    one GEMM a shard, as a rank would (``models/layers.py shard_rows``).
+    Returns the stacked (L*ms, 3) and (L*ns, 3) fp32 logits. With one
+    shard a device, each shard's forward in its thread
+    (:func:`_forward_on_devices`), over ``reps`` where given."""
     if model.softmax_aggregation and (dg.parts or [dg])[0].gen is None:
         raise ValueError(f"a dist {model.name} forward needs GEN's compact "
                          "CSRs: DistGraphTensors.from_partition(..., "
@@ -1183,7 +1211,8 @@ def module_forward(model, dg: DistGraphTensors,
         # over ranks the shards' masks differ, as JAX folds the shard index
         # into its key (edge_partition.py:771-774)
         generator = step_generator(generator, dg.shards[0])
-    return model(dg, generator=generator)
+    with shard_rows(dg.n_local):
+        return model(dg, generator=generator)
 
 
 def _forward_on_devices(model, dg: DistGraphTensors,

@@ -6,7 +6,7 @@ pallas_all_to_all`` (``_a2a_kernel`` :39): K per-shard halo buffers of
 (K*Bh, F) rows in, K out, with ``out[q][p*Bh:(p+1)*Bh] =
 in[p][q*Bh:(q+1)*Bh]``, the tiled ``lax.all_to_all`` over the ``edge`` axis.
 
-Two transports, one kernel source (``ops/csrc/halo_a2a.cu``); the edge
+Three transports, one kernel source (``ops/csrc/halo_a2a.cu``); the edge
 mesh says which runs, there is no switch and no fallback between them:
 
 - All K shards in one process, on one device: :func:`halo_all_to_all`
@@ -19,32 +19,39 @@ mesh says which runs, there is no switch and no fallback between them:
   exchange is a fixed permutation of rows, folded into the gather's index
   (``edge_partition.halo_gather``).
 - One shard a process, rank k of a process group holding shard k:
-  :func:`halo_all_to_all_ranks` launches the rank form on CUDA tensors, the
-  TPU kernel's remote copy: each rank writes its K blocks straight into the
-  ranks' receive windows, cudaMalloc'ed by each rank and mapped into the
-  others through CUDA IPC (the same stores reach a window on this card or
-  on a peer card over NVLink), two windows a group and device, used in
-  turn and grown together to the largest exchange, so that a rank may
-  write exchange e while a slower one still reads e - 1. The group's
-  layout picks one of two forms when its windows are made
-  (:func:`rank_form`, from the ranks' card UUIDs). Ranks with a card each
-  take the signalled form: one kernel an exchange
-  (:func:`halo_rank_signalled`) whose signals are counters in the windows'
-  own allocations, over NVLink, and whose copy-out of a peer's block runs
-  as soon as that block is whole. Ranks that time-share a card take the
-  flags form, where no kernel spins: a write and a copy-out kernel, and the
-  TPU kernel's semaphores as flag words in a header of each rank, a page of
-  host memory that the ranks share, waited on and written by the ranks'
-  streams (CUDA stream memory operations). Either way an exchange makes no
-  host collective and no synchronise, and a host that must end a wait
-  stores into the header: an error aborts the exchange on every rank
-  through it, and a watchdog thread bounds how long a rank that died leaves
-  the others waiting. On CPU tensors it runs
-  :func:`halo_all_to_all_ranks_plain`,
+  :func:`halo_all_to_all_ranks`. The group's route comes from the ranks'
+  placement (``mesh.Placement``, swapped before the group existed) before
+  any exchange, the same on every rank (``mesh.rank_form``), never after a
+  failure. A group whose ranks span hosts takes COLLECTIVE, the port's
+  counterpart of JAX's default ``lax.all_to_all`` over DCN
+  (``_halo_a2a`` :572-581; the Pallas kernel's remote DMA does not cross
+  hosts): one ``all_to_all_single`` on the card over NCCL, staged through
+  host copies over gloo; it makes no window and launches no kernel of
+  this repo. A group on one host launches the rank form on CUDA tensors,
+  the TPU kernel's remote copy: each rank writes its K blocks straight
+  into the ranks' receive windows, cudaMalloc'ed by each rank and mapped
+  into the others through CUDA IPC (the same stores reach a window on
+  this card or on a peer card over NVLink), two windows a group and
+  device, used in turn and grown together to the largest exchange, so
+  that a rank may write exchange e while a slower one still reads e - 1.
+  Where no card of the world is time-shared it takes the signalled form:
+  one kernel an exchange (:func:`halo_rank_signalled`) whose signals are
+  counters in the windows' own allocations, over NVLink, and whose
+  copy-out of a peer's block runs as soon as that block is whole. Ranks
+  that time-share a card take the flags form, where no kernel spins: a
+  write and a copy-out kernel, and the TPU kernel's semaphores as flag
+  words in a header of each rank, a page of host memory that the ranks
+  share, waited on and written by the ranks' streams (CUDA stream memory
+  operations). Either way an exchange makes no host collective and no
+  synchronise, and a host that must end a wait stores into the header: an
+  error aborts the exchange on every rank through it, and a watchdog
+  thread bounds how long a rank that died leaves the others waiting. On
+  CPU tensors every route runs :func:`halo_all_to_all_ranks_plain`,
   ``all_to_all_single`` over the group (gloo). :class:`HaloAllToAllRanks`
   gives it a gradient, the same exchange. Under a (dp, edge) grid of ranks
-  (``mesh.RankGrid``) each row's edge group exchanges over windows of its
-  own: a rank belongs to one row, and its windows are keyed by that group.
+  (``mesh.RankGrid``) each row's edge group takes its own route and, on
+  one host, exchanges over windows of its own: a rank belongs to one row,
+  and its windows are keyed by that group.
 - Every shard in one process, shard d on device d (``mesh.EdgeMesh`` with
   one shard a device; the devices may repeat):
   :func:`halo_all_to_all_devices`, the device form: each source's launch,
@@ -80,6 +87,7 @@ import torch.distributed as dist
 
 from ..ops import _build
 from ..ops._build import count_launch, launch_on
+from .mesh import COLLECTIVE, FLAGS, SIGNALLED, group_route
 
 MAX_SHARDS = 64   # the kernel's pointer table (csrc/halo_a2a.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -472,7 +480,6 @@ def _rank_lib(name: str):
             "lp_halo_copy_out": [vp, vp, i64, vp, i32, vp, vp],
             "lp_halo_rank_signalled": [vp, vp, pp, i64, i32, i32, i32, i64,
                                        vp, vp, u64, u64, i32, vp],
-            "lp_halo_device_uuid": [i32, vp],
             "lp_halo_flags_wait": [pp, i32, u64, vp],
             "lp_halo_flags_write": [pp, i32, u64, vp],
             "lp_halo_flags_register": [vp, i64, pp],
@@ -518,24 +525,6 @@ SPIN_S = 0.002  # how long a host with a card a rank polls without a pause
 # chunks of CHUNK_BYTES (the kernel's kChunk pieces of 16 bytes).
 COUNTER_BYTES = HEADER_BYTES
 CHUNK_BYTES = 16 * 256 * 4
-# the two forms of the rank form (rank_form)
-FLAGS, SIGNALLED = "flags", "signalled"
-
-
-def rank_form(cards: Sequence, ranks: int, host_cards: int) -> str:
-    """The rank form a group takes, from each of its ranks' card (its UUID;
-    None where a rank has none): SIGNALLED where every rank of the group
-    has a card no other rank of it uses and the ``ranks`` processes of the
-    world fit the host's ``host_cards`` cards, so that no card is
-    time-shared (a spinning kernel costs only its own card's SMs); FLAGS
-    else, where no kernel may spin. The same on every rank: each passes the
-    group's gathered cards."""
-    if ranks > host_cards or any(c is None for c in cards) or \
-            len(set(cards)) < len(cards):
-        return FLAGS
-    return SIGNALLED
-
-
 def rank_chunks(block_bytes: int) -> int:
     """The chunks of one block in the signalled form's counters."""
     return -(-block_bytes // CHUNK_BYTES)
@@ -647,7 +636,7 @@ class _Window:
     (the host's
     monotonic clock), ``broken`` the error an exchange raised (the pair is
     then dropped and made anew at the next), ``poisoned`` whether the
-    watchdog ended its waits. ``form`` is the group's (``rank_form``);
+    watchdog ended its waits. ``form`` is the group's (``mesh.rank_form``);
     ``counter_bytes`` the signalled form's counters after the two windows
     of each allocation (``_make_window`` makes them for either form),
     ``sent[w]`` the chunks each rank has sent into window w so far, the
@@ -738,14 +727,18 @@ def window_bytes() -> int:
 
 def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
     """Allocate this rank's window pair with its counters (zeroed), its
-    flag header (zeroed) and status word, swap the IPC handles, the
-    headers' names and the ranks' card UUIDs over the group and open the
-    peers' pairs and headers; then the own header's name goes (every rank
-    has opened it; the page stays while it is mapped). The cards give the
-    group's form (``rank_form``; a rank off the card, as the tests' host
-    stand-in, has none). Every rank learns whether every rank succeeded,
-    so a failure raises on all of them (none waits at the next
-    barrier)."""
+    flag header (zeroed) and status word, swap the IPC handles and the
+    headers' names over the group and open the peers' pairs and headers;
+    then the own header's name goes (every rank has opened it; the page
+    stays while it is mapped). The group's form is its route
+    (``mesh.group_route``); a group over hosts has none and raises before
+    anything is made. Every rank learns whether every rank succeeded, so a
+    failure raises on all of them (none waits at the next barrier)."""
+    form = group_route(group)
+    if form == COLLECTIVE:
+        raise RuntimeError("halo_all_to_all_ranks: a group over several "
+                           "hosts exchanges by its collective and makes no "
+                           "window")
     k, me = _group_shape(group)
     nh = _rank_lib("lp_halo_ipc_handle_bytes")()
     own, handle = ctypes.c_void_p(), ctypes.create_string_buffer(nh)
@@ -755,7 +748,6 @@ def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
         headers[me] = header = _Header()
     except OSError:   # every rank must still reach the collectives
         header = None
-    card = None
     with torch.cuda.device(dev):
         rc = _rank_lib("lp_halo_window_alloc")(
             2 * nbytes + COUNTER_BYTES, ctypes.byref(own), handle)
@@ -764,18 +756,14 @@ def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
                                                    ctypes.byref(mapped))
         if rc == 0:
             rc = header.register() if header else -1
-        if rc == 0 and dev.type == "cuda":
-            uuid = ctypes.create_string_buffer(16)
-            rc = _rank_lib("lp_halo_device_uuid")(dev.index, uuid)
-            card = uuid.raw.hex()
         handles: list = [None] * k
         dist.all_gather_object(
-            handles, (rc, handle.raw, header and header.shm.name, card),
+            handles, (rc, handle.raw, header and header.shm.name),
             group=group)
         ptrs, err = [0] * k, ""
         if any(h[0] != 0 for h in handles):
             err = ("cudaMalloc / cudaIpcGetMemHandle / cudaHostAlloc / "
-                   "cudaHostRegister / cudaGetDeviceProperties failed (-1: "
+                   "cudaHostRegister failed (-1: "
                    f"no shared page for the flag header): CUDA errors by rank "
                    f"{[h[0] for h in handles]}")
         else:
@@ -820,8 +808,6 @@ def _make_window(nbytes: int, group, dev: torch.device) -> _Window:
                 "halo_all_to_all_ranks: the receive windows could not be "
                 f"set up ({nbytes} bytes a window): " + "; ".join(
                     f"rank {p}: {e}" for p, e in enumerate(errs) if e))
-    form = rank_form([h[3] for h in handles], dist.get_world_size(),
-                     torch.cuda.device_count() if dev.type == "cuda" else 0)
     return _Window(me, nbytes, ptrs, group, [h.dev for h in headers],
                    [h.host for h in headers], host.value, mapped.value,
                    headers=headers, form=form, counter_bytes=COUNTER_BYTES)
@@ -1190,14 +1176,31 @@ def _flags_exchange(dev, win: _Window, buf: torch.Tensor, out: torch.Tensor,
     _enqueue(dev, win, "lp_halo_flags_write", win.signal_done[w], n, e)
 
 
-def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
-    """The rank form of K1 over the K ranks of ``group`` (the default group
-    if None): this rank's (K*Bh, F) buffer, block p for rank p, in; a new
-    (K*Bh, F) buffer, block p from rank p, out. fp32 or bf16.
+def halo_collective(buf: torch.Tensor, group=None) -> torch.Tensor:
+    """The COLLECTIVE route of a group over several hosts: this rank's
+    (K*Bh, F) CUDA buffer exchanged by ``all_to_all_single`` over the group,
+    on the card in the current stream's order over NCCL, through host
+    copies over gloo (as ``edge_partition._on_host`` stages the other
+    collectives). Counted in ``halo_all_to_all_ranks.collective_exchanges``:
+    the backend's work, no launch of a kernel of this repo."""
+    if dist.get_backend(group) == "gloo":
+        out = halo_all_to_all_ranks_plain(buf.cpu(), group).to(buf.device)
+    else:
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, group=group)
+    halo_all_to_all_ranks.collective_exchanges += 1
+    return out
 
-    On CUDA tensors the group's form, picked by its layout when its windows
-    are made (:func:`rank_form`) and never after a failure, orders the
-    exchange against the peers on the card and not by the host:
+
+def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
+    """K1 over the K ranks of ``group`` (the default group if None): this
+    rank's (K*Bh, F) buffer, block p for rank p, in; a new (K*Bh, F)
+    buffer, block p from rank p, out. fp32 or bf16.
+
+    The group's route comes from the ranks' placement before any exchange
+    (``mesh.group_route``), never after a failure. Over several hosts it is
+    :func:`halo_collective`. On one host, on CUDA tensors, the group's form
+    orders the exchange against the peers on the card and not by the host:
 
     - Ranks with a card each (no card time-shared): the signalled form, one
       launch (:func:`halo_rank_signalled`, counted there). Its CTAs store
@@ -1231,15 +1234,16 @@ def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
     peer died instead, a watchdog thread ends the waits of an exchange
     still unfinished DEADLINE_S after it was enqueued, so that a
     synchronise of the caller's returns and the next exchange raises. On
-    CPU tensors it runs :func:`halo_all_to_all_ranks_plain`. Every rank of
-    the group must make the same exchanges, of the same shapes, in the same
-    order."""
+    CPU tensors every route runs :func:`halo_all_to_all_ranks_plain` (and
+    is recorded all the same). Every rank of the group must make the same
+    exchanges, of the same shapes, in the same order."""
     k, me = _group_shape(group)
     if buf.dim() != 2:
         raise ValueError("the rank form takes this rank's (K*Bh, F) buffer, "
                          f"got shape {tuple(buf.shape)}")
     _check_common(k, buf.shape, buf.dtype, buf.is_contiguous(),
                   buf.requires_grad)
+    route = group_route(group)
     dev = buf.device
     if dev.type == "cpu":
         return halo_all_to_all_ranks_plain(buf, group)
@@ -1247,12 +1251,15 @@ def halo_all_to_all_ranks(buf: torch.Tensor, group=None) -> torch.Tensor:
         raise ValueError(f"halo_all_to_all_ranks runs on cuda or cpu, not {dev}")
     if buf.nbytes == 0:
         return torch.empty_like(buf)
+    if route == COLLECTIVE:
+        return halo_collective(buf, group)
     return _exchange(buf, group)
 
 
 # the flags form's launches since the last reset: two an exchange (the
-# write and the copy-out)
+# write and the copy-out); the COLLECTIVE route's exchanges, apart
 halo_all_to_all_ranks.launches = 0
+halo_all_to_all_ranks.collective_exchanges = 0
 
 
 class HaloAllToAllRanks(torch.autograd.Function):

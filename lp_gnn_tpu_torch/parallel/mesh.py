@@ -46,16 +46,29 @@ The ``dp`` axis is one process a rank, joined by ``torch.distributed``
 from the JAX package's environment contract (``maybe_init_distributed``
 :20): ``LP_GNN_DIST_COORD`` (host:port of rank 0), ``LP_GNN_DIST_NPROCS``
 (the world size) and ``LP_GNN_DIST_PROC_ID`` (this rank). A launcher sets
-them, one process a rank. Rank r computes on ``cuda:{r % device_count}``
-(or the CPU when asked); the group runs NCCL where every rank has a card
-of its own and gloo otherwise (the CPU, or ranks that share a card: NCCL
-refuses two ranks on one device).
+them, one process a rank, on one host or on several, as JAX joins its
+processes over DCN (README.md:62-66). Before the group exists the ranks
+swap their :class:`Placement` through a ``TCPStore`` at the coordinator
+(:func:`init_distributed`): each rank's host (:func:`host_key`), its index
+among the ranks of its host and, from that, its card (``cuda:{local index
+% the host's cards}``, or the CPU when asked) and the card's UUID. The
+placement picks the group's backend, NCCL where no two ranks share a card
+of one host and gloo otherwise (the CPU, or ranks that share a card: NCCL
+refuses two ranks on one device), and each edge group's route of K1
+(:func:`rank_form`, read by ``parallel/halo.py`` through
+:func:`group_route`: a group on one host keeps K1's rank form, a group that
+spans hosts exchanges by the backend's all-to-all). Ranks of
+one host need not be contiguous in rank order; the contract holds across
+hosts as on one.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import json
 import logging
 import os
+import socket
 from typing import NamedTuple
 
 import torch
@@ -325,26 +338,246 @@ def is_primary() -> bool:
     return env is None or env.rank == 0
 
 
+BOOT_ID = "/proc/sys/kernel/random/boot_id"
+STORE_TIMEOUT = datetime.timedelta(minutes=30)   # init_process_group's own
+
+
+def host_key() -> str:
+    """This process's host: its name and the boot of its kernel. Two ranks
+    share a host only where both agree, since CUDA IPC and POSIX shared
+    memory need one kernel (a name alone may repeat across machines)."""
+    try:
+        with open(BOOT_ID) as f:
+            boot = f.read().strip()
+    except OSError:
+        boot = ""
+    return f"{socket.gethostname()}/{boot}"
+
+
+def local_indices(hosts) -> list[int]:
+    """Each rank's index among the ranks of its host, in rank order."""
+    seen: dict = {}
+    out = []
+    for h in hosts:
+        out.append(seen.get(h, 0))
+        seen[h] = out[-1] + 1
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where the ranks of the process group run, as every rank learned it
+    before the group existed: rank r's host key (``hosts[r]``), its index
+    among its host's ranks (``local``), its device (``devices``, as the
+    rank names it), its card's UUID (``cards``; None off the card) and its
+    host's count of cards (``host_cards``; 0 off the card), which gave
+    the rank its card and which the log names."""
+    hosts: tuple[str, ...]
+    local: tuple[int, ...]
+    devices: tuple[str, ...]
+    cards: tuple
+    host_cards: tuple[int, ...]
+
+    @property
+    def own_cards(self) -> bool:
+        """Whether every rank has a card that no other rank of its host
+        computes on: no card is time-shared."""
+        pairs = list(zip(self.hosts, self.cards))
+        return None not in self.cards and len(set(pairs)) == len(pairs)
+
+    @property
+    def backend(self) -> str:
+        """NCCL where every rank has a card of its own, gloo otherwise."""
+        return "nccl" if self.own_cards else "gloo"
+
+    def n_hosts(self, ranks=None) -> int:
+        """The hosts of ``ranks`` (every rank by default)."""
+        ranks = range(len(self.hosts)) if ranks is None else ranks
+        return len({self.hosts[r] for r in ranks})
+
+    def describe(self) -> str:
+        """Each rank's host (its name, a few characters of its boot id, and
+        its index there) and card, for the log."""
+        def host(h):
+            name, _, boot = h.partition("/")
+            return f"{name}/{boot[:8]}" if boot else name
+        return "; ".join(
+            f"rank {r} on {host(h)}#{i} {d}"
+            + (f" ({c[:13]}; host cards {n})" if c else "")
+            for r, (h, i, d, c, n) in enumerate(zip(
+                self.hosts, self.local, self.devices, self.cards,
+                self.host_cards)))
+
+
+# the placement of the process group this process joined, kept while the
+# group lives (halo.py and dryrun_multihost.py read it, never gather it)
+_PLACEMENT: list = [None]
+
+
+def placement() -> Placement | None:
+    """The placement of the process group, or None without one."""
+    return _PLACEMENT[0]
+
+
+def _swap(store, env: DistEnv, name: str, value) -> list:
+    """Every rank's ``value`` (JSON), in rank order, through ``store``."""
+    store.set(f"lp_gnn/placement/{name}/{env.rank}", json.dumps(value))
+    keys = [f"lp_gnn/placement/{name}/{r}" for r in range(env.world)]
+    store.wait(keys)
+    return [json.loads(store.get(k)) for k in keys]
+
+
 def init_distributed(device: torch.device) -> tuple[torch.device, bool]:
     """Join the process group of the contract, if one is set: returns this
-    rank's device (``cuda:{rank % device_count}`` for ``cuda``) and whether
-    this call created the group (its caller then destroys it)."""
+    rank's device and whether this call created the group (its caller
+    then destroys it). The ranks first swap their placement through a
+    ``TCPStore`` at ``LP_GNN_DIST_COORD`` (rank 0 its master), in two
+    rounds: the host keys and card counts, which give each rank its index
+    on its host and, on the card, its card ``cuda:(index % cards)``; then
+    each rank's device and card UUID. The placement picks the backend
+    (``Placement.backend``) and the group is made on the same store."""
     env = dist_env()
     if env is None:
         return device, False
-    if device.type == "cuda":
-        device = torch.device("cuda", env.rank % torch.cuda.device_count())
-        torch.cuda.set_device(device)
     if dist.is_initialized():
+        pl = placement()
+        if pl is None:
+            raise RuntimeError("a process group made outside init_distributed "
+                               "has no placement of its ranks")
+        if device.type == "cuda":
+            device = torch.device(pl.devices[env.rank])
+            torch.cuda.set_device(device)
         return device, False
-    own_card = device.type == "cuda" and \
-        env.world <= torch.cuda.device_count()
-    backend = "nccl" if own_card else "gloo"
-    dist.init_process_group(backend, init_method=f"tcp://{env.coord}",
-                            world_size=env.world, rank=env.rank)
-    logging.info("process group: rank %d of %d, %s, %s", env.rank,
-                 env.world, backend, device)
+    addr, port = env.coord.rsplit(":", 1)
+    store = dist.TCPStore(addr, int(port), env.world, env.rank == 0,
+                          timeout=STORE_TIMEOUT)
+    on_card = device.type == "cuda"
+    first = _swap(store, env, "host",
+                  [host_key(), torch.cuda.device_count() if on_card else 0])
+    hosts = [h for h, _ in first]
+    local = local_indices(hosts)
+    card = None
+    if on_card:
+        device = torch.device("cuda", local[env.rank] % first[env.rank][1])
+        torch.cuda.set_device(device)
+        card = str(torch.cuda.get_device_properties(device).uuid)
+    second = _swap(store, env, "card", [str(device), card])
+    pl = Placement(tuple(hosts), tuple(local),
+                   tuple(d for d, _ in second), tuple(c for _, c in second),
+                   tuple(n for _, n in first))
+    dist.init_process_group(pl.backend, store=store, world_size=env.world,
+                            rank=env.rank)
+    _PLACEMENT[0] = pl
+    logging.info("process group: rank %d of %d, %s, %s; %d host(s): %s",
+                 env.rank, env.world, pl.backend, device, pl.n_hosts(),
+                 pl.describe())
     return device, True
+
+
+# the routes of K1 over a group of ranks (rank_form): the rank form's two
+# forms on one host, the backend's all-to-all across hosts
+FLAGS, SIGNALLED, COLLECTIVE = "flags", "signalled", "collective"
+
+
+def rank_form(placement: Placement, ranks) -> str:
+    """The route of the group of global ``ranks`` from the world's
+    placement: COLLECTIVE where they run on more than one host (CUDA IPC
+    and shared memory end at a host); on one host SIGNALLED where no rank
+    of the world shares its card with another, so that no card is
+    time-shared (a spinning kernel costs only its own card's SMs), FLAGS
+    else, where no kernel may spin. A pure function of what every rank
+    holds alike, so every rank takes the same route."""
+    if placement.n_hosts(ranks) > 1:
+        return COLLECTIVE
+    return SIGNALLED if placement.own_cards else FLAGS
+
+
+def group_ranks(group) -> list[int]:
+    """The global ranks of ``group`` (the default group if None)."""
+    return dist.get_process_group_ranks(
+        dist.group.WORLD if group is None else group)
+
+
+# (a group's global ranks) -> the route its exchanges take, as this rank
+# chose it from the placement; and each group seen, with the placement
+# its route came from (both cleared with the process group)
+ROUTES: dict[tuple[int, ...], str] = {}
+_SEEN: dict = {}
+
+
+def group_route(group) -> str:
+    """The route of ``group`` (None: the default group), :func:`rank_form`
+    of the placement :func:`init_distributed` kept, computed the first time
+    the group is seen under that placement and recorded in ROUTES."""
+    pl = placement()
+    if pl is None:
+        raise RuntimeError("no placement of the ranks: join the process "
+                           "group through parallel/mesh.py init_distributed")
+    seen = _SEEN.get(group)
+    if seen is not None and seen[0] is pl:
+        return seen[1]
+    ranks = tuple(group_ranks(group))
+    ROUTES[ranks] = route = rank_form(pl, ranks)
+    _SEEN[group] = (pl, route)
+    return route
+
+
+def forget_routes() -> None:
+    """Clear the routes taken (ROUTES) and the groups seen, so that the
+    next exchange of each group computes its route anew."""
+    ROUTES.clear()
+    _SEEN.clear()
+
+
+def group_routes(spec: dict[str, int]) -> list[tuple[list[int], str]]:
+    """The edge groups that ``--mesh_shape`` (parsed) lays over the ranks
+    (the grid's rows, or every rank for ``edge=K`` over K), each with the
+    route of K1 its placement gives it (:func:`rank_form`); none outside
+    those layouts."""
+    world, _ = world_and_rank()
+    dp, edge = int(spec.get("dp", 1)), int(spec.get("edge", 1))
+    pl = placement()
+    if pl is None or world == 1 or edge <= 1:
+        return []
+    if dp > 1 and dp * edge == world:
+        groups = grid_ranks(dp, edge)[0]
+    elif dp == 1 and edge == world:
+        groups = [list(range(world))]
+    else:
+        return []
+    return [(g, rank_form(pl, g)) for g in groups]
+
+
+def log_routes(spec: dict[str, int]) -> None:
+    """Log every edge group's ranks and route (:func:`group_routes`)."""
+    routes = group_routes(spec)
+    if routes:
+        logging.info("edge groups over ranks: %s", "; ".join(
+            f"ranks {r} {route}" for r, route in routes))
+
+
+def from_primary(fn, *args):
+    """``fn(*args)`` on rank 0, its result sent to every rank of the
+    process group (``broadcast_object_list``), or ``fn(*args)`` itself
+    without one: under the contract only rank 0 is sure to hold what rank
+    0 wrote (a checkpoint of an earlier run), since each host has its own
+    files. An error on rank 0 raises on every rank."""
+    world, rank = world_and_rank()
+    if world == 1:
+        return fn(*args)
+    box: list = [None]
+    if rank == 0:
+        try:
+            box = [(True, fn(*args))]
+        except Exception as e:   # sent on, and raised here after
+            box, err = [(False, repr(e))], e
+    dist.broadcast_object_list(box, src=0)
+    ok, value = box[0]
+    if not ok:
+        if rank == 0:
+            raise err
+        raise RuntimeError(f"rank 0 could not load what it sends: {value}")
+    return value
 
 
 def world_and_rank() -> tuple[int, int]:
@@ -361,10 +594,13 @@ def leave_distributed(created: bool) -> None:
     or writes a flag or window when one is freed; on an error's way out it
     first tells the peers, whose waits for this rank then end; it raises
     where a copy-out recorded an abort that no exchange raised), then the process
-    group destroyed, with the grids made over it, where ``created``
-    (``init_distributed``'s second result)."""
+    group destroyed, with the grids made over it, its placement and the
+    routes its groups took, where ``created`` (``init_distributed``'s
+    second result)."""
     from .halo import release_windows
     release_windows()
     if created:
         _GRIDS.clear()
+        forget_routes()
+        _PLACEMENT[0] = None
         dist.destroy_process_group()

@@ -37,7 +37,7 @@ from .infer.predict import (_nnzs_for_decode, mesh_from_cfg, model_inference,
 from .io.bas import write_bas_highs
 from .models.convert import load_checkpoint
 from .models.gcn import build_model
-from .parallel.mesh import is_primary
+from .parallel.mesh import from_primary, is_primary
 from .prep import (mps_files, solve_backend, stage_cvt_to_pkl,  # noqa: F401
                    stage_generate, stage_prep_data, stage_process,
                    stage_run_solver)
@@ -68,13 +68,14 @@ def _table(cfg: Config) -> str:
 
 def _load_model(cfg: Config, ckpt_path: str | None, device) -> torch.nn.Module:
     """The arch on ``device`` in eval mode, with the weights of
-    ``ckpt_path`` or ``--load_from``; with neither (``None``), the seeded
+    ``ckpt_path`` or ``--load_from`` (read by rank 0 alone under the
+    contract, ``mesh.from_primary``); with neither (``None``), the seeded
     init (the control runs)."""
     model = build_model(cfg.arch_with_dtype(),
                         generator=torch.Generator().manual_seed(cfg.seed))
     src = ckpt_path or cfg.load_from
-    if str(src).lower() != "none":
-        model.load_state_dict(load_checkpoint(src))
+    if str(src).lower() != "none":   # rank 0's file, sent to every rank
+        model.load_state_dict(from_primary(load_checkpoint, src))
     return model.to(device).eval()
 
 

@@ -22,7 +22,8 @@ import logging
 from . import pipeline
 from .config import parse_args
 from .device import resolve_device
-from .parallel.mesh import init_distributed, leave_distributed
+from .parallel.mesh import (init_distributed, leave_distributed, log_routes,
+                            parse_mesh_shape)
 
 
 def main(argv=None) -> str:
@@ -31,6 +32,7 @@ def main(argv=None) -> str:
     cfg = parse_args(argv)
     _, created = init_distributed(resolve_device(cfg.device))
     try:
+        log_routes(parse_mesh_shape(cfg.mesh_shape or ""))
         return pipeline.stage_pred_basis(cfg)
     finally:
         leave_distributed(created)

@@ -140,8 +140,9 @@ from ..parallel import mesh as pmesh
 from ..parallel.edge_partition import (DIST_HALO_ARCHS, DistGraphTensors,
                                        cached_partition_graph,
                                        dist_tensors, dist_train_step)
-from ..parallel.mesh import (grid_from_shape, init_distributed, is_primary,
-                             leave_distributed, make_device_grid,
+from ..parallel.mesh import (from_primary, grid_from_shape,
+                             init_distributed, is_primary,
+                             leave_distributed, log_routes, make_device_grid,
                              parse_mesh_shape, world_and_rank)
 from ..utils.misc import AverageMeter
 from ..utils.profiling import show_resource, trace
@@ -502,7 +503,7 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
                         generator=torch.Generator().manual_seed(cfg.seed))
     state = None
     if cfg.load_from.lower() != "none":
-        sd, state = load_for_training(cfg.load_from)
+        sd, state = from_primary(load_for_training, cfg.load_from)
         model.load_state_dict(sd)
     model.to(device).train()
     # --steps_per_call K: K steps a call (trainer.py:492-500), not with dp
@@ -555,6 +556,7 @@ def _run(cfg: Config, dataset: LPDataset | None, device) -> str:
                      cfg.edge_num_thresh,
                      "halo" if dist_halo else "all-gather")
     combined = mesh is not None and dp_size > 1
+    log_routes(spec)
     if grid is not None:
         logging.info("combined dp x edge training: a grid of %d x %d ranks, "
                      "this rank's cell (%d, %d)", grid.dp, grid.edge,

@@ -1,6 +1,6 @@
-"""K1's rank form for ranks with a card each, on the CPU: the choice of form
-from the ranks' card UUIDs (``parallel/halo.py rank_form``, at window setup
-in ``_make_window``), a Python mirror of the signalled kernel's plan
+"""K1's rank form for ranks with a card each, on the CPU: the choice of route
+from the ranks' placement (``parallel/mesh.py rank_form``: hosts and card
+UUIDs; taken at window setup in ``_make_window``), a Python mirror of the signalled kernel's plan
 (``signal_plan``, ``signal_grid``, ``next_targets``: which CTA stores and
 copies which chunk, what it publishes into which counter, the targets the
 host passes) and the signalled exchange's calls into the library through
@@ -24,6 +24,7 @@ import torch
 from lp_gnn_tpu_torch import probe_k1_variants as pkv
 from lp_gnn_tpu_torch.ops import _build
 from lp_gnn_tpu_torch.parallel import halo as thalo
+from lp_gnn_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(2)
 
@@ -36,27 +37,39 @@ def u64(addr):
 
 
 # ------------------------------------------------------------ the choice
-@pytest.mark.parametrize("cards, ranks, host_cards, form", [
-    (["a", "b", "c", "d"], 4, 4, thalo.SIGNALLED),      # a card a rank
-    (["a", "b"], 2, 8, thalo.SIGNALLED),
-    (["a", "a", "a", "a"], 4, 1, thalo.FLAGS),          # all on one card
-    (["a", "b", "a", "c"], 4, 4, thalo.FLAGS),          # two share a card
-    (["a", "b"], 4, 2, thalo.FLAGS),    # the world time-shares the cards
-    ([None, None], 2, 0, thalo.FLAGS),  # ranks without a card
+def placement_of(hosts, cards) -> tmesh.Placement:
+    """The placement of ranks on ``hosts`` (host keys) computing on
+    ``cards`` (UUIDs; None off the card)."""
+    return tmesh.Placement(tuple(hosts), tuple(tmesh.local_indices(hosts)),
+                           tuple("cpu" if c is None else "cuda"
+                                 for c in cards), tuple(cards),
+                           tuple(0 if c is None else 8 for c in cards))
+
+
+@pytest.mark.parametrize("hosts, cards, ranks, form", [
+    ("hhhh", ["a", "b", "c", "d"], [0, 1, 2, 3], thalo.SIGNALLED),  # own
+    ("hh", ["a", "b"], [0, 1], thalo.SIGNALLED),
+    ("hhhh", ["a", "a", "a", "a"], [0, 1, 2, 3], thalo.FLAGS),  # one card
+    ("hhhh", ["a", "b", "a", "c"], [0, 1, 2, 3], thalo.FLAGS),  # two share
+    ("hhhh", ["a", "b", "a", "b"], [0, 1], thalo.FLAGS),  # the world shares
+    ("hh", [None, None], [0, 1], thalo.FLAGS),            # without a card
+    ("hhgg", ["a", "b", "a", "b"], [0, 1], thalo.SIGNALLED),  # a host a row
+    ("hhgg", ["a", "b", "a", "b"], [0, 1, 2, 3], thalo.COLLECTIVE),
 ])
-def test_rank_form_from_card_uuids(cards, ranks, host_cards, form):
-    """The signalled form only where every rank of the group has a card no
-    other rank of it uses and the world's ranks fit the host's cards: a
-    group in which any two ranks share a card keeps the flags form."""
-    assert thalo.rank_form(cards, ranks, host_cards) == form
+def test_rank_form_from_card_uuids(hosts, cards, ranks, form):
+    """The route of a group from the world's placement: COLLECTIVE where
+    its ranks span hosts; on one host the signalled form only where no
+    rank of the world shares its (host, card UUID) with another, the flags
+    form where any card is time-shared or a rank has none."""
+    assert tmesh.rank_form(placement_of(hosts, cards), ranks) == form
 
 
 class StubLib:
     """The C entries that ``_make_window`` calls, on the host: the
     allocation and the status word host memory, every call recorded."""
 
-    def __init__(self, uuid: bytes):
-        self.uuid, self.keep, self.calls = uuid, [], []
+    def __init__(self):
+        self.keep, self.calls = [], []
 
     def __call__(self, name):
         def fn(*a):
@@ -73,45 +86,48 @@ class StubLib:
                 a[0]._obj.value = a[1]._obj.value = ctypes.addressof(word)
             elif name == "lp_halo_flags_register":
                 a[2]._obj.value = a[0]
-            elif name == "lp_halo_device_uuid":
-                ctypes.memmove(a[1], self.uuid, 16)
             elif name == "lp_halo_window_open":
                 a[1]._obj.value = 1 << 30
             return 0
         return fn
 
 
-@pytest.mark.parametrize("peer_uuid, world, form", [
-    (b"\x02" * 16, 2, thalo.SIGNALLED), (b"\x01" * 16, 2, thalo.FLAGS),
-    (b"\x02" * 16, 4, thalo.FLAGS)])
-def test_make_window_takes_the_form_of_the_layout(monkeypatch, peer_uuid,
-                                                  world, form):
-    """``_make_window`` as rank 0 of 2 on cuda:0 of a host with 2 cards
-    (the entries and the group's collectives stubbed): it swaps its card's
-    UUID with the handles and takes the form of the gathered cards; the
-    allocation holds two windows and the counters."""
-    lib = StubLib(b"\x01" * 16)
+@pytest.mark.parametrize("hosts, cards, form", [
+    ("hh", ["a", "b"], thalo.SIGNALLED), ("hh", ["a", "a"], thalo.FLAGS),
+    ("hhhh", ["a", "b", "a", "b"], thalo.FLAGS),
+    ("hg", ["a", "a"], thalo.COLLECTIVE)])
+def test_make_window_takes_the_form_of_the_layout(monkeypatch, hosts, cards,
+                                                  form):
+    """``_make_window`` as rank 0 of a group of ranks 0 and 1 on cuda:0
+    (the entries and the group's collectives stubbed): it takes the route
+    the placement gives the group, and the allocation holds two windows
+    and the counters; a group over two hosts makes nothing and raises."""
+    lib = StubLib()
     header = types.SimpleNamespace(shm=types.SimpleNamespace(
         name="h0", unlink=lambda: None), register=lambda: 0, dev=8,
         host=16, close=lambda: None)
 
     def gather(out, obj, group=None):
         if isinstance(obj, tuple):
-            out[:] = [obj, (0, obj[1], "h1", peer_uuid.hex())]
+            out[:] = [obj, (0, obj[1], "h1")]
         else:
             out[:] = [obj, obj]
 
     monkeypatch.setattr(thalo, "_rank_lib", lib)
     monkeypatch.setattr(thalo, "_group_shape", lambda group: (2, 0))
+    monkeypatch.setattr(tmesh, "group_ranks", lambda group: [0, 1])
+    monkeypatch.setattr(tmesh, "_PLACEMENT", [placement_of(hosts, cards)])
     monkeypatch.setattr(thalo, "_Header", lambda name=None: header)
     monkeypatch.setattr(thalo.dist, "all_gather_object", gather)
-    monkeypatch.setattr(thalo.dist, "get_world_size", lambda g=None: world)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    if form == thalo.COLLECTIVE:
+        with pytest.raises(RuntimeError, match="makes no window"):
+            thalo._make_window(4096, None, torch.device("cuda", 0))
+        assert lib.calls == [] and tmesh.ROUTES[(0, 1)] == form
+        return
     win = thalo._make_window(4096, None, torch.device("cuda", 0))
-    assert win.form == form
-    assert "lp_halo_device_uuid" in lib.calls
+    assert win.form == form and tmesh.ROUTES[(0, 1)] == form
     assert len(lib.keep[0]) == 2 * 4096 + thalo.COUNTER_BYTES
     assert win.alloc_bytes == 2 * 4096 + thalo.COUNTER_BYTES
     assert [b for b in win.bases] == win.ptrs

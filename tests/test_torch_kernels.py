@@ -9,6 +9,7 @@ are not installed, such as the machine with the card::
     python -m pytest --noconftest tests/test_torch_kernels.py -q -m cuda
 """
 import ctypes
+import inspect
 import os
 import signal
 import socket
@@ -1350,17 +1351,20 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_rank_workers(worker: str, ranks: int, args=(), codes=None) -> None:
+def run_rank_workers(worker: str, ranks: int, args=(), codes=None,
+                     env_of=lambda r: {}) -> None:
     """``ranks`` processes of ``python -c worker *args`` joined by the
-    LP_GNN_DIST_* contract on the card; their exit codes asserted to be
-    ``codes`` (every one 0 by default)."""
+    LP_GNN_DIST_* contract on the card (rank r's environment also
+    ``env_of(r)``); their exit codes asserted to be ``codes`` (every one 0
+    by default)."""
     _build.build_all(["halo_a2a"])
     port = free_port()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = [subprocess.Popen(
         [sys.executable, "-c", worker, *args], cwd=root,
         env=dict(os.environ, LP_GNN_DIST_COORD=f"localhost:{port}",
-                 LP_GNN_DIST_NPROCS=str(ranks), LP_GNN_DIST_PROC_ID=str(r)),
+                 LP_GNN_DIST_NPROCS=str(ranks), LP_GNN_DIST_PROC_ID=str(r),
+                 **env_of(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(ranks)]
     outs = []
@@ -1484,6 +1488,109 @@ def test_halo_rank_signalled_on_four_cards(cuda_device, check):
     else:
         run_rank_workers({"exact": RANK_WORKER, "stress": STRESS_WORKER,
                           "abort": ABORT_WORKER}[check], 4)
+
+
+# one rank of test_edge_hosts_on_four_cards: 4 ranks as 2 hosts of 2 (ranks
+# 0-1 report host A, 2-3 host B; each host sees its own two cards), a card
+# each over NCCL. edge=4 over both hosts takes the COLLECTIVE route: exact
+# against the plain version, no window, no kernel of the repo. The (dp=2,
+# edge=2) grid, a host a row, keeps the signalled form in its rows: one
+# step (fp32, SGD at lr 1, dropout 0) against the stacked layout's step
+# over the whole batch on this rank's card (taken after the group is left):
+# the loss rtol 1e-5, each tensor's update within 1e-4 of its largest
+HOSTS_WORKER = r"""
+import os
+import numpy as np
+import torch
+from lp_gnn_tpu_torch.models.gcn import build_model
+from lp_gnn_tpu_torch.parallel import combined, halo, mesh
+from lp_gnn_tpu_torch.parallel import edge_partition as tEP
+from lp_gnn_tpu_torch.parallel.dp import rank_block
+from lp_gnn_tpu_torch.train import trainer
+from lp_gnn_tpu_torch.train.losses import balanced
+
+rank = int(os.environ["LP_GNN_DIST_PROC_ID"])
+mesh.host_key = lambda: "AABB"[rank]
+dev, created = mesh.init_distributed(torch.device("cuda"))
+pl = mesh.placement()
+assert torch.distributed.get_backend() == "nccl", pl
+assert pl.hosts == tuple("AABB") and pl.local == (0, 1, 0, 1), pl
+k, me = 4, rank
+gen = torch.Generator(device="cpu").manual_seed(7)
+cases = [(37, 8, torch.bfloat16), (37, 1024, torch.bfloat16),
+         (21, 8, torch.float32)]
+for bh, f, dt in cases:
+    bufs = [torch.randn(k * bh, f, generator=gen).to(dt) for _ in range(k)]
+    want = halo.halo_all_to_all_plain(bufs)[me]
+    got = halo.halo_all_to_all_ranks(bufs[me].to(dev))
+    assert torch.equal(got.cpu(), want), (bh, f, dt)
+assert mesh.ROUTES == {(0, 1, 2, 3): mesh.COLLECTIVE}, mesh.ROUTES
+assert halo.window_bytes() == 0 and not halo._WINDOWS
+assert halo.halo_all_to_all_ranks.collective_exchanges == len(cases)
+assert halo.halo_rank_signalled.launches == 0
+assert halo.halo_all_to_all_ranks.launches == 0
+
+arch = "GCN_FC(8,8,hids=32,depth=3,dp=0.0)"
+graphs = [port_graph(np.random.RandomState(20 + i), m=600, n=900, e=6000)
+          for i in range(2)]
+w0 = build_model(arch, generator=torch.Generator().manual_seed(3)
+                 ).state_dict()
+
+
+def step(grid):
+    model = build_model(arch)
+    model.load_state_dict(w0)
+    model = model.to(dev)
+    opt = trainer.make_optimizer(model.parameters(), "sgd", 1.0)
+    if grid is None:
+        parts = combined.partition_batch(graphs, 2, halo=True)
+        dgs = [tEP.dist_tensors(model, p, mesh.make_mesh(2, dev),
+                                input_agg=True) for p in parts]
+    else:
+        em = mesh.make_mesh(2, dev, grid.row, row=grid.d)
+        parts = combined.partition_batch(
+            graphs, 2, halo=True, own=rank_block([0, 1], 2, grid.d))
+        dgs = [tEP.dist_tensors(model, p, em, input_agg=True) for p in parts]
+    loss = combined.dp_edge_train_step(model, opt, dgs, balanced, None, grid)
+    torch.cuda.synchronize(dev)
+    return float(loss), {n: v.detach().cpu()
+                         for n, v in model.state_dict().items()}
+
+
+grid = mesh.make_grid(2, 2)
+la, a = step(grid)
+row = (0, 1) if rank < 2 else (2, 3)
+assert mesh.ROUTES[row] == mesh.SIGNALLED, mesh.ROUTES
+assert halo.halo_rank_signalled.launches > 0
+assert halo.halo_all_to_all_ranks.collective_exchanges == len(cases)
+mesh.leave_distributed(created)
+ls, s = step(None)
+np.testing.assert_allclose(la, ls, rtol=1e-5)
+for n, v in w0.items():
+    ua, us = v.double() - a[n].double(), v.double() - s[n].double()
+    assert float((ua - us).abs().max()) <= 1e-4 * float(us.abs().max()), n
+print("rank", rank, "hosts ok")
+"""
+
+
+@pytest.mark.cuda
+def test_edge_hosts_on_four_cards(cuda_device):
+    """Four ranks reported as two hosts of two, a card each (each host
+    sees its own two of the first four visible cards): edge=4 over both
+    hosts exchanges by the COLLECTIVE route (NCCL's all_to_all_single),
+    bit for bit the plain version, with no window and no launch of K1;
+    the (dp=2, edge=2) grid with a host a row keeps the signalled form in
+    its rows and takes the stacked layout's step."""
+    four_cards()
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+    cards = vis.split(",") if vis else \
+        [str(i) for i in range(torch.cuda.device_count())]
+    worker = "import numpy as np\nfrom lp_gnn_tpu_torch.data.dataset " \
+        "import BipartiteGraph\n" + inspect.getsource(port_graph) + \
+        HOSTS_WORKER
+    run_rank_workers(worker, 4, env_of=lambda r: {
+        "CUDA_VISIBLE_DEVICES": ",".join(cards[2 * (r // 2):
+                                               2 * (r // 2) + 2])})
 
 
 @pytest.mark.cuda
