@@ -392,8 +392,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    cards also dp=4 alone (one step's parity against ``--graph_batch 4``,
    its launches and times).
 
+37. family_table (run right after pipeline): the twin of
+   ``scripts/run_family_table.sh`` in this process
+   (``lp_gnn_tpu_torch.run_family_table.family_table``) on the card at a
+   cut: transport and svm (the top-m and the sparsity-mult decode; svm's
+   gate-off pass), 12 LPs of the demo tier, 30 epochs of the script's
+   GCN_FC(8,8,hids=256,depth=3) in fp32. Per family what phase 11 checks
+   (prep artifacts, cold solves Optimal, finite losses, the gate's k in
+   [5, 12], a valid basis and a warm log a val LP, none rejected, the
+   results columns, the run-dir logs), svm's gate-off folders and columns
+   (``pred-basis-1``, ``gnn-bas-1``), and the twin's rows equal to the val
+   means of each run's ``time.json``; ``spmm_csr`` launched exactly as the
+   printed formula counts (summed over the families), no other kernel.
+   Prints the twin's rows (one JSON line a family) and each family's
+   stage seconds.
+
 ``python3 chip_smoke.py --flagship`` builds the SpMM and runs only phase
 11, with the recipe's 40 LPs and 800 epochs (RESULTS.md:576-583).
+``python3 chip_smoke.py --family_table`` builds the SpMM and runs only
+phase 37, with the script's six families, 40 LPs and 300 epochs.
 
 ``python3 chip_smoke.py --gen_ab`` measures only the GEN aggregation of
 the checkout that holds the script, for comparing two checkouts on one
@@ -477,12 +494,15 @@ import torch
 
 from lp_gnn_tpu_torch import pipeline as port_pipeline
 from lp_gnn_tpu_torch import prep as port_prep
+from lp_gnn_tpu_torch import run_family_table as port_family_table
+from lp_gnn_tpu_torch.config import Config
 from lp_gnn_tpu_torch.data.dataset import BipartiteGraph, LPDataset
 from lp_gnn_tpu_torch.data.generator import SIZES, generate_instance
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.data.sampling import sample_subgraphs
 from lp_gnn_tpu_torch.data.stacking import stack_key
-from lp_gnn_tpu_torch.infer.decode import inference_gnn
+from lp_gnn_tpu_torch.infer.decode import (inference_gnn,
+                                           parse_inference_manager)
 from lp_gnn_tpu_torch.infer.predict import model_inference
 from lp_gnn_tpu_torch.io.bas import read_bas_highs
 from lp_gnn_tpu_torch.models.gcn import build_model
@@ -513,6 +533,7 @@ from lp_gnn_tpu_torch.solver import highs_bridge
 from lp_gnn_tpu_torch.train import scan as scan_mod
 from lp_gnn_tpu_torch.train import trainer
 from lp_gnn_tpu_torch.train.losses import LOSS_REGISTRY
+from lp_gnn_tpu_torch.utils.log import run_dir_logs
 from lp_gnn_tpu_torch.utils.serialize import json_load, msgpack_dump
 
 T_START = time.perf_counter()
@@ -1475,21 +1496,13 @@ def entry_point_io(module: str, argv: list[str]):
     """``sys.argv`` as ``python -m module argv`` sets it; the run-dir logs
     the entry point attaches (stdout and stderr teed, a root file handler)
     are taken off again after it."""
-    saved = sys.argv, sys.stdout, sys.stderr
-    handlers = list(logging.getLogger().handlers)
+    saved = sys.argv
     sys.argv = [module, *argv]
     try:
-        yield
+        with run_dir_logs():
+            yield
     finally:
-        for stream in (sys.stdout, sys.stderr):
-            if stream not in saved:
-                stream.flush()
-                stream.close()
-        sys.argv, sys.stdout, sys.stderr = saved
-        for h in logging.getLogger().handlers:
-            if h not in handlers:
-                logging.getLogger().removeHandler(h)
-                h.close()
+        sys.argv = saved
 
 
 def run_module(module: str, argv: list[str]) -> float:
@@ -2264,6 +2277,78 @@ def valid_basis(path: str) -> tuple[bool, int]:
             len(con))
 
 
+def check_prep(ds: str, n_lps: int) -> tuple[dict, list[int]]:
+    """A prepped family under ``ds``: n_lps of each prep artifact, every
+    cold solve Optimal. Returns the counts and the cold iterations."""
+    counts = {sub: len(os.listdir(osp.join(ds, sub))) for sub in (
+        "mps", "highs-basis", "log/highs-no-bas", "log/highs-ca-bas-m1",
+        "highs-inp_tgt/raw")}
+    counts["highs-inp_tgt/processed"] = len(
+        [f for f in os.listdir(osp.join(ds, "highs-inp_tgt", "processed"))
+         if f.endswith(".pk")])
+    if set(counts.values()) != {n_lps}:
+        raise SmokeFailure(f"{ds}: prep wrote {counts}, expected {n_lps}")
+    cold = [extract_time(osp.join(ds, "log/highs-no-bas", f))[0]
+            for f in sorted(os.listdir(osp.join(ds, "log/highs-no-bas")))]
+    if min(cold) < 0:
+        raise SmokeFailure(f"{ds}: cold solves not all Optimal: {cold}")
+    return counts, cold
+
+
+def check_run(run: str, dataset: str, n_val: int,
+              managers: tuple[str, ...]) -> tuple[list, dict, list, list]:
+    """A run dir of ``run_train_test`` (and passes after it): finite
+    losses and ``mdl.pth``; ``warm_gate.json`` with k in [5, 12]; for each
+    inference manager a valid predicted basis and a warm log a val LP,
+    none rejected; the results columns of every val LP; the run-dir logs.
+    Returns the losses, the gate, the val rows and the columns checked."""
+    losses = []
+    with open(osp.join(run, "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["tag"] == "train/loss":
+                losses.append(r["value"])
+    if not losses or not np.isfinite(losses).all() or \
+            not osp.exists(osp.join(run, "mdl.pth")):
+        raise SmokeFailure(f"{run}: losses {losses}, or no mdl.pth")
+    gate = json_load(osp.join(run, "warm_gate.json"))
+    if not 5 <= gate["k"] <= 12:
+        raise SmokeFailure(f"{run}: warm gate calibrated on {gate['k']} "
+                           f"LPs: {gate}")
+    cols = ["highs-no-bas/niter"]
+    for spec in managers:
+        mng = parse_inference_manager(spec, dataset)
+        bas_dir = osp.join(run, mng.get_basis_folder())
+        bases = sorted(f for f in os.listdir(bas_dir) if f.endswith(".bas"))
+        valid = [valid_basis(osp.join(bas_dir, f)) for f in bases]
+        if len(bases) != n_val or not all(v for v, _ in valid):
+            raise SmokeFailure(f"{run} {spec}: predicted bases {bases}: "
+                               f"valid {valid}")
+        warm_dir = osp.join(run, "log", mng.get_log_folder())
+        warm_logs = sorted(os.listdir(warm_dir))
+        rejected = []
+        for f in warm_logs:
+            with open(osp.join(warm_dir, f)) as fh:
+                if port_family_table.REJECTED in fh.read():
+                    rejected.append(f)
+        if len(warm_logs) != n_val or rejected:
+            raise SmokeFailure(f"{run} {spec}: warm logs {warm_logs}, "
+                               f"rejected {rejected}")
+        cols += [f"{mng.get_log_folder()}/niter",
+                 f"{mng.get_log_folder()}/impr_niter"]
+    cols += ["acc", "cvg/acc"]
+    rows = json_load(osp.join(run, "time.json"))
+    val = [r for r in rows if r.get("split") == "val"]
+    missing = [(r["fn"], c) for r in val for c in cols if r.get(c) is None]
+    if len(val) != n_val or missing:
+        raise SmokeFailure(f"{run}: results table: {len(val)} val rows, "
+                           f"missing {missing}")
+    for f in ("log-ing", "log-prt", "log-prt-err"):
+        if not osp.exists(osp.join(run, f)):
+            raise SmokeFailure(f"run dir has no {f}")
+    return losses, gate, val, cols
+
+
 def pipeline_phase(seed: int, epochs: int, n_lps: int,
                    keep: str | None = None) -> dict:
     """The flagship pipeline through its entry points (in this process,
@@ -2300,18 +2385,7 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int,
                 setattr(port_prep, n, f)
         ds = osp.join(data_prefix, "mirp_bench")
         proc = osp.join(ds, "highs-inp_tgt")
-        counts = {sub: len(os.listdir(osp.join(ds, sub))) for sub in (
-            "mps", "highs-basis", "log/highs-no-bas", "log/highs-ca-bas-m1",
-            "highs-inp_tgt/raw")}
-        counts["highs-inp_tgt/processed"] = len(
-            [f for f in os.listdir(osp.join(proc, "processed"))
-             if f.endswith(".pk")])
-        if set(counts.values()) != {n_lps}:
-            raise SmokeFailure(f"prep wrote {counts}, expected {n_lps} each")
-        cold = [extract_time(osp.join(ds, "log/highs-no-bas", f))[0]
-                for f in sorted(os.listdir(osp.join(ds, "log/highs-no-bas")))]
-        if min(cold) < 0:
-            raise SmokeFailure(f"cold solves not all Optimal: {cold}")
+        counts, cold = check_prep(ds, n_lps)
 
         log_prefix = osp.join(tmp, "runs")
         argv = [*common, "--log_prefix", log_prefix, "--exp_nm", "pipe",
@@ -2336,7 +2410,8 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int,
         launches = {kern.__name__: kern.launches for kern in KERNELS}
         peak = torch.cuda.max_memory_allocated()
         run = osp.join(log_prefix, "pipe")
-        gate = json_load(osp.join(run, "warm_gate.json"))
+        losses, gate, val, cols = check_run(run, "mirp_bench", n_val,
+                                            ("InferenceManager(0,)",))
         k = gate["k"]
         # spmm_csr: 2 a train graph once (the input aggregation cache), 4 a
         # step, 4 a forward: the val LPs' prediction, k calibration LPs,
@@ -2349,43 +2424,6 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int,
         if launches != {**no_launches(), "spmm_csr": want}:
             raise SmokeFailure(f"pipeline launches {launches}, expected "
                                f"spmm_csr {want} = {formula} and no other")
-        if not 5 <= k <= 12:
-            raise SmokeFailure(f"warm gate calibrated on {k} LPs: {gate}")
-        losses = []
-        with open(osp.join(run, "metrics.jsonl")) as f:
-            for line in f:
-                r = json.loads(line)
-                if r["tag"] == "train/loss":
-                    losses.append(r["value"])
-        if not losses or not np.isfinite(losses).all() or \
-                not osp.exists(osp.join(run, "mdl.pth")):
-            raise SmokeFailure(f"train: losses {losses}, or no mdl.pth")
-        bases = sorted(f for f in os.listdir(osp.join(run, "pred-basis"))
-                       if f.endswith(".bas"))
-        valid = [valid_basis(osp.join(run, "pred-basis", f)) for f in bases]
-        if len(bases) != n_val or not all(v for v, _ in valid):
-            raise SmokeFailure(f"predicted bases {bases}: valid {valid}")
-        warm_dir = osp.join(run, "log", "gnn-bas-0")
-        warm_logs = sorted(os.listdir(warm_dir))
-        rejected = []
-        for f in warm_logs:
-            with open(osp.join(warm_dir, f)) as fh:
-                if "WarmBasisRejected" in fh.read():
-                    rejected.append(f)
-        if len(warm_logs) != n_val or rejected:
-            raise SmokeFailure(f"warm logs {warm_logs}, rejected {rejected}")
-        rows = json_load(osp.join(run, "time.json"))
-        val = [r for r in rows if r.get("split") == "val"]
-        cols = ("highs-no-bas/niter", "gnn-bas-0/niter",
-                "gnn-bas-0/impr_niter", "acc", "cvg/acc")
-        missing = [(r["fn"], c) for r in val for c in cols
-                   if r.get(c) is None]
-        if len(val) != n_val or missing:
-            raise SmokeFailure(f"results table: {len(val)} val rows, "
-                               f"missing {missing}")
-        for f in ("log-ing", "log-prt", "log-prt-err"):
-            if not osp.exists(osp.join(run, f)):
-                raise SmokeFailure(f"run dir has no {f}")
         with open(osp.join(run, "log-prt")) as fh:
             if "gnn-bas-0/impr_niter" not in fh.read():
                 raise SmokeFailure("log-prt holds no summary")
@@ -2412,7 +2450,7 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int,
             "val_std": {c: float(np.std([r[c] for r in val], ddof=1))
                         for c in cols},
             "val_rows": [{c: r[c] for c in ("fn", *cols)} for r in val],
-            "bases_valid": len(valid), "warm_logs": len(warm_logs),
+            "bases_valid": n_val, "warm_logs": n_val,
             "launches": launches, "spmm_expected": want,
             "spmm_formula": formula,
             "train_loss_first_last": [losses[0], losses[-1]],
@@ -2424,6 +2462,153 @@ def pipeline_phase(seed: int, epochs: int, n_lps: int,
             / (n_train * epochs),
             "checkpoints_s": stages.get("save_checkpoint"),
             "prep_s": t_prep, "run_train_test_s": t_run,
+            "peak_device_bytes": peak}
+
+
+# ------------------------------------------------------------- family table
+FAMILY_CUT = ("transport", "svm")   # top-m and sparsity-mult; a gate-off pass
+FAMILY_CUT_LPS = 12                 # 8 train (the gate's k up to 8), 4 val
+FAMILY_CUT_EPOCHS = 30
+FAMILY_PREP = ("stage_generate", "stage_run_solver", "stage_cvt_to_pkl",
+               "stage_process")
+FAMILY_PIPE = ("stage_train", "predict_and_write_bases", "calibrate_warm_gate",
+               "timed_inference", "stage_warm_start", "stage_val",
+               "stage_extract")
+
+
+def time_family_stages(stages: dict, module, names: tuple[str, ...],
+                       now: dict) -> dict:
+    """``time_stages`` by family: each wrapped stage's wall seconds add up
+    in ``stages[family][name]``, the family the dataset of the Config among
+    its arguments, or, for a stage without one (``train_step``), of the
+    last stage that had one (``now["family"]``); returns the real
+    functions, to put back."""
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(name):
+        def timed(*a, **kw):
+            cfg = [x for x in (*a, *kw.values()) if isinstance(x, Config)]
+            if cfg:
+                now["family"] = cfg[0].dataset
+            fam = now.get("family")
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                per = stages.setdefault(fam, {})
+                per[name] = per.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    return real
+
+
+def check_family(data_prefix: str, row: dict, n_lps: int, epochs: int,
+                 gate_off: bool) -> dict:
+    """What ``pipeline_phase`` checks (``check_prep``, ``check_run``), for
+    one family of the table and its gate-off pass where that ran; the
+    twin's row equal to the val means of the run's ``time.json``. Returns
+    the family's figures and its SpMM launches by the design."""
+    from lp_gnn_tpu_torch.utils.misc import split_idxs_train_val
+    fam = row["family"]
+    counts, cold = check_prep(osp.join(data_prefix, fam), n_lps)
+    n_train, n_val = map(len, split_idxs_train_val(n_lps))
+    managers = (port_family_table.INFERENCE_MANAGER,) + (
+        (port_family_table.GATE_OFF_MANAGER,) if gate_off else ())
+    losses, gate, val, cols = check_run(row["run_dir"], fam, n_val, managers)
+    means = {c: float(np.mean([r[c] for r in val])) for c in cols}
+    read = {"highs-no-bas/niter": row["cold_niter"], "acc": row["acc"],
+            f"{row['decode']}/niter": row["warm_niter"],
+            f"{row['decode']}/impr_niter": row["impr"]}
+    if gate_off:
+        read.update({"gnn-bas-1/niter": row["gate_off_niter"],
+                     "gnn-bas-1/impr_niter": row["gate_off_impr"]})
+    wrong = {c: (v, means[c]) for c, v in read.items()
+             if not np.isclose(v, means[c], rtol=1e-12, atol=0)}
+    if wrong or row["gate"]["k"] != gate["k"]:
+        raise SmokeFailure(f"{fam}: the twin's row {row} against the run's "
+                           f"files: {wrong}")
+    # spmm_csr: 2 a train graph once (the input cache), 4 a step, 4 a
+    # forward: the val LPs' prediction, k calibration LPs, the timing pass
+    # (1 + 3 a val LP), validation twice; the gate-off pass predicts and
+    # times again
+    per_val = 4 + 16 + 8 + (20 if gate_off else 0)
+    spmm = (2 * n_train + SPMM_PER_STEP * n_train * epochs
+            + SPMM_PER_FORWARD * gate["k"] + per_val * n_val)
+    formula = (f"2 x {n_train} + 4 x {n_train} x {epochs} + 4 x {gate['k']}"
+               f" + {per_val} x {n_val}")
+    return {"prep_counts": counts, "cold_niter_lps": cold,
+            "train_lps": n_train, "val_lps": n_val, "gate_lps": gate["lps"],
+            "gate_ci90": gate["ci90"],
+            "train_loss_first_last": [losses[0], losses[-1]],
+            "spmm": spmm, "spmm_formula": formula}
+
+
+def family_table_phase(seed: int, families=FAMILY_CUT,
+                       n_lps: int = FAMILY_CUT_LPS,
+                       epochs: int = FAMILY_CUT_EPOCHS) -> dict:
+    """The twin of ``scripts/run_family_table.sh`` on the card
+    (``run_family_table.family_table``, in this process): the script's
+    prep, training of GCN_FC(8,8,hids=256,depth=3) in fp32, the ``auto``
+    decode and warm gate, and the gate-off pass of svm and stoch, over
+    ``families`` at ``n_lps`` LPs and ``epochs`` epochs (the script's
+    values under ``--family_table``; its run prints its rows, one JSON
+    line a family). Each family checked as ``check_family`` says;
+    ``spmm_csr`` launched exactly as the design counts, summed over the
+    families, and no other kernel. Each stage's wall seconds a family."""
+    stages: dict = {}
+    now: dict = {}
+    real = [(mod, time_family_stages(stages, mod, names, now))
+            for mod, names in ((port_prep, FAMILY_PREP),
+                               (port_pipeline, FAMILY_PIPE),
+                               (trainer, ("train_step",)))]
+    with tempfile.TemporaryDirectory(prefix="lp_gnn_smoke_families_") as tmp:
+        data_prefix = osp.join(tmp, "lp-dataset")
+        for kern in KERNELS:
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with entry_point_io("lp_gnn_tpu_torch.run_family_table", []):
+                rows = port_family_table.family_table(
+                    families, n_lps, epochs, device="cuda",
+                    data_prefix=data_prefix,
+                    log_prefix=osp.join(tmp, "runs"), seed=seed)
+        finally:
+            for mod, fns in real:
+                for n, f in fns.items():
+                    setattr(mod, n, f)
+        twin_s = time.perf_counter() - t0
+        launches = {kern.__name__: kern.launches for kern in KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        checked = {r["family"]: check_family(
+            data_prefix, r, n_lps, epochs,
+            r["family"] in port_family_table.GATE_OFF_FAMILIES) for r in rows}
+    want = sum(c["spmm"] for c in checked.values())
+    formula = " + ".join(f"({c['spmm_formula']})" for c in checked.values())
+    if launches != {**no_launches(), "spmm_csr": want}:
+        raise SmokeFailure(f"family_table launches {launches}, expected "
+                           f"spmm_csr {want} = {formula} and no other")
+    names = dict(zip(FAMILY_PREP, ("generate", "cold_solves", "cvt",
+                                   "process")))
+    names.update(zip(FAMILY_PIPE, ("train", "predict", "calibrate",
+                                   "timing_pass", "warm_start", "val",
+                                   "extract")))
+    for r in rows:
+        per = stages.get(r["family"], {})
+        steps = checked[r["family"]]["train_lps"] * epochs
+        r["stage_s"] = {nm: per.get(st) for st, nm in names.items()}
+        r["train_step_ms"] = 1e3 * per.get("train_step", 0.0) / steps
+        r.update({k: v for k, v in checked[r["family"]].items()
+                  if k not in ("spmm", "spmm_formula")})
+    return {"engine": "highs", "machine": machine_probe(),
+            "families": rows, "lps": n_lps, "epochs": epochs,
+            "arch": port_family_table.ARCH,
+            "workers": port_family_table.NUM_WORKERS,
+            "launches": launches, "spmm_expected": want,
+            "spmm_formula": formula, "twin_s": twin_s,
             "peak_device_bytes": peak}
 
 
@@ -8333,6 +8518,10 @@ def main(argv=None) -> int:
     ap.add_argument("--flagship", action="store_true",
                     help="run only the pipeline phase, with the recipe's "
                          f"{FLAGSHIP_EPOCHS} epochs")
+    ap.add_argument("--family_table", action="store_true",
+                    help="run only the family_table phase, the six demo "
+                         "families at the script's 40 LPs and "
+                         f"{port_family_table.EPOCHS} epochs")
     ap.add_argument("--gen_ab", action="store_true",
                     help="measure only the GEN aggregation of this "
                          "checkout (kernels, a forward, a step)")
@@ -8447,7 +8636,8 @@ def main(argv=None) -> int:
         smi = nvidia_smi()
         t0 = time.perf_counter()
         logs = _build.build_all(
-            ["spmm"] if args.flagship else ["spmm", "gen_agg"] if args.gen_ab
+            ["spmm"] if args.flagship or args.family_table
+            else ["spmm", "gen_agg"] if args.gen_ab
             else ["spmm", "gather", "halo_a2a", "gen_agg", "gen_lse_merge"])
         ptxas = {k: [ln.strip() for ln in v.splitlines()
                      if "registers" in ln or "spill" in ln] for k, v in logs.items()}
@@ -8458,9 +8648,16 @@ def main(argv=None) -> int:
             emit({"phase": "gen_ab", "nvidia_smi": smi,
                   **gen_ab(args.seed)})
             return 0
-        if args.flagship:
-            emit({"phase": "pipeline", **pipeline_phase(
-                args.seed, FLAGSHIP_EPOCHS, FLAGSHIP_LPS)})
+        if args.flagship or args.family_table:
+            if args.flagship:
+                emit({"phase": "pipeline", **pipeline_phase(
+                    args.seed, FLAGSHIP_EPOCHS, FLAGSHIP_LPS)})
+            else:
+                emit({"phase": "family_table", "nvidia_smi": smi,
+                      **family_table_phase(
+                          args.seed, port_family_table.FAMILIES,
+                          port_family_table.N_INSTANCES,
+                          port_family_table.EPOCHS)})
             print(smi, flush=True)
             emit({"ok": True, "device": {
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8510,6 +8707,9 @@ def main(argv=None) -> int:
         piped = pipeline_phase(args.seed, PIPE_EPOCHS, N_PIPE_LPS,
                                keep=mirp_keep)
         emit({"phase": "pipeline", **piped})
+        torch.cuda.empty_cache()
+        families = family_table_phase(args.seed)
+        emit({"phase": "family_table", **families})
         torch.cuda.empty_cache()
         emit({"phase": "gen_reference", **gen_reference(args.seed)})
         torch.cuda.empty_cache()
@@ -8617,7 +8817,8 @@ def main(argv=None) -> int:
     # path, which runs both; a case at the dist GEN layer's shapes (and the
     # merge) on the dist GEN step; each path's count beside it
     paths = {"serve": served, "dist_serve": dist, "train": trained,
-             "pipeline": piped, "gen_serve": gen_served,
+             "pipeline": piped, "family_table": families,
+             "gen_serve": gen_served,
              "gen_train": gen_trained, "zoo_serve": zoo,
              "sampled_serve": sampled, "sampled_serve_gen": sampled["gen"],
              "sampled_train": strained, "graph_batch": batched,

@@ -3,6 +3,7 @@ reference utils.py:418-497): ``log-ing`` (the logging records),
 ``log-prt`` and ``log-prt-err`` (stdout and stderr, teed)."""
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
@@ -70,3 +71,25 @@ def set_file_logger(log_dir: str, fname: str = "log-ing",
     h.setFormatter(logging.Formatter(_FMT))
     root.addHandler(h)
     return path
+
+
+@contextlib.contextmanager
+def run_dir_logs():
+    """Take off again, when the block ends, the run-dir logs that the
+    stages inside it attach (:func:`set_file_logger`,
+    :func:`set_file_logger_prt`), so that the stages of one process that
+    write to several run dirs keep each dir's logs to its own stage."""
+    saved = sys.stdout, sys.stderr
+    handlers = list(logging.getLogger().handlers)
+    try:
+        yield
+    finally:
+        for stream in (sys.stdout, sys.stderr):
+            if stream not in saved:
+                stream.flush()
+                stream.close()   # a tee closes its file, not the console
+        sys.stdout, sys.stderr = saved
+        for h in logging.getLogger().handlers:
+            if h not in handlers:
+                logging.getLogger().removeHandler(h)
+                h.close()

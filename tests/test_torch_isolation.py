@@ -21,7 +21,7 @@ import optax
 
 from lp_gnn_tpu.models.gcn import build_model as jax_build_model
 from lp_gnn_tpu.train.trainer import save_ckpt
-from lp_gnn_tpu_torch import pred_basis
+from lp_gnn_tpu_torch import pred_basis, run_family_table
 from lp_gnn_tpu_torch.data.dataset import BipartiteGraph
 from lp_gnn_tpu_torch.data.graph import GraphTensors
 from lp_gnn_tpu_torch.models.convert import (load_checkpoint,
@@ -69,7 +69,8 @@ def test_every_module_imports_without_jax(tmp_path):
         assert not loaded, loaded
         # the sampled, graph-batched and dp paths' modules among them, the
         # K-step call's and the profiler's, the benchmark twins, the native
-        # engine, the analysis twins, the big-graph bench and the probes
+        # engine, the analysis twins, the big-graph bench and the probes,
+        # the family table's twin
         assert {"lp_gnn_tpu_torch.data.sampling",
                 "lp_gnn_tpu_torch.data.stacking",
                 "lp_gnn_tpu_torch.parallel.dp",
@@ -90,7 +91,8 @@ def test_every_module_imports_without_jax(tmp_path):
                 "lp_gnn_tpu_torch.probe_gen_floor",
                 "lp_gnn_tpu_torch.utils.timer",
                 "lp_gnn_tpu_torch.dryrun_multihost",
-                "lp_gnn_tpu_torch.make_scaling_artifact"} <= set(names), names
+                "lp_gnn_tpu_torch.make_scaling_artifact",
+                "lp_gnn_tpu_torch.run_family_table"} <= set(names), names
         print(len(names))
     """, tmp_path)
     assert int(out.split()[-1]) >= 20
@@ -193,8 +195,17 @@ def test_jax_ckpt_loader_refuses_other_globals(tmp_path):
         load_checkpoint(path)
 
 
-def test_entry_point_needs_a_gpu_unless_asked(tmp_path, monkeypatch):
+@pytest.mark.parametrize("entry", ["pred_basis", "run_family_table"])
+def test_entry_point_needs_a_gpu_unless_asked(tmp_path, monkeypatch, entry):
+    """Without a card an entry point raises unless the CPU is asked for;
+    the family table's twin before any prep (nothing is written)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        pred_basis.main(["--dataset", "none", "--log_prefix", str(tmp_path),
-                         "--warm_gate", "off"])
+        if entry == "pred_basis":
+            pred_basis.main(["--dataset", "none", "--log_prefix",
+                             str(tmp_path), "--warm_gate", "off"])
+        else:
+            run_family_table.main(["--data_prefix", str(tmp_path / "data")])
+    if entry == "run_family_table":
+        assert os.listdir(tmp_path) == []
